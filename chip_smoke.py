@@ -1,0 +1,569 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases; any failure raises and exits non-zero, nothing is swallowed:
+
+1. The card: its name and power limit (as nvidia-smi prints them) and the
+   torch/CUDA versions. TF32 is switched off for matmuls and cuDNN, so f32
+   products are full f32.
+2. Build: every kernel source of the path with nvcc for sm_90a, one process
+   per source, all started together.
+3. Kernels: each kernel against its plain PyTorch version on the card, in
+   bf16, at the main path's shapes and the contract's corner cases (GQA and
+   MHA, T=1 and T>1, per-row cache lengths, a ragged KV tail, window +
+   softcap + scale, int8 KV). One JSON line per case: the max abs error and
+   its tolerance, the kernel's, the plain version's and the library call's
+   time, and the least time the card could take (bytes over 3.35 TB/s or
+   operations over 989 TFLOP/s, whichever is larger).
+4. Serve: a GGUF of Llama-3.2-1B geometry (bf16 weights random from --seed,
+   a synthetic 128256-token SPM vocab) goes through the port's Engine, which
+   first runs the three requests once directly (the first request after
+   boot pays lazy kernel loading). Then the port's ChatServer, on a free
+   localhost port, answers the same three as POST /chat (one greedy, two
+   sampled). The SSE events are checked, TTFT and decode tok/s printed, and
+   the attention kernel must have launched exactly n_layers times per model
+   forward. A profiled decode step at 512 cached tokens then gives wall and
+   device time per step, the device's busy share and the top kernels.
+5. Logits: one 512-token prefill and four decode steps with the kernel and
+   with the plain attention on the card: max abs logit error within a bf16
+   tolerance and the same argmax.
+6. The kernels line (one JSON object), the card line, and last the ok line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import re
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_S = 3.35e12        # H100 SXM HBM3
+BF16_FLOP_S = 989e12         # H100 SXM dense bf16 tensor-core peak
+KERNEL_TOL = 2e-2            # bf16 output: a few ulp of values of order 1
+LOGIT_TOL = 0.1              # bf16 model, 16 layers: logits of std ~1
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def event_ms(fn, reps: int, flush: torch.Tensor | None) -> float:
+    """Median device time of one call, the L2 flushed before each unless
+    ``flush`` is None (the served path streams the whole model between two
+    calls on one layer, so it finds the L2 cold). A spin kernel ahead of
+    the start event keeps the card busy while the host enqueues the call,
+    so the host's own time per call is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(2_000_000)   # ~1 ms of spinning at H100 clocks
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Mean host time to enqueue one call (the card runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)      # keep the card busy: nothing blocks
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+# --------------------------------------------------------------------------
+# phase 3: flash_attention against its plain version
+
+ATTN_CASES = [
+    # Llama-3.2-1B geometry (H=32, K=8, Hd=64): the served path's shapes
+    dict(name="prefill", B=1, T=512, S=2048, H=32, K=8, Hd=64, cache_len=0),
+    dict(name="decode", B=1, T=1, S=2048, H=32, K=8, Hd=64, cache_len=1000),
+    dict(name="decode_per_row", B=4, T=1, S=2048, H=32, K=8, Hd=64,
+         cache_len=[1000, 37, 1500, 2047]),
+    dict(name="chunk_ragged_tail", B=1, T=100, S=2000, H=32, K=8, Hd=64,
+         cache_len=700),
+    dict(name="mha_n_rep_1", B=1, T=64, S=1024, H=32, K=32, Hd=64, cache_len=200),
+    dict(name="int8_decode", B=1, T=1, S=2048, H=32, K=8, Hd=64, cache_len=1000,
+         quant=True),
+    dict(name="int8_window_per_row", B=2, T=64, S=2048, H=32, K=8, Hd=64,
+         cache_len=[300, 1500], window=256, quant=True),
+    # gemma2-9b geometry: window, softcap and explicit scale, Hd=256
+    dict(name="gemma2_window_softcap", B=1, T=128, S=5000, H=16, K=8, Hd=256,
+         cache_len=4500, window=4096, softcap=50.0, scale=256 ** -0.5),
+    # llama3-8b geometry: Hd=128
+    dict(name="llama3_8b_hd128", B=1, T=256, S=4096, H=32, K=8, Hd=128,
+         cache_len=1024),
+]
+
+
+def attn_bound(c: dict) -> tuple[float, str]:
+    """Least time for the work these inputs need: Q and O once, the live K/V
+    columns (the union of what the rows attend) once; 4·Hd operations per
+    head per visible (query, key) pair."""
+    B, T, S, H, K, Hd = (c[k] for k in ("B", "T", "S", "H", "K", "Hd"))
+    lens = c["cache_len"] if isinstance(c["cache_len"], list) else [c["cache_len"]] * B
+    window, quant = c.get("window", 0), c.get("quant", False)
+    col_bytes = 2 * K * Hd * (1 if quant else 2) + (2 * K * 4 if quant else 0)
+    n_bytes = 2 * B * T * H * Hd * 2
+    flops = 0
+    for cl in lens:
+        lo = max(0, cl - window + 1) if window else 0
+        n_bytes += (min(S, cl + T) - lo) * col_bytes
+        for t in range(T):
+            pos = cl + t
+            first = max(0, pos - window + 1) if window else 0
+            flops += 4 * H * Hd * (min(pos, S - 1) - first + 1)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, flops / BF16_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_attention(fa, kv_quantize, seed: int, flush: torch.Tensor) -> list[dict]:
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for c in ATTN_CASES:
+        B, T, S, H, K, Hd = (c[k] for k in ("B", "T", "S", "H", "K", "Hd"))
+        q = torch.randn(B, T, H, Hd, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(B, S, K, Hd, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(B, S, K, Hd, generator=gen, device="cuda").bfloat16()
+        ks = vs = None
+        if c.get("quant"):
+            (k, ks), (v, vs) = kv_quantize(k), kv_quantize(v)
+        cl = c["cache_len"]
+        cache_len = torch.tensor(cl, dtype=torch.int32, device="cuda") \
+            if isinstance(cl, list) else cl
+        kw = dict(scale=c.get("scale", 0.0), softcap=c.get("softcap", 0.0),
+                  window=c.get("window", 0), k_scale=ks, v_scale=vs)
+        n_rep = H // K
+        got = fa.flash_attention(q, k, v, cache_len, n_rep, **kw)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v, cache_len, n_rep, **kw)
+        err = (got.float() - ref.float()).abs().max().item()
+        if not (err <= KERNEL_TOL and torch.isfinite(got.float()).all()):
+            fail(f"flash_attention case {c['name']}: max abs err {err} > {KERNEL_TOL}")
+        library_ms = None
+        if not c.get("quant") and not c.get("softcap"):
+            # the same function as one PyTorch call: SDPA with the mask
+            lens = torch.as_tensor(cl, device="cuda").reshape(-1, 1, 1)
+            qpos = lens + torch.arange(T, device="cuda")[None, :, None]
+            kpos = torch.arange(S, device="cuda")[None, None, :]
+            mask = kpos <= qpos
+            if kw["window"]:
+                mask &= qpos - kpos < kw["window"]
+            mask = mask.expand(B, T, S)[:, None]
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            lib = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=kw["scale"] or None,
+                enable_gqa=n_rep > 1).transpose(1, 2)
+            lib_err = (lib.float() - ref.float()).abs().max().item()
+            if lib_err > KERNEL_TOL:
+                fail(f"SDPA yardstick disagrees on {c['name']}: {lib_err}")
+            library_ms = event_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=kw["scale"] or None,
+                enable_gqa=n_rep > 1), 20, flush)
+        bound_ms, bound_by = attn_bound(c)
+        row = {"case": c["name"],
+               "shape": {k: c[k] for k in c if k != "name"},
+               "max_abs_err": err, "tol": KERNEL_TOL,
+               "kernel_ms": event_ms(lambda: fa.flash_attention(
+                   q, k, v, cache_len, n_rep, **kw), 50, flush),
+               "kernel_warm_l2_ms": event_ms(lambda: fa.flash_attention(
+                   q, k, v, cache_len, n_rep, **kw), 50, None),
+               "kernel_host_us": host_us(lambda: fa.flash_attention(
+                   q, k, v, cache_len, n_rep, **kw)),
+               "plain_ms": event_ms(lambda: fa.flash_attention_plain(
+                   q, k, v, cache_len, n_rep, **kw), 10, flush),
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 4: the served path
+
+def build_vocab(vocab_size: int) -> dict:
+    """GGUF tokenizer metadata of an SPM vocab covering the model's whole id
+    space (any sampled id decodes): specials, the byte table (strongly
+    penalized, as real SPM vocabs do), the merge chain that reaches
+    "▁hello", then filler pieces."""
+    import numpy as np
+
+    from distributed_llm_pipeline_tpu_torch.tokenizer import TokenType as TT
+
+    tokens = ["<unk>", "<s>", "</s>"]
+    types, scores = [TT.UNKNOWN, TT.CONTROL, TT.CONTROL], [0.0, 0.0, 0.0]
+    for b in range(256):
+        tokens.append(f"<0x{b:02X}>")
+        types.append(TT.BYTE)
+        scores.append(-100.0)
+    for piece, score in (("▁", -2.0), ("he", -3.0), ("ll", -3.5), ("llo", -3.2),
+                         ("hello", -2.5), ("▁hello", -1.0)):
+        tokens.append(piece)
+        types.append(TT.NORMAL)
+        scores.append(score)
+    while len(tokens) < vocab_size:
+        tokens.append(f"tok{len(tokens)}")
+        types.append(TT.NORMAL)
+        scores.append(-20.0)
+
+    return {"tokenizer.ggml.model": "llama",
+            "tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.scores": np.array(scores, dtype=np.float32),
+            "tokenizer.ggml.token_type": np.array([int(t) for t in types], dtype=np.int32),
+            "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2,
+            "tokenizer.ggml.unknown_token_id": 0,
+            "tokenizer.ggml.add_bos_token": True,
+            "tokenizer.ggml.add_space_prefix": True}
+
+
+def write_model(path: Path, cfg, seed: int, device: str = "cuda") -> None:
+    """A bf16 GGUF of ``cfg``'s geometry, weights N(0, 0.02²) drawn on
+    ``device`` from ``seed``, norms 1, tied embeddings."""
+    from distributed_llm_pipeline_tpu_torch.gguf import GGMLType, GGUFWriter
+
+    w = GGUFWriter(path)
+    a = cfg.arch
+    for key, val in (("general.architecture", a), ("general.name", "chip-smoke"),
+                     (f"{a}.embedding_length", cfg.dim),
+                     (f"{a}.block_count", cfg.n_layers),
+                     (f"{a}.attention.head_count", cfg.n_heads),
+                     (f"{a}.attention.head_count_kv", cfg.n_kv_heads),
+                     (f"{a}.attention.key_length", cfg.head_dim),
+                     (f"{a}.feed_forward_length", cfg.hidden_dim),
+                     (f"{a}.attention.layer_norm_rms_epsilon", cfg.norm_eps),
+                     (f"{a}.rope.freq_base", cfg.rope_theta),
+                     (f"{a}.rope.dimension_count", cfg.head_dim),
+                     (f"{a}.context_length", cfg.max_seq_len),
+                     (f"{a}.vocab_size", cfg.vocab_size)):
+        w.add(key, val)
+    for key, val in build_vocab(cfg.vocab_size).items():
+        w.add(key, val)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(name: str, *shape: int) -> None:
+        t = (torch.randn(shape, generator=gen, device=device) * 0.02).bfloat16()
+        w.add_tensor_bytes(name, shape, GGMLType.BF16,
+                           t.view(torch.int16).cpu().numpy().tobytes())
+
+    def ones(name: str, n: int) -> None:
+        w.add_tensor(name, torch.ones(n).numpy(), GGMLType.F32)
+
+    D, H, K, Hd, Fd = cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.hidden_dim
+    rnd("token_embd.weight", cfg.vocab_size, D)
+    ones("output_norm.weight", D)
+    for i in range(cfg.n_layers):
+        ones(f"blk.{i}.attn_norm.weight", D)
+        ones(f"blk.{i}.ffn_norm.weight", D)
+        rnd(f"blk.{i}.attn_q.weight", H * Hd, D)
+        rnd(f"blk.{i}.attn_k.weight", K * Hd, D)
+        rnd(f"blk.{i}.attn_v.weight", K * Hd, D)
+        rnd(f"blk.{i}.attn_output.weight", D, H * Hd)
+        rnd(f"blk.{i}.ffn_gate.weight", Fd, D)
+        rnd(f"blk.{i}.ffn_up.weight", Fd, D)
+        rnd(f"blk.{i}.ffn_down.weight", D, Fd)
+    w.write()
+
+
+async def chat_requests(engine, requests: list[dict]) -> tuple[dict, list[dict]]:
+    """Boot the port's ChatServer on a free localhost port and POST each
+    request to /chat; returns /healthz and each request's events with the
+    client-side first- and last-token times."""
+    import aiohttp
+    from aiohttp import web
+
+    from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig
+    from distributed_llm_pipeline_tpu_torch.serving import ChatServer
+
+    server = ChatServer(engine, GenerationConfig(max_new_tokens=32))
+    runner = web.AppRunner(server.app)
+    await runner.setup()
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    site = web.SockSite(runner, sock)
+    await site.start()
+    base = f"http://127.0.0.1:{sock.getsockname()[1]}"
+    out = []
+    try:
+        async with aiohttp.ClientSession(
+                timeout=aiohttp.ClientTimeout(total=600)) as s:
+            async with s.get(f"{base}/healthz") as r:
+                health = await r.json()
+            for body in requests:
+                t0, t_first, t_last, events = time.monotonic(), None, None, []
+                async with s.post(f"{base}/chat", json=body) as r:
+                    if r.status != 200 or not r.headers["Content-Type"].startswith(
+                            "text/event-stream"):
+                        fail(f"/chat answered {r.status} {r.headers['Content-Type']}")
+                    async for raw in r.content:
+                        line = raw.decode().strip()
+                        if not line.startswith("data: "):
+                            continue
+                        ev = json.loads(line[6:])
+                        events.append(ev)
+                        if ev["msg_type"] == "token":
+                            t_last = time.monotonic()
+                            t_first = t_first or t_last
+                out.append({"body": body, "events": events, "t0": t0,
+                            "t_first": t_first, "t_last": t_last})
+    finally:
+        await runner.cleanup()
+    return health, out
+
+
+def check_sse(res: dict) -> dict:
+    """The reference's SSE shape: log and token events, closed by the done
+    summary (a log event with finish_reason and n_gen)."""
+    events, body = res["events"], res["body"]
+    if not events or any(e["msg_type"] not in ("log", "token") for e in events):
+        fail(f"bad SSE event kinds: {events[:3]}")
+    last = events[-1]
+    if last["msg_type"] != "log" or last.get("finish_reason") not in ("length", "stop"):
+        fail(f"stream did not end with a done summary: {last}")
+    n_gen = last["n_gen"]
+    if last["finish_reason"] == "length" and n_gen != body["max_new_tokens"]:
+        fail(f"finish 'length' after {n_gen} of {body['max_new_tokens']} tokens")
+    if n_gen and not any(e["msg_type"] == "token" for e in events):
+        fail("no token events")
+    if not any("offloaded" in e["content"] for e in events if e["msg_type"] == "log"):
+        fail("no placement log line")
+    m = re.search(r"TTFT ([\d.]+) ms \| decode ([\d.naif]+) tok/s", last["content"])
+    return {"n_gen": n_gen, "finish_reason": last["finish_reason"],
+            "engine_ttft_ms": float(m.group(1)), "engine_decode_tok_s": float(m.group(2)),
+            "client_ttft_ms": (res["t_first"] - res["t0"]) * 1e3,
+            "client_decode_tok_s": (n_gen - 1) / (res["t_last"] - res["t_first"])
+            if n_gen > 1 and res["t_last"] > res["t_first"] else None,
+            "text_chars": sum(len(e["content"]) for e in events
+                              if e["msg_type"] == "token")}
+
+
+def profile_decode(engine, steps: int = 8) -> dict:
+    """Where a decode step's time goes, 512 tokens into the cache: wall time
+    per step (host clock around synchronized steps), device time per step
+    and its top kernels (torch.profiler), and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = engine.make_cache()
+    engine.prefill(list(range(3, 515)), cache)
+    tok = torch.tensor([[7]], device=engine.device)
+
+    def run() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.model(tok, cache)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps
+
+    run()
+    wall = run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms_per_step": wall * 1e3, "device_ms_per_step": device,
+            "device_busy_share": device / (wall * 1e3),
+            "kernels_per_step": len(kernels) / steps,
+            "top_kernels_ms_per_step": [[n[:70], ms] for n, ms in top]}
+
+
+# --------------------------------------------------------------------------
+# phase 5: served logits, kernel against plain attention
+
+def compare_logits(engine, fa, llama, seed: int) -> dict:
+    """A 512-token prefill and four greedy decode steps, once through the
+    kernel and once with the plain attention swapped in (both on the card,
+    same weights and tokens)."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(3, engine.cfg.vocab_size, (1, 512), generator=g)
+    ids = ids.to(engine.device)
+
+    def run() -> list[torch.Tensor]:
+        cache = engine.make_cache()
+        outs = [engine.model.forward_last(ids, cache, ids.shape[1] - 1)]
+        for tok in steps:
+            outs.append(engine.model(tok.view(1, 1), cache)[:, -1])
+        return outs
+
+    steps: list[torch.Tensor] = []
+    cache = engine.make_cache()
+    lg = engine.model.forward_last(ids, cache, ids.shape[1] - 1)
+    for _ in range(4):   # the greedy continuation, fed to both runs
+        steps.append(lg.argmax(-1))
+        lg = engine.model(steps[-1].view(1, 1), cache)[:, -1]
+    kern = run()
+    orig = llama.attention_any
+    llama.attention_any = fa.flash_attention_plain
+    try:
+        plain = run()
+    finally:
+        llama.attention_any = orig
+    worst, near_ties = 0.0, 0
+    for a, b in zip(kern, plain):
+        if not torch.isfinite(a).all():
+            fail("non-finite logits")
+        worst = max(worst, (a - b).abs().max().item())
+        ka, pa = a.argmax(-1).item(), b.argmax(-1).item()
+        if ka != pa:
+            # only a near tie of the plain run's top two may swap
+            top2 = b[0].topk(2).values
+            if (top2[0] - top2[1]).item() > LOGIT_TOL or (b[0, pa] - b[0, ka]).item() > LOGIT_TOL:
+                fail(f"argmax differs: kernel {ka}, plain {pa}")
+            near_ties += 1
+    if worst > LOGIT_TOL:
+        fail(f"logits differ by {worst} > {LOGIT_TOL}")
+    return {"positions": len(kern), "max_abs_err": worst, "tol": LOGIT_TOL,
+            "argmax_near_ties": near_ties}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+
+    from distributed_llm_pipeline_tpu_torch.models import PRESETS, llama
+    from distributed_llm_pipeline_tpu_torch.ops import cuda_build
+    from distributed_llm_pipeline_tpu_torch.ops import flash_attention as fa
+    from distributed_llm_pipeline_tpu_torch.runtime import Engine
+
+    # 1. the card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+          f"TF32 off for matmul and cuDNN", flush=True)
+
+    # 2. build every kernel source of the path
+    t0 = time.monotonic()
+    built = cuda_build.build(["flash_attention"])
+    print(f"build: {len(built)} kernel source(s) in {time.monotonic() - t0:.1f}s",
+          flush=True)
+    for b in built.values():
+        regs = re.findall(r"Used (\d+) registers", b.ptxas)
+        spills = re.findall(r"(\d+) bytes spill stores", b.ptxas)
+        print(f"  {b.name}: nvcc {b.seconds:.1f}s, registers {regs}, "
+              f"spill store bytes {spills}", flush=True)
+
+    # 3. kernels against their plain versions
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")   # 256 MiB > L2
+    rows = check_attention(fa, llama.kv_quantize, args.seed, flush)
+    del flush
+
+    # 4. the served path
+    cfg = PRESETS["llama3.2-1b"]
+    model_dir = ROOT / "build" / "chip_smoke"
+    model_dir.mkdir(parents=True, exist_ok=True)
+    path = model_dir / f"llama3.2-1b-seed{args.seed}.gguf"
+    try:
+        t0 = time.monotonic()
+        write_model(path, cfg, args.seed)
+        print(f"wrote {path.name}: {path.stat().st_size / 2**30:.2f} GiB in "
+              f"{time.monotonic() - t0:.1f}s", flush=True)
+        t0 = time.monotonic()
+        engine = Engine(path, max_seq=2048)   # CUDA: no device argument
+        print(f"engine up in {time.monotonic() - t0:.1f}s on {engine.device}",
+              flush=True)
+    finally:
+        path.unlink(missing_ok=True)
+    prompt = " ".join(["hello"] * 480)   # ~480 tokens: a 512 bucket
+    requests = [
+        {"prompt": prompt, "max_new_tokens": 32, "temperature": 0.0},
+        {"prompt": "hello hello", "max_new_tokens": 32, "temperature": 0.8,
+         "top_k": 40, "top_p": 0.95, "seed": args.seed},
+        {"prompt": "hello", "max_new_tokens": 32, "temperature": 1.0, "top_k": 0,
+         "top_p": 0.9, "min_p": 0.05, "repeat_penalty": 1.1, "seed": args.seed + 1},
+    ]
+    # the same three requests once straight through the engine first: the
+    # first after boot pays CUDA's lazy kernel loading and cuBLAS's set-up
+    from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig
+
+    for i, body in enumerate(requests):
+        gen = GenerationConfig(**{k: v for k, v in body.items() if k != "prompt"})
+        warm = list(engine.generate(body["prompt"], gen))[-1]
+        print(json.dumps({"warm_up": i, "done": warm.content,
+                          "ttft_ms": warm.data["ttft_ms"], "card": card}), flush=True)
+    fa.launches = 0
+    forwards0 = engine.forwards
+    health, results = asyncio.run(chat_requests(engine, requests))
+    launches = fa.launches
+    forwards = engine.forwards - forwards0
+    if health.get("status") != "ok" or health.get("n_layers") != cfg.n_layers:
+        fail(f"/healthz: {health}")
+    for i, res in enumerate(results):
+        summary = check_sse(res)
+        print(json.dumps({"request": i, "sampled": res["body"]["temperature"] > 0,
+                          **summary, "card": card}), flush=True)
+    if forwards <= 0 or launches != cfg.n_layers * forwards:
+        fail(f"flash_attention launched {launches} times for {forwards} forwards "
+             f"of {cfg.n_layers} layers")
+    print(f"served path: {forwards} forwards, {launches} flash_attention launches "
+          f"(= {cfg.n_layers} layers x forwards)", flush=True)
+
+    print(json.dumps({"decode_step": profile_decode(engine), "card": card}),
+          flush=True)
+
+    # 5. served logits: kernel against plain attention
+    print(json.dumps({"logits": compare_logits(engine, fa, llama, args.seed)}),
+          flush=True)
+
+    # 6. results
+    prefill = rows[0]
+    print(json.dumps({"kernels": [{
+        "name": "flash_attention", "route": "cuda",
+        "source": "distributed_llm_pipeline_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "distributed_llm_pipeline_tpu/ops/flash_attention.py:138",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": prefill["kernel_ms"], "plain_ms": prefill["plain_ms"],
+        "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
+        "library_ms": prefill["library_ms"], "timed_case": prefill["case"]}]}),
+        flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

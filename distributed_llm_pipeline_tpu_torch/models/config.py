@@ -1,0 +1,204 @@
+"""Model hyperparameter config, parsed from GGUF metadata.
+
+The reference's engine reads the same metadata inside llama.cpp's model loader
+(submodule; exercised via ``-m`` at reference ``orchestrator/src/main.rs:39-40``).
+Covers the model families the reference serves: Llama-2/3-style dense
+(``general.architecture = "llama"``), Mixtral-style MoE (llama arch with
+``llama.expert_count > 0``), and Qwen2-style dense (NEOX rope + QKV biases
+— llama.cpp serves the same GGUFs through its qwen2 graph).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    arch: str = "llama"
+    vocab_size: int = 32000
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 32
+    head_dim: int = 128
+    hidden_dim: int = 11008
+    norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    max_seq_len: int = 2048
+    # MoE (Mixtral): 0 experts = dense FFN
+    n_experts: int = 0
+    n_experts_per_tok: int = 0
+    # Qwen2-MoE: a dense "shared expert" FFN of this width runs for every
+    # token alongside the routed experts, gated by a learned sigmoid
+    # (0 = no shared expert — Mixtral style)
+    shared_expert_dim: int = 0
+    # True (Mixtral): renormalize the top-k router probabilities to sum to 1.
+    # False (Qwen2-MoE, norm_topk_prob=false): use softmax-over-ALL-experts
+    # probabilities of the selected experts directly (they sum to < 1).
+    norm_topk_prob: bool = True
+    tie_embeddings: bool = False
+    # "interleaved" = ggml/llama.cpp NORM rope (pairs (2i, 2i+1)); "half" = HF rotate_half
+    rope_style: str = "interleaved"
+    # QKV projection biases (Qwen2 family; llama.cpp reads the same
+    # blk.N.attn_{q,k,v}.bias tensors)
+    attn_bias: bool = False
+    # Gemma-family knobs: rmsnorm multiplies (offset + w) — gemma stores
+    # weights as (w - 1); embeddings scale by sqrt(dim); GeGLU activation
+    norm_offset: float = 0.0
+    act: str = "silu"              # "silu" | "gelu" (tanh approximation)
+    embed_scale: float = 1.0
+    # Qwen3-family QK-Norm: per-head RMS norm over head_dim applied to the
+    # q/k projections BEFORE rope (llama.cpp reads the same
+    # blk.N.attn_{q,k}_norm.weight tensors for qwen3)
+    qk_norm: bool = False
+    # OLMo2: QK-norms span the FULL projection width (not per head), and the
+    # block has NO pre-norms — only post-attention/post-ffn norms
+    qk_norm_full: bool = False
+    pre_norms: bool = True
+    # StarCoder2: LayerNorm (mean-subtracting, with bias) instead of RMSNorm,
+    # ungated biased MLP (c_fc -> gelu -> c_proj), attention OUTPUT bias
+    norm_type: str = "rms"       # "rms" | "layer"
+    mlp_gated: bool = True
+    attn_out_bias: bool = False
+    # Gemma-2 knobs (all 0/False = off):
+    attn_softcap: float = 0.0    # softcap * tanh(scores / softcap)
+    final_softcap: float = 0.0   # same, on the lm logits
+    sliding_window: int = 0      # local attention on every OTHER layer
+    attn_scale: float = 0.0      # 0 = head_dim**-0.5; gemma2 27B differs
+    post_norms: bool = False     # sandwich norms (post-attn + post-ffn)
+    # Phi-3 longrope: per-dim frequency factors (head_dim/2 floats; () = off)
+    # chosen long/short at LOAD by the engine's ctx vs the original training
+    # context, plus the attention magnitude factor applied to cos/sin
+    # (llama.cpp picks per n_ctx the same way). Tuples keep the frozen
+    # config hashable.
+    rope_factors: tuple = ()
+    rope_attn_factor: float = 0.0   # 0 = unset -> computed at load; an
+    rope_orig_ctx: int = 0          # explicit 1.0 (no scaling) is honored
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def replace(self, **kw) -> "ModelConfig":
+        return replace(self, **kw)
+
+    # archs whose GGUFs use NEOX (rotate-half) rope WITHOUT the weight
+    # permutation llama-arch converters apply — restricted to the families
+    # this forward actually implements. phi3 is supported via fused-tensor
+    # splitting at load (convert.py), including LONG-context longrope
+    # variants (per-dim factor tensors chosen by ctx at load). stablelm
+    # (LayerNorm + partial rotary) stays unlisted until built — listing it
+    # would serve wrong logits silently.
+    _NEOX_ARCHS = ("qwen2", "qwen2moe", "qwen3", "gemma", "gemma2", "phi3",
+                   "olmo2", "starcoder2")
+    _BIAS_ARCHS = ("qwen2", "qwen2moe", "starcoder2")
+    _QKNORM_ARCHS = ("qwen3", "olmo2")
+
+    @classmethod
+    def from_gguf_metadata(cls, md: dict[str, Any]) -> "ModelConfig":
+        arch = md.get("general.architecture", "llama")
+        p = lambda k, d=None: md.get(f"{arch}.{k}", d)
+        n_heads = int(p("attention.head_count", 32))
+        dim = int(p("embedding_length", 4096))
+        head_dim = int(p("attention.key_length", p("rope.dimension_count", dim // n_heads)))
+        vocab = md.get(f"{arch}.vocab_size")
+        if vocab is None:
+            toks = md.get("tokenizer.ggml.tokens")
+            vocab = len(toks) if toks is not None else 32000
+        gemma2 = arch == "gemma2"
+        return cls(
+            arch=arch,
+            vocab_size=int(vocab),
+            dim=dim,
+            n_layers=int(p("block_count", 32)),
+            n_heads=n_heads,
+            n_kv_heads=int(p("attention.head_count_kv", n_heads)),
+            head_dim=head_dim,
+            norm_eps=float(p("attention.layer_norm_rms_epsilon",
+                             p("attention.layer_norm_epsilon", 1e-5))),
+            rope_theta=float(p("rope.freq_base", 10000.0)),
+            max_seq_len=int(p("context_length", 2048)),
+            n_experts=int(p("expert_count", 0)),
+            n_experts_per_tok=int(p("expert_used_count", 0)),
+            # qwen2moe: experts use expert_feed_forward_length (differs from
+            # the dense feed_forward_length) + a shared expert
+            hidden_dim=int(p("expert_feed_forward_length", 0))
+            or int(p("feed_forward_length", 11008)),
+            shared_expert_dim=int(p("expert_shared_feed_forward_length", 0)),
+            norm_topk_prob=arch != "qwen2moe",
+            rope_style="half" if arch in cls._NEOX_ARCHS else "interleaved",
+            attn_bias=arch in cls._BIAS_ARCHS,
+            # Gemma-1: sqrt(dim)-scaled embeddings + GeGLU at runtime.
+            # norm_offset stays 0 for GGUF-loaded gemma: the GGUF converter
+            # already bakes the model's (1+w) norm convention into the
+            # stored weights (llama.cpp's gemma graph applies a PLAIN rms
+            # norm) — applying the offset again would scale by (w+2).
+            # (gemma2/gemma3 add logit softcap / sliding window / extra
+            # norms — gemma2 IS supported via the knobs below; gemma3 not)
+            act="gelu" if arch in ("gemma", "gemma2", "starcoder2")
+            else "silu",
+            embed_scale=float(dim) ** 0.5 if arch in ("gemma", "gemma2")
+            else 1.0,
+            qk_norm=arch in cls._QKNORM_ARCHS,
+            norm_type="layer" if arch == "starcoder2" else "rms",
+            mlp_gated=arch != "starcoder2",
+            attn_out_bias=arch == "starcoder2",
+            qk_norm_full=arch == "olmo2",
+            pre_norms=arch != "olmo2",
+            attn_softcap=float(p("attn_logit_softcapping", 50.0)) if gemma2
+            else 0.0,
+            final_softcap=float(p("final_logit_softcapping", 30.0)) if gemma2
+            else 0.0,
+            sliding_window=int(p("attention.sliding_window", 4096)) if gemma2
+            else 0,
+            # 2B/9B use head_dim**-0.5 (the 0 default); 27B's
+            # query_pre_attn_scalar differs — our converter writes the
+            # resolved scale under attention.scale
+            attn_scale=float(p("attention.scale", 0.0)),
+            post_norms=gemma2 or arch == "olmo2",
+            rope_orig_ctx=int(p("rope.scaling.original_context_length", 0)),
+            rope_attn_factor=float(p("rope.scaling.attn_factor", 0.0)),
+        )
+
+
+# Named shape presets for benchmarks and tests (random weights, real geometry).
+PRESETS: dict[str, ModelConfig] = {
+    "stories15m": ModelConfig(vocab_size=32000, dim=288, n_layers=6, n_heads=6,
+                              n_kv_heads=6, head_dim=48, hidden_dim=768,
+                              max_seq_len=2048, norm_eps=1e-5),
+    "tiny": ModelConfig(vocab_size=512, dim=64, n_layers=2, n_heads=4,
+                        n_kv_heads=2, head_dim=16, hidden_dim=128, max_seq_len=256),
+    "tiny-moe": ModelConfig(vocab_size=512, dim=64, n_layers=2, n_heads=4,
+                            n_kv_heads=2, head_dim=16, hidden_dim=96, max_seq_len=256,
+                            n_experts=4, n_experts_per_tok=2),
+    "llama2-7b": ModelConfig(vocab_size=32000, dim=4096, n_layers=32, n_heads=32,
+                             n_kv_heads=32, head_dim=128, hidden_dim=11008,
+                             max_seq_len=4096),
+    "llama3-8b": ModelConfig(vocab_size=128256, dim=4096, n_layers=32, n_heads=32,
+                             n_kv_heads=8, head_dim=128, hidden_dim=14336,
+                             max_seq_len=8192, rope_theta=500000.0),
+    "llama3.2-1b": ModelConfig(vocab_size=128256, dim=2048, n_layers=16, n_heads=32,
+                               n_kv_heads=8, head_dim=64, hidden_dim=8192,
+                               max_seq_len=8192, rope_theta=500000.0, tie_embeddings=True),
+    "mixtral-8x7b": ModelConfig(vocab_size=32000, dim=4096, n_layers=32, n_heads=32,
+                                n_kv_heads=8, head_dim=128, hidden_dim=14336,
+                                max_seq_len=8192, rope_theta=1e6,
+                                n_experts=8, n_experts_per_tok=2),
+    "llama3-70b": ModelConfig(vocab_size=128256, dim=8192, n_layers=80, n_heads=64,
+                              n_kv_heads=8, head_dim=128, hidden_dim=28672,
+                              max_seq_len=8192, rope_theta=500000.0),
+    "qwen3-8b": ModelConfig(arch="qwen3", vocab_size=151936, dim=4096,
+                            n_layers=36, n_heads=32, n_kv_heads=8,
+                            head_dim=128, hidden_dim=12288, max_seq_len=8192,
+                            rope_theta=1e6, rope_style="half", qk_norm=True),
+    "gemma2-9b": ModelConfig(arch="gemma2", vocab_size=256000, dim=3584,
+                             n_layers=42, n_heads=16, n_kv_heads=8,
+                             head_dim=256, hidden_dim=14336, max_seq_len=8192,
+                             rope_style="half", act="gelu",
+                             embed_scale=3584.0 ** 0.5, post_norms=True,
+                             attn_softcap=50.0, final_softcap=30.0,
+                             sliding_window=4096, attn_scale=256.0 ** -0.5,
+                             tie_embeddings=True),
+}

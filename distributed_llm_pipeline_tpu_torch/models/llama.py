@@ -1,0 +1,307 @@
+"""Llama-family transformer forward over a dense KV cache, in PyTorch.
+
+The counterpart of ``distributed_llm_pipeline_tpu/models/llama.py``, function
+for function, for the dense families: Llama-2/3, Qwen2/3, Gemma-1/2, OLMo2,
+StarCoder2 and Phi-3 wiring. A block's optional parts follow the leaves its
+checkpoint has, as in the reference: QKV and output biases, QK-norms (per
+head or full width), pre- or post-only norms, Gemma-2 sandwich norms,
+LayerNorm, the ungated MLP, attention and final logit softcap, and the
+per-layer sliding window.
+
+Differences of idiom, not of arithmetic:
+
+- Projection matrices keep the GGUF's own (out, in) layout and contract
+  with ``F.linear``; the reference keeps (in, out).
+- The layer loop is a Python loop over an ``nn.ModuleList``; the reference
+  scans stacked layer weights.
+- The KV cache is written in place. The reference returns a new cache and
+  donates the old one, which lets XLA update it in place too.
+
+Weights live in the engine dtype (bf16 by default); norms, rope, softmax and
+the logits run in f32.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.flash_attention import attention_any
+from .config import ModelConfig
+
+# flat parameter state: "embed", "out_norm", optional "out_norm_b" and
+# "lm_head", and "layers.{i}.{leaf}" for each block's leaves
+Params = dict[str, torch.Tensor]
+
+
+@dataclass
+class KVCache:
+    """Per-layer KV buffers [n_layers, batch, max_seq, n_kv_heads, head_dim]
+    and the number of valid positions. With an int8 cache ``k``/``v`` hold
+    codes and ``k_scale``/``v_scale`` one f32 scale per cached head vector
+    ([..., 1])."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int = 0
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @staticmethod
+    def zeros(cfg: ModelConfig, batch: int, max_seq: int | None = None,
+              dtype: torch.dtype = torch.bfloat16, device="cpu",
+              kv_quant: str | None = None) -> "KVCache":
+        shape = (cfg.n_layers, batch, max_seq or cfg.max_seq_len,
+                 cfg.n_kv_heads, cfg.head_dim)
+        if kv_quant is None:
+            return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                           torch.zeros(shape, dtype=dtype, device=device))
+        if kv_quant != "q8_0":
+            raise ValueError(f"unsupported kv cache quant {kv_quant!r} "
+                             f"(supported: q8_0)")
+        sshape = shape[:-1] + (1,)
+        return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros(shape, dtype=torch.int8, device=device), 0,
+                       torch.zeros(sshape, dtype=torch.float32, device=device),
+                       torch.zeros(sshape, dtype=torch.float32, device=device))
+
+
+def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-head-vector symmetric int8: [..., Hd] → (codes, f32 scale [..., 1])."""
+    xf = x.float()
+    s = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+              eps: float) -> torch.Tensor:
+    """Mean-subtracting LayerNorm with optional bias (StarCoder2)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * w.float()
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float,
+            offset: float = 0.0) -> torch.Tensor:
+    """RMS norm; ``offset`` is the Gemma (offset + w) convention."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (y * (w.float() + offset)).to(x.dtype)
+
+
+def rope_freqs(cfg: ModelConfig, positions: torch.Tensor,
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for ``positions``: [..., head_dim // 2], f32, with the
+    Phi-3 longrope factors and magnitude when the config carries them."""
+    half = cfg.head_dim // 2
+    freqs = cfg.rope_theta ** (
+        -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half)
+    if cfg.rope_factors:
+        freqs = freqs / torch.tensor(cfg.rope_factors, dtype=torch.float32,
+                                     device=positions.device)
+    angles = positions[..., None].float() * freqs
+    m = cfg.rope_attn_factor or 1.0
+    return torch.cos(angles) * m, torch.sin(angles) * m
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               style: str) -> torch.Tensor:
+    """x [B, T, H, Hd]; cos/sin [B, T, Hd/2] broadcast over heads."""
+    xf = x.float()
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    if style == "interleaved":  # ggml NORM: pairs (2i, 2i+1)
+        x1, x2 = xf[..., 0::2], xf[..., 1::2]
+        out = torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).reshape(x.shape)
+    elif style == "half":       # HF rotate_half: pairs (i, i + Hd/2)
+        half = x.shape[-1] // 2
+        x1, x2 = xf[..., :half], xf[..., half:]
+        out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    else:
+        raise ValueError(f"unknown rope style {style!r}")
+    return out.to(x.dtype)
+
+
+def _act(x: torch.Tensor, act: str) -> torch.Tensor:
+    xf = x.float()
+    y = F.gelu(xf, approximate="tanh") if act == "gelu" else F.silu(xf)
+    return y.to(x.dtype)
+
+
+def sliding_window_per_layer(cfg: ModelConfig) -> list[int]:
+    """Per-layer attention window (0 = global): Gemma-2 attends locally on
+    even layers and globally on odd ones."""
+    return [cfg.sliding_window if i % 2 == 0 else 0 for i in range(cfg.n_layers)]
+
+
+class Block(nn.Module):
+    """One transformer block. Its parameters are the leaves its checkpoint
+    has; which optional parts run follows from which leaves are present."""
+
+    def __init__(self, cfg: ModelConfig, leaves: Params, window: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        self.window = int(window)
+        for name, t in leaves.items():
+            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+
+    def has(self, name: str) -> bool:
+        return name in self._parameters
+
+    def norm(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.norm_type == "layer":
+            return layernorm(x, self._parameters[name],
+                             self._parameters.get(name + "_b"), cfg.norm_eps)
+        return rmsnorm(x, self._parameters[name], cfg.norm_eps, cfg.norm_offset)
+
+    def _proj(self, x: torch.Tensor, w: str, b: str | None = None) -> torch.Tensor:
+        y = F.linear(x, self._parameters[w])
+        return y + self._parameters[b] if b and self.has(b) else y
+
+    def qkv(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+        """Projections, QK-norm variants and rope: the block's (q, k, v)."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        H, K, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        h = self.norm(x, "attn_norm") if self.has("attn_norm") else x
+        q, k, v = self._proj(h, "wq", "bq"), self._proj(h, "wk", "bk"), self._proj(h, "wv", "bv")
+        full_qk = self.has("q_norm") and self.q_norm.shape[-1] == H * Hd
+        if full_qk:    # OLMo2: QK-norm over the full projection width
+            q = rmsnorm(q, self.q_norm, cfg.norm_eps)
+            k = rmsnorm(k, self.k_norm, cfg.norm_eps)
+        q, k, v = q.reshape(B, T, H, Hd), k.reshape(B, T, K, Hd), v.reshape(B, T, K, Hd)
+        if self.has("q_norm") and not full_qk:   # Qwen3: per head, pre-rope
+            q = rmsnorm(q, self.q_norm, cfg.norm_eps)
+            k = rmsnorm(k, self.k_norm, cfg.norm_eps)
+        return (apply_rope(q, cos, sin, cfg.rope_style),
+                apply_rope(k, cos, sin, cfg.rope_style), v)
+
+    def attn_out(self, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+        """Output projection, optional post-norm, residual."""
+        B, T = x.shape[:2]
+        out = self._proj(attn.reshape(B, T, -1), "wo", "bo")
+        if self.has("post_attn_norm"):   # Gemma-2 sandwich norm
+            out = rmsnorm(out, self.post_attn_norm, self.cfg.norm_eps,
+                          self.cfg.norm_offset)
+        return x + out
+
+    def ffn(self, x: torch.Tensor) -> torch.Tensor:
+        """The FFN half: norm, gated (or StarCoder2's ungated) MLP, residual."""
+        cfg = self.cfg
+        h = self.norm(x, "ffn_norm") if self.has("ffn_norm") else x
+        if self.has("w_gate"):
+            g = _act(self._proj(h, "w_gate"), cfg.act).to(x.dtype)
+            f = self._proj(g * self._proj(h, "w_up"), "w_down")
+        else:
+            f = self._proj(_act(self._proj(h, "w_up", "b_up"), cfg.act),
+                           "w_down", "b_down")
+        if self.has("post_ffn_norm"):
+            f = rmsnorm(f, self.post_ffn_norm, cfg.norm_eps, cfg.norm_offset)
+        return x + f
+
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                cache: KVCache, layer: int) -> torch.Tensor:
+        """One block over the dense cache: the new tokens' K/V are written
+        at [cache.length, cache.length + T) (quantized per head vector on an
+        int8 cache), then attention reads the layer's whole buffer."""
+        cfg = self.cfg
+        q, k, v = self.qkv(x, cos, sin)
+        at = slice(cache.length, cache.length + x.shape[1])
+        ks = vs = None
+        if cache.k_scale is not None:
+            (kq, k_s), (vq, v_s) = kv_quantize(k), kv_quantize(v)
+            cache.k[layer, :, at] = kq
+            cache.v[layer, :, at] = vq
+            cache.k_scale[layer, :, at] = k_s
+            cache.v_scale[layer, :, at] = v_s
+            ks, vs = cache.k_scale[layer], cache.v_scale[layer]
+        else:
+            cache.k[layer, :, at] = k
+            cache.v[layer, :, at] = v
+        attn = attention_any(q, cache.k[layer], cache.v[layer], cache.length,
+                             cfg.n_heads // cfg.n_kv_heads, scale=cfg.attn_scale,
+                             softcap=cfg.attn_softcap, window=self.window,
+                             k_scale=ks, v_scale=vs)
+        return self.ffn(self.attn_out(x, attn))
+
+
+def _logits_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., D] against w [V, D] with f32 output. On the card a bf16
+    product keeps cuBLAS's f32 accumulator (no f32 copy of the vocab
+    matrix); on the CPU a bf16 product rounds its output to bf16 first."""
+    if x.dtype == torch.float32:
+        return F.linear(x, w)
+    if x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[0])
+    return F.linear(x, w).float()
+
+
+class LlamaModel(nn.Module):
+    """Embedding, blocks and the vocab head over a dense KV cache."""
+
+    def __init__(self, cfg: ModelConfig, params: Params):
+        super().__init__()
+        if cfg.is_moe:
+            raise NotImplementedError("MoE models are not ported yet")
+        self.cfg = cfg
+        for name in ("embed", "out_norm", "out_norm_b", "lm_head"):
+            if name in params:
+                self.register_parameter(
+                    name, nn.Parameter(params[name], requires_grad=False))
+        windows = sliding_window_per_layer(cfg)
+        self.layers = nn.ModuleList(
+            Block(cfg, {k[len(f"layers.{i}."):]: t for k, t in params.items()
+                        if k.startswith(f"layers.{i}.")}, windows[i])
+            for i in range(cfg.n_layers))
+
+    def backbone(self, tokens: torch.Tensor, cache: KVCache) -> torch.Tensor:
+        """tokens [B, T] → pre-norm hidden states [B, T, D]; advances
+        ``cache.length`` by T."""
+        B, T = tokens.shape
+        x = self.embed[tokens]
+        if self.cfg.embed_scale != 1.0:   # Gemma: sqrt(dim)
+            x = (x.float() * self.cfg.embed_scale).to(x.dtype)
+        pos = cache.length + torch.arange(T, device=tokens.device)
+        cos, sin = rope_freqs(self.cfg, pos[None, :].expand(B, T))
+        for i, block in enumerate(self.layers):
+            x = block(x, cos, sin, cache, i)
+        cache.length += T
+        return x
+
+    def lm_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and vocab projection: [B, T, D] → [B, T, V] f32;
+        tied embeddings contract against the embedding table."""
+        cfg = self.cfg
+        if cfg.norm_type == "layer":
+            x = layernorm(x, self.out_norm, self._parameters.get("out_norm_b"),
+                          cfg.norm_eps)
+        else:
+            x = rmsnorm(x, self.out_norm, cfg.norm_eps, cfg.norm_offset)
+        head = self._parameters.get("lm_head")
+        out = _logits_f32(x, self.embed if head is None else head)
+        if cfg.final_softcap:   # Gemma-2
+            out = cfg.final_softcap * torch.tanh(out / cfg.final_softcap)
+        return out
+
+    @torch.inference_mode()
+    def forward(self, tokens: torch.Tensor, cache: KVCache) -> torch.Tensor:
+        """tokens [B, T] → logits [B, T, V] f32; the T tokens occupy
+        positions [cache.length, cache.length + T)."""
+        return self.lm_logits(self.backbone(tokens, cache))
+
+    @torch.inference_mode()
+    def forward_last(self, tokens: torch.Tensor, cache: KVCache,
+                     last_index: int) -> torch.Tensor:
+        """Logits of position ``last_index`` only ([B, V] f32): prefill of a
+        padded bucket never builds the [B, T, V] tensor."""
+        x = self.backbone(tokens, cache)
+        return self.lm_logits(x[:, last_index:last_index + 1])[:, 0]

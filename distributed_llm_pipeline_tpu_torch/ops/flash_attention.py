@@ -1,0 +1,178 @@
+"""Causal-over-cache attention: the hand-written CUDA kernel, its plain PyTorch
+version, and the dispatch between them by device.
+
+The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
+``flash_attention`` of ``distributed_llm_pipeline_tpu/ops/flash_attention.py``
+and computes the same function: q ``[B, T, H, Hd]`` against k, v
+``[B, S, K, Hd]`` (``H = K * n_rep``), where key column c attends query t iff
+``c <= cache_len[b] + t`` and, on a windowed layer, ``cache_len[b] + t - c <
+window``. Scores are scaled (``scale`` 0 means ``Hd ** -0.5``), soft-capped
+before the mask, and soft-maxed in f32; the output has q's dtype. An int8 KV
+cache passes its codes with f32 scales ``[B, S, K, 1]``; each K/V value is
+dequantized as ``code * scale`` and rounded to q's dtype before the dot.
+
+Dispatch: ``attention_any`` sends a CUDA tensor to the kernel and a CPU
+tensor to the plain version, which is the reference's einsum path. There is
+no fallback: a kernel that cannot take its inputs, or cannot build or
+launch, raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NEG_INF = -1e30   # the masked-score fill of the reference and the kernel
+HEAD_DIMS = (64, 128, 256)
+
+# kernel launches since the last reset (chip_smoke.py reads it to prove the
+# served path ran the kernel); only the CUDA wrapper below increments it
+launches = 0
+
+_fn = None
+
+
+def _kernel():
+    """The C entry point, built from ``csrc/flash_attention.cu`` at first use."""
+    global _fn
+    if _fn is None:
+        from .cuda_build import load_library
+
+        fn = load_library("flash_attention").dlp_flash_attention
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, i, f, f,
+                       i, p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _scale(scale: float, head_dim: int) -> float:
+    return float(scale) if scale else head_dim ** -0.5
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cache_len, n_rep: int, *, scale: float = 0.0,
+                    softcap: float = 0.0, window: int | None = None,
+                    k_scale: torch.Tensor | None = None,
+                    v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The CUDA kernel. ``cache_len`` is an int, or an int tensor of shape
+    ``[]`` or ``[B]`` on q's device. Raises on any input the kernel does not
+    take, and when the launch fails."""
+    global launches
+    B, T, H, Hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention: q, k and v must be on one CUDA device")
+    if k.shape != (B, S, K, Hd) or v.shape != k.shape or H != K * n_rep:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, n_rep {n_rep}")
+    if Hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {Hd} not in {HEAD_DIMS}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention: q dtype {q.dtype} (float32 or bfloat16)")
+    quant = k_scale is not None
+    if (v_scale is not None) != quant:
+        raise ValueError("flash_attention: k_scale and v_scale go together")
+    if quant:
+        for s in (k_scale, v_scale):
+            if (s.dtype != torch.float32 or s.shape != (B, S, K, 1)
+                    or s.device != q.device or not s.is_contiguous()):
+                raise ValueError("flash_attention: scales must be contiguous "
+                                 f"float32 [B, S, K, 1] on {q.device}")
+        if k.dtype != torch.int8 or v.dtype != torch.int8:
+            raise ValueError("flash_attention: scales need int8 k and v")
+    elif k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: k/v dtype {k.dtype}/{v.dtype} "
+                         f"must match q's {q.dtype} (or be int8 with scales)")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+    window = 0 if window is None else int(window)
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+    lens, lens_scalar = None, 0
+    if isinstance(cache_len, torch.Tensor):
+        if cache_len.numel() not in (1, B) or cache_len.device != q.device:
+            raise ValueError("flash_attention: cache_len tensor must hold 1 "
+                             f"or {B} values on {q.device}")
+        lens = cache_len.reshape(-1).to(torch.int32).expand(B).contiguous()
+    else:
+        lens_scalar = int(cache_len)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = _kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None,
+            lens.data_ptr() if lens is not None else None, lens_scalar,
+            out.data_ptr(), B, T, S, H, K, Hd,
+            0 if q.dtype == torch.float32 else 1, int(quant),
+            _scale(scale, Hd), float(softcap), window,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed (cudaError {rc})")
+    launches += 1
+    return out
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor, n_rep: int, scale: float = 0.0,
+              softcap: float = 0.0) -> torch.Tensor:
+    """The reference einsum attention: q [B, T, H, Hd]; k, v [B, S, K, Hd];
+    mask [B, T, S] bool (True = attend). Softmax in f32."""
+    B, T, H, Hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, T, K, n_rep, Hd).float()
+    scores = torch.einsum("btkrh,bskh->bkrts", qg, k.float()) * _scale(scale, Hd)
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkrts,bskh->btkrh", probs, v.float())
+    return out.reshape(B, T, H, Hd).to(q.dtype)
+
+
+def kv_dequantize(codes: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    return (codes.float() * scale).to(dtype)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          cache_len, n_rep: int, *, scale: float = 0.0,
+                          softcap: float = 0.0, window: int | None = None,
+                          k_scale: torch.Tensor | None = None,
+                          v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, on any device: the mask is
+    built from ``cache_len`` and ``window`` and the einsum attention runs
+    over the whole window."""
+    if k_scale is not None:
+        k = kv_dequantize(k, k_scale, q.dtype)
+        v = kv_dequantize(v, v_scale, q.dtype)
+    B, T = q.shape[:2]
+    S = k.shape[1]
+    kpos = torch.arange(S, device=q.device, dtype=torch.int32)
+    cl = torch.as_tensor(cache_len, device=q.device).to(torch.int32).reshape(-1, 1, 1)
+    qpos = cl + torch.arange(T, device=q.device, dtype=torch.int32)[None, :, None]
+    mask = kpos[None, None, :] <= qpos
+    if window:
+        mask &= qpos - kpos[None, None, :] < int(window)
+    return attention(q, k, v, mask.expand(B, T, S), n_rep, scale=scale,
+                     softcap=softcap)
+
+
+def attention_any(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cache_len, n_rep: int, scale: float = 0.0,
+                  softcap: float = 0.0, window: int | None = None,
+                  k_scale: torch.Tensor | None = None,
+                  v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Attention over the causal-over-cache window, by q's device: the CUDA
+    kernel for a CUDA tensor (prefill and decode alike), the plain version
+    for a CPU tensor."""
+    kw = dict(scale=scale, softcap=softcap, window=window, k_scale=k_scale,
+              v_scale=v_scale)
+    if q.is_cuda:
+        return flash_attention(q, k, v, cache_len, n_rep, **kw)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, cache_len, n_rep, **kw)
+    raise ValueError(f"attention_any: no attention for device {q.device}")

@@ -1,0 +1,338 @@
+"""The single-stream inference engine: load once, serve many.
+
+The counterpart of ``distributed_llm_pipeline_tpu/runtime/engine.py`` for the
+path ``dlp-serve --model m.gguf`` runs by default: one stream, weights
+dequantized at load, a dense KV cache. Weights go to the device once; a
+request costs its own prefill and decode. ``generate`` yields the same event
+stream as the reference: ``log`` lines (placement and progress; the
+placement line keeps the word "offloaded" that the UI highlights),
+``token`` text, and a closing ``done`` summary.
+
+Decode runs in chunks of ``DLP_DECODE_CHUNK`` steps (default 32). Each step
+forwards and samples on the device; the sampled token feeds the next step
+without leaving the device, and the host reads a chunk's tokens back once,
+after the next chunk is already queued. The KV cache is written in place
+(the reference donates it to XLA for the same effect).
+
+Entry points run on CUDA unless the caller asks for the CPU
+(``device="cpu"``); with no CUDA device and no such request they raise.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Iterator
+
+import torch
+
+from ..gguf import GGUFReader
+from ..models import KVCache, LlamaModel, ModelConfig, Params
+from ..models.convert import load_params, select_rope_factors
+from ..ops.sampling import apply_penalties, sample
+from ..tokenizer import StreamDecoder, Tokenizer, tokenizer_from_metadata
+from ..utils import Event, done, log, token
+
+
+@dataclass
+class GenerationConfig:
+    max_new_tokens: int = 200       # reference default: -n 200
+    temperature: float = 0.8
+    top_k: int = 40
+    top_p: float = 0.95
+    min_p: float = 0.0              # 0 disables
+    repeat_penalty: float = 1.0     # 1 disables
+    repeat_last_n: int = 64         # penalty window
+    presence_penalty: float = 0.0   # 0 disables
+    frequency_penalty: float = 0.0  # 0 disables
+    seed: int | None = None
+    stop_on_eos: bool = True
+    stop: tuple[str, ...] = ()      # stop strings
+
+
+class StopMatcher:
+    """Streaming stop-string detection with holdback.
+
+    Emitted text lags the decoded text by ``max(len(stop)) - 1`` characters,
+    so a stop string that lands across two token pieces is still caught
+    before any part of it reaches the client. ``feed`` returns
+    ``(text_safe_to_emit, stopped)``; once stopped, the held text is
+    discarded (the stop string itself is never emitted)."""
+
+    def __init__(self, stops: tuple[str, ...]):
+        self.stops = tuple(s for s in stops if s)
+        self.hold = max((len(s) for s in self.stops), default=1) - 1
+        self.buf = ""
+        self.matched: str | None = None  # which stop string fired
+
+    def feed(self, piece: str) -> tuple[str, bool]:
+        self.buf += piece
+        cuts = [(i, s) for i, s in ((self.buf.find(s), s)
+                                    for s in self.stops) if i >= 0]
+        if cuts:
+            cut = min(i for i, _ in cuts)
+            # earliest occurrence wins; ties go to the longest stop
+            self.matched = max((s for i, s in cuts if i == cut), key=len)
+            emit, self.buf = self.buf[:cut], ""
+            return emit, True
+        if not self.hold:
+            emit, self.buf = self.buf, ""
+        elif len(self.buf) > self.hold:
+            emit, self.buf = self.buf[: -self.hold], self.buf[-self.hold:]
+        else:
+            emit = ""
+        return emit, False
+
+    def flush(self) -> str:
+        rest, self.buf = self.buf, ""
+        return rest
+
+    def finish(self, tail: str) -> tuple[str, bool]:
+        """End-of-stream drain: feed the final piece, then release any held
+        text unless a stop matched."""
+        emitted, hit = self.feed(tail)
+        if hit:
+            return emitted, True
+        return emitted + self.flush(), False
+
+
+def _utf8_prefix(tail: bytes) -> bool:
+    """True when ``tail`` is a valid PREFIX of one multibyte UTF-8 char."""
+    if not tail:
+        return False
+    lead = tail[0]
+    if lead >= 0xF5 or 0x80 <= lead < 0xC2:  # continuation/overlong/too-high
+        return False
+    need = 2 if lead < 0xE0 else 3 if lead < 0xF0 else 4
+    if len(tail) >= need:
+        return False  # complete sequence would have decoded (or is invalid)
+    return all(0x80 <= c < 0xC0 for c in tail[1:])
+
+
+def _bucket(n: int, cap: int, minimum: int = 16) -> int:
+    """Prompt length padded to a power of two ≥ 16, capped at ``cap``: a
+    small, fixed set of prefill shapes, as the reference buckets them."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The device an entry point runs on: the one asked for, else CUDA. With
+    no CUDA device and no explicit request this raises; nothing falls back
+    to the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; ask for the CPU "
+                           "explicitly (device='cpu', or --cpu) to run there")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+class Engine:
+    """Single-model, single-stream inference engine on one device."""
+
+    def __init__(self, model_path: str | Path | None = None, *,
+                 cfg: ModelConfig | None = None, params: Params | None = None,
+                 tokenizer: Tokenizer | None = None, max_seq: int | None = None,
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        self.device = resolve_device(device)
+        self._events_on_load: list[Event] = []
+        t0 = time.monotonic()
+        if model_path is not None:
+            with GGUFReader(model_path) as reader:
+                cfg = ModelConfig.from_gguf_metadata(reader.metadata)
+                eff_ctx = min(max_seq or cfg.max_seq_len, cfg.max_seq_len)
+                cfg = select_rope_factors(reader, cfg, eff_ctx)
+                self.tokenizer = tokenizer_from_metadata(reader.metadata)
+                n_quant = sum(1 for t in reader.tensors.values()
+                              if int(t.ggml_type) > 1)
+                self._events_on_load.append(log(
+                    f"model load: {Path(model_path).name} arch={cfg.arch} "
+                    f"layers={cfg.n_layers} dim={cfg.dim} "
+                    f"tensors={len(reader.tensors)} ({n_quant} quantized)"))
+                params = load_params(reader, cfg, dtype=dtype, device=self.device)
+        else:
+            if cfg is None or tokenizer is None or params is None:
+                raise ValueError("need model_path, or cfg + tokenizer + params")
+            self.tokenizer = tokenizer
+            params = {k: t.to(device=self.device, dtype=dtype)
+                      for k, t in params.items()}
+        self.cfg = cfg
+        self.dtype = dtype
+        self.model = LlamaModel(cfg, params)
+        self.max_seq = min(max_seq or cfg.max_seq_len, cfg.max_seq_len)
+        self.decode_chunk = max(1, int(os.environ.get("DLP_DECODE_CHUNK", "32")))
+        self.forwards = 0   # model forwards run: one per prefill, one per decode step
+        dev = (torch.cuda.get_device_name(self.device)
+               if self.device.type == "cuda" else "CPU")
+        self._events_on_load.append(log(
+            f"device: 1x {dev} ({self.device}); all {cfg.n_layers} layers "
+            f"offloaded to {self.device} (dequantized {str(dtype).split('.')[-1]})"))
+        self._events_on_load.append(log(
+            f"weights ready in {time.monotonic() - t0:.2f}s; kv cache capacity "
+            f"{self.max_seq} tokens"))
+
+    def make_cache(self, batch: int = 1) -> KVCache:
+        return KVCache.zeros(self.cfg, batch=batch, max_seq=self.max_seq,
+                             dtype=self.dtype, device=self.device)
+
+    def prefill(self, ids: list[int], cache: KVCache) -> torch.Tensor:
+        """Run the prompt, padded to its bucket, into ``cache`` (from
+        ``cache.length``); returns the last real position's logits [1, V].
+        The padded positions write junk KV past the prompt; resetting
+        ``cache.length`` to the true end masks it, and decode overwrites it
+        in order."""
+        n, start = len(ids), cache.length
+        padded = torch.zeros((1, _bucket(n, self.max_seq - start)), dtype=torch.long)
+        padded[0, :n] = torch.tensor(ids, dtype=torch.long)
+        logits = self.model.forward_last(padded.to(self.device), cache, n - 1)
+        cache.length = start + n
+        self.forwards += 1
+        return logits
+
+    @torch.inference_mode()
+    def _sample(self, logits: torch.Tensor, gen: GenerationConfig,
+                rng: torch.Generator, recent: torch.Tensor | None):
+        """Penalties (when set) and the sampler chain: logits [B, V] → the
+        next token [B, 1] and the updated recent-token window."""
+        if recent is not None:
+            logits = apply_penalties(logits, recent, gen.repeat_penalty,
+                                     gen.presence_penalty, gen.frequency_penalty)
+        nxt = sample(logits, rng, gen.temperature, gen.top_k, gen.top_p,
+                     gen.min_p)[:, None]
+        if recent is not None:
+            recent = torch.cat([recent[:, 1:], nxt], dim=1)
+        return nxt, recent
+
+    def _decode_chunk(self, n: int, tok: torch.Tensor, cache: KVCache,
+                      gen: GenerationConfig, rng: torch.Generator,
+                      recent: torch.Tensor | None):
+        """n forward + sample steps on the device, nothing read back:
+        returns the chunk's tokens [n, B], the last token [B, 1] and the
+        recent-token window."""
+        toks = []
+        for _ in range(n):
+            logits = self.model(tok, cache)[:, -1]
+            self.forwards += 1
+            tok, recent = self._sample(logits, gen, rng, recent)
+            toks.append(tok[:, 0])
+        return torch.stack(toks), tok, recent
+
+    def _to_host(self, t: torch.Tensor):
+        """Queue a device→host copy of ``t``; returns a callable that waits
+        for it and gives the values as a list."""
+        if t.device.type != "cuda":
+            return t.tolist
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+
+        def read():
+            ready.synchronize()
+            return host.tolist()
+
+        return read
+
+    def generate(self, prompt: str | list[int],
+                 gen: GenerationConfig | None = None) -> Iterator[Event]:
+        """Streaming generation: yields log / token / done events."""
+        gen = gen or GenerationConfig()
+        yield from self._events_on_load
+        ids = list(prompt) if isinstance(prompt, (list, tuple)) \
+            else self.tokenizer.encode(prompt)
+        n_prompt = len(ids)
+        if n_prompt >= self.max_seq:
+            ids = ids[-(self.max_seq - 1):]
+            yield log(f"prompt truncated to last {len(ids)} tokens (ctx {self.max_seq})")
+        budget = max(0, min(gen.max_new_tokens, self.max_seq - len(ids)))
+        yield log(f"prompt: {n_prompt} tokens; generating up to {budget} "
+                  f"(ctx {self.max_seq}, t={gen.temperature}, top_k={gen.top_k}, "
+                  f"top_p={gen.top_p})")
+        if budget == 0:
+            yield done("generated 0 tokens (no budget)", n_prompt=len(ids),
+                       n_gen=0, finish_reason="length")
+            return
+        rng = torch.Generator(device=self.device)
+        rng.manual_seed(gen.seed if gen.seed is not None else time.time_ns() % 2**31)
+        recent = None
+        if (gen.repeat_penalty != 1.0 or gen.presence_penalty != 0.0
+                or gen.frequency_penalty != 0.0):
+            W = max(1, gen.repeat_last_n)
+            recent = torch.tensor([([-1] * W + ids)[-W:]], dtype=torch.long,
+                                  device=self.device)
+        stopper = StopMatcher(tuple(gen.stop)) if gen.stop else None
+        sd = StreamDecoder(self.tokenizer)
+        eos = self.tokenizer.eos_id
+
+        t_start = time.monotonic()
+        cache = self.make_cache()
+        tok, recent = self._sample(self.prefill(ids, cache), gen, rng, recent)
+        first = self._to_host(tok[:, 0])()[0]
+        ttft = time.monotonic() - t_start
+        yield log(f"prefill: {len(ids)} tokens in {ttft * 1000:.1f} ms (TTFT)")
+        t_decode = time.monotonic()
+
+        n_gen, finish_reason, stopped, stop_matched = 0, "length", False, False
+
+        def take(t: int):
+            """Account one sampled token: returns the text to emit (or None)
+            and sets the stop state."""
+            nonlocal n_gen, finish_reason, stopped, stop_matched
+            if gen.stop_on_eos and eos is not None and t == eos:
+                finish_reason, stopped = "stop", True
+                return None
+            n_gen += 1
+            text = sd.feed(t)
+            if stopper is not None:
+                text, hit = stopper.feed(text)
+                if hit:
+                    finish_reason, stopped, stop_matched = "stop", True, True
+            if n_gen >= budget:
+                stopped = True
+            return text
+
+        text = take(first)
+        if text:
+            yield token(text)
+        pending = None   # (read, n) of the chunk whose tokens are in flight
+        while True:
+            launched = None
+            room = budget - n_gen - (pending[1] if pending else 0)
+            n = min(self.decode_chunk, room, self.max_seq - cache.length)
+            if not stopped and n > 0:
+                toks, tok, recent = self._decode_chunk(n, tok, cache, gen, rng, recent)
+                launched = (self._to_host(toks[:, 0]), n)
+            if pending is not None and not stopped:
+                # read the previous chunk while the one just queued runs
+                for t in pending[0]():
+                    text = take(t)
+                    if text:
+                        yield token(text)
+                    if stopped:
+                        break
+            # once stopped, a chunk still in flight is junk past the stop
+            pending = None if stopped else launched
+            if pending is None:
+                break
+        tail = sd.flush()
+        if not stop_matched:
+            if stopper is not None:
+                tail, hit = stopper.finish(tail)
+                if hit:
+                    finish_reason = "stop"
+            if tail:
+                yield token(tail)
+        dt = time.monotonic() - t_decode
+        tps = (n_gen - 1) / dt if n_gen > 1 and dt > 0 else float("nan")
+        dt_e2e = time.monotonic() - t_start
+        tps_e2e = n_gen / dt_e2e if n_gen and dt_e2e > 0 else float("nan")
+        yield done(f"generated {n_gen} tokens | TTFT {ttft * 1000:.1f} ms | "
+                   f"decode {tps:.2f} tok/s",
+                   n_prompt=len(ids), n_gen=n_gen, finish_reason=finish_reason,
+                   ttft_ms=ttft * 1000, tok_s=tps, tok_s_e2e=tps_e2e,
+                   stop_match=stopper.matched if stopper else None)

@@ -1,0 +1,143 @@
+"""The SSE chat server: ``POST /chat`` on the single-stream engine.
+
+The counterpart of ``distributed_llm_pipeline_tpu/serving/server.py`` on its
+default path (one stream, no ``--parallel``). ``POST /chat`` with JSON
+``{"prompt": ...}`` answers ``text/event-stream`` events
+``data: {"msg_type": "log"|"token", "content": ...}``, closed by the
+``done`` summary (sent as a ``log`` with ``finish_reason`` and ``n_gen``);
+``OPTIONS /chat`` answers CORS preflight, ``GET /healthz`` reports the model
+and whether the stream is busy, and ``GET /`` serves the web UI. Requests
+take the one decode stream in turn through an asyncio lock, writing SSE
+keep-alives while they wait.
+
+Run: ``python -m distributed_llm_pipeline_tpu_torch.serving.server --model
+m.gguf [--cpu]`` (port 3005 by default). Without ``--cpu`` it needs a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import contextlib
+import json
+import threading
+from dataclasses import replace
+from pathlib import Path
+
+from aiohttp import web
+
+from ..runtime import Engine, GenerationConfig
+from .common import (acquire_with_keepalive, cors, engine_events,
+                     json_response, sse_response)
+
+STATIC_DIR = Path(__file__).parent / "static"
+
+# request-body fields a client may override per request (plus "stop"), as
+# the reference's /chat takes them
+_OVERRIDES = ("max_new_tokens", "temperature", "top_k", "top_p", "min_p",
+              "repeat_penalty", "repeat_last_n", "seed")
+
+
+class ChatServer:
+    def __init__(self, engine: Engine, gen: GenerationConfig | None = None):
+        self.engine = engine
+        self.gen = gen or GenerationConfig()
+        self._busy = asyncio.Lock()
+        self.app = web.Application()
+        self.app.router.add_post("/chat", self.chat)
+        self.app.router.add_options("/chat", self.preflight)
+        self.app.router.add_get("/healthz", self.healthz)
+        self.app.router.add_get("/", self.index)
+        self.app.router.add_static("/", STATIC_DIR, show_index=False)
+
+    async def preflight(self, request: web.Request) -> web.Response:
+        return cors(web.Response())
+
+    async def healthz(self, request: web.Request) -> web.Response:
+        eng = self.engine
+        return json_response({"status": "ok", "model": eng.cfg.arch,
+                              "n_layers": eng.cfg.n_layers, "ctx": eng.max_seq,
+                              "device": str(eng.device),
+                              "busy": self._busy.locked()})
+
+    async def index(self, request: web.Request) -> web.FileResponse:
+        return web.FileResponse(STATIC_DIR / "index.html")
+
+    def _gen_for(self, body) -> GenerationConfig | str:
+        """The request's generation config, or the client-facing error."""
+        overrides = {k: body[k] for k in _OVERRIDES if k in body}
+        stop = body.get("stop")
+        if isinstance(stop, str):
+            overrides["stop"] = (stop,)
+        elif isinstance(stop, list):
+            if not all(isinstance(s, str) for s in stop):
+                return "'stop' entries must be strings"
+            overrides["stop"] = tuple(stop)
+        elif stop is not None:
+            return "'stop' must be a string or list of strings"
+        return replace(self.gen, **overrides)
+
+    async def chat(self, request: web.Request) -> web.StreamResponse:
+        try:
+            body = await request.json()
+            prompt = body["prompt"]
+        except (json.JSONDecodeError, KeyError, TypeError):
+            return json_response({"error": "body must be JSON {\"prompt\": ...}"},
+                                 status=400)
+        if not isinstance(prompt, str):
+            return json_response({"error": "'prompt' must be a string"}, status=400)
+        gen = self._gen_for(body)
+        if isinstance(gen, str):
+            return json_response({"error": gen}, status=400)
+        resp = await sse_response(request)
+        if not await acquire_with_keepalive(self._busy, resp):
+            return resp  # client gave up while queued; lock not held
+        abort = threading.Event()
+        try:
+            # aclosing: a break closes the generator (joining the engine
+            # thread) before the decode lock is released below
+            async with contextlib.aclosing(
+                    engine_events(self.engine, prompt, gen, abort)) as events:
+                async for ev in events:
+                    try:
+                        await resp.write(
+                            b": keep-alive\n\n" if ev is None else
+                            f"data: {ev.sse_json()}\n\n".encode())
+                    except (ConnectionResetError, asyncio.CancelledError):
+                        abort.set()
+                        break
+        finally:
+            abort.set()
+            self._busy.release()
+        try:
+            await resp.write_eof()
+        except ConnectionResetError:
+            pass
+        return resp
+
+
+def build_argparser():
+    import argparse
+
+    ap = argparse.ArgumentParser(description="LLM pipeline chat server (PyTorch/CUDA)")
+    ap.add_argument("--model", required=True, help="GGUF model file")
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=3005)
+    ap.add_argument("--ctx-size", type=int, default=2048)
+    ap.add_argument("--n-predict", type=int, default=200)
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (default: the CUDA device)")
+    return ap
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = build_argparser().parse_args(argv)
+    engine = Engine(args.model, max_seq=args.ctx_size,
+                    device="cpu" if args.cpu else None)
+    server = ChatServer(engine, GenerationConfig(max_new_tokens=args.n_predict))
+    print(f"chat server listening on http://{args.host}:{args.port}", flush=True)
+    web.run_app(server.app, host=args.host, port=args.port, print=None)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,99 @@
+"""Engine event stream.
+
+The reference's observability is a dual-channel stream: engine stderr becomes
+``{"msg_type": "log", ...}`` SSE events and stdout tokens become
+``{"msg_type": "token", ...}`` (reference ``orchestrator/src/main.rs:23-27,
+63-95``). We generate the same two event kinds natively — plus a ``done``
+summary the reference lacks — so the serving layer can keep the exact SSE
+contract while the CLI maps them back onto stderr/stdout.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import dataclass, field
+
+
+def serving_identity() -> dict:
+    """The serving replica's identity, when this process is one replica of
+    a router fleet (serving/router.py): ``DLP_REPLICA_ID`` names the
+    replica and ``DLP_REPLICA_EPOCH`` counts its restarts (both set by the
+    ReplicaSet at spawn). Empty outside a fleet — single-process servers
+    stay byte-identical on the wire. The id/epoch ride the SSE ``done``
+    event and the ``request_finish`` log line so fleet logs are
+    attributable without the router's access log."""
+    rid = os.environ.get("DLP_REPLICA_ID")
+    if not rid:
+        return {}
+    out = {"replica": rid}
+    epoch = os.environ.get("DLP_REPLICA_EPOCH")
+    if epoch:
+        try:
+            out["replica_epoch"] = int(epoch)
+        except ValueError:
+            pass
+    return out
+
+
+@dataclass(frozen=True)
+class Event:
+    kind: str  # "log" | "token" | "done"
+    content: str
+    t: float = field(default_factory=time.monotonic)
+    # structured payload for API layers (usage counts, finish reason, perf);
+    # never serialized onto the reference's SSE wire schema
+    data: dict | None = field(default=None, compare=False)
+
+    def sse_json(self, identity: dict | None = None) -> str:
+        """The reference's wire schema: msg_type ∈ {log, token} (main.rs:23-27).
+
+        A ``done`` event additionally carries ``request_id`` when tracing
+        stamped one (utils/tracing.py) plus the serving replica's
+        id/epoch when the process serves in a router fleet (``identity``
+        overrides the env-derived default — in-process fleets host many
+        replicas in one process): the same id appears in the structured
+        JSON log line and at ``GET /debug/trace?id=`` — clients reading
+        the reference schema ignore the extra keys."""
+        kind = "log" if self.kind == "done" else self.kind
+        payload = {"msg_type": kind, "content": self.content}
+        if self.kind == "done":
+            if self.data:
+                if self.data.get("request_id"):
+                    payload["request_id"] = self.data["request_id"]
+                # typed terminal outcome + generated-token count on the
+                # wire: the router's stream-resume machinery
+                # (serving/router.py) needs to tell a server-side stream
+                # failure (finish_reason "error" — watchdog, quarantine)
+                # from a clean finish, and to reconcile its delivered
+                # count against the replica's, without guessing from the
+                # human-readable content line
+                if self.data.get("finish_reason") is not None:
+                    payload["finish_reason"] = self.data["finish_reason"]
+                if "n_gen" in self.data:
+                    payload["n_gen"] = self.data["n_gen"]
+                # preemption tier (runtime/scheduler.py): a
+                # swap entry that expired/evicted before re-admission
+                # terminates as a TYPED error with a Retry-After hint —
+                # never a silent hang or a bare 500 — so the error text
+                # and the retry hint ride the wire next to finish_reason
+                if self.data.get("error"):
+                    payload["error"] = self.data["error"]
+                if self.data.get("retry_after_s") is not None:
+                    payload["retry_after_s"] = self.data["retry_after_s"]
+            payload.update(serving_identity() if identity is None
+                           else identity)
+        return json.dumps(payload, ensure_ascii=False)
+
+
+def log(content: str) -> Event:
+    return Event("log", content)
+
+
+def token(content: str, **data) -> Event:
+    return Event("token", content, data=data or None)
+
+
+def done(content: str, **data) -> Event:
+    return Event("done", content, data=data or None)
