@@ -11,25 +11,40 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
 2. Build: every kernel source of the path with nvcc for sm_90a, one process
    per source, all started together.
 3. Kernels: each kernel against its plain PyTorch version on the card, in
-   bf16, at the main path's shapes and the contract's corner cases (GQA and
-   MHA, T=1 and T>1, per-row cache lengths, a ragged KV tail, window +
-   softcap + scale, int8 KV). One JSON line per case: the max abs error and
-   its tolerance, the kernel's, the plain version's and the library call's
-   time, and the least time the card could take (bytes over 3.35 TB/s or
-   operations over 989 TFLOP/s, whichever is larger).
-4. Serve: a GGUF of Llama-3.2-1B geometry (bf16 weights random from --seed,
-   a synthetic 128256-token SPM vocab) goes through the port's Engine, which
-   first runs the three requests once directly (the first request after
-   boot pays lazy kernel loading). Then the port's ChatServer, on a free
-   localhost port, answers the same three as POST /chat (one greedy, two
-   sampled). The SSE events are checked, TTFT and decode tok/s printed, and
-   the attention kernel must have launched exactly n_layers times per model
-   forward. A profiled decode step at 512 cached tokens then gives wall and
-   device time per step, the device's busy share and the top kernels.
-5. Logits: one 512-token prefill and four decode steps with the kernel and
+   bf16, at the main path's shapes and the contract's corner cases. For
+   flash_attention: GQA and MHA, T=1 and T>1, per-row cache lengths, a
+   ragged KV tail, window + softcap + scale, int8 KV. For
+   paged_flash_attention: decode over per-row lengths, rows sharing
+   physical blocks, a mixed step with a parked row, a prefill into fresh
+   blocks, int8 pools, gemma2-9b geometry, block size 16. One JSON line per
+   case: the max abs error and its tolerance, the kernel's (cold and warm
+   L2), the plain version's and the library call's time, and the least time
+   the card could take (bytes over 3.35 TB/s or operations over 989
+   TFLOP/s, whichever is larger).
+4. Serve, single stream: a GGUF of Llama-3.2-1B geometry (bf16 weights
+   random from --seed, a synthetic 128256-token SPM vocab) goes through the
+   port's Engine, which first runs the three requests once directly (the
+   first request after boot pays lazy kernel loading). Then the port's
+   ChatServer, on a free localhost port, answers the same three as POST
+   /chat (one greedy, two sampled). The SSE events are checked, TTFT and
+   decode tok/s printed, and the attention kernel must have launched
+   exactly n_layers times per model forward. A profiled decode step at 512
+   cached tokens then gives wall and device time per step, the device's busy
+   share and the top kernels.
+5. Serve, slots: ChatServer(parallel=4) over the same engine answers four
+   concurrent POST /chat: two greedy requests sharing a ~480-token prefix
+   (the second sent once the first streams, so it finds the prefix in the
+   pool), a ~1000-token prompt fed through chunked-prefill mixed steps
+   while the others decode, and a short sampled one. Every stream must end
+   in its done summary, the pool must have served a prefix hit and a mixed
+   step, and the paged kernel must have launched exactly n_layers times per
+   paged forward. Per-request TTFT, per-stream and aggregate decode tok/s,
+   and a profiled B=4 paged decode step are printed.
+6. Logits: one 512-token prefill and four decode steps with the kernel and
    with the plain attention on the card: max abs logit error within a bf16
-   tolerance and the same argmax.
-6. The kernels line (one JSON object), the card line, and last the ok line.
+   tolerance and the same argmax. Then the same prompt through the paged
+   forward on the pool against the dense forward, held the same way.
+7. The kernels line (one JSON object), the card line, and last the ok line.
 """
 
 from __future__ import annotations
@@ -210,6 +225,150 @@ def check_attention(fa, kv_quantize, seed: int, flush: torch.Tensor) -> list[dic
 
 
 # --------------------------------------------------------------------------
+# phase 3: paged_flash_attention against its plain version
+
+# Llama-3.2-1B geometry (H=32, K=8, Hd=64) over the serving pool's default
+# geometry (bs=64 at max_seq 2048, so NT=32) unless noted
+PAGED_CASES = [
+    dict(name="decode_per_row", B=4, T=1, lengths=[1000, 37, 1500, 2047]),
+    dict(name="decode_shared_prefix", B=4, T=1, lengths=[1000, 37, 1500, 2047],
+         shared=8),
+    # the mixed step of chunked prefill: T = prefill_chunk lanes per row;
+    # row 3 is parked at max_seq (a free slot) and maps no block
+    dict(name="mixed_step_parked", B=4, T=64, lengths=[448, 900, 1300, 2048],
+         parked=3),
+    dict(name="prefill_fresh_blocks", B=1, T=512, lengths=[0]),
+    dict(name="int8_decode", B=4, T=1, lengths=[1000, 37, 1500, 2047],
+         quant=True),
+    # gemma2-9b geometry: window, softcap and explicit scale, Hd=256, bs=32
+    dict(name="gemma2_window_softcap", B=2, T=1, lengths=[4500, 300], H=16,
+         Hd=256, bs=32, max_seq=5120, window=4096, softcap=50.0,
+         scale=256 ** -0.5),
+    dict(name="block_size_16", B=4, T=1, lengths=[1000, 37, 1500, 2047], bs=16),
+]
+
+
+def paged_geometry(c: dict) -> dict:
+    g = dict(H=32, K=8, Hd=64, bs=64, max_seq=2048, window=0, softcap=0.0,
+             scale=0.0, quant=False, shared=0, parked=None)
+    g.update(c)
+    g["NT"] = -(-g["max_seq"] // g["bs"])
+    return g
+
+
+def paged_inputs(g: dict, gen: torch.Generator) -> dict:
+    """Pools, tables and lengths for a case: each row maps the blocks its
+    columns need to distinct physical blocks in shuffled order; the rest
+    of its table is 0 (the sentinel). ``shared`` makes rows 0 and 1 name
+    the same first blocks; the ``parked`` row maps nothing."""
+    B, T, K, Hd, bs, NT = (g[k] for k in ("B", "T", "K", "Hd", "bs", "NT"))
+    need = [0 if b == g["parked"] else min(NT, -(-(g["lengths"][b] + T) // bs))
+            for b in range(B)]
+    N = 1 + sum(need)
+    perm = (torch.randperm(N - 1, generator=torch.Generator().manual_seed(1)) + 1).tolist()
+    tables = torch.zeros(B, NT, dtype=torch.int32)
+    for b in range(B):
+        for j in range(need[b]):
+            tables[b, j] = perm.pop()
+    if g["shared"]:
+        tables[1, :g["shared"]] = tables[0, :g["shared"]]
+    q = torch.randn(B, T, g["H"], Hd, generator=gen, device="cuda").bfloat16()
+    kp = torch.randn(N, bs, K, Hd, generator=gen, device="cuda").bfloat16()
+    vp = torch.randn(N, bs, K, Hd, generator=gen, device="cuda").bfloat16()
+    return dict(q=q, kp=kp, vp=vp, tables=tables.cuda(),
+                lengths=torch.tensor(g["lengths"], dtype=torch.int32, device="cuda"))
+
+
+def paged_bound(g: dict, tables: torch.Tensor) -> tuple[float, str]:
+    """Least time for the work these inputs need: Q and O once, and once
+    each physical block that some row's mask reaches; 4·Hd operations per
+    head per visible (query, column) pair."""
+    B, T, H, K, Hd, bs, NT = (g[k] for k in ("B", "T", "H", "K", "Hd", "bs", "NT"))
+    window, S = g["window"], NT * bs
+    blk_bytes = bs * 2 * K * Hd * (1 if g["quant"] else 2) \
+        + (bs * 2 * K * 4 if g["quant"] else 0)
+    tbl = tables.tolist()
+    blocks, flops = set(), 0
+    for b, cl in enumerate(g["lengths"]):
+        lo = max(0, cl - window + 1) if window else 0
+        hi = min(S, cl + T)
+        blocks.update(tbl[b][j] for j in range(lo // bs, -(-hi // bs)))
+        for t in range(T):
+            pos = cl + t
+            first = max(0, pos - window + 1) if window else 0
+            flops += 4 * H * Hd * (min(pos, S - 1) - first + 1)
+    n_bytes = 2 * B * T * H * Hd * 2 + len(blocks) * blk_bytes
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, flops / BF16_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_paged(pa, kv_quantize, seed: int, flush: torch.Tensor) -> list[dict]:
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for c in PAGED_CASES:
+        g = paged_geometry(c)
+        x = paged_inputs(g, gen)
+        q, kp, vp, tables, lengths = (x[k] for k in ("q", "kp", "vp", "tables",
+                                                      "lengths"))
+        ks = vs = None
+        if g["quant"]:
+            (kp, ks), (vp, vs) = kv_quantize(kp), kv_quantize(vp)
+        n_rep = g["H"] // g["K"]
+        kw = dict(scale=g["scale"], softcap=g["softcap"], window=g["window"],
+                  k_scale=ks, v_scale=vs)
+        args = (q, kp, vp, tables, lengths, n_rep)
+        got = pa.paged_flash_attention(*args, **kw)
+        torch.cuda.synchronize()
+        ref = pa.paged_attention_plain(*args, **kw)
+        err = (got.float() - ref.float()).abs().max().item()
+        if not (err <= KERNEL_TOL and torch.isfinite(got.float()).all()):
+            fail(f"paged_flash_attention case {c['name']}: max abs err {err} "
+                 f"> {KERNEL_TOL}")
+        library_ms = None
+        if not g["quant"] and not g["softcap"]:
+            # the yardstick: SDPA over the window gathered beforehand (the
+            # gather is not timed); the port never calls it
+            B, T, S = g["B"], g["T"], g["NT"] * g["bs"]
+            kt = pa.gather_paged_kv(kp, tables).transpose(1, 2)
+            vt = pa.gather_paged_kv(vp, tables).transpose(1, 2)
+            qpos = lengths.reshape(-1, 1, 1) + torch.arange(T, device="cuda")[None, :, None]
+            kpos = torch.arange(S, device="cuda")[None, None, :]
+            mask = kpos <= qpos
+            if g["window"]:
+                mask &= qpos - kpos < g["window"]
+            mask = mask[:, None]
+            qt = q.transpose(1, 2)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=g["scale"] or None,
+                    enable_gqa=n_rep > 1)
+
+            lib_err = (sdpa().transpose(1, 2).float() - ref.float()).abs().max().item()
+            if lib_err > KERNEL_TOL:
+                fail(f"SDPA yardstick disagrees on {c['name']}: {lib_err}")
+            library_ms = event_ms(sdpa, 20, flush)
+        bound_ms, bound_by = paged_bound(g, tables)
+        row = {"case": c["name"], "kernel": "paged_flash_attention",
+               "shape": {k: c[k] for k in c if k != "name"},
+               "max_abs_err": err, "tol": KERNEL_TOL,
+               "kernel_ms": event_ms(lambda: pa.paged_flash_attention(*args, **kw),
+                                     50, flush),
+               "kernel_warm_l2_ms": event_ms(
+                   lambda: pa.paged_flash_attention(*args, **kw), 50, None),
+               "kernel_host_us": host_us(lambda: pa.paged_flash_attention(*args, **kw)),
+               "plain_ms": event_ms(lambda: pa.paged_attention_plain(*args, **kw),
+                                    10, flush),
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+# --------------------------------------------------------------------------
 # phase 4: the served path
 
 def build_vocab(vocab_size: int) -> dict:
@@ -295,17 +454,40 @@ def write_model(path: Path, cfg, seed: int, device: str = "cuda") -> None:
     w.write()
 
 
-async def chat_requests(engine, requests: list[dict]) -> tuple[dict, list[dict]]:
-    """Boot the port's ChatServer on a free localhost port and POST each
-    request to /chat; returns /healthz and each request's events with the
-    client-side first- and last-token times."""
+async def stream_chat(s, base: str, body: dict,
+                      first: asyncio.Event | None = None) -> dict:
+    """POST one /chat and collect its SSE events with the client-side
+    first- and last-token times; ``first`` is set at the first token."""
+    t0, t_first, t_last, events = time.monotonic(), None, None, []
+    async with s.post(f"{base}/chat", json=body) as r:
+        if r.status != 200 or not r.headers["Content-Type"].startswith(
+                "text/event-stream"):
+            fail(f"/chat answered {r.status} {r.headers['Content-Type']}")
+        async for raw in r.content:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            ev = json.loads(line[6:])
+            events.append(ev)
+            if ev["msg_type"] == "token":
+                t_last = time.monotonic()
+                t_first = t_first or t_last
+                if first is not None:
+                    first.set()
+    return {"body": body, "events": events, "t0": t0, "t_first": t_first,
+            "t_last": t_last}
+
+
+async def chat_requests(server, requests: list[dict],
+                        lead: int | None = None) -> tuple[dict, list[dict]]:
+    """Boot ``server`` (a port ChatServer) on a free localhost port and POST
+    each request to /chat: one after another, or, with ``lead``, that
+    request first and all the others together once it streams its first
+    token. Returns /healthz (read first) and each request's events in
+    request order."""
     import aiohttp
     from aiohttp import web
 
-    from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig
-    from distributed_llm_pipeline_tpu_torch.serving import ChatServer
-
-    server = ChatServer(engine, GenerationConfig(max_new_tokens=32))
     runner = web.AppRunner(server.app)
     await runner.setup()
     sock = socket.socket()
@@ -313,32 +495,26 @@ async def chat_requests(engine, requests: list[dict]) -> tuple[dict, list[dict]]
     site = web.SockSite(runner, sock)
     await site.start()
     base = f"http://127.0.0.1:{sock.getsockname()[1]}"
-    out = []
     try:
         async with aiohttp.ClientSession(
                 timeout=aiohttp.ClientTimeout(total=600)) as s:
             async with s.get(f"{base}/healthz") as r:
                 health = await r.json()
-            for body in requests:
-                t0, t_first, t_last, events = time.monotonic(), None, None, []
-                async with s.post(f"{base}/chat", json=body) as r:
-                    if r.status != 200 or not r.headers["Content-Type"].startswith(
-                            "text/event-stream"):
-                        fail(f"/chat answered {r.status} {r.headers['Content-Type']}")
-                    async for raw in r.content:
-                        line = raw.decode().strip()
-                        if not line.startswith("data: "):
-                            continue
-                        ev = json.loads(line[6:])
-                        events.append(ev)
-                        if ev["msg_type"] == "token":
-                            t_last = time.monotonic()
-                            t_first = t_first or t_last
-                out.append({"body": body, "events": events, "t0": t0,
-                            "t_first": t_first, "t_last": t_last})
+            if lead is None:
+                return health, [await stream_chat(s, base, b) for b in requests]
+            first = asyncio.Event()
+            lead_task = asyncio.create_task(
+                stream_chat(s, base, requests[lead], first))
+            lead_task.add_done_callback(lambda _: first.set())
+            await first.wait()
+            rest = {i: asyncio.create_task(stream_chat(s, base, b))
+                    for i, b in enumerate(requests) if i != lead}
+            out = {lead: await lead_task}
+            for i, t in rest.items():
+                out[i] = await t
+            return health, [out[i] for i in range(len(requests))]
     finally:
-        await runner.cleanup()
-    return health, out
+        await runner.cleanup()   # closes a slot scheduler too
 
 
 def check_sse(res: dict) -> dict:
@@ -368,20 +544,43 @@ def check_sse(res: dict) -> dict:
 
 
 def profile_decode(engine, steps: int = 8) -> dict:
-    """Where a decode step's time goes, 512 tokens into the cache: wall time
-    per step (host clock around synchronized steps), device time per step
-    and its top kernels (torch.profiler), and the device's busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where a single-stream decode step's time goes, 512 tokens into the
+    dense cache."""
     cache = engine.make_cache()
     engine.prefill(list(range(3, 515)), cache)
     tok = torch.tensor([[7]], device=engine.device)
+    return profile_steps(lambda: engine.model(tok, cache), steps)
+
+
+def profile_paged_decode(engine, B: int = 4, length: int = 512,
+                         steps: int = 8) -> dict:
+    """Where a batched decode step of the slots path goes: B rows, each
+    ``length`` tokens into its own blocks of the paged pool."""
+    cache = engine.make_paged_cache(B)
+    NT = cache.tables.shape[1]
+    cache.tables = (1 + torch.arange(B * NT, device=engine.device)
+                    ).reshape(B, NT).to(torch.int32)
+    tok = torch.full((B, 1), 7, device=engine.device)
+
+    def step():
+        cache.length = torch.full((B,), length, dtype=torch.int32,
+                                  device=engine.device)
+        engine.model.forward_paged(tok, cache)
+
+    return profile_steps(step, steps)
+
+
+def profile_steps(step, steps: int) -> dict:
+    """Wall time per step (host clock around synchronized steps), device
+    time per step and its top kernels (torch.profiler), and the device's
+    busy share."""
+    from torch.profiler import ProfilerActivity, profile
 
     def run() -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
-            engine.model(tok, cache)
+            step()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / steps
 
@@ -399,11 +598,11 @@ def profile_decode(engine, steps: int = 8) -> dict:
     return {"wall_ms_per_step": wall * 1e3, "device_ms_per_step": device,
             "device_busy_share": device / (wall * 1e3),
             "kernels_per_step": len(kernels) / steps,
-            "top_kernels_ms_per_step": [[n[:70], ms] for n, ms in top]}
+            "top_kernels_ms_per_step": [[n[:100], ms] for n, ms in top]}
 
 
 # --------------------------------------------------------------------------
-# phase 5: served logits, kernel against plain attention
+# phase 6: served logits, kernel against plain attention, paged against dense
 
 def compare_logits(engine, fa, llama, seed: int) -> dict:
     """A 512-token prefill and four greedy decode steps, once through the
@@ -433,22 +632,150 @@ def compare_logits(engine, fa, llama, seed: int) -> dict:
         plain = run()
     finally:
         llama.attention_any = orig
+    return hold_logits(kern, plain, "kernel", "plain")
+
+
+def compare_paged_logits(engine, seed: int) -> dict:
+    """The same 512-token prefill and four greedy decode steps through the
+    paged forward on a pool (paged kernel) and through the dense forward
+    (dense kernel)."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(3, engine.cfg.vocab_size, (1, 512), generator=g)
+    ids = ids.to(engine.device)
+    cache = engine.make_cache()
+    dense = [engine.model.forward_last(ids, cache, ids.shape[1] - 1)]
+    steps = []
+    for _ in range(4):
+        steps.append(dense[-1].argmax(-1))
+        dense.append(engine.model(steps[-1].view(1, 1), cache)[:, -1])
+    pool = engine.make_paged_cache(1)
+    NT = pool.tables.shape[1]
+    pool.tables = torch.arange(1, NT + 1, dtype=torch.int32,
+                               device=engine.device)[None]
+    paged = [engine.model.forward_paged_last(ids, pool, ids.shape[1] - 1)]
+    for tok in steps:
+        paged.append(engine.model.forward_paged(tok.view(1, 1), pool)[:, -1])
+    return hold_logits(paged, dense, "paged", "dense")
+
+
+def hold_logits(got: list[torch.Tensor], want: list[torch.Tensor],
+                a_name: str, b_name: str) -> dict:
+    """Max abs logit error within LOGIT_TOL and the same argmax, except at
+    a near tie of ``want``'s top two within that tolerance."""
     worst, near_ties = 0.0, 0
-    for a, b in zip(kern, plain):
+    for a, b in zip(got, want):
         if not torch.isfinite(a).all():
             fail("non-finite logits")
         worst = max(worst, (a - b).abs().max().item())
         ka, pa = a.argmax(-1).item(), b.argmax(-1).item()
         if ka != pa:
-            # only a near tie of the plain run's top two may swap
+            # only a near tie of the reference run's top two may swap
             top2 = b[0].topk(2).values
             if (top2[0] - top2[1]).item() > LOGIT_TOL or (b[0, pa] - b[0, ka]).item() > LOGIT_TOL:
-                fail(f"argmax differs: kernel {ka}, plain {pa}")
+                fail(f"argmax differs: {a_name} {ka}, {b_name} {pa}")
             near_ties += 1
     if worst > LOGIT_TOL:
         fail(f"logits differ by {worst} > {LOGIT_TOL}")
-    return {"positions": len(kern), "max_abs_err": worst, "tol": LOGIT_TOL,
+    return {"positions": len(got), "max_abs_err": worst, "tol": LOGIT_TOL,
             "argmax_near_ties": near_ties}
+
+
+# --------------------------------------------------------------------------
+# phase 5: the served path, four slots over the paged pool
+
+def slot_requests(seed: int) -> list[dict]:
+    """The four /chat bodies of the slots phase. Letters outside the
+    vocabulary's pieces encode as byte tokens, so random letters give
+    prompts that share no block with each other."""
+    import random
+
+    rnd = random.Random(seed)
+
+    def letters(n: int) -> str:
+        return "".join(rnd.choice("abcdfgijkmnpqrstuvwxyz") for _ in range(n))
+
+    prefix = " ".join(["hello"] * 480)     # ~480 tokens: 7 full blocks of 64
+    greedy = {"max_new_tokens": 32, "temperature": 0.0, "stop_on_eos": False}
+    return [
+        {"prompt": f"{prefix} {letters(19)}", **greedy},
+        {"prompt": f"{prefix} {letters(19)}", **greedy},
+        {"prompt": letters(1000), **greedy},          # chunked prefill
+        {"prompt": "hello hello", "max_new_tokens": 32, "temperature": 0.8,
+         "top_k": 40, "top_p": 0.95, "seed": 1},
+    ]
+
+
+def serve_slots(engine, pa, fa, cfg, card: str, seed: int) -> int:
+    """Phase 5: ChatServer(parallel=4) answers four concurrent /chat
+    requests; returns the paged kernel's launches in that run."""
+    from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig
+    from distributed_llm_pipeline_tpu_torch.runtime.paged import kv_token_bytes
+    from distributed_llm_pipeline_tpu_torch.serving import ChatServer
+
+    server = ChatServer(engine, GenerationConfig(max_new_tokens=32), parallel=4)
+    sched = server.scheduler
+    backend = sched._backend
+    pool_bytes = backend.n_blocks * backend.bs * kv_token_bytes(cfg, None)
+    held = sum(sched._bufs[n].nbytes for n in ("k", "v"))
+    if pool_bytes != held:
+        fail(f"the KV pool holds {held} bytes, kv_token_bytes says {pool_bytes}")
+    # warm-up through the scheduler, on prompts that share no block with the
+    # measured ones: lazy kernel loading, one chunked and one short prefill
+    for body in slot_requests(seed + 100)[2:]:
+        warm = list(sched.generate(body["prompt"], GenerationConfig(
+            **{k: v for k, v in body.items() if k != "prompt"})))[-1]
+        print(json.dumps({"slots_warm_up": warm.content, "card": card}), flush=True)
+    requests = slot_requests(seed)
+    sched.counters = dict.fromkeys(sched.counters, 0)
+    forwards0 = sched.forwards
+    pa.launches = fa.launches = 0
+    t0 = time.monotonic()
+    health, results = asyncio.run(chat_requests(server, requests, lead=0))
+    wall = time.monotonic() - t0
+    launches, dense_launches = pa.launches, fa.launches
+    forwards = sched.forwards - forwards0
+    if health.get("slots_total") != 4 or health.get("queue_depth") != 0:
+        fail(f"/healthz under --parallel 4: {health}")
+    summaries = []
+    for i, res in enumerate(results):
+        summary = check_sse(res)
+        summaries.append(summary)
+        print(json.dumps({"slots_request": i, "prompt_chars": len(res["body"]["prompt"]),
+                          "sampled": res["body"]["temperature"] > 0, **summary,
+                          "card": card}), flush=True)
+    c = sched.counters
+    if c["paged_prefix_hits_total"] < 1:
+        fail(f"no paged prefix hit in the slots run: {c}")
+    if c["prefill_steps_stolen_total"] < 1:
+        fail(f"no mixed step stole from a decoding stream: {c}")
+    if forwards <= 0 or launches != cfg.n_layers * forwards or dense_launches:
+        fail(f"paged_flash_attention launched {launches} times for {forwards} "
+             f"paged forwards of {cfg.n_layers} layers (dense kernel: "
+             f"{dense_launches})")
+    n_gen = sum(s["n_gen"] for s in summaries)
+    first = min(r["t0"] for r in results)
+    last = max(r["t_last"] for r in results)
+    print(json.dumps({"slots_served": {
+        "requests": len(results), "tokens": n_gen, "wall_s": wall,
+        "aggregate_tok_s": n_gen / (last - first), "paged_forwards": forwards,
+        "paged_launches": launches, "counters": c,
+        "kv_pool": {"blocks": backend.n_blocks, "block_size": backend.bs,
+                    "bytes": pool_bytes},
+        "card": card}}), flush=True)
+    print(f"slots path: {forwards} paged forwards, {launches} "
+          f"paged_flash_attention launches (= {cfg.n_layers} layers x "
+          f"forwards), 0 dense launches", flush=True)
+    return launches
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int,
+                 rows: list[dict], timed: dict) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": timed["kernel_ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "library_ms": timed["library_ms"], "timed_case": timed["case"]}
 
 
 def main() -> int:
@@ -462,7 +789,9 @@ def main() -> int:
     from distributed_llm_pipeline_tpu_torch.models import PRESETS, llama
     from distributed_llm_pipeline_tpu_torch.ops import cuda_build
     from distributed_llm_pipeline_tpu_torch.ops import flash_attention as fa
-    from distributed_llm_pipeline_tpu_torch.runtime import Engine
+    from distributed_llm_pipeline_tpu_torch.ops import paged_attention as pa
+    from distributed_llm_pipeline_tpu_torch.runtime import Engine, GenerationConfig
+    from distributed_llm_pipeline_tpu_torch.serving import ChatServer
 
     # 1. the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -475,7 +804,7 @@ def main() -> int:
 
     # 2. build every kernel source of the path
     t0 = time.monotonic()
-    built = cuda_build.build(["flash_attention"])
+    built = cuda_build.build(["flash_attention", "paged_attention"])
     print(f"build: {len(built)} kernel source(s) in {time.monotonic() - t0:.1f}s",
           flush=True)
     for b in built.values():
@@ -487,9 +816,10 @@ def main() -> int:
     # 3. kernels against their plain versions
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")   # 256 MiB > L2
     rows = check_attention(fa, llama.kv_quantize, args.seed, flush)
+    paged_rows = check_paged(pa, llama.kv_quantize, args.seed, flush)
     del flush
 
-    # 4. the served path
+    # 4. the served path, single stream
     cfg = PRESETS["llama3.2-1b"]
     model_dir = ROOT / "build" / "chip_smoke"
     model_dir.mkdir(parents=True, exist_ok=True)
@@ -515,8 +845,6 @@ def main() -> int:
     ]
     # the same three requests once straight through the engine first: the
     # first after boot pays CUDA's lazy kernel loading and cuBLAS's set-up
-    from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig
-
     for i, body in enumerate(requests):
         gen = GenerationConfig(**{k: v for k, v in body.items() if k != "prompt"})
         warm = list(engine.generate(body["prompt"], gen))[-1]
@@ -524,7 +852,8 @@ def main() -> int:
                           "ttft_ms": warm.data["ttft_ms"], "card": card}), flush=True)
     fa.launches = 0
     forwards0 = engine.forwards
-    health, results = asyncio.run(chat_requests(engine, requests))
+    health, results = asyncio.run(chat_requests(
+        ChatServer(engine, GenerationConfig(max_new_tokens=32)), requests))
     launches = fa.launches
     forwards = engine.forwards - forwards0
     if health.get("status") != "ok" or health.get("n_layers") != cfg.n_layers:
@@ -542,22 +871,27 @@ def main() -> int:
     print(json.dumps({"decode_step": profile_decode(engine), "card": card}),
           flush=True)
 
-    # 5. served logits: kernel against plain attention
+    # 5. the served path, four slots over the paged pool
+    paged_launches = serve_slots(engine, pa, fa, cfg, card, args.seed)
+    print(json.dumps({"paged_decode_step_b4": profile_paged_decode(engine),
+                      "card": card}), flush=True)
+
+    # 6. served logits: kernel against plain attention, paged against dense
     print(json.dumps({"logits": compare_logits(engine, fa, llama, args.seed)}),
           flush=True)
+    print(json.dumps({"paged_logits": compare_paged_logits(engine, args.seed)}),
+          flush=True)
 
-    # 6. results
-    prefill = rows[0]
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "distributed_llm_pipeline_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "distributed_llm_pipeline_tpu/ops/flash_attention.py:138",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": prefill["kernel_ms"], "plain_ms": prefill["plain_ms"],
-        "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
-        "library_ms": prefill["library_ms"], "timed_case": prefill["case"]}]}),
-        flush=True)
+    # 7. results
+    print(json.dumps({"kernels": [
+        kernel_entry("flash_attention",
+                     "distributed_llm_pipeline_tpu_torch/csrc/flash_attention.cu",
+                     "distributed_llm_pipeline_tpu/ops/flash_attention.py:138",
+                     launches, rows, rows[0]),
+        kernel_entry("paged_flash_attention",
+                     "distributed_llm_pipeline_tpu_torch/csrc/paged_attention.cu",
+                     "distributed_llm_pipeline_tpu/ops/paged_attention.py:141",
+                     paged_launches, paged_rows, paged_rows[0])]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Llama-family transformer forward over a dense KV cache, in PyTorch.
+"""Llama-family transformer forward over a dense KV cache or a paged KV
+pool, in PyTorch.
 
 The counterpart of ``distributed_llm_pipeline_tpu/models/llama.py``, function
 for function, for the dense families: Llama-2/3, Qwen2/3, Gemma-1/2, OLMo2,
@@ -14,8 +15,9 @@ Differences of idiom, not of arithmetic:
   with ``F.linear``; the reference keeps (in, out).
 - The layer loop is a Python loop over an ``nn.ModuleList``; the reference
   scans stacked layer weights.
-- The KV cache is written in place. The reference returns a new cache and
-  donates the old one, which lets XLA update it in place too.
+- The KV cache and the paged pools are written in place. The reference
+  returns new buffers and donates the old ones, which lets XLA update them in
+  place too.
 
 Weights live in the engine dtype (bf16 by default); norms, rope, softmax and
 the logits run in f32.
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import attention_any
+from ..ops.paged_attention import paged_attention_any
 from .config import ModelConfig
 
 # flat parameter state: "embed", "out_norm", optional "out_norm_b" and
@@ -59,14 +62,65 @@ class KVCache:
         if kv_quant is None:
             return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                            torch.zeros(shape, dtype=dtype, device=device))
-        if kv_quant != "q8_0":
-            raise ValueError(f"unsupported kv cache quant {kv_quant!r} "
-                             f"(supported: q8_0)")
+        check_kv_quant(kv_quant)
         sshape = shape[:-1] + (1,)
         return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
                        torch.zeros(shape, dtype=torch.int8, device=device), 0,
                        torch.zeros(sshape, dtype=torch.float32, device=device),
                        torch.zeros(sshape, dtype=torch.float32, device=device))
+
+
+@dataclass
+class PagedKVCache:
+    """Paged slot KV: one physical block pool per layer plus per-row block
+    tables.
+
+    - ``k``/``v``: [n_layers, n_blocks, block_size, n_kv_heads, head_dim],
+      the shared pool; int8 codes with ``k_scale``/``v_scale`` [..., 1] f32
+      per-head-vector scales on an int8 pool.
+    - ``tables``: int32 [B, n_tables]; logical block j of row b lives in
+      physical block ``tables[b, j]``.
+    - ``length``: int32 [B], the valid positions of each row.
+
+    Physical block 0 is the sentinel: unmapped table entries point at it,
+    so every gather and scatter stays in bounds without a mask."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    tables: torch.Tensor
+    length: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[2]
+
+    @staticmethod
+    def zeros(cfg: ModelConfig, n_blocks: int, block_size: int, batch: int,
+              n_tables: int, dtype: torch.dtype = torch.bfloat16, device="cpu",
+              kv_quant: str | None = None) -> "PagedKVCache":
+        shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+        tables = torch.zeros((batch, n_tables), dtype=torch.int32, device=device)
+        length = torch.zeros((batch,), dtype=torch.int32, device=device)
+        if kv_quant is None:
+            return PagedKVCache(torch.zeros(shape, dtype=dtype, device=device),
+                                torch.zeros(shape, dtype=dtype, device=device),
+                                tables, length)
+        check_kv_quant(kv_quant)
+        sshape = shape[:-1] + (1,)
+        return PagedKVCache(
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape, dtype=torch.int8, device=device), tables, length,
+            torch.zeros(sshape, dtype=torch.float32, device=device),
+            torch.zeros(sshape, dtype=torch.float32, device=device))
+
+
+def check_kv_quant(kv_quant: str | None) -> None:
+    """The supported KV-cache quant formats."""
+    if kv_quant is not None and kv_quant != "q8_0":
+        raise ValueError(f"unsupported kv cache quant {kv_quant!r} "
+                         f"(supported: q8_0)")
 
 
 def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -232,6 +286,65 @@ class Block(nn.Module):
                              k_scale=ks, v_scale=vs)
         return self.ffn(self.attn_out(x, attn))
 
+    def forward_paged(self, x: torch.Tensor, cos: torch.Tensor,
+                      sin: torch.Tensor, cache: PagedKVCache, layer: int,
+                      where: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        """One block over the paged pool: the new tokens' K/V scatter into
+        the layer's pools at ``where`` (``paged_write_index``), then
+        attention reads them back through the block tables."""
+        cfg = self.cfg
+        q, k, v = self.qkv(x, cos, sin)
+        ks = vs = None
+        if cache.k_scale is not None:
+            ks, vs = cache.k_scale[layer], cache.v_scale[layer]
+        _paged_kv_write(cache.k[layer], cache.v[layer], ks, vs, k, v, *where)
+        attn = paged_attention_any(q, cache.k[layer], cache.v[layer],
+                                   cache.tables, cache.length,
+                                   cfg.n_heads // cfg.n_kv_heads,
+                                   scale=cfg.attn_scale,
+                                   softcap=cfg.attn_softcap, window=self.window,
+                                   k_scale=ks, v_scale=vs)
+        return self.ffn(self.attn_out(x, attn))
+
+
+def paged_write_index(tables: torch.Tensor, lengths: torch.Tensor, T: int,
+                      bs: int, n_tok: torch.Tensor | None = None,
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where T new tokens of each row go in the pools: (physical block,
+    offset), each [B, T]. Write positions clamp to the last logical
+    position ``NT * bs - 1`` (a parked row, at ``max_seq``, corrupts at most
+    that slot-private position); with ``n_tok`` ([B]), lanes at or past a
+    row's count go to sentinel block 0 (the mixed-step contract). Every
+    layer shares one table, so a forward computes this once."""
+    NT = tables.shape[1]
+    lane = torch.arange(T, device=tables.device)
+    pos = (lengths.long()[:, None] + lane[None, :]).clamp_max(NT * bs - 1)
+    blk = torch.gather(tables.long(), 1, pos // bs)
+    off = pos % bs
+    if n_tok is not None:
+        valid = lane[None, :] < n_tok.long()[:, None]
+        blk = torch.where(valid, blk, 0)   # junk lanes land in the junk block
+        off = torch.where(valid, off, 0)
+    return blk, off
+
+
+def _paged_kv_write(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                    pool_ks: torch.Tensor | None, pool_vs: torch.Tensor | None,
+                    k: torch.Tensor, v: torch.Tensor, blk: torch.Tensor,
+                    off: torch.Tensor) -> None:
+    """Scatter new tokens' K/V ([B, T, K, Hd]) into one layer's pools
+    ([N, bs, K, Hd], in place) at ``paged_write_index``'s places,
+    quantized per head vector on an int8 pool."""
+    if pool_ks is not None:
+        (kq, k_s), (vq, v_s) = kv_quantize(k), kv_quantize(v)
+        pool_k[blk, off] = kq
+        pool_v[blk, off] = vq
+        pool_ks[blk, off] = k_s
+        pool_vs[blk, off] = v_s
+    else:
+        pool_k[blk, off] = k.to(pool_k.dtype)
+        pool_v[blk, off] = v.to(pool_v.dtype)
+
 
 def _logits_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., D] against w [V, D] with f32 output. On the card a bf16
@@ -263,13 +376,17 @@ class LlamaModel(nn.Module):
                         if k.startswith(f"layers.{i}.")}, windows[i])
             for i in range(cfg.n_layers))
 
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed[tokens]
+        if self.cfg.embed_scale != 1.0:   # Gemma: sqrt(dim)
+            x = (x.float() * self.cfg.embed_scale).to(x.dtype)
+        return x
+
     def backbone(self, tokens: torch.Tensor, cache: KVCache) -> torch.Tensor:
         """tokens [B, T] → pre-norm hidden states [B, T, D]; advances
         ``cache.length`` by T."""
         B, T = tokens.shape
-        x = self.embed[tokens]
-        if self.cfg.embed_scale != 1.0:   # Gemma: sqrt(dim)
-            x = (x.float() * self.cfg.embed_scale).to(x.dtype)
+        x = self.embed_tokens(tokens)
         pos = cache.length + torch.arange(T, device=tokens.device)
         cos, sin = rope_freqs(self.cfg, pos[None, :].expand(B, T))
         for i, block in enumerate(self.layers):
@@ -305,3 +422,48 @@ class LlamaModel(nn.Module):
         padded bucket never builds the [B, T, V] tensor."""
         x = self.backbone(tokens, cache)
         return self.lm_logits(x[:, last_index:last_index + 1])[:, 0]
+
+    def backbone_paged(self, tokens: torch.Tensor, cache: PagedKVCache,
+                       n_tok: torch.Tensor | None = None) -> torch.Tensor:
+        """tokens [B, T] over the paged pool, row b at positions
+        [length[b], length[b] + T) → pre-norm hidden states [B, T, D].
+        ``n_tok`` ([B], optional) marks each row's real lanes (the mixed
+        step): padding lanes write into the sentinel block, and the lengths
+        advance by ``n_tok`` instead of T."""
+        T = tokens.shape[1]
+        x = self.embed_tokens(tokens)
+        pos = cache.length.long()[:, None] + torch.arange(T, device=tokens.device)
+        cos, sin = rope_freqs(self.cfg, pos)
+        where = paged_write_index(cache.tables, cache.length, T,
+                                  cache.block_size, n_tok)
+        for i, block in enumerate(self.layers):
+            x = block.forward_paged(x, cos, sin, cache, i, where)
+        cache.length = cache.length + (T if n_tok is None else n_tok.to(torch.int32))
+        return x
+
+    @torch.inference_mode()
+    def forward_paged(self, tokens: torch.Tensor,
+                      cache: PagedKVCache) -> torch.Tensor:
+        """Batched forward over the paged pool: tokens [B, T] → logits
+        [B, T, V] f32."""
+        return self.lm_logits(self.backbone_paged(tokens, cache))
+
+    @torch.inference_mode()
+    def forward_paged_last(self, tokens: torch.Tensor, cache: PagedKVCache,
+                           last_index: int) -> torch.Tensor:
+        """Prefill over the paged pool: logits of position ``last_index``
+        only ([B, V] f32). The shared prefix's KV is already in the pool and
+        is only read by attention, never recomputed."""
+        x = self.backbone_paged(tokens, cache)
+        return self.lm_logits(x[:, last_index:last_index + 1])[:, 0]
+
+    @torch.inference_mode()
+    def forward_paged_mixed(self, tokens: torch.Tensor, cache: PagedKVCache,
+                            n_tok: torch.Tensor) -> torch.Tensor:
+        """Mixed prefill + decode step: tokens [B, T] of which row b's first
+        ``n_tok[b]`` lanes are real → logits [B, V] f32 at each row's own
+        last real lane; lengths advance by ``n_tok``."""
+        x = self.backbone_paged(tokens, cache, n_tok)
+        idx = (n_tok.long() - 1).clamp_min(0)
+        xl = torch.gather(x, 1, idx[:, None, None].expand(-1, 1, x.shape[-1]))
+        return self.lm_logits(xl)[:, 0]

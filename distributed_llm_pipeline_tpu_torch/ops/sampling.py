@@ -1,8 +1,9 @@
 """Token sampling on the device, with an explicit ``torch.Generator``.
 
-The counterpart of ``distributed_llm_pipeline_tpu/ops/sampling.py`` for the
-single-stream chain: repeat/presence/frequency penalties, then min-p, top-k,
-temperature and top-p. A draw is the Gumbel-max trick over the filtered
+The counterpart of ``distributed_llm_pipeline_tpu/ops/sampling.py``: the
+single-stream chain (repeat/presence/frequency penalties, then min-p, top-k,
+temperature and top-p) and the per-row chain of batched decode
+(``sample_rows``). A draw is the Gumbel-max trick over the filtered
 logits, as ``jax.random.categorical`` draws; the generators differ (Philox
 here, threefry there), so a seeded stream reproduces within one package only.
 Nothing here reads a value back to the host.
@@ -102,3 +103,57 @@ def sample(logits: torch.Tensor, gen: torch.Generator | None,
         vals = vals.masked_fill(~keep, float("-inf"))
     choice = _gumbel_argmax(vals, gen)
     return torch.gather(idx, -1, choice[..., None])[..., 0]
+
+
+def filter_rows(logits: torch.Tensor, temperature: torch.Tensor,
+                top_k: torch.Tensor, top_p: torch.Tensor, min_p: torch.Tensor,
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-row chain of ``sample_rows`` on one descending full-vocab
+    sort: logits [B, V] and per-row parameters [B] → (filtered scaled
+    logits in sorted order [B, V], the sort order [B, V]). Order: min-p
+    against the raw distribution, temperature, top-k as a rank mask, top-p
+    as a prefix-of-cumsum mask; the top token survives any p. The
+    distribution is ``softmax(filtered_logits(...))`` of each row's own
+    parameters."""
+    lg = logits.float()
+    B, V = lg.shape
+    cutoff = lg.amax(dim=-1, keepdim=True) + torch.log(min_p.float().clamp_min(0))[:, None]
+    lg = lg.masked_fill(lg < cutoff, float("-inf"))
+    svals, order = torch.sort(lg, dim=-1, descending=True, stable=True)
+    ranks = torch.arange(V, device=lg.device)[None, :]
+    k = torch.where(top_k > 0, top_k.long(), V)[:, None]
+    svals = svals.masked_fill(ranks >= k, float("-inf"))
+    scaled = svals / temperature.float().clamp_min(1e-6)[:, None]
+    probs = torch.softmax(scaled, dim=-1)
+    keep = torch.cumsum(probs, dim=-1) - probs < top_p.float()[:, None]
+    keep[:, 0] = True
+    return scaled.masked_fill(~keep, float("-inf")), order
+
+
+def filtered_rows(logits: torch.Tensor, temperature: torch.Tensor,
+                  top_k: torch.Tensor, top_p: torch.Tensor,
+                  min_p: torch.Tensor) -> torch.Tensor:
+    """``filter_rows`` back in vocabulary order: the filtered per-row logits
+    [B, V], whose softmax is each row's sampling distribution."""
+    scaled, order = filter_rows(logits, temperature, top_k, top_p, min_p)
+    return torch.empty_like(scaled).scatter_(1, order, scaled)
+
+
+def sample_rows(logits: torch.Tensor, temperature: torch.Tensor,
+                top_k: torch.Tensor, top_p: torch.Tensor, min_p: torch.Tensor,
+                gens: list[torch.Generator | None]) -> torch.Tensor:
+    """Per-row sampling for batched decode: logits [B, V] and per-row
+    parameter tensors [B] → token ids [B] (int64). Rows with temperature
+    ≤ 0 are greedy. Row b draws from its own generator ``gens[b]`` (None
+    for a greedy row) and from no other, so a seeded request's stream does
+    not depend on the rows it shares the batch with."""
+    scaled, order = filter_rows(logits, temperature, top_k, top_p, min_p)
+    noise = torch.stack([
+        torch.zeros(scaled.shape[-1], device=scaled.device) if g is None
+        else -torch.log(-torch.log(torch.rand(
+            scaled.shape[-1], generator=g, device=scaled.device).clamp_(
+                min=torch.finfo(torch.float32).tiny)))
+        for g in gens])
+    choice = torch.argmax(scaled + noise, dim=-1)
+    choice = torch.where(temperature > 0, choice, 0)    # greedy: sorted-first
+    return torch.gather(order, 1, choice[:, None])[:, 0]

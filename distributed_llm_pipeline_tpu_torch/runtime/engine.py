@@ -29,7 +29,7 @@ from typing import Iterator
 import torch
 
 from ..gguf import GGUFReader
-from ..models import KVCache, LlamaModel, ModelConfig, Params
+from ..models import KVCache, LlamaModel, ModelConfig, PagedKVCache, Params
 from ..models.convert import load_params, select_rope_factors
 from ..ops.sampling import apply_penalties, sample
 from ..tokenizer import StreamDecoder, Tokenizer, tokenizer_from_metadata
@@ -111,9 +111,11 @@ def _utf8_prefix(tail: bytes) -> bool:
     return all(0x80 <= c < 0xC0 for c in tail[1:])
 
 
-def _bucket(n: int, cap: int, minimum: int = 16) -> int:
+def _bucket(n: int, cap: int, minimum: int = 16, quantum: int = 1) -> int:
     """Prompt length padded to a power of two ≥ 16, capped at ``cap``: a
-    small, fixed set of prefill shapes, as the reference buckets them."""
+    small, fixed set of prefill shapes, as the reference buckets them. The
+    cap must already be a multiple of ``quantum`` (see Engine.max_prompt);
+    the buckets are quantum-multiples themselves for quantum 1 or 16."""
     b = minimum
     while b < n:
         b *= 2
@@ -166,6 +168,7 @@ class Engine:
         self.model = LlamaModel(cfg, params)
         self.max_seq = min(max_seq or cfg.max_seq_len, cfg.max_seq_len)
         self.decode_chunk = max(1, int(os.environ.get("DLP_DECODE_CHUNK", "32")))
+        self._prompt_quantum = 1   # prefill buckets are multiples of this
         self.forwards = 0   # model forwards run: one per prefill, one per decode step
         dev = (torch.cuda.get_device_name(self.device)
                if self.device.type == "cuda" else "CPU")
@@ -176,9 +179,31 @@ class Engine:
             f"weights ready in {time.monotonic() - t0:.2f}s; kv cache capacity "
             f"{self.max_seq} tokens"))
 
+    @property
+    def max_prompt(self) -> int:
+        """Longest usable prompt: the largest quantum-multiple ≤ max_seq."""
+        cap = self.max_seq - self.max_seq % self._prompt_quantum
+        return cap if cap > 0 else self.max_seq
+
     def make_cache(self, batch: int = 1) -> KVCache:
         return KVCache.zeros(self.cfg, batch=batch, max_seq=self.max_seq,
                              dtype=self.dtype, device=self.device)
+
+    def make_paged_cache(self, n_slots: int, *, block_size: int | None = None,
+                         n_blocks: int | None = None,
+                         n_tables: int | None = None) -> PagedKVCache:
+        """The pool variant of :meth:`make_cache`: one physical block pool
+        per layer and fixed-width per-slot block tables, sized by
+        ``runtime.paged.pool_geometry`` (the default holds every slot's
+        full window)."""
+        from .paged import pool_geometry, pool_sublane
+
+        bs, nt, n = pool_geometry(self.max_seq, n_slots, block_size=block_size,
+                                  n_blocks=n_blocks,
+                                  min_block=pool_sublane(self.dtype, None))
+        return PagedKVCache.zeros(self.cfg, n_blocks=n, block_size=bs,
+                                  batch=n_slots, n_tables=n_tables or nt,
+                                  dtype=self.dtype, device=self.device)
 
     def prefill(self, ids: list[int], cache: KVCache) -> torch.Tensor:
         """Run the prompt, padded to its bucket, into ``cache`` (from

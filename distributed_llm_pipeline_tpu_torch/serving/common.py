@@ -11,6 +11,7 @@ while the single decode stream is busy elsewhere (1 s, as the reference).
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import threading
 from typing import AsyncIterator
 
@@ -61,7 +62,8 @@ async def acquire_with_keepalive(lock: asyncio.Lock,
 
 async def engine_events(engine, prompt, gen, abort: threading.Event,
                         ) -> AsyncIterator[Event | None]:
-    """Yield the engine's events; ``None`` marks an idle gap of
+    """Yield the events of ``engine.generate`` (an Engine or a
+    SlotScheduler); ``None`` marks an idle gap of
     ``KEEPALIVE_S`` (handlers turn it into a keep-alive). An engine failure becomes a
     terminal ``done`` event carrying ``data["error"]``, never an exception.
 
@@ -75,10 +77,14 @@ async def engine_events(engine, prompt, gen, abort: threading.Event,
 
     def run() -> None:
         try:
-            for ev in engine.generate(prompt, gen):
-                if abort.is_set():
-                    break
-                loop.call_soon_threadsafe(queue.put_nowait, ev)
+            # closing: on abort the generator is closed here, on the worker
+            # thread, so a scheduler stream frees its slot at the next chunk
+            # boundary instead of whenever the collector runs
+            with contextlib.closing(engine.generate(prompt, gen)) as events:
+                for ev in events:
+                    if abort.is_set():
+                        break
+                    loop.call_soon_threadsafe(queue.put_nowait, ev)
         except Exception as e:  # routed: it becomes the client's terminal done event
             err = Event("done", f"engine error: {e!r}",
                         data={"error": repr(e), "finish_reason": "error"})

@@ -1,18 +1,21 @@
-"""The SSE chat server: ``POST /chat`` on the single-stream engine.
+"""The SSE chat server: ``POST /chat`` on the engine or the slot scheduler.
 
 The counterpart of ``distributed_llm_pipeline_tpu/serving/server.py`` on its
-default path (one stream, no ``--parallel``). ``POST /chat`` with JSON
+default path and on ``--parallel N``. ``POST /chat`` with JSON
 ``{"prompt": ...}`` answers ``text/event-stream`` events
 ``data: {"msg_type": "log"|"token", "content": ...}``, closed by the
 ``done`` summary (sent as a ``log`` with ``finish_reason`` and ``n_gen``);
-``OPTIONS /chat`` answers CORS preflight, ``GET /healthz`` reports the model
-and whether the stream is busy, and ``GET /`` serves the web UI. Requests
-take the one decode stream in turn through an asyncio lock, writing SSE
-keep-alives while they wait.
+``OPTIONS /chat`` answers CORS preflight, ``GET /healthz`` reports the model,
+the queue and the slots, and ``GET /`` serves the web UI.
+
+With ``--parallel 1`` (the default) requests take the one decode stream in
+turn through an asyncio lock, writing SSE keep-alives while they wait. With
+``--parallel N`` (llama-server's ``-np``) they stream from a
+:class:`SlotScheduler` with N slots, decoding together in one batched step.
 
 Run: ``python -m distributed_llm_pipeline_tpu_torch.serving.server --model
-m.gguf [--cpu]`` (port 3005 by default). Without ``--cpu`` it needs a CUDA
-device.
+m.gguf [--parallel N] [--cpu]`` (port 3005 by default). Without ``--cpu``
+it needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from pathlib import Path
 
 from aiohttp import web
 
-from ..runtime import Engine, GenerationConfig
+from ..runtime import Engine, GenerationConfig, SlotScheduler
 from .common import (acquire_with_keepalive, cors, engine_events,
                      json_response, sse_response)
 
@@ -39,26 +42,43 @@ _OVERRIDES = ("max_new_tokens", "temperature", "top_k", "top_p", "min_p",
 
 
 class ChatServer:
-    def __init__(self, engine: Engine, gen: GenerationConfig | None = None):
+    def __init__(self, engine: Engine, gen: GenerationConfig | None = None,
+                 parallel: int = 1):
         self.engine = engine
         self.gen = gen or GenerationConfig()
         self._busy = asyncio.Lock()
+        # --parallel N: continuous batching over N decode slots
+        self.scheduler = (SlotScheduler(engine, n_slots=parallel)
+                          if parallel > 1 else None)
         self.app = web.Application()
         self.app.router.add_post("/chat", self.chat)
         self.app.router.add_options("/chat", self.preflight)
         self.app.router.add_get("/healthz", self.healthz)
         self.app.router.add_get("/", self.index)
         self.app.router.add_static("/", STATIC_DIR, show_index=False)
+        if self.scheduler is not None:
+            async def close_scheduler(app):
+                self.scheduler.close()
+
+            self.app.on_cleanup.append(close_scheduler)
 
     async def preflight(self, request: web.Request) -> web.Response:
         return cors(web.Response())
 
     async def healthz(self, request: web.Request) -> web.Response:
         eng = self.engine
+        sched = self.scheduler
+        if sched is not None:
+            load = {"queue_depth": sched.queue_depth,
+                    "slots_active": sched.slots_active,
+                    "slots_total": sched.n_slots}
+        else:
+            load = {"queue_depth": 0, "slots_active": int(self._busy.locked()),
+                    "slots_total": 1}
         return json_response({"status": "ok", "model": eng.cfg.arch,
                               "n_layers": eng.cfg.n_layers, "ctx": eng.max_seq,
                               "device": str(eng.device),
-                              "busy": self._busy.locked()})
+                              "busy": self._busy.locked(), **load})
 
     async def index(self, request: web.Request) -> web.FileResponse:
         return web.FileResponse(STATIC_DIR / "index.html")
@@ -90,14 +110,18 @@ class ChatServer:
         if isinstance(gen, str):
             return json_response({"error": gen}, status=400)
         resp = await sse_response(request)
-        if not await acquire_with_keepalive(self._busy, resp):
+        # the slot scheduler batches concurrent requests itself; the
+        # single-stream engine takes them in turn under the decode lock
+        locked = self.scheduler is None
+        if locked and not await acquire_with_keepalive(self._busy, resp):
             return resp  # client gave up while queued; lock not held
+        target = self.engine if locked else self.scheduler
         abort = threading.Event()
         try:
             # aclosing: a break closes the generator (joining the engine
             # thread) before the decode lock is released below
             async with contextlib.aclosing(
-                    engine_events(self.engine, prompt, gen, abort)) as events:
+                    engine_events(target, prompt, gen, abort)) as events:
                 async for ev in events:
                     try:
                         await resp.write(
@@ -108,7 +132,8 @@ class ChatServer:
                         break
         finally:
             abort.set()
-            self._busy.release()
+            if locked:
+                self._busy.release()
         try:
             await resp.write_eof()
         except ConnectionResetError:
@@ -125,6 +150,9 @@ def build_argparser():
     ap.add_argument("--port", type=int, default=3005)
     ap.add_argument("--ctx-size", type=int, default=2048)
     ap.add_argument("--n-predict", type=int, default=200)
+    ap.add_argument("--parallel", "-np", type=int, default=1, metavar="N",
+                    help="decode slots with continuous batching "
+                         "(llama-server -np)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA device)")
     return ap
@@ -134,7 +162,8 @@ def main(argv: list[str] | None = None) -> None:
     args = build_argparser().parse_args(argv)
     engine = Engine(args.model, max_seq=args.ctx_size,
                     device="cpu" if args.cpu else None)
-    server = ChatServer(engine, GenerationConfig(max_new_tokens=args.n_predict))
+    server = ChatServer(engine, GenerationConfig(max_new_tokens=args.n_predict),
+                        parallel=args.parallel)
     print(f"chat server listening on http://{args.host}:{args.port}", flush=True)
     web.run_app(server.app, host=args.host, port=args.port, print=None)
 

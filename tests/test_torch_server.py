@@ -152,3 +152,40 @@ def test_cli_defaults():
     args = build_argparser().parse_args(["--model", "m.gguf"])
     assert (args.port, args.ctx_size, args.n_predict, args.cpu) == (3005, 2048, 200, False)
     assert build_argparser().parse_args(["--model", "m.gguf", "--cpu"]).cpu
+
+
+def test_parallel_slots_serve_concurrent_streams(engine):
+    """--parallel 2: two concurrent /chat streams decode in one batched
+    step, both complete, and each greedy text is the single-stream
+    server's; /healthz reports the slots."""
+    bodies = [{"prompt": "hello world", "max_new_tokens": 6},
+              {"prompt": "once upon a time", "max_new_tokens": 9}]
+    single = [_chat(ChatServer(engine, GenerationConfig(temperature=0.0)).app, b)
+              for b in bodies]
+    server = ChatServer(engine, GenerationConfig(temperature=0.0), parallel=2)
+
+    async def go(client):
+        health = await (await client.get("/healthz")).json()
+
+        async def one(body):
+            resp = await client.post("/chat", json=body)
+            assert resp.status == 200
+            text = (await resp.read()).decode()
+            return [json.loads(line[6:]) for line in text.split("\n")
+                    if line.startswith("data: ")]
+
+        return health, await asyncio.gather(*(one(b) for b in bodies))
+
+    health, streams = _run(server.app, go)
+    assert health["slots_total"] == 2 and health["queue_depth"] == 0
+    for events, ref, body in zip(streams, single, bodies):
+        assert events[-1]["finish_reason"] == "length"
+        assert events[-1]["n_gen"] == body["max_new_tokens"]
+        assert [e["content"] for e in events if e["msg_type"] == "token"] == \
+            [e["content"] for e in ref if e["msg_type"] == "token"]
+    assert server.scheduler._closed.is_set()   # closed with the app
+
+
+def test_cli_parallel_flag():
+    assert build_argparser().parse_args(["--model", "m.gguf"]).parallel == 1
+    assert build_argparser().parse_args(["--model", "m.gguf", "-np", "4"]).parallel == 4
