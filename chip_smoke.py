@@ -8,8 +8,8 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
 1. The card: its name and power limit (as nvidia-smi prints them) and the
    torch/CUDA versions. TF32 is switched off for matmuls and cuDNN, so f32
    products are full f32.
-2. Build: every kernel source of the path with nvcc for sm_90a, one process
-   per source, all started together.
+2. Build: every kernel source of the paths (``cuda_build.SOURCES``) with
+   nvcc for sm_90a, one process per source, all started together.
 3. Kernels: each kernel against its plain PyTorch version on the card, in
    bf16, at the main path's shapes and the contract's corner cases. For
    flash_attention: GQA and MHA, T=1 and T>1, per-row cache lengths, a
@@ -20,7 +20,14 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    case: the max abs error and its tolerance, the kernel's (cold and warm
    L2), the plain version's and the library call's time, and the least time
    the card could take (bytes over 3.35 TB/s or operations over 989
-   TFLOP/s, whichever is larger).
+   TFLOP/s, whichever is larger). The four quantized matmul kernels
+   (fused-dequant and W8A8, each over Q8_0 and Q6_K packs of random codes
+   and scales) run at Llama-3.2-1B's five (D, F) pairs, the head's with f32
+   output: W8A8 at M = 1, 4, 16, 32, fused dequant at M = 33, 256, 512; plus
+   an odd F, activation group 32 and an all-zero activation row. The W8A8
+   kernel's own quantized activations must equal ``quantize_acts`` bit for
+   bit. Their yardstick is ``F.linear`` on the dense bf16 weight the pack
+   represents, and their bound counts int8 operations at 1979 TOP/s.
 4. Serve, single stream: a GGUF of Llama-3.2-1B geometry (bf16 weights
    random from --seed, a synthetic 128256-token SPM vocab) goes through the
    port's Engine, which first runs the three requests once directly (the
@@ -44,7 +51,17 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    with the plain attention on the card: max abs logit error within a bf16
    tolerance and the same argmax. Then the same prompt through the paged
    forward on the pool against the dense forward, held the same way.
-7. The kernels line (one JSON object), the card line, and last the ok line.
+7. Serve quantized: a Q6_K GGUF of the same geometry (projections and
+   token_embd in Q6_K, norms in F32) served with ``Engine(quant="native")``
+   through ChatServer with the phase-4 requests, and the bf16 GGUF served
+   with ``Engine(quant="q8_0")`` through ChatServer(parallel=4) with the
+   phase-5 requests. Each packed projection must launch exactly one quant
+   kernel per forward, W8A8 where the forward's M = B·T ≤ 32 and fused
+   dequant above (7 × 16 per forward, +1 for a packed head, which sees M =
+   B). Load and pack times, TTFT, decode tok/s and a profiled quantized
+   decode step are printed; then each engine's logits with the kernels
+   against the plain versions, held as in phase 6.
+8. The kernels line (one JSON object), the card line, and last the ok line.
 """
 
 from __future__ import annotations
@@ -64,8 +81,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12        # H100 SXM HBM3
 BF16_FLOP_S = 989e12         # H100 SXM dense bf16 tensor-core peak
+INT8_OP_S = 1979e12          # H100 SXM dense int8 tensor-core peak
 KERNEL_TOL = 2e-2            # bf16 output: a few ulp of values of order 1
 LOGIT_TOL = 0.1              # bf16 model, 16 layers: logits of std ~1
+# quantized engines: a one-ulp bf16 difference in front of the int8
+# activation quantizer moves x / xs by up to half a code, so kernel and plain
+# runs drift further apart through 16 layers (0.31 measured on the H100)
+QUANT_LOGIT_TOL = 0.5
 
 
 def fail(msg: str) -> None:
@@ -369,6 +391,142 @@ def check_paged(pa, kv_quantize, seed: int, flush: torch.Tensor) -> list[dict]:
 
 
 # --------------------------------------------------------------------------
+# phase 3: the quantized matmul kernels against their plain versions
+
+# Llama-3.2-1B's projection (D, F) pairs and its head (tied, 128256 rows)
+QUANT_PAIRS = [("wq_wo", 2048, 2048), ("wk_wv", 2048, 512),
+               ("gate_up", 2048, 8192), ("down", 8192, 2048),
+               ("head", 2048, 128256)]
+W8A8_M = (1, 4, 16, 32)          # decode B = 1..4, short prefill buckets
+DEQUANT_M = (33, 256, 512)       # the cutover, mixed steps, a 512 prefill
+# edges: an odd F, activation group 32 (Q8_0 with D % 256 != 0, Q6_K with
+# D/4 % 256 != 0), an all-zero activation row
+QUANT_EDGES = [dict(name="odd_f", D=2048, F=1001),
+               dict(name="group32", D={"q8_0": 2080, "q6_k": 1280}, F=1024)]
+# the case each kernel's kernels-line entry reports: the (D, F) pair with the
+# most weight bytes of a layer at the M its served path runs (q8_0: the
+# parallel-4 path, B=4 decode and 256-lane mixed steps; q6_k: the
+# single-stream path, B=1 decode and a 512-token prefill bucket)
+QUANT_TIMED = {("q8_0", "w8a8"): ("gate_up", 4), ("q8_0", "dequant"): ("gate_up", 256),
+               ("q6_k", "w8a8"): ("gate_up", 1), ("q6_k", "dequant"): ("gate_up", 512)}
+
+
+def random_pack(qm, kq, kind: str, D: int, F: int, gen: torch.Generator):
+    """A pack of random codes (every bit pattern of the format) and scales
+    of about 0.02 / code std, built on the card."""
+    def codes(*shape):
+        return torch.randint(-128, 128, shape, dtype=torch.int8, device="cuda",
+                             generator=gen)
+
+    def scales(*shape, std_code: float):
+        return ((0.5 + torch.rand(shape, device="cuda", generator=gen))
+                * 0.02 / std_code).bfloat16()
+
+    if kind == "q8_0":
+        return qm.Q8_0Pack(qs=codes(F, D).clamp_(-127, 127),
+                           scale=scales(F, D // 32, std_code=73.0))
+    return kq.Q6KPack(ql=codes(F, D // 2), qh=codes(F, D // 4),
+                      s=scales(F, D // 16, std_code=18.5))
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at |x| (8 significant bits)."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def quant_case(qm, pack, kernel: str, M: int, out_dtype, gen, flush,
+               zero_row: bool = False) -> dict:
+    """One kernel against its plain version at x [M, D] bf16: max abs error
+    within one bf16 ulp of the largest output (the kernels and the plain
+    versions differ in f32 summation order, then round alike), the W8A8
+    kernel's quantized activations equal to ``quantize_acts``, times and the
+    bound."""
+    import torch.nn.functional as F
+
+    Fo, D = pack.shape
+    x = torch.randn(M, D, generator=gen, device="cuda").bfloat16()
+    if zero_row:
+        x[0] = 0
+    if kernel == "w8a8":
+        def kern():
+            return qm.w8a8_matmul(x, pack, out_dtype)
+
+        def plain():
+            return qm.w8a8_plain(x, pack, out_dtype)
+    else:
+        def kern():
+            return qm.dequant_matmul(x, pack, out_dtype)
+
+        def plain():
+            return qm.dequant_matmul_plain(x, pack, out_dtype)
+    got = kern()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = bf16_ulp(ref.float().abs().max().item())
+    name = f"{pack.kind} {kernel} D={D} F={Fo} M={M}"
+    if not (err <= tol and torch.isfinite(got.float()).all()):
+        fail(f"{name}: max abs err {err} > {tol}")
+    if kernel == "w8a8":
+        group = pack.group
+        xq = torch.empty(M, D, dtype=torch.int8, device="cuda")
+        xs = torch.empty(M, D // group, dtype=torch.float32, device="cuda")
+        qm.w8a8_matmul(x, pack, out_dtype, acts=(xq, xs))
+        rq, rs = qm.quantize_acts(x, group)
+        if not (torch.equal(xq, rq) and torch.equal(xs, rs)):
+            fail(f"{name}: the kernel's quantized activations differ from "
+                 "quantize_acts")
+    dense = pack.dequant(torch.bfloat16)
+    lib_err = (F.linear(x, dense).float() - ref.float()).abs().max().item()
+    n_bytes = (M * D * 2 + pack.nbytes()
+               + M * Fo * (4 if out_dtype == torch.float32 else 2))
+    ops = 2 * M * D * Fo
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = ops / (INT8_OP_S if kernel == "w8a8" else BF16_FLOP_S) * 1e3
+    return {"case": name, "kind": pack.kind, "kernel": kernel, "M": M, "D": D,
+            "F": Fo, "out": str(out_dtype).split(".")[-1], "zero_row": zero_row,
+            "max_abs_err": err, "tol": tol,
+            "library_max_abs_err": lib_err,
+            "kernel_ms": event_ms(kern, 50, flush),
+            "kernel_warm_l2_ms": event_ms(kern, 50, None),
+            "kernel_host_us": host_us(kern),
+            "plain_ms": event_ms(plain, 10, flush),
+            "library": "F.linear on the dense bf16 weight the pack represents",
+            "library_ms": event_ms(lambda: F.linear(x, dense), 20, flush),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def check_quant(qm, kq, seed: int, flush: torch.Tensor, card: str) -> dict:
+    """The four quantized matmul kernels: one JSON line per case; returns
+    the rows by (kind, kernel)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows: dict[tuple[str, str], list[dict]] = {}
+    for kind in ("q8_0", "q6_k"):
+        cases = [(p, D, F, M, k) for p, D, F in QUANT_PAIRS
+                 for k, ms in (("w8a8", W8A8_M), ("dequant", DEQUANT_M)) for M in ms]
+        for e in QUANT_EDGES:
+            D = e["D"][kind] if isinstance(e["D"], dict) else e["D"]
+            cases += [(e["name"], D, e["F"], 3, "w8a8"), (e["name"], D, e["F"], 100, "dequant")]
+        packs = {}
+        for pname, D, F, M, kernel in cases:
+            if pname not in packs:
+                packs[pname] = random_pack(qm, kq, kind, D, F, gen)
+            pack = packs[pname]
+            out_dtype = torch.float32 if pname == "head" else torch.bfloat16
+            row = quant_case(qm, pack, kernel, M, out_dtype, gen, flush,
+                             zero_row=pname == "odd_f")
+            row["pair"] = pname
+            row["card"] = card
+            print(json.dumps(row), flush=True)
+            rows.setdefault((kind, kernel), []).append(row)
+        del packs
+    return rows
+
+
+# --------------------------------------------------------------------------
 # phase 4: the served path
 
 def build_vocab(vocab_size: int) -> dict:
@@ -406,10 +564,12 @@ def build_vocab(vocab_size: int) -> dict:
             "tokenizer.ggml.add_space_prefix": True}
 
 
-def write_model(path: Path, cfg, seed: int, device: str = "cuda") -> None:
-    """A bf16 GGUF of ``cfg``'s geometry, weights N(0, 0.02²) drawn on
-    ``device`` from ``seed``, norms 1, tied embeddings."""
-    from distributed_llm_pipeline_tpu_torch.gguf import GGMLType, GGUFWriter
+def write_model(path: Path, cfg, seed: int, device: str = "cuda",
+                wtype=None) -> None:
+    """A GGUF of ``cfg``'s geometry, weights N(0, 0.02²) drawn on ``device``
+    from ``seed``, norms 1 (F32), tied embeddings. The matrices are BF16, or
+    encoded as ``wtype`` (a GGMLType, e.g. Q6_K) on the host."""
+    from distributed_llm_pipeline_tpu_torch.gguf import GGMLType, GGUFWriter, quantize
 
     w = GGUFWriter(path)
     a = cfg.arch
@@ -431,9 +591,13 @@ def write_model(path: Path, cfg, seed: int, device: str = "cuda") -> None:
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def rnd(name: str, *shape: int) -> None:
-        t = (torch.randn(shape, generator=gen, device=device) * 0.02).bfloat16()
+        t = torch.randn(shape, generator=gen, device=device) * 0.02
+        if wtype is not None:
+            w.add_tensor_bytes(name, shape, wtype,
+                               quantize(wtype, t.cpu().numpy().reshape(-1)))
+            return
         w.add_tensor_bytes(name, shape, GGMLType.BF16,
-                           t.view(torch.int16).cpu().numpy().tobytes())
+                           t.bfloat16().view(torch.int16).cpu().numpy().tobytes())
 
     def ones(name: str, n: int) -> None:
         w.add_tensor(name, torch.ones(n).numpy(), GGMLType.F32)
@@ -572,8 +736,13 @@ def profile_paged_decode(engine, B: int = 4, length: int = 512,
 
 def profile_steps(step, steps: int) -> dict:
     """Wall time per step (host clock around synchronized steps), device
-    time per step and its top kernels (torch.profiler), and the device's
-    busy share."""
+    time per step and its top kernels (torch.profiler), the device's busy
+    share, and where the host's time goes: the Python functions with the
+    largest self time over the steps (cProfile, which slows the host it
+    measures, so only the shares compare)."""
+    import cProfile
+    import pstats
+
     from torch.profiler import ProfilerActivity, profile
 
     def run() -> float:
@@ -584,7 +753,7 @@ def profile_steps(step, steps: int) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / steps
 
-    run()
+    run()                   # warm-up
     wall = run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
@@ -595,19 +764,149 @@ def profile_steps(step, steps: int) -> dict:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    prof_host = cProfile.Profile()
+    prof_host.enable()
+    run()
+    prof_host.disable()
+    stats = pstats.Stats(prof_host).stats      # {func: (cc, nc, tt, ct, callers)}
+    total = sum(v[2] for v in stats.values())
+    host_top = sorted(((f"{Path(k[0]).name}:{k[1]}:{k[2]}", v[2] / total, v[1] / steps)
+                       for k, v in stats.items()), key=lambda r: -r[1])[:10]
     return {"wall_ms_per_step": wall * 1e3, "device_ms_per_step": device,
             "device_busy_share": device / (wall * 1e3),
             "kernels_per_step": len(kernels) / steps,
-            "top_kernels_ms_per_step": [[n[:100], ms] for n, ms in top]}
+            "top_kernels_ms_per_step": [[n[:100], ms] for n, ms in top],
+            "host_top_self_share_calls_per_step": host_top,
+            "steps_run": 4 * steps}    # warm-up, wall, torch.profiler, cProfile
+
+
+class QuantWatch:
+    """Holds a served run's quantized matmul launches to what its forwards
+    call for: every packed projection one kernel per forward, W8A8 where the
+    forward's M = B·T is at most 32 and fused dequant above; a packed head
+    sees M = B·T of the positions it scores. It wraps the model's
+    ``embed_tokens`` and ``lm_logits`` (once per forward each) to record M."""
+
+    def __init__(self, qm, model):
+        self.qm, self.body, self.head = qm, [], []
+        self.served: dict[str, int] = {}   # the launches the last check held
+        self.layer_packs = sum(isinstance(m, qm.QuantPack)
+                               for blk in model.layers for m in blk.children())
+        self.head_packed = isinstance(getattr(model, "lm_head", None), qm.QuantPack)
+        self.kinds = {m.kind for m in model.modules() if isinstance(m, qm.QuantPack)}
+        embed, logits = model.embed_tokens, model.lm_logits
+
+        def embed_tokens(tokens):
+            self.body.append(tokens.numel())
+            return embed(tokens)
+
+        def lm_logits(x):
+            self.head.append(x.shape[0] * x.shape[1])
+            return logits(x)
+
+        model.embed_tokens, model.lm_logits = embed_tokens, lm_logits
+
+    def reset(self) -> None:
+        self.body.clear()
+        self.head.clear()
+        for k in self.qm.launches:
+            self.qm.launches[k] = 0
+
+    def check(self, what: str) -> dict:
+        """Fail unless the launches since ``reset`` are what the forwards
+        call for; returns them."""
+        cut = self.qm.W8A8_MAX_M
+        want = {"w8a8": self.layer_packs * sum(m <= cut for m in self.body)
+                + self.head_packed * sum(m <= cut for m in self.head),
+                "dequant": self.layer_packs * sum(m > cut for m in self.body)
+                + self.head_packed * sum(m > cut for m in self.head)}
+        got = {"w8a8": 0, "dequant": 0}
+        for kind, (dq, w8) in self.qm._NAMES.items():
+            n_dq, n_w8 = self.qm.launches[dq], self.qm.launches[w8]
+            if kind not in self.kinds and n_dq + n_w8:
+                fail(f"{what}: {kind} kernels launched with no {kind} pack")
+            got["w8a8"] += n_w8
+            got["dequant"] += n_dq
+        self.served = dict(self.qm.launches)
+        if not self.body or got != want:
+            fail(f"{what}: quant kernel launches {got}, the forwards call for "
+                 f"{want} ({len(self.body)} forwards, {self.layer_packs} layer "
+                 f"packs, head packed {self.head_packed})")
+        return {"forwards": len(self.body),
+                "forwards_w8a8": sum(m <= cut for m in self.body),
+                "forwards_dequant": sum(m > cut for m in self.body),
+                "layer_packs": self.layer_packs, "head_packed": self.head_packed,
+                "launches": dict(self.qm.launches)}
+
+
+def serve_single(engine, requests: list[dict], card: str, fa, watch=None) -> int:
+    """Phases 4 and 7: warm up on the requests through the engine, then
+    serve them as POST /chat through a single-stream ChatServer; returns the
+    attention kernel's launches in the served run."""
+    from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig
+    from distributed_llm_pipeline_tpu_torch.serving import ChatServer
+
+    # the first request after boot pays CUDA's lazy kernel loading
+    for i, body in enumerate(requests):
+        gen = GenerationConfig(**{k: v for k, v in body.items() if k != "prompt"})
+        warm = list(engine.generate(body["prompt"], gen))[-1]
+        print(json.dumps({"warm_up": i, "done": warm.content,
+                          "ttft_ms": warm.data["ttft_ms"], "card": card}), flush=True)
+    fa.launches = 0
+    if watch is not None:
+        watch.reset()
+    forwards0 = engine.forwards
+    health, results = asyncio.run(chat_requests(
+        ChatServer(engine, GenerationConfig(max_new_tokens=32)), requests))
+    launches = fa.launches
+    forwards = engine.forwards - forwards0
+    if health.get("status") != "ok" or health.get("n_layers") != engine.cfg.n_layers:
+        fail(f"/healthz: {health}")
+    for i, res in enumerate(results):
+        summary = check_sse(res)
+        print(json.dumps({"request": i, "quant": engine.quant,
+                          "sampled": res["body"]["temperature"] > 0,
+                          **summary, "card": card}), flush=True)
+    n_layers = engine.cfg.n_layers
+    if forwards <= 0 or launches != n_layers * forwards:
+        fail(f"flash_attention launched {launches} times for {forwards} forwards "
+             f"of {n_layers} layers")
+    print(f"served path (quant {engine.quant}): {forwards} forwards, {launches} "
+          f"flash_attention launches (= {n_layers} layers x forwards)", flush=True)
+    if watch is not None:
+        print(json.dumps({"quant_served": engine.quant,
+                          **watch.check(f"single stream, quant {engine.quant}"),
+                          "card": card}), flush=True)
+    return launches
+
+
+def profile_quant_step(engine, profile, qm, card: str) -> None:
+    """A profiled quantized decode step, holding each packed projection to
+    one W8A8 launch per step."""
+    for k in qm.launches:
+        qm.launches[k] = 0
+    steps = 8
+    row = profile(engine, steps=steps)
+    per_step = sum(qm.launches[w8] for _, w8 in qm._NAMES.values()) / row["steps_run"]
+    layer_packs = sum(isinstance(m, qm.QuantPack)
+                      for blk in engine.model.layers for m in blk.children())
+    head = isinstance(getattr(engine.model, "lm_head", None), qm.QuantPack)
+    if per_step != layer_packs + head:
+        fail(f"quantized decode step: {per_step} W8A8 launches per step, "
+             f"{layer_packs} layer packs, head packed {head}")
+    print(json.dumps({"quant_decode_step": {"quant": engine.quant, **row,
+                                            "w8a8_launches_per_step": per_step},
+                      "card": card}), flush=True)
 
 
 # --------------------------------------------------------------------------
 # phase 6: served logits, kernel against plain attention, paged against dense
 
-def compare_logits(engine, fa, llama, seed: int) -> dict:
+def compare_logits(engine, module, name: str, plain, seed: int,
+                   tol: float = LOGIT_TOL) -> dict:
     """A 512-token prefill and four greedy decode steps, once through the
-    kernel and once with the plain attention swapped in (both on the card,
-    same weights and tokens)."""
+    kernels and once with ``module.name`` swapped for ``plain`` (both on the
+    card, same weights and tokens), held within ``tol``."""
     g = torch.Generator().manual_seed(seed)
     ids = torch.randint(3, engine.cfg.vocab_size, (1, 512), generator=g)
     ids = ids.to(engine.device)
@@ -626,13 +925,13 @@ def compare_logits(engine, fa, llama, seed: int) -> dict:
         steps.append(lg.argmax(-1))
         lg = engine.model(steps[-1].view(1, 1), cache)[:, -1]
     kern = run()
-    orig = llama.attention_any
-    llama.attention_any = fa.flash_attention_plain
+    orig = getattr(module, name)
+    setattr(module, name, plain)
     try:
-        plain = run()
+        plain_out = run()
     finally:
-        llama.attention_any = orig
-    return hold_logits(kern, plain, "kernel", "plain")
+        setattr(module, name, orig)
+    return hold_logits(kern, plain_out, "kernel", "plain", tol)
 
 
 def compare_paged_logits(engine, seed: int) -> dict:
@@ -659,25 +958,25 @@ def compare_paged_logits(engine, seed: int) -> dict:
 
 
 def hold_logits(got: list[torch.Tensor], want: list[torch.Tensor],
-                a_name: str, b_name: str) -> dict:
-    """Max abs logit error within LOGIT_TOL and the same argmax, except at
-    a near tie of ``want``'s top two within that tolerance."""
-    worst, near_ties = 0.0, 0
+                a_name: str, b_name: str, tol: float = LOGIT_TOL) -> dict:
+    """Max abs logit error within ``tol`` and the same argmax, except at a
+    near tie of ``want``'s top two within that tolerance."""
+    errs, near_ties = [], 0
     for a, b in zip(got, want):
         if not torch.isfinite(a).all():
             fail("non-finite logits")
-        worst = max(worst, (a - b).abs().max().item())
+        errs.append((a - b).abs().max().item())
         ka, pa = a.argmax(-1).item(), b.argmax(-1).item()
         if ka != pa:
             # only a near tie of the reference run's top two may swap
             top2 = b[0].topk(2).values
-            if (top2[0] - top2[1]).item() > LOGIT_TOL or (b[0, pa] - b[0, ka]).item() > LOGIT_TOL:
+            if (top2[0] - top2[1]).item() > tol or (b[0, pa] - b[0, ka]).item() > tol:
                 fail(f"argmax differs: {a_name} {ka}, {b_name} {pa}")
             near_ties += 1
-    if worst > LOGIT_TOL:
-        fail(f"logits differ by {worst} > {LOGIT_TOL}")
-    return {"positions": len(got), "max_abs_err": worst, "tol": LOGIT_TOL,
-            "argmax_near_ties": near_ties}
+    if max(errs) > tol:
+        fail(f"logits differ by {max(errs)} > {tol} (by position: {errs})")
+    return {"positions": len(got), "max_abs_err": max(errs), "by_position": errs,
+            "tol": tol, "argmax_near_ties": near_ties}
 
 
 # --------------------------------------------------------------------------
@@ -705,9 +1004,10 @@ def slot_requests(seed: int) -> list[dict]:
     ]
 
 
-def serve_slots(engine, pa, fa, cfg, card: str, seed: int) -> int:
-    """Phase 5: ChatServer(parallel=4) answers four concurrent /chat
-    requests; returns the paged kernel's launches in that run."""
+def serve_slots(engine, pa, fa, cfg, card: str, seed: int, watch=None) -> int:
+    """Phases 5 and 7: ChatServer(parallel=4) answers four concurrent /chat
+    requests; returns the paged kernel's launches in that run. ``watch``
+    (a QuantWatch) holds a quantized engine's matmul launches too."""
     from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig
     from distributed_llm_pipeline_tpu_torch.runtime.paged import kv_token_bytes
     from distributed_llm_pipeline_tpu_torch.serving import ChatServer
@@ -729,6 +1029,8 @@ def serve_slots(engine, pa, fa, cfg, card: str, seed: int) -> int:
     sched.counters = dict.fromkeys(sched.counters, 0)
     forwards0 = sched.forwards
     pa.launches = fa.launches = 0
+    if watch is not None:
+        watch.reset()
     t0 = time.monotonic()
     health, results = asyncio.run(chat_requests(server, requests, lead=0))
     wall = time.monotonic() - t0
@@ -740,7 +1042,8 @@ def serve_slots(engine, pa, fa, cfg, card: str, seed: int) -> int:
     for i, res in enumerate(results):
         summary = check_sse(res)
         summaries.append(summary)
-        print(json.dumps({"slots_request": i, "prompt_chars": len(res["body"]["prompt"]),
+        print(json.dumps({"slots_request": i, "quant": engine.quant,
+                          "prompt_chars": len(res["body"]["prompt"]),
                           "sampled": res["body"]["temperature"] > 0, **summary,
                           "card": card}), flush=True)
     c = sched.counters
@@ -755,8 +1058,12 @@ def serve_slots(engine, pa, fa, cfg, card: str, seed: int) -> int:
     n_gen = sum(s["n_gen"] for s in summaries)
     first = min(r["t0"] for r in results)
     last = max(r["t_last"] for r in results)
+    if watch is not None:
+        print(json.dumps({"quant_served": engine.quant, "parallel": 4,
+                          **watch.check(f"slots, quant {engine.quant}"),
+                          "card": card}), flush=True)
     print(json.dumps({"slots_served": {
-        "requests": len(results), "tokens": n_gen, "wall_s": wall,
+        "quant": engine.quant, "requests": len(results), "tokens": n_gen, "wall_s": wall,
         "aggregate_tok_s": n_gen / (last - first), "paged_forwards": forwards,
         "paged_launches": launches, "counters": c,
         "kv_pool": {"blocks": backend.n_blocks, "block_size": backend.bs,
@@ -786,12 +1093,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
+    from distributed_llm_pipeline_tpu_torch.gguf import GGMLType
     from distributed_llm_pipeline_tpu_torch.models import PRESETS, llama
     from distributed_llm_pipeline_tpu_torch.ops import cuda_build
     from distributed_llm_pipeline_tpu_torch.ops import flash_attention as fa
+    from distributed_llm_pipeline_tpu_torch.ops import kquant_matmul as kq
     from distributed_llm_pipeline_tpu_torch.ops import paged_attention as pa
-    from distributed_llm_pipeline_tpu_torch.runtime import Engine, GenerationConfig
-    from distributed_llm_pipeline_tpu_torch.serving import ChatServer
+    from distributed_llm_pipeline_tpu_torch.ops import quant_matmul as qm
+    from distributed_llm_pipeline_tpu_torch.runtime import Engine
 
     # 1. the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -802,29 +1111,32 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"TF32 off for matmul and cuDNN", flush=True)
 
-    # 2. build every kernel source of the path
+    # 2. build every kernel source of the paths
     t0 = time.monotonic()
-    built = cuda_build.build(["flash_attention", "paged_attention"])
+    built = cuda_build.build(cuda_build.SOURCES)
     print(f"build: {len(built)} kernel source(s) in {time.monotonic() - t0:.1f}s",
           flush=True)
     for b in built.values():
         regs = re.findall(r"Used (\d+) registers", b.ptxas)
         spills = re.findall(r"(\d+) bytes spill stores", b.ptxas)
+        smem = re.findall(r"(\d+) bytes smem", b.ptxas)
         print(f"  {b.name}: nvcc {b.seconds:.1f}s, registers {regs}, "
-              f"spill store bytes {spills}", flush=True)
+              f"spill store bytes {spills}, smem bytes {smem}", flush=True)
 
     # 3. kernels against their plain versions
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")   # 256 MiB > L2
     rows = check_attention(fa, llama.kv_quantize, args.seed, flush)
     paged_rows = check_paged(pa, llama.kv_quantize, args.seed, flush)
+    quant_rows = check_quant(qm, kq, args.seed, flush, card)
     del flush
 
-    # 4. the served path, single stream
     cfg = PRESETS["llama3.2-1b"]
     model_dir = ROOT / "build" / "chip_smoke"
     model_dir.mkdir(parents=True, exist_ok=True)
     path = model_dir / f"llama3.2-1b-seed{args.seed}.gguf"
+    q6_path = model_dir / f"llama3.2-1b-q6_k-seed{args.seed}.gguf"
     try:
+        # 4. the served path, single stream
         t0 = time.monotonic()
         write_model(path, cfg, args.seed)
         print(f"wrote {path.name}: {path.stat().st_size / 2**30:.2f} GiB in "
@@ -833,65 +1145,90 @@ def main() -> int:
         engine = Engine(path, max_seq=2048)   # CUDA: no device argument
         print(f"engine up in {time.monotonic() - t0:.1f}s on {engine.device}",
               flush=True)
+        prompt = " ".join(["hello"] * 480)   # ~480 tokens: a 512 bucket
+        requests = [
+            {"prompt": prompt, "max_new_tokens": 32, "temperature": 0.0},
+            {"prompt": "hello hello", "max_new_tokens": 32, "temperature": 0.8,
+             "top_k": 40, "top_p": 0.95, "seed": args.seed},
+            {"prompt": "hello", "max_new_tokens": 32, "temperature": 1.0, "top_k": 0,
+             "top_p": 0.9, "min_p": 0.05, "repeat_penalty": 1.1, "seed": args.seed + 1},
+        ]
+        launches = serve_single(engine, requests, card, fa)
+        print(json.dumps({"decode_step": profile_decode(engine), "card": card}),
+              flush=True)
+
+        # 5. the served path, four slots over the paged pool
+        paged_launches = serve_slots(engine, pa, fa, cfg, card, args.seed)
+        print(json.dumps({"paged_decode_step_b4": profile_paged_decode(engine),
+                          "card": card}), flush=True)
+
+        # 6. served logits: kernel against plain attention, paged against dense
+        print(json.dumps({"logits": compare_logits(
+            engine, llama, "attention_any", fa.flash_attention_plain, args.seed)}),
+            flush=True)
+        print(json.dumps({"paged_logits": compare_paged_logits(engine, args.seed)}),
+              flush=True)
+        del engine
+        torch.cuda.empty_cache()
+
+        # 7. serve quantized; the plain versions swap in for the logits check
+        def plain_proj(x, w, out_dtype=None, _dense=llama.proj):
+            if isinstance(w, qm.QuantPack):
+                return qm.quant_matmul_plain(x, w, out_dtype)
+            return _dense(x, w, out_dtype)
+
+        t0 = time.monotonic()
+        write_model(q6_path, cfg, args.seed + 1, wtype=GGMLType.Q6_K)
+        print(f"wrote {q6_path.name}: {q6_path.stat().st_size / 2**30:.2f} GiB in "
+              f"{time.monotonic() - t0:.1f}s (Q6_K encoded on the host)", flush=True)
+        quant_launches = {}
+        for quant, gguf in (("native", q6_path), ("q8_0", path)):
+            t0 = time.monotonic()
+            qengine = Engine(gguf, max_seq=2048, quant=quant)
+            gguf.unlink()
+            print(json.dumps({"quant_engine": quant, "up_s": time.monotonic() - t0,
+                              "load_log": [e.content for e in qengine._events_on_load],
+                              "device_bytes": torch.cuda.memory_allocated(),
+                              "card": card}), flush=True)
+            watch = QuantWatch(qm, qengine.model)
+            if quant == "native":    # the paper's demo: a Q6_K GGUF, one stream
+                serve_single(qengine, requests, card, fa, watch)
+                profile_quant_step(qengine, profile_decode, qm, card)
+            else:                    # --quant q8_0 --parallel 4
+                serve_slots(qengine, pa, fa, cfg, card, args.seed, watch)
+                profile_quant_step(qengine, profile_paged_decode, qm, card)
+            quant_launches.update({k: v for k, v in watch.served.items() if v})
+            print(json.dumps({"quant_logits": quant, **compare_logits(
+                qengine, llama, "proj", plain_proj, args.seed, QUANT_LOGIT_TOL)}),
+                flush=True)
+            del qengine, watch
+            torch.cuda.empty_cache()
     finally:
         path.unlink(missing_ok=True)
-    prompt = " ".join(["hello"] * 480)   # ~480 tokens: a 512 bucket
-    requests = [
-        {"prompt": prompt, "max_new_tokens": 32, "temperature": 0.0},
-        {"prompt": "hello hello", "max_new_tokens": 32, "temperature": 0.8,
-         "top_k": 40, "top_p": 0.95, "seed": args.seed},
-        {"prompt": "hello", "max_new_tokens": 32, "temperature": 1.0, "top_k": 0,
-         "top_p": 0.9, "min_p": 0.05, "repeat_penalty": 1.1, "seed": args.seed + 1},
-    ]
-    # the same three requests once straight through the engine first: the
-    # first after boot pays CUDA's lazy kernel loading and cuBLAS's set-up
-    for i, body in enumerate(requests):
-        gen = GenerationConfig(**{k: v for k, v in body.items() if k != "prompt"})
-        warm = list(engine.generate(body["prompt"], gen))[-1]
-        print(json.dumps({"warm_up": i, "done": warm.content,
-                          "ttft_ms": warm.data["ttft_ms"], "card": card}), flush=True)
-    fa.launches = 0
-    forwards0 = engine.forwards
-    health, results = asyncio.run(chat_requests(
-        ChatServer(engine, GenerationConfig(max_new_tokens=32)), requests))
-    launches = fa.launches
-    forwards = engine.forwards - forwards0
-    if health.get("status") != "ok" or health.get("n_layers") != cfg.n_layers:
-        fail(f"/healthz: {health}")
-    for i, res in enumerate(results):
-        summary = check_sse(res)
-        print(json.dumps({"request": i, "sampled": res["body"]["temperature"] > 0,
-                          **summary, "card": card}), flush=True)
-    if forwards <= 0 or launches != cfg.n_layers * forwards:
-        fail(f"flash_attention launched {launches} times for {forwards} forwards "
-             f"of {cfg.n_layers} layers")
-    print(f"served path: {forwards} forwards, {launches} flash_attention launches "
-          f"(= {cfg.n_layers} layers x forwards)", flush=True)
+        q6_path.unlink(missing_ok=True)
 
-    print(json.dumps({"decode_step": profile_decode(engine), "card": card}),
-          flush=True)
-
-    # 5. the served path, four slots over the paged pool
-    paged_launches = serve_slots(engine, pa, fa, cfg, card, args.seed)
-    print(json.dumps({"paged_decode_step_b4": profile_paged_decode(engine),
-                      "card": card}), flush=True)
-
-    # 6. served logits: kernel against plain attention, paged against dense
-    print(json.dumps({"logits": compare_logits(engine, fa, llama, args.seed)}),
-          flush=True)
-    print(json.dumps({"paged_logits": compare_paged_logits(engine, args.seed)}),
-          flush=True)
-
-    # 7. results
-    print(json.dumps({"kernels": [
-        kernel_entry("flash_attention",
-                     "distributed_llm_pipeline_tpu_torch/csrc/flash_attention.cu",
-                     "distributed_llm_pipeline_tpu/ops/flash_attention.py:138",
-                     launches, rows, rows[0]),
-        kernel_entry("paged_flash_attention",
-                     "distributed_llm_pipeline_tpu_torch/csrc/paged_attention.cu",
-                     "distributed_llm_pipeline_tpu/ops/paged_attention.py:141",
-                     paged_launches, paged_rows, paged_rows[0])]}), flush=True)
+    # 8. results
+    src = "distributed_llm_pipeline_tpu_torch/csrc/"
+    ref = "distributed_llm_pipeline_tpu/ops/"
+    entries = [
+        kernel_entry("flash_attention", src + "flash_attention.cu",
+                     ref + "flash_attention.py:138", launches, rows, rows[0]),
+        kernel_entry("paged_flash_attention", src + "paged_attention.cu",
+                     ref + "paged_attention.py:141", paged_launches, paged_rows,
+                     paged_rows[0])]
+    for name, kind, kernel, source, replaces in (
+            ("q8_0_matmul", "q8_0", "dequant", "dequant_matmul.cu", "quant_matmul.py:356"),
+            ("gw8a8_matmul", "q8_0", "w8a8", "w8a8_matmul.cu", "quant_matmul.py:242"),
+            ("q6_k_matmul", "q6_k", "dequant", "dequant_matmul.cu", "kquant_matmul.py:879"),
+            ("q6_k_w8a8_matmul", "q6_k", "w8a8", "w8a8_matmul.cu", "kquant_matmul.py:1048")):
+        krows = quant_rows[(kind, kernel)]
+        pair, M = QUANT_TIMED[(kind, kernel)]
+        timed = next(r for r in krows if r["pair"] == pair and r["M"] == M)
+        entries.append(kernel_entry(name, src + source, ref + replaces,
+                                    quant_launches.get(name, 0), krows, timed))
+    if any(e["launches"] <= 0 for e in entries):
+        fail(f"a kernel of the path never launched: {entries}")
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,13 @@
-"""GGUF tensors → the port's flat parameter state, dequantized at load.
+"""GGUF tensors → the port's flat parameter state, dequantized at load or,
+with ``native_quant_layers``, kept in their stored Q8_0 / Q6_K blocks.
 
 Name mapping follows llama.cpp's GGUF tensor names, as
 ``distributed_llm_pipeline_tpu/models/convert.py`` does. The port keeps each
 matrix in the GGUF's own (out, in) layout, so loading transposes nothing;
 fused Phi-3 QKV and gate/up tensors are split by rows. ``params_from_jax``
 maps the JAX package's parameter pytree (stacked layers, (in, out)
-matrices) onto the same state, so tests feed both packages one set of
-weights.
+matrices, quantized packs as dicts of stacked fields) onto the same state,
+so tests feed both packages one set of weights.
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ import numpy as np
 import torch
 
 from ..gguf import GGMLType, GGUFReader
+from ..ops.kquant_matmul import Q6KPack, pack_q6_k_from_gguf
+from ..ops.quant_matmul import Q8_0Pack, QuantPack, pack_q8_0_from_gguf
 from .config import ModelConfig
-from .llama import Params
+from .llama import QUANTIZABLE, Params
 
 # JAX leaves stored (in, out) there and (out, in) here
 _MATRICES = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"})
@@ -29,20 +32,45 @@ def _torch(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+# a JAX pack is identified by its field names; its fields are [..., rows, F]
+_PACKS = {frozenset(Q8_0Pack.fields): Q8_0Pack, frozenset(Q6KPack.fields): Q6KPack}
+
+
+def _pack_from_jax(fields: dict, device) -> QuantPack:
+    """One JAX pack (a dict of numpy fields, [rows, F]) as a port pack: the
+    same values, each field transposed to out-features-major."""
+    cls = _PACKS.get(frozenset(fields))
+    if cls is None:
+        raise NotImplementedError(
+            f"pack with fields {sorted(fields)} is not ported to the "
+            "PyTorch/CUDA package yet (ROADMAP.md §2)")
+    return cls(**{f: _torch(np.asarray(a).T) for f, a in fields.items()}).to(device)
+
+
 def params_from_jax(np_params: dict, dtype: torch.dtype | None = None,
                     device="cpu") -> Params:
     """The JAX pytree, as numpy arrays, as this package's state. The per-layer
-    window leaf ``swa`` is dropped: the port derives it from the config."""
+    window leaf ``swa`` is dropped: the port derives it from the config.
+    Quantized packs keep their own dtypes; ``dtype`` casts dense leaves."""
     def put(a) -> torch.Tensor:
         t = _torch(np.asarray(a))
         return t.to(device=device, dtype=dtype or t.dtype)
 
     out: Params = {k: put(np_params[k]) for k in ("embed", "out_norm", "out_norm_b")
                    if k in np_params}
-    if "lm_head" in np_params:
-        out["lm_head"] = put(np.asarray(np_params["lm_head"]).T)
+    head = np_params.get("lm_head")
+    if isinstance(head, dict):
+        out["lm_head"] = _pack_from_jax(head, device)
+    elif head is not None:
+        out["lm_head"] = put(np.asarray(head).T)
     for name, stack in np_params["layers"].items():
         if name == "swa":
+            continue
+        if isinstance(stack, dict):   # a pack stacked over layers
+            n = len(next(iter(stack.values())))
+            for i in range(n):
+                out[f"layers.{i}.{name}"] = _pack_from_jax(
+                    {f: a[i] for f, a in stack.items()}, device)
             continue
         for i, a in enumerate(np.asarray(stack)):
             out[f"layers.{i}.{name}"] = put(a.T if name in _MATRICES else a)
@@ -80,9 +108,12 @@ def select_rope_factors(reader: GGUFReader, cfg: ModelConfig,
 
 
 def load_params(reader: GGUFReader, cfg: ModelConfig,
-                dtype: torch.dtype = torch.bfloat16, device="cpu") -> Params:
+                dtype: torch.dtype = torch.bfloat16, device="cpu",
+                skip: frozenset[str] = frozenset()) -> Params:
     """Every tensor of a dense checkpoint, dequantized to ``dtype`` on
-    ``device``. BF16 tensors loaded as bf16 copy their bytes as they are."""
+    ``device``, except the per-layer leaves named in ``skip`` (the stacks
+    ``native_quant_layers`` serves packed: never dequantized). BF16 tensors
+    loaded as bf16 copy their bytes as they are."""
     have = reader.tensors.keys()
     if cfg.is_moe:
         raise NotImplementedError("MoE checkpoints are not ported yet")
@@ -145,7 +176,8 @@ def load_params(reader: GGUFReader, cfg: ModelConfig,
     for i in range(cfg.n_layers):
         pre = f"layers.{i}."
         for leaf, n in names.items():
-            params[pre + leaf] = get(f"blk.{i}.{n}")
+            if leaf not in skip:
+                params[pre + leaf] = get(f"blk.{i}.{n}")
         for leaf, (n, width) in zero_biases.items():
             params[pre + leaf] = (get(f"blk.{i}.{n}") if f"blk.{i}.{n}" in have
                                   else torch.zeros(width, dtype=dtype, device=device))
@@ -164,3 +196,51 @@ def load_params(reader: GGUFReader, cfg: ModelConfig,
             params[pre + "w_gate"], params[pre + "w_up"] = (
                 t.contiguous() for t in gu.split([F, F]))
     return params
+
+
+# the GGUF tensor of each projection leaf
+_PROJ_TENSORS = {"wq": "attn_q.weight", "wk": "attn_k.weight",
+                 "wv": "attn_v.weight", "wo": "attn_output.weight",
+                 "w_gate": "ffn_gate.weight", "w_up": "ffn_up.weight",
+                 "w_down": "ffn_down.weight"}
+# stored types the reference serves packed that this package does not yet
+_UNPORTED_KQUANTS = (GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K)
+
+
+def native_quant_layers(reader: GGUFReader, cfg: ModelConfig) -> dict[str, QuantPack]:
+    """Packs for the projection stacks whose stored type is Q8_0 or Q6_K,
+    built from the raw block bytes with no dequantize → requantize round trip
+    (the reference's ``native_quant_layers``). Returns
+    ``{"layers.{i}.{leaf}": pack}`` on the host; the caller loads the rest
+    dense with ``load_params(..., skip=...)``.
+
+    A stack qualifies when every layer stores one type (mixed stacks load
+    dense, as in the reference; so do fused Phi-3 tensors, which are split
+    at load). A stack stored as Q2_K, Q3_K, Q4_K or Q5_K raises
+    ``NotImplementedError``: the reference would serve it packed, so serving
+    it dense here would give other results."""
+    if cfg.is_moe or "blk.0.attn_qkv.weight" in reader.tensors:
+        return {}
+    packers = {GGMLType.Q8_0: pack_q8_0_from_gguf, GGMLType.Q6_K: pack_q6_k_from_gguf}
+    out: dict[str, QuantPack] = {}
+    for leaf in QUANTIZABLE:
+        tis = [reader.tensors.get(f"blk.{i}.{_PROJ_TENSORS[leaf]}")
+               for i in range(cfg.n_layers)]
+        if any(ti is None for ti in tis) or len({ti.ggml_type for ti in tis}) != 1:
+            continue
+        t = tis[0].ggml_type
+        F, D = tis[0].shape                  # disk layout (out F, in D)
+        if t in _UNPORTED_KQUANTS + (GGMLType.Q6_K,) and D % 256:
+            continue                         # the reference serves it dense too
+        if t in _UNPORTED_KQUANTS:
+            raise NotImplementedError(
+                f"--quant native: {leaf} is stored as {t.name}, whose kernels "
+                "are not ported to the PyTorch/CUDA package yet (ROADMAP.md §2); "
+                "requantize with --quant q8_0 or q6_k")
+        packer = packers.get(t)
+        if packer is None:
+            continue
+        for i, ti in enumerate(tis):
+            out[f"layers.{i}.{leaf}"] = packer(
+                np.frombuffer(reader.tensor_data(ti.name), np.uint8), (D, F))
+    return out

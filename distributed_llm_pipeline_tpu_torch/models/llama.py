@@ -19,8 +19,10 @@ Differences of idiom, not of arithmetic:
   returns new buffers and donates the old ones, which lets XLA update them in
   place too.
 
-Weights live in the engine dtype (bf16 by default); norms, rope, softmax and
-the logits run in f32.
+Weights live in the engine dtype (bf16 by default), or stay quantized as a
+pack (``ops/quant_matmul.py``) where ``quantize_params`` or the native GGUF
+loader put one; every weight matmul goes through ``proj``. Norms, rope,
+softmax and the logits run in f32.
 """
 
 from __future__ import annotations
@@ -33,11 +35,13 @@ from torch import nn
 
 from ..ops.flash_attention import attention_any
 from ..ops.paged_attention import paged_attention_any
+from ..ops.quant_matmul import QuantPack, pack_q8_0, proj
 from .config import ModelConfig
 
 # flat parameter state: "embed", "out_norm", optional "out_norm_b" and
-# "lm_head", and "layers.{i}.{leaf}" for each block's leaves
-Params = dict[str, torch.Tensor]
+# "lm_head", and "layers.{i}.{leaf}" for each block's leaves; a projection
+# leaf or the head may be a quantized pack
+Params = dict[str, "torch.Tensor | QuantPack"]
 
 
 @dataclass
@@ -204,10 +208,13 @@ class Block(nn.Module):
         self.cfg = cfg
         self.window = int(window)
         for name, t in leaves.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            if isinstance(t, QuantPack):
+                self.add_module(name, t)
+            else:
+                self.register_parameter(name, nn.Parameter(t, requires_grad=False))
 
     def has(self, name: str) -> bool:
-        return name in self._parameters
+        return name in self._parameters or name in self._modules
 
     def norm(self, x: torch.Tensor, name: str) -> torch.Tensor:
         cfg = self.cfg
@@ -217,7 +224,8 @@ class Block(nn.Module):
         return rmsnorm(x, self._parameters[name], cfg.norm_eps, cfg.norm_offset)
 
     def _proj(self, x: torch.Tensor, w: str, b: str | None = None) -> torch.Tensor:
-        y = F.linear(x, self._parameters[w])
+        weight = self._modules[w] if w in self._modules else self._parameters[w]
+        y = proj(x, weight)
         return y + self._parameters[b] if b and self.has(b) else y
 
     def qkv(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
@@ -346,18 +354,6 @@ def _paged_kv_write(pool_k: torch.Tensor, pool_v: torch.Tensor,
         pool_v[blk, off] = v.to(pool_v.dtype)
 
 
-def _logits_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [..., D] against w [V, D] with f32 output. On the card a bf16
-    product keeps cuBLAS's f32 accumulator (no f32 copy of the vocab
-    matrix); on the CPU a bf16 product rounds its output to bf16 first."""
-    if x.dtype == torch.float32:
-        return F.linear(x, w)
-    if x.is_cuda:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], w.shape[0])
-    return F.linear(x, w).float()
-
-
 class LlamaModel(nn.Module):
     """Embedding, blocks and the vocab head over a dense KV cache."""
 
@@ -367,7 +363,9 @@ class LlamaModel(nn.Module):
             raise NotImplementedError("MoE models are not ported yet")
         self.cfg = cfg
         for name in ("embed", "out_norm", "out_norm_b", "lm_head"):
-            if name in params:
+            if isinstance(params.get(name), QuantPack):
+                self.add_module(name, params[name])
+            elif name in params:
                 self.register_parameter(
                     name, nn.Parameter(params[name], requires_grad=False))
         windows = sliding_window_per_layer(cfg)
@@ -395,16 +393,17 @@ class LlamaModel(nn.Module):
         return x
 
     def lm_logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm and vocab projection: [B, T, D] → [B, T, V] f32;
-        tied embeddings contract against the embedding table."""
+        """Final norm and vocab projection: [B, T, D] → [B, T, V] f32,
+        accumulated in f32; tied embeddings contract against the embedding
+        table unless ``quantize_params`` packed its transpose as the head."""
         cfg = self.cfg
         if cfg.norm_type == "layer":
             x = layernorm(x, self.out_norm, self._parameters.get("out_norm_b"),
                           cfg.norm_eps)
         else:
             x = rmsnorm(x, self.out_norm, cfg.norm_eps, cfg.norm_offset)
-        head = self._parameters.get("lm_head")
-        out = _logits_f32(x, self.embed if head is None else head)
+        head = getattr(self, "lm_head", None)
+        out = proj(x, self.embed if head is None else head, out_dtype=torch.float32)
         if cfg.final_softcap:   # Gemma-2
             out = cfg.final_softcap * torch.tanh(out / cfg.final_softcap)
         return out
@@ -467,3 +466,73 @@ class LlamaModel(nn.Module):
         idx = (n_tok.long() - 1).clamp_min(0)
         xl = torch.gather(x, 1, idx[:, None, None].expand(-1, 1, x.shape[-1]))
         return self.lm_logits(xl)[:, 0]
+
+
+# --------------------------------------------------------------------------
+# serving-side weight quantization
+
+QUANTIZABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# the reference server's --quant choices, and those this package serves
+QUANT_MODES = ("int8", "q8_0", "q2_k", "q3_k", "q4_k", "q5_k", "q6_k", "native")
+PORTED_QUANT = ("q8_0", "q6_k", "native")
+
+
+def check_quant(quant: str | None) -> None:
+    """Raise on a quant mode this package does not serve: a clear error that
+    names ROADMAP.md for the reference's modes not ported yet."""
+    if quant is None or quant in PORTED_QUANT:
+        return
+    if quant in QUANT_MODES:
+        raise NotImplementedError(
+            f"quant mode {quant!r} is not ported to the PyTorch/CUDA package "
+            f"yet (ROADMAP.md §2 lists what is left); ported: "
+            f"{', '.join(PORTED_QUANT)}")
+    raise ValueError(f"unsupported quant mode {quant!r} "
+                     f"(supported: {', '.join(PORTED_QUANT)})")
+
+
+def quantize_params(params: Params, cfg: ModelConfig, mode: str) -> Params:
+    """Re-pack the projection weights and the head so they stay quantized on
+    the device (the reference's ``quantize_params`` for ``q8_0`` and
+    ``q6_k``). Packing runs on the host; each pack lands on the device of the
+    weight it replaces. Norms and the embedding table stay dense.
+
+    - ``q8_0``: per-32 blocks. ``q6_k``: 256-row super-blocks; a weight whose
+      contraction dim is not a multiple of 256 falls back to ``q8_0``.
+    - An untied head is packed; a tied head gets a packed copy of the
+      embedding table (already [V, D], out-features-major) while the dense
+      table keeps serving lookups."""
+    check_quant(mode)
+    if mode not in ("q8_0", "q6_k"):
+        raise ValueError(f"quantize_params: mode {mode!r} (q8_0 or q6_k)")
+    from ..ops.kquant_matmul import pack_q6_k
+
+    def pack_dense(w: torch.Tensor) -> QuantPack:
+        packer = pack_q8_0 if mode == "q8_0" or w.shape[1] % 256 else pack_q6_k
+        return packer(w).to(w.device)
+
+    out = dict(params)
+    for key, w in params.items():
+        if (key.startswith("layers.") and key.rsplit(".", 1)[1] in QUANTIZABLE
+                and not isinstance(w, QuantPack)):
+            out[key] = pack_dense(w)
+    head = params.get("lm_head")
+    if head is not None and not isinstance(head, QuantPack):
+        out["lm_head"] = pack_dense(head)
+    elif head is None and params["embed"].shape[1] % 32 == 0:
+        out["lm_head"] = pack_dense(params["embed"])
+    return out
+
+
+def quantized_bytes(params: Params) -> tuple[int, int]:
+    """(bytes as stored, bytes were every pack a dense bf16 weight), for the
+    engine's load log."""
+    stored = dense = 0
+    for t in params.values():
+        if isinstance(t, QuantPack):
+            stored += t.nbytes()
+            dense += 2 * t.shape[0] * t.shape[1]
+        else:
+            stored += t.numel() * t.element_size()
+            dense += t.numel() * t.element_size()
+    return stored, dense

@@ -1,9 +1,11 @@
 """The single-stream inference engine: load once, serve many.
 
 The counterpart of ``distributed_llm_pipeline_tpu/runtime/engine.py`` for the
-path ``dlp-serve --model m.gguf`` runs by default: one stream, weights
-dequantized at load, a dense KV cache. Weights go to the device once; a
-request costs its own prefill and decode. ``generate`` yields the same event
+path ``dlp-serve --model m.gguf [--quant q8_0|q6_k|native]`` runs: one
+stream, a dense KV cache, weights dequantized at load or, with ``quant``,
+kept quantized on the device (``q8_0`` / ``q6_k`` repack the projections and
+the head at load; ``native`` serves the GGUF's own Q8_0 / Q6_K blocks).
+Weights go to the device once; a request costs its own prefill and decode. ``generate`` yields the same event
 stream as the reference: ``log`` lines (placement and progress; the
 placement line keeps the word "offloaded" that the UI highlights),
 ``token`` text, and a closing ``done`` summary.
@@ -30,7 +32,9 @@ import torch
 
 from ..gguf import GGUFReader
 from ..models import KVCache, LlamaModel, ModelConfig, PagedKVCache, Params
-from ..models.convert import load_params, select_rope_factors
+from ..models.convert import load_params, native_quant_layers, select_rope_factors
+from ..models.llama import check_quant, quantize_params, quantized_bytes
+from ..ops.quant_matmul import QuantPack
 from ..ops.sampling import apply_penalties, sample
 from ..tokenizer import StreamDecoder, Tokenizer, tokenizer_from_metadata
 from ..utils import Event, done, log, token
@@ -135,15 +139,28 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 
 class Engine:
-    """Single-model, single-stream inference engine on one device."""
+    """Single-model, single-stream inference engine on one device.
+
+    ``quant``: None (dense weights), ``"q8_0"`` or ``"q6_k"`` (pack the
+    projections and the head at load) or ``"native"`` (serve the GGUF's
+    stored Q8_0 / Q6_K projection blocks as they are). The reference's other
+    modes raise ``NotImplementedError`` naming ROADMAP.md."""
 
     def __init__(self, model_path: str | Path | None = None, *,
                  cfg: ModelConfig | None = None, params: Params | None = None,
                  tokenizer: Tokenizer | None = None, max_seq: int | None = None,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 quant: str | None = None):
+        check_quant(quant)
         self.device = resolve_device(device)
+        if quant and self.device.type == "cuda" and dtype != torch.bfloat16:
+            raise ValueError(f"quant {quant!r} on the card serves bf16 "
+                             f"activations, not {dtype}")
         self._events_on_load: list[Event] = []
         t0 = time.monotonic()
+        # a repacked model loads on the host, packs there, then moves
+        load_dev = "cpu" if quant in ("q8_0", "q6_k") else self.device
+        pack_s = 0.0   # host time spent building packs
         if model_path is not None:
             with GGUFReader(model_path) as reader:
                 cfg = ModelConfig.from_gguf_metadata(reader.metadata)
@@ -156,13 +173,46 @@ class Engine:
                     f"model load: {Path(model_path).name} arch={cfg.arch} "
                     f"layers={cfg.n_layers} dim={cfg.dim} "
                     f"tensors={len(reader.tensors)} ({n_quant} quantized)"))
-                params = load_params(reader, cfg, dtype=dtype, device=self.device)
+                packs = {}
+                if quant == "native":
+                    t_q = time.monotonic()
+                    packs = native_quant_layers(reader, cfg)
+                    pack_s = time.monotonic() - t_q
+                    if not packs:
+                        raise ValueError(
+                            "--quant native: this GGUF stores no projection "
+                            "weights as Q8_0 or Q6_K; use --quant q8_0 or q6_k "
+                            "to requantize instead")
+                    self._events_on_load.append(log(
+                        f"serving {len({k.rsplit('.', 1)[1] for k in packs})} "
+                        f"projection weight stacks from their native GGUF block "
+                        f"format ({', '.join(sorted({p.kind for p in packs.values()}))})"))
+                skip = frozenset(k.rsplit(".", 1)[1] for k in packs)
+                params = load_params(reader, cfg, dtype=dtype, device=load_dev,
+                                     skip=skip)
+                params.update({k: p.to(self.device) for k, p in packs.items()})
         else:
             if cfg is None or tokenizer is None or params is None:
                 raise ValueError("need model_path, or cfg + tokenizer + params")
+            if quant == "native":
+                raise ValueError("--quant native needs a GGUF model path")
             self.tokenizer = tokenizer
-            params = {k: t.to(device=self.device, dtype=dtype)
+            params = {k: t.to(load_dev) if isinstance(t, QuantPack)
+                      else t.to(device=load_dev, dtype=dtype)
                       for k, t in params.items()}
+        if quant:
+            if quant != "native":
+                t_q = time.monotonic()
+                params = quantize_params(params, cfg, quant)
+                pack_s = time.monotonic() - t_q
+                params = {k: t.to(self.device) for k, t in params.items()}
+            stored, dense = quantized_bytes(params)
+            self._events_on_load.append(log(
+                f"weights quantized on the device ({quant}): "
+                f"{stored / 2**20:.1f} MiB ({dense / 2**20:.1f} MiB as bf16), "
+                f"packed on the host in {pack_s:.2f}s; matmuls dequantize "
+                f"tiles in shared memory (fused CUDA kernels)"))
+        self.quant = quant
         self.cfg = cfg
         self.dtype = dtype
         self.model = LlamaModel(cfg, params)
@@ -174,7 +224,9 @@ class Engine:
                if self.device.type == "cuda" else "CPU")
         self._events_on_load.append(log(
             f"device: 1x {dev} ({self.device}); all {cfg.n_layers} layers "
-            f"offloaded to {self.device} (dequantized {str(dtype).split('.')[-1]})"))
+            f"offloaded to {self.device} ("
+            f"{f'{quant} weights, ' if quant else 'dequantized '}"
+            f"{str(dtype).split('.')[-1]})"))
         self._events_on_load.append(log(
             f"weights ready in {time.monotonic() - t0:.2f}s; kv cache capacity "
             f"{self.max_seq} tokens"))

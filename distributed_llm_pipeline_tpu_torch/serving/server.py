@@ -14,8 +14,10 @@ turn through an asyncio lock, writing SSE keep-alives while they wait. With
 :class:`SlotScheduler` with N slots, decoding together in one batched step.
 
 Run: ``python -m distributed_llm_pipeline_tpu_torch.serving.server --model
-m.gguf [--parallel N] [--cpu]`` (port 3005 by default). Without ``--cpu``
-it needs a CUDA device.
+m.gguf [--parallel N] [--quant q8_0|q6_k|native] [--cpu]`` (port 3005 by
+default). Without ``--cpu`` it needs a CUDA device. ``--quant`` takes the
+reference's choices; those not ported yet exit with an error naming
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -23,12 +25,14 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import json
+import sys
 import threading
 from dataclasses import replace
 from pathlib import Path
 
 from aiohttp import web
 
+from ..models.llama import QUANT_MODES
 from ..runtime import Engine, GenerationConfig, SlotScheduler
 from .common import (acquire_with_keepalive, cors, engine_events,
                      json_response, sse_response)
@@ -153,6 +157,10 @@ def build_argparser():
     ap.add_argument("--parallel", "-np", type=int, default=1, metavar="N",
                     help="decode slots with continuous batching "
                          "(llama-server -np)")
+    ap.add_argument("--quant", default=None, choices=QUANT_MODES,
+                    help="keep the weights quantized on the device: q8_0 / "
+                         "q6_k repack at load, native serves the GGUF's own "
+                         "Q8_0 / Q6_K blocks")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA device)")
     return ap
@@ -160,8 +168,12 @@ def build_argparser():
 
 def main(argv: list[str] | None = None) -> None:
     args = build_argparser().parse_args(argv)
-    engine = Engine(args.model, max_seq=args.ctx_size,
-                    device="cpu" if args.cpu else None)
+    try:
+        engine = Engine(args.model, max_seq=args.ctx_size,
+                        device="cpu" if args.cpu else None, quant=args.quant)
+    except (NotImplementedError, ValueError) as e:   # an unserved mode or model
+        print(f"error: {e}", file=sys.stderr)
+        raise SystemExit(2) from None
     server = ChatServer(engine, GenerationConfig(max_new_tokens=args.n_predict),
                         parallel=args.parallel)
     print(f"chat server listening on http://{args.host}:{args.port}", flush=True)
