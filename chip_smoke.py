@@ -20,14 +20,16 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    case: the max abs error and its tolerance, the kernel's (cold and warm
    L2), the plain version's and the library call's time, and the least time
    the card could take (bytes over 3.35 TB/s or operations over 989
-   TFLOP/s, whichever is larger). The four quantized matmul kernels
-   (fused-dequant and W8A8, each over Q8_0 and Q6_K packs of random codes
-   and scales) run at Llama-3.2-1B's five (D, F) pairs, the head's with f32
-   output: W8A8 at M = 1, 4, 16, 32, fused dequant at M = 33, 256, 512; plus
-   an odd F, activation group 32 and an all-zero activation row. The W8A8
-   kernel's own quantized activations must equal ``quantize_acts`` bit for
-   bit. Their yardstick is ``F.linear`` on the dense bf16 weight the pack
-   represents, and their bound counts int8 operations at 1979 TOP/s.
+   TFLOP/s, whichever is larger). The quantized matmul kernels (W8A8 over
+   Q8_0, Q6_K, Q4_K and Q5_KS packs, fused dequant over Q8_0, Q6_K and Q4_K
+   packs, of random codes, scales and offsets) run at Llama-3.2-1B's five
+   (D, F) pairs, the head's with f32 output: W8A8 at M = 1, 4, 16, 32, fused
+   dequant at M = 33, 256, 512; plus an odd F, activation group 32 and an
+   all-zero activation row. The W8A8 kernel's own quantized activations must
+   equal ``quantize_acts`` bit for bit. Their yardstick is ``F.linear`` on
+   the dense bf16 weight the pack represents, and their bound counts int8
+   operations at 1979 TOP/s. Q5_KS at M > 32 runs no kernel (dequant, then
+   ``F.linear``, as the reference's einsum): that route is timed once.
 4. Serve, single stream: a GGUF of Llama-3.2-1B geometry (bf16 weights
    random from --seed, a synthetic 128256-token SPM vocab) goes through the
    port's Engine, which first runs the three requests once directly (the
@@ -61,7 +63,15 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    B). Load and pack times, TTFT, decode tok/s and a profiled quantized
    decode step are printed; then each engine's logits with the kernels
    against the plain versions, held as in phase 6.
-8. The kernels line (one JSON object), the card line, and last the ok line.
+8. Serve Q4_K and Q5_K: a GGUF with llama.cpp's Q4_K_M assignment (attn_v
+   and ffn_down in Q6_K on the ``use_more_bits`` layers, the other
+   projections in Q4_K, token_embd in Q6_K) served with
+   ``Engine(quant="native")`` single-stream (its mixed attn_v and ffn_down
+   stacks load dense, as in the reference), and the bf16 GGUF with
+   ``Engine(quant="q5_k")`` on 4 slots, held and printed as phase 7. Q5_KS
+   forwards of M > 32 count their dequant + F.linear calls in place of a
+   kernel launch.
+9. The kernels line (one JSON object), the card line, and last the ok line.
 """
 
 from __future__ import annotations
@@ -400,20 +410,27 @@ QUANT_PAIRS = [("wq_wo", 2048, 2048), ("wk_wv", 2048, 512),
 W8A8_M = (1, 4, 16, 32)          # decode B = 1..4, short prefill buckets
 DEQUANT_M = (33, 256, 512)       # the cutover, mixed steps, a 512 prefill
 # edges: an odd F, activation group 32 (Q8_0 with D % 256 != 0, Q6_K with
-# D/4 % 256 != 0), an all-zero activation row
+# D/4 % 256 != 0, Q4_K and Q5_KS with D/2 % 256 != 0), an all-zero
+# activation row
 QUANT_EDGES = [dict(name="odd_f", D=2048, F=1001),
-               dict(name="group32", D={"q8_0": 2080, "q6_k": 1280}, F=1024)]
+               dict(name="group32", D={"q8_0": 2080, "q6_k": 1280, "q4_k": 1280,
+                                       "q5_ks": 1280}, F=1024)]
+QUANT_KINDS = ("q8_0", "q6_k", "q4_k", "q5_ks")
 # the case each kernel's kernels-line entry reports: the (D, F) pair with the
-# most weight bytes of a layer at the M its served path runs (q8_0: the
-# parallel-4 path, B=4 decode and 256-lane mixed steps; q6_k: the
-# single-stream path, B=1 decode and a 512-token prefill bucket)
+# most weight bytes of a layer at the M its served path runs (q8_0 and q5_ks:
+# the parallel-4 path, B=4 decode and 256-lane mixed steps; q6_k and q4_k:
+# the single-stream path, B=1 decode and a 512-token prefill bucket)
 QUANT_TIMED = {("q8_0", "w8a8"): ("gate_up", 4), ("q8_0", "dequant"): ("gate_up", 256),
-               ("q6_k", "w8a8"): ("gate_up", 1), ("q6_k", "dequant"): ("gate_up", 512)}
+               ("q6_k", "w8a8"): ("gate_up", 1), ("q6_k", "dequant"): ("gate_up", 512),
+               ("q4_k", "w8a8"): ("gate_up", 1), ("q4_k", "dequant"): ("gate_up", 512),
+               ("q5_ks", "w8a8"): ("gate_up", 4)}
 
 
 def random_pack(qm, kq, kind: str, D: int, F: int, gen: torch.Generator):
     """A pack of random codes (every bit pattern of the format) and scales
-    of about 0.02 / code std, built on the card."""
+    of about 0.02 / code std, built on the card; an affine pack's offsets
+    sit near scale · the codes' mean, so its weights are centred as the
+    encoder's are."""
     def codes(*shape):
         return torch.randint(-128, 128, shape, dtype=torch.int8, device="cuda",
                              generator=gen)
@@ -422,9 +439,20 @@ def random_pack(qm, kq, kind: str, D: int, F: int, gen: torch.Generator):
         return ((0.5 + torch.rand(shape, device="cuda", generator=gen))
                 * 0.02 / std_code).bfloat16()
 
+    def offsets(a: torch.Tensor, mean_code: float) -> torch.Tensor:
+        jitter = 0.9 + 0.2 * torch.rand(a.shape, device="cuda", generator=gen)
+        return (a.float() * mean_code * jitter).bfloat16()
+
     if kind == "q8_0":
         return qm.Q8_0Pack(qs=codes(F, D).clamp_(-127, 127),
                            scale=scales(F, D // 32, std_code=73.0))
+    if kind == "q4_k":
+        a = scales(F, D // 32, std_code=4.6)
+        return kq.Q4KPack(qs=codes(F, D // 2), a=a, b=offsets(a, 7.5))
+    if kind == "q5_ks":
+        a = scales(F, D // 32, std_code=9.2)
+        return kq.Q5KSPack(q5n=codes(F, D // 2), q5h=codes(F, D // 8), a=a,
+                           b=offsets(a, 15.5))
     return kq.Q6KPack(ql=codes(F, D // 2), qh=codes(F, D // 4),
                       s=scales(F, D // 16, std_code=18.5))
 
@@ -500,16 +528,19 @@ def quant_case(qm, pack, kernel: str, M: int, out_dtype, gen, flush,
 
 
 def check_quant(qm, kq, seed: int, flush: torch.Tensor, card: str) -> dict:
-    """The four quantized matmul kernels: one JSON line per case; returns
-    the rows by (kind, kernel)."""
+    """The quantized matmul kernels: one JSON line per case; returns the
+    rows by (kind, kernel)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows: dict[tuple[str, str], list[dict]] = {}
-    for kind in ("q8_0", "q6_k"):
+    for kind in QUANT_KINDS:
+        kernels = [("w8a8", W8A8_M, 3)]
+        if qm._NAMES[kind][0]:   # the kind has a fused-dequant kernel
+            kernels.append(("dequant", DEQUANT_M, 100))
         cases = [(p, D, F, M, k) for p, D, F in QUANT_PAIRS
-                 for k, ms in (("w8a8", W8A8_M), ("dequant", DEQUANT_M)) for M in ms]
+                 for k, ms, _ in kernels for M in ms]
         for e in QUANT_EDGES:
             D = e["D"][kind] if isinstance(e["D"], dict) else e["D"]
-            cases += [(e["name"], D, e["F"], 3, "w8a8"), (e["name"], D, e["F"], 100, "dequant")]
+            cases += [(e["name"], D, e["F"], m, k) for k, _, m in kernels]
         packs = {}
         for pname, D, F, M, kernel in cases:
             if pname not in packs:
@@ -522,8 +553,31 @@ def check_quant(qm, kq, seed: int, flush: torch.Tensor, card: str) -> dict:
             row["card"] = card
             print(json.dumps(row), flush=True)
             rows.setdefault((kind, kernel), []).append(row)
+        if not qm._NAMES[kind][0]:
+            print(json.dumps(dense_route_case(qm, packs["gate_up"], gen, flush, card)),
+                  flush=True)
         del packs
     return rows
+
+
+def dense_route_case(qm, pack, gen, flush, card: str, M: int = 256) -> dict:
+    """The route of a kind with no fused-dequant kernel at M > 32: the
+    dense weight (``pack.dequant``), then ``F.linear``, beside ``F.linear``
+    on a dense weight already there."""
+    import torch.nn.functional as F
+
+    Fo, D = pack.shape
+    x = torch.randn(M, D, generator=gen, device="cuda").bfloat16()
+    dense = pack.dequant(torch.bfloat16)
+    got = qm.dequant_linear(x, pack, torch.bfloat16)
+    if not torch.equal(got, F.linear(x, dense)):
+        fail(f"{pack.kind} dequant_linear differs from F.linear on the dense weight")
+    return {"case": f"{pack.kind} dequant_linear D={D} F={Fo} M={M}", "kind": pack.kind,
+            "M": M, "D": D, "F": Fo,
+            "route_ms": event_ms(lambda: qm.dequant_linear(x, pack, torch.bfloat16), 20, flush),
+            "dequant_ms": event_ms(lambda: pack.dequant(torch.bfloat16), 20, flush),
+            "library": "F.linear on the dense bf16 weight",
+            "library_ms": event_ms(lambda: F.linear(x, dense), 20, flush), "card": card}
 
 
 # --------------------------------------------------------------------------
@@ -564,11 +618,34 @@ def build_vocab(vocab_size: int) -> dict:
             "tokenizer.ggml.add_space_prefix": True}
 
 
+def q4_k_m_types(n_layers: int):
+    """llama.cpp's Q4_K_M type of each matrix (``src/llama-quant.cpp``,
+    ``llama_tensor_get_type``) for a tied llama: attn_v and ffn_down in Q6_K
+    on the ``use_more_bits`` layers, the other projections in Q4_K, the
+    embedding (which is the head) in Q6_K."""
+    from distributed_llm_pipeline_tpu_torch.gguf import GGMLType
+
+    n8 = n_layers // 8
+    more = {i for i in range(n_layers)
+            if i < n8 or i >= 7 * n_layers // 8 or (i - n8) % 3 == 2}
+
+    def wtype(name: str):
+        if name == "token_embd.weight":
+            return GGMLType.Q6_K
+        _, layer, leaf = name.split(".")[:3]
+        if leaf in ("attn_v", "ffn_down") and int(layer) in more:
+            return GGMLType.Q6_K
+        return GGMLType.Q4_K
+
+    return wtype
+
+
 def write_model(path: Path, cfg, seed: int, device: str = "cuda",
                 wtype=None) -> None:
     """A GGUF of ``cfg``'s geometry, weights N(0, 0.02²) drawn on ``device``
     from ``seed``, norms 1 (F32), tied embeddings. The matrices are BF16, or
-    encoded as ``wtype`` (a GGMLType, e.g. Q6_K) on the host."""
+    encoded on the host as ``wtype``: a GGMLType (e.g. Q6_K), or a function
+    of the tensor name giving one (``q4_k_m_types``)."""
     from distributed_llm_pipeline_tpu_torch.gguf import GGMLType, GGUFWriter, quantize
 
     w = GGUFWriter(path)
@@ -593,8 +670,8 @@ def write_model(path: Path, cfg, seed: int, device: str = "cuda",
     def rnd(name: str, *shape: int) -> None:
         t = torch.randn(shape, generator=gen, device=device) * 0.02
         if wtype is not None:
-            w.add_tensor_bytes(name, shape, wtype,
-                               quantize(wtype, t.cpu().numpy().reshape(-1)))
+            qt = wtype(name) if callable(wtype) else wtype
+            w.add_tensor_bytes(name, shape, qt, quantize(qt, t.cpu().numpy().reshape(-1)))
             return
         w.add_tensor_bytes(name, shape, GGMLType.BF16,
                            t.bfloat16().view(torch.int16).cpu().numpy().tobytes())
@@ -785,10 +862,21 @@ class QuantWatch:
     call for: every packed projection one kernel per forward, W8A8 where the
     forward's M = B·T is at most 32 and fused dequant above; a packed head
     sees M = B·T of the positions it scores. It wraps the model's
-    ``embed_tokens`` and ``lm_logits`` (once per forward each) to record M."""
+    ``embed_tokens`` and ``lm_logits`` (once per forward each) to record M.
+    A kind with no fused-dequant kernel (q5_ks) launches nothing at M > 32:
+    its calls of ``qm.dequant_linear``, which the watch wraps until
+    ``close``, count in place of the dequant launches."""
 
     def __init__(self, qm, model):
         self.qm, self.body, self.head = qm, [], []
+        self.linear = 0
+        self._route = route = qm.dequant_linear
+
+        def dequant_linear(*args, **kw):
+            self.linear += 1
+            return route(*args, **kw)
+
+        qm.dequant_linear = dequant_linear
         self.served: dict[str, int] = {}   # the launches the last check held
         self.layer_packs = sum(isinstance(m, qm.QuantPack)
                                for blk in model.layers for m in blk.children())
@@ -806,9 +894,13 @@ class QuantWatch:
 
         model.embed_tokens, model.lm_logits = embed_tokens, lm_logits
 
+    def close(self) -> None:
+        self.qm.dequant_linear = self._route
+
     def reset(self) -> None:
         self.body.clear()
         self.head.clear()
+        self.linear = 0
         for k in self.qm.launches:
             self.qm.launches[k] = 0
 
@@ -820,9 +912,12 @@ class QuantWatch:
                 + self.head_packed * sum(m <= cut for m in self.head),
                 "dequant": self.layer_packs * sum(m > cut for m in self.body)
                 + self.head_packed * sum(m > cut for m in self.head)}
-        got = {"w8a8": 0, "dequant": 0}
+        got = {"w8a8": 0, "dequant": self.linear}
+        if self.linear and all(self.qm._NAMES[k][0] for k in self.kinds):
+            fail(f"{what}: dequant_linear ran with no pack that needs it")
         for kind, (dq, w8) in self.qm._NAMES.items():
-            n_dq, n_w8 = self.qm.launches[dq], self.qm.launches[w8]
+            n_dq = self.qm.launches[dq] if dq else 0
+            n_w8 = self.qm.launches[w8]
             if kind not in self.kinds and n_dq + n_w8:
                 fail(f"{what}: {kind} kernels launched with no {kind} pack")
             got["w8a8"] += n_w8
@@ -836,7 +931,8 @@ class QuantWatch:
                 "forwards_w8a8": sum(m <= cut for m in self.body),
                 "forwards_dequant": sum(m > cut for m in self.body),
                 "layer_packs": self.layer_packs, "head_packed": self.head_packed,
-                "launches": dict(self.qm.launches)}
+                "kinds": sorted(self.kinds), "launches": dict(self.qm.launches),
+                "dequant_linear_calls": self.linear}
 
 
 def serve_single(engine, requests: list[dict], card: str, fa, watch=None) -> int:
@@ -1075,6 +1171,48 @@ def serve_slots(engine, pa, fa, cfg, card: str, seed: int, watch=None) -> int:
     return launches
 
 
+def load_quant_engine(Engine, gguf: Path, quant: str, card: str, unlink: bool):
+    """An engine over ``gguf`` with ``quant``, its load line printed; the
+    GGUF is deleted once loaded when ``unlink``."""
+    t0 = time.monotonic()
+    engine = Engine(gguf, max_seq=2048, quant=quant)
+    if unlink:
+        gguf.unlink()
+    print(json.dumps({"quant_engine": quant, "gguf": gguf.name,
+                      "up_s": time.monotonic() - t0,
+                      "load_log": [e.content for e in engine._events_on_load],
+                      "device_bytes": torch.cuda.memory_allocated(),
+                      "card": card}), flush=True)
+    return engine
+
+
+def serve_quant(engine, slots: bool, requests: list[dict], fa, pa, qm, llama, cfg,
+                card: str, seed: int) -> dict:
+    """Phases 7 and 8 for one quantized engine: serve single-stream (the
+    phase-4 requests) or on 4 slots (the phase-5 requests) with every
+    packed projection's launches held by a QuantWatch, profile a decode
+    step, then hold its logits, kernels against plain versions. Returns the
+    kernel launches of the served run."""
+    def plain_proj(x, w, out_dtype=None, _dense=llama.proj):
+        if isinstance(w, qm.QuantPack):
+            return qm.quant_matmul_plain(x, w, out_dtype)
+        return _dense(x, w, out_dtype)
+
+    watch = QuantWatch(qm, engine.model)
+    try:
+        if slots:
+            serve_slots(engine, pa, fa, cfg, card, seed, watch)
+            profile_quant_step(engine, profile_paged_decode, qm, card)
+        else:
+            serve_single(engine, requests, card, fa, watch)
+            profile_quant_step(engine, profile_decode, qm, card)
+    finally:
+        watch.close()
+    print(json.dumps({"quant_logits": engine.quant, **compare_logits(
+        engine, llama, "proj", plain_proj, seed, QUANT_LOGIT_TOL)}), flush=True)
+    return {k: v for k, v in watch.served.items() if v}
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  rows: list[dict], timed: dict) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -1092,6 +1230,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.monotonic()
 
     from distributed_llm_pipeline_tpu_torch.gguf import GGMLType
     from distributed_llm_pipeline_tpu_torch.models import PRESETS, llama
@@ -1129,12 +1268,15 @@ def main() -> int:
     paged_rows = check_paged(pa, llama.kv_quantize, args.seed, flush)
     quant_rows = check_quant(qm, kq, args.seed, flush, card)
     del flush
+    print(f"phase 3 done at {time.monotonic() - t_start:.0f}s: "
+          f"{sum(map(len, quant_rows.values()))} quantized kernel cases held", flush=True)
 
     cfg = PRESETS["llama3.2-1b"]
     model_dir = ROOT / "build" / "chip_smoke"
     model_dir.mkdir(parents=True, exist_ok=True)
     path = model_dir / f"llama3.2-1b-seed{args.seed}.gguf"
     q6_path = model_dir / f"llama3.2-1b-q6_k-seed{args.seed}.gguf"
+    q4_path = model_dir / f"llama3.2-1b-q4_k_m-seed{args.seed}.gguf"
     try:
         # 4. the served path, single stream
         t0 = time.monotonic()
@@ -1171,43 +1313,32 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
 
-        # 7. serve quantized; the plain versions swap in for the logits check
-        def plain_proj(x, w, out_dtype=None, _dense=llama.proj):
-            if isinstance(w, qm.QuantPack):
-                return qm.quant_matmul_plain(x, w, out_dtype)
-            return _dense(x, w, out_dtype)
-
-        t0 = time.monotonic()
-        write_model(q6_path, cfg, args.seed + 1, wtype=GGMLType.Q6_K)
-        print(f"wrote {q6_path.name}: {q6_path.stat().st_size / 2**30:.2f} GiB in "
-              f"{time.monotonic() - t0:.1f}s (Q6_K encoded on the host)", flush=True)
+        # 7. serve quantized: the paper's demo (a Q6_K GGUF, one stream) and
+        # --quant q8_0 --parallel 4; 8. Q4_K_M native, one stream, and
+        # --quant q5_k --parallel 4. The bf16 GGUF goes once q5_k has packed it
         quant_launches = {}
-        for quant, gguf in (("native", q6_path), ("q8_0", path)):
+        for phase, qpath, wtype, seed, runs in (
+                (7, q6_path, GGMLType.Q6_K, args.seed + 1,
+                 (("native", q6_path, False), ("q8_0", path, True))),
+                (8, q4_path, q4_k_m_types(cfg.n_layers), args.seed + 2,
+                 (("native", q4_path, False), ("q5_k", path, True)))):
             t0 = time.monotonic()
-            qengine = Engine(gguf, max_seq=2048, quant=quant)
-            gguf.unlink()
-            print(json.dumps({"quant_engine": quant, "up_s": time.monotonic() - t0,
-                              "load_log": [e.content for e in qengine._events_on_load],
-                              "device_bytes": torch.cuda.memory_allocated(),
-                              "card": card}), flush=True)
-            watch = QuantWatch(qm, qengine.model)
-            if quant == "native":    # the paper's demo: a Q6_K GGUF, one stream
-                serve_single(qengine, requests, card, fa, watch)
-                profile_quant_step(qengine, profile_decode, qm, card)
-            else:                    # --quant q8_0 --parallel 4
-                serve_slots(qengine, pa, fa, cfg, card, args.seed, watch)
-                profile_quant_step(qengine, profile_paged_decode, qm, card)
-            quant_launches.update({k: v for k, v in watch.served.items() if v})
-            print(json.dumps({"quant_logits": quant, **compare_logits(
-                qengine, llama, "proj", plain_proj, args.seed, QUANT_LOGIT_TOL)}),
-                flush=True)
-            del qengine, watch
-            torch.cuda.empty_cache()
+            write_model(qpath, cfg, seed, wtype=wtype)
+            print(f"phase {phase} at {time.monotonic() - t_start:.0f}s: wrote {qpath.name}: "
+                  f"{qpath.stat().st_size / 2**30:.2f} GiB in {time.monotonic() - t0:.1f}s "
+                  f"(encoded on the host)", flush=True)
+            for quant, gguf, slots in runs:
+                qengine = load_quant_engine(Engine, gguf, quant, card,
+                                            unlink=gguf != path or quant == "q5_k")
+                quant_launches.update(serve_quant(qengine, slots, requests, fa, pa, qm,
+                                                  llama, cfg, card, args.seed))
+                del qengine
+                torch.cuda.empty_cache()
     finally:
-        path.unlink(missing_ok=True)
-        q6_path.unlink(missing_ok=True)
+        for p in (path, q6_path, q4_path):
+            p.unlink(missing_ok=True)
 
-    # 8. results
+    # 9. results
     src = "distributed_llm_pipeline_tpu_torch/csrc/"
     ref = "distributed_llm_pipeline_tpu/ops/"
     entries = [
@@ -1220,7 +1351,10 @@ def main() -> int:
             ("q8_0_matmul", "q8_0", "dequant", "dequant_matmul.cu", "quant_matmul.py:356"),
             ("gw8a8_matmul", "q8_0", "w8a8", "w8a8_matmul.cu", "quant_matmul.py:242"),
             ("q6_k_matmul", "q6_k", "dequant", "dequant_matmul.cu", "kquant_matmul.py:879"),
-            ("q6_k_w8a8_matmul", "q6_k", "w8a8", "w8a8_matmul.cu", "kquant_matmul.py:1048")):
+            ("q6_k_w8a8_matmul", "q6_k", "w8a8", "w8a8_matmul.cu", "kquant_matmul.py:1048"),
+            ("q4_k_matmul", "q4_k", "dequant", "dequant_matmul.cu", "kquant_matmul.py:585"),
+            ("q4_k_w8a8_matmul", "q4_k", "w8a8", "w8a8_matmul.cu", "kquant_matmul.py:813"),
+            ("q5_ks_w8a8_matmul", "q5_ks", "w8a8", "w8a8_matmul.cu", "kquant_matmul.py:796")):
         krows = quant_rows[(kind, kernel)]
         pair, M = QUANT_TIMED[(kind, kernel)]
         timed = next(r for r in krows if r["pair"] == pair and r["M"] == M)

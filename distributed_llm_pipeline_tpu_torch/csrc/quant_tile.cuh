@@ -1,18 +1,28 @@
 // Weight decoders shared by the quantized matmul kernels (dequant_matmul.cu,
-// w8a8_matmul.cu): the Q8_0 and Q6_K packs of ops/quant_matmul.py and
-// ops/kquant_matmul.py, laid out out-features-major, [F, .].
+// w8a8_matmul.cu): the Q8_0, Q6_K, Q4_K and Q5_KS packs of
+// ops/quant_matmul.py and ops/kquant_matmul.py, laid out out-features-major,
+// [F, .].
 //
 // A decoder maps (output row f, logical contraction row d0, a multiple of 16)
-// to the 16 signed int8 codes of rows d0 .. d0+15, written to w[0..3] as
-// four 32-bit words of four bytes in row order, and to the bf16 scale those
-// rows share; the weight is code * scale. Each kernel takes a decoder as a template argument, so one
-// kernel body serves both formats.
+// to the 16 int8 codes of rows d0 .. d0+15, written to w[0..3] as four 32-bit
+// words of four bytes in row order (signed for Q8_0 and Q6_K, unsigned and
+// below 128 for Q4_K and Q5_KS, so both read as signed bytes), and to the
+// bf16 scale those rows share. The weight is code * scale, less the bf16
+// offset of the sub-block for an affine decoder (AFFINE, offset_at). Each
+// kernel takes a decoder as a template argument, so one kernel body serves
+// every format.
 //
 //   Q8_0  qs int8 [F, D], scale bf16 [F, D/32]        (sub-block 32)
 //   Q6_K  ql int8 [F, D/2], qh int8 [F, D/4], s bf16 [F, D/16]   (sub-block 16)
 //         row d of band k = d / (D/4): low 4 bits from the nibble k >> 1 of
 //         ql[d % (D/2)], top 2 bits from bits 2k..2k+1 of qh[d % (D/4)],
 //         code = bits - 32.
+//   Q4_K  qs int8 [F, D/2], a bf16 [F, D/32], b bf16 [F, D/32]   (sub-block 32)
+//         row d of band k = d / (D/2): the nibble 4k of qs[d % (D/2)],
+//         code in [0, 15], weight a * code - b.
+//   Q5_KS q5n int8 [F, D/2], q5h int8 [F, D/8], a, b as Q4_K     (sub-block 32)
+//         low 4 bits as Q4_K from q5n; the fifth bit is bit 4k + d % 4 of
+//         q5h[(d % (D/2)) / 4]; code in [0, 31], weight a * code - b.
 
 #pragma once
 
@@ -24,6 +34,7 @@ namespace dlp_quant {
 
 struct Q8_0 {
   static constexpr int SUB = 32;  // rows per scale
+  static constexpr bool AFFINE = false;
   const int8_t* qs;
   const __nv_bfloat16* scale;
   int D;
@@ -42,6 +53,7 @@ struct Q8_0 {
 
 struct Q6K {
   static constexpr int SUB = 16;
+  static constexpr bool AFFINE = false;
   const int8_t* ql;
   const int8_t* qh;
   const __nv_bfloat16* s;
@@ -66,6 +78,63 @@ struct Q6K {
   }
   __device__ __forceinline__ float scale_at(int f, int d0) const {
     return __bfloat162float(s[size_t(f) * (D / SUB) + d0 / SUB]);
+  }
+};
+
+struct Q4K {
+  static constexpr int SUB = 32;
+  static constexpr bool AFFINE = true;
+  const int8_t* qs;
+  const __nv_bfloat16* a;
+  const __nv_bfloat16* b;
+  int D;
+
+  __device__ __forceinline__ void codes16(int f, int d0, int* w) const {
+    const int D2 = D / 2, sh = (d0 / D2) * 4;
+    const int4 v = *reinterpret_cast<const int4*>(qs + size_t(f) * D2 + d0 % D2);
+    w[0] = int((unsigned(v.x) >> sh) & 0x0F0F0F0Fu);
+    w[1] = int((unsigned(v.y) >> sh) & 0x0F0F0F0Fu);
+    w[2] = int((unsigned(v.z) >> sh) & 0x0F0F0F0Fu);
+    w[3] = int((unsigned(v.w) >> sh) & 0x0F0F0F0Fu);
+  }
+  __device__ __forceinline__ float scale_at(int f, int d0) const {
+    return __bfloat162float(a[size_t(f) * (D / SUB) + d0 / SUB]);
+  }
+  __device__ __forceinline__ float offset_at(int f, int d0) const {
+    return __bfloat162float(b[size_t(f) * (D / SUB) + d0 / SUB]);
+  }
+};
+
+struct Q5KS {
+  static constexpr int SUB = 32;
+  static constexpr bool AFFINE = true;
+  const int8_t* q5n;
+  const int8_t* q5h;
+  const __nv_bfloat16* a;
+  const __nv_bfloat16* b;
+  int D;
+
+  // bit i (0..3) of `bits` to bit 4 of byte i: the product places copies of
+  // the four bits 7 apart, so bit i of the copy shifted by 7i lands at 8i,
+  // with no carries (the copies do not overlap); the mask keeps those four
+  __device__ __forceinline__ static unsigned fifth_bits(unsigned bits) {
+    return ((bits * 0x00204081u) & 0x01010101u) << 4;
+  }
+  __device__ __forceinline__ void codes16(int f, int d0, int* w) const {
+    const int D2 = D / 2, r = d0 % D2, sh = (d0 / D2) * 4;
+    const int4 v = *reinterpret_cast<const int4*>(q5n + size_t(f) * D2 + r);
+    // bytes r/4 .. r/4 + 3 of the bit plane: byte k holds rows r + 4k ..
+    const unsigned h = *reinterpret_cast<const unsigned*>(q5h + size_t(f) * (D / 8) + r / 4);
+    w[0] = int(((unsigned(v.x) >> sh) & 0x0F0F0F0Fu) | fifth_bits((h >> sh) & 0xFu));
+    w[1] = int(((unsigned(v.y) >> sh) & 0x0F0F0F0Fu) | fifth_bits((h >> (8 + sh)) & 0xFu));
+    w[2] = int(((unsigned(v.z) >> sh) & 0x0F0F0F0Fu) | fifth_bits((h >> (16 + sh)) & 0xFu));
+    w[3] = int(((unsigned(v.w) >> sh) & 0x0F0F0F0Fu) | fifth_bits((h >> (24 + sh)) & 0xFu));
+  }
+  __device__ __forceinline__ float scale_at(int f, int d0) const {
+    return __bfloat162float(a[size_t(f) * (D / SUB) + d0 / SUB]);
+  }
+  __device__ __forceinline__ float offset_at(int f, int d0) const {
+    return __bfloat162float(b[size_t(f) * (D / SUB) + d0 / SUB]);
   }
 };
 

@@ -1,10 +1,12 @@
-// W8A8 integer-dot matmul of few activation rows against a Q8_0 or Q6_K pack,
-// for Hopper (sm_90a), plain C ABI.
+// W8A8 integer-dot matmul of few activation rows against a Q8_0, Q6_K, Q4_K or
+// Q5_KS pack, for Hopper (sm_90a), plain C ABI.
 //
 // Replaces the TPU kernels `gw8a8_matmul_pallas` (distributed_llm_pipeline_
-// tpu/ops/quant_matmul.py, math in `gw8a8_band_accum`) on Q8_0 packs and
+// tpu/ops/quant_matmul.py, math in `gw8a8_band_accum`) on Q8_0 packs,
 // `q6_k_w8a8_matmul_pallas` (ops/kquant_matmul.py, `_q6k_w8a8_kernel`) on
-// Q6_K packs. Same contract, with the activation quantization folded in:
+// Q6_K packs, and `q4_k_w8a8_matmul_pallas` / `q5_ks_w8a8_matmul_pallas`
+// (`_q4k_w8a8_kernel`, `_q5ks_w8a8_kernel`) on the affine Q4_K and Q5_KS
+// packs. Same contract, with the activation quantization folded in:
 //   x [M, D] (f32 or bf16, M <= 32) is quantized per (row, group of `group`
 //   columns): xs = amax * f32(1/127) (the reference's amax / 127 as XLA
 //   compiles it), inv = xs > 0 ? 1 / max(xs, 1e-30) : 0 (IEEE division),
@@ -12,8 +14,10 @@
 //   bit for bit. Then out[m, f] = sum over groups g of
 //   xs[m, g] * sum over sub-blocks s of g of float(P[m, s, f]) * scale[f, s],
 //   where P is the exact int32 dot of xq and the weight codes over the
-//   sub-block's SUB rows (32 for Q8_0, 16 for Q6_K). Output [M, F] in f32 or
-//   bf16.
+//   sub-block's SUB rows (32 for Q8_0, Q4_K and Q5_KS, 16 for Q6_K). An
+//   affine pack (weight = code * scale - offset) subtracts
+//   sum over s of (float(S[m, s]) * xs[m, g(s)]) * offset[f, s], S the exact
+//   sum of xq over the sub-block. Output [M, F] in f32 or bf16.
 //
 // Design. A decode step's projections are GEMVs: bounded by the weight bytes
 // (1.0625 B/weight for Q8_0, 0.875 for Q6_K), with M <= 32 rows of x reused
@@ -25,7 +29,11 @@
 // the end. Each block (8 warps, 8 output rows) quantizes x itself, 1024
 // columns at a time into shared memory: no separate launch per projection,
 // at the price of re-reading x from L2 once per block (cheap at decode's M,
-// dominant at M = 32 against narrow F).
+// dominant at M = 32 against narrow F). For an affine pack the prologue also
+// stores each row's per-32 sums S (dp4a against ones), and each lane
+// subtracts its sub-block's offset term. The two nibble bands of Q4_K and
+// Q5_KS are walked one after the other, so each packed byte is read twice,
+// the second time from L1 or L2.
 
 #include <type_traits>
 
@@ -62,6 +70,7 @@ w8a8_kernel(Dec dec, const void* __restrict__ x, bool x_bf16, void* __restrict__
   constexpr int WORDS = SUB / 4;  // code words per sub-block
   __shared__ __align__(16) int8_t xq_s[MT][kChunk];
   __shared__ float xs_s[MT][kChunk / 32];
+  __shared__ int ss_s[Dec::AFFINE ? MT : 1][kChunk / 32];  // per-32 sums of xq
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int f = blockIdx.x * kWarps + warp;
   const int spg = group / SUB;  // sub-blocks per group: 1, 2, 8 or 16 lanes
@@ -92,6 +101,16 @@ w8a8_kernel(Dec dec, const void* __restrict__ x, bool x_bf16, void* __restrict__
         xs_s[m][g] = xs;
         if (dump) xs_out[size_t(m) * (D / group) + c0 / group + g] = xs;
       }
+      if constexpr (Dec::AFFINE) {
+        __syncwarp();  // the group's codes are in shared memory
+        for (int sb = lane; sb < group / 32; sb += 32) {
+          const int* xw = reinterpret_cast<const int*>(&xq_s[m][g * group + sb * 32]);
+          int sum = 0;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) sum = __dp4a(xw[i], 0x01010101, sum);
+          ss_s[m][g * group / 32 + sb] = sum;
+        }
+      }
     }
     __syncthreads();
     if (f >= F) continue;  // a ragged last block: no row, but it keeps the barriers
@@ -101,13 +120,14 @@ w8a8_kernel(Dec dec, const void* __restrict__ x, bool x_bf16, void* __restrict__
       const int s = s0 + lane;
       const bool live = s < nsb;  // a whole group is live or not: 32 % spg == 0
       int w[WORDS];
-      float sc = 0.f;
+      float sc = 0.f, off = 0.f;
 #pragma unroll
       for (int i = 0; i < WORDS; ++i) w[i] = 0;
       if (live) {
 #pragma unroll
         for (int h = 0; h < SUB / 16; ++h) dec.codes16(f, c0 + s * SUB + 16 * h, w + 4 * h);
         sc = dec.scale_at(f, c0 + s * SUB);
+        if constexpr (Dec::AFFINE) off = dec.offset_at(f, c0 + s * SUB);
       }
       const int col = live ? s * SUB : 0;
       const int g = col / group;
@@ -121,6 +141,9 @@ w8a8_kernel(Dec dec, const void* __restrict__ x, bool x_bf16, void* __restrict__
           float t = float(p) * sc;  // the sub-block's term
           for (int o = 1; o < spg; o <<= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
           if (live && lane % spg == 0) acc[m] += t * xs_s[m][g];  // group sum, times xs
+          if constexpr (Dec::AFFINE) {  // SUB == 32: sub-block s is sum s
+            if (live) acc[m] -= float(ss_s[m][s]) * xs_s[m][g] * off;
+          }
         }
       }
     }
@@ -172,6 +195,23 @@ extern "C" int dlp_w8a8_q8_0(const void* x, const void* qs, const void* scale, v
                              int8_t* xq_out, float* xs_out, int x_bf16, int out_bf16, int M,
                              int D, int F, int group, void* stream) {
   const Q8_0 dec{static_cast<const int8_t*>(qs), static_cast<const __nv_bfloat16*>(scale), D};
+  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
+}
+
+extern "C" int dlp_w8a8_q4_k(const void* x, const void* qs, const void* a, const void* b,
+                             void* out, int8_t* xq_out, float* xs_out, int x_bf16, int out_bf16,
+                             int M, int D, int F, int group, void* stream) {
+  const Q4K dec{static_cast<const int8_t*>(qs), static_cast<const __nv_bfloat16*>(a),
+                static_cast<const __nv_bfloat16*>(b), D};
+  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
+}
+
+extern "C" int dlp_w8a8_q5_ks(const void* x, const void* q5n, const void* q5h, const void* a,
+                              const void* b, void* out, int8_t* xq_out, float* xs_out,
+                              int x_bf16, int out_bf16, int M, int D, int F, int group,
+                              void* stream) {
+  const Q5KS dec{static_cast<const int8_t*>(q5n), static_cast<const int8_t*>(q5h),
+                 static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), D};
   return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
 }
 

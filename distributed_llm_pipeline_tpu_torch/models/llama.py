@@ -474,7 +474,7 @@ class LlamaModel(nn.Module):
 QUANTIZABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 # the reference server's --quant choices, and those this package serves
 QUANT_MODES = ("int8", "q8_0", "q2_k", "q3_k", "q4_k", "q5_k", "q6_k", "native")
-PORTED_QUANT = ("q8_0", "q6_k", "native")
+PORTED_QUANT = ("q8_0", "q4_k", "q5_k", "q6_k", "native")
 
 
 def check_quant(quant: str | None) -> None:
@@ -493,22 +493,28 @@ def check_quant(quant: str | None) -> None:
 
 def quantize_params(params: Params, cfg: ModelConfig, mode: str) -> Params:
     """Re-pack the projection weights and the head so they stay quantized on
-    the device (the reference's ``quantize_params`` for ``q8_0`` and
-    ``q6_k``). Packing runs on the host; each pack lands on the device of the
-    weight it replaces. Norms and the embedding table stay dense.
+    the device (the reference's ``quantize_params`` for ``q8_0``, ``q4_k``,
+    ``q5_k`` and ``q6_k`` on one device, where K-quants take their sub-byte
+    packs, not the byte codes of tp meshes). Packing runs on the host; each
+    pack lands on the device of the weight it replaces. Norms and the
+    embedding table stay dense.
 
-    - ``q8_0``: per-32 blocks. ``q6_k``: 256-row super-blocks; a weight whose
-      contraction dim is not a multiple of 256 falls back to ``q8_0``.
+    - ``q8_0``: per-32 blocks. ``q4_k``, ``q5_k`` (the ``q5_ks`` pack) and
+      ``q6_k``: 256-row super-blocks; a weight whose contraction dim is not a
+      multiple of 256 falls back to ``q8_0``.
     - An untied head is packed; a tied head gets a packed copy of the
       embedding table (already [V, D], out-features-major) while the dense
       table keeps serving lookups."""
     check_quant(mode)
-    if mode not in ("q8_0", "q6_k"):
-        raise ValueError(f"quantize_params: mode {mode!r} (q8_0 or q6_k)")
-    from ..ops.kquant_matmul import pack_q6_k
+    from ..ops.kquant_matmul import pack_q4_k, pack_q5_ks, pack_q6_k
+
+    packers = {"q8_0": pack_q8_0, "q4_k": pack_q4_k, "q5_k": pack_q5_ks,
+               "q6_k": pack_q6_k}
+    if mode not in packers:
+        raise ValueError(f"quantize_params: mode {mode!r} ({', '.join(packers)})")
 
     def pack_dense(w: torch.Tensor) -> QuantPack:
-        packer = pack_q8_0 if mode == "q8_0" or w.shape[1] % 256 else pack_q6_k
+        packer = pack_q8_0 if w.shape[1] % 256 else packers[mode]
         return packer(w).to(w.device)
 
     out = dict(params)

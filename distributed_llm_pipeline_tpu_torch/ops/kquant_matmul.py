@@ -1,10 +1,11 @@
-"""Q6_K weights kept quantized on the device.
+"""K-quant weights (Q4_K, Q5_K, Q6_K) kept quantized on the device.
 
 The counterpart of ``distributed_llm_pipeline_tpu/ops/kquant_matmul.py`` for
-the Q6_K format (the reference's demo checkpoint is Q6_K,
-``orchestrator/src/main.rs:40``). The GGUF super-blocks are re-packed once
-at load into the JAX package's layout, transposed to out-features-major like
-the port's ``F.linear`` weights; the quantized values are exact:
+its single-device packs: Q6_K (the reference's demo checkpoint,
+``orchestrator/src/main.rs:40``), Q4_K (its north-star Q4_K_M format) and the
+sub-byte Q5_K pack ``q5_ks``. The GGUF super-blocks are re-packed once at
+load into the JAX package's layout, transposed to out-features-major like the
+port's ``F.linear`` weights; the quantized values are exact:
 
     Q6_K  w = s · q, q ∈ [-32, 31] per 16-row sub-block along D
         ql  int8 [F, D/2]   4-bit plane: byte j holds row j in its low
@@ -13,14 +14,30 @@ the port's ``F.linear`` weights; the quantized values are exact:
                             j + k·D/4 (the four quarter bands k = 0..3)
         s   bf16 [F, D/16]  effective scale (ggml d · sc, rounded to bf16)
 
-So band k (rows [k·D/4, (k+1)·D/4)) reads its low 4 bits from the low
-nibbles of ``ql``'s first half (k = 0), its second half (k = 1), or the high
-nibbles of those (k = 2, 3), and its top 2 bits from bits 2k of ``qh``.
+    Q4_K  w = a · q − b, q ∈ [0, 15] per 32-row sub-block along D
+        qs  int8 [F, D/2]   the 4-bit plane, paired as Q6_K's ql
+        a   bf16 [F, D/32]  effective scale (ggml d · sc)
+        b   bf16 [F, D/32]  effective offset (ggml dmin · m)
 
-The pack goes through the same dispatch and the same two kernels as Q8_0
-(``ops/quant_matmul.py``): the W8A8 integer dots (sub-block 16, activation
-group 256 where D/4 allows it, else 32) for M ≤ 32 and the fused dequant
-above; each kernel decodes the bit planes itself (``csrc/quant_tile.cuh``).
+    Q5_KS w = a · q − b, q ∈ [0, 31] per 32-row sub-block along D
+        q5n int8 [F, D/2]   the low 4 bits, paired as Q4_K's qs
+        q5h int8 [F, D/8]   the fifth bit: byte t holds rows 4t..4t+3 in
+                            bits 0..3 and rows D/2 + 4t.. in bits 4..7
+        a, b                as Q4_K
+
+So band k (rows [k·D/4, (k+1)·D/4)) of Q6_K reads its low 4 bits from the low
+nibbles of ``ql``'s first half (k = 0), its second half (k = 1), or the high
+nibbles of those (k = 2, 3), and its top 2 bits from bits 2k of ``qh``; the
+two bands of Q4_K and Q5_KS (rows below and above D/2) read the low and the
+high nibble of the same byte.
+
+The packs go through the dispatch of ``ops/quant_matmul.py``. M ≤ 32 takes
+the W8A8 integer dots (``csrc/w8a8_matmul.cu``; the activation group must
+divide the band, so it is 256 where the band allows it, else 32); M > 32
+takes the fused dequant (``csrc/dequant_matmul.cu``) for Q6_K and Q4_K and,
+for Q5_KS, which has no fused kernel in the reference either, the dense
+weight and one dense product. Each kernel decodes the bit planes itself
+(``csrc/quant_tile.cuh``).
 """
 
 from __future__ import annotations
@@ -28,9 +45,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..gguf.quants import _fp16_field, quant_q6_k
+from ..gguf.quants import _fp16_field, _k4_scale_min, quant_q4_k, quant_q5_k, quant_q6_k
 from .quant_matmul import GROUP, QuantPack, _bf16
 
+SUB4 = 32   # Q4_K / Q5_K sub-block length along D
 SUB6 = 16   # Q6_K sub-block length along D
 
 
@@ -56,12 +74,60 @@ class Q6KPack(QuantPack):
         return q.to(torch.int8), self.s
 
 
+class _TwoBandPack(QuantPack):
+    """A nibble-paired affine pack (Q4_K, Q5_KS): w = a · q − b per 32 rows,
+    the codes of rows d and d + D/2 in one byte of the first field."""
+
+    sub = SUB4
+
+    def _dense_shape(self) -> tuple[int, int]:
+        plane = self._buffers[self.fields[0]]
+        return plane.shape[0], 2 * plane.shape[1]
+
+    def _act_group(self) -> int:
+        # the group must divide the band size D/2 (D % 256 == 0, so 32 does)
+        return GROUP if (self.shape[1] // 2) % GROUP == 0 else SUB4
+
+    def _low_nibbles(self) -> torch.Tensor:
+        plane = self._buffers[self.fields[0]].view(torch.uint8)
+        return torch.cat([plane & 0x0F, plane >> 4], dim=1)          # [F, D]
+
+    def offsets(self) -> torch.Tensor:
+        return self.b
+
+
+class Q4KPack(_TwoBandPack):
+    kind = "q4_k"
+    fields = ("qs", "a", "b")
+
+    def codes_and_scales(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self._low_nibbles().to(torch.int8), self.a            # [0, 15]
+
+
+class Q5KSPack(_TwoBandPack):
+    kind = "q5_ks"
+    fields = ("q5n", "q5h", "a", "b")
+
+    def codes_and_scales(self) -> tuple[torch.Tensor, torch.Tensor]:
+        h = self.q5h.view(torch.uint8)                               # [F, D/8]
+        sh = torch.arange(4, dtype=torch.uint8, device=h.device)
+        Fo = h.shape[0]
+        lo = ((h[..., None] >> sh) & 1).reshape(Fo, -1)              # rows 4t + s
+        hi = ((h[..., None] >> (sh + 4)) & 1).reshape(Fo, -1)        # D/2 + 4t + s
+        q = self._low_nibbles() | (torch.cat([lo, hi], dim=1) << 4)
+        return q.to(torch.int8), self.a                              # [0, 31]
+
+
+def _host_f32(w: torch.Tensor | np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(torch.as_tensor(w).detach().to("cpu", torch.float32).numpy())
+
+
 def pack_q6_k(w: torch.Tensor | np.ndarray) -> Q6KPack:
     """Quantize a dense weight ``w [F, D]`` to Q6_K along D, on the host:
     the GGUF encoder's blocks, then ``pack_q6_k_from_gguf``."""
-    wn = torch.as_tensor(w).detach().to("cpu", torch.float32).numpy()
+    wn = _host_f32(w)
     Fo, D = wn.shape
-    raw = np.frombuffer(quant_q6_k(np.ascontiguousarray(wn).reshape(-1)), np.uint8)
+    raw = np.frombuffer(quant_q6_k(wn.reshape(-1)), np.uint8)
     return pack_q6_k_from_gguf(raw, (D, Fo))
 
 
@@ -91,3 +157,86 @@ def pack_q6_k_from_gguf(raw, shape: tuple[int, int]) -> Q6KPack:
                  | (hi2[:, 3] << 6)).astype(np.uint8)
     return Q6KPack(ql=torch.from_numpy(ql_packed.view(np.int8)),
                    qh=torch.from_numpy(qh_packed.view(np.int8)), s=_bf16(s))
+
+
+def _k_blocks(raw, shape: tuple[int, int], nbytes: int, name: str):
+    """The (F·D/256, nbytes) super-blocks of a Q4_K or Q5_K tensor, and its
+    per-32 affine parameters a = d · sc, b = dmin · m as f32 [F, D/32]."""
+    D, Fo = shape
+    if D % 256:
+        raise ValueError(f"{name} needs D % 256 == 0, got {D}")
+    blk = np.frombuffer(np.ascontiguousarray(raw), np.uint8).reshape(-1, nbytes)
+    d = _fp16_field(blk, 0).reshape(Fo, D // 256, 1)
+    dmin = _fp16_field(blk, 2).reshape(Fo, D // 256, 1)
+    sc, mn = _k4_scale_min(blk[:, 4:16])                        # (nb, 8)
+    a = (d * sc.reshape(Fo, D // 256, 8)).reshape(Fo, D // SUB4)
+    b = (dmin * mn.reshape(Fo, D // 256, 8)).reshape(Fo, D // SUB4)
+    return blk, a, b
+
+
+def _nibble_pair(q: np.ndarray) -> torch.Tensor:
+    """Codes [F, D] → the 4-bit plane [F, D/2]: row d in the low nibble and
+    row d + D/2 in the high nibble of byte d."""
+    lo = q & 0x0F
+    half = q.shape[1] // 2
+    return torch.from_numpy((lo[:, :half] | (lo[:, half:] << 4)).astype(np.uint8).view(np.int8))
+
+
+def pack_q4_k(w: torch.Tensor | np.ndarray) -> Q4KPack:
+    """Quantize a dense weight ``w [F, D]`` to Q4_K along D, on the host:
+    the GGUF encoder's blocks, then ``pack_q4_k_from_gguf``."""
+    wn = _host_f32(w)
+    Fo, D = wn.shape
+    raw = np.frombuffer(quant_q4_k(wn.reshape(-1)), np.uint8)
+    return pack_q4_k_from_gguf(raw, (D, Fo))
+
+
+def pack_q4_k_from_gguf(raw, shape: tuple[int, int]) -> Q4KPack:
+    """A pack straight from raw GGUF Q4_K super-blocks (144 B per 256
+    values: fp16 d and dmin, 12 B of 6-bit scales and mins, 128 B of
+    nibbles) laid row-major over the (F, D) disk layout. ``shape`` is
+    (D, F), as the reference takes it."""
+    D, Fo = shape
+    blk, a, b = _k_blocks(raw, shape, 144, "Q4_K")
+    qs = blk[:, 16:144].reshape(-1, 4, 32)
+    q = np.stack([qs & 0x0F, qs >> 4], axis=2).reshape(Fo, D)  # logical rows
+    return Q4KPack(qs=_nibble_pair(q), a=_bf16(a), b=_bf16(b))
+
+
+def _q5_k_codes(blk: np.ndarray, Fo: int, D: int) -> np.ndarray:
+    """The 5-bit codes of Q5_K super-blocks (176 B: fp16 d and dmin, 12 B of
+    scales and mins, 32 B of fifth bits, 128 B of nibbles) widened to one
+    byte per logical row: uint8 [F, D] in [0, 31]."""
+    qh = blk[:, 16:48]                                          # (nb, 32)
+    qs = blk[:, 48:176].reshape(-1, 4, 32)
+    nib = np.stack([qs & 0x0F, qs >> 4], axis=2)                # (nb, 4, 2, 32)
+    j = np.arange(4, dtype=np.uint8)[:, None]
+    bit0 = (qh[:, None, :] >> (2 * j)) & 1                      # (nb, 4, 32)
+    bit1 = (qh[:, None, :] >> (2 * j + 1)) & 1
+    hbits = np.stack([bit0, bit1], axis=2)                      # (nb, 4, 2, 32)
+    return (nib | (hbits << 4)).astype(np.uint8).reshape(Fo, D)
+
+
+def pack_q5_ks(w: torch.Tensor | np.ndarray) -> Q5KSPack:
+    """Quantize a dense weight ``w [F, D]`` to Q5_K along D, on the host:
+    the GGUF encoder's blocks, then ``pack_q5_ks_from_gguf``."""
+    wn = _host_f32(w)
+    Fo, D = wn.shape
+    raw = np.frombuffer(quant_q5_k(wn.reshape(-1)), np.uint8)
+    return pack_q5_ks_from_gguf(raw, (D, Fo))
+
+
+def pack_q5_ks_from_gguf(raw, shape: tuple[int, int]) -> Q5KSPack:
+    """The sub-byte pack straight from raw GGUF Q5_K super-blocks laid
+    row-major over the (F, D) disk layout: the low 4 bits nibble-paired as
+    Q4_K, the fifth bits eight codes a byte. ``shape`` is (D, F)."""
+    D, Fo = shape
+    blk, a, b = _k_blocks(raw, shape, 176, "Q5_K")
+    q = _q5_k_codes(blk, Fo, D)
+    hb = q >> 4                                                 # 0/1
+    hl = hb[:, : D // 2].reshape(Fo, D // 8, 4)
+    hh = hb[:, D // 2:].reshape(Fo, D // 8, 4)
+    sh = np.arange(4, dtype=np.uint8)
+    q5h = ((hl << sh) | (hh << (sh + 4))).sum(axis=2, dtype=np.uint8)
+    return Q5KSPack(q5n=_nibble_pair(q), q5h=torch.from_numpy(q5h.view(np.int8)),
+                    a=_bf16(a), b=_bf16(b))

@@ -22,7 +22,15 @@ picked by M, the product of the leading dimensions of x, as the reference's
   kernel quantizes the activations itself, in its prologue.
 - M > ``W8A8_MAX_M`` (prefill, mixed steps): the weight tile is dequantized
   in the activation dtype (``q · scale`` rounded to bf16 on the serving
-  path) and multiplied with f32 accumulation.
+  path) and multiplied with f32 accumulation. A pack kind without a
+  fused-dequant kernel (Q5_KS, as in the reference) dequantizes the whole
+  weight and takes one dense product instead (``dequant_linear``).
+
+Affine packs (Q4_K, Q5_KS: ``w = a · q − b``, ``QuantPack.offsets``) add the
+offset term to both: ``− Σ_s (S[m, s] · xs[m, g(s)]) · b[f, s]`` with S the
+exact integer sum of the quantized activations over each sub-block (W8A8),
+and ``− bf16(Σ_sub x) @ bᵀ`` with the block sums taken in f32 (fused
+dequant), as the reference's kernels compute them.
 
 Dispatch picks by x's device: a CUDA tensor goes to the kernels, a CPU tensor
 to their plain versions below. There is no fallback: a kernel that cannot
@@ -46,11 +54,16 @@ W8A8_MAX_M = 32  # decode/prefill cutover: M ≤ this takes the W8A8 kernel
 # reads them to prove the served path ran the kernels); only the CUDA
 # wrappers below increment them
 launches = {"q8_0_matmul": 0, "gw8a8_matmul": 0,
-            "q6_k_matmul": 0, "q6_k_w8a8_matmul": 0}
+            "q6_k_matmul": 0, "q6_k_w8a8_matmul": 0,
+            "q4_k_matmul": 0, "q4_k_w8a8_matmul": 0, "q5_ks_w8a8_matmul": 0}
 
-# the launch counter of each pack kind's (dequant, W8A8) kernel
+# the launch counter of each pack kind's (fused dequant, W8A8) kernel; None
+# where the kind has no fused-dequant kernel (M > W8A8_MAX_M then takes
+# ``dequant_linear``)
 _NAMES = {"q8_0": ("q8_0_matmul", "gw8a8_matmul"),
-          "q6_k": ("q6_k_matmul", "q6_k_w8a8_matmul")}
+          "q6_k": ("q6_k_matmul", "q6_k_w8a8_matmul"),
+          "q4_k": ("q4_k_matmul", "q4_k_w8a8_matmul"),
+          "q5_ks": (None, "q5_ks_w8a8_matmul")}
 
 
 class QuantPack(nn.Module):
@@ -104,17 +117,26 @@ class QuantPack(nn.Module):
         return placed[1]
 
     def codes_and_scales(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """Signed int8 codes [F, D] in logical row order and one scale per
-        ``sub``-row sub-block [F, D/sub]: ``w = codes · scale``."""
+        """Int8 codes [F, D] in logical row order and one scale per
+        ``sub``-row sub-block [F, D/sub]: ``w = codes · scale``, less the
+        offsets of an affine pack."""
         raise NotImplementedError
 
+    def offsets(self) -> torch.Tensor | None:
+        """One offset per sub-block [F, D/sub] of an affine pack
+        (``w = codes · scale − offset``), None for a symmetric one."""
+        return None
+
     def dequant(self, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-        """The dense [F, D] weight the pack represents: ``codes · scale`` in
-        f32, then ``dtype`` (the reference's ``dequant_q8_0`` and
-        ``dequant_pack``)."""
+        """The dense [F, D] weight the pack represents: ``codes · scale``
+        (``− offset``) in f32, then ``dtype`` (the reference's
+        ``dequant_q8_0`` and ``dequant_pack``)."""
         codes, sc = self.codes_and_scales()
         Fo, D = codes.shape
         w = codes.float().reshape(Fo, D // self.sub, self.sub) * sc.float()[..., None]
+        off = self.offsets()
+        if off is not None:
+            w = w - off.float()[..., None]
         return w.reshape(Fo, D).to(dtype)
 
     def nbytes(self) -> int:
@@ -198,13 +220,17 @@ def quantize_acts(x: torch.Tensor, group: int) -> tuple[torch.Tensor, torch.Tens
 
 
 def gw8a8_plain(xq: torch.Tensor, xs: torch.Tensor, codes: torch.Tensor,
-                sc: torch.Tensor, sb: int, out_dtype: torch.dtype) -> torch.Tensor:
+                sc: torch.Tensor, sb: int, out_dtype: torch.dtype,
+                off: torch.Tensor | None = None) -> torch.Tensor:
     """The W8A8 kernels' function in plain PyTorch (the reference's
-    ``gw8a8_band_accum``, symmetric): pre-quantized ``xq [M, D]`` with
-    scales ``xs [M, D/ag]`` against int8 ``codes [F, D]`` with one scale per
+    ``gw8a8_band_accum``): pre-quantized ``xq [M, D]`` with scales
+    ``xs [M, D/ag]`` against int8 ``codes [F, D]`` with one scale per
     ``sb``-row sub-block ``sc [F, D/sb]``. Each sub-block's integer dot is
     exact in f32 (|dot| ≤ 32·127² < 2²⁴); times its scale, summed over the
-    group, times the activation scale, summed over groups."""
+    group, times the activation scale, summed over groups. With offsets
+    ``off [F, D/sb]`` (``w = codes · sc − off``) it subtracts
+    ``Σ_s (S[m, s] · xs[m, g(s)]) · off[f, s]``, S the exact integer sum of
+    ``xq`` over sub-block s."""
     M, D = xq.shape
     Fo = codes.shape[0]
     ag = D // xs.shape[1]
@@ -216,32 +242,54 @@ def gw8a8_plain(xq: torch.Tensor, xs: torch.Tensor, codes: torch.Tensor,
     for g in range(n_g):
         p = torch.einsum("msk,fsk->msf", xg[:, g], cg[:, g])      # int dots
         acc += (p * scg[:, g].t()[None]).sum(1) * xs[:, g:g + 1]
+    if off is not None:
+        S = xq.float().reshape(M, D // sb, sb).sum(-1)
+        acc -= (S * xs.repeat_interleave(spg, dim=1)) @ off.float().t()
     return acc.to(out_dtype)
 
 
 def dequant_matmul_plain(x: torch.Tensor, pack: QuantPack,
                          out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """The fused-dequant kernels' function (``q8_0_matmul`` and
-    ``q6_k_matmul``): the weight dequantized in x's dtype (``code · scale``
-    rounded once, as the kernels round each tile), then ``x [M, D] @ wᵀ``
-    with f32 accumulation → [M, F] in ``out_dtype`` (default x's)."""
+    """The fused-dequant kernels' function (``q8_0_matmul``,
+    ``q6_k_matmul``, ``q4_k_matmul``): the weight dequantized in x's dtype
+    (``code · scale`` rounded once, as the kernels round each tile), then
+    ``x [M, D] @ wᵀ`` with f32 accumulation → [M, F] in ``out_dtype``
+    (default x's). An affine pack's offsets are not folded into the weight:
+    ``− bf16(Σ_sub x) @ offᵀ`` follows, the block sums taken in f32 and
+    rounded to x's dtype, the product accumulated in f32 (the reference's
+    ``_q4k_kernel``)."""
     cd = x.dtype
     codes, sc = pack.codes_and_scales()
     Fo, D = codes.shape
     w = (codes.to(cd).reshape(Fo, D // pack.sub, pack.sub)
          * sc.to(cd)[..., None]).reshape(Fo, D)
-    return (x.float() @ w.float().t()).to(out_dtype or cd)
+    out = x.float() @ w.float().t()
+    off = pack.offsets()
+    if off is not None:
+        xsum = x.float().reshape(x.shape[0], D // pack.sub, pack.sub).sum(-1).to(cd)
+        out = out - xsum.float() @ off.to(cd).float().t()
+    return out.to(out_dtype or cd)
+
+
+def dequant_linear(x: torch.Tensor, pack: QuantPack,
+                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """M > ``W8A8_MAX_M`` for a pack kind without a fused-dequant kernel
+    (Q5_KS): the dense weight in x's dtype (``pack.dequant``), then one
+    dense product, as the reference's einsum over ``dequant_pack``. A plain
+    large product outside any kernel, on every device."""
+    return proj(x, pack.dequant(x.dtype), out_dtype)
 
 
 def w8a8_plain(x: torch.Tensor, pack: QuantPack,
                out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """The W8A8 kernels' function (``gw8a8_matmul`` on a Q8_0 pack,
-    ``q6_k_w8a8_matmul`` on a Q6_K pack) from unquantized x [M, D]:
+    """The W8A8 kernels' function (``gw8a8_matmul`` on a Q8_0 pack and
+    ``<kind>_w8a8_matmul`` on the K-quant packs) from unquantized x [M, D]:
     ``quantize_acts`` with the pack's group, then ``gw8a8_plain`` over the
-    pack's codes → [M, F] in ``out_dtype`` (default x's)."""
+    pack's codes and offsets → [M, F] in ``out_dtype`` (default x's)."""
     xq, xs = quantize_acts(x, pack.group)
     codes, sc = pack.codes_and_scales()
-    return gw8a8_plain(xq, xs, codes, sc, pack.sub, out_dtype or x.dtype)
+    return gw8a8_plain(xq, xs, codes, sc, pack.sub, out_dtype or x.dtype,
+                       pack.offsets())
 
 
 # --------------------------------------------------------------------------
@@ -277,10 +325,11 @@ def _launch(fn, dev: torch.device, what: str, *args) -> None:
         raise RuntimeError(f"{what}: kernel launch failed (cudaError {rc})")
 
 
-def _check_x(x: torch.Tensor, pack: QuantPack, dtypes: tuple, what: str) -> torch.Tensor:
-    """x [M, D] for a kernel against ``pack``: a CUDA tensor of one of
-    ``dtypes``, made contiguous."""
-    if pack.kind not in _NAMES:
+def _check_x(x: torch.Tensor, pack: QuantPack, dtypes: tuple, what: str,
+             kernel: int) -> torch.Tensor:
+    """x [M, D] for a kernel (``_NAMES`` index ``kernel``) against ``pack``:
+    a CUDA tensor of one of ``dtypes``, made contiguous."""
+    if _NAMES.get(pack.kind, (None, None))[kernel] is None:
         raise ValueError(f"{what}: no kernel for pack kind {pack.kind!r}")
     if not x.is_cuda:
         raise ValueError(f"{what}: x must be a CUDA tensor")
@@ -301,13 +350,13 @@ def _out_flag(out_dtype: torch.dtype, what: str) -> int:
 def w8a8_matmul(x: torch.Tensor, pack: QuantPack, out_dtype: torch.dtype,
                 acts: tuple[torch.Tensor, torch.Tensor] | None = None
                 ) -> torch.Tensor:
-    """The W8A8 CUDA kernel: x [M ≤ 32, D] (f32 or bf16) against a Q8_0 or
-    Q6_K pack → [M, F] in ``out_dtype``. The kernel quantizes x per
-    (row × ``pack.group``) in its prologue. ``acts``, int8 [M, D] and f32
+    """The W8A8 CUDA kernel: x [M ≤ 32, D] (f32 or bf16) against a pack of
+    any kind in ``_NAMES`` → [M, F] in ``out_dtype``. The kernel quantizes x
+    per (row × ``pack.group``) in its prologue. ``acts``, int8 [M, D] and f32
     [M, D/group] tensors, receive those activations when given (the check
     that they equal ``quantize_acts``)."""
     what = "w8a8_matmul"
-    x = _check_x(x, pack, (torch.float32, torch.bfloat16), what)
+    x = _check_x(x, pack, (torch.float32, torch.bfloat16), what, 1)
     M, D = x.shape
     Fo, group, dev = pack.shape[0], pack.group, x.device
     if not 0 < M <= W8A8_MAX_M:
@@ -332,12 +381,12 @@ def w8a8_matmul(x: torch.Tensor, pack: QuantPack, out_dtype: torch.dtype,
 
 def dequant_matmul(x: torch.Tensor, pack: QuantPack,
                    out_dtype: torch.dtype) -> torch.Tensor:
-    """The fused-dequant CUDA kernel: bf16 x [M, D] against a Q8_0 or Q6_K
-    pack, each weight tile dequantized to bf16 in shared memory and
-    multiplied on the tensor cores with f32 accumulation → [M, F] in
-    ``out_dtype``."""
+    """The fused-dequant CUDA kernel: bf16 x [M, D] against a Q8_0, Q6_K or
+    Q4_K pack, each weight tile dequantized to bf16 in shared memory and
+    multiplied on the tensor cores with f32 accumulation (an affine pack's
+    offset term too) → [M, F] in ``out_dtype``."""
     what = "dequant_matmul"
-    x = _check_x(x, pack, (torch.bfloat16,), what)
+    x = _check_x(x, pack, (torch.bfloat16,), what, 0)
     M, D = x.shape
     Fo, dev = pack.shape[0], x.device
     ptrs = pack.kernel_ptrs(dev)
@@ -355,10 +404,14 @@ def dequant_matmul(x: torch.Tensor, pack: QuantPack,
 def quant_matmul_plain(x: torch.Tensor, pack: QuantPack,
                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The kernels' dispatch with their plain versions, on any device:
-    x [..., D] → [..., F], W8A8 for M ≤ ``W8A8_MAX_M``, fused dequant above."""
+    x [..., D] → [..., F], W8A8 for M ≤ ``W8A8_MAX_M``, fused dequant above
+    (``dequant_linear`` for a kind without that kernel)."""
     *lead, D = x.shape
     xf = x.reshape(-1, D)
-    plain = w8a8_plain if xf.shape[0] <= W8A8_MAX_M else dequant_matmul_plain
+    if xf.shape[0] <= W8A8_MAX_M:
+        plain = w8a8_plain
+    else:
+        plain = dequant_matmul_plain if _NAMES[pack.kind][0] else dequant_linear
     return plain(xf, pack, out_dtype).reshape(*lead, -1)
 
 
@@ -366,7 +419,8 @@ def quant_matmul(x: torch.Tensor, pack: QuantPack,
                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """x [..., D] against a pack → [..., F] in ``out_dtype`` (default x's):
     the CUDA kernels for a CUDA tensor (W8A8 for M ≤ ``W8A8_MAX_M``, fused
-    dequant above), their plain versions for a CPU tensor."""
+    dequant above, ``dequant_linear`` for a kind without that kernel), their
+    plain versions for a CPU tensor."""
     if x.device.type == "cpu":
         return quant_matmul_plain(x, pack, out_dtype)
     if not x.is_cuda:
@@ -374,8 +428,12 @@ def quant_matmul(x: torch.Tensor, pack: QuantPack,
     *lead, D = x.shape
     xf = x.reshape(-1, D)
     od = out_dtype or x.dtype
-    out = (w8a8_matmul(xf, pack, od) if xf.shape[0] <= W8A8_MAX_M
-           else dequant_matmul(xf, pack, od))
+    if xf.shape[0] <= W8A8_MAX_M:
+        out = w8a8_matmul(xf, pack, od)
+    elif _NAMES[pack.kind][0] is None:
+        out = dequant_linear(xf, pack, od)
+    else:
+        out = dequant_matmul(xf, pack, od)
     return out.reshape(*lead, -1)
 
 

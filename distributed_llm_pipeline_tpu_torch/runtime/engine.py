@@ -141,10 +141,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 class Engine:
     """Single-model, single-stream inference engine on one device.
 
-    ``quant``: None (dense weights), ``"q8_0"`` or ``"q6_k"`` (pack the
-    projections and the head at load) or ``"native"`` (serve the GGUF's
-    stored Q8_0 / Q6_K projection blocks as they are). The reference's other
-    modes raise ``NotImplementedError`` naming ROADMAP.md."""
+    ``quant``: None (dense weights), ``"q8_0"``, ``"q4_k"``, ``"q5_k"`` or
+    ``"q6_k"`` (pack the projections and the head at load) or ``"native"``
+    (serve the GGUF's stored Q8_0 / Q4_K / Q5_K / Q6_K projection blocks as
+    they are). The reference's other modes raise ``NotImplementedError``
+    naming ROADMAP.md."""
 
     def __init__(self, model_path: str | Path | None = None, *,
                  cfg: ModelConfig | None = None, params: Params | None = None,
@@ -159,7 +160,7 @@ class Engine:
         self._events_on_load: list[Event] = []
         t0 = time.monotonic()
         # a repacked model loads on the host, packs there, then moves
-        load_dev = "cpu" if quant in ("q8_0", "q6_k") else self.device
+        load_dev = "cpu" if quant not in (None, "native") else self.device
         pack_s = 0.0   # host time spent building packs
         if model_path is not None:
             with GGUFReader(model_path) as reader:
@@ -181,8 +182,9 @@ class Engine:
                     if not packs:
                         raise ValueError(
                             "--quant native: this GGUF stores no projection "
-                            "weights as Q8_0 or Q6_K; use --quant q8_0 or q6_k "
-                            "to requantize instead")
+                            "weight stack as Q8_0, Q4_K, Q5_K or Q6_K; use "
+                            "--quant q8_0, q4_k, q5_k or q6_k to requantize "
+                            "instead")
                     self._events_on_load.append(log(
                         f"serving {len({k.rsplit('.', 1)[1] for k in packs})} "
                         f"projection weight stacks from their native GGUF block "

@@ -14,10 +14,10 @@ turn through an asyncio lock, writing SSE keep-alives while they wait. With
 :class:`SlotScheduler` with N slots, decoding together in one batched step.
 
 Run: ``python -m distributed_llm_pipeline_tpu_torch.serving.server --model
-m.gguf [--parallel N] [--quant q8_0|q6_k|native] [--cpu]`` (port 3005 by
-default). Without ``--cpu`` it needs a CUDA device. ``--quant`` takes the
-reference's choices; those not ported yet exit with an error naming
-ROADMAP.md.
+m.gguf [--parallel N] [--quant q8_0|q4_k|q5_k|q6_k|native] [--cpu]`` (port
+3005 by default). Without ``--cpu`` it needs a CUDA device. ``--quant`` takes
+the reference's choices; those not ported yet (int8, q2_k, q3_k) exit with an
+error naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -159,8 +159,8 @@ def build_argparser():
                          "(llama-server -np)")
     ap.add_argument("--quant", default=None, choices=QUANT_MODES,
                     help="keep the weights quantized on the device: q8_0 / "
-                         "q6_k repack at load, native serves the GGUF's own "
-                         "Q8_0 / Q6_K blocks")
+                         "q4_k / q5_k / q6_k repack at load, native serves "
+                         "the GGUF's own Q8_0 / Q4_K / Q5_K / Q6_K blocks")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA device)")
     return ap

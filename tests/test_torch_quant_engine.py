@@ -3,12 +3,15 @@ package's.
 
 - Engine: the port's Engine against the JAX Engine at f32 on the CPU (the
   JAX quantized matmuls through their Pallas kernels in interpret mode),
-  greedy tokens identical, for ``q8_0``, ``q6_k`` and ``native`` over GGUFs
-  the JAX exporter wrote with Q8_0 and Q6_K projections. The native packs
-  equal the JAX ``native_quant_layers`` packs field by field; a Q4_K GGUF
-  under ``native`` raises, as do the reference's modes not ported yet.
+  greedy tokens identical, for ``q8_0``, ``q4_k``, ``q5_k``, ``q6_k`` and
+  ``native`` over GGUFs the JAX exporter wrote with Q8_0, Q4_K, Q5_K and
+  Q6_K projections, and over a GGUF with llama.cpp's Q4_K_M mix (its attn_v
+  and ffn_down stacks mix Q4_K and Q6_K over the layers, so both packages
+  load them dense). The native packs equal the JAX ``native_quant_layers``
+  packs field by field; a Q3_K GGUF under ``native`` raises, as do the
+  reference's modes not ported yet.
 - Server: ``ChatServer`` over a quantized CPU engine answers ``/chat`` with
-  ``parallel`` 1 and 2; ``--quant q4_k`` exits with the ROADMAP error.
+  ``parallel`` 1 and 2; ``--quant q2_k`` exits with the ROADMAP error.
 """
 
 import asyncio
@@ -29,6 +32,7 @@ from distributed_llm_pipeline_tpu.models.convert import native_quant_layers as j
 from distributed_llm_pipeline_tpu.ops import quant_matmul as jqm
 from distributed_llm_pipeline_tpu.runtime import Engine as JaxEngine
 from distributed_llm_pipeline_tpu.runtime import GenerationConfig as JaxGen
+from chip_smoke import q4_k_m_types, write_model
 from distributed_llm_pipeline_tpu_torch.gguf import GGUFReader
 from distributed_llm_pipeline_tpu_torch.models import ModelConfig, params_from_jax
 from distributed_llm_pipeline_tpu_torch.models.convert import native_quant_layers
@@ -77,6 +81,27 @@ def q6_gguf(tmp_path_factory):
     return _gguf(tmp_path_factory, JaxGGMLType.Q6_K, "q6_k.gguf")
 
 
+@pytest.fixture(scope="module")
+def q4_gguf(tmp_path_factory):
+    return _gguf(tmp_path_factory, JaxGGMLType.Q4_K, "q4_k.gguf")
+
+
+@pytest.fixture(scope="module")
+def q5_gguf(tmp_path_factory):
+    return _gguf(tmp_path_factory, JaxGGMLType.Q5_K, "q5_k.gguf")
+
+
+@pytest.fixture(scope="module")
+def q4km_gguf(tmp_path_factory):
+    """llama.cpp's Q4_K_M assignment over 2 layers: attn_v and ffn_down in
+    Q6_K on layer 1 (``use_more_bits``) and Q4_K on layer 0, the other
+    projections Q4_K, token_embd Q6_K (the writer chip_smoke.py serves)."""
+    cfg = ModelConfig(**dataclasses.asdict(CFG)).replace(vocab_size=320, max_seq_len=128)
+    path = tmp_path_factory.mktemp("models") / "q4_k_m.gguf"
+    write_model(path, cfg, 0, device="cpu", wtype=q4_k_m_types(cfg.n_layers))
+    return path
+
+
 def _greedy(engine, gen_cls, n=8):
     events = list(engine.generate("hello world once upon a time",
                                   gen_cls(temperature=0.0, max_new_tokens=n)))
@@ -84,8 +109,10 @@ def _greedy(engine, gen_cls, n=8):
     return "".join(e.content for e in events if e.kind == "token"), events[-1].data
 
 
-@pytest.mark.parametrize("quant,gguf", [("q8_0", "f32_gguf"), ("q6_k", "f32_gguf"),
-                                        ("native", "q8_gguf"), ("native", "q6_gguf")])
+@pytest.mark.parametrize("quant,gguf", [
+    ("q8_0", "f32_gguf"), ("q6_k", "f32_gguf"), ("native", "q8_gguf"),
+    ("native", "q6_gguf"), ("q4_k", "f32_gguf"), ("q5_k", "f32_gguf"),
+    ("native", "q4_gguf"), ("native", "q5_gguf"), ("native", "q4km_gguf")])
 def test_engine_greedy_matches_jax_engine(quant, gguf, request, pallas):
     path = request.getfixturevalue(gguf)
     ours = Engine(path, dtype=torch.float32, device="cpu", quant=quant)
@@ -97,15 +124,23 @@ def test_engine_greedy_matches_jax_engine(quant, gguf, request, pallas):
     assert text == want and done["n_gen"] == jdone["n_gen"] == 8
 
 
-@pytest.mark.parametrize("gguf", ["q8_gguf", "q6_gguf"])
-def test_native_packs_equal_jax_native_packs(gguf, request):
+@pytest.mark.parametrize("gguf,kinds", [
+    ("q8_gguf", {"q8_0"}), ("q6_gguf", {"q6_k"}), ("q4_gguf", {"q4_k"}),
+    ("q5_gguf", {"q5_ks"}), ("q4km_gguf", {"q4_k"})])
+def test_native_packs_equal_jax_native_packs(gguf, kinds, request):
+    """Uniform stacks pack in both packages; the Q4_K_M mix's attn_v and
+    ffn_down stacks (Q4_K on one layer, Q6_K on the other) load dense in
+    both."""
     path = request.getfixturevalue(gguf)
-    cfg = ModelConfig(**dataclasses.asdict(CFG))
     with GGUFReader(path) as r:
         cfg = ModelConfig.from_gguf_metadata(r.metadata)
         ours = native_quant_layers(r, cfg)
     want = params_from_jax({"layers": jax_native(JaxReader(path), cfg)})
-    assert set(ours) == set(want) and len(ours) == 7 * cfg.n_layers
+    leaves = {k.rsplit(".", 1)[1] for k in ours}
+    mixed = {"wv", "w_down"} if gguf == "q4km_gguf" else set()
+    assert leaves == {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"} - mixed
+    assert set(ours) == set(want) and len(ours) == len(leaves) * cfg.n_layers
+    assert {p.kind for p in ours.values()} == kinds
     for key, w in want.items():
         assert type(ours[key]) is type(w), key
         for f in w.fields:
@@ -113,17 +148,17 @@ def test_native_packs_equal_jax_native_packs(gguf, request):
 
 
 def test_native_refuses_unported_kquant_stacks(tmp_path_factory):
-    path = _gguf(tmp_path_factory, JaxGGMLType.Q4_K, "q4_k.gguf")
-    with pytest.raises(NotImplementedError, match=r"Q4_K.*ROADMAP"):
+    path = _gguf(tmp_path_factory, JaxGGMLType.Q3_K, "q3_k.gguf")
+    with pytest.raises(NotImplementedError, match=r"Q3_K.*ROADMAP"):
         Engine(path, dtype=torch.float32, device="cpu", quant="native")
 
 
 def test_native_needs_quantized_stacks(f32_gguf):
-    with pytest.raises(ValueError, match="Q8_0 or Q6_K"):
+    with pytest.raises(ValueError, match="Q8_0, Q4_K, Q5_K or Q6_K"):
         Engine(f32_gguf, dtype=torch.float32, device="cpu", quant="native")
 
 
-@pytest.mark.parametrize("quant", ["int8", "q4_k"])
+@pytest.mark.parametrize("quant", ["int8", "q3_k"])
 def test_unported_quant_modes_name_the_roadmap(quant, f32_gguf):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(f32_gguf, dtype=torch.float32, device="cpu", quant=quant)
@@ -160,6 +195,6 @@ def test_chat_over_a_quantized_engine(parallel, q6_gguf):
 
 def test_server_quant_flag_names_the_roadmap(f32_gguf, capsys):
     with pytest.raises(SystemExit) as exc:
-        server_main(["--model", str(f32_gguf), "--cpu", "--quant", "q4_k"])
+        server_main(["--model", str(f32_gguf), "--cpu", "--quant", "q2_k"])
     assert exc.value.code == 2
     assert "ROADMAP" in capsys.readouterr().err

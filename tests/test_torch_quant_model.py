@@ -7,7 +7,9 @@
   the paged forwards with a mixed step of B·T > 32. Logits within atol 2e-4
   (f32 summation order through quantized layers) and the same argmax. The
   inputs are ones where no activation lands on a rounding tie of the int8
-  quantizer: there a last-bit difference upstream flips one code.
+  quantizer: there a last-bit difference upstream flips one code (at these
+  widths about one input in two has such a tie somewhere; each case names
+  the seed of its tokens).
 - ``quantize_params`` in the port packs exactly what the JAX one packs.
 
 The engine and the server over quantized weights are in
@@ -69,18 +71,22 @@ def _close(t, j):
     np.testing.assert_array_equal(t.numpy().argmax(-1), j.argmax(-1))
 
 
-CASES = {"q8_0_tied": (CFG, "q8_0"), "q6_k_tied": (CFG, "q6_k"),
-         "q8_0_untied_head": (UNTIED, "q8_0")}
+# (config, mode, seed of the tokens)
+CASES = {"q8_0_tied": (CFG, "q8_0", 3), "q6_k_tied": (CFG, "q6_k", 3),
+         "q8_0_untied_head": (UNTIED, "q8_0", 3), "q4_k_tied": (CFG, "q4_k", 5),
+         "q5_k_tied": (CFG, "q5_k", 3)}
+# the pack kind each mode gives a weight whose D is a multiple of 256
+KIND = {"q8_0": "q8_0", "q4_k": "q4_k", "q5_k": "q5_ks", "q6_k": "q6_k"}
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_quantized_forward_matches_jax(case, pallas):
-    cfg, mode = CASES[case]
+    cfg, mode, seed = CASES[case]
     params, model = _models(cfg, mode)
-    assert isinstance(model.lm_head, QuantPack) and model.lm_head.kind == mode
+    assert isinstance(model.lm_head, QuantPack) and model.lm_head.kind == KIND[mode]
     assert all(isinstance(getattr(blk, n), QuantPack) for blk in model.layers
                for n in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
-    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 12))
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (1, 12))
     jc = JaxKVCache.zeros(cfg, 1, 32, dtype=jnp.float32)
     tc = KVCache.zeros(model.cfg, 1, 32, dtype=torch.float32)
     fwd = jax.jit(jax_forward, static_argnums=1)
@@ -90,11 +96,13 @@ def test_quantized_forward_matches_jax(case, pallas):
         toks = np.asarray(jl)[:, -1:].argmax(-1)
 
 
-def test_quantized_paged_forwards_match_jax(pallas):
+@pytest.mark.parametrize("mode,seed", [("q6_k", 0), ("q4_k", 2), ("q5_k", 0)])
+def test_quantized_paged_forwards_match_jax(mode, seed, pallas):
     """A prefill bucket per row, a decode step, then a mixed step of
-    B·T = 48 > 32 lanes (the fused-dequant kernels)."""
+    B·T = 48 > 32 lanes (the fused-dequant kernels; for q5_k the dense
+    weight and one product)."""
     cfg = CFG
-    params, model = _models(cfg, "q6_k")
+    params, model = _models(cfg, mode)
     BS, NT, B = 16, 4, 3
     N = 1 + B * NT
     tables = np.random.default_rng(0).permutation(np.arange(1, N)).reshape(
@@ -106,8 +114,8 @@ def test_quantized_paged_forwards_match_jax(pallas):
     # f32 summation order in front of a quantizer can flip one activation
     # code at a rounding tie (then a row differs by ~1e-2); these inputs
     # have no such tie, so the packages agree to f32 rounding
-    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, 8))
-    rng = np.random.default_rng(5)
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, 8))
+    rng = np.random.default_rng(5 + seed)
     jl, jc = jax_forward_paged_last(params, cfg, jnp.asarray(toks, jnp.int32), jc,
                                     jnp.asarray(5, jnp.int32))
     _close(model.forward_paged_last(torch.from_numpy(toks).long(), tc, 5), jl)
@@ -123,10 +131,11 @@ def test_quantized_paged_forwards_match_jax(pallas):
     assert tc.length.tolist() == np.asarray(jc.length).tolist() == [25, 10, 18]
 
 
-@pytest.mark.parametrize("mode", ["q8_0", "q6_k"])
+@pytest.mark.parametrize("mode", ["q8_0", "q6_k", "q4_k", "q5_k"])
 def test_quantize_params_packs_like_jax(mode):
     """The port's ``quantize_params`` on the dense weights gives the packs the
-    JAX one gives, field for field; Q6_K falls back to Q8_0 where D % 256."""
+    JAX one gives, field for field; the K-quants fall back to Q8_0 where
+    D % 256."""
     cfg = UNTIED.replace(hidden_dim=320)        # w_down's D = 320: the fallback
     dense = jax.tree.map(np.asarray, random_params(cfg, jax.random.PRNGKey(1),
                                                    dtype=jnp.float32))
@@ -143,4 +152,4 @@ def test_quantize_params_packs_like_jax(mode):
         else:
             assert torch.equal(g, w), key
     assert got["layers.0.w_down"].kind == "q8_0"
-    assert got["layers.0.w_up"].kind == mode
+    assert got["layers.0.w_up"].kind == KIND[mode]
