@@ -21,15 +21,18 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    L2), the plain version's and the library call's time, and the least time
    the card could take (bytes over 3.35 TB/s or operations over 989
    TFLOP/s, whichever is larger). The quantized matmul kernels (W8A8 over
-   Q8_0, Q6_K, Q4_K and Q5_KS packs, fused dequant over Q8_0, Q6_K and Q4_K
-   packs, of random codes, scales and offsets) run at Llama-3.2-1B's five
-   (D, F) pairs, the head's with f32 output: W8A8 at M = 1, 4, 16, 32, fused
-   dequant at M = 33, 256, 512; plus an odd F, activation group 32 and an
-   all-zero activation row. The W8A8 kernel's own quantized activations must
-   equal ``quantize_acts`` bit for bit. Their yardstick is ``F.linear`` on
-   the dense bf16 weight the pack represents, and their bound counts int8
-   operations at 1979 TOP/s. Q5_KS at M > 32 runs no kernel (dequant, then
-   ``F.linear``, as the reference's einsum): that route is timed once.
+   Q8_0, Q6_K, Q4_K, Q5_KS, Q2_KS and Q3_KS packs, fused dequant over Q8_0,
+   Q6_K and Q4_K packs, int8 over int8 packs, of random codes, scales and
+   offsets) run at Llama-3.2-1B's five (D, F) pairs, the head's with f32
+   output: W8A8 at M = 1, 4, 16, 32, fused dequant at M = 33, 256, 512, int8
+   at all seven; plus an odd F, activation groups 32 and 128 and an
+   all-zero activation row. The W8A8 and int8 kernels' own quantized
+   activations must equal ``quantize_acts`` bit for bit. Their yardstick is
+   ``F.linear`` on the dense bf16 weight the pack represents (and, for int8
+   at M >= 256, ``torch._int_mm`` on the same int8 operands, which applies
+   no scales), and their bound counts int8 operations at 1979 TOP/s. Q5_KS,
+   Q2_KS and Q3_KS at M > 32 run no kernel (dequant, then ``F.linear``, as
+   the reference's einsum): that route is timed once each.
 4. Serve, single stream: a GGUF of Llama-3.2-1B geometry (bf16 weights
    random from --seed, a synthetic 128256-token SPM vocab) goes through the
    port's Engine, which first runs the three requests once directly (the
@@ -71,7 +74,13 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    ``Engine(quant="q5_k")`` on 4 slots, held and printed as phase 7. Q5_KS
    forwards of M > 32 count their dequant + F.linear calls in place of a
    kernel launch.
-9. The kernels line (one JSON object), the card line, and last the ok line.
+9. Serve int8, Q3_K and Q2_K: the bf16 GGUF with ``Engine(quant="int8")``
+   single-stream (the int8 kernel at every M: its GEMM at the 512 prefill
+   bucket, the W8A8 route at decode), a Q3_K GGUF (projections in Q3_K,
+   token_embd in Q6_K, norms F32) with ``Engine(quant="native")``
+   single-stream, and the bf16 GGUF with ``Engine(quant="q2_k")`` on 4
+   slots, held and printed as phase 7.
+10. The kernels line (one JSON object), the card line, and last the ok line.
 """
 
 from __future__ import annotations
@@ -409,21 +418,37 @@ QUANT_PAIRS = [("wq_wo", 2048, 2048), ("wk_wv", 2048, 512),
                ("head", 2048, 128256)]
 W8A8_M = (1, 4, 16, 32)          # decode B = 1..4, short prefill buckets
 DEQUANT_M = (33, 256, 512)       # the cutover, mixed steps, a 512 prefill
-# edges: an odd F, activation group 32 (Q8_0 with D % 256 != 0, Q6_K with
-# D/4 % 256 != 0, Q4_K and Q5_KS with D/2 % 256 != 0), an all-zero
-# activation row
+INT8_M = W8A8_M + DEQUANT_M      # int8 has one kernel at every M
+# edges: an odd F, activation group 32 (Q8_0 and int8 with D % 64 != 0,
+# Q6_K, Q2_KS and Q3_KS with D/4 % 256 != 0, Q4_K and Q5_KS with
+# D/2 % 256 != 0), int8's group 128, an all-zero activation row
 QUANT_EDGES = [dict(name="odd_f", D=2048, F=1001),
                dict(name="group32", D={"q8_0": 2080, "q6_k": 1280, "q4_k": 1280,
-                                       "q5_ks": 1280}, F=1024)]
-QUANT_KINDS = ("q8_0", "q6_k", "q4_k", "q5_ks")
+                                       "q5_ks": 1280, "int8": 2080, "q2_ks": 1280,
+                                       "q3_ks": 1280}, F=1024),
+               dict(name="group128", D={"int8": 1152}, F=1024)]
+QUANT_KINDS = ("q8_0", "q6_k", "q4_k", "q5_ks", "int8", "q2_ks", "q3_ks")
 # the case each kernel's kernels-line entry reports: the (D, F) pair with the
-# most weight bytes of a layer at the M its served path runs (q8_0 and q5_ks:
-# the parallel-4 path, B=4 decode and 256-lane mixed steps; q6_k and q4_k:
-# the single-stream path, B=1 decode and a 512-token prefill bucket)
+# most weight bytes of a layer at the M its served path runs (q8_0, q5_ks and
+# q2_ks: the parallel-4 path, B=4 decode and 256-lane mixed steps; q6_k,
+# q4_k, int8 and q3_ks: the single-stream path, B=1 decode and a 512-token
+# prefill bucket; int8's entry reports its GEMM)
 QUANT_TIMED = {("q8_0", "w8a8"): ("gate_up", 4), ("q8_0", "dequant"): ("gate_up", 256),
                ("q6_k", "w8a8"): ("gate_up", 1), ("q6_k", "dequant"): ("gate_up", 512),
                ("q4_k", "w8a8"): ("gate_up", 1), ("q4_k", "dequant"): ("gate_up", 512),
-               ("q5_ks", "w8a8"): ("gate_up", 4)}
+               ("q5_ks", "w8a8"): ("gate_up", 4), ("int8", "int8"): ("gate_up", 512),
+               ("q2_ks", "w8a8"): ("gate_up", 4), ("q3_ks", "w8a8"): ("gate_up", 1)}
+
+
+def quant_kernels(qm, kind: str) -> list[tuple[str, tuple[int, ...], tuple[int, ...]]]:
+    """(kernel, M of the pairs, M of the edges) for each kernel a pack kind
+    runs."""
+    if kind == "int8":
+        return [("int8", INT8_M, (3, 100))]
+    kernels = [("w8a8", W8A8_M, (3,))]
+    if qm._NAMES[kind][0]:   # the kind has a fused-dequant kernel
+        kernels.append(("dequant", DEQUANT_M, (100,)))
+    return kernels
 
 
 def random_pack(qm, kq, kind: str, D: int, F: int, gen: torch.Generator):
@@ -446,6 +471,16 @@ def random_pack(qm, kq, kind: str, D: int, F: int, gen: torch.Generator):
     if kind == "q8_0":
         return qm.Q8_0Pack(qs=codes(F, D).clamp_(-127, 127),
                            scale=scales(F, D // 32, std_code=73.0))
+    if kind == "int8":
+        group = 256 if D % 256 == 0 else qm._pow2_group(D)
+        return qm.Int8Pack(qs=codes(F, D).clamp_(-127, 127),
+                           gs=scales(F, D // group, std_code=73.0).float())
+    if kind == "q2_ks":
+        a = scales(F, D // 16, std_code=1.12)
+        return kq.Q2KSPack(q2l=codes(F, D // 4), a=a, b=offsets(a, 1.5))
+    if kind == "q3_ks":
+        return kq.Q3KSPack(q3l=codes(F, D // 4), q3h=codes(F, D // 8),
+                           s=scales(F, D // 16, std_code=2.29))
     if kind == "q4_k":
         a = scales(F, D // 32, std_code=4.6)
         return kq.Q4KPack(qs=codes(F, D // 2), a=a, b=offsets(a, 7.5))
@@ -468,9 +503,9 @@ def quant_case(qm, pack, kernel: str, M: int, out_dtype, gen, flush,
                zero_row: bool = False) -> dict:
     """One kernel against its plain version at x [M, D] bf16: max abs error
     within one bf16 ulp of the largest output (the kernels and the plain
-    versions differ in f32 summation order, then round alike), the W8A8
-    kernel's quantized activations equal to ``quantize_acts``, times and the
-    bound."""
+    versions differ in f32 summation order, then round alike), the W8A8 and
+    int8 kernels' quantized activations equal to ``quantize_acts``, times
+    and the bound."""
     import torch.nn.functional as F
 
     Fo, D = pack.shape
@@ -483,6 +518,12 @@ def quant_case(qm, pack, kernel: str, M: int, out_dtype, gen, flush,
 
         def plain():
             return qm.w8a8_plain(x, pack, out_dtype)
+    elif kernel == "int8":
+        def kern():
+            return qm.int8_matmul(x, pack, out_dtype)
+
+        def plain():
+            return qm.int8_matmul_plain(x, pack, out_dtype)
     else:
         def kern():
             return qm.dequant_matmul(x, pack, out_dtype)
@@ -497,25 +538,35 @@ def quant_case(qm, pack, kernel: str, M: int, out_dtype, gen, flush,
     name = f"{pack.kind} {kernel} D={D} F={Fo} M={M}"
     if not (err <= tol and torch.isfinite(got.float()).all()):
         fail(f"{name}: max abs err {err} > {tol}")
-    if kernel == "w8a8":
+    int_mm = {}
+    if kernel in ("w8a8", "int8"):
         group = pack.group
         xq = torch.empty(M, D, dtype=torch.int8, device="cuda")
         xs = torch.empty(M, D // group, dtype=torch.float32, device="cuda")
-        qm.w8a8_matmul(x, pack, out_dtype, acts=(xq, xs))
+        (qm.int8_matmul if kernel == "int8" else qm.w8a8_matmul)(
+            x, pack, out_dtype, acts=(xq, xs))
         rq, rs = qm.quantize_acts(x, group)
         if not (torch.equal(xq, rq) and torch.equal(xs, rs)):
             fail(f"{name}: the kernel's quantized activations differ from "
                  "quantize_acts")
+        if kernel == "int8" and M >= 256:
+            # a yardstick only: the int8 product of the same operands with no
+            # group scales; the port never calls it
+            qt = pack.qs.t()
+            try:
+                int_mm["int_mm_ms"] = event_ms(lambda: torch._int_mm(rq, qt), 20, flush)
+            except RuntimeError as e:
+                int_mm["int_mm_error"] = str(e)[:200]
     dense = pack.dequant(torch.bfloat16)
     lib_err = (F.linear(x, dense).float() - ref.float()).abs().max().item()
     n_bytes = (M * D * 2 + pack.nbytes()
                + M * Fo * (4 if out_dtype == torch.float32 else 2))
     ops = 2 * M * D * Fo
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
-    t_ops = ops / (INT8_OP_S if kernel == "w8a8" else BF16_FLOP_S) * 1e3
+    t_ops = ops / (BF16_FLOP_S if kernel == "dequant" else INT8_OP_S) * 1e3
     return {"case": name, "kind": pack.kind, "kernel": kernel, "M": M, "D": D,
             "F": Fo, "out": str(out_dtype).split(".")[-1], "zero_row": zero_row,
-            "max_abs_err": err, "tol": tol,
+            "max_abs_err": err, "tol": tol, **int_mm,
             "library_max_abs_err": lib_err,
             "kernel_ms": event_ms(kern, 50, flush),
             "kernel_warm_l2_ms": event_ms(kern, 50, None),
@@ -533,14 +584,14 @@ def check_quant(qm, kq, seed: int, flush: torch.Tensor, card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows: dict[tuple[str, str], list[dict]] = {}
     for kind in QUANT_KINDS:
-        kernels = [("w8a8", W8A8_M, 3)]
-        if qm._NAMES[kind][0]:   # the kind has a fused-dequant kernel
-            kernels.append(("dequant", DEQUANT_M, 100))
+        kernels = quant_kernels(qm, kind)
         cases = [(p, D, F, M, k) for p, D, F in QUANT_PAIRS
                  for k, ms, _ in kernels for M in ms]
         for e in QUANT_EDGES:
+            if isinstance(e["D"], dict) and kind not in e["D"]:
+                continue
             D = e["D"][kind] if isinstance(e["D"], dict) else e["D"]
-            cases += [(e["name"], D, e["F"], m, k) for k, _, m in kernels]
+            cases += [(e["name"], D, e["F"], m, k) for k, _, ms in kernels for m in ms]
         packs = {}
         for pname, D, F, M, kernel in cases:
             if pname not in packs:
@@ -784,17 +835,20 @@ def check_sse(res: dict) -> dict:
                               if e["msg_type"] == "token")}
 
 
-def profile_decode(engine, steps: int = 8) -> dict:
+def profile_decode(engine, steps: int = 8, on_ready=None) -> dict:
     """Where a single-stream decode step's time goes, 512 tokens into the
-    dense cache."""
+    dense cache. ``on_ready`` is called once the cache is filled, before
+    the steps."""
     cache = engine.make_cache()
     engine.prefill(list(range(3, 515)), cache)
     tok = torch.tensor([[7]], device=engine.device)
+    if on_ready is not None:
+        on_ready()
     return profile_steps(lambda: engine.model(tok, cache), steps)
 
 
 def profile_paged_decode(engine, B: int = 4, length: int = 512,
-                         steps: int = 8) -> dict:
+                         steps: int = 8, on_ready=None) -> dict:
     """Where a batched decode step of the slots path goes: B rows, each
     ``length`` tokens into its own blocks of the paged pool."""
     cache = engine.make_paged_cache(B)
@@ -808,6 +862,8 @@ def profile_paged_decode(engine, B: int = 4, length: int = 512,
                                   device=engine.device)
         engine.model.forward_paged(tok, cache)
 
+    if on_ready is not None:
+        on_ready()
     return profile_steps(step, steps)
 
 
@@ -859,15 +915,18 @@ def profile_steps(step, steps: int) -> dict:
 
 class QuantWatch:
     """Holds a served run's quantized matmul launches to what its forwards
-    call for: every packed projection one kernel per forward, W8A8 where the
-    forward's M = B·T is at most 32 and fused dequant above; a packed head
-    sees M = B·T of the positions it scores. It wraps the model's
+    call for: every packed projection one launch of the kernel that
+    ``qm.route`` names for its kind and the forward's M = B·T (W8A8 at M ≤ 32
+    and fused dequant above; int8's kernel at every M); a packed head sees
+    M = B·T of the positions it scores. It wraps the model's
     ``embed_tokens`` and ``lm_logits`` (once per forward each) to record M.
-    A kind with no fused-dequant kernel (q5_ks) launches nothing at M > 32:
-    its calls of ``qm.dequant_linear``, which the watch wraps until
-    ``close``, count in place of the dequant launches."""
+    A kind with no fused-dequant kernel (q5_ks, q2_ks, q3_ks) launches
+    nothing at M > 32: its calls of ``qm.dequant_linear``, which the watch
+    wraps until ``close``, count in place of the launches."""
 
     def __init__(self, qm, model):
+        from collections import Counter
+
         self.qm, self.body, self.head = qm, [], []
         self.linear = 0
         self._route = route = qm.dequant_linear
@@ -878,10 +937,10 @@ class QuantWatch:
 
         qm.dequant_linear = dequant_linear
         self.served: dict[str, int] = {}   # the launches the last check held
-        self.layer_packs = sum(isinstance(m, qm.QuantPack)
-                               for blk in model.layers for m in blk.children())
-        self.head_packed = isinstance(getattr(model, "lm_head", None), qm.QuantPack)
-        self.kinds = {m.kind for m in model.modules() if isinstance(m, qm.QuantPack)}
+        self.layer_kinds = Counter(m.kind for blk in model.layers for m in blk.children()
+                                   if isinstance(m, qm.QuantPack))
+        head = getattr(model, "lm_head", None)
+        self.head_kind = head.kind if isinstance(head, qm.QuantPack) else None
         embed, logits = model.embed_tokens, model.lm_logits
 
         def embed_tokens(tokens):
@@ -906,33 +965,30 @@ class QuantWatch:
 
     def check(self, what: str) -> dict:
         """Fail unless the launches since ``reset`` are what the forwards
-        call for; returns them."""
+        call for, kernel by kernel; returns them."""
+        want: dict[str, int] = {}
+        linear = 0
+        calls = [(kind, n, M) for M in self.body for kind, n in self.layer_kinds.items()]
+        if self.head_kind:
+            calls += [(self.head_kind, 1, M) for M in self.head]
+        for kind, n, M in calls:
+            name = self.qm.route(kind, M)
+            if name is None:
+                linear += n
+            else:
+                want[name] = want.get(name, 0) + n
+        got = {k: v for k, v in self.qm.launches.items() if v}
+        self.served = got
+        if not self.body or got != want or self.linear != linear:
+            fail(f"{what}: quant kernel launches {got} and {self.linear} dequant_linear "
+                 f"calls, the forwards call for {want} and {linear} ({len(self.body)} "
+                 f"forwards, layer packs {dict(self.layer_kinds)}, head {self.head_kind})")
         cut = self.qm.W8A8_MAX_M
-        want = {"w8a8": self.layer_packs * sum(m <= cut for m in self.body)
-                + self.head_packed * sum(m <= cut for m in self.head),
-                "dequant": self.layer_packs * sum(m > cut for m in self.body)
-                + self.head_packed * sum(m > cut for m in self.head)}
-        got = {"w8a8": 0, "dequant": self.linear}
-        if self.linear and all(self.qm._NAMES[k][0] for k in self.kinds):
-            fail(f"{what}: dequant_linear ran with no pack that needs it")
-        for kind, (dq, w8) in self.qm._NAMES.items():
-            n_dq = self.qm.launches[dq] if dq else 0
-            n_w8 = self.qm.launches[w8]
-            if kind not in self.kinds and n_dq + n_w8:
-                fail(f"{what}: {kind} kernels launched with no {kind} pack")
-            got["w8a8"] += n_w8
-            got["dequant"] += n_dq
-        self.served = dict(self.qm.launches)
-        if not self.body or got != want:
-            fail(f"{what}: quant kernel launches {got}, the forwards call for "
-                 f"{want} ({len(self.body)} forwards, {self.layer_packs} layer "
-                 f"packs, head packed {self.head_packed})")
         return {"forwards": len(self.body),
                 "forwards_w8a8": sum(m <= cut for m in self.body),
                 "forwards_dequant": sum(m > cut for m in self.body),
-                "layer_packs": self.layer_packs, "head_packed": self.head_packed,
-                "kinds": sorted(self.kinds), "launches": dict(self.qm.launches),
-                "dequant_linear_calls": self.linear}
+                "layer_packs": dict(self.layer_kinds), "head": self.head_kind,
+                "launches": got, "dequant_linear_calls": self.linear}
 
 
 def serve_single(engine, requests: list[dict], card: str, fa, watch=None) -> int:
@@ -978,12 +1034,14 @@ def serve_single(engine, requests: list[dict], card: str, fa, watch=None) -> int
 
 def profile_quant_step(engine, profile, qm, card: str) -> None:
     """A profiled quantized decode step, holding each packed projection to
-    one W8A8 launch per step."""
-    for k in qm.launches:
-        qm.launches[k] = 0
-    steps = 8
-    row = profile(engine, steps=steps)
-    per_step = sum(qm.launches[w8] for _, w8 in qm._NAMES.values()) / row["steps_run"]
+    one launch per step (W8A8, or int8's kernel), counted from the steps
+    alone (a cache's prefill launches the prefill routes)."""
+    def reset():
+        for k in qm.launches:
+            qm.launches[k] = 0
+
+    row = profile(engine, steps=8, on_ready=reset)
+    per_step = sum(qm.launches.values()) / row["steps_run"]
     layer_packs = sum(isinstance(m, qm.QuantPack)
                       for blk in engine.model.layers for m in blk.children())
     head = isinstance(getattr(engine.model, "lm_head", None), qm.QuantPack)
@@ -1213,6 +1271,15 @@ def serve_quant(engine, slots: bool, requests: list[dict], fa, pa, qm, llama, cf
     return {k: v for k, v in watch.served.items() if v}
 
 
+def q3_k_types(name: str):
+    """A Q3_K GGUF's type of each matrix: the projections in Q3_K, the
+    embedding (which is the head) in Q6_K, as llama.cpp's Q3_K mixes keep
+    ``token_embd`` wider."""
+    from distributed_llm_pipeline_tpu_torch.gguf import GGMLType
+
+    return GGMLType.Q6_K if name == "token_embd.weight" else GGMLType.Q3_K
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  rows: list[dict], timed: dict) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -1277,6 +1344,7 @@ def main() -> int:
     path = model_dir / f"llama3.2-1b-seed{args.seed}.gguf"
     q6_path = model_dir / f"llama3.2-1b-q6_k-seed{args.seed}.gguf"
     q4_path = model_dir / f"llama3.2-1b-q4_k_m-seed{args.seed}.gguf"
+    q3_path = model_dir / f"llama3.2-1b-q3_k-seed{args.seed}.gguf"
     try:
         # 4. the served path, single stream
         t0 = time.monotonic()
@@ -1315,13 +1383,18 @@ def main() -> int:
 
         # 7. serve quantized: the paper's demo (a Q6_K GGUF, one stream) and
         # --quant q8_0 --parallel 4; 8. Q4_K_M native, one stream, and
-        # --quant q5_k --parallel 4. The bf16 GGUF goes once q5_k has packed it
+        # --quant q5_k --parallel 4; 9. --quant int8, one stream, Q3_K native,
+        # one stream, and --quant q2_k --parallel 4. The bf16 GGUF goes once
+        # q2_k has packed it
         quant_launches = {}
         for phase, qpath, wtype, seed, runs in (
                 (7, q6_path, GGMLType.Q6_K, args.seed + 1,
                  (("native", q6_path, False), ("q8_0", path, True))),
                 (8, q4_path, q4_k_m_types(cfg.n_layers), args.seed + 2,
-                 (("native", q4_path, False), ("q5_k", path, True)))):
+                 (("native", q4_path, False), ("q5_k", path, True))),
+                (9, q3_path, q3_k_types, args.seed + 3,
+                 (("int8", path, False), ("native", q3_path, False),
+                  ("q2_k", path, True)))):
             t0 = time.monotonic()
             write_model(qpath, cfg, seed, wtype=wtype)
             print(f"phase {phase} at {time.monotonic() - t_start:.0f}s: wrote {qpath.name}: "
@@ -1329,16 +1402,16 @@ def main() -> int:
                   f"(encoded on the host)", flush=True)
             for quant, gguf, slots in runs:
                 qengine = load_quant_engine(Engine, gguf, quant, card,
-                                            unlink=gguf != path or quant == "q5_k")
+                                            unlink=gguf != path or quant == "q2_k")
                 quant_launches.update(serve_quant(qengine, slots, requests, fa, pa, qm,
                                                   llama, cfg, card, args.seed))
                 del qengine
                 torch.cuda.empty_cache()
     finally:
-        for p in (path, q6_path, q4_path):
+        for p in (path, q6_path, q4_path, q3_path):
             p.unlink(missing_ok=True)
 
-    # 9. results
+    # 10. results
     src = "distributed_llm_pipeline_tpu_torch/csrc/"
     ref = "distributed_llm_pipeline_tpu/ops/"
     entries = [
@@ -1354,7 +1427,10 @@ def main() -> int:
             ("q6_k_w8a8_matmul", "q6_k", "w8a8", "w8a8_matmul.cu", "kquant_matmul.py:1048"),
             ("q4_k_matmul", "q4_k", "dequant", "dequant_matmul.cu", "kquant_matmul.py:585"),
             ("q4_k_w8a8_matmul", "q4_k", "w8a8", "w8a8_matmul.cu", "kquant_matmul.py:813"),
-            ("q5_ks_w8a8_matmul", "q5_ks", "w8a8", "w8a8_matmul.cu", "kquant_matmul.py:796")):
+            ("q5_ks_w8a8_matmul", "q5_ks", "w8a8", "w8a8_matmul.cu", "kquant_matmul.py:796"),
+            ("int8_matmul", "int8", "int8", "int8_matmul.cu", "quant_matmul.py:512"),
+            ("q2_ks_w8a8_matmul", "q2_ks", "w8a8", "w8a8_matmul.cu", "kquant_matmul.py:1104"),
+            ("q3_ks_w8a8_matmul", "q3_ks", "w8a8", "w8a8_matmul.cu", "kquant_matmul.py:1162")):
         krows = quant_rows[(kind, kernel)]
         pair, M = QUANT_TIMED[(kind, kernel)]
         timed = next(r for r in krows if r["pair"] == pair and r["M"] == M)

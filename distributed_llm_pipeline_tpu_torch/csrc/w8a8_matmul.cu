@@ -1,12 +1,16 @@
-// W8A8 integer-dot matmul of few activation rows against a Q8_0, Q6_K, Q4_K or
-// Q5_KS pack, for Hopper (sm_90a), plain C ABI.
+// W8A8 integer-dot matmul of few activation rows against a Q8_0, int8, Q6_K,
+// Q4_K, Q5_KS, Q2_KS or Q3_KS pack, for Hopper (sm_90a), plain C ABI.
 //
 // Replaces the TPU kernels `gw8a8_matmul_pallas` (distributed_llm_pipeline_
 // tpu/ops/quant_matmul.py, math in `gw8a8_band_accum`) on Q8_0 packs,
-// `q6_k_w8a8_matmul_pallas` (ops/kquant_matmul.py, `_q6k_w8a8_kernel`) on
-// Q6_K packs, and `q4_k_w8a8_matmul_pallas` / `q5_ks_w8a8_matmul_pallas`
-// (`_q4k_w8a8_kernel`, `_q5ks_w8a8_kernel`) on the affine Q4_K and Q5_KS
-// packs. Same contract, with the activation quantization folded in:
+// `int8_matmul_pallas` (`_int8_kernel`) on int8 packs at M <= 4 (int8's
+// larger M runs int8_matmul.cu), `q6_k_w8a8_matmul_pallas`
+// (ops/kquant_matmul.py, `_q6k_w8a8_kernel`) on Q6_K packs,
+// `q4_k_w8a8_matmul_pallas` / `q5_ks_w8a8_matmul_pallas` /
+// `q2_ks_w8a8_matmul_pallas` (`_q4k_w8a8_kernel`, `_q5ks_w8a8_kernel`,
+// `_q2ks_w8a8_kernel`) on the affine Q4_K, Q5_KS and Q2_KS packs, and
+// `q3_ks_w8a8_matmul_pallas` (`_q3ks_w8a8_kernel`) on Q3_KS packs. Same
+// contract, with the activation quantization folded in:
 //   x [M, D] (f32 or bf16, M <= 32) is quantized per (row, group of `group`
 //   columns): xs = amax * f32(1/127) (the reference's amax / 127 as XLA
 //   compiles it), inv = xs > 0 ? 1 / max(xs, 1e-30) : 0 (IEEE division),
@@ -14,8 +18,9 @@
 //   bit for bit. Then out[m, f] = sum over groups g of
 //   xs[m, g] * sum over sub-blocks s of g of float(P[m, s, f]) * scale[f, s],
 //   where P is the exact int32 dot of xq and the weight codes over the
-//   sub-block's SUB rows (32 for Q8_0, Q4_K and Q5_KS, 16 for Q6_K). An
-//   affine pack (weight = code * scale - offset) subtracts
+//   sub-block's SUB rows (32 for Q8_0, int8, Q4_K and Q5_KS, 16 for Q6_K,
+//   Q2_KS and Q3_KS; int8's f32 scale is its group's, shared by the group's
+//   sub-blocks). An affine pack (weight = code * scale - offset) subtracts
 //   sum over s of (float(S[m, s]) * xs[m, g(s)]) * offset[f, s], S the exact
 //   sum of xq over the sub-block. Output [M, F] in f32 or bf16.
 //
@@ -30,10 +35,11 @@
 // columns at a time into shared memory: no separate launch per projection,
 // at the price of re-reading x from L2 once per block (cheap at decode's M,
 // dominant at M = 32 against narrow F). For an affine pack the prologue also
-// stores each row's per-32 sums S (dp4a against ones), and each lane
-// subtracts its sub-block's offset term. The two nibble bands of Q4_K and
-// Q5_KS are walked one after the other, so each packed byte is read twice,
-// the second time from L1 or L2.
+// stores each row's sums S over every SUB columns (dp4a against ones), and
+// each lane subtracts its sub-block's offset term. The bands of a packed
+// byte (two for Q4_K and Q5_KS, four for Q2_KS, Q3_KS and Q6_K's 2-bit
+// plane) are walked one after the other, so each packed byte is read once
+// per band, after the first time from L1 or L2.
 
 #include <type_traits>
 
@@ -70,10 +76,10 @@ w8a8_kernel(Dec dec, const void* __restrict__ x, bool x_bf16, void* __restrict__
   constexpr int WORDS = SUB / 4;  // code words per sub-block
   __shared__ __align__(16) int8_t xq_s[MT][kChunk];
   __shared__ float xs_s[MT][kChunk / 32];
-  __shared__ int ss_s[Dec::AFFINE ? MT : 1][kChunk / 32];  // per-32 sums of xq
+  __shared__ int ss_s[Dec::AFFINE ? MT : 1][kChunk / SUB];  // per-SUB sums of xq
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int f = blockIdx.x * kWarps + warp;
-  const int spg = group / SUB;  // sub-blocks per group: 1, 2, 8 or 16 lanes
+  const int spg = group / SUB;  // sub-blocks per group: 1 to 16 lanes
   const bool dump = xq_out != nullptr && blockIdx.x == 0;
   float acc[MT];
 #pragma unroll
@@ -103,12 +109,12 @@ w8a8_kernel(Dec dec, const void* __restrict__ x, bool x_bf16, void* __restrict__
       }
       if constexpr (Dec::AFFINE) {
         __syncwarp();  // the group's codes are in shared memory
-        for (int sb = lane; sb < group / 32; sb += 32) {
-          const int* xw = reinterpret_cast<const int*>(&xq_s[m][g * group + sb * 32]);
+        for (int sb = lane; sb < group / SUB; sb += 32) {
+          const int* xw = reinterpret_cast<const int*>(&xq_s[m][g * group + sb * SUB]);
           int sum = 0;
 #pragma unroll
-          for (int i = 0; i < 8; ++i) sum = __dp4a(xw[i], 0x01010101, sum);
-          ss_s[m][g * group / 32 + sb] = sum;
+          for (int i = 0; i < WORDS; ++i) sum = __dp4a(xw[i], 0x01010101, sum);
+          ss_s[m][g * group / SUB + sb] = sum;
         }
       }
     }
@@ -141,7 +147,7 @@ w8a8_kernel(Dec dec, const void* __restrict__ x, bool x_bf16, void* __restrict__
           float t = float(p) * sc;  // the sub-block's term
           for (int o = 1; o < spg; o <<= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
           if (live && lane % spg == 0) acc[m] += t * xs_s[m][g];  // group sum, times xs
-          if constexpr (Dec::AFFINE) {  // SUB == 32: sub-block s is sum s
+          if constexpr (Dec::AFFINE) {  // sub-block s is sum s
             if (live) acc[m] -= float(ss_s[m][s]) * xs_s[m][g] * off;
           }
         }
@@ -198,6 +204,13 @@ extern "C" int dlp_w8a8_q8_0(const void* x, const void* qs, const void* scale, v
   return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
 }
 
+extern "C" int dlp_w8a8_int8(const void* x, const void* qs, const void* gs, void* out,
+                             int8_t* xq_out, float* xs_out, int x_bf16, int out_bf16, int M,
+                             int D, int F, int group, void* stream) {
+  const Int8 dec{static_cast<const int8_t*>(qs), static_cast<const float*>(gs), D, group};
+  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
+}
+
 extern "C" int dlp_w8a8_q4_k(const void* x, const void* qs, const void* a, const void* b,
                              void* out, int8_t* xq_out, float* xs_out, int x_bf16, int out_bf16,
                              int M, int D, int F, int group, void* stream) {
@@ -220,5 +233,21 @@ extern "C" int dlp_w8a8_q6_k(const void* x, const void* ql, const void* qh, cons
                              int M, int D, int F, int group, void* stream) {
   const Q6K dec{static_cast<const int8_t*>(ql), static_cast<const int8_t*>(qh),
                 static_cast<const __nv_bfloat16*>(s), D};
+  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
+}
+
+extern "C" int dlp_w8a8_q2_ks(const void* x, const void* q2l, const void* a, const void* b,
+                              void* out, int8_t* xq_out, float* xs_out, int x_bf16,
+                              int out_bf16, int M, int D, int F, int group, void* stream) {
+  const Q2KS dec{static_cast<const int8_t*>(q2l), static_cast<const __nv_bfloat16*>(a),
+                 static_cast<const __nv_bfloat16*>(b), D};
+  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
+}
+
+extern "C" int dlp_w8a8_q3_ks(const void* x, const void* q3l, const void* q3h, const void* s,
+                              void* out, int8_t* xq_out, float* xs_out, int x_bf16,
+                              int out_bf16, int M, int D, int F, int group, void* stream) {
+  const Q3KS dec{static_cast<const int8_t*>(q3l), static_cast<const int8_t*>(q3h),
+                 static_cast<const __nv_bfloat16*>(s), D};
   return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
 }

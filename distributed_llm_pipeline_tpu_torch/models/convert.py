@@ -1,6 +1,6 @@
 """GGUF tensors → the port's flat parameter state, dequantized at load or,
-with ``native_quant_layers``, kept in their stored Q8_0 / Q4_K / Q5_K / Q6_K
-blocks.
+with ``native_quant_layers``, kept in their stored Q8_0 / Q2_K / Q3_K / Q4_K /
+Q5_K / Q6_K blocks.
 
 Name mapping follows llama.cpp's GGUF tensor names, as
 ``distributed_llm_pipeline_tpu/models/convert.py`` does. The port keeps each
@@ -17,9 +17,11 @@ import numpy as np
 import torch
 
 from ..gguf import GGMLType, GGUFReader
-from ..ops.kquant_matmul import (Q4KPack, Q5KSPack, Q6KPack, pack_q4_k_from_gguf,
-                                 pack_q5_ks_from_gguf, pack_q6_k_from_gguf)
-from ..ops.quant_matmul import Q8_0Pack, QuantPack, pack_q8_0_from_gguf
+from ..ops.kquant_matmul import (Q2KSPack, Q3KSPack, Q4KPack, Q5KSPack, Q6KPack,
+                                 pack_q2_ks_from_gguf, pack_q3_ks_from_gguf,
+                                 pack_q4_k_from_gguf, pack_q5_ks_from_gguf,
+                                 pack_q6_k_from_gguf)
+from ..ops.quant_matmul import Int8Pack, Q8_0Pack, QuantPack, pack_q8_0_from_gguf
 from .config import ModelConfig
 from .llama import QUANTIZABLE, Params
 
@@ -35,7 +37,8 @@ def _torch(a: np.ndarray) -> torch.Tensor:
 
 
 # a JAX pack is identified by its field names; its fields are [..., rows, F]
-_PACKS = {frozenset(cls.fields): cls for cls in (Q8_0Pack, Q6KPack, Q4KPack, Q5KSPack)}
+_PACKS = {frozenset(cls.fields): cls for cls in (Q8_0Pack, Int8Pack, Q6KPack, Q4KPack,
+                                                  Q5KSPack, Q2KSPack, Q3KSPack)}
 
 
 def _pack_from_jax(fields: dict, device) -> QuantPack:
@@ -205,28 +208,27 @@ _PROJ_TENSORS = {"wq": "attn_q.weight", "wk": "attn_k.weight",
                  "wv": "attn_v.weight", "wo": "attn_output.weight",
                  "w_gate": "ffn_gate.weight", "w_up": "ffn_up.weight",
                  "w_down": "ffn_down.weight"}
-# stored types the reference serves packed that this package does not yet
-_UNPORTED_KQUANTS = (GGMLType.Q2_K, GGMLType.Q3_K)
 # K-quant stacks: packed only when D % 256 == 0, else served dense
-_KQUANTS = _UNPORTED_KQUANTS + (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K)
+_KQUANTS = (GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K)
 
 
 def native_quant_layers(reader: GGUFReader, cfg: ModelConfig) -> dict[str, QuantPack]:
-    """Packs for the projection stacks whose stored type is Q8_0, Q4_K, Q5_K
-    (the sub-byte ``q5_ks`` pack) or Q6_K, built from the raw block bytes
-    with no dequantize → requantize round trip (the reference's
+    """Packs for the projection stacks whose stored type is Q8_0, Q2_K, Q3_K,
+    Q4_K, Q5_K or Q6_K (the sub-byte ``q2_ks``, ``q3_ks`` and ``q5_ks`` packs
+    for Q2_K, Q3_K and Q5_K), built from the raw block bytes with no
+    dequantize → requantize round trip (the reference's
     ``native_quant_layers`` on one device). Returns
     ``{"layers.{i}.{leaf}": pack}`` on the host; the caller loads the rest
     dense with ``load_params(..., skip=...)``.
 
     A stack qualifies when every layer stores one type (mixed stacks load
     dense, as in the reference; so do fused Phi-3 tensors, which are split
-    at load). A stack stored as Q2_K or Q3_K raises
-    ``NotImplementedError``: the reference would serve it packed, so serving
-    it dense here would give other results."""
+    at load, and K-quant stacks whose contraction dim is not a multiple of
+    256)."""
     if cfg.is_moe or "blk.0.attn_qkv.weight" in reader.tensors:
         return {}
-    packers = {GGMLType.Q8_0: pack_q8_0_from_gguf, GGMLType.Q4_K: pack_q4_k_from_gguf,
+    packers = {GGMLType.Q8_0: pack_q8_0_from_gguf, GGMLType.Q2_K: pack_q2_ks_from_gguf,
+               GGMLType.Q3_K: pack_q3_ks_from_gguf, GGMLType.Q4_K: pack_q4_k_from_gguf,
                GGMLType.Q5_K: pack_q5_ks_from_gguf, GGMLType.Q6_K: pack_q6_k_from_gguf}
     out: dict[str, QuantPack] = {}
     for leaf in QUANTIZABLE:
@@ -238,11 +240,6 @@ def native_quant_layers(reader: GGUFReader, cfg: ModelConfig) -> dict[str, Quant
         F, D = tis[0].shape                  # disk layout (out F, in D)
         if t in _KQUANTS and D % 256:
             continue                         # the reference serves it dense too
-        if t in _UNPORTED_KQUANTS:
-            raise NotImplementedError(
-                f"--quant native: {leaf} is stored as {t.name}, whose kernels "
-                "are not ported to the PyTorch/CUDA package yet (ROADMAP.md §2); "
-                "requantize with --quant q8_0, q4_k, q5_k or q6_k")
         packer = packers.get(t)
         if packer is None:
             continue

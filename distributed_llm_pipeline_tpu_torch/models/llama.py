@@ -472,49 +472,50 @@ class LlamaModel(nn.Module):
 # serving-side weight quantization
 
 QUANTIZABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-# the reference server's --quant choices, and those this package serves
+# the reference server's --quant choices, every one served by this package
 QUANT_MODES = ("int8", "q8_0", "q2_k", "q3_k", "q4_k", "q5_k", "q6_k", "native")
-PORTED_QUANT = ("q8_0", "q4_k", "q5_k", "q6_k", "native")
 
 
 def check_quant(quant: str | None) -> None:
-    """Raise on a quant mode this package does not serve: a clear error that
-    names ROADMAP.md for the reference's modes not ported yet."""
-    if quant is None or quant in PORTED_QUANT:
-        return
-    if quant in QUANT_MODES:
-        raise NotImplementedError(
-            f"quant mode {quant!r} is not ported to the PyTorch/CUDA package "
-            f"yet (ROADMAP.md §2 lists what is left); ported: "
-            f"{', '.join(PORTED_QUANT)}")
-    raise ValueError(f"unsupported quant mode {quant!r} "
-                     f"(supported: {', '.join(PORTED_QUANT)})")
+    """Raise ``ValueError`` on a quant mode that is not one of
+    ``QUANT_MODES``."""
+    if quant is not None and quant not in QUANT_MODES:
+        raise ValueError(f"unsupported quant mode {quant!r} "
+                         f"(supported: {', '.join(QUANT_MODES)})")
 
 
 def quantize_params(params: Params, cfg: ModelConfig, mode: str) -> Params:
     """Re-pack the projection weights and the head so they stay quantized on
-    the device (the reference's ``quantize_params`` for ``q8_0``, ``q4_k``,
-    ``q5_k`` and ``q6_k`` on one device, where K-quants take their sub-byte
-    packs, not the byte codes of tp meshes). Packing runs on the host; each
-    pack lands on the device of the weight it replaces. Norms and the
-    embedding table stay dense.
+    the device (the reference's ``quantize_params`` on one device, where
+    K-quants take their sub-byte packs, not the byte codes of tp meshes).
+    Packing runs on the host; each pack lands on the device of the weight it
+    replaces. Norms and the embedding table stay dense.
 
-    - ``q8_0``: per-32 blocks. ``q4_k``, ``q5_k`` (the ``q5_ks`` pack) and
-      ``q6_k``: 256-row super-blocks; a weight whose contraction dim is not a
+    - ``int8``: int8 codes per 256-row group, or the largest power-of-two
+      group of 128, 64, 32 that divides D; Q8_0 where none does.
+    - ``q8_0``: per-32 blocks. ``q2_k``, ``q3_k``, ``q4_k``, ``q5_k`` and
+      ``q6_k`` (the ``q2_ks``, ``q3_ks``, ``q4_k``, ``q5_ks`` and ``q6_k``
+      packs): 256-row super-blocks; a weight whose contraction dim is not a
       multiple of 256 falls back to ``q8_0``.
     - An untied head is packed; a tied head gets a packed copy of the
       embedding table (already [V, D], out-features-major) while the dense
       table keeps serving lookups."""
-    check_quant(mode)
-    from ..ops.kquant_matmul import pack_q4_k, pack_q5_ks, pack_q6_k
+    from ..ops.kquant_matmul import (pack_q2_ks, pack_q3_ks, pack_q4_k, pack_q5_ks,
+                                     pack_q6_k)
+    from ..ops.quant_matmul import _pow2_group, pack_int8
 
-    packers = {"q8_0": pack_q8_0, "q4_k": pack_q4_k, "q5_k": pack_q5_ks,
-               "q6_k": pack_q6_k}
-    if mode not in packers:
-        raise ValueError(f"quantize_params: mode {mode!r} ({', '.join(packers)})")
+    packers = {"q8_0": pack_q8_0, "q2_k": pack_q2_ks, "q3_k": pack_q3_ks,
+               "q4_k": pack_q4_k, "q5_k": pack_q5_ks, "q6_k": pack_q6_k}
+    if mode != "int8" and mode not in packers:
+        raise ValueError(f"quantize_params: mode {mode!r} "
+                         f"(int8, {', '.join(packers)})")
 
     def pack_dense(w: torch.Tensor) -> QuantPack:
-        packer = pack_q8_0 if w.shape[1] % 256 else packers[mode]
+        D = w.shape[1]
+        if mode == "int8":
+            packer = pack_int8 if D % 256 == 0 or _pow2_group(D) else pack_q8_0
+        else:
+            packer = pack_q8_0 if D % 256 else packers[mode]
         return packer(w).to(w.device)
 
     out = dict(params)

@@ -1,11 +1,13 @@
-"""K-quant weights (Q4_K, Q5_K, Q6_K) kept quantized on the device.
+"""K-quant weights (Q2_K, Q3_K, Q4_K, Q5_K, Q6_K) kept quantized on the
+device.
 
 The counterpart of ``distributed_llm_pipeline_tpu/ops/kquant_matmul.py`` for
 its single-device packs: Q6_K (the reference's demo checkpoint,
 ``orchestrator/src/main.rs:40``), Q4_K (its north-star Q4_K_M format) and the
-sub-byte Q5_K pack ``q5_ks``. The GGUF super-blocks are re-packed once at
-load into the JAX package's layout, transposed to out-features-major like the
-port's ``F.linear`` weights; the quantized values are exact:
+sub-byte packs ``q5_ks``, ``q3_ks`` and ``q2_ks``. The GGUF super-blocks are
+re-packed once at load into the JAX package's layout, transposed to
+out-features-major like the port's ``F.linear`` weights; the quantized values
+are exact:
 
     Q6_K  w = s · q, q ∈ [-32, 31] per 16-row sub-block along D
         ql  int8 [F, D/2]   4-bit plane: byte j holds row j in its low
@@ -25,6 +27,17 @@ port's ``F.linear`` weights; the quantized values are exact:
                             bits 0..3 and rows D/2 + 4t.. in bits 4..7
         a, b                as Q4_K
 
+    Q2_KS w = a · q − b, q ∈ [0, 3] per 16-row sub-block along D
+        q2l int8 [F, D/4]   2-bit plane of four bands, as Q6_K's qh
+        a   bf16 [F, D/16]  effective scale (ggml d · sc)
+        b   bf16 [F, D/16]  effective offset (ggml dmin · m)
+
+    Q3_KS w = s · q, q ∈ [-4, 3] per 16-row sub-block along D
+        q3l int8 [F, D/4]   the low 2 bits, four bands as Q2_KS
+        q3h int8 [F, D/8]   the third bit: bits 2k and 2k + 1 of byte t hold
+                            rows 2t and 2t + 1 of band k; q = (low | hb << 2) − 4
+        s   bf16 [F, D/16]  effective scale (ggml d · sc, sc signed)
+
 So band k (rows [k·D/4, (k+1)·D/4)) of Q6_K reads its low 4 bits from the low
 nibbles of ``ql``'s first half (k = 0), its second half (k = 1), or the high
 nibbles of those (k = 2, 3), and its top 2 bits from bits 2k of ``qh``; the
@@ -35,9 +48,9 @@ The packs go through the dispatch of ``ops/quant_matmul.py``. M ≤ 32 takes
 the W8A8 integer dots (``csrc/w8a8_matmul.cu``; the activation group must
 divide the band, so it is 256 where the band allows it, else 32); M > 32
 takes the fused dequant (``csrc/dequant_matmul.cu``) for Q6_K and Q4_K and,
-for Q5_KS, which has no fused kernel in the reference either, the dense
-weight and one dense product. Each kernel decodes the bit planes itself
-(``csrc/quant_tile.cuh``).
+for the sub-byte packs, which have no fused kernel in the reference either,
+the dense weight and one dense product. Each kernel decodes the bit planes
+itself (``csrc/quant_tile.cuh``).
 """
 
 from __future__ import annotations
@@ -45,33 +58,71 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..gguf.quants import _fp16_field, _k4_scale_min, quant_q4_k, quant_q5_k, quant_q6_k
+from ..gguf.quants import (_fp16_field, _k4_scale_min, _q3k_unpack_scales, quant_q2_k,
+                           quant_q3_k, quant_q4_k, quant_q5_k, quant_q6_k)
 from .quant_matmul import GROUP, QuantPack, _bf16
 
 SUB4 = 32   # Q4_K / Q5_K sub-block length along D
-SUB6 = 16   # Q6_K sub-block length along D
+SUB6 = 16   # Q2_K / Q3_K / Q6_K sub-block length along D
 
 
-class Q6KPack(QuantPack):
-    kind = "q6_k"
-    fields = ("ql", "qh", "s")
+def _two_bit_bands(plane: torch.Tensor) -> torch.Tensor:
+    """A four-band 2-bit plane [F, D/4] → uint8 [F, D] in logical row order:
+    band k (rows [k·D/4, (k+1)·D/4)) from bits 2k..2k+1."""
+    u = plane.view(torch.uint8)
+    return torch.cat([(u >> (2 * k)) & 3 for k in range(4)], dim=1)
+
+
+class _FourBandPack(QuantPack):
+    """A pack of 16-row sub-blocks whose 2-bit plane holds four bands per
+    byte (Q6_K, Q2_KS, Q3_KS); its last field has one entry per sub-block."""
+
     sub = SUB6
 
     def _dense_shape(self) -> tuple[int, int]:
-        return self.ql.shape[0], 2 * self.ql.shape[1]
+        per_sub = self._buffers[self.fields[-1]]
+        return per_sub.shape[0], SUB6 * per_sub.shape[1]
 
     def _act_group(self) -> int:
         # the group must divide the band size D/4, so no group straddles a
         # band (D % 256 == 0, so 32 always divides)
         return GROUP if (self.shape[1] // 4) % GROUP == 0 else 32
 
+
+class Q6KPack(_FourBandPack):
+    kind = "q6_k"
+    fields = ("ql", "qh", "s")
+
     def codes_and_scales(self) -> tuple[torch.Tensor, torch.Tensor]:
         ql = self.ql.view(torch.uint8)
-        qh = self.qh.view(torch.uint8)
         lo = torch.cat([ql & 0x0F, ql >> 4], dim=1)                 # [F, D]
-        hi = torch.cat([(qh >> (2 * k)) & 3 for k in range(4)], dim=1)
-        q = (lo | (hi << 4)).to(torch.int16) - 32                    # [-32, 31]
+        q = (lo | (_two_bit_bands(self.qh) << 4)).to(torch.int16) - 32   # [-32, 31]
         return q.to(torch.int8), self.s
+
+
+class Q2KSPack(_FourBandPack):
+    kind = "q2_ks"
+    fields = ("q2l", "a", "b")
+
+    def codes_and_scales(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return _two_bit_bands(self.q2l).to(torch.int8), self.a       # [0, 3]
+
+    def offsets(self) -> torch.Tensor:
+        return self.b
+
+
+class Q3KSPack(_FourBandPack):
+    kind = "q3_ks"
+    fields = ("q3l", "q3h", "s")
+
+    def codes_and_scales(self) -> tuple[torch.Tensor, torch.Tensor]:
+        h = self.q3h.view(torch.uint8)                               # [F, D/8]
+        Fo = h.shape[0]
+        sh = torch.arange(2, dtype=torch.uint8, device=h.device)
+        hb = torch.cat([((h[..., None] >> (2 * k + sh)) & 1).reshape(Fo, -1)
+                        for k in range(4)], dim=1)                   # rows 2t, 2t + 1
+        q = (_two_bit_bands(self.q3l) | (hb << 2)).to(torch.int16) - 4
+        return q.to(torch.int8), self.s                              # [-4, 3]
 
 
 class _TwoBandPack(QuantPack):
@@ -240,3 +291,79 @@ def pack_q5_ks_from_gguf(raw, shape: tuple[int, int]) -> Q5KSPack:
     q5h = ((hl << sh) | (hh << (sh + 4))).sum(axis=2, dtype=np.uint8)
     return Q5KSPack(q5n=_nibble_pair(q), q5h=torch.from_numpy(q5h.view(np.int8)),
                     a=_bf16(a), b=_bf16(b))
+
+
+def _four_bands(q: np.ndarray) -> np.ndarray:
+    """2-bit codes [F, D] → the four-band plane [F, D/4]: row d + k·D/4 in
+    bits 2k..2k+1 of byte d."""
+    Fo, D = q.shape
+    qb = q.reshape(Fo, 4, D // 4) & 3
+    return (qb[:, 0] | qb[:, 1] << 2 | qb[:, 2] << 4 | qb[:, 3] << 6).astype(np.uint8)
+
+
+def pack_q2_ks(w: torch.Tensor | np.ndarray) -> Q2KSPack:
+    """Quantize a dense weight ``w [F, D]`` to Q2_K along D, on the host:
+    the GGUF encoder's blocks, then ``pack_q2_ks_from_gguf``."""
+    wn = _host_f32(w)
+    Fo, D = wn.shape
+    raw = np.frombuffer(quant_q2_k(wn.reshape(-1)), np.uint8)
+    return pack_q2_ks_from_gguf(raw, (D, Fo))
+
+
+def pack_q2_ks_from_gguf(raw, shape: tuple[int, int]) -> Q2KSPack:
+    """The sub-byte pack straight from raw GGUF Q2_K super-blocks (84 B per
+    256 values: 16 B of 4-bit scales and mins, 64 B of 2-bit codes, fp16 d
+    and dmin) laid row-major over the (F, D) disk layout: the codes four
+    bands a byte, a and b per 16 rows. ``shape`` is (D, F)."""
+    D, Fo = shape
+    if D % 256:
+        raise ValueError(f"Q2_K needs D % 256 == 0, got {D}")
+    blk = np.frombuffer(np.ascontiguousarray(raw), np.uint8).reshape(-1, 84)
+    scales = blk[:, 0:16]
+    qs = blk[:, 16:80].reshape(-1, 2, 32)
+    d = _fp16_field(blk, 80)
+    dmin = _fp16_field(blk, 82)
+    shifts = np.arange(4)[None, None, :, None]
+    q = ((qs[:, :, None, :] >> (2 * shifts)) & 3).astype(np.uint8).reshape(Fo, D)
+    a = (d * (scales & 0x0F)).reshape(Fo, D // SUB6)
+    b = (dmin * (scales >> 4)).reshape(Fo, D // SUB6)
+    return Q2KSPack(q2l=torch.from_numpy(_four_bands(q).view(np.int8)),
+                    a=_bf16(a), b=_bf16(b))
+
+
+def pack_q3_ks(w: torch.Tensor | np.ndarray) -> Q3KSPack:
+    """Quantize a dense weight ``w [F, D]`` to Q3_K along D, on the host:
+    the GGUF encoder's blocks, then ``pack_q3_ks_from_gguf``."""
+    wn = _host_f32(w)
+    Fo, D = wn.shape
+    raw = np.frombuffer(quant_q3_k(wn.reshape(-1)), np.uint8)
+    return pack_q3_ks_from_gguf(raw, (D, Fo))
+
+
+def pack_q3_ks_from_gguf(raw, shape: tuple[int, int]) -> Q3KSPack:
+    """The sub-byte pack straight from raw GGUF Q3_K super-blocks (110 B per
+    256 values: 32 B of third bits, 64 B of 2-bit codes, 12 B of 6-bit
+    scales, fp16 d) laid row-major over the (F, D) disk layout: the low two
+    bits four bands a byte, the third bits eight codes a byte, s per 16
+    rows. ``shape`` is (D, F)."""
+    D, Fo = shape
+    if D % 256:
+        raise ValueError(f"Q3_K needs D % 256 == 0, got {D}")
+    blk = np.frombuffer(np.ascontiguousarray(raw), np.uint8).reshape(-1, 110)
+    hmask = blk[:, 0:32]
+    qs = blk[:, 32:96].reshape(-1, 2, 32)
+    sc = _q3k_unpack_scales(blk[:, 96:108])                     # (nb, 16) signed
+    d = _fp16_field(blk, 108)                                   # (nb, 1)
+    shifts = np.arange(4)[None, None, :, None]
+    lo = ((qs[:, :, None, :] >> (2 * shifts)) & 3).astype(np.uint8)
+    g = np.arange(8)[None, :, None]
+    hbit = ((hmask[:, None, :] >> g) & 1).reshape(-1, 2, 4, 32).astype(np.uint8)
+    qu = (lo | (hbit << 2)).reshape(Fo, D)                      # 0..7, logical rows
+    s = (d * sc).reshape(Fo, D // SUB6)
+    hb = (qu >> 2).reshape(Fo, 4, D // 8, 2)                    # (band, t, row 2t + i)
+    sh2 = np.arange(2, dtype=np.uint8)
+    q3h = np.zeros((Fo, D // 8), np.uint8)
+    for k in range(4):
+        q3h |= (hb[:, k] << (2 * k + sh2)).sum(axis=2, dtype=np.uint8)
+    return Q3KSPack(q3l=torch.from_numpy(_four_bands(qu).view(np.int8)),
+                    q3h=torch.from_numpy(q3h.view(np.int8)), s=_bf16(s))

@@ -1,15 +1,18 @@
-"""Q8_0 weights kept quantized on the device, the W8A8 integer-dot path, and
-``proj``: the one call site of every weight matmul.
+"""Q8_0 and int8 weights kept quantized on the device, the W8A8 integer-dot
+path, and ``proj``: the one call site of every weight matmul.
 
 The counterpart of ``distributed_llm_pipeline_tpu/ops/quant_matmul.py`` for
-the Q8_0 format. A pack is a small ``nn.Module`` whose buffers hold the
-format's fields, laid out out-features-major (``[F, ·]``) to match the port's
-``F.linear`` weights ``[F, D]``: each output row's codes are contiguous along
-the contraction axis D. The fields are the JAX package's, transposed:
+the Q8_0 and int8 formats. A pack is a small ``nn.Module`` whose buffers hold
+the format's fields, laid out out-features-major (``[F, ·]``) to match the
+port's ``F.linear`` weights ``[F, D]``: each output row's codes are contiguous
+along the contraction axis D. The fields are the JAX package's, transposed:
 
     Q8_0  w = qs · scale, per 32-row block along D
         qs     int8 [F, D]
         scale  bf16 [F, D/32]   (bf16 even where the GGUF stores fp16 d)
+    int8  w = qs · gs, per g-row group along D (g = 256, else 128, 64, 32)
+        qs     int8 [F, D]
+        gs     f32  [F, D/g]
 
 Two kernels serve a pack (``csrc/dequant_matmul.cu``, ``csrc/w8a8_matmul.cu``),
 picked by M, the product of the leading dimensions of x, as the reference's
@@ -25,6 +28,14 @@ picked by M, the product of the leading dimensions of x, as the reference's
   path) and multiplied with f32 accumulation. A pack kind without a
   fused-dequant kernel (Q5_KS, as in the reference) dequantizes the whole
   weight and takes one dense product instead (``dequant_linear``).
+
+An int8 pack takes its own kernel at every M (``int8_matmul``, as the
+reference's ``int8_matmul`` has no cutover): the activations quantized per
+(row × g) (``quantize_acts``), one exact int32 dot per group, times
+``xs · gs``, summed over groups. M ≤ ``INT8_W8A8_MAX_M`` runs the W8A8
+kernel above with the int8 decoder (sub-block 32, the f32 group scale);
+larger M one quantize launch and an int8 tensor-core GEMM
+(``csrc/int8_matmul.cu``).
 
 Affine packs (Q4_K, Q5_KS: ``w = a · q − b``, ``QuantPack.offsets``) add the
 offset term to both: ``− Σ_s (S[m, s] · xs[m, g(s)]) · b[f, s]`` with S the
@@ -49,21 +60,35 @@ from torch import nn
 QBLOCK = 32      # ggml Q8_0 block length
 GROUP = 256      # activation group of the W8A8 path where D allows it
 W8A8_MAX_M = 32  # decode/prefill cutover: M ≤ this takes the W8A8 kernel
+# int8's own cutover between its two routes: the W8A8 kernel up to here, its
+# GEMM above (on the H100 the GEMM's one 64-row tile beats the W8A8 kernel
+# from M ≈ 5 on: PERF.md)
+INT8_W8A8_MAX_M = 4
 
 # kernel launches since the last reset, by TPU kernel name (chip_smoke.py
 # reads them to prove the served path ran the kernels); only the CUDA
 # wrappers below increment them
-launches = {"q8_0_matmul": 0, "gw8a8_matmul": 0,
+launches = {"q8_0_matmul": 0, "gw8a8_matmul": 0, "int8_matmul": 0,
             "q6_k_matmul": 0, "q6_k_w8a8_matmul": 0,
-            "q4_k_matmul": 0, "q4_k_w8a8_matmul": 0, "q5_ks_w8a8_matmul": 0}
+            "q4_k_matmul": 0, "q4_k_w8a8_matmul": 0, "q5_ks_w8a8_matmul": 0,
+            "q2_ks_w8a8_matmul": 0, "q3_ks_w8a8_matmul": 0}
 
-# the launch counter of each pack kind's (fused dequant, W8A8) kernel; None
-# where the kind has no fused-dequant kernel (M > W8A8_MAX_M then takes
-# ``dequant_linear``)
+# the launch counter of each pack kind's kernel (above, at or below
+# W8A8_MAX_M): None where the kind has no fused-dequant kernel (M > W8A8_MAX_M
+# then takes ``dequant_linear``); int8 counts its one kernel on both sides
 _NAMES = {"q8_0": ("q8_0_matmul", "gw8a8_matmul"),
+          "int8": ("int8_matmul", "int8_matmul"),
           "q6_k": ("q6_k_matmul", "q6_k_w8a8_matmul"),
           "q4_k": ("q4_k_matmul", "q4_k_w8a8_matmul"),
-          "q5_ks": (None, "q5_ks_w8a8_matmul")}
+          "q5_ks": (None, "q5_ks_w8a8_matmul"),
+          "q2_ks": (None, "q2_ks_w8a8_matmul"),
+          "q3_ks": (None, "q3_ks_w8a8_matmul")}
+
+
+def route(kind: str, M: int) -> str | None:
+    """The launch counter that a matmul of M rows against a ``kind`` pack
+    moves on the card; None for ``dequant_linear``, which launches none."""
+    return _NAMES[kind][M <= W8A8_MAX_M]
 
 
 class QuantPack(nn.Module):
@@ -161,6 +186,52 @@ class Q8_0Pack(QuantPack):
         return self.qs, self.scale
 
 
+class Int8Pack(QuantPack):
+    kind = "int8"
+    fields = ("qs", "gs")
+
+    @property
+    def sub(self) -> int:   # one scale per activation group
+        return self.group
+
+    def _dense_shape(self) -> tuple[int, int]:
+        return tuple(self.qs.shape)
+
+    def _act_group(self) -> int:
+        return self.shape[1] // self.gs.shape[1]
+
+    def codes_and_scales(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.qs, self.gs
+
+
+def _pow2_group(D: int) -> int | None:
+    for g in (128, 64, 32):
+        if D % g == 0:
+            return g
+    return None
+
+
+def pack_int8(w: torch.Tensor | np.ndarray) -> Int8Pack:
+    """Quantize a dense weight ``w [F, D]`` to int8 per g-row group along D,
+    on the host: g = 256 where D allows it, else the largest power of two
+    of 128, 64, 32 dividing D (a caller falls back to Q8_0 below that). The
+    reference's ``pack_int8`` in numpy: ``gs = amax / 127`` (an f32
+    division), codes rounded half to even against ``1 / gs``."""
+    wn = np.ascontiguousarray(torch.as_tensor(w).detach().to("cpu", torch.float32)
+                              .numpy().T)                        # [D, F]
+    D, Fo = wn.shape
+    group = GROUP if D % GROUP == 0 else _pow2_group(D)
+    if group is None:
+        raise ValueError(f"no int8 group divides contraction dim {D}")
+    wb = wn.reshape(D // group, group, Fo)
+    gs = (np.max(np.abs(wb), axis=-2) / 127.0).astype(np.float32)   # [D/g, F]
+    inv = np.where(gs > 0, 1.0 / np.maximum(gs, 1e-30), 0.0)
+    qs = np.clip(np.round(wb * inv[..., None, :]), -127, 127)
+    return Int8Pack(qs=torch.from_numpy(np.ascontiguousarray(qs.reshape(D, Fo).T)
+                                        .astype(np.int8)),
+                    gs=torch.from_numpy(np.ascontiguousarray(gs.T)))
+
+
 def _bf16(a: np.ndarray) -> torch.Tensor:
     """f32 values rounded to bf16 (round to nearest even, as ml_dtypes)."""
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
@@ -248,6 +319,25 @@ def gw8a8_plain(xq: torch.Tensor, xs: torch.Tensor, codes: torch.Tensor,
     return acc.to(out_dtype)
 
 
+def int8_matmul_plain(x: torch.Tensor, pack: Int8Pack,
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The int8 kernel's function (the reference's grouped einsum,
+    ``int8_matmul``'s CPU path): ``quantize_acts`` per (row × group), one
+    exact integer dot P per group (|P| ≤ 256·127² < 2²⁴, so f32 holds it),
+    then ``Σ_g P · (xs[m, g] · gs[f, g])`` in group order → [M, F] in
+    ``out_dtype`` (default x's)."""
+    xq, xs = quantize_acts(x, pack.group)
+    M, D = xq.shape
+    g = pack.group
+    xg = xq.float().reshape(M, D // g, g)
+    qg = pack.qs.float().reshape(pack.shape[0], D // g, g)
+    gs = pack.gs.float()
+    acc = torch.zeros(M, pack.shape[0], dtype=torch.float32, device=x.device)
+    for j in range(D // g):
+        acc += (xg[:, j] @ qg[:, j].t()) * (xs[:, j:j + 1] * gs[:, j][None])
+    return acc.to(out_dtype or x.dtype)
+
+
 def dequant_matmul_plain(x: torch.Tensor, pack: QuantPack,
                          out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The fused-dequant kernels' function (``q8_0_matmul``,
@@ -293,7 +383,8 @@ def w8a8_plain(x: torch.Tensor, pack: QuantPack,
 
 
 # --------------------------------------------------------------------------
-# the CUDA kernels (csrc/dequant_matmul.cu, csrc/w8a8_matmul.cu)
+# the CUDA kernels (csrc/dequant_matmul.cu, csrc/w8a8_matmul.cu,
+# csrc/int8_matmul.cu)
 
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
@@ -347,6 +438,17 @@ def _out_flag(out_dtype: torch.dtype, what: str) -> int:
     return int(out_dtype == torch.bfloat16)
 
 
+def _check_acts(acts, M: int, D: int, group: int, dev: torch.device,
+                what: str) -> tuple[torch.Tensor, torch.Tensor]:
+    xq, xs = acts
+    if (xq.shape != (M, D) or xq.dtype != torch.int8 or xs.shape != (M, D // group)
+            or xs.dtype != torch.float32 or xq.device != dev or xs.device != dev
+            or not (xq.is_contiguous() and xs.is_contiguous())):
+        raise ValueError(f"{what}: acts must be contiguous int8 [{M}, {D}] and "
+                         f"float32 [{M}, {D // group}] on {dev}")
+    return xq, xs
+
+
 def w8a8_matmul(x: torch.Tensor, pack: QuantPack, out_dtype: torch.dtype,
                 acts: tuple[torch.Tensor, torch.Tensor] | None = None
                 ) -> torch.Tensor:
@@ -363,12 +465,7 @@ def w8a8_matmul(x: torch.Tensor, pack: QuantPack, out_dtype: torch.dtype,
         raise ValueError(f"{what}: M = {M} outside 1..{W8A8_MAX_M}")
     xq_ptr = xs_ptr = None
     if acts is not None:
-        xq, xs = acts
-        if (xq.shape != (M, D) or xq.dtype != torch.int8 or xs.shape != (M, D // group)
-                or xs.dtype != torch.float32 or xq.device != dev or xs.device != dev
-                or not (xq.is_contiguous() and xs.is_contiguous())):
-            raise ValueError(f"{what}: acts must be contiguous int8 [{M}, {D}] and "
-                             f"float32 [{M}, {D // group}] on {dev}")
+        xq, xs = _check_acts(acts, M, D, group, dev, what)
         xq_ptr, xs_ptr = xq.data_ptr(), xs.data_ptr()
     ptrs = pack.kernel_ptrs(dev)
     out = torch.empty(M, Fo, dtype=out_dtype, device=dev)
@@ -386,6 +483,8 @@ def dequant_matmul(x: torch.Tensor, pack: QuantPack,
     multiplied on the tensor cores with f32 accumulation (an affine pack's
     offset term too) → [M, F] in ``out_dtype``."""
     what = "dequant_matmul"
+    if pack.kind == "int8":   # its M > 32 route is int8_matmul's GEMM
+        raise ValueError(f"{what}: no kernel for pack kind 'int8'")
     x = _check_x(x, pack, (torch.bfloat16,), what, 0)
     M, D = x.shape
     Fo, dev = pack.shape[0], x.device
@@ -398,17 +497,54 @@ def dequant_matmul(x: torch.Tensor, pack: QuantPack,
     return out
 
 
+def int8_matmul(x: torch.Tensor, pack: Int8Pack, out_dtype: torch.dtype,
+                acts: tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> torch.Tensor:
+    """The int8 CUDA kernel: x [M, D] (f32 or bf16) against an int8 pack →
+    [M, F] in ``out_dtype``, at any M. M ≤ ``INT8_W8A8_MAX_M`` runs the W8A8
+    kernel with the int8 decoder (it quantizes x in its prologue); above,
+    one launch
+    quantizes x per (row × group) into int8 codes and f32 scales, then the
+    int8 tensor-core GEMM of ``csrc/int8_matmul.cu`` consumes them.
+    ``acts`` receive the quantized activations when given, as for
+    ``w8a8_matmul``. One count per call, whichever route."""
+    what = "int8_matmul"
+    if pack.kind != "int8":
+        raise ValueError(f"{what}: pack kind {pack.kind!r} (int8 only)")
+    x = _check_x(x, pack, (torch.float32, torch.bfloat16), what, 0)
+    M, D = x.shape
+    if M <= INT8_W8A8_MAX_M:
+        return w8a8_matmul(x, pack, out_dtype, acts)
+    Fo, group, dev = pack.shape[0], pack.group, x.device
+    if acts is None:
+        acts = (torch.empty(M, D, dtype=torch.int8, device=dev),
+                torch.empty(M, D // group, dtype=torch.float32, device=dev))
+    xq, xs = _check_acts(acts, M, D, group, dev, what)
+    out = torch.empty(M, Fo, dtype=out_dtype, device=dev)
+    quant = _entry("int8_matmul", "dlp_int8_quantize_acts", 3, 4)
+    gemm = _entry("int8_matmul", "dlp_int8_matmul", 5, 5)
+    _launch(quant, dev, what, x.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+            int(x.dtype == torch.bfloat16), M, D, group)
+    _launch(gemm, dev, what, xq.data_ptr(), xs.data_ptr(), *pack.kernel_ptrs(dev),
+            out.data_ptr(), _out_flag(out_dtype, what), M, D, Fo, group)
+    launches["int8_matmul"] += 1
+    return out
+
+
 # --------------------------------------------------------------------------
 # dispatch
 
 def quant_matmul_plain(x: torch.Tensor, pack: QuantPack,
                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The kernels' dispatch with their plain versions, on any device:
-    x [..., D] → [..., F], W8A8 for M ≤ ``W8A8_MAX_M``, fused dequant above
-    (``dequant_linear`` for a kind without that kernel)."""
+    x [..., D] → [..., F]; an int8 pack at every M, else W8A8 for
+    M ≤ ``W8A8_MAX_M``, fused dequant above (``dequant_linear`` for a kind
+    without that kernel)."""
     *lead, D = x.shape
     xf = x.reshape(-1, D)
-    if xf.shape[0] <= W8A8_MAX_M:
+    if pack.kind == "int8":
+        plain = int8_matmul_plain
+    elif xf.shape[0] <= W8A8_MAX_M:
         plain = w8a8_plain
     else:
         plain = dequant_matmul_plain if _NAMES[pack.kind][0] else dequant_linear
@@ -418,9 +554,9 @@ def quant_matmul_plain(x: torch.Tensor, pack: QuantPack,
 def quant_matmul(x: torch.Tensor, pack: QuantPack,
                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """x [..., D] against a pack → [..., F] in ``out_dtype`` (default x's):
-    the CUDA kernels for a CUDA tensor (W8A8 for M ≤ ``W8A8_MAX_M``, fused
-    dequant above, ``dequant_linear`` for a kind without that kernel), their
-    plain versions for a CPU tensor."""
+    the CUDA kernels for a CUDA tensor (an int8 pack's at every M; else W8A8
+    for M ≤ ``W8A8_MAX_M``, fused dequant above, ``dequant_linear`` for a
+    kind without that kernel), their plain versions for a CPU tensor."""
     if x.device.type == "cpu":
         return quant_matmul_plain(x, pack, out_dtype)
     if not x.is_cuda:
@@ -428,7 +564,9 @@ def quant_matmul(x: torch.Tensor, pack: QuantPack,
     *lead, D = x.shape
     xf = x.reshape(-1, D)
     od = out_dtype or x.dtype
-    if xf.shape[0] <= W8A8_MAX_M:
+    if pack.kind == "int8":
+        out = int8_matmul(xf, pack, od)
+    elif xf.shape[0] <= W8A8_MAX_M:
         out = w8a8_matmul(xf, pack, od)
     elif _NAMES[pack.kind][0] is None:
         out = dequant_linear(xf, pack, od)

@@ -1,10 +1,11 @@
 """The single-stream inference engine: load once, serve many.
 
 The counterpart of ``distributed_llm_pipeline_tpu/runtime/engine.py`` for the
-path ``dlp-serve --model m.gguf [--quant q8_0|q6_k|native]`` runs: one
-stream, a dense KV cache, weights dequantized at load or, with ``quant``,
-kept quantized on the device (``q8_0`` / ``q6_k`` repack the projections and
-the head at load; ``native`` serves the GGUF's own Q8_0 / Q6_K blocks).
+path ``dlp-serve --model m.gguf [--quant MODE]`` runs: one stream, a dense
+KV cache, weights dequantized at load or, with ``quant``, kept quantized on
+the device (``int8``, ``q8_0`` and the K-quant modes repack the projections
+and the head at load; ``native`` serves the GGUF's own Q8_0 / Q2_K / Q3_K /
+Q4_K / Q5_K / Q6_K blocks).
 Weights go to the device once; a request costs its own prefill and decode. ``generate`` yields the same event
 stream as the reference: ``log`` lines (placement and progress; the
 placement line keeps the word "offloaded" that the UI highlights),
@@ -141,11 +142,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 class Engine:
     """Single-model, single-stream inference engine on one device.
 
-    ``quant``: None (dense weights), ``"q8_0"``, ``"q4_k"``, ``"q5_k"`` or
-    ``"q6_k"`` (pack the projections and the head at load) or ``"native"``
-    (serve the GGUF's stored Q8_0 / Q4_K / Q5_K / Q6_K projection blocks as
-    they are). The reference's other modes raise ``NotImplementedError``
-    naming ROADMAP.md."""
+    ``quant``: None (dense weights), ``"int8"``, ``"q8_0"``, ``"q2_k"``,
+    ``"q3_k"``, ``"q4_k"``, ``"q5_k"`` or ``"q6_k"`` (pack the projections
+    and the head at load) or ``"native"`` (serve the GGUF's stored Q8_0 /
+    Q2_K / Q3_K / Q4_K / Q5_K / Q6_K projection blocks as they are); any
+    other mode raises ``ValueError``."""
 
     def __init__(self, model_path: str | Path | None = None, *,
                  cfg: ModelConfig | None = None, params: Params | None = None,
@@ -182,9 +183,9 @@ class Engine:
                     if not packs:
                         raise ValueError(
                             "--quant native: this GGUF stores no projection "
-                            "weight stack as Q8_0, Q4_K, Q5_K or Q6_K; use "
-                            "--quant q8_0, q4_k, q5_k or q6_k to requantize "
-                            "instead")
+                            "weight stack as Q2_K, Q3_K, Q8_0, Q4_K, Q5_K or "
+                            "Q6_K; use --quant int8, q8_0 or a K-quant mode to "
+                            "requantize instead")
                     self._events_on_load.append(log(
                         f"serving {len({k.rsplit('.', 1)[1] for k in packs})} "
                         f"projection weight stacks from their native GGUF block "
@@ -212,8 +213,8 @@ class Engine:
             self._events_on_load.append(log(
                 f"weights quantized on the device ({quant}): "
                 f"{stored / 2**20:.1f} MiB ({dense / 2**20:.1f} MiB as bf16), "
-                f"packed on the host in {pack_s:.2f}s; matmuls dequantize "
-                f"tiles in shared memory (fused CUDA kernels)"))
+                f"packed on the host in {pack_s:.2f}s; matmuls run on the "
+                f"packed weights (CUDA kernels)"))
         self.quant = quant
         self.cfg = cfg
         self.dtype = dtype

@@ -14,10 +14,9 @@ turn through an asyncio lock, writing SSE keep-alives while they wait. With
 :class:`SlotScheduler` with N slots, decoding together in one batched step.
 
 Run: ``python -m distributed_llm_pipeline_tpu_torch.serving.server --model
-m.gguf [--parallel N] [--quant q8_0|q4_k|q5_k|q6_k|native] [--cpu]`` (port
-3005 by default). Without ``--cpu`` it needs a CUDA device. ``--quant`` takes
-the reference's choices; those not ported yet (int8, q2_k, q3_k) exit with an
-error naming ROADMAP.md.
+m.gguf [--parallel N] [--quant MODE] [--cpu]`` (port 3005 by default).
+Without ``--cpu`` it needs a CUDA device. ``--quant`` takes the reference's
+choices: int8, q8_0, q2_k, q3_k, q4_k, q5_k, q6_k or native.
 """
 
 from __future__ import annotations
@@ -158,9 +157,10 @@ def build_argparser():
                     help="decode slots with continuous batching "
                          "(llama-server -np)")
     ap.add_argument("--quant", default=None, choices=QUANT_MODES,
-                    help="keep the weights quantized on the device: q8_0 / "
-                         "q4_k / q5_k / q6_k repack at load, native serves "
-                         "the GGUF's own Q8_0 / Q4_K / Q5_K / Q6_K blocks")
+                    help="keep the weights quantized on the device: int8 / "
+                         "q8_0 / q2_k / q3_k / q4_k / q5_k / q6_k repack at "
+                         "load, native serves the GGUF's own Q8_0 / Q2_K / "
+                         "Q3_K / Q4_K / Q5_K / Q6_K blocks")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA device)")
     return ap

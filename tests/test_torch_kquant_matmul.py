@@ -1,18 +1,20 @@
-"""The port's Q4_K and Q5_KS packs and the plain versions of their three
-kernels against the JAX package's.
+"""The port's Q4_K, Q5_KS, Q2_KS and Q3_KS packs and the plain versions of
+their five kernels against the JAX package's.
 
 - Packs (from dense weights and from raw GGUF blocks): every field equals
-  the JAX field transposed to out-features-major, exactly (a fifth bit on the
-  wrong row of the Q5_KS bit plane shows here), and the dequantized weights
-  are equal.
+  the JAX field transposed to out-features-major, exactly (a fifth or third
+  bit on the wrong row of a bit plane shows here), and the dequantized
+  weights are equal.
 - Each plain kernel version against its JAX Pallas kernel in interpret mode
   (``q4_k_matmul_pallas``, ``q4_k_w8a8_matmul_pallas``,
-  ``q5_ks_w8a8_matmul_pallas``), on the same packs and inputs, at activation
-  groups 256 and 32 (the group divides D/2): max error ≤ 1e-5 × max |ref| in
-  f32 (f32 summation order), ≤ one bf16 ulp of max |ref| with bf16 x.
+  ``q5_ks_w8a8_matmul_pallas``, ``q2_ks_w8a8_matmul_pallas``,
+  ``q3_ks_w8a8_matmul_pallas``), on the same packs and inputs, at activation
+  groups 256 and 32 (the group divides the band: D/2, or D/4 for the
+  four-band packs): max error ≤ 1e-5 × max |ref| in f32 (f32 summation
+  order), ≤ one bf16 ulp of max |ref| with bf16 x.
 - ``proj`` against the JAX ``proj`` under the Pallas impl at M = 32 and 33:
   W8A8 below the cutover, the fused dequant (Q4_K) or the dense weight and
-  one product (Q5_KS, as the reference's einsum) above.
+  one product (Q5_KS, Q2_KS, Q3_KS, as the reference's einsum) above.
 """
 
 import math
@@ -25,7 +27,8 @@ import torch
 
 from distributed_llm_pipeline_tpu.ops import kquant_matmul as jkq
 from distributed_llm_pipeline_tpu.ops import quant_matmul as jqm
-from distributed_llm_pipeline_tpu_torch.gguf.quants import quant_q4_k, quant_q5_k
+from distributed_llm_pipeline_tpu_torch.gguf.quants import (quant_q2_k, quant_q3_k, quant_q4_k,
+                                                            quant_q5_k)
 from distributed_llm_pipeline_tpu_torch.ops import kquant_matmul as kq
 from distributed_llm_pipeline_tpu_torch.ops import quant_matmul as qm
 
@@ -48,18 +51,22 @@ def _weight(D, F, seed=0):
     return (np.random.default_rng(seed).normal(size=(D, F)) * 0.05).astype(np.float32)
 
 
+# kind: (GGUF encoder, packer name, sub-block, code range)
+KINDS = {"q4_k": (quant_q4_k, "pack_q4_k", 32, (0, 15)),
+         "q5_ks": (quant_q5_k, "pack_q5_ks", 32, (0, 31)),
+         "q2_ks": (quant_q2_k, "pack_q2_ks", 16, (0, 3)),
+         "q3_ks": (quant_q3_k, "pack_q3_ks", 16, (-4, 3))}
+
+
 def _packs(kind, w, source="dense"):
     """(JAX pack as numpy fields, port pack) of w [D, F]."""
     D, F = w.shape
+    encode, name = KINDS[kind][:2]
     if source == "dense":
-        if kind == "q4_k":
-            return jkq.pack_q4_k(w), kq.pack_q4_k(w.T)
-        return jkq.pack_q5_ks(w), kq.pack_q5_ks(w.T)
-    raw = np.frombuffer((quant_q4_k if kind == "q4_k" else quant_q5_k)(
-        np.ascontiguousarray(w.T).reshape(-1)), np.uint8)
-    if kind == "q4_k":
-        return jkq.pack_q4_k_from_gguf(raw, (D, F)), kq.pack_q4_k_from_gguf(raw, (D, F))
-    return jkq.pack_q5_ks_from_gguf(raw, (D, F)), kq.pack_q5_ks_from_gguf(raw, (D, F))
+        return getattr(jkq, name)(w), getattr(kq, name)(w.T)
+    raw = np.frombuffer(encode(np.ascontiguousarray(w.T).reshape(-1)), np.uint8)
+    return (getattr(jkq, f"{name}_from_gguf")(raw, (D, F)),
+            getattr(kq, f"{name}_from_gguf")(raw, (D, F)))
 
 
 def _t(a):
@@ -71,27 +78,31 @@ def _t(a):
 
 
 @pytest.mark.parametrize("source", ["dense", "gguf"])
-@pytest.mark.parametrize("kind", ["q4_k", "q5_ks"])
+@pytest.mark.parametrize("kind", ["q4_k", "q5_ks", "q2_ks", "q3_ks"])
 def test_packs_equal_the_jax_packs(kind, source):
     w = _weight(768, 96, seed=2)
     jp, tp = _packs(kind, w, source)
-    assert tp.kind == kind and tp.shape == (96, 768) and tp.sub == 32
+    sub, (lo, hi) = KINDS[kind][2:]
+    assert tp.kind == kind and tp.shape == (96, 768) and tp.sub == sub
     assert set(jp) == set(tp.fields)
     for f in tp.fields:
         want = _t(jp[f])
         got = getattr(tp, f)
         assert got.dtype == want.dtype and torch.equal(got, want), f
     codes = tp.codes_and_scales()[0]
-    assert codes.min() >= 0 and codes.max() == (15 if kind == "q4_k" else 31)
+    assert codes.min() >= lo and codes.max() == hi
     wd = jkq.dequant_pack({k: jnp.asarray(v) for k, v in jp.items()}, jnp.float32)
     np.testing.assert_array_equal(tp.dequant(torch.float32).numpy(), np.asarray(wd).T)
 
 
 @pytest.mark.parametrize("kind,D,group", [("q4_k", 512, 256), ("q4_k", 1280, 32),
-                                          ("q5_ks", 1024, 256), ("q5_ks", 256, 32)])
+                                          ("q5_ks", 1024, 256), ("q5_ks", 256, 32),
+                                          ("q2_ks", 1024, 256), ("q2_ks", 1280, 32),
+                                          ("q3_ks", 2048, 256), ("q3_ks", 512, 32)])
 def test_activation_group_divides_the_band(kind, D, group):
-    """256 where D/2 allows it, else 32, so no group straddles the bands
-    (Q8_0 would take 256 at D = 1280)."""
+    """256 where the band (D/2, or D/4 for the four-band packs) allows it,
+    else 32, so no group straddles the bands (Q8_0 would take 256 at
+    D = 1280)."""
     _, tp = _packs(kind, _weight(D, 32))
     assert tp.group == group
 
@@ -109,16 +120,24 @@ def _jax_kernel(kind, kernel, x, jp, out_dtype):
     if kernel == "dequant":
         return jkq.q4_k_matmul_pallas(x, f["qs"], f["a"], f["b"], block_d=_block_d(D // 2),
                                       out_dtype=out_dtype, interpret=True)
-    xq, xs = jax_quantize_acts(x, 256 if (D // 2) % 256 == 0 else 32)
+    bands = 4 if kind in ("q2_ks", "q3_ks") else 2
+    xq, xs = jax_quantize_acts(x, 256 if (D // bands) % 256 == 0 else 32)
     if kind == "q4_k":
         return jkq.q4_k_w8a8_matmul_pallas(xq, xs, f["qs"], f["a"], f["b"],
                                            out_dtype=out_dtype, interpret=True)
+    if kind == "q2_ks":
+        return jkq.q2_ks_w8a8_matmul_pallas(xq, xs, f["q2l"], f["a"], f["b"],
+                                            out_dtype=out_dtype, interpret=True)
+    if kind == "q3_ks":
+        return jkq.q3_ks_w8a8_matmul_pallas(xq, xs, f["q3l"], f["q3h"], f["s"],
+                                            out_dtype=out_dtype, interpret=True)
     return jkq.q5_ks_w8a8_matmul_pallas(xq, xs, f["q5n"], f["q5h"], f["a"], f["b"],
                                         out_dtype=out_dtype, interpret=True)
 
 
-# (kind, kernel, M, D, F): M of {1, 3, 32, 33, 64}, groups 256 (D/2 % 256 ==
-# 0) and 32 (D = 256, 1280), an F that is no multiple of 128
+# (kind, kernel, M, D, F): M of {1, 3, 32, 33, 64}, groups 256 (the band a
+# multiple of 256) and 32 (D = 256, 1280; 512 for four bands), an F that is
+# no multiple of 128
 KERNEL_CASES = [
     ("q4_k", "w8a8", 1, 512, 192), ("q4_k", "w8a8", 3, 1280, 160),
     ("q4_k", "w8a8", 32, 1024, 192),
@@ -126,6 +145,10 @@ KERNEL_CASES = [
     ("q4_k", "dequant", 3, 256, 192),
     ("q5_ks", "w8a8", 1, 256, 192), ("q5_ks", "w8a8", 3, 512, 160),
     ("q5_ks", "w8a8", 32, 1280, 192),
+    ("q2_ks", "w8a8", 1, 1024, 192), ("q2_ks", "w8a8", 3, 512, 160),
+    ("q2_ks", "w8a8", 32, 1280, 192),
+    ("q3_ks", "w8a8", 1, 1280, 160), ("q3_ks", "w8a8", 3, 1024, 192),
+    ("q3_ks", "w8a8", 32, 256, 160),
 ]
 
 
@@ -146,7 +169,9 @@ def test_plain_kernel_matches_jax_pallas_f32(kind, kernel, M, D, F):
 @pytest.mark.parametrize("kind,kernel,M,D,F", [
     ("q4_k", "w8a8", 4, 512, 192), ("q4_k", "w8a8", 16, 1280, 160),
     ("q4_k", "dequant", 64, 512, 192), ("q4_k", "dequant", 40, 1280, 160),
-    ("q5_ks", "w8a8", 4, 1024, 160), ("q5_ks", "w8a8", 32, 1280, 192)])
+    ("q5_ks", "w8a8", 4, 1024, 160), ("q5_ks", "w8a8", 32, 1280, 192),
+    ("q2_ks", "w8a8", 4, 1024, 160), ("q2_ks", "w8a8", 16, 1280, 192),
+    ("q3_ks", "w8a8", 4, 1024, 192), ("q3_ks", "w8a8", 32, 512, 160)])
 def test_plain_kernel_matches_jax_pallas_bf16(kind, kernel, M, D, F):
     jp, tp = _packs(kind, _weight(D, F, seed=7))
     x = torch.from_numpy(np.random.default_rng(8).normal(size=(M, D)).astype(
@@ -160,7 +185,7 @@ def test_plain_kernel_matches_jax_pallas_bf16(kind, kernel, M, D, F):
 
 
 @pytest.mark.parametrize("M", [32, 33])
-@pytest.mark.parametrize("kind", ["q4_k", "q5_ks"])
+@pytest.mark.parametrize("kind", ["q4_k", "q5_ks", "q2_ks", "q3_ks"])
 def test_proj_routes_like_jax(kind, M, pallas):
     """M ≤ 32 quantizes the activations (W8A8), M > 32 does not: a routing
     difference would show as an activation-quantization-sized error."""
@@ -183,4 +208,19 @@ def test_q5_ks_has_no_fused_dequant_kernel():
     assert torch.equal(qm.quant_matmul(x, tp), want)
     with pytest.raises(ValueError, match="no kernel for pack kind 'q5_ks'"):
         qm.dequant_matmul(x.bfloat16(), tp, torch.bfloat16)
+    assert all(n == 0 for n in qm.launches.values())
+
+
+@pytest.mark.parametrize("kind", ["q2_ks", "q3_ks"])
+def test_sub_byte_four_band_packs_take_the_dense_product_above_32(kind):
+    """As Q5_KS: M > 32 takes the dense weight and one product on every
+    device, the fused-dequant wrapper refuses the pack, ``route`` names no
+    kernel there and the W8A8 kernel below."""
+    _, tp = _packs(kind, _weight(256, 64))
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(40, 256)).astype(np.float32))
+    want = torch.nn.functional.linear(x, tp.dequant(torch.float32))
+    assert torch.equal(qm.quant_matmul(x, tp), want)
+    with pytest.raises(ValueError, match=f"no kernel for pack kind '{kind}'"):
+        qm.dequant_matmul(x.bfloat16(), tp, torch.bfloat16)
+    assert qm.route(kind, 33) is None and qm.route(kind, 32) == f"{kind}_w8a8_matmul"
     assert all(n == 0 for n in qm.launches.values())

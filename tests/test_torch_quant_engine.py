@@ -3,15 +3,16 @@ package's.
 
 - Engine: the port's Engine against the JAX Engine at f32 on the CPU (the
   JAX quantized matmuls through their Pallas kernels in interpret mode),
-  greedy tokens identical, for ``q8_0``, ``q4_k``, ``q5_k``, ``q6_k`` and
-  ``native`` over GGUFs the JAX exporter wrote with Q8_0, Q4_K, Q5_K and
-  Q6_K projections, and over a GGUF with llama.cpp's Q4_K_M mix (its attn_v
-  and ffn_down stacks mix Q4_K and Q6_K over the layers, so both packages
-  load them dense). The native packs equal the JAX ``native_quant_layers``
-  packs field by field; a Q3_K GGUF under ``native`` raises, as do the
-  reference's modes not ported yet.
+  greedy tokens identical, for ``int8``, ``q8_0``, ``q2_k``, ``q3_k``,
+  ``q4_k``, ``q5_k``, ``q6_k`` and ``native`` over GGUFs the JAX exporter
+  wrote with Q8_0, Q2_K, Q3_K, Q4_K, Q5_K and Q6_K projections, and over a
+  GGUF with llama.cpp's Q4_K_M mix (its attn_v and ffn_down stacks mix Q4_K
+  and Q6_K over the layers, so both packages load them dense). The native
+  packs equal the JAX ``native_quant_layers`` packs field by field; an
+  unknown mode is a ``ValueError``.
 - Server: ``ChatServer`` over a quantized CPU engine answers ``/chat`` with
-  ``parallel`` 1 and 2; ``--quant q2_k`` exits with the ROADMAP error.
+  ``parallel`` 1 and 2; the server's own ``main`` with ``--quant q2_k
+  --cpu`` builds one that answers ``/chat``.
 """
 
 import asyncio
@@ -92,6 +93,16 @@ def q5_gguf(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def q2_gguf(tmp_path_factory):
+    return _gguf(tmp_path_factory, JaxGGMLType.Q2_K, "q2_k.gguf")
+
+
+@pytest.fixture(scope="module")
+def q3_gguf(tmp_path_factory):
+    return _gguf(tmp_path_factory, JaxGGMLType.Q3_K, "q3_k.gguf")
+
+
+@pytest.fixture(scope="module")
 def q4km_gguf(tmp_path_factory):
     """llama.cpp's Q4_K_M assignment over 2 layers: attn_v and ffn_down in
     Q6_K on layer 1 (``use_more_bits``) and Q4_K on layer 0, the other
@@ -112,7 +123,9 @@ def _greedy(engine, gen_cls, n=8):
 @pytest.mark.parametrize("quant,gguf", [
     ("q8_0", "f32_gguf"), ("q6_k", "f32_gguf"), ("native", "q8_gguf"),
     ("native", "q6_gguf"), ("q4_k", "f32_gguf"), ("q5_k", "f32_gguf"),
-    ("native", "q4_gguf"), ("native", "q5_gguf"), ("native", "q4km_gguf")])
+    ("native", "q4_gguf"), ("native", "q5_gguf"), ("native", "q4km_gguf"),
+    ("int8", "f32_gguf"), ("q2_k", "f32_gguf"), ("q3_k", "f32_gguf"),
+    ("native", "q2_gguf"), ("native", "q3_gguf")])
 def test_engine_greedy_matches_jax_engine(quant, gguf, request, pallas):
     path = request.getfixturevalue(gguf)
     ours = Engine(path, dtype=torch.float32, device="cpu", quant=quant)
@@ -126,7 +139,8 @@ def test_engine_greedy_matches_jax_engine(quant, gguf, request, pallas):
 
 @pytest.mark.parametrize("gguf,kinds", [
     ("q8_gguf", {"q8_0"}), ("q6_gguf", {"q6_k"}), ("q4_gguf", {"q4_k"}),
-    ("q5_gguf", {"q5_ks"}), ("q4km_gguf", {"q4_k"})])
+    ("q5_gguf", {"q5_ks"}), ("q4km_gguf", {"q4_k"}), ("q2_gguf", {"q2_ks"}),
+    ("q3_gguf", {"q3_ks"})])
 def test_native_packs_equal_jax_native_packs(gguf, kinds, request):
     """Uniform stacks pack in both packages; the Q4_K_M mix's attn_v and
     ffn_down stacks (Q4_K on one layer, Q6_K on the other) load dense in
@@ -147,21 +161,18 @@ def test_native_packs_equal_jax_native_packs(gguf, kinds, request):
             assert torch.equal(getattr(ours[key], f), getattr(w, f)), (key, f)
 
 
-def test_native_refuses_unported_kquant_stacks(tmp_path_factory):
-    path = _gguf(tmp_path_factory, JaxGGMLType.Q3_K, "q3_k.gguf")
-    with pytest.raises(NotImplementedError, match=r"Q3_K.*ROADMAP"):
-        Engine(path, dtype=torch.float32, device="cpu", quant="native")
-
-
 def test_native_needs_quantized_stacks(f32_gguf):
     with pytest.raises(ValueError, match="Q8_0, Q4_K, Q5_K or Q6_K"):
         Engine(f32_gguf, dtype=torch.float32, device="cpu", quant="native")
 
 
-@pytest.mark.parametrize("quant", ["int8", "q3_k"])
-def test_unported_quant_modes_name_the_roadmap(quant, f32_gguf):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("quant", ["q4_0", "int4", "q8_k"])
+def test_unknown_quant_mode_is_a_value_error(quant, f32_gguf, capsys):
+    with pytest.raises(ValueError, match=f"unsupported quant mode '{quant}'"):
         Engine(f32_gguf, dtype=torch.float32, device="cpu", quant=quant)
+    with pytest.raises(SystemExit) as exc:      # argparse refuses it first
+        server_main(["--model", str(f32_gguf), "--cpu", "--quant", quant])
+    assert exc.value.code == 2 and "invalid choice" in capsys.readouterr().err
 
 
 def _chat(app, body):
@@ -193,8 +204,16 @@ def test_chat_over_a_quantized_engine(parallel, q6_gguf):
         server.scheduler.close()
 
 
-def test_server_quant_flag_names_the_roadmap(f32_gguf, capsys):
-    with pytest.raises(SystemExit) as exc:
-        server_main(["--model", str(f32_gguf), "--cpu", "--quant", "q2_k"])
-    assert exc.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+@pytest.mark.parametrize("parallel", [1, 2])
+def test_server_main_serves_quant_q2_k(parallel, f32_gguf, monkeypatch):
+    """``--quant q2_k --cpu`` through the server's own ``main``: the app it
+    would run answers ``/chat`` from a q2_k engine."""
+    from distributed_llm_pipeline_tpu_torch.serving import server as srv
+
+    apps = []
+    monkeypatch.setattr(srv.web, "run_app", lambda app, **kw: apps.append(app))
+    server_main(["--model", str(f32_gguf), "--cpu", "--quant", "q2_k",
+                 "--parallel", str(parallel), "--n-predict", "4"])
+    events = _chat(apps[0], {"prompt": "hello world", "temperature": 0.0})
+    assert any("(q2_k)" in e["content"] for e in events if e["msg_type"] == "log")
+    assert events[-1]["finish_reason"] == "length" and events[-1]["n_gen"] == 4

@@ -74,9 +74,12 @@ def _close(t, j):
 # (config, mode, seed of the tokens)
 CASES = {"q8_0_tied": (CFG, "q8_0", 3), "q6_k_tied": (CFG, "q6_k", 3),
          "q8_0_untied_head": (UNTIED, "q8_0", 3), "q4_k_tied": (CFG, "q4_k", 5),
-         "q5_k_tied": (CFG, "q5_k", 3)}
+         "q5_k_tied": (CFG, "q5_k", 3), "int8_tied": (CFG, "int8", 3),
+         "int8_untied_head": (UNTIED, "int8", 3), "q2_k_tied": (CFG, "q2_k", 3),
+         "q3_k_tied": (CFG, "q3_k", 3)}
 # the pack kind each mode gives a weight whose D is a multiple of 256
-KIND = {"q8_0": "q8_0", "q4_k": "q4_k", "q5_k": "q5_ks", "q6_k": "q6_k"}
+KIND = {"q8_0": "q8_0", "q4_k": "q4_k", "q5_k": "q5_ks", "q6_k": "q6_k",
+        "int8": "int8", "q2_k": "q2_ks", "q3_k": "q3_ks"}
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -96,11 +99,13 @@ def test_quantized_forward_matches_jax(case, pallas):
         toks = np.asarray(jl)[:, -1:].argmax(-1)
 
 
-@pytest.mark.parametrize("mode,seed", [("q6_k", 0), ("q4_k", 2), ("q5_k", 0)])
+@pytest.mark.parametrize("mode,seed", [("q6_k", 0), ("q4_k", 2), ("q5_k", 0), ("int8", 0),
+                                       ("q2_k", 0), ("q3_k", 0)])
 def test_quantized_paged_forwards_match_jax(mode, seed, pallas):
     """A prefill bucket per row, a decode step, then a mixed step of
-    B·T = 48 > 32 lanes (the fused-dequant kernels; for q5_k the dense
-    weight and one product)."""
+    B·T = 48 > 32 lanes (the fused-dequant kernels; for q5_k, q2_k and q3_k
+    the dense weight and one product; int8 takes its own kernel at every
+    M)."""
     cfg = CFG
     params, model = _models(cfg, mode)
     BS, NT, B = 16, 4, 3
@@ -131,11 +136,11 @@ def test_quantized_paged_forwards_match_jax(mode, seed, pallas):
     assert tc.length.tolist() == np.asarray(jc.length).tolist() == [25, 10, 18]
 
 
-@pytest.mark.parametrize("mode", ["q8_0", "q6_k", "q4_k", "q5_k"])
+@pytest.mark.parametrize("mode", ["q8_0", "q6_k", "q4_k", "q5_k", "int8", "q2_k", "q3_k"])
 def test_quantize_params_packs_like_jax(mode):
     """The port's ``quantize_params`` on the dense weights gives the packs the
     JAX one gives, field for field; the K-quants fall back to Q8_0 where
-    D % 256."""
+    D % 256, int8 to a power-of-two group (64 at D = 320)."""
     cfg = UNTIED.replace(hidden_dim=320)        # w_down's D = 320: the fallback
     dense = jax.tree.map(np.asarray, random_params(cfg, jax.random.PRNGKey(1),
                                                    dtype=jnp.float32))
@@ -151,5 +156,6 @@ def test_quantize_params_packs_like_jax(mode):
                 assert torch.equal(getattr(g, f), getattr(w, f)), (key, f)
         else:
             assert torch.equal(g, w), key
-    assert got["layers.0.w_down"].kind == "q8_0"
+    assert got["layers.0.w_down"].kind == ("int8" if mode == "int8" else "q8_0")
+    assert got["layers.0.w_down"].group == (64 if mode == "int8" else 32)
     assert got["layers.0.w_up"].kind == KIND[mode]
