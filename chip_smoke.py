@@ -16,11 +16,23 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    ragged KV tail, window + softcap + scale, int8 KV. For
    paged_flash_attention: decode over per-row lengths, rows sharing
    physical blocks, a mixed step with a parked row, a prefill into fresh
-   blocks, int8 pools, gemma2-9b geometry, block size 16. One JSON line per
-   case: the max abs error and its tolerance, the kernel's (cold and warm
-   L2), the plain version's and the library call's time, and the least time
-   the card could take (bytes over 3.35 TB/s or operations over 989
-   TFLOP/s, whichever is larger). The quantized matmul kernels (W8A8 over
+   blocks, int8 pools, gemma2-9b geometry, block size 16. For
+   latent_flash_attention (absorbed queries of all heads against one
+   [N, bs, 1, r] latent stream per row): r = 128 and 512 at Llama-3.2-1B,
+   a B = 4 decode step and a 64-lane mixed step, bf16 and q8_0 pools, and
+   gemma2-9b geometry (H 16, r 512, softcap, window); flash_attention also
+   at head dim r (a latent prefill at 128, a decode at 512). For
+   fused_decode_attn (one layer's whole decode attention half): Llama-3.2-1B
+   at B = 1 and 4 with 512 cached, dense or q8_0 weights × bf16 or q8_0
+   pools, and llama3-8b geometry (Hd 128) with half rope, a window and
+   per-row lengths; x is drawn at 0.01 so that y is the attention half, and
+   y is held to 4 bf16 ulp of its largest value, k_new / v_new to one; the
+   served unfused attention half is held to the plain version too (4 ulp,
+   8 over W8A8's q8_0 weights) and timed beside it.
+   One JSON line per case: the max abs error and its tolerance, the
+   kernel's (cold and warm L2), the plain version's and the library call's
+   time, and the least time the card could take (bytes over 3.35 TB/s or
+   operations over 989 TFLOP/s, whichever is larger). The quantized matmul kernels (W8A8 over
    Q8_0, Q6_K, Q4_K, Q5_KS, Q2_KS and Q3_KS packs, fused dequant over Q8_0,
    Q6_K and Q4_K packs, int8 over int8 packs, of random codes, scales and
    offsets) run at Llama-3.2-1B's five (D, F) pairs, the head's with f32
@@ -80,7 +92,20 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    token_embd in Q6_K, norms F32) with ``Engine(quant="native")``
    single-stream, and the bf16 GGUF with ``Engine(quant="q2_k")`` on 4
    slots, held and printed as phase 7.
-10. The kernels line (one JSON object), the card line, and last the ok line.
+10. ``--kv-quant q8_0``, fused decode and latent KV over the bf16 GGUF:
+   ``Engine(kv_quant="q8_0")`` single-stream (the phase-4 requests; its
+   int8 cache through flash_attention); ``DLP_FUSED_DECODE=1`` with
+   ChatServer(parallel=4) (the phase-5 requests) on bf16 weights and pools,
+   then on ``quant="q8_0"`` weights with ``kv_quant="q8_0"`` pools: every
+   T = 1 decode forward launches fused_decode_attn once per layer (one
+   launch: the cross-head sum is a last-block reduction) and no paged
+   attention, logits fused against unfused, a profiled fused decode step;
+   ``DLP_KV_LATENT=1`` at the default rank 128, single-stream (flash_attention
+   at head dim r) and on 4 slots over q8_0 latent pools
+   (latent_flash_attention once per layer and paged forward), logits
+   kernel against plain; then full rank (512) against the dense engine.
+   Each logit comparison of this phase is held over four prompts.
+11. The kernels line (one JSON object), the card line, and last the ok line.
 """
 
 from __future__ import annotations
@@ -107,6 +132,24 @@ LOGIT_TOL = 0.1              # bf16 model, 16 layers: logits of std ~1
 # activation quantizer moves x / xs by up to half a code, so kernel and plain
 # runs drift further apart through 16 layers (0.31 measured on the H100)
 QUANT_LOGIT_TOL = 0.5
+# phase 10's comparisons over bf16 weights each add a rounding a layer to
+# the kernel-against-plain drift LOGIT_TOL holds: the fused step keeps
+# attention, the O-projection and the residual sum in f32 where the unfused
+# one rounds each to bf16; a latent engine rounds its attention output in
+# latent space, where one ulp is wider after the unprojection; an int8 KV
+# cache moves a code (1/127 of the vector's amax) where a bf16 one moves an
+# ulp. Measured on the H100 over four prompts: 0.085-0.106 fused, 0.093-0.114
+# latent, 0.085-0.101 int8 KV, 0.103-0.111 q8_0 latent pools
+KV_MODE_LOGIT_TOL = 0.15
+# fused against unfused over q8_0 weights: the unfused attention half runs
+# its four projections W8A8 (h and the attention output quantized to 127
+# levels a row) where the fused kernel multiplies the dequantized weights,
+# noise on one side only on top of the drift QUANT_LOGIT_TOL holds (0.367-
+# 0.450 over four prompts on the H100)
+FUSED_QUANT_LOGIT_TOL = 0.6
+# phase 10 holds each logit comparison over this many prompts (seeds
+# --seed, --seed + 1, ...): one prompt's reading says little of the margin
+LOGIT_PROMPTS = 4
 
 
 def fail(msg: str) -> None:
@@ -177,6 +220,13 @@ ATTN_CASES = [
     # llama3-8b geometry: Hd=128
     dict(name="llama3_8b_hd128", B=1, T=256, S=4096, H=32, K=8, Hd=128,
          cache_len=1024),
+    # the single-stream latent path at Llama-3.2-1B: absorbed queries of all
+    # 32 heads against one [S, 1, r] latent stream at the head-dim scale, a
+    # 512 prefill at the default rank 128 and a decode step at full rank 512
+    dict(name="latent_r128_prefill", B=1, T=512, S=2048, H=32, K=1, Hd=128,
+         cache_len=0, scale=64 ** -0.5),
+    dict(name="latent_r512_decode", B=1, T=1, S=2048, H=32, K=1, Hd=512,
+         cache_len=1000, scale=64 ** -0.5),
 ]
 
 
@@ -344,11 +394,21 @@ def paged_bound(g: dict, tables: torch.Tensor) -> tuple[float, str]:
 
 
 def check_paged(pa, kv_quantize, seed: int, flush: torch.Tensor) -> list[dict]:
+    return check_paged_cases(pa.paged_flash_attention, pa.paged_attention_plain,
+                             "paged_flash_attention", PAGED_CASES, pa,
+                             kv_quantize, seed, flush)
+
+
+def check_paged_cases(kernel, plain, kname: str, cases: list[dict], pa,
+                      kv_quantize, seed: int, flush: torch.Tensor) -> list[dict]:
+    """Attention over pools through block tables, kernel against plain
+    version, one JSON line per case (the paged kernel, and the latent kernel
+    over [N, bs, 1, r] pools with every head reading them)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for c in PAGED_CASES:
+    for c in cases:
         g = paged_geometry(c)
         x = paged_inputs(g, gen)
         q, kp, vp, tables, lengths = (x[k] for k in ("q", "kp", "vp", "tables",
@@ -360,13 +420,12 @@ def check_paged(pa, kv_quantize, seed: int, flush: torch.Tensor) -> list[dict]:
         kw = dict(scale=g["scale"], softcap=g["softcap"], window=g["window"],
                   k_scale=ks, v_scale=vs)
         args = (q, kp, vp, tables, lengths, n_rep)
-        got = pa.paged_flash_attention(*args, **kw)
+        got = kernel(*args, **kw)
         torch.cuda.synchronize()
-        ref = pa.paged_attention_plain(*args, **kw)
+        ref = plain(*args, **kw)
         err = (got.float() - ref.float()).abs().max().item()
         if not (err <= KERNEL_TOL and torch.isfinite(got.float()).all()):
-            fail(f"paged_flash_attention case {c['name']}: max abs err {err} "
-                 f"> {KERNEL_TOL}")
+            fail(f"{kname} case {c['name']}: max abs err {err} > {KERNEL_TOL}")
         library_ms = None
         if not g["quant"] and not g["softcap"]:
             # the yardstick: SDPA over the window gathered beforehand (the
@@ -392,18 +451,194 @@ def check_paged(pa, kv_quantize, seed: int, flush: torch.Tensor) -> list[dict]:
                 fail(f"SDPA yardstick disagrees on {c['name']}: {lib_err}")
             library_ms = event_ms(sdpa, 20, flush)
         bound_ms, bound_by = paged_bound(g, tables)
-        row = {"case": c["name"], "kernel": "paged_flash_attention",
+        row = {"case": c["name"], "kernel": kname,
                "shape": {k: c[k] for k in c if k != "name"},
                "max_abs_err": err, "tol": KERNEL_TOL,
-               "kernel_ms": event_ms(lambda: pa.paged_flash_attention(*args, **kw),
-                                     50, flush),
-               "kernel_warm_l2_ms": event_ms(
-                   lambda: pa.paged_flash_attention(*args, **kw), 50, None),
-               "kernel_host_us": host_us(lambda: pa.paged_flash_attention(*args, **kw)),
-               "plain_ms": event_ms(lambda: pa.paged_attention_plain(*args, **kw),
-                                    10, flush),
+               "kernel_ms": event_ms(lambda: kernel(*args, **kw), 50, flush),
+               "kernel_warm_l2_ms": event_ms(lambda: kernel(*args, **kw), 50, None),
+               "kernel_host_us": host_us(lambda: kernel(*args, **kw)),
+               "plain_ms": event_ms(lambda: plain(*args, **kw), 10, flush),
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 3: latent_flash_attention against its plain version
+
+# absorbed queries [B, T, H, r] against latent pools [N, bs, 1, r]: a paged
+# case with one kv head of width r read by all H heads, at the caller's
+# head-dim scale. Llama-3.2-1B (H=32, Hd=64): r = 128 is the default rank
+# (K·Hd/4), r = 512 full rank; T = 1 is a B = 4 decode step, T = 64 a mixed
+# step's lane width. gemma2-9b geometry: H = 16, r = 512 (its default rank),
+# softcap 50, window 4096, block size 32.
+LATENT_CASES = [
+    dict(name=f"r{r}_{'decode' if T == 1 else 'mixed'}{'_q8_0' if q else ''}",
+         B=4, T=T, K=1, Hd=r, lengths=[512] * 4 if T == 1 else [448, 900, 1300, 1900],
+         scale=64 ** -0.5, quant=q)
+    for r in (128, 512) for T in (1, 64) for q in (False, True)
+] + [
+    dict(name=f"gemma2_r512_window_softcap{'_q8_0' if q else ''}", B=2, T=1,
+         lengths=[4500, 300], H=16, K=1, Hd=512, bs=32, max_seq=5120,
+         window=4096, softcap=50.0, scale=256 ** -0.5, quant=q)
+    for q in (False, True)
+]
+
+
+# --------------------------------------------------------------------------
+# phase 3: fused_decode_attn against its plain version
+
+# Llama-3.2-1B at B = 1 and B = 4, 512 cached, dense or q8_0 weights × bf16 or
+# q8_0 pools; one Hd = 128 case at llama3-8b geometry (D 4096, H 32, K 8)
+# with half rope, a window and per-row lengths
+FUSED_CASES = [
+    dict(name=f"b{B}_{w}_w_{kv}_pool", preset="llama3.2-1b", B=B, w=w, kv=kv,
+         lengths=[512] * B)
+    for B in (1, 4) for w in ("dense", "q8_0") for kv in ("bf16", "q8_0")
+] + [dict(name="llama3_8b_hd128_half_window", preset="llama3-8b", B=4, w="dense",
+          kv="bf16", lengths=[512, 300, 700, 1000], window=384, rope_style="half")]
+FUSED_Y_ULPS = 4   # y: a few bf16 ulp of its largest |value|
+FUSED_KV_ULPS = 1  # k_new / v_new: one bf16 ulp of the largest |value|
+# x is drawn this small so that y = x + attention half is the attention half:
+# RMSNorm makes h, and so everything after it, independent of x's scale, and
+# ulps of max|y| then measure what the kernel computes, not the residual
+FUSED_X_SCALE = 0.01
+# the served unfused half against the plain version: over q8_0 weights it
+# runs W8A8 (h and the attention output quantized to 127 levels a row) where
+# the plain version multiplies the dequantized weights (2.6 ulp of max|y| at
+# B = 4 in the plain W8A8 arithmetic on the CPU)
+FUSED_SERVED_ULPS = {"dense": FUSED_Y_ULPS, "q8_0": 8}
+
+
+def fused_block(llama, qm, cfg, w: str, window: int, gen: torch.Generator):
+    """One block's attention leaves at ``cfg``'s widths, weights N(0, 0.02²)
+    and norm weights 1 + N(0, 0.1²) from ``gen``: the block the kernel runs
+    (q8_0 packs when ``w`` says so) and the dense block of the same weights
+    the plain version runs (for q8_0, each weight dequantized to bf16 as the
+    kernel dequantizes it)."""
+    D, H, K, Hd = cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    leaves = {"attn_norm": (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+                            ).bfloat16()}
+    for name, shape in (("wq", (H * Hd, D)), ("wk", (K * Hd, D)),
+                        ("wv", (K * Hd, D)), ("wo", (D, H * Hd))):
+        leaves[name] = (0.02 * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
+    if w == "dense":
+        block = llama.Block(cfg, leaves, window)
+        return block, block
+    packed = dict(leaves)
+    dense = dict(leaves)
+    for name in ("wq", "wk", "wv", "wo"):
+        packed[name] = qm.pack_q8_0(leaves[name]).to("cuda")
+        dense[name] = packed[name].dequant(torch.bfloat16)
+    return llama.Block(cfg, packed, window), llama.Block(cfg, dense, window)
+
+
+def fused_bound(cfg, g: dict, w: str) -> tuple[float, str]:
+    """Least time for the work these inputs need: the head's weights once
+    (q8_0: a code and 1/32 of a bf16 scale per weight), each row's visible
+    pool positions once, x, norm, rope tables, y and the new K/V once;
+    2 operations per weight per row and 4·Hd per head per attended key."""
+    D, H, K, Hd = cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, window, quant = g["B"], g["window"], g["quant"]
+    n_w = D * H * Hd * 2 + 2 * D * K * Hd
+    w_bytes = n_w * (1 + 2 / 32 if w == "q8_0" else 2)
+    col_bytes = 2 * K * (Hd * (1 if quant else 2) + (4 if quant else 0))
+    keys = sum(min(cl, g["NT"] * g["bs"]) - (max(0, cl - window + 1) if window else 0)
+               for cl in g["lengths"])
+    n_bytes = (w_bytes + keys * col_bytes + 2 * B * D * 2 + D * 2 + B * Hd * 4
+               + 2 * B * K * Hd * 2)
+    ops = 2 * B * n_w + 4 * H * Hd * (keys + B)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, ops / BF16_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_fused(fd, llama, qm, pa, kv_quantize, seed: int,
+                flush: torch.Tensor) -> list[dict]:
+    """The fused decode step, kernel against plain version (the unfused
+    composition on the same weights, in bf16), one JSON line per case; the
+    served unfused attention half (cuBLAS or W8A8 projections and the paged
+    kernel) is held to the plain version and timed beside the kernel, as no
+    one library call computes it."""
+    from distributed_llm_pipeline_tpu_torch.models import PRESETS
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for c in FUSED_CASES:
+        cfg = PRESETS[c["preset"]].replace(rope_style=c.get("rope_style",
+                                                            "interleaved"))
+        g = paged_geometry(dict(B=c["B"], T=1, lengths=c["lengths"],
+                                H=cfg.n_heads, K=cfg.n_kv_heads, Hd=cfg.head_dim,
+                                window=c.get("window", 0), quant=c["kv"] == "q8_0"))
+        x = paged_inputs(g, gen)
+        kp, vp, tables, lengths = (x[k] for k in ("kp", "vp", "tables", "lengths"))
+        ks = vs = None
+        if g["quant"]:
+            (kp, ks), (vp, vs) = kv_quantize(kp), kv_quantize(vp)
+        block, dense = fused_block(llama, qm, cfg, c["w"], g["window"], gen)
+        xin = (FUSED_X_SCALE * torch.randn(c["B"], cfg.dim, generator=gen,
+                                           device="cuda")).bfloat16()
+        cos, sin = (t[:, 0].contiguous() for t in
+                    llama.rope_freqs(cfg, lengths.long()[:, None]))
+
+        def pools():
+            return [t.clone() if t is not None else None for t in (kp, vp, ks, vs)]
+
+        def kern():
+            return fd.fused_decode_attn(xin, block, cos, sin, kp, vp, tables,
+                                        lengths, k_scale=ks, v_scale=vs)
+
+        def plain(p=None):
+            k2, v2, ks2, vs2 = p or (kp, vp, ks, vs)
+            return fd.fused_decode_plain(xin, dense, cos, sin, k2, v2, tables,
+                                         lengths, k_scale=ks2, v_scale=vs2)
+
+        def unfused(p=None):
+            # the served unfused attention half on the kernel's block
+            k2, v2, ks2, vs2 = p or (kp, vp, ks, vs)
+            xb = xin[:, None]
+            q, k, v = block.qkv(xb, cos[:, None], sin[:, None])
+            where = llama.paged_write_index(tables, lengths, 1, k2.shape[1])
+            llama._paged_kv_write(k2, v2, ks2, vs2, k, v, *where)
+            attn = pa.paged_attention_any(
+                q, k2, v2, tables, lengths, cfg.n_heads // cfg.n_kv_heads,
+                scale=cfg.attn_scale, softcap=cfg.attn_softcap,
+                window=block.window, k_scale=ks2, v_scale=vs2)
+            return block.attn_out(xb, attn)[:, 0]
+
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain(pools())
+        errs, tols = [], []
+        for name, a, b, ulps in zip(("y", "k_new", "v_new"), got, want,
+                                    (FUSED_Y_ULPS, FUSED_KV_ULPS, FUSED_KV_ULPS)):
+            err = (a.float() - b.float()).abs().max().item()
+            tol = ulps * bf16_ulp(b.float().abs().max().item())
+            if not (err <= tol and torch.isfinite(a.float()).all()):
+                fail(f"fused_decode_attn case {c['name']}: {name} max abs err "
+                     f"{err} > {tol}")
+            errs.append(err)
+            tols.append(tol)
+        unfused_err = (unfused(pools()).float() - want[0].float()).abs().max().item()
+        unfused_tol = FUSED_SERVED_ULPS[c["w"]] * bf16_ulp(want[0].float().abs().max().item())
+        if not unfused_err <= unfused_tol:
+            fail(f"fused case {c['name']}: the served unfused half differs from the "
+                 f"plain version by {unfused_err} > {unfused_tol}")
+        bound_ms, bound_by = fused_bound(cfg, g, c["w"])
+        row = {"case": c["name"], "kernel": "fused_decode_attn",
+               "shape": {k: c[k] for k in c if k != "name"},
+               "max_abs_err": errs[0], "tol": tols[0],
+               "k_new_max_abs_err": errs[1], "k_new_tol": tols[1],
+               "v_new_max_abs_err": errs[2], "v_new_tol": tols[2],
+               "served_unfused_y_max_abs_diff": unfused_err,
+               "served_unfused_tol": unfused_tol,
+               "kernel_ms": event_ms(kern, 50, flush),
+               "kernel_warm_l2_ms": event_ms(kern, 50, None),
+               "kernel_host_us": host_us(kern),
+               "plain_ms": event_ms(plain, 10, flush),
+               "unfused_ms": event_ms(unfused, 20, flush),
+               "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -848,9 +1083,10 @@ def profile_decode(engine, steps: int = 8, on_ready=None) -> dict:
 
 
 def profile_paged_decode(engine, B: int = 4, length: int = 512,
-                         steps: int = 8, on_ready=None) -> dict:
+                         steps: int = 8, on_ready=None, fused: bool = False) -> dict:
     """Where a batched decode step of the slots path goes: B rows, each
-    ``length`` tokens into its own blocks of the paged pool."""
+    ``length`` tokens into its own blocks of the paged pool; ``fused`` runs
+    the fused decode step."""
     cache = engine.make_paged_cache(B)
     NT = cache.tables.shape[1]
     cache.tables = (1 + torch.arange(B * NT, device=engine.device)
@@ -860,7 +1096,7 @@ def profile_paged_decode(engine, B: int = 4, length: int = 512,
     def step():
         cache.length = torch.full((B,), length, dtype=torch.int32,
                                   device=engine.device)
-        engine.model.forward_paged(tok, cache)
+        engine.model.forward_paged(tok, cache, fused=fused)
 
     if on_ready is not None:
         on_ready()
@@ -939,6 +1175,10 @@ class QuantWatch:
         self.served: dict[str, int] = {}   # the launches the last check held
         self.layer_kinds = Counter(m.kind for blk in model.layers for m in blk.children()
                                    if isinstance(m, qm.QuantPack))
+        # the projections a fused decode step computes inside its kernel
+        self.attn_kinds = Counter(blk._modules[n].kind for blk in model.layers
+                                  for n in ("wq", "wk", "wv", "wo")
+                                  if isinstance(blk._modules.get(n), qm.QuantPack))
         head = getattr(model, "lm_head", None)
         self.head_kind = head.kind if isinstance(head, qm.QuantPack) else None
         embed, logits = model.embed_tokens, model.lm_logits
@@ -963,12 +1203,15 @@ class QuantWatch:
         for k in self.qm.launches:
             self.qm.launches[k] = 0
 
-    def check(self, what: str) -> dict:
+    def check(self, what: str, fused_m: list[int] = ()) -> dict:
         """Fail unless the launches since ``reset`` are what the forwards
-        call for, kernel by kernel; returns them."""
+        call for, kernel by kernel; returns them. ``fused_m`` lists the M of
+        the forwards whose attention half ran fused: their attention packs
+        launch nothing of their own."""
         want: dict[str, int] = {}
         linear = 0
         calls = [(kind, n, M) for M in self.body for kind, n in self.layer_kinds.items()]
+        calls += [(kind, -n, M) for M in fused_m for kind, n in self.attn_kinds.items()]
         if self.head_kind:
             calls += [(self.head_kind, 1, M) for M in self.head]
         for kind, n, M in calls:
@@ -984,7 +1227,7 @@ class QuantWatch:
                  f"calls, the forwards call for {want} and {linear} ({len(self.body)} "
                  f"forwards, layer packs {dict(self.layer_kinds)}, head {self.head_kind})")
         cut = self.qm.W8A8_MAX_M
-        return {"forwards": len(self.body),
+        return {"forwards": len(self.body), "fused_forwards": len(fused_m),
                 "forwards_w8a8": sum(m <= cut for m in self.body),
                 "forwards_dequant": sum(m > cut for m in self.body),
                 "layer_packs": dict(self.layer_kinds), "head": self.head_kind,
@@ -1056,81 +1299,114 @@ def profile_quant_step(engine, profile, qm, card: str) -> None:
 # --------------------------------------------------------------------------
 # phase 6: served logits, kernel against plain attention, paged against dense
 
+def greedy_run(engine, ids: torch.Tensor, steps: list[torch.Tensor] | None,
+               paged: bool = False, fused: bool = False) -> tuple[list, list]:
+    """A prefill of ``ids`` and four decode steps on the dense cache (or,
+    ``paged``, on a pool, the decode steps ``fused`` or not): the logits at
+    each position and the tokens fed, ``steps`` or, when None, the greedy
+    continuation."""
+    model = engine.model
+    if paged:
+        cache = engine.make_paged_cache(1)
+        NT = cache.tables.shape[1]
+        cache.tables = torch.arange(1, NT + 1, dtype=torch.int32,
+                                    device=engine.device)[None]
+        outs = [model.forward_paged_last(ids, cache, ids.shape[1] - 1)]
+    else:
+        cache = engine.make_cache()
+        outs = [model.forward_last(ids, cache, ids.shape[1] - 1)]
+    fed = []
+    for i in range(4):
+        tok = (outs[-1].argmax(-1) if steps is None else steps[i]).view(1, 1)
+        fed.append(tok)
+        outs.append((model.forward_paged(tok, cache, fused=fused) if paged
+                     else model(tok, cache))[:, -1])
+    return outs, fed
+
+
+def prompt_ids(engine, seed: int) -> torch.Tensor:
+    """A 512-token prompt of random ids from ``seed``, on the engine's device."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(3, engine.cfg.vocab_size, (1, 512), generator=g).to(engine.device)
+
+
 def compare_logits(engine, module, name: str, plain, seed: int,
-                   tol: float = LOGIT_TOL) -> dict:
+                   tol: float = LOGIT_TOL, paged: bool = False,
+                   prompts: int = 1) -> dict:
     """A 512-token prefill and four greedy decode steps, once through the
     kernels and once with ``module.name`` swapped for ``plain`` (both on the
-    card, same weights and tokens), held within ``tol``."""
-    g = torch.Generator().manual_seed(seed)
-    ids = torch.randint(3, engine.cfg.vocab_size, (1, 512), generator=g)
-    ids = ids.to(engine.device)
-
-    def run() -> list[torch.Tensor]:
-        cache = engine.make_cache()
-        outs = [engine.model.forward_last(ids, cache, ids.shape[1] - 1)]
-        for tok in steps:
-            outs.append(engine.model(tok.view(1, 1), cache)[:, -1])
-        return outs
-
-    steps: list[torch.Tensor] = []
-    cache = engine.make_cache()
-    lg = engine.model.forward_last(ids, cache, ids.shape[1] - 1)
-    for _ in range(4):   # the greedy continuation, fed to both runs
-        steps.append(lg.argmax(-1))
-        lg = engine.model(steps[-1].view(1, 1), cache)[:, -1]
-    kern = run()
-    orig = getattr(module, name)
-    setattr(module, name, plain)
-    try:
-        plain_out = run()
-    finally:
-        setattr(module, name, orig)
-    return hold_logits(kern, plain_out, "kernel", "plain", tol)
+    card, same weights and tokens), held within ``tol``; on the dense cache,
+    or on a pool with ``paged``; over ``prompts`` prompts (seeds ``seed``,
+    ``seed + 1``, ...)."""
+    runs = []
+    for i in range(prompts):
+        ids = prompt_ids(engine, seed + i)
+        # the greedy continuation, fed to both runs
+        steps = greedy_run(engine, ids, None, paged)[1]
+        kern = greedy_run(engine, ids, steps, paged)[0]
+        orig = getattr(module, name)
+        setattr(module, name, plain)
+        try:
+            runs.append((kern, greedy_run(engine, ids, steps, paged)[0]))
+        finally:
+            setattr(module, name, orig)
+    return hold_prompts(runs, "kernel", "plain", tol)
 
 
 def compare_paged_logits(engine, seed: int) -> dict:
     """The same 512-token prefill and four greedy decode steps through the
     paged forward on a pool (paged kernel) and through the dense forward
     (dense kernel)."""
-    g = torch.Generator().manual_seed(seed)
-    ids = torch.randint(3, engine.cfg.vocab_size, (1, 512), generator=g)
-    ids = ids.to(engine.device)
-    cache = engine.make_cache()
-    dense = [engine.model.forward_last(ids, cache, ids.shape[1] - 1)]
-    steps = []
-    for _ in range(4):
-        steps.append(dense[-1].argmax(-1))
-        dense.append(engine.model(steps[-1].view(1, 1), cache)[:, -1])
-    pool = engine.make_paged_cache(1)
-    NT = pool.tables.shape[1]
-    pool.tables = torch.arange(1, NT + 1, dtype=torch.int32,
-                               device=engine.device)[None]
-    paged = [engine.model.forward_paged_last(ids, pool, ids.shape[1] - 1)]
-    for tok in steps:
-        paged.append(engine.model.forward_paged(tok.view(1, 1), pool)[:, -1])
+    ids = prompt_ids(engine, seed)
+    dense, fed = greedy_run(engine, ids, None)
+    paged = greedy_run(engine, ids, fed, paged=True)[0]
     return hold_logits(paged, dense, "paged", "dense")
 
 
-def hold_logits(got: list[torch.Tensor], want: list[torch.Tensor],
-                a_name: str, b_name: str, tol: float = LOGIT_TOL) -> dict:
-    """Max abs logit error within ``tol`` and the same argmax, except at a
-    near tie of ``want``'s top two within that tolerance."""
-    errs, near_ties = [], 0
+def logit_gap(got: list[torch.Tensor], want: list[torch.Tensor],
+              a_name: str, b_name: str, tol: float) -> tuple[dict, list[str]]:
+    """Max abs logit error by position and argmax agreement, a near tie of
+    ``want``'s top two within ``tol`` excepted; with what breaks ``tol``."""
+    errs, near_ties, problems = [], 0, []
     for a, b in zip(got, want):
         if not torch.isfinite(a).all():
-            fail("non-finite logits")
+            problems.append("non-finite logits")
         errs.append((a - b).abs().max().item())
         ka, pa = a.argmax(-1).item(), b.argmax(-1).item()
         if ka != pa:
             # only a near tie of the reference run's top two may swap
             top2 = b[0].topk(2).values
             if (top2[0] - top2[1]).item() > tol or (b[0, pa] - b[0, ka]).item() > tol:
-                fail(f"argmax differs: {a_name} {ka}, {b_name} {pa}")
+                problems.append(f"argmax differs: {a_name} {ka}, {b_name} {pa}")
             near_ties += 1
     if max(errs) > tol:
-        fail(f"logits differ by {max(errs)} > {tol} (by position: {errs})")
+        problems.append(f"logits differ by {max(errs)} > {tol} (by position: {errs})")
     return {"positions": len(got), "max_abs_err": max(errs), "by_position": errs,
-            "tol": tol, "argmax_near_ties": near_ties}
+            "tol": tol, "argmax_near_ties": near_ties}, problems
+
+
+def hold_logits(got: list[torch.Tensor], want: list[torch.Tensor],
+                a_name: str, b_name: str, tol: float = LOGIT_TOL) -> dict:
+    """Max abs logit error within ``tol`` and the same argmax, except at a
+    near tie of ``want``'s top two within that tolerance."""
+    return hold_prompts([(got, want)], a_name, b_name, tol)
+
+
+def hold_prompts(runs: list[tuple[list, list]], a_name: str, b_name: str,
+                 tol: float) -> dict:
+    """``hold_logits`` over the (got, want) runs of several prompts: all are
+    measured before any is held, so a failure names every reading."""
+    gaps = [logit_gap(got, want, a_name, b_name, tol) for got, want in runs]
+    problems = [f"prompt {i}: {p}" for i, (_, ps) in enumerate(gaps) for p in ps]
+    by_prompt = [g["max_abs_err"] for g, _ in gaps]
+    if problems:
+        fail(f"{a_name} against {b_name} (max abs logit error by prompt "
+             f"{by_prompt}): {'; '.join(problems)}")
+    if len(gaps) == 1:
+        return gaps[0][0]
+    return {"prompts": len(gaps), "positions": sum(g["positions"] for g, _ in gaps),
+            "max_abs_err": max(by_prompt), "by_prompt": by_prompt, "tol": tol,
+            "argmax_near_ties": sum(g["argmax_near_ties"] for g, _ in gaps)}
 
 
 # --------------------------------------------------------------------------
@@ -1158,19 +1434,30 @@ def slot_requests(seed: int) -> list[dict]:
     ]
 
 
-def serve_slots(engine, pa, fa, cfg, card: str, seed: int, watch=None) -> int:
-    """Phases 5 and 7: ChatServer(parallel=4) answers four concurrent /chat
-    requests; returns the paged kernel's launches in that run. ``watch``
-    (a QuantWatch) holds a quantized engine's matmul launches too."""
+def serve_slots(engine, pa, fa, cfg, card: str, seed: int, watch=None,
+                attn=None, fd=None) -> dict:
+    """Phases 5, 7-9 and 10: ChatServer(parallel=4) answers four concurrent
+    /chat requests; returns the attention kernels' launches in that run by
+    name. ``attn`` is the pool's attention module (the paged kernel's, or
+    the latent kernel's on a latent engine); with ``fd`` (the fused module)
+    and a scheduler that resolved the fused step, every T = 1 decode
+    forward must launch the fused kernel once per layer and no pool
+    attention. ``watch`` (a QuantWatch) holds a quantized engine's matmul
+    launches too."""
     from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig
-    from distributed_llm_pipeline_tpu_torch.runtime.paged import kv_token_bytes
     from distributed_llm_pipeline_tpu_torch.serving import ChatServer
 
+    attn = attn or pa
     server = ChatServer(engine, GenerationConfig(max_new_tokens=32), parallel=4)
     sched = server.scheduler
     backend = sched._backend
-    pool_bytes = backend.n_blocks * backend.bs * kv_token_bytes(cfg, None)
-    held = sum(sched._bufs[n].nbytes for n in ("k", "v"))
+    fused = fd is not None and sched.fused_decode
+    if (fd is not None) != fused:
+        fail(f"the slots' fused decode resolved {sched.fused_decode}: "
+             f"{[e.content for e in engine._events_on_load][-1]}")
+    pool_bytes = backend.n_blocks * backend.block_bytes
+    held = sum(sched._bufs[n].nbytes for n in ("k", "v", "ks", "vs")
+               if sched._bufs.get(n) is not None)
     if pool_bytes != held:
         fail(f"the KV pool holds {held} bytes, kv_token_bytes says {pool_bytes}")
     # warm-up through the scheduler, on prompts that share no block with the
@@ -1182,14 +1469,23 @@ def serve_slots(engine, pa, fa, cfg, card: str, seed: int, watch=None) -> int:
     requests = slot_requests(seed)
     sched.counters = dict.fromkeys(sched.counters, 0)
     forwards0 = sched.forwards
-    pa.launches = fa.launches = 0
+    pa.launches = fa.launches = attn.launches = 0
+    if fd is not None:
+        fd.launches = 0
     if watch is not None:
         watch.reset()
+    fused0 = engine.model.fused_forwards
     t0 = time.monotonic()
     health, results = asyncio.run(chat_requests(server, requests, lead=0))
     wall = time.monotonic() - t0
-    launches, dense_launches = pa.launches, fa.launches
+    launches, dense_launches = attn.launches, fa.launches
+    other_launches = pa.launches if attn is not pa else 0
+    fused_launches = fd.launches if fd is not None else 0
     forwards = sched.forwards - forwards0
+    # the forwards the model routed through the fused step: decode steps,
+    # each over every slot row (M = 4)
+    n_fused = engine.model.fused_forwards - fused0
+    fused_m = [sched.n_slots] * n_fused
     if health.get("slots_total") != 4 or health.get("queue_depth") != 0:
         fail(f"/healthz under --parallel 4: {health}")
     summaries = []
@@ -1205,28 +1501,36 @@ def serve_slots(engine, pa, fa, cfg, card: str, seed: int, watch=None) -> int:
         fail(f"no paged prefix hit in the slots run: {c}")
     if c["prefill_steps_stolen_total"] < 1:
         fail(f"no mixed step stole from a decoding stream: {c}")
-    if forwards <= 0 or launches != cfg.n_layers * forwards or dense_launches:
-        fail(f"paged_flash_attention launched {launches} times for {forwards} "
-             f"paged forwards of {cfg.n_layers} layers (dense kernel: "
-             f"{dense_launches})")
+    name = attn.__name__.rsplit(".", 1)[-1]
+    if (forwards <= 0 or launches != cfg.n_layers * (forwards - n_fused)
+            or fused_launches != cfg.n_layers * n_fused or (fused and not n_fused)
+            or dense_launches or other_launches):
+        fail(f"{name} launched {launches} times and fused_decode_attn "
+             f"{fused_launches} for {forwards} paged forwards ({n_fused} fused) of "
+             f"{cfg.n_layers} layers (dense kernel: {dense_launches}, paged kernel "
+             f"beside the latent one: {other_launches})")
     n_gen = sum(s["n_gen"] for s in summaries)
     first = min(r["t0"] for r in results)
     last = max(r["t_last"] for r in results)
     if watch is not None:
         print(json.dumps({"quant_served": engine.quant, "parallel": 4,
-                          **watch.check(f"slots, quant {engine.quant}"),
+                          **watch.check(f"slots, quant {engine.quant}", fused_m),
                           "card": card}), flush=True)
     print(json.dumps({"slots_served": {
-        "quant": engine.quant, "requests": len(results), "tokens": n_gen, "wall_s": wall,
+        "quant": engine.quant, "kv_quant": engine.kv_quant, "kv_mode": engine.kv_mode,
+        "latent_rank": engine.kv_latent_rank, "fused_decode": fused,
+        "requests": len(results), "tokens": n_gen, "wall_s": wall,
         "aggregate_tok_s": n_gen / (last - first), "paged_forwards": forwards,
-        "paged_launches": launches, "counters": c,
+        "fused_forwards": n_fused, "attention_launches": {name: launches},
+        "fused_launches": fused_launches, "counters": c,
         "kv_pool": {"blocks": backend.n_blocks, "block_size": backend.bs,
                     "bytes": pool_bytes},
         "card": card}}), flush=True)
-    print(f"slots path: {forwards} paged forwards, {launches} "
-          f"paged_flash_attention launches (= {cfg.n_layers} layers x "
-          f"forwards), 0 dense launches", flush=True)
-    return launches
+    print(f"slots path: {forwards} paged forwards ({n_fused} fused decode), "
+          f"{launches} {name} launches (= {cfg.n_layers} layers x unfused "
+          f"forwards), {fused_launches} fused_decode_attn launches (= "
+          f"{cfg.n_layers} x fused forwards), 0 dense launches", flush=True)
+    return {name: launches, "fused_decode_attn": fused_launches}
 
 
 def load_quant_engine(Engine, gguf: Path, quant: str, card: str, unlink: bool):
@@ -1280,6 +1584,150 @@ def q3_k_types(name: str):
     return GGMLType.Q6_K if name == "token_embd.weight" else GGMLType.Q3_K
 
 
+# --------------------------------------------------------------------------
+# phase 10: --kv-quant q8_0, the fused decode step and latent KV, served
+
+# latent KV at full rank (512 = K·Hd at Llama-3.2-1B) against the dense
+# engine: the basis is complete, so only rounding separates them, but the
+# latent path rounds twice more per layer in bf16 (the stored latent and the
+# absorbed query) on top of the paged-vs-dense differences LOGIT_TOL holds
+LATENT_FULL_RANK_TOL = 0.25
+
+
+def load_kv_engine(Engine, path: Path, card: str, **kw):
+    """An engine over the bf16 GGUF with ``kw`` (quant, kv_quant, kv_mode,
+    kv_latent_rank), its load line printed."""
+    t0 = time.monotonic()
+    engine = Engine(path, max_seq=2048, **kw)
+    print(json.dumps({"kv_engine": {k: v for k, v in kw.items()},
+                      "kv_quant": engine.kv_quant, "kv_mode": engine.kv_mode,
+                      "latent_rank": engine.kv_latent_rank,
+                      "up_s": time.monotonic() - t0,
+                      "load_log": [e.content for e in engine._events_on_load],
+                      "card": card}), flush=True)
+    return engine
+
+
+def serve_kv_modes(Engine, path: Path, requests: list[dict], fa, pa, la, fd, qm,
+                   llama, cfg, card: str, seed: int) -> dict:
+    """Phase 10. Returns the fused and latent kernels' launches of their
+    served runs by kernel module name.
+
+    1. ``Engine(kv_quant="q8_0")``, one stream, the phase-4 requests: its
+       cache is int8 and flash_attention launches once per layer and
+       forward; a profiled decode step; logits kernel against plain.
+    2. ``DLP_FUSED_DECODE=1``, ``ChatServer(parallel=4)``, the phase-5
+       requests, twice: bf16 weights and pool, then ``quant="q8_0"`` weights
+       with ``kv_quant="q8_0"`` pools. Every T = 1 decode forward launches
+       fused_decode_attn once per layer and no paged attention; logits of
+       fused against unfused decode steps on the same engine; a profiled
+       fused decode step.
+    3. ``DLP_KV_LATENT=1`` at the default rank (128): one stream (the
+       phase-4 requests; flash_attention at head dim r), then
+       ``parallel=4`` on q8_0 latent pools (latent_flash_attention once per
+       layer and paged forward); a profiled decode step and logits kernel
+       against plain on each. Then full rank (512) against the dense
+       engine."""
+    import os
+
+    names = ("DLP_FUSED_DECODE", "DLP_KV_LATENT", "DLP_KV_LATENT_RANK")
+    saved = {k: os.environ.get(k) for k in names}
+
+    def setenv(**kw) -> None:
+        for k in names:
+            os.environ.pop(k, None)
+        os.environ.update(kw)
+
+    out = {}
+    try:
+        setenv()
+        engine = load_kv_engine(Engine, path, card, kv_quant="q8_0")
+        if engine.make_cache().k.dtype != torch.int8:
+            fail("--kv-quant q8_0 engine's cache is not int8")
+        serve_single(engine, requests, card, fa)
+        print(json.dumps({"kv_q8_0_decode_step": profile_decode(engine), "card": card}),
+              flush=True)
+        print(json.dumps({"kv_q8_0_logits": compare_logits(
+            engine, llama, "attention_any", fa.flash_attention_plain, seed,
+            KV_MODE_LOGIT_TOL, prompts=LOGIT_PROMPTS)}), flush=True)
+        del engine
+        torch.cuda.empty_cache()
+
+        setenv(DLP_FUSED_DECODE="1")
+        for quant, kv_quant in ((None, None), ("q8_0", "q8_0")):
+            engine = load_kv_engine(Engine, path, card, quant=quant, kv_quant=kv_quant)
+            watch = QuantWatch(qm, engine.model) if quant else None
+            try:
+                got = serve_slots(engine, pa, fa, cfg, card, seed, watch=watch, fd=fd)
+            finally:
+                if watch is not None:
+                    watch.close()
+            if quant is None:
+                out["fused_decode_attn"] = got["fused_decode_attn"]
+            runs = []
+            for i in range(LOGIT_PROMPTS):
+                ids = prompt_ids(engine, seed + i)
+                unfused, fed = greedy_run(engine, ids, None, paged=True)
+                runs.append((greedy_run(engine, ids, fed, paged=True, fused=True)[0],
+                             unfused))
+            print(json.dumps({"fused_logits": {
+                "quant": quant, "kv_quant": kv_quant, **hold_prompts(
+                    runs, "fused", "unfused",
+                    FUSED_QUANT_LOGIT_TOL if quant else KV_MODE_LOGIT_TOL)}}), flush=True)
+
+            def reset():
+                fd.launches = 0
+
+            row = profile_paged_decode(engine, on_ready=reset, fused=True)
+            per_step = fd.launches / row["steps_run"]
+            if per_step != cfg.n_layers:
+                fail(f"fused decode step: {per_step} fused_decode_attn launches per step")
+            print(json.dumps({"fused_decode_step_b4": {
+                "quant": quant, "kv_quant": kv_quant, **row,
+                "fused_launches_per_step": per_step}, "card": card}), flush=True)
+            del engine
+            torch.cuda.empty_cache()
+
+        setenv(DLP_KV_LATENT="1")
+        engine = load_kv_engine(Engine, path, card)
+        if engine.kv_mode != "latent" or engine.kv_latent_rank != 128:
+            fail(f"DLP_KV_LATENT=1: kv_mode {engine.kv_mode}, rank {engine.kv_latent_rank}")
+        serve_single(engine, requests, card, fa)
+        print(json.dumps({"latent_decode_step": profile_decode(engine), "card": card}),
+              flush=True)
+        print(json.dumps({"latent_logits": {"rank": 128, **compare_logits(
+            engine, llama, "attention_any", fa.flash_attention_plain, seed,
+            KV_MODE_LOGIT_TOL, prompts=LOGIT_PROMPTS)}}), flush=True)
+        del engine
+        engine = load_kv_engine(Engine, path, card, kv_quant="q8_0")
+        got = serve_slots(engine, pa, fa, cfg, card, seed, attn=la)
+        out["latent_attention"] = got["latent_attention"]
+        print(json.dumps({"latent_paged_decode_step_b4": profile_paged_decode(engine),
+                          "card": card}), flush=True)
+        print(json.dumps({"latent_paged_logits": {"rank": 128, "kv_quant": "q8_0",
+                                                  **compare_logits(
+            engine, llama, "latent_attention_any", la.latent_attention_plain, seed,
+            KV_MODE_LOGIT_TOL, paged=True, prompts=LOGIT_PROMPTS)}}), flush=True)
+        del engine
+        torch.cuda.empty_cache()
+
+        setenv()
+        dense = load_kv_engine(Engine, path, card)
+        full = load_kv_engine(Engine, path, card, kv_mode="latent", kv_latent_rank=512)
+        runs = []
+        for i in range(LOGIT_PROMPTS):
+            ids = prompt_ids(dense, seed + 7 + i)
+            want, fed = greedy_run(dense, ids, None)
+            runs.append((greedy_run(full, ids, fed)[0], want))
+        print(json.dumps({"latent_full_rank_vs_dense": hold_prompts(
+            runs, "latent r=512", "dense", LATENT_FULL_RANK_TOL)}), flush=True)
+        del dense, full
+        torch.cuda.empty_cache()
+    finally:
+        setenv(**{k: v for k, v in saved.items() if v is not None})
+    return out
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  rows: list[dict], timed: dict) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -1303,7 +1751,9 @@ def main() -> int:
     from distributed_llm_pipeline_tpu_torch.models import PRESETS, llama
     from distributed_llm_pipeline_tpu_torch.ops import cuda_build
     from distributed_llm_pipeline_tpu_torch.ops import flash_attention as fa
+    from distributed_llm_pipeline_tpu_torch.ops import fused_decode as fd
     from distributed_llm_pipeline_tpu_torch.ops import kquant_matmul as kq
+    from distributed_llm_pipeline_tpu_torch.ops import latent_attention as la
     from distributed_llm_pipeline_tpu_torch.ops import paged_attention as pa
     from distributed_llm_pipeline_tpu_torch.ops import quant_matmul as qm
     from distributed_llm_pipeline_tpu_torch.runtime import Engine
@@ -1333,6 +1783,19 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")   # 256 MiB > L2
     rows = check_attention(fa, llama.kv_quantize, args.seed, flush)
     paged_rows = check_paged(pa, llama.kv_quantize, args.seed, flush)
+    latent_rows = check_paged_cases(la.latent_flash_attention, la.latent_attention_plain,
+                                    "latent_flash_attention", LATENT_CASES, pa,
+                                    llama.kv_quantize, args.seed, flush)
+    # the reference's accounting of a decode step's attention read per layer
+    # at the main case (B = 4, 512 cached, bf16): latent at the default rank
+    # (latents and both bases) against the dense pool's K/V
+    cfg1b = PRESETS["llama3.2-1b"]
+    print(json.dumps({"latent_decode_hbm_bytes_r128": la.latent_decode_hbm_bytes(
+        cfg1b, 128, 512, 4), "dense_decode_kv_bytes": la.dense_decode_kv_bytes(
+        cfg1b, 512, 4), "fused_decode_hbm_bytes": fd.decode_hbm_bytes(cfg1b, 512, 4),
+        "unfused_decode_hbm_bytes": fd.decode_hbm_bytes(cfg1b, 512, 4, fused=False)}),
+        flush=True)
+    fused_rows = check_fused(fd, llama, qm, pa, llama.kv_quantize, args.seed, flush)
     quant_rows = check_quant(qm, kq, args.seed, flush, card)
     del flush
     print(f"phase 3 done at {time.monotonic() - t_start:.0f}s: "
@@ -1368,7 +1831,8 @@ def main() -> int:
               flush=True)
 
         # 5. the served path, four slots over the paged pool
-        paged_launches = serve_slots(engine, pa, fa, cfg, card, args.seed)
+        paged_launches = serve_slots(engine, pa, fa, cfg, card,
+                                     args.seed)["paged_attention"]
         print(json.dumps({"paged_decode_step_b4": profile_paged_decode(engine),
                           "card": card}), flush=True)
 
@@ -1402,16 +1866,21 @@ def main() -> int:
                   f"(encoded on the host)", flush=True)
             for quant, gguf, slots in runs:
                 qengine = load_quant_engine(Engine, gguf, quant, card,
-                                            unlink=gguf != path or quant == "q2_k")
+                                            unlink=gguf != path)
                 quant_launches.update(serve_quant(qengine, slots, requests, fa, pa, qm,
                                                   llama, cfg, card, args.seed))
                 del qengine
                 torch.cuda.empty_cache()
+
+        # 10. --kv-quant q8_0, the fused decode step and latent KV
+        print(f"phase 10 at {time.monotonic() - t_start:.0f}s", flush=True)
+        served10 = serve_kv_modes(Engine, path, requests, fa, pa, la, fd, qm, llama,
+                                  cfg, card, args.seed)
     finally:
         for p in (path, q6_path, q4_path, q3_path):
             p.unlink(missing_ok=True)
 
-    # 10. results
+    # 11. results
     src = "distributed_llm_pipeline_tpu_torch/csrc/"
     ref = "distributed_llm_pipeline_tpu/ops/"
     entries = [
@@ -1419,7 +1888,15 @@ def main() -> int:
                      ref + "flash_attention.py:138", launches, rows, rows[0]),
         kernel_entry("paged_flash_attention", src + "paged_attention.cu",
                      ref + "paged_attention.py:141", paged_launches, paged_rows,
-                     paged_rows[0])]
+                     paged_rows[0]),
+        kernel_entry("fused_decode_attn", src + "fused_decode.cu",
+                     ref + "fused_decode.py:379", served10["fused_decode_attn"],
+                     fused_rows, next(r for r in fused_rows
+                                      if r["case"] == "b4_dense_w_bf16_pool")),
+        kernel_entry("latent_flash_attention", src + "latent_attention.cu",
+                     ref + "latent_attention.py:334", served10["latent_attention"],
+                     latent_rows, next(r for r in latent_rows
+                                       if r["case"] == "r128_decode"))]
     for name, kind, kernel, source, replaces in (
             ("q8_0_matmul", "q8_0", "dequant", "dequant_matmul.cu", "quant_matmul.py:356"),
             ("gw8a8_matmul", "q8_0", "w8a8", "w8a8_matmul.cu", "quant_matmul.py:242"),

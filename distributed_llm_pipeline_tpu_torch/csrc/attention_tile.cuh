@@ -309,8 +309,11 @@ cudaError_t dispatch_dtype(int q_dtype, int kv_int8, const Args<KV>& a) {
 }
 
 // q_dtype: 0 = float32, 1 = bfloat16 (K/V share it unless kv_int8 = 1).
+// Head widths 64, 128 and 256; WIDE adds 512, the latent rank that is full
+// rank at Llama-3.2-1B (Cfg<512, 4>: 80 rows of 516 floats, 165 KB of
+// shared memory), instantiated only by the entry points that serve latents.
 // Returns the cudaError_t of the launch (0 = launched).
-template <typename KV>
+template <bool WIDE = false, typename KV>
 int dispatch(int Hd, int q_dtype, int kv_int8, const Args<KV>& a) {
   switch (Hd) {
     case 64:
@@ -319,6 +322,9 @@ int dispatch(int Hd, int q_dtype, int kv_int8, const Args<KV>& a) {
       return int(dispatch_dtype<128>(q_dtype, kv_int8, a));
     case 256:
       return int(dispatch_dtype<256>(q_dtype, kv_int8, a));
+    case 512:
+      if constexpr (WIDE) return int(dispatch_dtype<512>(q_dtype, kv_int8, a));
+      return int(cudaErrorInvalidValue);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -39,5 +39,7 @@ extern "C" int dlp_flash_attention(const void* q, const void* k, const void* v,
       q, k, v, k_scale, v_scale, dlp_attn::DenseKV{S}, S, cache_lens,
       cache_len_scalar, out, B, T, H, K, scale, softcap, window,
       static_cast<cudaStream_t>(stream)};
-  return dlp_attn::dispatch(Hd, q_dtype, kv_int8, a);
+  // head widths up to 512: the single-stream latent path runs this kernel
+  // at head dim r over its [B, S, 1, r] latent cache
+  return dlp_attn::dispatch<true>(Hd, q_dtype, kv_int8, a);
 }

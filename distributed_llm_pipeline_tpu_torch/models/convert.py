@@ -247,3 +247,63 @@ def native_quant_layers(reader: GGUFReader, cfg: ModelConfig) -> dict[str, Quant
             out[f"layers.{i}.{leaf}"] = packer(
                 np.frombuffer(reader.tensor_data(ti.name), np.uint8), (D, F))
     return out
+
+
+# ---------------------------------------------------------------------------
+# latent-KV factorization (kv_mode="latent"): per-layer low-rank K/V bases
+# from the checkpoint's wk / wv by truncated SVD, in numpy float64 as the
+# reference computes them, so one input gives the same basis bit for bit
+
+
+def latent_default_rank(cfg: ModelConfig) -> int:
+    """The default latent rank per side: a quarter of the dense per-token K
+    width, at least 8, so latent pools take 1/4 of dense bf16 bytes."""
+    return max(8, (cfg.n_kv_heads * cfg.head_dim) // 4)
+
+
+def latent_max_rank(cfg: ModelConfig) -> int:
+    """Full rank, K·Hd: the basis is complete and the latent path reproduces
+    dense attention to fp rounding."""
+    return cfg.n_kv_heads * cfg.head_dim
+
+
+def _svd_projection(w: np.ndarray, rank: int) -> np.ndarray:
+    """The top-``rank`` right-singular vectors of ``w`` [D, K·Hd] as a
+    [K·Hd, rank] orthonormal projection (full matrices only when D < K·Hd,
+    so full rank stays reachable)."""
+    w = np.asarray(w, np.float64)
+    _, _, vt = np.linalg.svd(w, full_matrices=w.shape[0] < w.shape[1])
+    return np.ascontiguousarray(vt[:rank].T)
+
+
+def latent_factorize(params: Params, cfg: ModelConfig,
+                     rank: int | None = None) -> Params:
+    """Add each layer's latent bases ``w_lk`` / ``w_lv`` [K·Hd, r] (the
+    reference's layout) beside its dense ``wk`` / ``wv``, which the write
+    path still uses to compute full K/V before projecting them down. One
+    orthonormal matrix per side serves both directions: the cache holds
+    ``k_rot @ w_lk`` and the absorbed query is ``q_h @ w_lk[h]``. Runs
+    before weight quantization: packed ``wk`` / ``wv`` cannot be
+    factorized."""
+    r = int(rank) if rank is not None else latent_default_rank(cfg)
+    khd = cfg.n_kv_heads * cfg.head_dim
+    if not 1 <= r <= khd:
+        raise ValueError(f"latent rank {r} out of range [1, {khd}] "
+                         f"(K*Hd = {khd} is full rank)")
+    out = dict(params)
+    for i in range(cfg.n_layers):
+        for src, dst in (("wk", "w_lk"), ("wv", "w_lv")):
+            w = params.get(f"layers.{i}.{src}")
+            if w is None or isinstance(w, QuantPack):
+                raise ValueError(
+                    f"latent KV factorization needs the dense {src} stack "
+                    "(factorize before --quant packing; --quant native serves "
+                    "packed blocks and cannot combine with kv_mode=latent)")
+            if w.shape[0] != khd:
+                raise ValueError(f"{src} shape {tuple(w.shape)} is not [K*Hd, D]")
+            # the reference's [D, K*Hd] layout, C-contiguous, as float64
+            wt = np.ascontiguousarray(w.detach().to("cpu", torch.float32).numpy().T)
+            basis = _svd_projection(wt, r).astype(np.float32)
+            out[f"layers.{i}.{dst}"] = torch.from_numpy(basis).to(
+                device=w.device, dtype=w.dtype)
+    return out

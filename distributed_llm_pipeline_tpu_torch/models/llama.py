@@ -34,8 +34,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import attention_any
+from ..ops.fused_decode import fused_decode_any
+from ..ops.latent_attention import (absorb_queries, latent_attention_any,
+                                    latent_project, unproject_values)
 from ..ops.paged_attention import paged_attention_any
-from ..ops.quant_matmul import QuantPack, pack_q8_0, proj
+from ..ops.quant_matmul import INV127, QuantPack, pack_q8_0, proj
 from .config import ModelConfig
 
 # flat parameter state: "embed", "out_norm", optional "out_norm_b" and
@@ -46,10 +49,11 @@ Params = dict[str, "torch.Tensor | QuantPack"]
 
 @dataclass
 class KVCache:
-    """Per-layer KV buffers [n_layers, batch, max_seq, n_kv_heads, head_dim]
-    and the number of valid positions. With an int8 cache ``k``/``v`` hold
-    codes and ``k_scale``/``v_scale`` one f32 scale per cached head vector
-    ([..., 1])."""
+    """Per-layer KV buffers [n_layers, batch, max_seq, *kv_entry_shape] and
+    the number of valid positions: per-head K/V ``[n_kv_heads, head_dim]``,
+    or one rank-r latent per side ``[1, r]`` for a latent model. With an
+    int8 cache ``k``/``v`` hold codes and ``k_scale``/``v_scale`` one f32
+    scale per cached vector ([..., 1])."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -60,9 +64,10 @@ class KVCache:
     @staticmethod
     def zeros(cfg: ModelConfig, batch: int, max_seq: int | None = None,
               dtype: torch.dtype = torch.bfloat16, device="cpu",
-              kv_quant: str | None = None) -> "KVCache":
+              kv_quant: str | None = None, kv_mode: str = "dense",
+              latent_rank: int | None = None) -> "KVCache":
         shape = (cfg.n_layers, batch, max_seq or cfg.max_seq_len,
-                 cfg.n_kv_heads, cfg.head_dim)
+                 *kv_entry_shape(cfg, kv_mode, latent_rank))
         if kv_quant is None:
             return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                            torch.zeros(shape, dtype=dtype, device=device))
@@ -79,9 +84,10 @@ class PagedKVCache:
     """Paged slot KV: one physical block pool per layer plus per-row block
     tables.
 
-    - ``k``/``v``: [n_layers, n_blocks, block_size, n_kv_heads, head_dim],
-      the shared pool; int8 codes with ``k_scale``/``v_scale`` [..., 1] f32
-      per-head-vector scales on an int8 pool.
+    - ``k``/``v``: [n_layers, n_blocks, block_size, *kv_entry_shape], the
+      shared pool (per-head K/V, or ``[1, r]`` latents); int8 codes with
+      ``k_scale``/``v_scale`` [..., 1] f32 per-vector scales on an int8
+      pool.
     - ``tables``: int32 [B, n_tables]; logical block j of row b lives in
       physical block ``tables[b, j]``.
     - ``length``: int32 [B], the valid positions of each row.
@@ -103,8 +109,10 @@ class PagedKVCache:
     @staticmethod
     def zeros(cfg: ModelConfig, n_blocks: int, block_size: int, batch: int,
               n_tables: int, dtype: torch.dtype = torch.bfloat16, device="cpu",
-              kv_quant: str | None = None) -> "PagedKVCache":
-        shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+              kv_quant: str | None = None, kv_mode: str = "dense",
+              latent_rank: int | None = None) -> "PagedKVCache":
+        shape = (cfg.n_layers, n_blocks, block_size,
+                 *kv_entry_shape(cfg, kv_mode, latent_rank))
         tables = torch.zeros((batch, n_tables), dtype=torch.int32, device=device)
         length = torch.zeros((batch,), dtype=torch.int32, device=device)
         if kv_quant is None:
@@ -127,10 +135,37 @@ def check_kv_quant(kv_quant: str | None) -> None:
                          f"(supported: q8_0)")
 
 
+KV_MODES = ("dense", "latent")
+
+
+def check_kv_mode(kv_mode: str) -> None:
+    """The supported KV-cache representations: "dense" (per-head K/V) or
+    "latent" (one low-rank latent per token per side; composes with
+    ``kv_quant``)."""
+    if kv_mode not in KV_MODES:
+        raise ValueError(f"unsupported kv mode {kv_mode!r} "
+                         f"(one of {', '.join(KV_MODES)})")
+
+
+def kv_entry_shape(cfg: ModelConfig, kv_mode: str = "dense",
+                   latent_rank: int | None = None) -> tuple[int, int]:
+    """The trailing shape of one cached position, shared by the dense cache
+    and the pools: [n_kv_heads, head_dim] dense, [1, rank] latent (the
+    singleton axis keeps every write and gather shape-agnostic)."""
+    check_kv_mode(kv_mode)
+    if kv_mode == "latent":
+        if not latent_rank:
+            raise ValueError("kv_mode='latent' needs latent_rank")
+        return (1, int(latent_rank))
+    return (cfg.n_kv_heads, cfg.head_dim)
+
+
 def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-head-vector symmetric int8: [..., Hd] → (codes, f32 scale [..., 1])."""
+    """Per-vector symmetric int8: [..., Hd] → (codes, f32 scale [..., 1]).
+    The scale is ``amax · f32(1/127)``, as the reference computes it under
+    ``jit``; codes round half to even."""
     xf = x.float()
-    s = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    s = (xf.abs().amax(dim=-1, keepdim=True) * INV127).clamp_min(1e-12)
     return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s
 
 
@@ -269,13 +304,36 @@ class Block(nn.Module):
             f = rmsnorm(f, self.post_ffn_norm, cfg.norm_eps, cfg.norm_offset)
         return x + f
 
+    @property
+    def latent(self) -> bool:
+        """A latent-KV block (``models.convert.latent_factorize`` gave it
+        ``w_lk``/``w_lv``): its cache holds rank-r latents, not K/V."""
+        return "w_lk" in self._parameters
+
+    def _latent_kv(self, q, k, v):
+        """Project K/V to their latents [B, T, 1, r] (f32) and absorb the K
+        basis into the queries [B, T, H, r]."""
+        return (absorb_queries(q, self.w_lk, self.cfg.n_kv_heads),
+                latent_project(k, self.w_lk), latent_project(v, self.w_lv))
+
+    def _latent_out(self, acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The latent-space attention output through ``w_lvᵀ``."""
+        cfg = self.cfg
+        return unproject_values(acc, self.w_lv, cfg.n_kv_heads,
+                                cfg.head_dim).to(dtype)
+
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                 cache: KVCache, layer: int) -> torch.Tensor:
         """One block over the dense cache: the new tokens' K/V are written
-        at [cache.length, cache.length + T) (quantized per head vector on an
-        int8 cache), then attention reads the layer's whole buffer."""
+        at [cache.length, cache.length + T) (quantized per vector on an int8
+        cache), then attention reads the layer's whole buffer. A latent
+        block writes the latents instead and attends them with the absorbed
+        queries, n_rep = H over its one [.., 1, r] "kv head" (the same
+        kernel at head dim r), then up-projects the output."""
         cfg = self.cfg
         q, k, v = self.qkv(x, cos, sin)
+        if self.latent:
+            q, k, v = self._latent_kv(q, k, v)
         at = slice(cache.length, cache.length + x.shape[1])
         ks = vs = None
         if cache.k_scale is not None:
@@ -288,10 +346,15 @@ class Block(nn.Module):
         else:
             cache.k[layer, :, at] = k
             cache.v[layer, :, at] = v
+        # the absorbed score is the dense q·k: the head dim's scale, not r's
+        n_rep, scale = ((cfg.n_heads, cfg.attn_scale or cfg.head_dim ** -0.5)
+                        if self.latent else
+                        (cfg.n_heads // cfg.n_kv_heads, cfg.attn_scale))
         attn = attention_any(q, cache.k[layer], cache.v[layer], cache.length,
-                             cfg.n_heads // cfg.n_kv_heads, scale=cfg.attn_scale,
-                             softcap=cfg.attn_softcap, window=self.window,
-                             k_scale=ks, v_scale=vs)
+                             n_rep, scale=scale, softcap=cfg.attn_softcap,
+                             window=self.window, k_scale=ks, v_scale=vs)
+        if self.latent:
+            attn = self._latent_out(attn, x.dtype)
         return self.ffn(self.attn_out(x, attn))
 
     def forward_paged(self, x: torch.Tensor, cos: torch.Tensor,
@@ -299,7 +362,10 @@ class Block(nn.Module):
                       where: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
         """One block over the paged pool: the new tokens' K/V scatter into
         the layer's pools at ``where`` (``paged_write_index``), then
-        attention reads them back through the block tables."""
+        attention reads them back through the block tables. A latent block
+        runs ``forward_latent``."""
+        if self.latent:
+            return self.forward_latent(x, cos, sin, cache, layer, where)
         cfg = self.cfg
         q, k, v = self.qkv(x, cos, sin)
         ks = vs = None
@@ -313,6 +379,45 @@ class Block(nn.Module):
                                    softcap=cfg.attn_softcap, window=self.window,
                                    k_scale=ks, v_scale=vs)
         return self.ffn(self.attn_out(x, attn))
+
+    def forward_latent(self, x: torch.Tensor, cos: torch.Tensor,
+                       sin: torch.Tensor, cache: PagedKVCache, layer: int,
+                       where: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        """One latent block over the paged latent pools ([N, bs, 1, r]) on a
+        prefill, mixed or decode step: K/V through the shared ``qkv``, their
+        latents scattered by the same ``_paged_kv_write``, attention of the
+        absorbed queries against the latents (``latent_attention_any``), the
+        output up-projected once."""
+        cfg = self.cfg
+        qa, ck, cv = self._latent_kv(*self.qkv(x, cos, sin))
+        ks = vs = None
+        if cache.k_scale is not None:
+            ks, vs = cache.k_scale[layer], cache.v_scale[layer]
+        _paged_kv_write(cache.k[layer], cache.v[layer], ks, vs, ck, cv, *where)
+        acc = latent_attention_any(qa, cache.k[layer], cache.v[layer],
+                                   cache.tables, cache.length, cfg.n_heads,
+                                   scale=cfg.attn_scale or cfg.head_dim ** -0.5,
+                                   softcap=cfg.attn_softcap, window=self.window,
+                                   k_scale=ks, v_scale=vs)
+        return self.ffn(self.attn_out(x, self._latent_out(acc, x.dtype)))
+
+    def forward_fused(self, x: torch.Tensor, cos: torch.Tensor,
+                      sin: torch.Tensor, cache: PagedKVCache, layer: int,
+                      where: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        """A T = 1 decode step with the attention half fused
+        (``ops/fused_decode.py``: one kernel launch on the card): it returns
+        ``y`` and the new token's K/V, which scatter through the same
+        ``_paged_kv_write`` as the unfused step; then the FFN half. The
+        caller gates on ``fused_supported``."""
+        ks = vs = None
+        if cache.k_scale is not None:
+            ks, vs = cache.k_scale[layer], cache.v_scale[layer]
+        y, k_new, v_new = fused_decode_any(
+            x[:, 0], self, cos[:, 0], sin[:, 0], cache.k[layer], cache.v[layer],
+            cache.tables, cache.length, k_scale=ks, v_scale=vs)
+        _paged_kv_write(cache.k[layer], cache.v[layer], ks, vs, k_new[:, None],
+                        v_new[:, None], *where)
+        return self.ffn(y[:, None])
 
 
 def paged_write_index(tables: torch.Tensor, lengths: torch.Tensor, T: int,
@@ -362,6 +467,7 @@ class LlamaModel(nn.Module):
         if cfg.is_moe:
             raise NotImplementedError("MoE models are not ported yet")
         self.cfg = cfg
+        self.fused_forwards = 0   # backbone_paged forwards that took the fused route
         for name in ("embed", "out_norm", "out_norm_b", "lm_head"):
             if isinstance(params.get(name), QuantPack):
                 self.add_module(name, params[name])
@@ -423,29 +529,38 @@ class LlamaModel(nn.Module):
         return self.lm_logits(x[:, last_index:last_index + 1])[:, 0]
 
     def backbone_paged(self, tokens: torch.Tensor, cache: PagedKVCache,
-                       n_tok: torch.Tensor | None = None) -> torch.Tensor:
+                       n_tok: torch.Tensor | None = None,
+                       fused: bool = False) -> torch.Tensor:
         """tokens [B, T] over the paged pool, row b at positions
         [length[b], length[b] + T) → pre-norm hidden states [B, T, D].
         ``n_tok`` ([B], optional) marks each row's real lanes (the mixed
         step): padding lanes write into the sentinel block, and the lengths
-        advance by ``n_tok`` instead of T."""
+        advance by ``n_tok`` instead of T. ``fused`` runs each layer's
+        attention half as the fused decode step, on T = 1 decode steps of a
+        dense-KV model only (mixed steps, prefill and latent blocks stay
+        unfused, as in the reference)."""
         T = tokens.shape[1]
         x = self.embed_tokens(tokens)
         pos = cache.length.long()[:, None] + torch.arange(T, device=tokens.device)
         cos, sin = rope_freqs(self.cfg, pos)
         where = paged_write_index(cache.tables, cache.length, T,
                                   cache.block_size, n_tok)
+        fused = fused and T == 1 and n_tok is None and not self.layers[0].latent
+        self.fused_forwards += fused
         for i, block in enumerate(self.layers):
-            x = block.forward_paged(x, cos, sin, cache, i, where)
+            if fused:
+                x = block.forward_fused(x, cos, sin, cache, i, where)
+            else:
+                x = block.forward_paged(x, cos, sin, cache, i, where)
         cache.length = cache.length + (T if n_tok is None else n_tok.to(torch.int32))
         return x
 
     @torch.inference_mode()
-    def forward_paged(self, tokens: torch.Tensor,
-                      cache: PagedKVCache) -> torch.Tensor:
+    def forward_paged(self, tokens: torch.Tensor, cache: PagedKVCache,
+                      fused: bool = False) -> torch.Tensor:
         """Batched forward over the paged pool: tokens [B, T] → logits
-        [B, T, V] f32."""
-        return self.lm_logits(self.backbone_paged(tokens, cache))
+        [B, T, V] f32; ``fused`` as in ``backbone_paged``."""
+        return self.lm_logits(self.backbone_paged(tokens, cache, fused=fused))
 
     @torch.inference_mode()
     def forward_paged_last(self, tokens: torch.Tensor, cache: PagedKVCache,

@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every kernel source of the package (csrc/<name>.cu)
 SOURCES = ("flash_attention", "paged_attention", "dequant_matmul", "w8a8_matmul",
-           "int8_matmul")
+           "int8_matmul", "fused_decode", "latent_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -24,7 +24,10 @@ import ctypes
 import torch
 
 NEG_INF = -1e30   # the masked-score fill of the reference and the kernel
-HEAD_DIMS = (64, 128, 256)
+# head widths the kernel takes; 512 serves the single-stream latent path at
+# head dim r (the paged kernel stays at PAGED_HEAD_DIMS)
+HEAD_DIMS = (64, 128, 256, 512)
+PAGED_HEAD_DIMS = (64, 128, 256)
 
 # kernel launches since the last reset (chip_smoke.py reads it to prove the
 # served path ran the kernel); only the CUDA wrapper below increments it

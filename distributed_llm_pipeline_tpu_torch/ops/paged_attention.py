@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from .flash_attention import HEAD_DIMS, _scale, flash_attention_plain
+from .flash_attention import PAGED_HEAD_DIMS, _scale, flash_attention_plain
 
 # kernel launches since the last reset (chip_smoke.py reads it to prove the
 # served path ran the kernel); only the CUDA wrapper below increments it
@@ -78,8 +78,9 @@ def paged_flash_attention(q: torch.Tensor, k_pool: torch.Tensor,
             or not lengths.is_contiguous():
         raise ValueError("paged_flash_attention: lengths must be contiguous "
                          f"int32 [{B}], got {lengths.dtype} {tuple(lengths.shape)}")
-    if Hd not in HEAD_DIMS:
-        raise ValueError(f"paged_flash_attention: head_dim {Hd} not in {HEAD_DIMS}")
+    if Hd not in PAGED_HEAD_DIMS:
+        raise ValueError(f"paged_flash_attention: head_dim {Hd} not in "
+                         f"{PAGED_HEAD_DIMS}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"paged_flash_attention: q dtype {q.dtype} "
                          "(float32 or bfloat16)")

@@ -34,11 +34,15 @@ import torch
 from ..gguf import GGUFReader
 from ..models import KVCache, LlamaModel, ModelConfig, PagedKVCache, Params
 from ..models.convert import load_params, native_quant_layers, select_rope_factors
-from ..models.llama import check_quant, quantize_params, quantized_bytes
+from ..models.convert import latent_default_rank, latent_factorize
+from ..models.llama import (check_kv_mode, check_kv_quant, check_quant,
+                            quantize_params, quantized_bytes)
+from ..ops.latent_attention import LATENT_RANKS
 from ..ops.quant_matmul import QuantPack
 from ..ops.sampling import apply_penalties, sample
 from ..tokenizer import StreamDecoder, Tokenizer, tokenizer_from_metadata
 from ..utils import Event, done, log, token
+from . import capabilities
 
 
 @dataclass
@@ -127,6 +131,17 @@ def _bucket(n: int, cap: int, minimum: int = 16, quantum: int = 1) -> int:
     return min(b, cap)
 
 
+def check_token_ids(ids: list[int], vocab_size: int) -> list[int]:
+    """Raise ``ValueError`` on a pre-tokenized prompt holding an id outside
+    ``[0, vocab_size)``: the embedding gather would index past its table (a
+    device-side assert on the card, which ends the process's CUDA context)
+    or wrap a negative id."""
+    bad = next((t for t in ids if not 0 <= t < vocab_size), None)
+    if bad is not None:
+        raise ValueError(f"token id {bad} outside the vocabulary [0, {vocab_size})")
+    return ids
+
+
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: the one asked for, else CUDA. With
     no CUDA device and no explicit request this raises; nothing falls back
@@ -146,14 +161,29 @@ class Engine:
     ``"q3_k"``, ``"q4_k"``, ``"q5_k"`` or ``"q6_k"`` (pack the projections
     and the head at load) or ``"native"`` (serve the GGUF's stored Q8_0 /
     Q2_K / Q3_K / Q4_K / Q5_K / Q6_K projection blocks as they are); any
-    other mode raises ``ValueError``."""
+    other mode raises ``ValueError``.
+
+    ``kv_quant="q8_0"`` keeps the KV cache and the slot pools in int8 codes
+    with one f32 scale per cached vector. ``kv_mode``: ``"dense"``
+    (per-head K/V) or ``"latent"`` (one rank-``kv_latent_rank`` latent per
+    token per side, the bases factorized from wk / wv at load, before any
+    weight packing); left None it is ``"latent"`` under
+    ``DLP_KV_LATENT=1``, whose rank ``DLP_KV_LATENT_RANK`` may set, as in
+    the reference. On the card the rank must be one the kernels take
+    (``LATENT_RANKS``)."""
 
     def __init__(self, model_path: str | Path | None = None, *,
                  cfg: ModelConfig | None = None, params: Params | None = None,
                  tokenizer: Tokenizer | None = None, max_seq: int | None = None,
                  dtype: torch.dtype = torch.bfloat16, device=None,
-                 quant: str | None = None):
+                 quant: str | None = None, kv_quant: str | None = None,
+                 kv_mode: str | None = None, kv_latent_rank: int | None = None):
         check_quant(quant)
+        check_kv_quant(kv_quant)
+        if kv_mode is not None:
+            check_kv_mode(kv_mode)
+        elif capabilities.env_kv_latent():
+            kv_mode = "latent"
         self.device = resolve_device(device)
         if quant and self.device.type == "cuda" and dtype != torch.bfloat16:
             raise ValueError(f"quant {quant!r} on the card serves bf16 "
@@ -203,6 +233,26 @@ class Engine:
             params = {k: t.to(load_dev) if isinstance(t, QuantPack)
                       else t.to(device=load_dev, dtype=dtype)
                       for k, t in params.items()}
+        self.kv_quant = kv_quant
+        self.kv_mode = kv_mode or "dense"
+        self.kv_latent_rank: int | None = None
+        if self.kv_mode == "latent":
+            # the SVD needs the dense wk / wv, so it runs before packing; the
+            # bases stay dense
+            if kv_latent_rank is None:
+                env_rank = os.environ.get("DLP_KV_LATENT_RANK")
+                kv_latent_rank = int(env_rank) if env_rank else None
+            rank = int(kv_latent_rank or latent_default_rank(cfg))
+            if self.device.type == "cuda" and rank not in LATENT_RANKS:
+                raise ValueError(f"latent rank {rank}: the CUDA latent kernels "
+                                 f"take ranks {LATENT_RANKS}")
+            params = latent_factorize(params, cfg, rank)
+            self.kv_latent_rank = rank
+            khd = cfg.n_kv_heads * cfg.head_dim
+            self._events_on_load.append(log(
+                f"latent KV compression active (kv_mode=latent): rank {rank} of "
+                f"{khd} per side via truncated SVD of wk/wv; the KV caches hold "
+                f"2*{rank} elements a token instead of 2*{khd}"))
         if quant:
             if quant != "native":
                 t_q = time.monotonic()
@@ -223,6 +273,7 @@ class Engine:
         self.decode_chunk = max(1, int(os.environ.get("DLP_DECODE_CHUNK", "32")))
         self._prompt_quantum = 1   # prefill buckets are multiples of this
         self.forwards = 0   # model forwards run: one per prefill, one per decode step
+        self._fused_resolved: dict[tuple[int, int], bool] = {}
         dev = (torch.cuda.get_device_name(self.device)
                if self.device.type == "cuda" else "CPU")
         self._events_on_load.append(log(
@@ -232,7 +283,8 @@ class Engine:
             f"{str(dtype).split('.')[-1]})"))
         self._events_on_load.append(log(
             f"weights ready in {time.monotonic() - t0:.2f}s; kv cache capacity "
-            f"{self.max_seq} tokens"))
+            f"{self.max_seq} tokens"
+            f"{f' ({kv_quant})' if kv_quant else ''}"))
 
     @property
     def max_prompt(self) -> int:
@@ -242,7 +294,9 @@ class Engine:
 
     def make_cache(self, batch: int = 1) -> KVCache:
         return KVCache.zeros(self.cfg, batch=batch, max_seq=self.max_seq,
-                             dtype=self.dtype, device=self.device)
+                             dtype=self.dtype, device=self.device,
+                             kv_quant=self.kv_quant, kv_mode=self.kv_mode,
+                             latent_rank=self.kv_latent_rank)
 
     def make_paged_cache(self, n_slots: int, *, block_size: int | None = None,
                          n_blocks: int | None = None,
@@ -255,10 +309,46 @@ class Engine:
 
         bs, nt, n = pool_geometry(self.max_seq, n_slots, block_size=block_size,
                                   n_blocks=n_blocks,
-                                  min_block=pool_sublane(self.dtype, None))
+                                  min_block=pool_sublane(self.dtype, self.kv_quant))
         return PagedKVCache.zeros(self.cfg, n_blocks=n, block_size=bs,
                                   batch=n_slots, n_tables=n_tables or nt,
-                                  dtype=self.dtype, device=self.device)
+                                  dtype=self.dtype, device=self.device,
+                                  kv_quant=self.kv_quant, kv_mode=self.kv_mode,
+                                  latent_rank=self.kv_latent_rank)
+
+    def resolve_fused_decode(self, block_size: int, n_slots: int) -> bool:
+        """Whether paged decode steps of ``n_slots`` rows run the fused
+        decode-step kernel (``ops/fused_decode.py``). Opt-in by
+        ``DLP_FUSED_DECODE=1``; a latent pool degrades to unfused (reason
+        ``latent-kv``), and a config the kernel cannot serve falls back with
+        ``fused_supported``'s reason. The answer is cached per (block_size,
+        n_slots) and its reason logged once in the load events."""
+        key = (block_size, n_slots)
+        if key in self._fused_resolved:
+            return self._fused_resolved[key]
+        if not capabilities.fused_requested():
+            self._fused_resolved[key] = False
+            return False
+        if self.kv_mode == "latent":
+            reason = "latent-kv"
+        else:
+            from ..ops.fused_decode import fused_supported
+
+            wq = self.model.layers[0]._modules.get("wq")
+            reason = fused_supported(
+                self.cfg, weight_kind=wq.kind if wq is not None else None,
+                batch=n_slots, act_bytes=torch.finfo(self.dtype).bits // 8)
+        if reason is not None:
+            capabilities.check_reason(reason)
+        active = reason is None
+        self._events_on_load.append(log(
+            f"fused decode-step kernel active (DLP_FUSED_DECODE=1): RMSNorm + "
+            f"QKV + RoPE + paged attention + O-proj in one launch per layer, "
+            f"block_size {block_size}, {n_slots} rows" if active else
+            f"fused decode requested (DLP_FUSED_DECODE=1) but falling back to "
+            f"the unfused paged path: {reason}"))
+        self._fused_resolved[key] = active
+        return active
 
     def prefill(self, ids: list[int], cache: KVCache) -> torch.Tensor:
         """Run the prompt, padded to its bucket, into ``cache`` (from
@@ -323,8 +413,8 @@ class Engine:
         """Streaming generation: yields log / token / done events."""
         gen = gen or GenerationConfig()
         yield from self._events_on_load
-        ids = list(prompt) if isinstance(prompt, (list, tuple)) \
-            else self.tokenizer.encode(prompt)
+        ids = check_token_ids(list(prompt), self.cfg.vocab_size) \
+            if isinstance(prompt, (list, tuple)) else self.tokenizer.encode(prompt)
         n_prompt = len(ids)
         if n_prompt >= self.max_seq:
             ids = ids[-(self.max_seq - 1):]

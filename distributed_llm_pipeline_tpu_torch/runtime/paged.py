@@ -68,13 +68,22 @@ def pool_sublane(dtype: torch.dtype, kv_quant: str | None) -> int:
     return 16 if dtype == torch.bfloat16 else 8
 
 
-def kv_token_bytes(cfg, kv_quant: str | None) -> int:
+def kv_token_bytes(cfg, kv_quant: str | None, kv_mode: str = "dense",
+                   latent_rank: int | None = None) -> int:
     """Device bytes one cached token costs across all layers (K + V; codes
-    plus per-vector f32 scales on an int8 pool)."""
+    plus per-vector f32 scales on an int8 pool), for bf16 or int8 pools.
+    ``kv_mode="latent"`` counts one rank-``latent_rank`` latent per side:
+    at the default rank K·Hd/4, a quarter of the dense bf16 figure."""
     per_elem = 2 if kv_quant is None else 1
-    n = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * per_elem
+    if kv_mode == "latent":
+        if not latent_rank:
+            raise ValueError("kv_token_bytes(kv_mode='latent') needs latent_rank")
+        n_vec, width = 1, int(latent_rank)
+    else:
+        n_vec, width = cfg.n_kv_heads, cfg.head_dim
+    n = 2 * cfg.n_layers * n_vec * width * per_elem
     if kv_quant is not None:
-        n += 2 * cfg.n_layers * cfg.n_kv_heads * 4
+        n += 2 * cfg.n_layers * n_vec * 4
     return n
 
 
@@ -289,10 +298,13 @@ def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 class PagedSlotBackend:
     """Slot KV over the shared block pool for the single-device
     :class:`Engine`: the batch KV is ``{k, v, ks, vs, tables}`` with pools
-    [L, N, bs, K, Hd]; the decode step is one batched ``forward_paged``
-    (per-row lengths and tables), and prefill runs ``forward_paged_last``
-    over the suffix only: shared prefix tokens are read by attention,
-    never recomputed."""
+    [L, N, bs, K, Hd] (``[L, N, bs, 1, r]`` latents on a latent engine,
+    int8 codes and scales under ``kv_quant``); the decode step is one
+    batched ``forward_paged`` (per-row lengths and tables), and prefill
+    runs ``forward_paged_last`` over the suffix only: shared prefix tokens
+    are read by attention, never recomputed. ``fused`` is the engine's
+    answer for this pool's geometry: decode steps then run the fused
+    decode-step kernel; mixed steps and prefill stay unfused."""
 
     def __init__(self, eng, n_slots: int, max_seq: int,
                  block_size: int | None = None, n_blocks: int | None = None):
@@ -300,10 +312,20 @@ class PagedSlotBackend:
         self.B = n_slots
         self.S = max_seq
         self.cfg = eng.cfg
+        self.kv_quant = eng.kv_quant
+        self.kv_mode = eng.kv_mode
+        self.latent_rank = eng.kv_latent_rank
         self.bs, self.NT, self.n_blocks = pool_geometry(
             max_seq, n_slots, block_size, n_blocks,
-            min_block=pool_sublane(eng.dtype, None))
+            min_block=pool_sublane(eng.dtype, self.kv_quant))
         self.allocator = BlockAllocator(self.n_blocks, self.bs, n_slots, self.NT)
+        self.fused = eng.resolve_fused_decode(self.bs, n_slots)
+
+    @property
+    def block_bytes(self) -> int:
+        """Device bytes of one pool block across all layers."""
+        return self.bs * kv_token_bytes(self.cfg, self.kv_quant, self.kv_mode,
+                                        self.latent_rank)
 
     # -- layout -------------------------------------------------------------
 
@@ -320,8 +342,10 @@ class PagedSlotBackend:
                             bufs.get("ks"), bufs.get("vs"))
 
     def vstep(self, tok: torch.Tensor, cache: PagedKVCache) -> torch.Tensor:
-        """tok [B] → logits [B, V]: one batched paged forward."""
-        return self.eng.model.forward_paged(tok[:, None], cache)[:, -1]
+        """tok [B] → logits [B, V]: one batched paged forward, fused when
+        the engine resolved it so."""
+        return self.eng.model.forward_paged(tok[:, None], cache,
+                                            fused=self.fused)[:, -1]
 
     def mstep(self, block: torch.Tensor, n_tok: torch.Tensor,
               cache: PagedKVCache) -> torch.Tensor:

@@ -51,7 +51,8 @@ import torch
 from ..ops.sampling import apply_penalties, sample_rows
 from ..tokenizer import StreamDecoder
 from ..utils import Event, done, log, token
-from .engine import Engine, GenerationConfig, StopMatcher, _bucket
+from .engine import (Engine, GenerationConfig, StopMatcher, _bucket,
+                     check_token_ids)
 from .paged import PagedSlotBackend, PoolExhausted, upload
 
 RECENT_W = 64    # repeat-penalty window capacity per slot (llama.cpp default)
@@ -207,9 +208,16 @@ class SlotScheduler:
         self.max_seq = engine.max_seq
         self.max_queue = max_queue
         self.decode_chunk = int(decode_chunk or engine.decode_chunk or 32)
+        # the engine's KV representation (int8 codes under kv_quant, rank-r
+        # latents under kv_mode "latent") sizes the pool; the backend asks
+        # the engine once whether decode steps run the fused kernel
+        self.kv_quant = engine.kv_quant
+        self.kv_mode = engine.kv_mode
+        self.kv_latent_rank = engine.kv_latent_rank
         self._backend = PagedSlotBackend(engine, self.n_slots, self.max_seq,
                                          block_size=kv_block,
                                          n_blocks=kv_pool_blocks)
+        self.fused_decode = self._backend.fused
         # the chunk width is also the mixed step's fixed lane count, and the
         # finishing sub-chunk reuses the pow2 prompt buckets
         pc = int(prefill_chunk if prefill_chunk is not None
@@ -271,9 +279,11 @@ class SlotScheduler:
                abort: threading.Event | None = None) -> _Request:
         """Enqueue a request; its events flow through ``emit`` (called from
         the scheduler thread). Raises when the scheduler is closed or the
-        wait queue is full."""
+        wait queue is full, or on a token id outside the vocabulary."""
         if self._closed.is_set():
             raise RuntimeError("scheduler is closed")
+        if isinstance(prompt, (list, tuple)):
+            check_token_ids(prompt, self.cfg.vocab_size)
         if self._subq.qsize() >= self.max_queue:
             raise QueueFull(f"request queue full ({self.max_queue})")
         req = _Request(prompt, gen or GenerationConfig(), emit,

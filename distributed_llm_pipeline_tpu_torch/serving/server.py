@@ -14,9 +14,13 @@ turn through an asyncio lock, writing SSE keep-alives while they wait. With
 :class:`SlotScheduler` with N slots, decoding together in one batched step.
 
 Run: ``python -m distributed_llm_pipeline_tpu_torch.serving.server --model
-m.gguf [--parallel N] [--quant MODE] [--cpu]`` (port 3005 by default).
-Without ``--cpu`` it needs a CUDA device. ``--quant`` takes the reference's
-choices: int8, q8_0, q2_k, q3_k, q4_k, q5_k, q6_k or native.
+m.gguf [--parallel N] [--quant MODE] [--kv-quant q8_0] [--cpu]`` (port
+3005 by default). Without ``--cpu`` it needs a CUDA device. ``--quant``
+takes the reference's choices: int8, q8_0, q2_k, q3_k, q4_k, q5_k, q6_k or
+native; ``--kv-quant q8_0`` keeps the KV cache in int8. As in the reference,
+``DLP_FUSED_DECODE=1`` runs the slots' decode steps through the fused
+decode-step kernel and ``DLP_KV_LATENT=1`` (rank ``DLP_KV_LATENT_RANK``)
+caches latents instead of per-head K/V.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from aiohttp import web
 
 from ..models.llama import QUANT_MODES
 from ..runtime import Engine, GenerationConfig, SlotScheduler
+from ..runtime.engine import check_token_ids
 from .common import (acquire_with_keepalive, cors, engine_events,
                      json_response, sse_response)
 
@@ -74,13 +79,15 @@ class ChatServer:
         if sched is not None:
             load = {"queue_depth": sched.queue_depth,
                     "slots_active": sched.slots_active,
-                    "slots_total": sched.n_slots}
+                    "slots_total": sched.n_slots,
+                    "fused_decode": sched.fused_decode}
         else:
             load = {"queue_depth": 0, "slots_active": int(self._busy.locked()),
                     "slots_total": 1}
         return json_response({"status": "ok", "model": eng.cfg.arch,
                               "n_layers": eng.cfg.n_layers, "ctx": eng.max_seq,
                               "device": str(eng.device),
+                              "kv_quant": eng.kv_quant, "kv_mode": eng.kv_mode,
                               "busy": self._busy.locked(), **load})
 
     async def index(self, request: web.Request) -> web.FileResponse:
@@ -107,8 +114,18 @@ class ChatServer:
         except (json.JSONDecodeError, KeyError, TypeError):
             return json_response({"error": "body must be JSON {\"prompt\": ...}"},
                                  status=400)
-        if not isinstance(prompt, str):
-            return json_response({"error": "'prompt' must be a string"}, status=400)
+        # a string, or pre-tokenized ids as the reference's engine takes them
+        if not (isinstance(prompt, str) or (
+                isinstance(prompt, list) and prompt
+                and all(type(t) is int for t in prompt))):
+            return json_response(
+                {"error": "'prompt' must be a string or a list of token ids"},
+                status=400)
+        if isinstance(prompt, list):
+            try:
+                check_token_ids(prompt, self.engine.cfg.vocab_size)
+            except ValueError as e:
+                return json_response({"error": f"'prompt': {e}"}, status=400)
         gen = self._gen_for(body)
         if isinstance(gen, str):
             return json_response({"error": gen}, status=400)
@@ -161,6 +178,9 @@ def build_argparser():
                          "q8_0 / q2_k / q3_k / q4_k / q5_k / q6_k repack at "
                          "load, native serves the GGUF's own Q8_0 / Q2_K / "
                          "Q3_K / Q4_K / Q5_K / Q6_K blocks")
+    ap.add_argument("--kv-quant", default=None, choices=["q8_0"],
+                    help="int8 KV cache and slot pools (llama.cpp -ctk/-ctv "
+                         "q8_0)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA device)")
     return ap
@@ -170,7 +190,8 @@ def main(argv: list[str] | None = None) -> None:
     args = build_argparser().parse_args(argv)
     try:
         engine = Engine(args.model, max_seq=args.ctx_size,
-                        device="cpu" if args.cpu else None, quant=args.quant)
+                        device="cpu" if args.cpu else None, quant=args.quant,
+                        kv_quant=args.kv_quant)
     except (NotImplementedError, ValueError) as e:   # an unserved mode or model
         print(f"error: {e}", file=sys.stderr)
         raise SystemExit(2) from None
