@@ -38,7 +38,12 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    offsets) run at Llama-3.2-1B's five (D, F) pairs, the head's with f32
    output: W8A8 at M = 1, 4, 16, 32, fused dequant at M = 33, 256, 512, int8
    at all seven; plus an odd F, activation groups 32 and 128 and an
-   all-zero activation row. The W8A8 and int8 kernels' own quantized
+   all-zero activation row. The byte-code packs of tp meshes (Q5_K, Q4_K8,
+   Q6_K8) run at the tp = 2 shard shapes of the same model (and the whole
+   head, at M = 1 and 4 only): their W8A8 forms at M = 1, 4, 16, 32 and
+   ``q5_k_matmul`` (held
+   against ``q5_k_matmul_plain``) at M = 33, 64, 256, 512, plus a D that
+   only 32 divides. The W8A8 and int8 kernels' own quantized
    activations must equal ``quantize_acts`` bit for bit. Their yardstick is
    ``F.linear`` on the dense bf16 weight the pack represents (and, for int8
    at M >= 256, ``torch._int_mm`` on the same int8 operands, which applies
@@ -86,7 +91,9 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    ``Engine(quant="q5_k")`` on 4 slots, held and printed as phase 7. Q5_KS
    forwards of M > 32 count their dequant + F.linear calls in place of a
    kernel launch.
-9. Serve int8, Q3_K and Q2_K: the bf16 GGUF with ``Engine(quant="int8")``
+9. Serve int8, Q3_K and Q2_K, at 8 of the model's 16 layers (the widths
+   unchanged; the cut keeps the whole run near 900 s): a bf16 GGUF with
+   ``Engine(quant="int8")``
    single-stream (the int8 kernel at every M: its GEMM at the 512 prefill
    bucket, the W8A8 route at decode), a Q3_K GGUF (projections in Q3_K,
    token_embd in Q6_K, norms F32) with ``Engine(quant="native")``
@@ -105,7 +112,25 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    (latent_flash_attention once per layer and paged forward), logits
    kernel against plain; then full rank (512) against the dense engine.
    Each logit comparison of this phase is held over four prompts.
-11. The kernels line (one JSON object), the card line, and last the ok line.
+11. The mesh (``parallel/``): ``ShardedEngine`` runs every rank as a
+   process of its own on this one card, its collectives on gloo through
+   host memory. ``--mesh 2x2`` over the bf16 GGUF answers the phase-4
+   requests through ChatServer; ``--mesh 1x2 --parallel 4 --quant q5_k``
+   the phase-5 requests (its mixed steps are 4 x 16 = 64 lanes:
+   q5_k_matmul; decode the q5_k W8A8 form); ``--mesh 1x2 --quant native``
+   over the Q4_K_M GGUF (its Q4_K stacks as q4_k8 byte codes; its mixed
+   attn_v / ffn_down stacks load dense) and over the Q6_K GGUF (q6_k8), one
+   stream each. Every rank's launches are held to its chunk forwards
+   (flash_attention once per local layer, each packed projection once, by
+   route), a decode step is profiled per rank (device time, busy share,
+   time in collectives), and the logits of a 512-token prefill and four
+   decode steps, over four prompts, are held against the single-device
+   engine's of phases 6-8 prefilling the same way, in chunks of 16 tokens
+   (``MESH_LOGIT_TOL`` in bf16, ``QUANT_LOGIT_TOL`` quantized); the gap to its
+   one-shot prefill is printed beside, for the mesh and for the
+   single-device engine's own chunked run. Requests generate 16 tokens
+   here.
+12. The kernels line (one JSON object), the card line, and last the ok line.
 """
 
 from __future__ import annotations
@@ -147,7 +172,14 @@ KV_MODE_LOGIT_TOL = 0.15
 # noise on one side only on top of the drift QUANT_LOGIT_TOL holds (0.367-
 # 0.450 over four prompts on the H100)
 FUSED_QUANT_LOGIT_TOL = 0.6
-# phase 10 holds each logit comparison over this many prompts (seeds
+# phase 11 holds a bf16 mesh against the single-device engine prefilled in
+# chunks of 16, as the mesh prefills: the tp split still reorders every
+# projection's sums (other GEMM shapes, row-parallel partial sums), one
+# more rounding order a layer, the drift phase 10's KV_MODE_LOGIT_TOL holds.
+# Measured on the H100 over four prompts: --mesh 2x2 0.090-0.103, beside the
+# single-device engine's own chunked against one-shot prefill 0.084-0.103
+MESH_LOGIT_TOL = 0.15
+# phases 10 and 11 hold each logit comparison over this many prompts (seeds
 # --seed, --seed + 1, ...): one prompt's reading says little of the margin
 LOGIT_PROMPTS = 4
 
@@ -660,9 +692,19 @@ INT8_M = W8A8_M + DEQUANT_M      # int8 has one kernel at every M
 QUANT_EDGES = [dict(name="odd_f", D=2048, F=1001),
                dict(name="group32", D={"q8_0": 2080, "q6_k": 1280, "q4_k": 1280,
                                        "q5_ks": 1280, "int8": 2080, "q2_ks": 1280,
-                                       "q3_ks": 1280}, F=1024),
+                                       "q3_ks": 1280, "q5_k": 1056, "q4_k8": 1056,
+                                       "q6_k8": 1056}, F=1024),
                dict(name="group128", D={"int8": 1152}, F=1024)]
-QUANT_KINDS = ("q8_0", "q6_k", "q4_k", "q5_ks", "int8", "q2_ks", "q3_ks")
+QUANT_KINDS = ("q8_0", "q6_k", "q4_k", "q5_ks", "int8", "q2_ks", "q3_ks",
+               "q5_k", "q4_k8", "q6_k8")
+# the byte-code packs of tp > 1 meshes run at the tp = 2 shard shapes of
+# Llama-3.2-1B (q/k/v and gate/up split their outputs, the output and down
+# projections their contraction dim) and the head rank 0 keeps whole;
+# q5_k_matmul at the mesh's mixed steps (4 rows x 16 lanes: M = 64) too
+BYTE_KINDS = ("q5_k", "q4_k8", "q6_k8")
+SHARD_PAIRS = [("wq", 2048, 1024), ("wk_wv", 2048, 256), ("wo", 1024, 2048),
+               ("gate_up", 2048, 4096), ("down", 4096, 2048), ("head", 2048, 128256)]
+SHARD_DEQUANT_M = (33, 64, 256, 512)
 # the case each kernel's kernels-line entry reports: the (D, F) pair with the
 # most weight bytes of a layer at the M its served path runs (q8_0, q5_ks and
 # q2_ks: the parallel-4 path, B=4 decode and 256-lane mixed steps; q6_k,
@@ -672,7 +714,9 @@ QUANT_TIMED = {("q8_0", "w8a8"): ("gate_up", 4), ("q8_0", "dequant"): ("gate_up"
                ("q6_k", "w8a8"): ("gate_up", 1), ("q6_k", "dequant"): ("gate_up", 512),
                ("q4_k", "w8a8"): ("gate_up", 1), ("q4_k", "dequant"): ("gate_up", 512),
                ("q5_ks", "w8a8"): ("gate_up", 4), ("int8", "int8"): ("gate_up", 512),
-               ("q2_ks", "w8a8"): ("gate_up", 4), ("q3_ks", "w8a8"): ("gate_up", 1)}
+               ("q2_ks", "w8a8"): ("gate_up", 4), ("q3_ks", "w8a8"): ("gate_up", 1),
+               ("q5_k", "dequant"): ("gate_up", 64), ("q5_k", "w8a8"): ("gate_up", 4),
+               ("q4_k8", "w8a8"): ("gate_up", 1), ("q6_k8", "w8a8"): ("gate_up", 1)}
 
 
 def quant_kernels(qm, kind: str) -> list[tuple[str, tuple[int, ...], tuple[int, ...]]]:
@@ -682,7 +726,8 @@ def quant_kernels(qm, kind: str) -> list[tuple[str, tuple[int, ...], tuple[int, 
         return [("int8", INT8_M, (3, 100))]
     kernels = [("w8a8", W8A8_M, (3,))]
     if qm._NAMES[kind][0]:   # the kind has a fused-dequant kernel
-        kernels.append(("dequant", DEQUANT_M, (100,)))
+        kernels.append(("dequant", SHARD_DEQUANT_M if kind in BYTE_KINDS else DEQUANT_M,
+                        (100,)))
     return kernels
 
 
@@ -723,6 +768,14 @@ def random_pack(qm, kq, kind: str, D: int, F: int, gen: torch.Generator):
         a = scales(F, D // 32, std_code=9.2)
         return kq.Q5KSPack(q5n=codes(F, D // 2), q5h=codes(F, D // 8), a=a,
                            b=offsets(a, 15.5))
+    if kind == "q5_k":
+        a = scales(F, D // 32, std_code=9.2)
+        return kq.Q5KPack(q5=codes(F, D) & 31, a=a, b=offsets(a, 15.5))
+    if kind == "q4_k8":
+        a = scales(F, D // 32, std_code=4.6)
+        return kq.Q4K8Pack(q4=codes(F, D) & 15, a=a, b=offsets(a, 7.5))
+    if kind == "q6_k8":
+        return kq.Q6K8Pack(q6=codes(F, D) >> 2, s=scales(F, D // 16, std_code=18.5))
     return kq.Q6KPack(ql=codes(F, D // 2), qh=codes(F, D // 4),
                       s=scales(F, D // 16, std_code=18.5))
 
@@ -760,11 +813,15 @@ def quant_case(qm, pack, kernel: str, M: int, out_dtype, gen, flush,
         def plain():
             return qm.int8_matmul_plain(x, pack, out_dtype)
     else:
+        from distributed_llm_pipeline_tpu_torch.ops import kquant_matmul as kq
+
+        plain_fn = kq.q5_k_matmul_plain if pack.kind == "q5_k" else qm.dequant_matmul_plain
+
         def kern():
             return qm.dequant_matmul(x, pack, out_dtype)
 
         def plain():
-            return qm.dequant_matmul_plain(x, pack, out_dtype)
+            return plain_fn(x, pack, out_dtype)
     got = kern()
     torch.cuda.synchronize()
     ref = plain()
@@ -820,8 +877,10 @@ def check_quant(qm, kq, seed: int, flush: torch.Tensor, card: str) -> dict:
     rows: dict[tuple[str, str], list[dict]] = {}
     for kind in QUANT_KINDS:
         kernels = quant_kernels(qm, kind)
-        cases = [(p, D, F, M, k) for p, D, F in QUANT_PAIRS
-                 for k, ms, _ in kernels for M in ms]
+        pairs = SHARD_PAIRS if kind in BYTE_KINDS else QUANT_PAIRS
+        # the mesh's head sees M <= 4: a byte head runs W8A8 at M = 1 and 4
+        cases = [(p, D, F, M, k) for p, D, F in pairs for k, ms, _ in kernels
+                 for M in ms if not (kind in BYTE_KINDS and p == "head" and M > 4)]
         for e in QUANT_EDGES:
             if isinstance(e["D"], dict) and kind not in e["D"]:
                 continue
@@ -1300,11 +1359,13 @@ def profile_quant_step(engine, profile, qm, card: str) -> None:
 # phase 6: served logits, kernel against plain attention, paged against dense
 
 def greedy_run(engine, ids: torch.Tensor, steps: list[torch.Tensor] | None,
-               paged: bool = False, fused: bool = False) -> tuple[list, list]:
+               paged: bool = False, fused: bool = False,
+               chunk: int | None = None) -> tuple[list, list]:
     """A prefill of ``ids`` and four decode steps on the dense cache (or,
     ``paged``, on a pool, the decode steps ``fused`` or not): the logits at
     each position and the tokens fed, ``steps`` or, when None, the greedy
-    continuation."""
+    continuation. ``chunk``: the dense prefill runs as forwards of that
+    many tokens each, as a mesh prefills."""
     model = engine.model
     if paged:
         cache = engine.make_paged_cache(1)
@@ -1314,7 +1375,10 @@ def greedy_run(engine, ids: torch.Tensor, steps: list[torch.Tensor] | None,
         outs = [model.forward_paged_last(ids, cache, ids.shape[1] - 1)]
     else:
         cache = engine.make_cache()
-        outs = [model.forward_last(ids, cache, ids.shape[1] - 1)]
+        step = chunk or ids.shape[1]
+        for c in range(0, ids.shape[1], step):
+            last = model.forward_last(ids[:, c:c + step], cache, step - 1)
+        outs = [last]
     fed = []
     for i in range(4):
         tok = (outs[-1].argmax(-1) if steps is None else steps[i]).view(1, 1)
@@ -1392,21 +1456,34 @@ def hold_logits(got: list[torch.Tensor], want: list[torch.Tensor],
     return hold_prompts([(got, want)], a_name, b_name, tol)
 
 
+def measure_prompts(runs: list[tuple[list, list]], a_name: str, b_name: str,
+                    tol: float) -> tuple[dict, str | None]:
+    """``logit_gap`` over the (got, want) runs of several prompts: the
+    readings, and what breaks ``tol`` (None when nothing does)."""
+    gaps = [logit_gap(got, want, a_name, b_name, tol) for got, want in runs]
+    problems = [f"prompt {i}: {p}" for i, (_, ps) in enumerate(gaps) for p in ps]
+    by_prompt = [g["max_abs_err"] for g, _ in gaps]
+    if len(gaps) == 1:
+        summary = gaps[0][0]
+    else:
+        summary = {"prompts": len(gaps),
+                   "positions": sum(g["positions"] for g, _ in gaps),
+                   "max_abs_err": max(by_prompt), "by_prompt": by_prompt, "tol": tol,
+                   "argmax_near_ties": sum(g["argmax_near_ties"] for g, _ in gaps)}
+    if not problems:
+        return summary, None
+    return summary, (f"{a_name} against {b_name} (max abs logit error by prompt "
+                     f"{by_prompt}): {'; '.join(problems)}")
+
+
 def hold_prompts(runs: list[tuple[list, list]], a_name: str, b_name: str,
                  tol: float) -> dict:
     """``hold_logits`` over the (got, want) runs of several prompts: all are
     measured before any is held, so a failure names every reading."""
-    gaps = [logit_gap(got, want, a_name, b_name, tol) for got, want in runs]
-    problems = [f"prompt {i}: {p}" for i, (_, ps) in enumerate(gaps) for p in ps]
-    by_prompt = [g["max_abs_err"] for g, _ in gaps]
-    if problems:
-        fail(f"{a_name} against {b_name} (max abs logit error by prompt "
-             f"{by_prompt}): {'; '.join(problems)}")
-    if len(gaps) == 1:
-        return gaps[0][0]
-    return {"prompts": len(gaps), "positions": sum(g["positions"] for g, _ in gaps),
-            "max_abs_err": max(by_prompt), "by_prompt": by_prompt, "tol": tol,
-            "argmax_near_ties": sum(g["argmax_near_ties"] for g, _ in gaps)}
+    summary, problem = measure_prompts(runs, a_name, b_name, tol)
+    if problem:
+        fail(problem)
+    return summary
 
 
 # --------------------------------------------------------------------------
@@ -1728,6 +1805,171 @@ def serve_kv_modes(Engine, path: Path, requests: list[dict], fa, pa, la, fd, qm,
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 11: serving over a pp x tp mesh of processes sharing the card
+
+def mesh_check(engine, qm, what: str) -> list[dict]:
+    """Hold every rank's launches since its counters were zeroed to what its
+    chunk forwards call for: flash_attention once per local layer and
+    chunk; each packed projection one launch of the kernel ``qm.route``
+    names for its kind and the chunk's M (W8A8 at M <= 32, q5_k_matmul
+    above), and on rank 0 the packed head once per call at its rows (the
+    M of each call its ``StageModel`` recorded). Returns each rank's
+    counts."""
+    head = getattr(engine.model.stage, "lm_head", None)
+    head_kind = head.kind if isinstance(head, qm.QuantPack) else None
+    rows = []
+    for st in engine.model.stats():
+        want: dict[str, int] = {}
+        calls = [(kind, n, M) for M in st["forward_ms"] for kind, n in st["packs"].items()]
+        if head_kind:
+            calls += [(head_kind, 1, M) for M in st["head_ms"]]
+        for kind, n, M in calls:
+            name = qm.route(kind, M)
+            if name is None:
+                fail(f"{what}: rank {st['rank']} ran a {kind} pack at M = {M}, "
+                     "a route with no kernel")
+            want[name] = want.get(name, 0) + n
+        got = {k: v for k, v in st["launches"].items() if v}
+        n_fwd = len(st["forward_ms"])
+        if not n_fwd or got != want or st["flash_attention"] != st["layers"] * n_fwd:
+            fail(f"{what}: rank {st['rank']} launched {got} and flash_attention "
+                 f"{st['flash_attention']} times; its {n_fwd} chunk forwards of "
+                 f"{st['layers']} layers (packs {st['packs']}) call for {want}")
+        rows.append({"rank": st["rank"], "chunk_forwards": n_fwd,
+                     "chunk_m": sorted(set(st["forward_ms"])), "layers": st["layers"],
+                     "packs": st["packs"], "launches": got,
+                     "flash_attention": st["flash_attention"],
+                     "collective_s": st["comm_s"], "collective_calls": st["comm_calls"]})
+    return rows
+
+
+def profile_mesh_decode(engine, steps: int = 4) -> dict:
+    """Where a single-stream mesh decode step's time goes, 512 tokens into
+    the cache: wall per step on rank 0's clock (a step ends when the last
+    stage's hidden row reaches rank 0), and per rank the device time, busy
+    share, kernels and time in collectives per step (torch.profiler on
+    every rank over the same steps)."""
+    cache = engine.make_cache()
+    engine.prefill(list(range(3, 515)), cache)
+    tok = torch.tensor([[7]], device=engine.device)
+
+    def run() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.model(tok, cache)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps
+
+    run()
+    engine.model.command("reset_stats")
+    wall = run()
+    comm = engine.model.stats()
+    engine.model.command("profile", on=True)
+    run()
+    prof = engine.model.command("profile", on=False)
+    ranks = [{"rank": c["rank"], "device_ms_per_step": p["device_ms"] / steps,
+              "device_busy_share": p["device_ms"] / steps / (wall * 1e3),
+              "kernels_per_step": p["kernels"] / steps,
+              "collective_ms_per_step": c["comm_s"] * 1e3 / steps,
+              "collectives_per_step": c["comm_calls"] / steps}
+             for c, p in zip(comm, prof)]
+    return {"wall_ms_per_step": wall * 1e3, "ranks": ranks, "steps": steps}
+
+
+def serve_mesh(ShardedEngine, MeshSpec, gguf: Path, spec: str, quant, requests,
+               ref, qm, card: str, slots: bool, tol: float) -> tuple[dict, str | None]:
+    """One mesh path: ``ShardedEngine`` over ``gguf`` at ``spec`` (every rank
+    a process on the card, gloo through host memory) serves ``requests``
+    through ChatServer, single-stream or on 4 slots; every rank's launches
+    are held (``mesh_check``), a decode step is profiled, and the logits
+    of a 512-token prefill and four decode steps are measured against the
+    single-device engine's (``ref``: ``mesh_ref``'s prompts, fed tokens and
+    logits) prefilled in chunks of 16, as the mesh prefills, and against
+    its one-shot prefill. Returns the launches by kernel, summed over the
+    ranks, and what broke ``tol`` (None when nothing did)."""
+    from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig
+    from distributed_llm_pipeline_tpu_torch.serving import ChatServer
+
+    t0 = time.monotonic()
+    engine = ShardedEngine(gguf, mesh_spec=MeshSpec.parse(spec), max_seq=2048, quant=quant)
+    what = f"mesh {spec} quant {quant} {'slots' if slots else 'one stream'}"
+    print(json.dumps({"mesh_engine": what, "up_s": time.monotonic() - t0,
+                      "load_log": [e.content for e in engine._events_on_load],
+                      "device_bytes_rank0": torch.cuda.memory_allocated(),
+                      "card": card}), flush=True)
+    try:
+        gen = GenerationConfig(max_new_tokens=16)
+        # the first request after boot loads kernels lazily
+        list(engine.generate("hello", GenerationConfig(max_new_tokens=4)))
+        engine.model.command("reset_stats")
+        server = ChatServer(engine, gen, parallel=4 if slots else 1)
+        t0 = time.monotonic()
+        health, results = asyncio.run(chat_requests(server, requests,
+                                                    lead=0 if slots else None))
+        wall = time.monotonic() - t0
+        if health.get("status") != "ok" or (slots and health.get("slots_total") != 4):
+            fail(f"{what}: /healthz {health}")
+        summaries = [check_sse(r) for r in results]
+        for i, (res, summ) in enumerate(zip(results, summaries)):
+            print(json.dumps({"mesh_request": i, "mesh": spec, "quant": quant,
+                              "slots": slots, "sampled": res["body"]["temperature"] > 0,
+                              **summ, "card": card}), flush=True)
+        if slots and server.scheduler.counters["prefill_steps_stolen_total"] < 1:
+            fail(f"{what}: no mixed step stole from a decoding stream")
+        ranks = mesh_check(engine, qm, what)
+        n_gen = sum(s["n_gen"] for s in summaries)
+        first = min(r["t0"] for r in results)
+        last = max(r["t_last"] for r in results)
+        print(json.dumps({"mesh_served": {
+            "mesh": spec, "quant": quant, "slots": slots, "requests": len(results),
+            "tokens": n_gen, "wall_s": wall, "aggregate_tok_s": n_gen / (last - first),
+            "ranks": ranks, "card": card}}), flush=True)
+        if not slots:
+            print(json.dumps({"mesh_decode_step": {"mesh": spec, "quant": quant,
+                                                   **profile_mesh_decode(engine)},
+                              "card": card}), flush=True)
+        got = [greedy_run(engine, r["ids"], r["fed"])[0] for r in ref]
+        held, problem = measure_prompts([(g, r["chunked"]) for g, r in zip(got, ref)],
+                                        what, "the single device in chunks of 16", tol)
+        one_shot = measure_prompts([(g, r["one_shot"]) for g, r in zip(got, ref)],
+                                   "mesh", "one-shot", tol)[0]
+        print(json.dumps({"mesh_logits": {"mesh": spec, "quant": quant, **held},
+                          "vs_one_shot_prefill": {k: one_shot[k] for k in (
+                              "max_abs_err", "by_prompt")}}), flush=True)
+        total: dict[str, int] = {}
+        for r in ranks:
+            for k, v in {**r["launches"], "flash_attention": r["flash_attention"]}.items():
+                total[k] = total.get(k, 0) + v
+        return total, problem
+    finally:
+        engine.close()
+        torch.cuda.empty_cache()
+
+
+def mesh_ref(engine, seed: int, weights: str, card: str) -> list[dict]:
+    """A single-device engine's runs over the 512-token prompts of seeds
+    ``seed`` … ``seed + LOGIT_PROMPTS - 1``, for a mesh path to be held
+    against: each prompt's ids, greedy tokens fed, and the logits with a
+    one-shot prefill and with the prefill in chunks of 16 (the mesh's
+    ``CHUNK``: every product at M = 16, and on a packed engine the W8A8
+    route instead of the dense one). Prints the gap between the two, the
+    single-device engine's own drift under the mesh's chunking."""
+    refs = []
+    for i in range(LOGIT_PROMPTS):
+        ids = prompt_ids(engine, seed + i)
+        one_shot, fed = greedy_run(engine, ids, None)
+        refs.append({"ids": ids, "fed": fed, "one_shot": one_shot,
+                     "chunked": greedy_run(engine, ids, fed, chunk=16)[0]})
+    gap = measure_prompts([(r["chunked"], r["one_shot"]) for r in refs],
+                          "chunked", "one-shot", 1.0)[0]
+    print(json.dumps({"chunked_prefill_vs_one_shot": {
+        "weights": weights, **{k: gap[k] for k in ("max_abs_err", "by_prompt")}},
+        "card": card}), flush=True)
+    return refs
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  rows: list[dict], timed: dict) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -1808,6 +2050,7 @@ def main() -> int:
     q6_path = model_dir / f"llama3.2-1b-q6_k-seed{args.seed}.gguf"
     q4_path = model_dir / f"llama3.2-1b-q4_k_m-seed{args.seed}.gguf"
     q3_path = model_dir / f"llama3.2-1b-q3_k-seed{args.seed}.gguf"
+    path9 = model_dir / f"llama3.2-1b-8layers-seed{args.seed}.gguf"
     try:
         # 4. the served path, single stream
         t0 = time.monotonic()
@@ -1842,6 +2085,8 @@ def main() -> int:
             flush=True)
         print(json.dumps({"paged_logits": compare_paged_logits(engine, args.seed)}),
               flush=True)
+        # the single-device logits phase 11's mesh paths are held against
+        refs = {"bf16": mesh_ref(engine, args.seed, "bf16", card)}
         del engine
         torch.cuda.empty_cache()
 
@@ -1851,24 +2096,33 @@ def main() -> int:
         # one stream, and --quant q2_k --parallel 4. The bf16 GGUF goes once
         # q2_k has packed it
         quant_launches = {}
-        for phase, qpath, wtype, seed, runs in (
-                (7, q6_path, GGMLType.Q6_K, args.seed + 1,
+        # phase 9 runs at 8 of the 16 layers (widths unchanged) so that the
+        # whole run, phase 11's mesh included, stays near 900 s
+        cfg9 = cfg.replace(n_layers=8)
+        write_model(path9, cfg9, args.seed)
+        for phase, pcfg, qpath, wtype, seed, runs in (
+                (7, cfg, q6_path, GGMLType.Q6_K, args.seed + 1,
                  (("native", q6_path, False), ("q8_0", path, True))),
-                (8, q4_path, q4_k_m_types(cfg.n_layers), args.seed + 2,
+                (8, cfg, q4_path, q4_k_m_types(cfg.n_layers), args.seed + 2,
                  (("native", q4_path, False), ("q5_k", path, True))),
-                (9, q3_path, q3_k_types, args.seed + 3,
-                 (("int8", path, False), ("native", q3_path, False),
-                  ("q2_k", path, True)))):
+                (9, cfg9, q3_path, q3_k_types, args.seed + 3,
+                 (("int8", path9, False), ("native", q3_path, False),
+                  ("q2_k", path9, True)))):
             t0 = time.monotonic()
-            write_model(qpath, cfg, seed, wtype=wtype)
+            write_model(qpath, pcfg, seed, wtype=wtype)
             print(f"phase {phase} at {time.monotonic() - t_start:.0f}s: wrote {qpath.name}: "
                   f"{qpath.stat().st_size / 2**30:.2f} GiB in {time.monotonic() - t0:.1f}s "
                   f"(encoded on the host)", flush=True)
             for quant, gguf, slots in runs:
+                # phase 11 serves the Q6_K and Q4_K_M GGUFs again
                 qengine = load_quant_engine(Engine, gguf, quant, card,
-                                            unlink=gguf != path)
+                                            unlink=gguf not in (path, path9, q6_path, q4_path))
                 quant_launches.update(serve_quant(qengine, slots, requests, fa, pa, qm,
-                                                  llama, cfg, card, args.seed))
+                                                  llama, pcfg, card, args.seed))
+                ref = {(7, "native"): "q6_k", (8, "native"): "q4_k_m",
+                       (8, "q5_k"): "q5_k"}.get((phase, quant))
+                if ref:
+                    refs[ref] = mesh_ref(qengine, args.seed, ref, card)
                 del qengine
                 torch.cuda.empty_cache()
 
@@ -1876,11 +2130,40 @@ def main() -> int:
         print(f"phase 10 at {time.monotonic() - t_start:.0f}s", flush=True)
         served10 = serve_kv_modes(Engine, path, requests, fa, pa, la, fd, qm, llama,
                                   cfg, card, args.seed)
+
+        # 11. the mesh: --mesh 2x2 over the bf16 GGUF, --mesh 1x2 --parallel 4
+        # --quant q5_k, and --mesh 1x2 --quant native over the Q4_K_M and
+        # Q6_K GGUFs, every rank a process on this card
+        print(f"phase 11 at {time.monotonic() - t_start:.0f}s", flush=True)
+        from distributed_llm_pipeline_tpu_torch.parallel import MeshSpec, ShardedEngine
+
+        # gloo through host memory between processes that share the card
+        # takes milliseconds a collective: 16 new tokens a request
+        def shorter(bodies):
+            return [{**b, "max_new_tokens": 16} for b in bodies]
+
+        mesh_launches: dict[str, int] = {}
+        problems = []
+        for spec, gguf, quant, key, slots, tol in (
+                ("2x2", path, None, "bf16", False, MESH_LOGIT_TOL),
+                ("1x2", path, "q5_k", "q5_k", True, QUANT_LOGIT_TOL),
+                ("1x2", q4_path, "native", "q4_k_m", False, QUANT_LOGIT_TOL),
+                ("1x2", q6_path, "native", "q6_k", False, QUANT_LOGIT_TOL)):
+            got, problem = serve_mesh(
+                ShardedEngine, MeshSpec, gguf, spec, quant,
+                shorter(slot_requests(args.seed) if slots else requests),
+                refs[key], qm, card, slots, tol)
+            for k, v in got.items():
+                mesh_launches[k] = mesh_launches.get(k, 0) + v
+            problems += [problem] if problem else []
+        if problems:
+            fail("; ".join(problems))
+        print(json.dumps({"mesh_launches": mesh_launches, "card": card}), flush=True)
     finally:
-        for p in (path, q6_path, q4_path, q3_path):
+        for p in (path, path9, q6_path, q4_path, q3_path):
             p.unlink(missing_ok=True)
 
-    # 11. results
+    # 12. results
     src = "distributed_llm_pipeline_tpu_torch/csrc/"
     ref = "distributed_llm_pipeline_tpu/ops/"
     entries = [
@@ -1907,12 +2190,18 @@ def main() -> int:
             ("q5_ks_w8a8_matmul", "q5_ks", "w8a8", "w8a8_matmul.cu", "kquant_matmul.py:796"),
             ("int8_matmul", "int8", "int8", "int8_matmul.cu", "quant_matmul.py:512"),
             ("q2_ks_w8a8_matmul", "q2_ks", "w8a8", "w8a8_matmul.cu", "kquant_matmul.py:1104"),
-            ("q3_ks_w8a8_matmul", "q3_ks", "w8a8", "w8a8_matmul.cu", "kquant_matmul.py:1162")):
+            ("q3_ks_w8a8_matmul", "q3_ks", "w8a8", "w8a8_matmul.cu", "kquant_matmul.py:1162"),
+            ("q5_k_matmul", "q5_k", "dequant", "dequant_matmul.cu", "kquant_matmul.py:831"),
+            # row 4 (gw8a8_matmul_pallas) again, over the tp mesh's byte codes
+            ("q5_k_w8a8_matmul", "q5_k", "w8a8", "w8a8_matmul.cu", "quant_matmul.py:242"),
+            ("q4_k8_w8a8_matmul", "q4_k8", "w8a8", "w8a8_matmul.cu", "quant_matmul.py:242"),
+            ("q6_k8_w8a8_matmul", "q6_k8", "w8a8", "w8a8_matmul.cu", "quant_matmul.py:242")):
         krows = quant_rows[(kind, kernel)]
         pair, M = QUANT_TIMED[(kind, kernel)]
         timed = next(r for r in krows if r["pair"] == pair and r["M"] == M)
+        served = mesh_launches if kind in BYTE_KINDS else quant_launches
         entries.append(kernel_entry(name, src + source, ref + replaces,
-                                    quant_launches.get(name, 0), krows, timed))
+                                    served.get(name, 0), krows, timed))
     if any(e["launches"] <= 0 for e in entries):
         fail(f"a kernel of the path never launched: {entries}")
     print(json.dumps({"kernels": entries}), flush=True)

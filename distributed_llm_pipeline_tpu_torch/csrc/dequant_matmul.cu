@@ -1,17 +1,18 @@
-// Fused-dequant matmul of bf16 activations against a Q8_0, Q6_K or Q4_K pack,
-// for Hopper (sm_90a), plain C ABI.
+// Fused-dequant matmul of bf16 activations against a Q8_0, Q6_K, Q4_K or
+// Q5_K (byte-code) pack, for Hopper (sm_90a), plain C ABI.
 //
 // Replaces the TPU kernels `q8_0_matmul_pallas` (distributed_llm_pipeline_
-// tpu/ops/quant_matmul.py, `_q8_kernel`), `q6_k_matmul_pallas` and
-// `q4_k_matmul_pallas` (ops/kquant_matmul.py, `_q6k_kernel`, `_q4k_kernel`).
-// Same contract:
+// tpu/ops/quant_matmul.py, `_q8_kernel`), `q6_k_matmul_pallas`,
+// `q4_k_matmul_pallas` and `q5_k_matmul_pallas` (ops/kquant_matmul.py,
+// `_q6k_kernel`, `_q4k_kernel`, `_q5k_kernel`). Same contract:
 //   out [M, F] = x [M, D] @ W^T, W [F, D] = code * scale as the pack's
 //   decoder gives it (quant_tile.cuh), each weight value dequantized in the
 //   activation dtype -- the f32 product code * scale rounded once to bf16,
 //   as the TPU kernels dequantize in x.dtype -- and the products accumulated
-//   in f32. An affine pack (Q4_K: weight = code * scale - offset per 32
-//   rows) does not fold the offset into the staged weight, which would round
-//   code * scale - offset once more: as `_q4k_kernel`, it subtracts
+//   in f32. An affine pack (Q4_K, Q5_K: weight = code * scale - offset per
+//   32 rows) does not fold the offset into the staged weight, which would
+//   round code * scale - offset once more: as `_q4k_kernel` and
+//   `_q5k_kernel`, it subtracts
 //   bf16(sum of x over each 32 columns) * offset, accumulated in f32 with
 //   the rest. Output in f32 or bf16.
 //
@@ -28,7 +29,9 @@
 // then over 4 lanes), w' the two offsets of each output row, negated, and
 // both are zero in their other 14 columns. No TMA, no wgmma, one
 // shared-memory stage: a first kernel that is right; PERF.md has its
-// distance from the bound.
+// distance from the bound. A tensor-parallel row shard of a Q5_K weight has
+// a D that only 32 divides: the last k-tile then holds one sub-block and
+// zeros (x, codes and offsets past D load as 0).
 
 #include "quant_tile.cuh"
 
@@ -209,7 +212,7 @@ template <class Dec>
 int launch(const Dec& dec, const void* x, void* out, int out_bf16, int M, int D, int F,
            void* stream) {
   if (M < 1 || F < 1 || D < 16 || D % 16 || (M + BM - 1) / BM > 65535) return int(cudaErrorInvalidValue);
-  if (Dec::AFFINE && D % BK) return int(cudaErrorInvalidValue);  // k-tiles of whole sub-blocks
+  if (Dec::AFFINE && D % 32) return int(cudaErrorInvalidValue);  // k-tiles of whole sub-blocks
   const dim3 grid((F + BN - 1) / BN, (M + BM - 1) / BM);
   dequant_kernel<Dec><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       dec, static_cast<const __nv_bfloat16*>(x), out, out_bf16 != 0, M, D, F);
@@ -232,6 +235,14 @@ extern "C" int dlp_dequant_matmul_q4_k(const void* x, const void* qs, const void
                                        int F, void* stream) {
   const Q4K dec{static_cast<const int8_t*>(qs), static_cast<const __nv_bfloat16*>(a),
                 static_cast<const __nv_bfloat16*>(b), D};
+  return launch(dec, x, out, out_bf16, M, D, F, stream);
+}
+
+extern "C" int dlp_dequant_matmul_q5_k(const void* x, const void* q5, const void* a,
+                                       const void* b, void* out, int out_bf16, int M, int D,
+                                       int F, void* stream) {
+  const Q5K dec{{static_cast<const int8_t*>(q5), static_cast<const __nv_bfloat16*>(a), D},
+                static_cast<const __nv_bfloat16*>(b)};
   return launch(dec, x, out, out_bf16, M, D, F, stream);
 }
 

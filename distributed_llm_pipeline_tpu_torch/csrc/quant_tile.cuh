@@ -1,7 +1,8 @@
 // Weight decoders shared by the quantized matmul kernels (dequant_matmul.cu,
 // w8a8_matmul.cu): the Q8_0, int8, Q6_K, Q4_K, Q5_KS, Q2_KS and Q3_KS packs
-// of ops/quant_matmul.py and ops/kquant_matmul.py, laid out
-// out-features-major, [F, .].
+// and the byte-code Q4_K8, Q5_K and Q6_K8 packs of tp > 1 meshes, of
+// ops/quant_matmul.py and ops/kquant_matmul.py, laid out out-features-major,
+// [F, .].
 //
 // A decoder maps (output row f, logical contraction row d0, a multiple of 16)
 // to the 16 int8 codes of rows d0 .. d0+15, written to w[0..3] as four 32-bit
@@ -13,6 +14,10 @@
 // argument, so one kernel body serves every format.
 //
 //   Q8_0  qs int8 [F, D], scale bf16 [F, D/32]        (sub-block 32)
+//   Q6_K8 q6 int8 [F, D] in [-32, 31], s bf16 [F, D/16] (sub-block 16)
+//   Q4_K8 q4 int8 [F, D] in [0, 15], a, b bf16 [F, D/32] (sub-block 32)
+//   Q5_K  q5 int8 [F, D] in [0, 31], a, b bf16 [F, D/32] (sub-block 32)
+//         (the byte codes: one code per logical row, weight a * code - b)
 //   int8  qs int8 [F, D], gs f32 [F, D/g]             (sub-block 32; the scale
 //         of rows d is gs[f, d / g], g = 256, 128, 64 or 32)
 //   Q6_K  ql int8 [F, D/2], qh int8 [F, D/4], s bf16 [F, D/16]   (sub-block 16)
@@ -40,8 +45,11 @@
 
 namespace dlp_quant {
 
-struct Q8_0 {
-  static constexpr int SUB = 32;  // rows per scale
+// one int8 code per logical row [F, D] and one bf16 scale per SUB_ rows:
+// Q8_0 (32) and the Q6_K8 byte codes (16)
+template <int SUB_>
+struct ByteCodes {
+  static constexpr int SUB = SUB_;  // rows per scale
   static constexpr bool AFFINE = false;
   const int8_t* qs;
   const __nv_bfloat16* scale;
@@ -58,6 +66,23 @@ struct Q8_0 {
     return __bfloat162float(scale[size_t(f) * (D / SUB) + d0 / SUB]);
   }
 };
+
+using Q8_0 = ByteCodes<32>;
+using Q6K8 = ByteCodes<16>;
+
+// the affine byte codes, Q4_K8 and Q5_K: ByteCodes<32> with a bf16 offset
+// per 32 rows
+struct AffineBytes : ByteCodes<32> {
+  static constexpr bool AFFINE = true;
+  const __nv_bfloat16* b;
+
+  __device__ __forceinline__ float offset_at(int f, int d0) const {
+    return __bfloat162float(b[size_t(f) * (D / SUB) + d0 / SUB]);
+  }
+};
+
+using Q4K8 = AffineBytes;
+using Q5K = AffineBytes;
 
 struct Int8 {
   static constexpr int SUB = 32;

@@ -9,7 +9,10 @@
 // `q4_k_w8a8_matmul_pallas` / `q5_ks_w8a8_matmul_pallas` /
 // `q2_ks_w8a8_matmul_pallas` (`_q4k_w8a8_kernel`, `_q5ks_w8a8_kernel`,
 // `_q2ks_w8a8_kernel`) on the affine Q4_K, Q5_KS and Q2_KS packs, and
-// `q3_ks_w8a8_matmul_pallas` (`_q3ks_w8a8_kernel`) on Q3_KS packs. Same
+// `q3_ks_w8a8_matmul_pallas` (`_q3ks_w8a8_kernel`) on Q3_KS packs, and
+// `gw8a8_matmul_pallas` again on the byte-code Q4_K8, Q5_K (affine) and
+// Q6_K8 packs of tp > 1 meshes (ops/kquant_matmul.py, the `q4_k8`, `q5_k`
+// and `q6_k8` routes of `kquant_matmul`). Same
 // contract, with the activation quantization folded in:
 //   x [M, D] (f32 or bf16, M <= 32) is quantized per (row, group of `group`
 //   columns): xs = amax * f32(1/127) (the reference's amax / 127 as XLA
@@ -18,8 +21,8 @@
 //   bit for bit. Then out[m, f] = sum over groups g of
 //   xs[m, g] * sum over sub-blocks s of g of float(P[m, s, f]) * scale[f, s],
 //   where P is the exact int32 dot of xq and the weight codes over the
-//   sub-block's SUB rows (32 for Q8_0, int8, Q4_K and Q5_KS, 16 for Q6_K,
-//   Q2_KS and Q3_KS; int8's f32 scale is its group's, shared by the group's
+//   sub-block's SUB rows (32 for Q8_0, int8, Q4_K, Q5_KS, Q4_K8 and Q5_K,
+//   16 for Q6_K, Q2_KS, Q3_KS and Q6_K8; int8's f32 scale is its group's, shared by the group's
 //   sub-blocks). An affine pack (weight = code * scale - offset) subtracts
 //   sum over s of (float(S[m, s]) * xs[m, g(s)]) * offset[f, s], S the exact
 //   sum of xq over the sub-block. Output [M, F] in f32 or bf16.
@@ -249,5 +252,28 @@ extern "C" int dlp_w8a8_q3_ks(const void* x, const void* q3l, const void* q3h, c
                               int out_bf16, int M, int D, int F, int group, void* stream) {
   const Q3KS dec{static_cast<const int8_t*>(q3l), static_cast<const int8_t*>(q3h),
                  static_cast<const __nv_bfloat16*>(s), D};
+  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
+}
+
+extern "C" int dlp_w8a8_q4_k8(const void* x, const void* q4, const void* a, const void* b,
+                              void* out, int8_t* xq_out, float* xs_out, int x_bf16,
+                              int out_bf16, int M, int D, int F, int group, void* stream) {
+  const Q4K8 dec{{static_cast<const int8_t*>(q4), static_cast<const __nv_bfloat16*>(a), D},
+                 static_cast<const __nv_bfloat16*>(b)};
+  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
+}
+
+extern "C" int dlp_w8a8_q5_k(const void* x, const void* q5, const void* a, const void* b,
+                             void* out, int8_t* xq_out, float* xs_out, int x_bf16, int out_bf16,
+                             int M, int D, int F, int group, void* stream) {
+  const Q5K dec{{static_cast<const int8_t*>(q5), static_cast<const __nv_bfloat16*>(a), D},
+                static_cast<const __nv_bfloat16*>(b)};
+  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
+}
+
+extern "C" int dlp_w8a8_q6_k8(const void* x, const void* q6, const void* s, void* out,
+                              int8_t* xq_out, float* xs_out, int x_bf16, int out_bf16, int M,
+                              int D, int F, int group, void* stream) {
+  const Q6K8 dec{static_cast<const int8_t*>(q6), static_cast<const __nv_bfloat16*>(s), D};
   return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
 }

@@ -8,18 +8,23 @@ matrix in the GGUF's own (out, in) layout, so loading transposes nothing;
 fused Phi-3 QKV and gate/up tensors are split by rows. ``params_from_jax``
 maps the JAX package's parameter pytree (stacked layers, (in, out)
 matrices, quantized packs as dicts of stacked fields) onto the same state,
-so tests feed both packages one set of weights.
+so tests feed both packages one set of weights; ``shard_from_jax`` does
+the same for one rank of the JAX package's sharded mesh state.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
 
 from ..gguf import GGMLType, GGUFReader
-from ..ops.kquant_matmul import (Q2KSPack, Q3KSPack, Q4KPack, Q5KSPack, Q6KPack,
-                                 pack_q2_ks_from_gguf, pack_q3_ks_from_gguf,
-                                 pack_q4_k_from_gguf, pack_q5_ks_from_gguf,
+from ..ops.kquant_matmul import (Q2KSPack, Q3KSPack, Q4K8Pack, Q4KPack, Q5KPack,
+                                 Q5KSPack, Q6K8Pack, Q6KPack, pack_q2_ks_from_gguf,
+                                 pack_q3_ks_from_gguf, pack_q4_k8_from_gguf,
+                                 pack_q4_k_from_gguf, pack_q5_k_from_gguf,
+                                 pack_q5_ks_from_gguf, pack_q6_k8_from_gguf,
                                  pack_q6_k_from_gguf)
 from ..ops.quant_matmul import Int8Pack, Q8_0Pack, QuantPack, pack_q8_0_from_gguf
 from .config import ModelConfig
@@ -38,7 +43,8 @@ def _torch(a: np.ndarray) -> torch.Tensor:
 
 # a JAX pack is identified by its field names; its fields are [..., rows, F]
 _PACKS = {frozenset(cls.fields): cls for cls in (Q8_0Pack, Int8Pack, Q6KPack, Q4KPack,
-                                                  Q5KSPack, Q2KSPack, Q3KSPack)}
+                                                  Q5KSPack, Q2KSPack, Q3KSPack,
+                                                  Q4K8Pack, Q5KPack, Q6K8Pack)}
 
 
 def _pack_from_jax(fields: dict, device) -> QuantPack:
@@ -82,6 +88,29 @@ def params_from_jax(np_params: dict, dtype: torch.dtype | None = None,
     return out
 
 
+def shard_from_jax(sharded: dict, device, dtype: torch.dtype | None = None) -> Params:
+    """One rank's state out of the JAX package's ``shard_model_params``
+    output (global arrays over its mesh, layer stacks [pp, Lp, ...]): for
+    each array the shard that lives on ``device`` (that rank's device in
+    the JAX mesh), its stage axis dropped, as this package's state
+    (``params_from_jax``). Layers are numbered from 0 within the stage, as
+    ``parallel.pipeline.shard_model_params`` numbers them; an uneven
+    stage's zero padding is kept."""
+    def local(a) -> np.ndarray:
+        for shard in a.addressable_shards:
+            if shard.device == device:
+                return np.asarray(shard.data)
+        raise ValueError(f"no shard of the array on {device}")
+
+    def each(w, fn):
+        return {f: fn(a) for f, a in w.items()} if isinstance(w, dict) else fn(w)
+
+    out = {k: each(w, local) for k, w in sharded.items() if k != "layers"}
+    out["layers"] = {k: each(w, lambda a: local(a)[0])
+                     for k, w in sharded["layers"].items()}
+    return params_from_jax(out, dtype)
+
+
 def select_rope_factors(reader: GGUFReader, cfg: ModelConfig,
                         max_seq: int) -> ModelConfig:
     """Resolve Phi-3 longrope factor tensors into the config: serving
@@ -114,11 +143,15 @@ def select_rope_factors(reader: GGUFReader, cfg: ModelConfig,
 
 def load_params(reader: GGUFReader, cfg: ModelConfig,
                 dtype: torch.dtype = torch.bfloat16, device="cpu",
-                skip: frozenset[str] = frozenset()) -> Params:
+                skip: frozenset[str] = frozenset(),
+                keep: Callable[[str], bool] | None = None) -> Params:
     """Every tensor of a dense checkpoint, dequantized to ``dtype`` on
     ``device``, except the per-layer leaves named in ``skip`` (the stacks
-    ``native_quant_layers`` serves packed: never dequantized). BF16 tensors
-    loaded as bf16 copy their bytes as they are."""
+    ``native_quant_layers`` serves packed: never dequantized) and, with
+    ``keep``, what it refuses: it is asked with each top-level key and each
+    layer's prefix ``layers.{i}.`` (a mesh rank loads its own stage's
+    layers only). BF16 tensors loaded as bf16 copy their bytes as they
+    are."""
     have = reader.tensors.keys()
     if cfg.is_moe:
         raise NotImplementedError("MoE checkpoints are not ported yet")
@@ -172,14 +205,18 @@ def load_params(reader: GGUFReader, cfg: ModelConfig,
         names.update(w_gate="ffn_gate.weight", w_up="ffn_up.weight",
                      w_down="ffn_down.weight")
 
-    params: Params = {"embed": get("token_embd.weight"),
-                      "out_norm": get("output_norm.weight")}
-    if "output_norm.bias" in have:
-        params["out_norm_b"] = get("output_norm.bias")
-    if "output.weight" in have:
-        params["lm_head"] = get("output.weight")
+    keep = keep or (lambda key: True)
+    params: Params = {}
+    for key, name, required in (("embed", "token_embd.weight", True),
+                                ("out_norm", "output_norm.weight", True),
+                                ("out_norm_b", "output_norm.bias", False),
+                                ("lm_head", "output.weight", False)):
+        if keep(key) and (required or name in have):
+            params[key] = get(name)
     for i in range(cfg.n_layers):
         pre = f"layers.{i}."
+        if not keep(pre):
+            continue
         for leaf, n in names.items():
             if leaf not in skip:
                 params[pre + leaf] = get(f"blk.{i}.{n}")
@@ -212,14 +249,20 @@ _PROJ_TENSORS = {"wq": "attn_q.weight", "wk": "attn_k.weight",
 _KQUANTS = (GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K)
 
 
-def native_quant_layers(reader: GGUFReader, cfg: ModelConfig) -> dict[str, QuantPack]:
+def native_quant_layers(reader: GGUFReader, cfg: ModelConfig, *,
+                        byte_codes: bool = False,
+                        layers: range | None = None) -> dict[str, QuantPack]:
     """Packs for the projection stacks whose stored type is Q8_0, Q2_K, Q3_K,
     Q4_K, Q5_K or Q6_K (the sub-byte ``q2_ks``, ``q3_ks`` and ``q5_ks`` packs
     for Q2_K, Q3_K and Q5_K), built from the raw block bytes with no
     dequantize → requantize round trip (the reference's
-    ``native_quant_layers`` on one device). Returns
-    ``{"layers.{i}.{leaf}": pack}`` on the host; the caller loads the rest
-    dense with ``load_params(..., skip=...)``.
+    ``native_quant_layers``). Returns ``{"layers.{i}.{leaf}": pack}`` on the
+    host for the layers in ``layers`` (default all); the caller loads the
+    rest dense with ``load_params(..., skip=...)``.
+
+    ``byte_codes`` (tp > 1 meshes): Q4_K, Q5_K and Q6_K take the byte-code
+    packs ``q4_k8``, ``q5_k`` and ``q6_k8``, and Q2_K and Q3_K stacks, whose
+    bit planes have no byte form, load dense, as in the reference.
 
     A stack qualifies when every layer stores one type (mixed stacks load
     dense, as in the reference; so do fused Phi-3 tensors, which are split
@@ -230,6 +273,10 @@ def native_quant_layers(reader: GGUFReader, cfg: ModelConfig) -> dict[str, Quant
     packers = {GGMLType.Q8_0: pack_q8_0_from_gguf, GGMLType.Q2_K: pack_q2_ks_from_gguf,
                GGMLType.Q3_K: pack_q3_ks_from_gguf, GGMLType.Q4_K: pack_q4_k_from_gguf,
                GGMLType.Q5_K: pack_q5_ks_from_gguf, GGMLType.Q6_K: pack_q6_k_from_gguf}
+    if byte_codes:
+        packers = {GGMLType.Q8_0: pack_q8_0_from_gguf, GGMLType.Q4_K: pack_q4_k8_from_gguf,
+                   GGMLType.Q5_K: pack_q5_k_from_gguf, GGMLType.Q6_K: pack_q6_k8_from_gguf}
+    layers = range(cfg.n_layers) if layers is None else layers
     out: dict[str, QuantPack] = {}
     for leaf in QUANTIZABLE:
         tis = [reader.tensors.get(f"blk.{i}.{_PROJ_TENSORS[leaf]}")
@@ -243,9 +290,9 @@ def native_quant_layers(reader: GGUFReader, cfg: ModelConfig) -> dict[str, Quant
         packer = packers.get(t)
         if packer is None:
             continue
-        for i, ti in enumerate(tis):
+        for i in layers:
             out[f"layers.{i}.{leaf}"] = packer(
-                np.frombuffer(reader.tensor_data(ti.name), np.uint8), (D, F))
+                np.frombuffer(reader.tensor_data(tis[i].name), np.uint8), (D, F))
     return out
 
 

@@ -258,9 +258,10 @@ class Block(nn.Module):
                              self._parameters.get(name + "_b"), cfg.norm_eps)
         return rmsnorm(x, self._parameters[name], cfg.norm_eps, cfg.norm_offset)
 
-    def _proj(self, x: torch.Tensor, w: str, b: str | None = None) -> torch.Tensor:
+    def _proj(self, x: torch.Tensor, w: str, b: str | None = None,
+              out_dtype: torch.dtype | None = None) -> torch.Tensor:
         weight = self._modules[w] if w in self._modules else self._parameters[w]
-        y = proj(x, weight)
+        y = proj(x, weight, out_dtype)
         return y + self._parameters[b] if b and self.has(b) else y
 
     def qkv(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
@@ -281,25 +282,40 @@ class Block(nn.Module):
         return (apply_rope(q, cos, sin, cfg.rope_style),
                 apply_rope(k, cos, sin, cfg.rope_style), v)
 
-    def attn_out(self, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
-        """Output projection, optional post-norm, residual."""
+    def attn_out(self, x: torch.Tensor, attn: torch.Tensor,
+                 reduce=None) -> torch.Tensor:
+        """Output projection, optional post-norm, residual. ``reduce`` (a
+        tensor-parallel rank's all-reduce) sums the row-parallel partial
+        products, kept in f32, before the bias and the norm."""
         B, T = x.shape[:2]
-        out = self._proj(attn.reshape(B, T, -1), "wo", "bo")
+        if reduce is None:
+            out = self._proj(attn.reshape(B, T, -1), "wo")
+        else:
+            out = reduce(self._proj(attn.reshape(B, T, -1), "wo",
+                                    out_dtype=torch.float32)).to(x.dtype)
+        if self.has("bo"):
+            out = out + self.bo
         if self.has("post_attn_norm"):   # Gemma-2 sandwich norm
             out = rmsnorm(out, self.post_attn_norm, self.cfg.norm_eps,
                           self.cfg.norm_offset)
         return x + out
 
-    def ffn(self, x: torch.Tensor) -> torch.Tensor:
-        """The FFN half: norm, gated (or StarCoder2's ungated) MLP, residual."""
+    def ffn(self, x: torch.Tensor, reduce=None) -> torch.Tensor:
+        """The FFN half: norm, gated (or StarCoder2's ungated) MLP, residual;
+        ``reduce`` as in ``attn_out``, before the down-projection bias."""
         cfg = self.cfg
         h = self.norm(x, "ffn_norm") if self.has("ffn_norm") else x
+        od = None if reduce is None else torch.float32
         if self.has("w_gate"):
             g = _act(self._proj(h, "w_gate"), cfg.act).to(x.dtype)
-            f = self._proj(g * self._proj(h, "w_up"), "w_down")
+            f = self._proj(g * self._proj(h, "w_up"), "w_down", out_dtype=od)
         else:
-            f = self._proj(_act(self._proj(h, "w_up", "b_up"), cfg.act),
-                           "w_down", "b_down")
+            f = self._proj(_act(self._proj(h, "w_up", "b_up"), cfg.act), "w_down",
+                           out_dtype=od)
+        if reduce is not None:
+            f = reduce(f).to(x.dtype)
+        if self.has("b_down"):
+            f = f + self.b_down
         if self.has("post_ffn_norm"):
             f = rmsnorm(f, self.post_ffn_norm, cfg.norm_eps, cfg.norm_offset)
         return x + f
@@ -599,12 +615,17 @@ def check_quant(quant: str | None) -> None:
                          f"(supported: {', '.join(QUANT_MODES)})")
 
 
-def quantize_params(params: Params, cfg: ModelConfig, mode: str) -> Params:
+def quantize_params(params: Params, cfg: ModelConfig, mode: str, *,
+                    byte_codes: bool = False) -> Params:
     """Re-pack the projection weights and the head so they stay quantized on
-    the device (the reference's ``quantize_params`` on one device, where
-    K-quants take their sub-byte packs, not the byte codes of tp meshes).
-    Packing runs on the host; each pack lands on the device of the weight it
-    replaces. Norms and the embedding table stay dense.
+    the device (the reference's ``quantize_params``). Packing runs on the
+    host; each pack lands on the device of the weight it replaces. Norms and
+    the embedding table stay dense.
+
+    ``byte_codes`` (tp > 1 meshes, whose row shards split every field along
+    D): q4_k, q5_k and q6_k take the byte-code packs ``q4_k8``, ``q5_k`` and
+    ``q6_k8`` instead of the sub-byte ones, and q2_k and q3_k, whose bit
+    planes have no byte form, take ``q8_0``, as the reference falls back.
 
     - ``int8``: int8 codes per 256-row group, or the largest power-of-two
       group of 128, 64, 32 that divides D; Q8_0 where none does.
@@ -615,12 +636,14 @@ def quantize_params(params: Params, cfg: ModelConfig, mode: str) -> Params:
     - An untied head is packed; a tied head gets a packed copy of the
       embedding table (already [V, D], out-features-major) while the dense
       table keeps serving lookups."""
-    from ..ops.kquant_matmul import (pack_q2_ks, pack_q3_ks, pack_q4_k, pack_q5_ks,
-                                     pack_q6_k)
+    from ..ops import kquant_matmul as kq
     from ..ops.quant_matmul import _pow2_group, pack_int8
 
-    packers = {"q8_0": pack_q8_0, "q2_k": pack_q2_ks, "q3_k": pack_q3_ks,
-               "q4_k": pack_q4_k, "q5_k": pack_q5_ks, "q6_k": pack_q6_k}
+    packers = ({"q8_0": pack_q8_0, "q2_k": pack_q8_0, "q3_k": pack_q8_0,
+                "q4_k": kq.pack_q4_k8, "q5_k": kq.pack_q5_k, "q6_k": kq.pack_q6_k8}
+               if byte_codes else
+               {"q8_0": pack_q8_0, "q2_k": kq.pack_q2_ks, "q3_k": kq.pack_q3_ks,
+                "q4_k": kq.pack_q4_k, "q5_k": kq.pack_q5_ks, "q6_k": kq.pack_q6_k})
     if mode != "int8" and mode not in packers:
         raise ValueError(f"quantize_params: mode {mode!r} "
                          f"(int8, {', '.join(packers)})")
@@ -641,7 +664,7 @@ def quantize_params(params: Params, cfg: ModelConfig, mode: str) -> Params:
     head = params.get("lm_head")
     if head is not None and not isinstance(head, QuantPack):
         out["lm_head"] = pack_dense(head)
-    elif head is None and params["embed"].shape[1] % 32 == 0:
+    elif head is None and "embed" in params and params["embed"].shape[1] % 32 == 0:
         out["lm_head"] = pack_dense(params["embed"])
     return out
 

@@ -38,6 +38,18 @@ are exact:
                             rows 2t and 2t + 1 of band k; q = (low | hb << 2) − 4
         s   bf16 [F, D/16]  effective scale (ggml d · sc, sc signed)
 
+The byte-code packs of tp > 1 meshes (the reference's ``byte_codes``): one
+int8 code per logical row, so a tensor-parallel row shard splits every
+field like a dense weight (a nibble or bit plane pairs rows across D and
+cannot be split). The values are the same GGUF blocks':
+
+    Q4_K8 w = a · q − b, q ∈ [0, 15] per 32-row sub-block along D
+        q4  int8 [F, D];  a, b  bf16 [F, D/32]
+    Q5_K  w = a · q − b, q ∈ [0, 31] per 32-row sub-block along D
+        q5  int8 [F, D];  a, b  bf16 [F, D/32]
+    Q6_K8 w = s · q, q ∈ [-32, 31] per 16-row sub-block along D
+        q6  int8 [F, D];  s  bf16 [F, D/16]
+
 So band k (rows [k·D/4, (k+1)·D/4)) of Q6_K reads its low 4 bits from the low
 nibbles of ``ql``'s first half (k = 0), its second half (k = 1), or the high
 nibbles of those (k = 2, 3), and its top 2 bits from bits 2k of ``qh``; the
@@ -46,11 +58,13 @@ high nibble of the same byte.
 
 The packs go through the dispatch of ``ops/quant_matmul.py``. M ≤ 32 takes
 the W8A8 integer dots (``csrc/w8a8_matmul.cu``; the activation group must
-divide the band, so it is 256 where the band allows it, else 32); M > 32
-takes the fused dequant (``csrc/dequant_matmul.cu``) for Q6_K and Q4_K and,
-for the sub-byte packs, which have no fused kernel in the reference either,
-the dense weight and one dense product. Each kernel decodes the bit planes
-itself (``csrc/quant_tile.cuh``).
+divide the band, so it is 256 where the band allows it, else 32; a byte
+pack has no bands, its group is 256 where D allows it, else 32); M > 32
+takes the fused dequant (``csrc/dequant_matmul.cu``) for Q6_K, Q4_K and
+Q5_K (``q5_k_matmul``) and, for the sub-byte packs and the Q4_K8 and Q6_K8
+byte packs, which have no fused kernel in the reference either, the dense
+weight and one dense product. Each kernel decodes the bit planes itself
+(``csrc/quant_tile.cuh``).
 """
 
 from __future__ import annotations
@@ -60,7 +74,7 @@ import torch
 
 from ..gguf.quants import (_fp16_field, _k4_scale_min, _q3k_unpack_scales, quant_q2_k,
                            quant_q3_k, quant_q4_k, quant_q5_k, quant_q6_k)
-from .quant_matmul import GROUP, QuantPack, _bf16
+from .quant_matmul import GROUP, QuantPack, _bf16, dequant_matmul_plain
 
 SUB4 = 32   # Q4_K / Q5_K sub-block length along D
 SUB6 = 16   # Q2_K / Q3_K / Q6_K sub-block length along D
@@ -169,23 +183,69 @@ class Q5KSPack(_TwoBandPack):
         return q.to(torch.int8), self.a                              # [0, 31]
 
 
+class _BytePack(QuantPack):
+    """A byte-code pack: its first field holds one int8 code per logical row
+    [F, D], its second one scale per ``sub`` rows; an affine pack's third
+    field the offsets."""
+
+    def _dense_shape(self) -> tuple[int, int]:
+        return tuple(self._buffers[self.fields[0]].shape)
+
+    def _act_group(self) -> int:
+        # a tp row shard's D is only a multiple of 32
+        return GROUP if self.shape[1] % GROUP == 0 else SUB4
+
+    def codes_and_scales(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self._buffers[self.fields[0]], self._buffers[self.fields[1]]
+
+
+class Q4K8Pack(_BytePack):
+    kind = "q4_k8"
+    fields = ("q4", "a", "b")
+    sub = SUB4
+
+    def offsets(self) -> torch.Tensor:
+        return self.b
+
+
+class Q5KPack(_BytePack):
+    kind = "q5_k"
+    fields = ("q5", "a", "b")
+    sub = SUB4
+
+    def offsets(self) -> torch.Tensor:
+        return self.b
+
+
+class Q6K8Pack(_BytePack):
+    kind = "q6_k8"
+    fields = ("q6", "s")
+    sub = SUB6
+
+
 def _host_f32(w: torch.Tensor | np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(torch.as_tensor(w).detach().to("cpu", torch.float32).numpy())
+
+
+def _encode(w: torch.Tensor | np.ndarray, quant) -> tuple[np.ndarray, tuple[int, int]]:
+    """A dense weight ``w [F, D]`` through a GGUF encoder on the host: its
+    raw blocks and (D, F), as the ``*_from_gguf`` packers take them."""
+    wn = _host_f32(w)
+    Fo, D = wn.shape
+    return np.frombuffer(quant(wn.reshape(-1)), np.uint8), (D, Fo)
 
 
 def pack_q6_k(w: torch.Tensor | np.ndarray) -> Q6KPack:
     """Quantize a dense weight ``w [F, D]`` to Q6_K along D, on the host:
     the GGUF encoder's blocks, then ``pack_q6_k_from_gguf``."""
-    wn = _host_f32(w)
-    Fo, D = wn.shape
-    raw = np.frombuffer(quant_q6_k(wn.reshape(-1)), np.uint8)
-    return pack_q6_k_from_gguf(raw, (D, Fo))
+    return pack_q6_k_from_gguf(*_encode(w, quant_q6_k))
 
 
-def pack_q6_k_from_gguf(raw, shape: tuple[int, int]) -> Q6KPack:
-    """A pack straight from raw GGUF Q6_K super-blocks (210 B per 256
-    values) laid row-major over the (F, D) disk layout. ``shape`` is (D, F),
-    as the reference takes it."""
+def _q6_k_codes(raw, shape: tuple[int, int]) -> tuple[np.ndarray, np.ndarray]:
+    """The codes of raw GGUF Q6_K super-blocks (210 B per 256 values) laid
+    row-major over the (F, D) disk layout, one byte per logical row: uint8
+    [F, D] in [0, 63] (the code + 32), and the effective scales ggml d · sc
+    as f32 [F, D/16]. ``shape`` is (D, F)."""
     D, Fo = shape
     if D % 256:
         raise ValueError(f"Q6_K needs D % 256 == 0, got {D}")
@@ -199,8 +259,16 @@ def pack_q6_k_from_gguf(raw, shape: tuple[int, int]) -> Q6KPack:
     q2 = (l_hi & 0x0F) | (((qh >> 2) & 3) << 4)
     q3 = (l_lo >> 4) | (((qh >> 4) & 3) << 4)
     q4 = (l_hi >> 4) | (((qh >> 6) & 3) << 4)
-    qb = np.concatenate([q1, q2, q3, q4], axis=2).reshape(Fo, D)   # [0, 63]
-    s = (d * scales).reshape(Fo, D // SUB6)
+    qb = np.concatenate([q1, q2, q3, q4], axis=2).reshape(Fo, D)
+    return qb, (d * scales).reshape(Fo, D // SUB6)
+
+
+def pack_q6_k_from_gguf(raw, shape: tuple[int, int]) -> Q6KPack:
+    """A pack straight from raw GGUF Q6_K super-blocks (210 B per 256
+    values) laid row-major over the (F, D) disk layout. ``shape`` is (D, F),
+    as the reference takes it."""
+    D, Fo = shape
+    qb, s = _q6_k_codes(raw, shape)
     lo4 = qb & 0x0F
     ql_packed = (lo4[:, : D // 2] | (lo4[:, D // 2:] << 4)).astype(np.uint8)
     hi2 = (qb >> 4).reshape(Fo, 4, D // 4)
@@ -236,10 +304,7 @@ def _nibble_pair(q: np.ndarray) -> torch.Tensor:
 def pack_q4_k(w: torch.Tensor | np.ndarray) -> Q4KPack:
     """Quantize a dense weight ``w [F, D]`` to Q4_K along D, on the host:
     the GGUF encoder's blocks, then ``pack_q4_k_from_gguf``."""
-    wn = _host_f32(w)
-    Fo, D = wn.shape
-    raw = np.frombuffer(quant_q4_k(wn.reshape(-1)), np.uint8)
-    return pack_q4_k_from_gguf(raw, (D, Fo))
+    return pack_q4_k_from_gguf(*_encode(w, quant_q4_k))
 
 
 def pack_q4_k_from_gguf(raw, shape: tuple[int, int]) -> Q4KPack:
@@ -271,10 +336,7 @@ def _q5_k_codes(blk: np.ndarray, Fo: int, D: int) -> np.ndarray:
 def pack_q5_ks(w: torch.Tensor | np.ndarray) -> Q5KSPack:
     """Quantize a dense weight ``w [F, D]`` to Q5_K along D, on the host:
     the GGUF encoder's blocks, then ``pack_q5_ks_from_gguf``."""
-    wn = _host_f32(w)
-    Fo, D = wn.shape
-    raw = np.frombuffer(quant_q5_k(wn.reshape(-1)), np.uint8)
-    return pack_q5_ks_from_gguf(raw, (D, Fo))
+    return pack_q5_ks_from_gguf(*_encode(w, quant_q5_k))
 
 
 def pack_q5_ks_from_gguf(raw, shape: tuple[int, int]) -> Q5KSPack:
@@ -304,10 +366,7 @@ def _four_bands(q: np.ndarray) -> np.ndarray:
 def pack_q2_ks(w: torch.Tensor | np.ndarray) -> Q2KSPack:
     """Quantize a dense weight ``w [F, D]`` to Q2_K along D, on the host:
     the GGUF encoder's blocks, then ``pack_q2_ks_from_gguf``."""
-    wn = _host_f32(w)
-    Fo, D = wn.shape
-    raw = np.frombuffer(quant_q2_k(wn.reshape(-1)), np.uint8)
-    return pack_q2_ks_from_gguf(raw, (D, Fo))
+    return pack_q2_ks_from_gguf(*_encode(w, quant_q2_k))
 
 
 def pack_q2_ks_from_gguf(raw, shape: tuple[int, int]) -> Q2KSPack:
@@ -334,10 +393,7 @@ def pack_q2_ks_from_gguf(raw, shape: tuple[int, int]) -> Q2KSPack:
 def pack_q3_ks(w: torch.Tensor | np.ndarray) -> Q3KSPack:
     """Quantize a dense weight ``w [F, D]`` to Q3_K along D, on the host:
     the GGUF encoder's blocks, then ``pack_q3_ks_from_gguf``."""
-    wn = _host_f32(w)
-    Fo, D = wn.shape
-    raw = np.frombuffer(quant_q3_k(wn.reshape(-1)), np.uint8)
-    return pack_q3_ks_from_gguf(raw, (D, Fo))
+    return pack_q3_ks_from_gguf(*_encode(w, quant_q3_k))
 
 
 def pack_q3_ks_from_gguf(raw, shape: tuple[int, int]) -> Q3KSPack:
@@ -367,3 +423,69 @@ def pack_q3_ks_from_gguf(raw, shape: tuple[int, int]) -> Q3KSPack:
         q3h |= (hb[:, k] << (2 * k + sh2)).sum(axis=2, dtype=np.uint8)
     return Q3KSPack(q3l=torch.from_numpy(_four_bands(qu).view(np.int8)),
                     q3h=torch.from_numpy(q3h.view(np.int8)), s=_bf16(s))
+
+
+# --------------------------------------------------------------------------
+# the byte-code packs of tp > 1 meshes
+
+
+def pack_q4_k8_from_gguf(raw, shape: tuple[int, int]) -> Q4K8Pack:
+    """The byte-code pack straight from raw GGUF Q4_K super-blocks laid
+    row-major over the (F, D) disk layout: the 4-bit codes one byte per
+    logical row, a and b per 32 rows. ``shape`` is (D, F)."""
+    D, Fo = shape
+    blk, a, b = _k_blocks(raw, shape, 144, "Q4_K")
+    qs = blk[:, 16:144].reshape(-1, 4, 32)
+    q = np.stack([qs & 0x0F, qs >> 4], axis=2).reshape(Fo, D)
+    return Q4K8Pack(q4=torch.from_numpy(q.astype(np.int8)), a=_bf16(a), b=_bf16(b))
+
+
+def pack_q4_k8(w: torch.Tensor | np.ndarray) -> Q4K8Pack:
+    """Quantize a dense weight ``w [F, D]`` to Q4_K along D, on the host,
+    into the byte-code pack."""
+    return pack_q4_k8_from_gguf(*_encode(w, quant_q4_k))
+
+
+def pack_q5_k_from_gguf(raw, shape: tuple[int, int]) -> Q5KPack:
+    """The byte-code pack straight from raw GGUF Q5_K super-blocks laid
+    row-major over the (F, D) disk layout: the 5-bit codes one byte per
+    logical row, a and b per 32 rows. ``shape`` is (D, F)."""
+    D, Fo = shape
+    blk, a, b = _k_blocks(raw, shape, 176, "Q5_K")
+    q = _q5_k_codes(blk, Fo, D)
+    return Q5KPack(q5=torch.from_numpy(q.view(np.int8)), a=_bf16(a), b=_bf16(b))
+
+
+def pack_q5_k(w: torch.Tensor | np.ndarray) -> Q5KPack:
+    """Quantize a dense weight ``w [F, D]`` to Q5_K along D, on the host,
+    into the byte-code pack."""
+    return pack_q5_k_from_gguf(*_encode(w, quant_q5_k))
+
+
+def pack_q6_k8_from_gguf(raw, shape: tuple[int, int]) -> Q6K8Pack:
+    """The byte-code pack straight from raw GGUF Q6_K super-blocks laid
+    row-major over the (F, D) disk layout: the 6-bit codes one signed byte
+    per logical row, s per 16 rows. ``shape`` is (D, F)."""
+    qb, s = _q6_k_codes(raw, shape)
+    q = (qb.astype(np.int16) - 32).astype(np.int8)
+    return Q6K8Pack(q6=torch.from_numpy(q), s=_bf16(s))
+
+
+def pack_q6_k8(w: torch.Tensor | np.ndarray) -> Q6K8Pack:
+    """Quantize a dense weight ``w [F, D]`` to Q6_K along D, on the host,
+    into the byte-code pack."""
+    return pack_q6_k8_from_gguf(*_encode(w, quant_q6_k))
+
+
+def q5_k_matmul_plain(x: torch.Tensor, pack: Q5KPack,
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The ``q5_k_matmul`` kernel's function (the reference's
+    ``_q5k_kernel``), in plain PyTorch on any device: x [M, D] against a
+    Q5_K byte-code pack, each weight ``a · q`` dequantized in x's dtype
+    (one rounding), the product accumulated in f32, less ``bf16(Σ_32 x) @
+    bᵀ`` with the block sums taken in f32 → [M, F] in ``out_dtype``
+    (default x's). On the card ``ops.quant_matmul.dequant_matmul`` launches
+    the kernel (``csrc/dequant_matmul.cu``)."""
+    if pack.kind != "q5_k":
+        raise ValueError(f"q5_k_matmul_plain: pack kind {pack.kind!r} (q5_k only)")
+    return dequant_matmul_plain(x, pack, out_dtype)

@@ -37,7 +37,8 @@ kernel above with the int8 decoder (sub-block 32, the f32 group scale);
 larger M one quantize launch and an int8 tensor-core GEMM
 (``csrc/int8_matmul.cu``).
 
-Affine packs (Q4_K, Q5_KS: ``w = a · q − b``, ``QuantPack.offsets``) add the
+Affine packs (Q4_K, Q5_KS, Q2_KS and the byte-code Q4_K8 and Q5_K: ``w = a ·
+q − b``, ``QuantPack.offsets``) add the
 offset term to both: ``− Σ_s (S[m, s] · xs[m, g(s)]) · b[f, s]`` with S the
 exact integer sum of the quantized activations over each sub-block (W8A8),
 and ``− bf16(Σ_sub x) @ bᵀ`` with the block sums taken in f32 (fused
@@ -71,7 +72,9 @@ INT8_W8A8_MAX_M = 4
 launches = {"q8_0_matmul": 0, "gw8a8_matmul": 0, "int8_matmul": 0,
             "q6_k_matmul": 0, "q6_k_w8a8_matmul": 0,
             "q4_k_matmul": 0, "q4_k_w8a8_matmul": 0, "q5_ks_w8a8_matmul": 0,
-            "q2_ks_w8a8_matmul": 0, "q3_ks_w8a8_matmul": 0}
+            "q2_ks_w8a8_matmul": 0, "q3_ks_w8a8_matmul": 0,
+            "q5_k_matmul": 0, "q4_k8_w8a8_matmul": 0, "q5_k_w8a8_matmul": 0,
+            "q6_k8_w8a8_matmul": 0}
 
 # the launch counter of each pack kind's kernel (above, at or below
 # W8A8_MAX_M): None where the kind has no fused-dequant kernel (M > W8A8_MAX_M
@@ -82,7 +85,12 @@ _NAMES = {"q8_0": ("q8_0_matmul", "gw8a8_matmul"),
           "q4_k": ("q4_k_matmul", "q4_k_w8a8_matmul"),
           "q5_ks": (None, "q5_ks_w8a8_matmul"),
           "q2_ks": (None, "q2_ks_w8a8_matmul"),
-          "q3_ks": (None, "q3_ks_w8a8_matmul")}
+          "q3_ks": (None, "q3_ks_w8a8_matmul"),
+          # the byte-code packs of tp > 1 meshes; their W8A8 forms are the
+          # reference's gw8a8_matmul over byte codes
+          "q4_k8": (None, "q4_k8_w8a8_matmul"),
+          "q5_k": ("q5_k_matmul", "q5_k_w8a8_matmul"),
+          "q6_k8": (None, "q6_k8_w8a8_matmul")}
 
 
 def route(kind: str, M: int) -> str | None:
@@ -341,7 +349,7 @@ def int8_matmul_plain(x: torch.Tensor, pack: Int8Pack,
 def dequant_matmul_plain(x: torch.Tensor, pack: QuantPack,
                          out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The fused-dequant kernels' function (``q8_0_matmul``,
-    ``q6_k_matmul``, ``q4_k_matmul``): the weight dequantized in x's dtype
+    ``q6_k_matmul``, ``q4_k_matmul``, ``q5_k_matmul``): the weight dequantized in x's dtype
     (``code · scale`` rounded once, as the kernels round each tile), then
     ``x [M, D] @ wᵀ`` with f32 accumulation → [M, F] in ``out_dtype``
     (default x's). An affine pack's offsets are not folded into the weight:
@@ -364,7 +372,7 @@ def dequant_matmul_plain(x: torch.Tensor, pack: QuantPack,
 def dequant_linear(x: torch.Tensor, pack: QuantPack,
                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """M > ``W8A8_MAX_M`` for a pack kind without a fused-dequant kernel
-    (Q5_KS): the dense weight in x's dtype (``pack.dequant``), then one
+    (Q5_KS, Q2_KS, Q3_KS, Q4_K8, Q6_K8): the dense weight in x's dtype (``pack.dequant``), then one
     dense product, as the reference's einsum over ``dequant_pack``. A plain
     large product outside any kernel, on every device."""
     return proj(x, pack.dequant(x.dtype), out_dtype)
@@ -478,8 +486,8 @@ def w8a8_matmul(x: torch.Tensor, pack: QuantPack, out_dtype: torch.dtype,
 
 def dequant_matmul(x: torch.Tensor, pack: QuantPack,
                    out_dtype: torch.dtype) -> torch.Tensor:
-    """The fused-dequant CUDA kernel: bf16 x [M, D] against a Q8_0, Q6_K or
-    Q4_K pack, each weight tile dequantized to bf16 in shared memory and
+    """The fused-dequant CUDA kernel: bf16 x [M, D] against a Q8_0, Q6_K,
+    Q4_K or Q5_K (byte-code) pack, each weight tile dequantized to bf16 in shared memory and
     multiplied on the tensor cores with f32 accumulation (an affine pack's
     offset term too) → [M, F] in ``out_dtype``."""
     what = "dequant_matmul"

@@ -316,6 +316,15 @@ class Engine:
                                   kv_quant=self.kv_quant, kv_mode=self.kv_mode,
                                   latent_rank=self.kv_latent_rank)
 
+    def slot_backend(self, n_slots: int, max_seq: int, *, block_size: int | None = None,
+                     n_blocks: int | None = None):
+        """The :class:`SlotScheduler`'s row store for this engine: slots over
+        one paged block pool (``runtime.paged.PagedSlotBackend``)."""
+        from .paged import PagedSlotBackend
+
+        return PagedSlotBackend(self, n_slots, max_seq, block_size=block_size,
+                                n_blocks=n_blocks)
+
     def resolve_fused_decode(self, block_size: int, n_slots: int) -> bool:
         """Whether paged decode steps of ``n_slots`` rows run the fused
         decode-step kernel (``ops/fused_decode.py``). Opt-in by
@@ -357,7 +366,7 @@ class Engine:
         ``cache.length`` to the true end masks it, and decode overwrites it
         in order."""
         n, start = len(ids), cache.length
-        padded = torch.zeros((1, _bucket(n, self.max_seq - start)), dtype=torch.long)
+        padded = torch.zeros((1, _bucket(n, self.max_prompt - start)), dtype=torch.long)
         padded[0, :n] = torch.tensor(ids, dtype=torch.long)
         logits = self.model.forward_last(padded.to(self.device), cache, n - 1)
         cache.length = start + n
@@ -416,8 +425,8 @@ class Engine:
         ids = check_token_ids(list(prompt), self.cfg.vocab_size) \
             if isinstance(prompt, (list, tuple)) else self.tokenizer.encode(prompt)
         n_prompt = len(ids)
-        if n_prompt >= self.max_seq:
-            ids = ids[-(self.max_seq - 1):]
+        if n_prompt >= self.max_prompt:
+            ids = ids[-(self.max_prompt - 1):]
             yield log(f"prompt truncated to last {len(ids)} tokens (ctx {self.max_seq})")
         budget = max(0, min(gen.max_new_tokens, self.max_seq - len(ids)))
         yield log(f"prompt: {n_prompt} tokens; generating up to {budget} "

@@ -24,10 +24,16 @@ Each row has its own sampling parameters and its own generator, so a
 seeded request's tokens do not depend on its co-tenants. Free rows compute
 junk that is discarded; their writes are parked at ``max_seq``.
 
+The engine builds the backend that holds the rows (``Engine.slot_backend``):
+over a :class:`ShardedEngine` (``--mesh``) they are dense pipeline-cache
+rows on every rank instead (``parallel.engine.MeshSlotBackend``): a mixed
+step is one pipeline chunk wide, and a row keeps its own retained prefix in
+place.
+
 Not ported yet (the reference has them): preemption and the swap store, the
 disaggregation handoff, the watchdog, poison/quarantine, load shedding,
 tenants and quotas, slot save/restore, constrained rows, logprobs and logit
-bias, metrics and tracing, the dense and mesh slot backends.
+bias, metrics and tracing, the single-device dense slot backend.
 
 The worker thread owns every device buffer and all slot state; it runs
 under ``torch.inference_mode()`` and on the engine's device, both of which
@@ -53,7 +59,7 @@ from ..tokenizer import StreamDecoder
 from ..utils import Event, done, log, token
 from .engine import (Engine, GenerationConfig, StopMatcher, _bucket,
                      check_token_ids)
-from .paged import PagedSlotBackend, PoolExhausted, upload
+from .paged import PoolExhausted, upload
 
 RECENT_W = 64    # repeat-penalty window capacity per slot (llama.cpp default)
 MIN_PREFIX = 16  # shortest reusable per-slot KV prefix
@@ -186,7 +192,8 @@ def _sample_chain(lg: torch.Tensor, recent: torch.Tensor,
 
 
 class SlotScheduler:
-    """N parallel decode slots over one single-device :class:`Engine`.
+    """N parallel decode slots over one single-device :class:`Engine` (a
+    paged pool) or a :class:`ShardedEngine` (dense rows on every rank).
 
     ``generate(prompt, gen)`` has the event contract of ``Engine.generate``
     and is safe to call from many threads at once: each concurrent request
@@ -214,9 +221,9 @@ class SlotScheduler:
         self.kv_quant = engine.kv_quant
         self.kv_mode = engine.kv_mode
         self.kv_latent_rank = engine.kv_latent_rank
-        self._backend = PagedSlotBackend(engine, self.n_slots, self.max_seq,
-                                         block_size=kv_block,
-                                         n_blocks=kv_pool_blocks)
+        self._backend = engine.slot_backend(self.n_slots, self.max_seq,
+                                            block_size=kv_block,
+                                            n_blocks=kv_pool_blocks)
         self.fused_decode = self._backend.fused
         # the chunk width is also the mixed step's fixed lane count, and the
         # finishing sub-chunk reuses the pow2 prompt buckets
@@ -225,6 +232,7 @@ class SlotScheduler:
         if pc < 16 or pc & (pc - 1):
             raise ValueError(f"prefill_chunk must be a power of two >= 16, "
                              f"got {pc}")
+        pc = min(pc, getattr(self._backend, "max_mixed_width", pc))
         self.prefill_chunk = min(pc, self.max_seq)
         if prefill_chunked is None:
             prefill_chunked = os.environ.get("DLP_PREFILL_CHUNKED", "1") != "0"

@@ -13,9 +13,14 @@ turn through an asyncio lock, writing SSE keep-alives while they wait. With
 ``--parallel N`` (llama-server's ``-np``) they stream from a
 :class:`SlotScheduler` with N slots, decoding together in one batched step.
 
+With ``--mesh PPxTP`` (e.g. ``2x2``) the model is served by a
+:class:`ShardedEngine`: pp pipeline stages of tp tensor-parallel ranks, one
+process per rank; this process is rank 0 and starts the others. ``/chat``
+streams from rank 0, one stream or ``--parallel N`` slots.
+
 Run: ``python -m distributed_llm_pipeline_tpu_torch.serving.server --model
-m.gguf [--parallel N] [--quant MODE] [--kv-quant q8_0] [--cpu]`` (port
-3005 by default). Without ``--cpu`` it needs a CUDA device. ``--quant``
+m.gguf [--parallel N] [--quant MODE] [--kv-quant q8_0] [--mesh PPxTP] [--cpu]``
+(port 3005 by default). Without ``--cpu`` it needs a CUDA device. ``--quant``
 takes the reference's choices: int8, q8_0, q2_k, q3_k, q4_k, q5_k, q6_k or
 native; ``--kv-quant q8_0`` keeps the KV cache in int8. As in the reference,
 ``DLP_FUSED_DECODE=1`` runs the slots' decode steps through the fused
@@ -181,24 +186,41 @@ def build_argparser():
     ap.add_argument("--kv-quant", default=None, choices=["q8_0"],
                     help="int8 KV cache and slot pools (llama.cpp -ctk/-ctv "
                          "q8_0)")
+    ap.add_argument("--mesh", default=None,
+                    help="stages x chips, e.g. 2x1 (pp x tp ranks, one process "
+                         "each)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA device)")
     return ap
 
 
+def build_engine(args) -> Engine:
+    """The engine the parsed arguments ask for: a ShardedEngine with
+    ``--mesh``, else the single-device Engine."""
+    kw = dict(max_seq=args.ctx_size, device="cpu" if args.cpu else None,
+              quant=args.quant, kv_quant=args.kv_quant)
+    if args.mesh:
+        from ..parallel import MeshSpec, ShardedEngine
+
+        return ShardedEngine(args.model, mesh_spec=MeshSpec.parse(args.mesh), **kw)
+    return Engine(args.model, **kw)
+
+
 def main(argv: list[str] | None = None) -> None:
     args = build_argparser().parse_args(argv)
     try:
-        engine = Engine(args.model, max_seq=args.ctx_size,
-                        device="cpu" if args.cpu else None, quant=args.quant,
-                        kv_quant=args.kv_quant)
+        engine = build_engine(args)
     except (NotImplementedError, ValueError) as e:   # an unserved mode or model
         print(f"error: {e}", file=sys.stderr)
         raise SystemExit(2) from None
-    server = ChatServer(engine, GenerationConfig(max_new_tokens=args.n_predict),
-                        parallel=args.parallel)
-    print(f"chat server listening on http://{args.host}:{args.port}", flush=True)
-    web.run_app(server.app, host=args.host, port=args.port, print=None)
+    try:
+        server = ChatServer(engine, GenerationConfig(max_new_tokens=args.n_predict),
+                            parallel=args.parallel)
+        print(f"chat server listening on http://{args.host}:{args.port}", flush=True)
+        web.run_app(server.app, host=args.host, port=args.port, print=None)
+    finally:
+        if args.mesh:
+            engine.close()
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither jax nor anything of the JAX
-package (distributed_llm_pipeline_tpu), and neither does chip_smoke.py."""
+package (distributed_llm_pipeline_tpu), and neither do chip_smoke.py,
+scripts/mesh_pack_time.py, nor the mesh's spawned follower processes."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -48,7 +50,8 @@ def test_every_port_module_imports_with_jax_blocked():
     assert int(res.stdout.strip().splitlines()[-1]) >= 20
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "mesh_pack_time.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -59,3 +62,52 @@ def test_no_jax_import_in_source(path):
         else:
             continue
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+_SITE_BLOCK = r"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {forbidden!r}:
+            raise ImportError(f"blocked import of {{name}}")
+        return None
+
+sys.meta_path.insert(0, Block())
+"""
+
+_MESH_RUN = r"""
+import sys, torch
+from pathlib import Path
+sys.path.insert(0, {root!r})
+import chip_smoke
+from distributed_llm_pipeline_tpu_torch.models import ModelConfig
+from distributed_llm_pipeline_tpu_torch.parallel import MeshSpec, ShardedEngine
+from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig
+
+cfg = ModelConfig(vocab_size=320, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                  head_dim=16, hidden_dim=128, max_seq_len=64)
+path = Path({tmp!r}) / "m.gguf"
+chip_smoke.write_model(path, cfg, 0, device="cpu")
+engine = ShardedEngine(path, mesh_spec=MeshSpec.parse("1x2"), device="cpu")
+try:
+    done = list(engine.generate([5, 6, 7], GenerationConfig(max_new_tokens=2)))[-1]
+    assert done.data["n_gen"] == 2, done
+finally:
+    engine.close()
+leaked = [m for m in sys.modules if m.split(".")[0] in {forbidden!r}]
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_spawned_follower_ranks_import_no_jax(tmp_path):
+    """A mesh's follower ranks are spawned interpreters: a sitecustomize on
+    their path blocks jax and the JAX package in every one of them, and the
+    mesh still starts and serves."""
+    (tmp_path / "sitecustomize.py").write_text(_SITE_BLOCK.format(forbidden=FORBIDDEN))
+    code = _MESH_RUN.format(root=str(ROOT), tmp=str(tmp_path), forbidden=FORBIDDEN)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(tmp_path), str(ROOT)])}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=tmp_path, timeout=300, env=env)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
