@@ -217,6 +217,27 @@ def event_ms(fn, reps: int, flush: torch.Tensor | None) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def split_kernel_us(fn, reps: int, flush: torch.Tensor) -> dict[str, float]:
+    """Device µs per call of each split-KV kernel ``fn`` launches (the split
+    kernel and, where it runs, the merge), from torch.profiler over ``reps``
+    calls with the L2 flushed before each (the flush is not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "dlp_paged" in e.name:
+            name = "split_kernel" if "split_kernel" in e.name else "combine_kernel"
+            us[name] = us.get(name, 0.0) + e.time_range.elapsed_us() / reps
+    return us
+
+
 def host_us(fn, reps: int = 200) -> float:
     """Mean host time to enqueue one call (the card runs behind)."""
     fn()
@@ -368,7 +389,12 @@ PAGED_CASES = [
          Hd=256, bs=32, max_seq=5120, window=4096, softcap=50.0,
          scale=256 ** -0.5),
     dict(name="block_size_16", B=4, T=1, lengths=[1000, 37, 1500, 2047], bs=16),
+    # one long row: the step split-KV serves most (one stream's decode)
+    dict(name="decode_single_long", B=1, T=1, lengths=[2047]),
 ]
+# the timed decode cases each launch at least one block per SM
+SPLIT_DECODE_CASES = ("decode_per_row", "decode_single_long", "r128_decode",
+                      "r128_decode_single_long")
 
 
 def paged_geometry(c: dict) -> dict:
@@ -404,41 +430,60 @@ def paged_inputs(g: dict, gen: torch.Generator) -> dict:
 
 def paged_bound(g: dict, tables: torch.Tensor) -> tuple[float, str]:
     """Least time for the work these inputs need: Q and O once, and once
-    each physical block that some row's mask reaches; 4·Hd operations per
-    head per visible (query, column) pair."""
+    each physical K/V column (with its scales) that some row's mask
+    reaches, so the columns of a shared prefix count once; 4·Hd operations
+    per head per visible (query, column) pair."""
     B, T, H, K, Hd, bs, NT = (g[k] for k in ("B", "T", "H", "K", "Hd", "bs", "NT"))
     window, S = g["window"], NT * bs
-    blk_bytes = bs * 2 * K * Hd * (1 if g["quant"] else 2) \
-        + (bs * 2 * K * 4 if g["quant"] else 0)
+    col_bytes = 2 * K * Hd * (1 if g["quant"] else 2) + (2 * K * 4 if g["quant"] else 0)
     tbl = tables.tolist()
-    blocks, flops = set(), 0
+    cols, flops = set(), 0
     for b, cl in enumerate(g["lengths"]):
         lo = max(0, cl - window + 1) if window else 0
-        hi = min(S, cl + T)
-        blocks.update(tbl[b][j] for j in range(lo // bs, -(-hi // bs)))
+        cols.update(tbl[b][c // bs] * bs + c % bs for c in range(lo, min(S, cl + T)))
         for t in range(T):
             pos = cl + t
             first = max(0, pos - window + 1) if window else 0
             flops += 4 * H * Hd * (min(pos, S - 1) - first + 1)
-    n_bytes = 2 * B * T * H * Hd * 2 + len(blocks) * blk_bytes
+    n_bytes = 2 * B * T * H * Hd * 2 + len(cols) * col_bytes
     t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, flops / BF16_FLOP_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# P.V keeps P in f32 as two bf16 terms (hi + lo): against the plain version
+# computed in f32 from the same bf16 inputs, the share of outputs more than
+# half a bf16 ulp off read 0.0005-0.0023 over phase 3's bf16 cases; a build
+# with the lo term dropped (P rounded to bf16) read 0.150-0.383 (PERF.md)
+PV_HALF_ULP_TOL = 0.02
+
+
+def half_ulp_share(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Share of ``got``'s values more than half a bf16 ulp from the f32
+    ``ref``: 0 where ``got`` is ``ref`` rounded to bf16."""
+    _, e = torch.frexp(ref)
+    ulp = torch.exp2((e - 8).float())
+    return ((got.float() - ref).abs() > 0.5 * ulp).float().mean().item()
+
+
 def check_paged(pa, kv_quantize, seed: int, flush: torch.Tensor) -> list[dict]:
     return check_paged_cases(pa.paged_flash_attention, pa.paged_attention_plain,
-                             "paged_flash_attention", PAGED_CASES, pa,
-                             kv_quantize, seed, flush)
+                             "paged_flash_attention", "paged_attention",
+                             PAGED_CASES, pa, kv_quantize, seed, flush)
 
 
-def check_paged_cases(kernel, plain, kname: str, cases: list[dict], pa,
+def check_paged_cases(kernel, plain, kname: str, lib: str, cases: list[dict], pa,
                       kv_quantize, seed: int, flush: torch.Tensor) -> list[dict]:
     """Attention over pools through block tables, kernel against plain
     version, one JSON line per case (the paged kernel, and the latent kernel
-    over [N, bs, 1, r] pools with every head reading them)."""
+    over [N, bs, 1, r] pools with every head reading them), with the launch's
+    split plan (from library ``lib``'s tiling) and grid. A second launch on
+    the same inputs, made with host syncs turned into errors, must give the
+    same bits; the share of outputs more than half a bf16 ulp from the plain
+    version in f32 must stay within ``PV_HALF_ULP_TOL``."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    sms = pa.sm_count(torch.cuda.current_device())
     rows = []
     for c in cases:
         g = paged_geometry(c)
@@ -454,10 +499,33 @@ def check_paged_cases(kernel, plain, kname: str, cases: list[dict], pa,
         args = (q, kp, vp, tables, lengths, n_rep)
         got = kernel(*args, **kw)
         torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = kernel(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not torch.equal(got, again):
+            fail(f"{kname} case {c['name']}: two launches on the same inputs differ")
         ref = plain(*args, **kw)
         err = (got.float() - ref.float()).abs().max().item()
         if not (err <= KERNEL_TOL and torch.isfinite(got.float()).all()):
             fail(f"{kname} case {c['name']}: max abs err {err} > {KERNEL_TOL}")
+        # the same bf16 values in f32 (int8 codes dequantized and rounded to
+        # bf16, as the kernel rounds them)
+        k32, v32 = ((x.float() * sc).bfloat16().float() if sc is not None else x.float()
+                    for x, sc in ((kp, ks), (vp, vs)))
+        ref32 = plain(q.float(), k32, v32, tables, lengths, n_rep, scale=g["scale"],
+                      softcap=g["softcap"], window=g["window"])
+        share = half_ulp_share(got, ref32)
+        if share > PV_HALF_ULP_TOL:
+            fail(f"{kname} case {c['name']}: {share} of outputs over half a bf16 "
+                 f"ulp from the f32 plain version > {PV_HALF_ULP_TOL}")
+        plan = pa.split_plan(g["B"], g["T"], g["H"], g["K"], g["NT"], g["bs"],
+                             pa.tile_geometry(lib, g["Hd"]), sms)
+        grid = [plan.q_tiles, plan.splits, g["B"] * g["K"]]
+        blocks = grid[0] * grid[1] * grid[2]
+        if c["name"] in SPLIT_DECODE_CASES and blocks < sms:
+            fail(f"{kname} case {c['name']}: {blocks} blocks < {sms} SMs")
         library_ms = None
         if not g["quant"] and not g["softcap"]:
             # the yardstick: SDPA over the window gathered beforehand (the
@@ -485,16 +553,92 @@ def check_paged_cases(kernel, plain, kname: str, cases: list[dict], pa,
         bound_ms, bound_by = paged_bound(g, tables)
         row = {"case": c["name"], "kernel": kname,
                "shape": {k: c[k] for k in c if k != "name"},
+               "plan": plan._asdict(), "grid": grid, "blocks": blocks,
+               "threads": 32 * plan.warps, "bit_equal_relaunch": True,
                "max_abs_err": err, "tol": KERNEL_TOL,
+               "over_half_ulp_f32": share,
+               "mean_abs_err_f32": (got.float() - ref32).abs().mean().item(),
+               "half_ulp_tol": PV_HALF_ULP_TOL,
                "kernel_ms": event_ms(lambda: kernel(*args, **kw), 50, flush),
                "kernel_warm_l2_ms": event_ms(lambda: kernel(*args, **kw), 50, None),
+               "device_us": split_kernel_us(lambda: kernel(*args, **kw), 20, flush),
                "kernel_host_us": host_us(lambda: kernel(*args, **kw)),
-               "plain_ms": event_ms(lambda: plain(*args, **kw), 10, flush),
+               "plain_ms": event_ms(lambda: plain(*args, **kw), 5, flush),
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows
+
+
+# the split-KV kernels' f32 instantiations (scores and P.V on the CUDA
+# cores, no TF32) against the plain version in f32: sums of up to 2048
+# products in another order, ~1e-6
+SPLIT_F32_TOL = 1e-4
+
+
+def check_split_f32(pa, la, kv_quantize, seed: int) -> list[dict]:
+    """A decode, a mixed and an int8 case of each split-KV kernel in f32,
+    correctness only (nothing serves f32 on the card by default)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    paged = {c["name"]: c for c in PAGED_CASES}
+    latent = {c["name"]: c for c in LATENT_CASES}
+    rows = []
+    for kname, kernel, plain, c in (
+            ("paged_flash_attention", pa.paged_flash_attention,
+             pa.paged_attention_plain, paged["decode_per_row"]),
+            ("paged_flash_attention", pa.paged_flash_attention,
+             pa.paged_attention_plain, paged["mixed_step_parked"]),
+            ("paged_flash_attention", pa.paged_flash_attention,
+             pa.paged_attention_plain, paged["int8_decode"]),
+            ("latent_flash_attention", la.latent_flash_attention,
+             la.latent_attention_plain, latent["r128_decode"]),
+            ("latent_flash_attention", la.latent_flash_attention,
+             la.latent_attention_plain, latent["r512_mixed_q8_0"]),
+            ("latent_flash_attention", la.latent_flash_attention,
+             la.latent_attention_plain, latent["gemma2_r512_window_softcap"])):
+        g = paged_geometry(c)
+        x = paged_inputs(g, gen)
+        q, kp, vp = x["q"].float(), x["kp"].float(), x["vp"].float()
+        ks = vs = None
+        if g["quant"]:
+            (kp, ks), (vp, vs) = kv_quantize(kp), kv_quantize(vp)
+        kw = dict(scale=g["scale"], softcap=g["softcap"], window=g["window"],
+                  k_scale=ks, v_scale=vs)
+        args = (q, kp, vp, x["tables"], x["lengths"], g["H"] // g["K"])
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        err = (got - plain(*args, **kw)).abs().max().item()
+        if not (err <= SPLIT_F32_TOL and torch.isfinite(got).all()):
+            fail(f"{kname} f32 case {c['name']}: max abs err {err} > {SPLIT_F32_TOL}")
+        row = {"f32_case": c["name"], "kernel": kname, "max_abs_err": err,
+               "tol": SPLIT_F32_TOL}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def ptxas_report(built: dict) -> dict[str, list[dict]]:
+    """Each kernel's registers, spills and static shared memory, per
+    library, from the compiler's -Xptxas -v report."""
+    out = {}
+    for name, b in built.items():
+        funcs, cur = [], None
+        for line in b.ptxas.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = {"function": m.group(1)}
+                funcs.append(cur)
+            elif cur is not None:
+                for key, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads"),
+                                 ("registers", r"Used (\d+) registers"),
+                                 ("smem", r"(\d+) bytes smem")):
+                    m = re.search(pat, line)
+                    if m:
+                        cur[key] = int(m.group(1))
+        out[name] = funcs
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -516,7 +660,8 @@ LATENT_CASES = [
          lengths=[4500, 300], H=16, K=1, Hd=512, bs=32, max_seq=5120,
          window=4096, softcap=50.0, scale=256 ** -0.5, quant=q)
     for q in (False, True)
-]
+] + [dict(name="r128_decode_single_long", B=1, T=1, K=1, Hd=128, lengths=[2047],
+          scale=64 ** -0.5)]
 
 
 # --------------------------------------------------------------------------
@@ -1191,7 +1336,7 @@ def profile_steps(step, steps: int) -> dict:
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     prof_host = cProfile.Profile()
     prof_host.enable()
     run()
@@ -2020,14 +2165,24 @@ def main() -> int:
         smem = re.findall(r"(\d+) bytes smem", b.ptxas)
         print(f"  {b.name}: nvcc {b.seconds:.1f}s, registers {regs}, "
               f"spill store bytes {spills}, smem bytes {smem}", flush=True)
+    # the split-KV kernels: every instantiation's report, none may spill
+    split_ptxas = ptxas_report({k: built[k] for k in ("paged_attention",
+                                                      "latent_attention")})
+    print(json.dumps({"ptxas": split_ptxas}), flush=True)
+    spilled = [f["function"] for fs in split_ptxas.values() for f in fs
+               if f.get("spill_stores", 0) > 0]
+    if spilled:
+        fail(f"split-KV kernels spill registers: {spilled}")
 
     # 3. kernels against their plain versions
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")   # 256 MiB > L2
     rows = check_attention(fa, llama.kv_quantize, args.seed, flush)
     paged_rows = check_paged(pa, llama.kv_quantize, args.seed, flush)
     latent_rows = check_paged_cases(la.latent_flash_attention, la.latent_attention_plain,
-                                    "latent_flash_attention", LATENT_CASES, pa,
+                                    "latent_flash_attention", "latent_attention",
+                                    LATENT_CASES, pa,
                                     llama.kv_quantize, args.seed, flush)
+    check_split_f32(pa, la, llama.kv_quantize, args.seed)
     # the reference's accounting of a decode step's attention read per layer
     # at the main case (B = 4, 512 cached, bf16): latent at the default rank
     # (latents and both bases) against the dense pool's K/V

@@ -1,17 +1,15 @@
-// The causal-over-cache GQA attention kernel shared by the dense and the
-// paged KV layouts (flash_attention.cu, paged_attention.cu).
+// The causal-over-cache GQA attention kernel over the dense KV layout
+// (flash_attention.cu; the paged and latent kernels are paged_tile.cuh's).
 //
-// Contract (both layouts): q [B,T,H,Hd] attends key columns c of its batch
+// Contract: q [B,T,H,Hd] attends key columns c of its batch
 // row b, where c attends query t iff c <= lens[b] + t and, when window > 0,
 // lens[b] + t - c < window. Scores are scaled, soft-capped before the mask
 // and soft-maxed in f32; the output [B,T,H,Hd] has q's dtype. K/V are bf16
 // or f32 like q, or int8 codes with one f32 scale per head vector, each value
 // dequantized as (code * scale) and rounded to q's dtype before the dot.
 //
-// The two layouts differ only in where the head vector of column c lives:
-// an addressing policy (DenseKV, PagedKV) maps (b, c, kv head) to the index
-// of that vector in the K/V arrays (and of its scale). Everything else is
-// one kernel.
+// An addressing policy (DenseKV) maps (b, c, kv head) to the index of the
+// head vector of column c in the K/V arrays (and of its scale).
 //
 // Design. GQA is folded into query rows: the n_rep heads that share one KV
 // head become n_rep consecutive rows, row r at query position lens + r /
@@ -45,18 +43,6 @@ struct DenseKV {
   int S;
   __device__ __forceinline__ size_t vec(int b, int c, int K, int kvh) const {
     return (size_t(b) * S + c) * K + kvh;
-  }
-};
-
-// paged pool: k/v [N, bs, K, Hd], scales [N, bs, K, 1]; logical column c of
-// row b lives in physical block tables[b, c / bs] at offset c % bs. The
-// block's own threads read the table entry for each column they load.
-struct PagedKV {
-  const int* tables;  // [B, NT]
-  int NT, bs;
-  __device__ __forceinline__ size_t vec(int b, int c, int K, int kvh) const {
-    const int blk = tables[size_t(b) * NT + c / bs];
-    return (size_t(blk) * bs + c % bs) * K + kvh;
   }
 };
 
@@ -109,7 +95,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// S: logical columns per batch row (dense S; paged NT * bs)
+// S: columns per batch row
 template <int HD, int ROWS, typename QT, typename KT, typename KV>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
@@ -311,7 +297,8 @@ cudaError_t dispatch_dtype(int q_dtype, int kv_int8, const Args<KV>& a) {
 // q_dtype: 0 = float32, 1 = bfloat16 (K/V share it unless kv_int8 = 1).
 // Head widths 64, 128 and 256; WIDE adds 512, the latent rank that is full
 // rank at Llama-3.2-1B (Cfg<512, 4>: 80 rows of 516 floats, 165 KB of
-// shared memory), instantiated only by the entry points that serve latents.
+// shared memory), instantiated by flash_attention.cu for the single-stream
+// latent path.
 // Returns the cudaError_t of the launch (0 = launched).
 template <bool WIDE = false, typename KV>
 int dispatch(int Hd, int q_dtype, int kv_int8, const Args<KV>& a) {

@@ -12,38 +12,64 @@
 //   sentinel block, which is a real block and legal to read. A parked row
 //   (lengths[b] = max_seq) sees every column up to NT * bs and no further.
 //
-// Design. The kernel is attention_tile.cuh's, shared with the dense layout
-// (flash_attention.cu), with the paged addressing policy. One block owns one
-// (batch row, KV head) pair and a tile of folded query rows. It walks the
-// logical columns in 32-column tiles from the first one inside the window to
-// the last one the causal mask needs (the TPU kernel's `_tbl_index` clamp:
-// blocks past the causal edge and blocks wholly before the window are never
-// read). For each column it stages in shared memory, the block reads that
-// column's table entry itself; there is no scalar prefetch. Shared blocks (a prefix hit) are only
-// read here, so rows whose tables name one physical block need nothing
-// special. The online softmax is the classic one in f32; the TPU kernel's
-// integer-exponent (AMLA) rescale agrees with it to f32 rounding.
+// What bounds it. Bytes: Q and O once, and the K/V of the pages the masks
+// reach, once. A decode step moves a few MB at most, microseconds at the
+// card's 3.35 TB/s, so what costs time is parallelism and latency: B * K
+// (row, kv head) pairs (32 at Llama-3.2-1B, B = 4) cannot fill 132 SMs, and
+// a row's pages read one after another expose the memory latency of each.
 //
-// What bounds it. Bytes: the K/V of the blocks the mask needs, once, plus Q
-// and O. The design reads only those blocks, and each block once per query
-// tile. It is far from the bound for the reasons flash_attention.cu gives
-// (scalar f32 FMA, no tensor cores, only B*K blocks at decode, exposed
-// load latency); PERF.md has the measurements.
+// Design: paged_tile.cuh's split-KV kernel at K kv heads, n_rep = H / K.
+// The host's split plan (ops/paged_attention.py `split_plan`, shapes only)
+// cuts each row's NT pages into runs, one block per (query tile, run, row,
+// kv head), so a B = 4 decode launches hundreds of blocks and the longest
+// row's walk is a few pages; a block reads its pages' table entries once and
+// keeps two or three 16-byte cp.async tiles in flight in the stored type;
+// scores and P.V run on the tensor cores in bf16 (P as two bf16 terms); a
+// second small kernel merges the runs' partial softmaxes in run order. Shared
+// blocks (a prefix hit) are only read here, so rows whose tables name one
+// physical block need nothing special. The online softmax is the classic one
+// in f32; the TPU kernel's integer-exponent (AMLA) rescale agrees with it to
+// f32 rounding. PERF.md has the measurements.
 
-#include "attention_tile.cuh"
+#include "paged_tile.cuh"
 
 // q_dtype: 0 = float32, 1 = bfloat16 (the pools share it unless kv_int8 = 1).
+// ws: f32 workspace of splits * B * T * H * (Hd + 2) values when splits > 1
+// (the partial accumulators, then each row's (m, l)); may be null otherwise.
+// rows_per_block, pages_per_split and splits come from the host's plan.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int dlp_paged_attention(const void* q, const void* k_pool,
                                    const void* v_pool, const float* k_scale,
                                    const float* v_scale, const int* tables,
-                                   const int* lengths, void* out, int B, int T,
-                                   int NT, int bs, int H, int K, int Hd,
-                                   int q_dtype, int kv_int8, float scale,
-                                   float softcap, int window, void* stream) {
-  const dlp_attn::Args<dlp_attn::PagedKV> a{
-      q, k_pool, v_pool, k_scale, v_scale, dlp_attn::PagedKV{tables, NT, bs},
-      NT * bs, lengths, 0, out, B, T, H, K, scale, softcap, window,
-      static_cast<cudaStream_t>(stream)};
-  return dlp_attn::dispatch(Hd, q_dtype, kv_int8, a);
+                                   const int* lengths, void* out, float* ws,
+                                   int B, int T, int NT, int bs, int H, int K,
+                                   int Hd, int q_dtype, int kv_int8, float scale,
+                                   float softcap, int window, int rows_per_block,
+                                   int pages_per_split, int splits, void* stream) {
+  if (K < 1 || H % K) return int(cudaErrorInvalidValue);
+  const size_t acc_n = size_t(splits) * B * T * H * Hd;
+  const dlp_paged::Params p{
+      q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, ws,
+      ws ? ws + acc_n : nullptr, B, T, H, K, NT, bs, H / K, rows_per_block,
+      pages_per_split, splits, scale, softcap, window};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (Hd) {
+    case 64:
+      return int(dlp_paged::dispatch_dtype<64>(q_dtype, kv_int8, p, st));
+    case 128:
+      return int(dlp_paged::dispatch_dtype<128>(q_dtype, kv_int8, p, st));
+    case 256:
+      return int(dlp_paged::dispatch_dtype<256>(q_dtype, kv_int8, p, st));
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+// The kernel's tiling at head width Hd (dlp_paged::geometry: columns per
+// staged tile, warps per 16-row query tile, warps per block) for the host's
+// split plan. Returns cudaErrorInvalidValue for a width it does not take.
+extern "C" int dlp_paged_attention_geometry(int Hd, int* out) {
+  if (Hd != 64 && Hd != 128 && Hd != 256) return int(cudaErrorInvalidValue);
+  dlp_paged::geometry(Hd, out);
+  return 0;
 }

@@ -21,7 +21,8 @@ scales ``[N, bs, 1, 1]``) through int32 ``tables [B, NT]`` and ``lengths
 [B]``; causal per token, window and softcap; the caller's head-dim scale
 (never ``r ** -0.5``); output ``[B, T, H, r]`` in qa's dtype. It serves
 prefill, mixed and decode steps (T >= 1). Both pools of a latent engine have
-one rank, so the kernel requires ``rk == rv``.
+one rank, so the kernel requires ``rk == rv``. The launch is cut as the
+paged kernel's (``paged_attention.split_plan`` at one kv head of width r).
 
 Dispatch: ``latent_attention_any`` sends a CUDA tensor to the kernel and a
 CPU tensor to the plain version, which is ``paged_attention_plain`` over a
@@ -32,11 +33,10 @@ raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .paged_attention import paged_attention_plain
+from .paged_attention import (c_entry, check_aligned, paged_attention_plain,
+                              plan_launch, tile_geometry)
 
 # latent ranks the kernel takes: the attention tile's head widths plus 512
 # (full rank at Llama-3.2-1B, the default rank at gemma2-9b geometry)
@@ -100,13 +100,7 @@ def _kernel():
     """The C entry point, built from ``csrc/latent_attention.cu`` at first use."""
     global _fn
     if _fn is None:
-        from .cuda_build import load_library
-
-        fn = load_library("latent_attention").dlp_latent_attention
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, i, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn = c_entry("latent_attention", "dlp_latent_attention", 6)
     return _fn
 
 
@@ -166,22 +160,26 @@ def latent_flash_attention(qa: torch.Tensor, ck_pool: torch.Tensor,
             and cv_pool.is_contiguous()):
         raise ValueError("latent_flash_attention: qa and the pools must be "
                          "contiguous")
+    check_aligned("latent_flash_attention", qa, ck_pool, cv_pool)
     window = 0 if window is None else int(window)
     if window < 0:
         raise ValueError(f"latent_flash_attention: window {window} < 0")
     out = torch.empty_like(qa)
+    plan, ws = plan_launch(qa, tables, bs, 1, tile_geometry("latent_attention", r))
     with torch.cuda.device(dev):
         rc = _kernel()(
             qa.data_ptr(), ck_pool.data_ptr(), cv_pool.data_ptr(),
             k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None,
             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
             B, T, NT, bs, H, r, 0 if qa.dtype == torch.float32 else 1,
             int(quant), float(scale), float(softcap), window,
+            plan.rows_per_block, plan.pages_per_split, plan.splits,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"latent_flash_attention: kernel launch failed "
-                           f"(cudaError {rc})")
+                           f"(cudaError {rc}, {plan})")
     launches += 1
     return out
 
