@@ -49,7 +49,13 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    at M >= 256, ``torch._int_mm`` on the same int8 operands, which applies
    no scales), and their bound counts int8 operations at 1979 TOP/s. Q5_KS,
    Q2_KS and Q3_KS at M > 32 run no kernel (dequant, then ``F.linear``, as
-   the reference's einsum): that route is timed once each.
+   the reference's einsum): that route is timed once each. The Q4_K and
+   Q6_K GEMM's cases also print their split plan and grid and relaunch once
+   with host syncs turned into errors, for the same bits; x = I (M = D =
+   2048) through both must give ``dequant_matmul_plain``'s f32 output bit
+   for bit; and a view of x one bf16 past a 16-byte boundary (and a pack
+   field so placed) must make ``dequant_matmul``, ``w8a8_matmul`` and
+   ``int8_matmul`` raise ValueError, the CUDA context still usable after.
 4. Serve, single stream: a GGUF of Llama-3.2-1B geometry (bf16 weights
    random from --seed, a synthetic 128256-token SPM vocab) goes through the
    port's Engine, which first runs the three requests once directly (the
@@ -813,7 +819,7 @@ def check_fused(fd, llama, qm, pa, kv_quantize, seed: int,
                "kernel_ms": event_ms(kern, 50, flush),
                "kernel_warm_l2_ms": event_ms(kern, 50, None),
                "kernel_host_us": host_us(kern),
-               "plain_ms": event_ms(plain, 10, flush),
+               "plain_ms": event_ms(plain, 5, flush),
                "unfused_ms": event_ms(unfused, 20, flush),
                "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
         print(json.dumps(row), flush=True)
@@ -975,7 +981,9 @@ def quant_case(qm, pack, kernel: str, M: int, out_dtype, gen, flush,
     name = f"{pack.kind} {kernel} D={D} F={Fo} M={M}"
     if not (err <= tol and torch.isfinite(got.float()).all()):
         fail(f"{name}: max abs err {err} > {tol}")
-    int_mm = {}
+    extra = {}
+    if kernel == "dequant" and pack.kind in qm.GEMM_KINDS:
+        extra = gemm_launch_check(qm, pack, M, kern, got, name)
     if kernel in ("w8a8", "int8"):
         group = pack.group
         xq = torch.empty(M, D, dtype=torch.int8, device="cuda")
@@ -991,9 +999,9 @@ def quant_case(qm, pack, kernel: str, M: int, out_dtype, gen, flush,
             # group scales; the port never calls it
             qt = pack.qs.t()
             try:
-                int_mm["int_mm_ms"] = event_ms(lambda: torch._int_mm(rq, qt), 20, flush)
+                extra["int_mm_ms"] = event_ms(lambda: torch._int_mm(rq, qt), 20, flush)
             except RuntimeError as e:
-                int_mm["int_mm_error"] = str(e)[:200]
+                extra["int_mm_error"] = str(e)[:200]
     dense = pack.dequant(torch.bfloat16)
     lib_err = (F.linear(x, dense).float() - ref.float()).abs().max().item()
     n_bytes = (M * D * 2 + pack.nbytes()
@@ -1003,16 +1011,107 @@ def quant_case(qm, pack, kernel: str, M: int, out_dtype, gen, flush,
     t_ops = ops / (BF16_FLOP_S if kernel == "dequant" else INT8_OP_S) * 1e3
     return {"case": name, "kind": pack.kind, "kernel": kernel, "M": M, "D": D,
             "F": Fo, "out": str(out_dtype).split(".")[-1], "zero_row": zero_row,
-            "max_abs_err": err, "tol": tol, **int_mm,
+            "max_abs_err": err, "tol": tol, **extra,
             "library_max_abs_err": lib_err,
             "kernel_ms": event_ms(kern, 50, flush),
             "kernel_warm_l2_ms": event_ms(kern, 50, None),
             "kernel_host_us": host_us(kern),
-            "plain_ms": event_ms(plain, 10, flush),
+            "plain_ms": event_ms(plain, 5, flush),
             "library": "F.linear on the dense bf16 weight the pack represents",
             "library_ms": event_ms(lambda: F.linear(x, dense), 20, flush),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def gemm_launch_check(qm, pack, M: int, kern, got: torch.Tensor, name: str) -> dict:
+    """The Q4_K / Q6_K GEMM's cut of this case (``gemm_plan`` from the
+    library's geometry) and a second launch on the same inputs, made with
+    host syncs turned into errors, which must give the same bits."""
+    Fo, D = pack.shape
+    geo = qm.gemm_geometry(pack.kind, qm.gemm_bm(M))
+    plan = qm.gemm_plan(M, D, Fo, geo, qm.sm_count(torch.cuda.current_device()))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = kern()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not torch.equal(got, again):
+        fail(f"{name}: two launches on the same inputs differ")
+    grid = [plan.tiles_n, plan.tiles_m, plan.splits]
+    return {"plan": plan._asdict(), "grid": grid, "blocks": grid[0] * grid[1] * grid[2],
+            "threads": geo.threads, "smem": geo.smem, "blocks_per_sm": geo.blocks_per_sm,
+            "bit_equal_relaunch": True}
+
+
+# the identity probe of the Q4_K / Q6_K GEMM: x = I at the gate_up pack
+IDENTITY_D, IDENTITY_F = 2048, 8192
+
+
+def check_gemm_identity(qm, kq, seed: int, card: str) -> list[dict]:
+    """x = I (M = D = 2048) through the Q4_K and Q6_K GEMMs into f32 must
+    equal ``dequant_matmul_plain`` bit for bit: the decoded weights'
+    transpose (less b per 32 rows for Q4_K), every product exact and
+    every sum of at most two nonzero terms. A decode, swizzle or band
+    mistake shows column by column, where the one-ulp tolerance would blur
+    it."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.eye(IDENTITY_D, dtype=torch.bfloat16, device="cuda")
+    rows = []
+    for kind in qm.GEMM_KINDS:
+        pack = random_pack(qm, kq, kind, IDENTITY_D, IDENTITY_F, gen)
+        got = qm.dequant_matmul(x, pack, torch.float32)
+        want = qm.dequant_matmul_plain(x, pack, torch.float32)
+        torch.cuda.synchronize()
+        bad = (got != want).nonzero()
+        row = {"identity_probe": kind, "M": IDENTITY_D, "D": IDENTITY_D, "F": IDENTITY_F,
+               "bit_equal": bad.shape[0] == 0, "differing": bad.shape[0],
+               "first_differing_rows_cols": bad[:8].tolist(), "card": card}
+        print(json.dumps(row), flush=True)
+        if bad.shape[0]:
+            fail(f"{kind} identity probe: {bad.shape[0]} outputs differ from the plain "
+                 f"version, first (row, col) {bad[:8].tolist()}")
+        rows.append(row)
+    return rows
+
+
+def check_misaligned(qm, kq, seed: int) -> dict:
+    """A contiguous view at a storage offset that is not a multiple of 16
+    bytes must raise ValueError from each quantized wrapper (the kernels
+    load x 16 bytes at a time; a misaligned load would end the CUDA
+    context), as must a pack field so placed; the context stays usable."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    M, D, F = 64, 2048, 512
+    x = torch.empty(M * D + 1, dtype=torch.bfloat16, device="cuda")[1:].view(M, D)
+    x.normal_(generator=gen)
+    q4 = random_pack(qm, kq, "q4_k", D, F, gen)
+    q6 = random_pack(qm, kq, "q6_k", D, F, gen)
+    i8 = random_pack(qm, kq, "int8", D, F, gen)
+    calls = {"dequant_matmul": lambda: qm.dequant_matmul(x, q4, torch.bfloat16),
+             "w8a8_matmul": lambda: qm.w8a8_matmul(x[:4], q6, torch.bfloat16),
+             "int8_matmul": lambda: qm.int8_matmul(x, i8, torch.bfloat16)}
+    ql = torch.empty(q6.ql.numel() + 1, dtype=torch.int8, device="cuda")[1:].view_as(q6.ql)
+    ql.copy_(q6.ql)
+    bad_field = kq.Q6KPack(ql=ql, qh=q6.qh, s=q6.s)
+    calls["dequant_matmul, pack field"] = lambda: qm.dequant_matmul(
+        x.clone(), bad_field, torch.bfloat16)
+    out = {}
+    for what, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            out[what] = str(e)
+        else:
+            fail(f"{what}: a misaligned input did not raise ValueError")
+    torch.cuda.synchronize()
+    xa = x.clone()
+    ok = torch.equal(qm.dequant_matmul(xa, q4, torch.float32),
+                     qm.dequant_matmul(xa, q4, torch.float32))
+    torch.cuda.synchronize()
+    if not ok:
+        fail("the CUDA context misbehaves after the misaligned calls")
+    row = {"misaligned_raise": out, "context_usable": True}
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def check_quant(qm, kq, seed: int, flush: torch.Tensor, card: str) -> dict:
@@ -2173,6 +2272,17 @@ def main() -> int:
                if f.get("spill_stores", 0) > 0]
     if spilled:
         fail(f"split-KV kernels spill registers: {spilled}")
+    # the fused-dequant library: every kernel's report; the Q4_K / Q6_K GEMM
+    # instantiations (kgemm_kernel) may not spill, and ptxas's notes on
+    # serialized wgmma are printed
+    dequant_ptxas = ptxas_report({"dequant_matmul": built["dequant_matmul"]})
+    print(json.dumps({"ptxas": dequant_ptxas, "wgmma_notes": [
+        ln.strip() for ln in built["dequant_matmul"].ptxas.splitlines() if "wgmma" in ln]}),
+        flush=True)
+    spilled = [f["function"] for f in dequant_ptxas["dequant_matmul"]
+               if "kgemm_kernel" in f["function"] and f.get("spill_stores", 0) > 0]
+    if spilled:
+        fail(f"the Q4_K / Q6_K GEMM spills registers: {spilled}")
 
     # 3. kernels against their plain versions
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")   # 256 MiB > L2
@@ -2194,6 +2304,8 @@ def main() -> int:
         flush=True)
     fused_rows = check_fused(fd, llama, qm, pa, llama.kv_quantize, args.seed, flush)
     quant_rows = check_quant(qm, kq, args.seed, flush, card)
+    check_gemm_identity(qm, kq, args.seed, card)
+    check_misaligned(qm, kq, args.seed)
     del flush
     print(f"phase 3 done at {time.monotonic() - t_start:.0f}s: "
           f"{sum(map(len, quant_rows.values()))} quantized kernel cases held", flush=True)

@@ -16,9 +16,14 @@
 //   bf16(sum of x over each 32 columns) * offset, accumulated in f32 with
 //   the rest. Output in f32 or bf16.
 //
-// Design. Prefill and mixed steps (M > 32) are GEMMs that would be bounded
-// by the tensor cores at large M; the dense bf16 weight never exists in
-// device memory. One block (4 warps) owns a 64 x 64 output tile and walks D
+// Q4_K and Q6_K run kquant_gemm.cuh's GEMM (band-interleaved k-steps through
+// a TMA ring, wgmma, split-K from the host's plan); its header has the
+// design.
+//
+// Q8_0 and Q5_K (dequant_kernel below). Prefill and mixed steps (M > 32) are
+// GEMMs that would be bounded by the tensor cores at large M; the dense bf16
+// weight never exists in device memory. One block (4 warps) owns a 64 x 64
+// output tile and walks D
 // in 64-column steps: it stages x's 64 x 64 tile and decodes the weight's
 // 64 x 64 tile into shared memory as bf16, then each warp runs 2 x 2 WMMA
 // 16x16x16 bf16 products into f32 fragments. The next tile's global reads
@@ -33,6 +38,7 @@
 // a D that only 32 divides: the last k-tile then holds one sub-block and
 // zeros (x, codes and offsets past D load as 0).
 
+#include "kquant_gemm.cuh"
 #include "quant_tile.cuh"
 
 #include <mma.h>
@@ -230,14 +236,6 @@ extern "C" int dlp_dequant_matmul_q8_0(const void* x, const void* qs, const void
   return launch(dec, x, out, out_bf16, M, D, F, stream);
 }
 
-extern "C" int dlp_dequant_matmul_q4_k(const void* x, const void* qs, const void* a,
-                                       const void* b, void* out, int out_bf16, int M, int D,
-                                       int F, void* stream) {
-  const Q4K dec{static_cast<const int8_t*>(qs), static_cast<const __nv_bfloat16*>(a),
-                static_cast<const __nv_bfloat16*>(b), D};
-  return launch(dec, x, out, out_bf16, M, D, F, stream);
-}
-
 extern "C" int dlp_dequant_matmul_q5_k(const void* x, const void* q5, const void* a,
                                        const void* b, void* out, int out_bf16, int M, int D,
                                        int F, void* stream) {
@@ -246,10 +244,54 @@ extern "C" int dlp_dequant_matmul_q5_k(const void* x, const void* q5, const void
   return launch(dec, x, out, out_bf16, M, D, F, stream);
 }
 
-extern "C" int dlp_dequant_matmul_q6_k(const void* x, const void* ql, const void* qh,
-                                       const void* s, void* out, int out_bf16, int M, int D,
-                                       int F, void* stream) {
-  const Q6K dec{static_cast<const int8_t*>(ql), static_cast<const int8_t*>(qh),
-                static_cast<const __nv_bfloat16*>(s), D};
-  return launch(dec, x, out, out_bf16, M, D, F, stream);
+// The Q4_K and Q6_K GEMM (kquant_gemm.cuh). xs: bf16 workspace of M *
+// (D/32 rounded up to 32) values for Q4_K's block sums (null for Q6_K);
+// part: f32 workspace of splits * M * F values when splits > 1 (may be null
+// otherwise); maps: the pack's tensor maps (the *_pack_maps entries) in host
+// memory; bm (64 or 128 rows of x a block), splits and steps_per_split come
+// from the host's plan. Returns the cudaError_t of the launches.
+extern "C" int dlp_dequant_matmul_q4_k(const void* x, const void* maps, void* out, void* xs,
+                                       void* part, int out_bf16, int M, int D, int F, int bm,
+                                       int splits, int steps_per_split, void* stream) {
+  return int(dlp_kgemm::launch<dlp_kgemm::Q4K>(x, xs, maps, part, out, out_bf16, M, D, F, bm,
+                                               splits, steps_per_split,
+                                               static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int dlp_dequant_matmul_q6_k(const void* x, const void* maps, void* out, void* xs,
+                                       void* part, int out_bf16, int M, int D, int F, int bm,
+                                       int splits, int steps_per_split, void* stream) {
+  return int(dlp_kgemm::launch<dlp_kgemm::Q6K>(x, xs, maps, part, out, out_bf16, M, D, F, bm,
+                                               splits, steps_per_split,
+                                               static_cast<cudaStream_t>(stream)));
+}
+
+// A pack's tensor maps into `out` (dlp_dequant_matmul_pack_maps_bytes bytes),
+// encoded once for each placement of the pack: Q4_K's fields (qs, a, b) or
+// Q6_K's (ql, qh, s), the dense shape D, F. Returns cudaErrorInvalidValue
+// when they cannot be encoded.
+extern "C" int dlp_dequant_matmul_q4_k_pack_maps(const void* qs, const void* a, const void* b,
+                                                 void* out, int D, int F) {
+  return int(dlp_kgemm::encode_pack<dlp_kgemm::Q4K>(qs, a, b, D, F, out));
+}
+
+extern "C" int dlp_dequant_matmul_q6_k_pack_maps(const void* ql, const void* qh, const void* s,
+                                                 void* out, int D, int F) {
+  return int(dlp_kgemm::encode_pack<dlp_kgemm::Q6K>(ql, qh, s, D, F, out));
+}
+
+extern "C" int dlp_dequant_matmul_pack_maps_bytes() {
+  return int(sizeof(dlp_kgemm::PackMaps));
+}
+
+// The GEMM's tiling over bm rows of x a block (dlp_kgemm::geometry: rows of
+// x and of W a block, packed positions a k-step, bands, offset columns a
+// k-step, stages, threads, shared memory, blocks an SM holds) for the host's
+// plan. Returns the cudaError_t of the queries.
+extern "C" int dlp_dequant_matmul_q4_k_geometry(int bm, int* out) {
+  return int(dlp_kgemm::geometry<dlp_kgemm::Q4K>(bm, out));
+}
+
+extern "C" int dlp_dequant_matmul_q6_k_geometry(int bm, int* out) {
+  return int(dlp_kgemm::geometry<dlp_kgemm::Q6K>(bm, out));
 }

@@ -52,11 +52,15 @@ take its inputs, or cannot build or launch, raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .paged_attention import check_aligned, sm_count
 
 QBLOCK = 32      # ggml Q8_0 block length
 GROUP = 256      # activation group of the W8A8 path where D allows it
@@ -123,6 +127,7 @@ class QuantPack(nn.Module):
         self.shape = self._dense_shape()
         self.group = self._act_group()
         self._placed = None   # (device, field pointers), checked for a kernel
+        self._gemm_maps = None   # ((device, field pointers), the GEMM's tensor maps)
 
     def _dense_shape(self) -> tuple[int, int]:
         raise NotImplementedError
@@ -131,13 +136,14 @@ class QuantPack(nn.Module):
         raise NotImplementedError
 
     def _apply(self, fn, recurse=True):
-        self._placed = None   # .to() and .cuda() replace the buffers
+        self._placed = self._gemm_maps = None   # .to() and .cuda() replace the buffers
         return super()._apply(fn, recurse)
 
     def kernel_ptrs(self, device: torch.device) -> tuple[int, ...]:
         """The fields' data pointers for a kernel on ``device``, in
-        ``fields`` order: checked (on ``device``, contiguous) once for each
-        placement of the pack, then reused by every launch."""
+        ``fields`` order: checked (on ``device``, contiguous, 16-byte aligned
+        for the kernels' vector loads) once for each placement of the pack,
+        then reused by every launch."""
         placed = self._placed
         if placed is None or placed[0] != device:
             for name in self.fields:
@@ -145,6 +151,7 @@ class QuantPack(nn.Module):
                 if t.device != device or not t.is_contiguous():
                     raise ValueError(f"{self.kind} pack field {name} must be "
                                      f"contiguous on {device}")
+                check_aligned(f"{self.kind} pack field {name}", t)
             placed = self._placed = (device, tuple(
                 self._buffers[name].data_ptr() for name in self.fields))
         return placed[1]
@@ -427,7 +434,9 @@ def _launch(fn, dev: torch.device, what: str, *args) -> None:
 def _check_x(x: torch.Tensor, pack: QuantPack, dtypes: tuple, what: str,
              kernel: int) -> torch.Tensor:
     """x [M, D] for a kernel (``_NAMES`` index ``kernel``) against ``pack``:
-    a CUDA tensor of one of ``dtypes``, made contiguous."""
+    a CUDA tensor of one of ``dtypes``, made contiguous, at a 16-byte
+    aligned address (the kernels load and stage x 16 bytes at a time; a
+    misaligned load would end the process's CUDA context)."""
     if _NAMES.get(pack.kind, (None, None))[kernel] is None:
         raise ValueError(f"{what}: no kernel for pack kind {pack.kind!r}")
     if not x.is_cuda:
@@ -437,7 +446,9 @@ def _check_x(x: torch.Tensor, pack: QuantPack, dtypes: tuple, what: str,
     if x.dim() != 2 or x.shape[1] != pack.shape[1]:
         raise ValueError(f"{what}: x {tuple(x.shape)} against a pack of "
                          f"[F, D] = {list(pack.shape)}")
-    return x.contiguous()
+    x = x.contiguous()
+    check_aligned(what, x)
+    return x
 
 
 def _out_flag(out_dtype: torch.dtype, what: str) -> int:
@@ -484,23 +495,164 @@ def w8a8_matmul(x: torch.Tensor, pack: QuantPack, out_dtype: torch.dtype,
     return out
 
 
+# --------------------------------------------------------------------------
+# the Q4_K and Q6_K GEMM's cut (csrc/kquant_gemm.cuh)
+
+GEMM_KINDS = ("q4_k", "q6_k")
+GEMM_WIDE_M = 64   # M above this takes 128 rows of x a block, 64 up to it
+MAX_SPLITS = 16
+
+
+class GemmGeometry(NamedTuple):
+    """The GEMM's tiling for one pack kind and block height, as
+    ``csrc/kquant_gemm.cuh`` defines it (``gemm_geometry`` reads it from the
+    library): rows of x and of W (output columns) a block, packed positions
+    a k-step, bands (one 32-column slab each a k-step), columns of the
+    affine offset term a k-step (0: none), ring stages, threads, dynamic
+    shared memory bytes, and blocks an SM holds (the card's occupancy
+    query)."""
+    bm: int
+    bn: int
+    positions: int
+    bands: int
+    tail_cols: int
+    stages: int
+    threads: int
+    smem: int
+    blocks_per_sm: int
+
+
+class GemmPlan(NamedTuple):
+    """How one launch is cut: ``bm`` rows of x and ``bn`` output columns a
+    block, the grid (``tiles_n``, ``tiles_m``, ``splits``), the k-steps of
+    the weight (``main_steps``) and of the offset term (``tail_steps``), and
+    the k-steps each split runs (the last may run fewer)."""
+    bm: int
+    bn: int
+    tiles_m: int
+    tiles_n: int
+    main_steps: int
+    tail_steps: int
+    splits: int
+    steps_per_split: int
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_geometry(kind: str, bm: int) -> GemmGeometry:
+    """The library's tiling for ``kind`` (``q4_k`` or ``q6_k``) over ``bm``
+    rows of x a block, read once from its ``*_geometry`` entry."""
+    from .cuda_build import load_library
+
+    fn = getattr(load_library("dequant_matmul"), f"dlp_dequant_matmul_{kind}_geometry")
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(GemmGeometry._fields))()
+    rc = fn(bm, out)
+    if rc != 0:
+        raise RuntimeError(f"dequant_matmul: {kind} geometry query failed (cudaError {rc})")
+    return GemmGeometry(*out)
+
+
+def gemm_bm(M: int) -> int:
+    """Rows of x a block: 64 up to ``GEMM_WIDE_M`` rows, 128 above."""
+    return 64 if M <= GEMM_WIDE_M else 128
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(M: int, D: int, F: int, geometry: GemmGeometry, sm_count: int) -> GemmPlan:
+    """The launch's cut, from shapes and the kernel's tiling only (no value
+    is read from the card). Output tiles of ``bm × bn``; where there are
+    fewer tiles than the card has block slots (SMs × blocks an SM holds),
+    split-K: the split count s (at most ``MAX_SPLITS``, no split empty) that
+    minimises waves × k-steps a block, ``ceil(tiles · s / slots) ·
+    ceil(steps / s)``, the smallest on a tie. Raises ``ValueError`` on what
+    the kernel refuses."""
+    if M < 1 or F < 1 or D < 256 or D % 256:
+        raise ValueError(f"dequant_matmul: M={M}, D={D}, F={F} (the GEMM takes M, F ≥ 1 "
+                         "and D a multiple of 256)")
+    g = geometry
+    tiles_m, tiles_n = -(-M // g.bm), -(-F // g.bn)
+    if tiles_m > 65535:
+        raise ValueError(f"dequant_matmul: M={M} needs {tiles_m} row tiles (at most 65535)")
+    main = D // (g.bands * g.positions)
+    tail = -(-(D // 32) // g.tail_cols) if g.tail_cols else 0
+    total = main + tail
+    slots = max(1, sm_count * g.blocks_per_sm)
+    tiles = tiles_m * tiles_n
+    best = (0, 1, total)
+    for s in range(1, min(MAX_SPLITS, total) + 1 if tiles < slots else 1):
+        sps = -(-total // s)
+        if -(-total // sps) != s:   # no split may be empty
+            continue
+        cost = -(-tiles * s // slots) * sps
+        if s == 1 or cost < best[0]:
+            best = (cost, s, sps)
+    _, splits, sps = best
+    return GemmPlan(g.bm, g.bn, tiles_m, tiles_n, main, tail, splits, sps)
+
+
+def gemm_pack_maps(pack: QuantPack, dev: torch.device) -> ctypes.Array:
+    """The GEMM's tensor maps of ``pack``'s fields (host memory), encoded
+    once for each placement of the pack, as ``kernel_ptrs`` checks it once."""
+    key = (dev, pack.kernel_ptrs(dev))
+    cached = pack._gemm_maps
+    if cached is None or cached[0] != key:
+        from .cuda_build import load_library
+
+        lib = load_library("dequant_matmul")
+        fn = getattr(lib, f"dlp_dequant_matmul_{pack.kind}_pack_maps")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+        fn.restype = ctypes.c_int
+        buf = ctypes.create_string_buffer(lib.dlp_dequant_matmul_pack_maps_bytes())
+        rc = fn(*key[1], buf, pack.shape[1], pack.shape[0])
+        if rc != 0:
+            raise RuntimeError(f"dequant_matmul: {pack.kind} tensor maps failed (cudaError {rc})")
+        cached = pack._gemm_maps = (key, buf)
+    return cached[1]
+
+
+def gemm_workspace(plan: GemmPlan, M: int, D: int, F: int,
+                   affine: bool) -> tuple[int, int]:
+    """(bf16 values of the block sums, f32 values of the split partials) a
+    launch needs: ``M × ⌈D/32⌉₃₂`` for an affine pack (else 0) and
+    ``splits × M × F`` when it splits (else 0). Shapes only."""
+    xs = M * (-(-(D // 32) // 32) * 32) if affine else 0
+    return xs, plan.splits * M * F if plan.splits > 1 else 0
+
+
 def dequant_matmul(x: torch.Tensor, pack: QuantPack,
                    out_dtype: torch.dtype) -> torch.Tensor:
     """The fused-dequant CUDA kernel: bf16 x [M, D] against a Q8_0, Q6_K,
-    Q4_K or Q5_K (byte-code) pack, each weight tile dequantized to bf16 in shared memory and
-    multiplied on the tensor cores with f32 accumulation (an affine pack's
-    offset term too) → [M, F] in ``out_dtype``."""
+    Q4_K or Q5_K (byte-code) pack, each weight tile dequantized to bf16 in
+    shared memory and multiplied on the tensor cores with f32 accumulation
+    (an affine pack's offset term too) → [M, F] in ``out_dtype``. Q4_K and
+    Q6_K run the band-interleaved GEMM (``csrc/kquant_gemm.cuh``) cut by
+    ``gemm_plan``, with its workspaces allocated here; one count per call."""
     what = "dequant_matmul"
     if pack.kind == "int8":   # its M > 32 route is int8_matmul's GEMM
         raise ValueError(f"{what}: no kernel for pack kind 'int8'")
     x = _check_x(x, pack, (torch.bfloat16,), what, 0)
     M, D = x.shape
     Fo, dev = pack.shape[0], x.device
-    ptrs = pack.kernel_ptrs(dev)
-    out = torch.empty(M, Fo, dtype=out_dtype, device=dev)
-    fn = _entry("dequant_matmul", f"dlp_dequant_matmul_{pack.kind}", 2 + len(ptrs), 4)
-    _launch(fn, dev, what, x.data_ptr(), *ptrs, out.data_ptr(),
-            _out_flag(out_dtype, what), M, D, Fo)
+    flag = _out_flag(out_dtype, what)
+    if pack.kind in GEMM_KINDS:
+        maps = gemm_pack_maps(pack, dev)
+        plan = gemm_plan(M, D, Fo, gemm_geometry(pack.kind, gemm_bm(M)),
+                         sm_count(dev.index))
+        n_xs, n_part = gemm_workspace(plan, M, D, Fo, pack.kind == "q4_k")
+        xs = torch.empty(n_xs, dtype=torch.bfloat16, device=dev) if n_xs else None
+        part = torch.empty(n_part, dtype=torch.float32, device=dev) if n_part else None
+        out = torch.empty(M, Fo, dtype=out_dtype, device=dev)
+        fn = _entry("dequant_matmul", f"dlp_dequant_matmul_{pack.kind}", 5, 7)
+        _launch(fn, dev, what, x.data_ptr(), ctypes.addressof(maps), out.data_ptr(),
+                None if xs is None else xs.data_ptr(),
+                None if part is None else part.data_ptr(),
+                flag, M, D, Fo, plan.bm, plan.splits, plan.steps_per_split)
+    else:
+        ptrs = pack.kernel_ptrs(dev)
+        out = torch.empty(M, Fo, dtype=out_dtype, device=dev)
+        fn = _entry("dequant_matmul", f"dlp_dequant_matmul_{pack.kind}", 2 + len(ptrs), 4)
+        _launch(fn, dev, what, x.data_ptr(), *ptrs, out.data_ptr(), flag, M, D, Fo)
     launches[_NAMES[pack.kind][0]] += 1
     return out
 

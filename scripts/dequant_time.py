@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""Time the Q4_K and Q6_K fused-dequant kernels (``ops.quant_matmul.dequant_matmul``)
+of one tree of the port at ``chip_smoke.py``'s phase-3 cases, on one CUDA card.
+
+    python scripts/dequant_time.py [--root DIR] [--label NAME] [--seed N] [--ttft DIR]
+
+``--root`` is the directory whose ``distributed_llm_pipeline_tpu_torch``
+package is timed (default: this checkout), for example an earlier commit
+unpacked with ``git archive <commit> | tar -x -C DIR``; its kernels build
+from its own sources. Packs, inputs and the timing (median device time, the
+L2 flushed before each call) come from this checkout's ``chip_smoke.py``,
+with the same seed, so two trees timed in one process run see the same
+cases. Prints the card's name and power limit, then one JSON line per case
+(kind, projection pair, M, D, F, ms).
+
+With ``--ttft DIR``, it also serves ``chip_smoke.py``'s phase-7 and phase-8
+models (Llama-3.2-1B geometry, Q6_K and Q4_K_M GGUFs from the same seeds,
+written to DIR once and reused) through the tree's ``Engine(quant="native")``
+one stream, and prints the median engine TTFT of 5 runs of the ~481-token
+greedy request after a warm-up.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(HERE), help="tree whose package is timed")
+    ap.add_argument("--label", default="", help="a name printed with each line")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ttft", default="", help="directory for the served models' GGUFs")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    spec = importlib.util.spec_from_file_location("chip_smoke_cases", HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("dequant_time: no CUDA device", file=sys.stderr)
+        return 1
+    from distributed_llm_pipeline_tpu_torch.ops import kquant_matmul as kq
+    from distributed_llm_pipeline_tpu_torch.ops import quant_matmul as qm
+
+    card = cs.card_line()
+    print(card, flush=True)
+    print(json.dumps({"label": args.label, "package": str(Path(qm.__file__).resolve())}),
+          flush=True)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")   # 256 MiB > L2
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    for kind in ("q6_k", "q4_k"):
+        for pair, D, F in cs.QUANT_PAIRS:
+            pack = cs.random_pack(qm, kq, kind, D, F, gen)
+            out_dtype = torch.float32 if pair == "head" else torch.bfloat16
+            for M in cs.DEQUANT_M:
+                x = torch.randn(M, D, generator=gen, device="cuda").bfloat16()
+                ms = cs.event_ms(lambda: qm.dequant_matmul(x, pack, out_dtype), 50, flush)
+                print(json.dumps({"label": args.label, "kind": kind, "pair": pair, "M": M,
+                                  "D": D, "F": F, "ms": ms, "card": card}), flush=True)
+            del pack
+    del flush
+    if args.ttft:
+        serve_ttft(cs, Path(args.ttft), args.seed, args.label, card)
+    return 0
+
+
+def serve_ttft(cs, where: Path, seed: int, label: str, card: str) -> None:
+    """The one-stream engine TTFT of phases 7 (Q6_K) and 8 (Q4_K_M)."""
+    import torch
+
+    from distributed_llm_pipeline_tpu_torch.gguf import GGMLType
+    from distributed_llm_pipeline_tpu_torch.models import PRESETS
+    from distributed_llm_pipeline_tpu_torch.runtime import Engine, GenerationConfig
+
+    cfg = PRESETS["llama3.2-1b"]
+    where.mkdir(parents=True, exist_ok=True)
+    prompt = " ".join(["hello"] * 480)
+    for phase, name, wtype, model_seed in (
+            (7, "q6_k", GGMLType.Q6_K, seed + 1),
+            (8, "q4_k_m", cs.q4_k_m_types(cfg.n_layers), seed + 2)):
+        path = where / f"llama3.2-1b-{name}-seed{model_seed}.gguf"
+        if not path.exists():
+            tmp = path.with_suffix(".tmp")
+            cs.write_model(tmp, cfg, model_seed, wtype=wtype)
+            tmp.rename(path)
+        engine = Engine(path, max_seq=2048, quant="native")
+        gen = GenerationConfig(max_new_tokens=4, temperature=0.0)
+        ttfts = []
+        for _ in range(6):
+            ttfts.append(list(engine.generate(prompt, gen))[-1].data["ttft_ms"])
+        runs = sorted(ttfts[1:])
+        print(json.dumps({"label": label, "phase": phase, "model": name,
+                          "engine_ttft_ms": runs[len(runs) // 2], "runs_ms": ttfts[1:],
+                          "warm_up_ms": ttfts[0], "card": card}), flush=True)
+        del engine
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,308 @@
+"""The Q4_K / Q6_K fused-dequant GEMM (``csrc/kquant_gemm.cuh``) on the CPU,
+where its CUDA kernel cannot run: what surrounds the kernel, and mirrors of
+its arithmetic.
+
+- The decoder's bit tricks: a torch integer mirror of the kernel's code
+  extraction (the nibble planes, Q6_K's 2-bit plane, band by band) and of its
+  code-to-bf16 conversion in pairs (each code under the exponent of 128, less
+  128 or 160) and bf16 product with the scale gives, for every byte value of
+  every plane and every band, the weights ``dequant_matmul_plain`` uses, bit
+  for bit: held through ``x = I``, as the chip's identity probe holds the
+  kernel (Q4_K: less b per 32 rows).
+- The plan (``ops.quant_matmul.gemm_plan``) for every (D, F, M) that phase 3
+  of ``chip_smoke.py`` and the served paths use, at several SM counts: every
+  output tile once, every k-step (of the weight's D and of the offset
+  term's D/32 columns) in exactly one split, the workspaces from shapes
+  only, and a ``ValueError`` for what the kernel refuses.
+- The k-step order: a plain mirror of the kernel's band-interleaved k-steps,
+  the offset term's steps and the split-K partials summed in the plan's
+  order, against the JAX package's ``q4_k_matmul_pallas`` and
+  ``q6_k_matmul_pallas`` (interpret mode) on the same numpy packs and
+  inputs: within 1e-5 of max |ref| in f32, one bf16 ulp of max |ref| in bf16.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_llm_pipeline_tpu.ops import kquant_matmul as jkq
+from distributed_llm_pipeline_tpu.ops import quant_matmul as jqm
+from distributed_llm_pipeline_tpu_torch.ops import kquant_matmul as kq
+from distributed_llm_pipeline_tpu_torch.ops import paged_attention as pa
+from distributed_llm_pipeline_tpu_torch.ops import quant_matmul as qm
+
+# the header's tiling (kquant_gemm.cuh Geo and geometry) as the card's
+# *_geometry entries report it: one block an SM
+GEOMETRY = {
+    ("q4_k", 64): qm.GemmGeometry(64, 128, 32, 2, 32, 10, 288, 189600, 1),
+    ("q4_k", 128): qm.GemmGeometry(128, 128, 32, 2, 32, 7, 288, 197744, 1),
+    ("q6_k", 64): qm.GemmGeometry(64, 128, 32, 4, 0, 6, 288, 222304, 1),
+    ("q6_k", 128): qm.GemmGeometry(128, 128, 32, 4, 0, 4, 288, 230464, 1),
+}
+
+
+def _geometry(kind, M):
+    return GEOMETRY[(kind, qm.gemm_bm(M))]
+
+
+# ---------------------------------------------------------------------------
+# the decoder's bit tricks
+
+def _pair_to_bf16(codes: torch.Tensor, bias: float) -> torch.Tensor:
+    """The kernel's code -> bf16 step: the code (0..127) as the low byte of
+    bf16 0x43cc (= 128 + code exactly), less ``bias`` in bf16 (exact)."""
+    v = (codes.to(torch.int16) | 0x4300).view(torch.bfloat16)
+    return (v.float() - bias).to(torch.bfloat16)
+
+
+def _times(c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """bf16x2 multiply: the exact product (two 8-bit mantissas fit f32)
+    rounded once to bf16."""
+    return (c.float() * s.float()).to(torch.bfloat16)
+
+
+def _mirror_weights(pack) -> torch.Tensor:
+    """W [F, D] bf16 as the kernel decodes it from the raw planes."""
+    F, D = pack.shape
+    if pack.kind == "q4_k":
+        q = pack.qs.view(torch.uint8)                              # [F, D/2]
+        bands = [q & 0x0F, q >> 4]                                 # (q >> 4) & 0x0F
+        codes = torch.cat(bands, dim=1)
+        c = _pair_to_bf16(codes, 128.0)
+        return _times(c, pack.a.repeat_interleave(32, dim=1))
+    ql, qh = pack.ql.view(torch.uint8), pack.qh.view(torch.uint8)
+    la, lb = ql[:, : D // 4], ql[:, D // 4:]
+    bands = []
+    for k in range(4):
+        lo = ((la if k % 2 == 0 else lb) >> ((k >> 1) * 4)) & 0x0F
+        bands.append(lo | (((qh >> (2 * k)) & 3) << 4))            # 0..63
+    c = _pair_to_bf16(torch.cat(bands, dim=1), 160.0)
+    return _times(c, pack.s.repeat_interleave(16, dim=1))
+
+
+def _all_bytes(rows: int, cols: int, shift: int) -> torch.Tensor:
+    """int8 [rows, cols] holding every byte value in every row and column."""
+    f = torch.arange(rows)[:, None]
+    j = torch.arange(cols)[None, :]
+    return ((f * 37 + j + shift) % 256).to(torch.uint8).view(torch.int8)
+
+
+def _scales(rows, cols, signed, seed):
+    g = np.random.default_rng(seed)
+    s = g.uniform(0.5, 2.0, (rows, cols)) * 10.0 ** g.integers(-4, 1, (rows, cols))
+    if signed:
+        s *= g.choice([-1.0, 1.0], (rows, cols))
+    return torch.from_numpy(s.astype(np.float32)).bfloat16()
+
+
+@pytest.mark.parametrize("kind", ["q4_k", "q6_k"])
+@pytest.mark.parametrize("D", [512, 1280])
+def test_decoder_bit_tricks_are_the_plain_weights(kind, D):
+    F = 256
+    if kind == "q4_k":
+        a = _scales(F, D // 32, False, 1)
+        pack = kq.Q4KPack(qs=_all_bytes(F, D // 2, 0), a=a,
+                          b=(a.float() * 7.5).bfloat16())
+    else:
+        pack = kq.Q6KPack(ql=_all_bytes(F, D // 2, 0), qh=_all_bytes(F, D // 4, 11),
+                          s=_scales(F, D // 16, True, 2))
+    w = _mirror_weights(pack)
+    # x = I through the plain version: W^T (less b per 32 rows for Q4_K),
+    # every output one product (and one offset), exact in f32
+    got = qm.dequant_matmul_plain(torch.eye(D, dtype=torch.bfloat16), pack, torch.float32)
+    want = w.float().t()
+    if kind == "q4_k":
+        want = want - pack.b.float().repeat_interleave(32, dim=1).t()
+    assert torch.equal(got, want)
+    # and the weights themselves, bit for bit, against the pack's codes
+    codes, sc = pack.codes_and_scales()
+    plain_w = (codes.to(torch.bfloat16).reshape(F, D // pack.sub, pack.sub)
+               * sc.to(torch.bfloat16)[..., None]).reshape(F, D)
+    assert torch.equal(w.view(torch.int16), plain_w.view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# the plan
+
+# (D, F): Llama-3.2-1B's projections and head (phase 3 and the served paths),
+# phase 3's odd F and group-32 edges, and the identity probe
+PLAN_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048), (2048, 128256),
+               (2048, 1001), (1280, 1024)]
+# phase 3's M (33, 100, 256, 512), the identity probe's 2048, and served
+# forwards: prefill buckets, 4 slots x 16 or 64 lanes, a 481-token prompt
+PLAN_M = (33, 48, 64, 65, 100, 128, 256, 481, 512, 1024, 2048)
+SM_COUNTS = (1, 8, 132, 144)
+
+
+def _steps_of(plan, geo, D):
+    """Each k-step's contraction columns: a weight step, the positions
+    [32t, 32t + 32) of every band; an offset step, 32 columns of D/32."""
+    band = D // geo.bands
+    main = [[b * band + geo.positions * t + j for b in range(geo.bands)
+             for j in range(geo.positions)] for t in range(plan.main_steps)]
+    tail = [list(range(32 * u, min(D // 32, 32 * u + 32))) for u in range(plan.tail_steps)]
+    return main, tail
+
+
+@pytest.mark.parametrize("sms", SM_COUNTS)
+@pytest.mark.parametrize("D,F", PLAN_SHAPES)
+@pytest.mark.parametrize("kind", ["q4_k", "q6_k"])
+def test_plan_covers_every_tile_and_step_once(kind, D, F, sms):
+    for M in PLAN_M:
+        geo = _geometry(kind, M)
+        plan = qm.gemm_plan(M, D, F, geo, sms)
+        assert plan.bm == geo.bm and plan.bn == geo.bn == 128
+        # every output tile once
+        assert (plan.tiles_m - 1) * plan.bm < M <= plan.tiles_m * plan.bm
+        assert (plan.tiles_n - 1) * plan.bn < F <= plan.tiles_n * plan.bn
+        # every k-step in exactly one split, none empty
+        total = plan.main_steps + plan.tail_steps
+        runs = [range(s * plan.steps_per_split,
+                      min(total, (s + 1) * plan.steps_per_split)) for s in range(plan.splits)]
+        assert all(len(r) > 0 for r in runs)
+        assert sorted(t for r in runs for t in r) == list(range(total))
+        assert 1 <= plan.splits <= qm.MAX_SPLITS
+        # the steps partition D (and the offset term's D/32 columns)
+        main, tail = _steps_of(plan, geo, D)
+        assert sorted(c for cols in main for c in cols) == list(range(D))
+        if kind == "q4_k":
+            assert sorted(c for cols in tail for c in cols) == list(range(D // 32))
+        else:
+            assert tail == []
+        # a grid at least as wide as the card's slots is never split
+        if plan.tiles_m * plan.tiles_n >= sms * geo.blocks_per_sm:
+            assert plan.splits == 1
+
+
+@pytest.mark.parametrize("kind", ["q4_k", "q6_k"])
+def test_plan_workspaces_depend_on_shapes_only(kind):
+    for M in PLAN_M:
+        for D, F in PLAN_SHAPES:
+            plan = qm.gemm_plan(M, D, F, _geometry(kind, M), 132)
+            again = qm.gemm_plan.__wrapped__(M, D, F, _geometry(kind, M), 132)
+            assert plan == again
+            n_xs, n_part = qm.gemm_workspace(plan, M, D, F, kind == "q4_k")
+            assert n_xs == (M * math.ceil(D / 32 / 32) * 32 if kind == "q4_k" else 0)
+            assert n_part == (plan.splits * M * F if plan.splits > 1 else 0)
+
+
+@pytest.mark.parametrize("M,D,F", [(0, 2048, 512), (33, 2048, 0), (33, 2080, 512),
+                                   (33, 128, 512), (33, 1056, 512),
+                                   (65536 * 128 + 1, 2048, 512)])
+def test_plan_refuses_what_the_kernel_refuses(M, D, F):
+    """The kernel takes M, F >= 1, D a multiple of 256 (every Q4_K / Q6_K
+    pack's) and at most 65535 row tiles."""
+    with pytest.raises(ValueError):
+        qm.gemm_plan(M, D, F, GEOMETRY[("q6_k", 128)], 132)
+
+
+# ---------------------------------------------------------------------------
+# the k-step order against the JAX Pallas kernels
+
+def _weight(D, F, seed):
+    return (np.random.default_rng(seed).normal(size=(D, F)) * 0.05).astype(np.float32)
+
+
+def _gemm_mirror(x: torch.Tensor, pack, plan, out_dtype) -> torch.Tensor:
+    """The kernel's function in its own order: per split, its k-steps in
+    order (a weight step: the 32-column slab of each band; an offset step:
+    32 columns of -bf16(sum_32 x) against b), products summed in f32; the
+    splits' partials summed in split order. Weights as the kernel decodes
+    them in bf16 (code * scale in x's dtype otherwise)."""
+    cd = x.dtype
+    M, D = x.shape
+    F = pack.shape[0]
+    if cd == torch.bfloat16:
+        w = _mirror_weights(pack)
+    else:
+        codes, sc = pack.codes_and_scales()
+        w = (codes.float().reshape(F, D // pack.sub, pack.sub) * sc.float()[..., None]
+             ).reshape(F, D)
+    bands = 2 if pack.kind == "q4_k" else 4
+    total = plan.main_steps + plan.tail_steps
+    if plan.tail_steps:
+        KT = plan.tail_steps * 32
+        xs = torch.zeros(M, KT, dtype=cd)
+        xs[:, : D // 32] = (-x.float().reshape(M, D // 32, 32).sum(-1)).to(cd)
+        bt = torch.zeros(F, KT, dtype=cd)
+        bt[:, : D // 32] = pack.b.to(cd)
+    out = None
+    for s in range(plan.splits):
+        part = torch.zeros(M, F)
+        for t in range(s * plan.steps_per_split, min(total, (s + 1) * plan.steps_per_split)):
+            if t < plan.main_steps:
+                for b in range(bands):
+                    cols = slice(b * D // bands + 32 * t, b * D // bands + 32 * t + 32)
+                    part += x[:, cols].float() @ w[:, cols].float().t()
+            else:
+                cols = slice(32 * (t - plan.main_steps), 32 * (t - plan.main_steps) + 32)
+                part += xs[:, cols].float() @ bt[:, cols].float().t()
+        out = part if out is None else out + part
+    return out.to(out_dtype)
+
+
+def _jax_gemm(kind, x, w, out_dtype):
+    if kind == "q4_k":
+        f = {k: jnp.asarray(v) for k, v in jkq.pack_q4_k(w).items()}
+        D2 = x.shape[1] // 2
+        return jkq.q4_k_matmul_pallas(x, f["qs"], f["a"], f["b"],
+                                      block_d=jqm.divisor_tile(D2, (512, 384, 256, 128), 512),
+                                      out_dtype=out_dtype, interpret=True)
+    f = {k: jnp.asarray(v) for k, v in jkq.pack_q6_k(w).items()}
+    D4 = x.shape[1] // 4
+    return jkq.q6_k_matmul_pallas(x, f["ql"], f["qh"], f["s"],
+                                  block_d=jqm.divisor_tile(D4, (256, 128, 64, 32), 256),
+                                  out_dtype=out_dtype, interpret=True)
+
+
+# (kind, M, D, F, SM count): a one-tile grid split over few SMs (splits > 1
+# with the offset term in the last split), 128-row tiles, and D = 1280, whose
+# offset term ends in a half-empty slab (D/32 = 40)
+ORDER_CASES = [("q4_k", 40, 512, 160, 4), ("q4_k", 96, 256, 192, 132),
+               ("q4_k", 33, 1280, 160, 16), ("q6_k", 40, 512, 160, 4),
+               ("q6_k", 96, 256, 192, 132), ("q6_k", 70, 1280, 128, 8)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kind,M,D,F,sms", ORDER_CASES)
+def test_kstep_order_matches_jax_pallas(kind, M, D, F, sms, dtype):
+    w = _weight(D, F, seed=M + D)
+    pack = (kq.pack_q4_k if kind == "q4_k" else kq.pack_q6_k)(w.T)
+    plan = qm.gemm_plan(M, D, F, _geometry(kind, M), sms)
+    x32 = np.random.default_rng(F).normal(size=(M, D)).astype(np.float32)
+    if dtype == "f32":
+        ref = np.asarray(_jax_gemm(kind, jnp.asarray(x32), w, jnp.float32))
+        got = _gemm_mirror(torch.from_numpy(x32), pack, plan, torch.float32).numpy()
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    else:
+        x = torch.from_numpy(x32).bfloat16()
+        xj = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+        ref = np.asarray(_jax_gemm(kind, xj, w, jnp.bfloat16), np.float32)
+        got = _gemm_mirror(x, pack, plan, torch.bfloat16)
+        assert got.dtype == torch.bfloat16
+        err = np.abs(got.float().numpy() - ref).max()
+        assert err <= 2.0 ** (math.floor(math.log2(np.abs(ref).max())) - 7)
+    if sms < 16 and F <= 160:
+        assert plan.splits > 1   # the case exercises the split-K order
+
+
+# ---------------------------------------------------------------------------
+# alignment: the kernels stage x and the packs 16 bytes at a time
+
+def test_misaligned_pack_field_is_refused():
+    """A pack field at an address that is not a multiple of 16 bytes raises
+    ValueError when the pack is placed for a kernel (on the card it would
+    fault and end the CUDA context); an aligned one is placed."""
+    pack = kq.pack_q6_k(_weight(256, 32, 3).T)
+    cpu = torch.device("cpu")
+    assert len(pack.kernel_ptrs(cpu)) == 3
+    ql = torch.empty(pack.ql.numel() + 1, dtype=torch.int8)[1:].view_as(pack.ql)
+    ql.copy_(pack.ql)
+    bad = kq.Q6KPack(ql=ql, qh=pack.qh, s=pack.s)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        bad.kernel_ptrs(cpu)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        pa.check_aligned("x", torch.empty(65, dtype=torch.bfloat16)[1:])

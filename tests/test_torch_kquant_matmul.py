@@ -1,5 +1,6 @@
 """The port's Q4_K, Q5_KS, Q2_KS and Q3_KS packs and the plain versions of
-their five kernels against the JAX package's.
+their five kernels against the JAX package's (and, in bf16, the plain Q6_K
+fused dequant too).
 
 - Packs (from dense weights and from raw GGUF blocks): every field equals
   the JAX field transposed to out-features-major, exactly (a fifth or third
@@ -28,7 +29,7 @@ import torch
 from distributed_llm_pipeline_tpu.ops import kquant_matmul as jkq
 from distributed_llm_pipeline_tpu.ops import quant_matmul as jqm
 from distributed_llm_pipeline_tpu_torch.gguf.quants import (quant_q2_k, quant_q3_k, quant_q4_k,
-                                                            quant_q5_k)
+                                                            quant_q5_k, quant_q6_k)
 from distributed_llm_pipeline_tpu_torch.ops import kquant_matmul as kq
 from distributed_llm_pipeline_tpu_torch.ops import quant_matmul as qm
 
@@ -53,6 +54,7 @@ def _weight(D, F, seed=0):
 
 # kind: (GGUF encoder, packer name, sub-block, code range)
 KINDS = {"q4_k": (quant_q4_k, "pack_q4_k", 32, (0, 15)),
+         "q6_k": (quant_q6_k, "pack_q6_k", 16, (-32, 31)),
          "q5_ks": (quant_q5_k, "pack_q5_ks", 32, (0, 31)),
          "q2_ks": (quant_q2_k, "pack_q2_ks", 16, (0, 3)),
          "q3_ks": (quant_q3_k, "pack_q3_ks", 16, (-4, 3))}
@@ -117,6 +119,10 @@ def _jax_kernel(kind, kernel, x, jp, out_dtype):
     """The JAX Pallas kernel (interpret mode) on x and the JAX pack."""
     f = {k: jnp.asarray(v) for k, v in jp.items()}
     D = x.shape[1]
+    if kernel == "dequant" and kind == "q6_k":
+        return jkq.q6_k_matmul_pallas(x, f["ql"], f["qh"], f["s"],
+                                      block_d=jqm.divisor_tile(D // 4, (256, 128, 64, 32), 256),
+                                      out_dtype=out_dtype, interpret=True)
     if kernel == "dequant":
         return jkq.q4_k_matmul_pallas(x, f["qs"], f["a"], f["b"], block_d=_block_d(D // 2),
                                       out_dtype=out_dtype, interpret=True)
@@ -169,6 +175,8 @@ def test_plain_kernel_matches_jax_pallas_f32(kind, kernel, M, D, F):
 @pytest.mark.parametrize("kind,kernel,M,D,F", [
     ("q4_k", "w8a8", 4, 512, 192), ("q4_k", "w8a8", 16, 1280, 160),
     ("q4_k", "dequant", 64, 512, 192), ("q4_k", "dequant", 40, 1280, 160),
+    ("q6_k", "dequant", 64, 512, 192), ("q6_k", "dequant", 40, 1280, 160),
+    ("q6_k", "dequant", 100, 1024, 320),
     ("q5_ks", "w8a8", 4, 1024, 160), ("q5_ks", "w8a8", 32, 1280, 192),
     ("q2_ks", "w8a8", 4, 1024, 160), ("q2_ks", "w8a8", 16, 1280, 192),
     ("q3_ks", "w8a8", 4, 1024, 192), ("q3_ks", "w8a8", 32, 512, 160)])
