@@ -32,9 +32,15 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    One JSON line per case: the max abs error and its tolerance, the
    kernel's (cold and warm L2), the plain version's and the library call's
    time, and the least time the card could take (bytes over 3.35 TB/s or
-   operations over 989 TFLOP/s, whichever is larger). The quantized matmul kernels (W8A8 over
+   operations over 989 TFLOP/s, whichever is larger). The three split-KV
+   kernels (flash_attention over the dense cache, paged and latent) also
+   print each case's split plan, grid and the split and merge kernels' µs,
+   relaunch once with host syncs turned into errors for the same bits, and
+   hold the share of outputs over half a bf16 ulp from the plain version
+   in f32; their decode cases launch at least one block per SM, and a few
+   f32 cases of each are held at ``SPLIT_F32_TOL``. The quantized matmul kernels (W8A8 over
    Q8_0, Q6_K, Q4_K, Q5_KS, Q2_KS and Q3_KS packs, fused dequant over Q8_0,
-   Q6_K and Q4_K packs, int8 over int8 packs, of random codes, scales and
+   Q6_K, Q4_K and Q5_K packs, int8 over int8 packs, of random codes, scales and
    offsets) run at Llama-3.2-1B's five (D, F) pairs, the head's with f32
    output: W8A8 at M = 1, 4, 16, 32, fused dequant at M = 33, 256, 512, int8
    at all seven; plus an odd F, activation groups 32 and 128 and an
@@ -49,13 +55,14 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    at M >= 256, ``torch._int_mm`` on the same int8 operands, which applies
    no scales), and their bound counts int8 operations at 1979 TOP/s. Q5_KS,
    Q2_KS and Q3_KS at M > 32 run no kernel (dequant, then ``F.linear``, as
-   the reference's einsum): that route is timed once each. The Q4_K and
-   Q6_K GEMM's cases also print their split plan and grid and relaunch once
-   with host syncs turned into errors, for the same bits; x = I (M = D =
-   2048) through both must give ``dequant_matmul_plain``'s f32 output bit
-   for bit; and a view of x one bf16 past a 16-byte boundary (and a pack
-   field so placed) must make ``dequant_matmul``, ``w8a8_matmul`` and
-   ``int8_matmul`` raise ValueError, the CUDA context still usable after.
+   the reference's einsum): that route is timed once each. The Q4_K, Q6_K
+   and Q5_K GEMM's cases also print their split plan and grid and relaunch
+   once with host syncs turned into errors, for the same bits; x = I (M =
+   D = 2048) through all three must give ``dequant_matmul_plain``'s f32
+   output bit for bit; and a view of x one bf16 past a 16-byte boundary
+   (and a pack field so placed) must make ``dequant_matmul``,
+   ``w8a8_matmul`` and ``int8_matmul`` raise ValueError, as a misaligned q
+   must make ``flash_attention``, the CUDA context still usable after.
 4. Serve, single stream: a GGUF of Llama-3.2-1B geometry (bf16 weights
    random from --seed, a synthetic 128256-token SPM vocab) goes through the
    port's Engine, which first runs the three requests once directly (the
@@ -129,7 +136,8 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    stream each. Every rank's launches are held to its chunk forwards
    (flash_attention once per local layer, each packed projection once, by
    route), a decode step is profiled per rank (device time, busy share,
-   time in collectives), and the logits of a 512-token prefill and four
+   time in collectives), on slots rank 0 is traced through the serve for
+   its quantized GEMM's device time a mixed step, and the logits of a 512-token prefill and four
    decode steps, over four prompts, are held against the single-device
    engine's of phases 6-8 prefilling the same way, in chunks of 16 tokens
    (``MESH_LOGIT_TOL`` in bf16, ``QUANT_LOGIT_TOL`` quantized); the gap to its
@@ -310,31 +318,79 @@ def attn_bound(c: dict) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_attention(fa, kv_quantize, seed: int, flush: torch.Tensor) -> list[dict]:
+# the dense cases a one-stream decode step runs: each launches at least one
+# block per SM
+DENSE_DECODE_CASES = ("decode", "decode_per_row", "int8_decode", "latent_r512_decode")
+# the dense kernel's f32 instantiations, held as the split-KV ones are
+DENSE_F32_CASES = ("decode_per_row", "int8_window_per_row", "gemma2_window_softcap")
+
+
+def attn_inputs(c: dict, kv_quantize, gen: torch.Generator, dtype=torch.bfloat16):
+    """q, k, v (int8 codes with their scales for a quant case), cache_len
+    (an int, or an int32 tensor for a per-row case) and the call's keywords."""
+    B, T, S, H, K, Hd = (c[k] for k in ("B", "T", "S", "H", "K", "Hd"))
+    q = torch.randn(B, T, H, Hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, S, K, Hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, S, K, Hd, generator=gen, device="cuda").to(dtype)
+    ks = vs = None
+    if c.get("quant"):
+        (k, ks), (v, vs) = kv_quantize(k), kv_quantize(v)
+    cl = c["cache_len"]
+    cache_len = torch.tensor(cl, dtype=torch.int32, device="cuda") \
+        if isinstance(cl, list) else cl
+    kw = dict(scale=c.get("scale", 0.0), softcap=c.get("softcap", 0.0),
+              window=c.get("window", 0), k_scale=ks, v_scale=vs)
+    return q, k, v, cache_len, kw
+
+
+def check_attention(fa, pa, kv_quantize, seed: int, flush: torch.Tensor) -> list[dict]:
+    """The dense cache's kernel against its plain version, one JSON line per
+    case with the launch's split plan (from the library's tiling), grid and
+    the split and merge kernels' µs. A second launch made with host syncs
+    turned into errors must give the same bits; the share of outputs more
+    than half a bf16 ulp from the plain version in f32 must stay within
+    ``PV_HALF_ULP_TOL``; the decode cases launch at least one block per SM.
+    Then the f32 instantiations of ``DENSE_F32_CASES`` at
+    ``SPLIT_F32_TOL``."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    sms = pa.sm_count(torch.cuda.current_device())
     rows = []
     for c in ATTN_CASES:
         B, T, S, H, K, Hd = (c[k] for k in ("B", "T", "S", "H", "K", "Hd"))
-        q = torch.randn(B, T, H, Hd, generator=gen, device="cuda").bfloat16()
-        k = torch.randn(B, S, K, Hd, generator=gen, device="cuda").bfloat16()
-        v = torch.randn(B, S, K, Hd, generator=gen, device="cuda").bfloat16()
-        ks = vs = None
-        if c.get("quant"):
-            (k, ks), (v, vs) = kv_quantize(k), kv_quantize(v)
+        q, k, v, cache_len, kw = attn_inputs(c, kv_quantize, gen)
         cl = c["cache_len"]
-        cache_len = torch.tensor(cl, dtype=torch.int32, device="cuda") \
-            if isinstance(cl, list) else cl
-        kw = dict(scale=c.get("scale", 0.0), softcap=c.get("softcap", 0.0),
-                  window=c.get("window", 0), k_scale=ks, v_scale=vs)
         n_rep = H // K
         got = fa.flash_attention(q, k, v, cache_len, n_rep, **kw)
         torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = fa.flash_attention(q, k, v, cache_len, n_rep, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not torch.equal(got, again):
+            fail(f"flash_attention case {c['name']}: two launches on the same inputs differ")
         ref = fa.flash_attention_plain(q, k, v, cache_len, n_rep, **kw)
         err = (got.float() - ref.float()).abs().max().item()
         if not (err <= KERNEL_TOL and torch.isfinite(got.float()).all()):
             fail(f"flash_attention case {c['name']}: max abs err {err} > {KERNEL_TOL}")
+        # the same bf16 values in f32 (int8 codes dequantized and rounded to
+        # bf16, as the kernel rounds them)
+        k32, v32 = ((x.float() * sc).bfloat16().float() if sc is not None else x.float()
+                    for x, sc in ((k, kw["k_scale"]), (v, kw["v_scale"])))
+        ref32 = fa.flash_attention_plain(q.float(), k32, v32, cache_len, n_rep,
+                                         scale=kw["scale"], softcap=kw["softcap"],
+                                         window=kw["window"])
+        share = half_ulp_share(got, ref32)
+        if share > PV_HALF_ULP_TOL:
+            fail(f"flash_attention case {c['name']}: {share} of outputs over half a bf16 "
+                 f"ulp from the f32 plain version > {PV_HALF_ULP_TOL}")
+        plan = fa.dense_plan(B, T, H, K, S, pa.tile_geometry("flash_attention", Hd), sms)
+        grid = [plan.q_tiles, plan.splits, B * K]
+        blocks = grid[0] * grid[1] * grid[2]
+        if c["name"] in DENSE_DECODE_CASES and blocks < sms:
+            fail(f"flash_attention case {c['name']}: {blocks} blocks < {sms} SMs")
         library_ms = None
         if not c.get("quant") and not c.get("softcap"):
             # the same function as one PyTorch call: SDPA with the mask
@@ -356,21 +412,40 @@ def check_attention(fa, kv_quantize, seed: int, flush: torch.Tensor) -> list[dic
                 qt, kt, vt, attn_mask=mask, scale=kw["scale"] or None,
                 enable_gqa=n_rep > 1), 20, flush)
         bound_ms, bound_by = attn_bound(c)
-        row = {"case": c["name"],
+
+        def kernel():
+            return fa.flash_attention(q, k, v, cache_len, n_rep, **kw)
+
+        row = {"case": c["name"], "kernel": "flash_attention",
                "shape": {k: c[k] for k in c if k != "name"},
+               "plan": plan._asdict(), "grid": grid, "blocks": blocks,
+               "threads": 32 * plan.warps, "bit_equal_relaunch": True,
                "max_abs_err": err, "tol": KERNEL_TOL,
-               "kernel_ms": event_ms(lambda: fa.flash_attention(
-                   q, k, v, cache_len, n_rep, **kw), 50, flush),
-               "kernel_warm_l2_ms": event_ms(lambda: fa.flash_attention(
-                   q, k, v, cache_len, n_rep, **kw), 50, None),
-               "kernel_host_us": host_us(lambda: fa.flash_attention(
-                   q, k, v, cache_len, n_rep, **kw)),
+               "over_half_ulp_f32": share,
+               "mean_abs_err_f32": (got.float() - ref32).abs().mean().item(),
+               "half_ulp_tol": PV_HALF_ULP_TOL,
+               "kernel_ms": event_ms(kernel, 50, flush),
+               "kernel_warm_l2_ms": event_ms(kernel, 50, None),
+               "device_us": split_kernel_us(kernel, 20, flush),
+               "kernel_host_us": host_us(kernel),
                "plain_ms": event_ms(lambda: fa.flash_attention_plain(
                    q, k, v, cache_len, n_rep, **kw), 10, flush),
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
         print(json.dumps(row), flush=True)
         rows.append(row)
+    cases = {c["name"]: c for c in ATTN_CASES}
+    for name in DENSE_F32_CASES:
+        c = cases[name]
+        q, k, v, cache_len, kw = attn_inputs(c, kv_quantize, gen, torch.float32)
+        args = (q, k, v, cache_len, c["H"] // c["K"])
+        got = fa.flash_attention(*args, **kw)
+        torch.cuda.synchronize()
+        err = (got - fa.flash_attention_plain(*args, **kw)).abs().max().item()
+        if not (err <= SPLIT_F32_TOL and torch.isfinite(got).all()):
+            fail(f"flash_attention f32 case {name}: max abs err {err} > {SPLIT_F32_TOL}")
+        print(json.dumps({"f32_case": name, "kernel": "flash_attention",
+                          "max_abs_err": err, "tol": SPLIT_F32_TOL}), flush=True)
     return rows
 
 
@@ -1076,9 +1151,12 @@ def check_gemm_identity(qm, kq, seed: int, card: str) -> list[dict]:
 
 def check_misaligned(qm, kq, seed: int) -> dict:
     """A contiguous view at a storage offset that is not a multiple of 16
-    bytes must raise ValueError from each quantized wrapper (the kernels
-    load x 16 bytes at a time; a misaligned load would end the CUDA
-    context), as must a pack field so placed; the context stays usable."""
+    bytes must raise ValueError from each quantized wrapper and from the
+    dense attention's (the kernels load x, q and the cache 16 bytes at a
+    time; a misaligned load would end the CUDA context), as must a pack
+    field so placed; the context stays usable."""
+    from distributed_llm_pipeline_tpu_torch.ops import flash_attention as fa
+
     gen = torch.Generator(device="cuda").manual_seed(seed)
     M, D, F = 64, 2048, 512
     x = torch.empty(M * D + 1, dtype=torch.bfloat16, device="cuda")[1:].view(M, D)
@@ -1094,6 +1172,9 @@ def check_misaligned(qm, kq, seed: int) -> dict:
     bad_field = kq.Q6KPack(ql=ql, qh=q6.qh, s=q6.s)
     calls["dequant_matmul, pack field"] = lambda: qm.dequant_matmul(
         x.clone(), bad_field, torch.bfloat16)
+    q = torch.empty(32 * 64 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(1, 1, 32, 64)
+    kv = torch.zeros(1, 256, 8, 64, dtype=torch.bfloat16, device="cuda")
+    calls["flash_attention"] = lambda: fa.flash_attention(q, kv, kv, 100, 4)
     out = {}
     for what, call in calls.items():
         try:
@@ -2122,6 +2203,24 @@ def profile_mesh_decode(engine, steps: int = 4) -> dict:
     return {"wall_ms_per_step": wall * 1e3, "ranks": ranks, "steps": steps}
 
 
+def mixed_step_gemm(trace, forward_ms: list[int], qm, what: str) -> dict:
+    """Rank 0's device time, per mixed step, in the quantized GEMM's kernels
+    (csrc/kquant_gemm.cuh: the block sums, the GEMM, the split-K reduce) from
+    a torch.profiler trace of a serve, over its chunk forwards of more than
+    ``qm.W8A8_MAX_M`` rows (the M of each forward, as ``stats`` records it)."""
+    mixed = sum(1 for M in forward_ms if M > qm.W8A8_MAX_M)
+    events = [e for e in trace.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "dlp_kgemm" in e.name]
+    if not mixed or not events:
+        fail(f"{what}: {mixed} mixed steps, {len(events)} GEMM kernels traced on rank 0")
+    us = sum(e.time_range.elapsed_us() for e in events)
+    gemms = sum(1 for e in events if "kgemm_kernel" in e.name)
+    return {"mesh": what, "rank": 0, "mixed_steps": mixed,
+            "gemm_device_ms_per_mixed_step": us / 1e3 / mixed,
+            "gemm_launches_per_mixed_step": gemms / mixed,
+            "kernels_per_mixed_step": len(events) / mixed}
+
+
 def serve_mesh(ShardedEngine, MeshSpec, gguf: Path, spec: str, quant, requests,
                ref, qm, card: str, slots: bool, tol: float) -> tuple[dict, str | None]:
     """One mesh path: ``ShardedEngine`` over ``gguf`` at ``spec`` (every rank
@@ -2133,6 +2232,8 @@ def serve_mesh(ShardedEngine, MeshSpec, gguf: Path, spec: str, quant, requests,
     logits) prefilled in chunks of 16, as the mesh prefills, and against
     its one-shot prefill. Returns the launches by kernel, summed over the
     ranks, and what broke ``tol`` (None when nothing did)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig
     from distributed_llm_pipeline_tpu_torch.serving import ChatServer
 
@@ -2149,9 +2250,20 @@ def serve_mesh(ShardedEngine, MeshSpec, gguf: Path, spec: str, quant, requests,
         list(engine.generate("hello", GenerationConfig(max_new_tokens=4)))
         engine.model.command("reset_stats")
         server = ChatServer(engine, gen, parallel=4 if slots else 1)
+        # on slots, rank 0 (this process) is traced on the card through the
+        # serve: its quantized GEMM's device time a mixed step (the serve's
+        # wall time then carries the tracer's cost)
+        trace = profile(activities=[ProfilerActivity.CUDA]) if slots else None
         t0 = time.monotonic()
-        health, results = asyncio.run(chat_requests(server, requests,
-                                                    lead=0 if slots else None))
+        if trace:
+            trace.__enter__()
+        try:
+            health, results = asyncio.run(chat_requests(server, requests,
+                                                        lead=0 if slots else None))
+        finally:
+            if trace:
+                torch.cuda.synchronize()
+                trace.__exit__(None, None, None)
         wall = time.monotonic() - t0
         if health.get("status") != "ok" or (slots and health.get("slots_total") != 4):
             fail(f"{what}: /healthz {health}")
@@ -2163,6 +2275,10 @@ def serve_mesh(ShardedEngine, MeshSpec, gguf: Path, spec: str, quant, requests,
         if slots and server.scheduler.counters["prefill_steps_stolen_total"] < 1:
             fail(f"{what}: no mixed step stole from a decoding stream")
         ranks = mesh_check(engine, qm, what)
+        if trace:
+            print(json.dumps({"mesh_mixed_step_gemm": mixed_step_gemm(
+                trace, engine.model.stats()[0]["forward_ms"], qm, what), "card": card}),
+                flush=True)
         n_gen = sum(s["n_gen"] for s in summaries)
         first = min(r["t0"] for r in results)
         last = max(r["t_last"] for r in results)
@@ -2214,9 +2330,15 @@ def mesh_ref(engine, seed: int, weights: str, card: str) -> list[dict]:
     return refs
 
 
+# the kernel templates the sources instantiate (a kernels-line entry's
+# "header"): the three attention sources' split-KV kernel, and the GEMM of
+# dequant_matmul.cu's q4_k, q6_k and q5_k
+SPLIT_HEADER, GEMM_HEADER = "paged_tile.cuh", "kquant_gemm.cuh"
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
-                 rows: list[dict], timed: dict) -> dict:
-    return {"name": name, "route": "cuda", "source": source,
+                 rows: list[dict], timed: dict, header: str | None = None) -> dict:
+    return {"name": name, "route": "cuda", "source": source, "header": header,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": timed["kernel_ms"], "plain_ms": timed["plain_ms"],
@@ -2264,17 +2386,19 @@ def main() -> int:
         smem = re.findall(r"(\d+) bytes smem", b.ptxas)
         print(f"  {b.name}: nvcc {b.seconds:.1f}s, registers {regs}, "
               f"spill store bytes {spills}, smem bytes {smem}", flush=True)
-    # the split-KV kernels: every instantiation's report, none may spill
+    # the split-KV kernels (paged, latent, dense): every instantiation's
+    # report, none may spill
     split_ptxas = ptxas_report({k: built[k] for k in ("paged_attention",
-                                                      "latent_attention")})
+                                                      "latent_attention",
+                                                      "flash_attention")})
     print(json.dumps({"ptxas": split_ptxas}), flush=True)
     spilled = [f["function"] for fs in split_ptxas.values() for f in fs
                if f.get("spill_stores", 0) > 0]
     if spilled:
         fail(f"split-KV kernels spill registers: {spilled}")
-    # the fused-dequant library: every kernel's report; the Q4_K / Q6_K GEMM
-    # instantiations (kgemm_kernel) may not spill, and ptxas's notes on
-    # serialized wgmma are printed
+    # the fused-dequant library: every kernel's report; the Q4_K / Q6_K /
+    # Q5_K GEMM instantiations (kgemm_kernel) may not spill, and ptxas's
+    # notes on serialized wgmma are printed
     dequant_ptxas = ptxas_report({"dequant_matmul": built["dequant_matmul"]})
     print(json.dumps({"ptxas": dequant_ptxas, "wgmma_notes": [
         ln.strip() for ln in built["dequant_matmul"].ptxas.splitlines() if "wgmma" in ln]}),
@@ -2282,11 +2406,11 @@ def main() -> int:
     spilled = [f["function"] for f in dequant_ptxas["dequant_matmul"]
                if "kgemm_kernel" in f["function"] and f.get("spill_stores", 0) > 0]
     if spilled:
-        fail(f"the Q4_K / Q6_K GEMM spills registers: {spilled}")
+        fail(f"the Q4_K / Q6_K / Q5_K GEMM spills registers: {spilled}")
 
     # 3. kernels against their plain versions
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")   # 256 MiB > L2
-    rows = check_attention(fa, llama.kv_quantize, args.seed, flush)
+    rows = check_attention(fa, pa, llama.kv_quantize, args.seed, flush)
     paged_rows = check_paged(pa, llama.kv_quantize, args.seed, flush)
     latent_rows = check_paged_cases(la.latent_flash_attention, la.latent_attention_plain,
                                     "latent_flash_attention", "latent_attention",
@@ -2435,10 +2559,11 @@ def main() -> int:
     ref = "distributed_llm_pipeline_tpu/ops/"
     entries = [
         kernel_entry("flash_attention", src + "flash_attention.cu",
-                     ref + "flash_attention.py:138", launches, rows, rows[0]),
+                     ref + "flash_attention.py:138", launches, rows, rows[0],
+                     src + SPLIT_HEADER),
         kernel_entry("paged_flash_attention", src + "paged_attention.cu",
                      ref + "paged_attention.py:141", paged_launches, paged_rows,
-                     paged_rows[0]),
+                     paged_rows[0], src + SPLIT_HEADER),
         kernel_entry("fused_decode_attn", src + "fused_decode.cu",
                      ref + "fused_decode.py:379", served10["fused_decode_attn"],
                      fused_rows, next(r for r in fused_rows
@@ -2446,7 +2571,8 @@ def main() -> int:
         kernel_entry("latent_flash_attention", src + "latent_attention.cu",
                      ref + "latent_attention.py:334", served10["latent_attention"],
                      latent_rows, next(r for r in latent_rows
-                                       if r["case"] == "r128_decode"))]
+                                       if r["case"] == "r128_decode"),
+                     src + SPLIT_HEADER)]
     for name, kind, kernel, source, replaces in (
             ("q8_0_matmul", "q8_0", "dequant", "dequant_matmul.cu", "quant_matmul.py:356"),
             ("gw8a8_matmul", "q8_0", "w8a8", "w8a8_matmul.cu", "quant_matmul.py:242"),
@@ -2467,8 +2593,9 @@ def main() -> int:
         pair, M = QUANT_TIMED[(kind, kernel)]
         timed = next(r for r in krows if r["pair"] == pair and r["M"] == M)
         served = mesh_launches if kind in BYTE_KINDS else quant_launches
+        header = src + GEMM_HEADER if kernel == "dequant" and kind in qm.GEMM_KINDS else None
         entries.append(kernel_entry(name, src + source, ref + replaces,
-                                    served.get(name, 0), krows, timed))
+                                    served.get(name, 0), krows, timed, header))
     if any(e["launches"] <= 0 for e in entries):
         fail(f"a kernel of the path never launched: {entries}")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -6,37 +6,32 @@
 // `q4_k_matmul_pallas` and `q5_k_matmul_pallas` (ops/kquant_matmul.py,
 // `_q6k_kernel`, `_q4k_kernel`, `_q5k_kernel`). Same contract:
 //   out [M, F] = x [M, D] @ W^T, W [F, D] = code * scale as the pack's
-//   decoder gives it (quant_tile.cuh), each weight value dequantized in the
-//   activation dtype -- the f32 product code * scale rounded once to bf16,
-//   as the TPU kernels dequantize in x.dtype -- and the products accumulated
-//   in f32. An affine pack (Q4_K, Q5_K: weight = code * scale - offset per
-//   32 rows) does not fold the offset into the staged weight, which would
-//   round code * scale - offset once more: as `_q4k_kernel` and
-//   `_q5k_kernel`, it subtracts
+//   decoder gives it, each weight value dequantized in the activation dtype
+//   -- the f32 product code * scale rounded once to bf16, as the TPU kernels
+//   dequantize in x.dtype -- and the products accumulated in f32. An affine
+//   pack (Q4_K, Q5_K: weight = code * scale - offset per 32 rows) does not
+//   fold the offset into the weight, which would round code * scale - offset
+//   once more: as `_q4k_kernel` and `_q5k_kernel`, it subtracts
 //   bf16(sum of x over each 32 columns) * offset, accumulated in f32 with
 //   the rest. Output in f32 or bf16.
 //
-// Q4_K and Q6_K run kquant_gemm.cuh's GEMM (band-interleaved k-steps through
-// a TMA ring, wgmma, split-K from the host's plan); its header has the
-// design.
+// Q4_K, Q6_K and Q5_K run kquant_gemm.cuh's GEMM (k-steps through a TMA
+// ring, wgmma with the decoded weights in registers, split-K from the host's
+// plan); its header has the design. A tensor-parallel row shard of a Q5_K
+// weight has a D that only 32 divides: its last k-step is ragged.
 //
-// Q8_0 and Q5_K (dequant_kernel below). Prefill and mixed steps (M > 32) are
-// GEMMs that would be bounded by the tensor cores at large M; the dense bf16
-// weight never exists in device memory. One block (4 warps) owns a 64 x 64
-// output tile and walks D
-// in 64-column steps: it stages x's 64 x 64 tile and decodes the weight's
-// 64 x 64 tile into shared memory as bf16, then each warp runs 2 x 2 WMMA
-// 16x16x16 bf16 products into f32 fragments. The next tile's global reads
-// go into registers while the tensor cores work on this one. The output goes
-// through shared memory so ragged M and F edges are masked. An affine
-// pack's offset term is one more 16-deep WMMA slice per k-tile: x' holds the
-// tile's two block sums of each row (8 columns a thread, summed in f32,
-// then over 4 lanes), w' the two offsets of each output row, negated, and
-// both are zero in their other 14 columns. No TMA, no wgmma, one
-// shared-memory stage: a first kernel that is right; PERF.md has its
-// distance from the bound. A tensor-parallel row shard of a Q5_K weight has
-// a D that only 32 divides: the last k-tile then holds one sub-block and
-// zeros (x, codes and offsets past D load as 0).
+// Q8_0 (dequant_kernel below, quant_tile.cuh's decoder). Prefill and mixed
+// steps (M > 32) are GEMMs that would be bounded by the tensor cores at
+// large M; the dense bf16 weight never exists in device memory. One block
+// (4 warps) owns a 64 x 64 output tile and walks D in 64-column steps: it
+// stages x's 64 x 64 tile and decodes the weight's 64 x 64 tile into shared
+// memory as bf16, then each warp runs 2 x 2 WMMA 16x16x16 bf16 products into
+// f32 fragments. The next tile's global reads go into registers while the
+// tensor cores work on this one. The output goes through shared memory so
+// ragged M and F edges are masked. No TMA, no wgmma, one shared-memory
+// stage: a first kernel that is right; PERF.md has its distance from the
+// bound. A D that 64 does not divide (group 32) ends in a k-tile of one
+// 32-row block and zeros (x and codes past D load as 0).
 
 #include "kquant_gemm.cuh"
 #include "quant_tile.cuh"
@@ -52,7 +47,6 @@ constexpr int kThreads = 128;
 constexpr int BM = 64, BN = 64, BK = 64;
 constexpr int LDS = BK + 8;   // bf16 per staged row: 144 B, 32-byte aligned fragments
 constexpr int LDC = BN + 4;   // f32 per output-staging row
-constexpr int LDO = 16;       // bf16 per row of the offset slices x', w'
 
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -67,7 +61,6 @@ struct TileRegs {
   int4 x[XLOADS];
   int w[WLOADS][4];
   float sc[WLOADS];
-  float off[WLOADS];  // affine packs: the offset of the 32 rows that start at c
 };
 
 template <class Dec>
@@ -84,23 +77,19 @@ __device__ __forceinline__ void load_tile(const Dec& dec, const __nv_bfloat16* x
   for (int j = 0; j < WLOADS; ++j) {
     const int i = threadIdx.x + j * kThreads, r = i / (BK / 16), c = (i % (BK / 16)) * 16;
     const int f = n0 + r;
-    t.sc[j] = t.off[j] = 0.f;
+    t.sc[j] = 0.f;
     t.w[j][0] = t.w[j][1] = t.w[j][2] = t.w[j][3] = 0;
     if (f < F && k0 + c < D) {
       dec.codes16(f, k0 + c, t.w[j]);
       t.sc[j] = dec.scale_at(f, k0 + c);
-      if constexpr (Dec::AFFINE) t.off[j] = dec.offset_at(f, k0 + c);
     }
   }
 }
 
 // the registers into shared memory: x as it is, each weight value as
-// bf16(code * scale); for an affine pack also x's block sums into column
-// c / 32 of xo and the negated offsets into column c / 32 of wo
-template <class Dec>
+// bf16(code * scale)
 __device__ __forceinline__ void stage_tile(const TileRegs& t, __nv_bfloat16* xt,
-                                           __nv_bfloat16* wt, __nv_bfloat16* xo,
-                                           __nv_bfloat16* wo) {
+                                           __nv_bfloat16* wt) {
 #pragma unroll
   for (int j = 0; j < XLOADS; ++j) {
     const int i = threadIdx.x + j * kThreads, r = i / (BK / 8), c = (i % (BK / 8)) * 8;
@@ -118,25 +107,6 @@ __device__ __forceinline__ void stage_tile(const TileRegs& t, __nv_bfloat16* xt,
     dst[0] = make_int4(int(pk[0]), int(pk[1]), int(pk[2]), int(pk[3]));
     dst[1] = make_int4(int(pk[4]), int(pk[5]), int(pk[6]), int(pk[7]));
   }
-  if constexpr (Dec::AFFINE) {
-#pragma unroll
-    for (int j = 0; j < XLOADS; ++j) {
-      // the 4 adjacent lanes i % 8 = 0..3 (or 4..7) hold one row's 32 columns
-      const int i = threadIdx.x + j * kThreads, r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&t.x[j]);
-      float sum = 0.f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sum += __bfloat162float(v[e]);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (c % 32 == 0) xo[r * LDO + c / 32] = __float2bfloat16_rn(sum);
-    }
-#pragma unroll
-    for (int j = 0; j < WLOADS; ++j) {
-      const int i = threadIdx.x + j * kThreads, r = i / (BK / 16), c = (i % (BK / 16)) * 16;
-      if (c % 32 == 0) wo[r * LDO + c / 32] = __float2bfloat16_rn(-t.off[j]);
-    }
-  }
 }
 
 template <class Dec>
@@ -146,19 +116,9 @@ dequant_kernel(Dec dec, const __nv_bfloat16* __restrict__ x, void* __restrict__ 
   __shared__ __align__(32) __nv_bfloat16 xt[BM * LDS];
   __shared__ __align__(32) __nv_bfloat16 wt[BN * LDS];
   __shared__ __align__(32) float ct[BM * LDC];
-  // the offset slices of an affine pack: columns 0 and 1 are staged per
-  // k-tile, columns 2..15 stay 0
-  __shared__ __align__(32) __nv_bfloat16 xo[Dec::AFFINE ? BM * LDO : 1];
-  __shared__ __align__(32) __nv_bfloat16 wo[Dec::AFFINE ? BN * LDO : 1];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int warp = threadIdx.x / 32;
   const int wm = warp / 2, wn = warp % 2;  // the warp's 32 x 32 quarter
-  if constexpr (Dec::AFFINE) {
-    for (int i = threadIdx.x; i < BM * (LDO - 2); i += kThreads) {
-      xo[(i / (LDO - 2)) * LDO + 2 + i % (LDO - 2)] = __float2bfloat16_rn(0.f);
-      wo[(i / (LDO - 2)) * LDO + 2 + i % (LDO - 2)] = __float2bfloat16_rn(0.f);
-    }
-  }
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
@@ -169,7 +129,7 @@ dequant_kernel(Dec dec, const __nv_bfloat16* __restrict__ x, void* __restrict__ 
   TileRegs regs;
   load_tile(dec, x, M, D, F, m0, n0, 0, regs);
   for (int k0 = 0; k0 < D; k0 += BK) {
-    stage_tile<Dec>(regs, xt, wt, xo, wo);
+    stage_tile(regs, xt, wt);
     __syncthreads();
     // the next tile's reads are in flight while the tensor cores work
     if (k0 + BK < D) load_tile(dec, x, M, D, F, m0, n0, k0 + BK, regs);
@@ -181,18 +141,6 @@ dequant_kernel(Dec dec, const __nv_bfloat16* __restrict__ x, void* __restrict__ 
       for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], xt + (wm * 32 + i * 16) * LDS + kk, LDS);
 #pragma unroll
       for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], wt + (wn * 32 + j * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    if constexpr (Dec::AFFINE) {  // acc -= bf16(block sums of x) * offsets
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], xo + (wm * 32 + i * 16) * LDO, LDO);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], wo + (wn * 32 + j * 16) * LDO, LDO);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -218,7 +166,6 @@ template <class Dec>
 int launch(const Dec& dec, const void* x, void* out, int out_bf16, int M, int D, int F,
            void* stream) {
   if (M < 1 || F < 1 || D < 16 || D % 16 || (M + BM - 1) / BM > 65535) return int(cudaErrorInvalidValue);
-  if (Dec::AFFINE && D % 32) return int(cudaErrorInvalidValue);  // k-tiles of whole sub-blocks
   const dim3 grid((F + BN - 1) / BN, (M + BM - 1) / BM);
   dequant_kernel<Dec><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       dec, static_cast<const __nv_bfloat16*>(x), out, out_bf16 != 0, M, D, F);
@@ -236,20 +183,13 @@ extern "C" int dlp_dequant_matmul_q8_0(const void* x, const void* qs, const void
   return launch(dec, x, out, out_bf16, M, D, F, stream);
 }
 
-extern "C" int dlp_dequant_matmul_q5_k(const void* x, const void* q5, const void* a,
-                                       const void* b, void* out, int out_bf16, int M, int D,
-                                       int F, void* stream) {
-  const Q5K dec{{static_cast<const int8_t*>(q5), static_cast<const __nv_bfloat16*>(a), D},
-                static_cast<const __nv_bfloat16*>(b)};
-  return launch(dec, x, out, out_bf16, M, D, F, stream);
-}
-
-// The Q4_K and Q6_K GEMM (kquant_gemm.cuh). xs: bf16 workspace of M *
-// (D/32 rounded up to 32) values for Q4_K's block sums (null for Q6_K);
-// part: f32 workspace of splits * M * F values when splits > 1 (may be null
-// otherwise); maps: the pack's tensor maps (the *_pack_maps entries) in host
-// memory; bm (64 or 128 rows of x a block), splits and steps_per_split come
-// from the host's plan. Returns the cudaError_t of the launches.
+// The Q4_K, Q6_K and Q5_K GEMM (kquant_gemm.cuh). xs: bf16 workspace of M *
+// (D/32 rounded up to 32) values for the affine packs' block sums (null for
+// Q6_K); part: f32 workspace of splits * M * F values when splits > 1 (may
+// be null otherwise); maps: the pack's tensor maps (the *_pack_maps entries)
+// in host memory; bm (64 or 128 rows of x a block), splits and
+// steps_per_split come from the host's plan. Returns the cudaError_t of the
+// launches.
 extern "C" int dlp_dequant_matmul_q4_k(const void* x, const void* maps, void* out, void* xs,
                                        void* part, int out_bf16, int M, int D, int F, int bm,
                                        int splits, int steps_per_split, void* stream) {
@@ -266,10 +206,19 @@ extern "C" int dlp_dequant_matmul_q6_k(const void* x, const void* maps, void* ou
                                                static_cast<cudaStream_t>(stream)));
 }
 
+extern "C" int dlp_dequant_matmul_q5_k(const void* x, const void* maps, void* out, void* xs,
+                                       void* part, int out_bf16, int M, int D, int F, int bm,
+                                       int splits, int steps_per_split, void* stream) {
+  return int(dlp_kgemm::launch<dlp_kgemm::Q5K>(x, xs, maps, part, out, out_bf16, M, D, F, bm,
+                                               splits, steps_per_split,
+                                               static_cast<cudaStream_t>(stream)));
+}
+
 // A pack's tensor maps into `out` (dlp_dequant_matmul_pack_maps_bytes bytes),
-// encoded once for each placement of the pack: Q4_K's fields (qs, a, b) or
-// Q6_K's (ql, qh, s), the dense shape D, F. Returns cudaErrorInvalidValue
-// when they cannot be encoded.
+// encoded once for each placement of the pack: Q4_K's fields (qs, a, b),
+// Q6_K's (ql, qh, s) or Q5_K's (q5, and a, b with rows padded to a multiple
+// of 8 values), the dense shape D, F. Returns cudaErrorInvalidValue when
+// they cannot be encoded.
 extern "C" int dlp_dequant_matmul_q4_k_pack_maps(const void* qs, const void* a, const void* b,
                                                  void* out, int D, int F) {
   return int(dlp_kgemm::encode_pack<dlp_kgemm::Q4K>(qs, a, b, D, F, out));
@@ -278,6 +227,11 @@ extern "C" int dlp_dequant_matmul_q4_k_pack_maps(const void* qs, const void* a, 
 extern "C" int dlp_dequant_matmul_q6_k_pack_maps(const void* ql, const void* qh, const void* s,
                                                  void* out, int D, int F) {
   return int(dlp_kgemm::encode_pack<dlp_kgemm::Q6K>(ql, qh, s, D, F, out));
+}
+
+extern "C" int dlp_dequant_matmul_q5_k_pack_maps(const void* q5, const void* a, const void* b,
+                                                 void* out, int D, int F) {
+  return int(dlp_kgemm::encode_pack<dlp_kgemm::Q5K>(q5, a, b, D, F, out));
 }
 
 extern "C" int dlp_dequant_matmul_pack_maps_bytes() {
@@ -294,4 +248,8 @@ extern "C" int dlp_dequant_matmul_q4_k_geometry(int bm, int* out) {
 
 extern "C" int dlp_dequant_matmul_q6_k_geometry(int bm, int* out) {
   return int(dlp_kgemm::geometry<dlp_kgemm::Q6K>(bm, out));
+}
+
+extern "C" int dlp_dequant_matmul_q5_k_geometry(int bm, int* out) {
+  return int(dlp_kgemm::geometry<dlp_kgemm::Q5K>(bm, out));
 }

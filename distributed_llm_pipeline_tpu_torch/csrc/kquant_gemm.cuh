@@ -1,19 +1,23 @@
-// Fused-dequant GEMM over the band-interleaved Q4_K and Q6_K packs for Hopper
-// (sm_90a): the one kernel template behind dequant_matmul.cu's
-// dlp_dequant_matmul_q4_k and dlp_dequant_matmul_q6_k.
+// Fused-dequant GEMM over the band-interleaved Q4_K and Q6_K packs and the
+// Q5_K byte-code pack for Hopper (sm_90a): the one kernel template behind
+// dequant_matmul.cu's dlp_dequant_matmul_q4_k, _q6_k and _q5_k.
 //
-// Replaces the TPU kernels `q4_k_matmul_pallas` and `q6_k_matmul_pallas`
-// (distributed_llm_pipeline_tpu/ops/kquant_matmul.py, `_q4k_kernel`,
-// `_q6k_kernel`). Contract (dequant_matmul.cu): out [M, F] = x [M, D] . W^T,
-// x bf16, each weight value bf16(code * scale) -- the exact product rounded
-// once -- and the products accumulated in f32; Q4_K (w = a * q - b per 32
-// rows) does not fold b into the weight: it subtracts bf16(sum of x over each
-// 32 columns) * b, the sums taken in f32. Output f32 or bf16.
+// Replaces the TPU kernels `q4_k_matmul_pallas`, `q6_k_matmul_pallas` and
+// `q5_k_matmul_pallas` (distributed_llm_pipeline_tpu/ops/kquant_matmul.py,
+// `_q4k_kernel`, `_q6k_kernel`, `_q5k_kernel`). Contract (dequant_matmul.cu):
+// out [M, F] = x [M, D] . W^T, x bf16, each weight value bf16(code * scale)
+// -- the exact product rounded once -- and the products accumulated in f32;
+// Q4_K and Q5_K (w = a * q - b per 32 rows) do not fold b into the weight:
+// they subtract bf16(sum of x over each 32 columns) * b, the sums taken in
+// f32. Output f32 or bf16.
 //
 //   Q4_K  qs [F, D/2] (byte j: row j in its low nibble, row D/2 + j in its
 //         high one), a, b bf16 [F, D/32]
 //   Q6_K  ql [F, D/2] (byte j: row j low, D/2 + j high), qh [F, D/4] (bits
 //         2k..2k+1 of byte j: row k * D/4 + j), s bf16 [F, D/16]
+//   Q5_K  q5 [F, D] (one code in [0, 31] a byte: a tensor-parallel row shard
+//         splits it like a dense weight, so D is only a multiple of 32),
+//         a, b bf16 [F, D/32]
 //
 // What bounds it. At prefill widths (M = 512, D x F = 2048 x 8192) the
 // product's 17 GFLOP take 17 us at the bf16 tensor-core rate and the packs'
@@ -24,7 +28,12 @@
 //   [32t, 32t + 32) of every band at once -- two 32-column slabs of x and W
 //   for Q4_K (columns p.. of band 0 and D/2 + p.. of band 1), four for Q6_K
 //   -- the TPU kernels' contraction order: each packed byte is fetched once
-//   and decoded into all its bands.
+//   and decoded into all its bands. Q5_K has one plane and no bands: a
+//   k-step covers four consecutive 32-column slabs (128 codes a row), so
+//   that, as for Q6_K, 8 MMAs share each step's handoff (the full-barrier
+//   wait, the wgmma commit and wait, the release); with one slab a step the
+//   handoff would come once every 2 MMAs. A D that 128 does not divide ends
+//   in a ragged step: only its real slabs are loaded and multiplied.
 // - The product is computed transposed, out^T = W . x^T, with wgmma
 //   m64nBMk16 in its register form: the decoded weights are the A operand,
 //   in registers, and x is the B operand, in shared memory. A block is two
@@ -54,8 +63,12 @@
 //   scales come a window of 8 or 16 steps at a time, 48 bytes a row and
 //   band, into two window slots: loaded a step at a time they were many
 //   tiny rows of TMA work and held the block back on the H100 (as did the
-//   codes staged by one warp's cp.async).
-// - The Q4_K offset term as one more stretch of K: a first small kernel
+//   codes staged by one warp's cp.async). Q5_K's four scales of a step are
+//   adjacent: one box a window. A TMA row pitch must be a multiple of 16
+//   bytes; a Q5_K shard's a and b rows are D/16 bytes, so the host hands the
+//   maps copies padded to 8 values a row where D/32 is not a multiple of 8
+//   (ops/quant_matmul.py gemm_pack_maps, once for each placement).
+// - The affine offset term as one more stretch of K: a first small kernel
 //   writes -bf16(sum_32 x) [M, D/32] (zero-padded to a multiple of 32
 //   columns) to a workspace; the GEMM's last k-steps multiply b (the A
 //   operand, read as it is) against it, and skip any 16-deep MMA that would
@@ -87,39 +100,53 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int BN = 128;        // rows of W (output columns) a block: two warpgroups of 64
-constexpr int POS = 32;        // packed positions a k-step: one slab per band
 constexpr int SLAB = 32;       // columns of a slab: one 64-byte smem row
-constexpr int XSUM_SUB = 32;   // Q4_K's offset sub-block
+constexpr int XSUM_SUB = 32;   // Q4_K's and Q5_K's offset sub-block
 constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 32;   // + the producer warp
 
-// The packs, as a stage holds them for BN = 128 rows of W: RAW_BYTES of
-// codes, plane by plane (Q4_K: qs [128][32]; a step of the offset term: b
-// [128][64], 32 columns of bf16; Q6_K: ql bands 0/2, ql bands 1/3, qh, each
-// [128][32]). The scales come a window of WIN k-steps at a time (Q4_K's a:
-// one a band and step; Q6_K's s: two), into one of two window slots: per
-// band and row a box of SC_BOX values from the 8-aligned column at or before
-// the window's first (a 16-byte-aligned box, and a window is longer than the
-// ring, so a slot is never reloaded before its last step is decoded).
+// The packs, as a stage holds them for BN = 128 rows of W. A k-step covers
+// POS packed positions of each of BANDS bands: SLABS 32-column slabs of x
+// and of W. RAW_BYTES of codes, plane by plane (Q4_K: qs [128][32]; a step
+// of the offset term: b [128][64], 32 columns of bf16; Q6_K: ql bands 0/2,
+// ql bands 1/3, qh, each [128][32]; Q5_K: q5, one [128][32] box a slab).
+// The scales come a window of WIN k-steps at a time (Q4_K's a: one a band
+// and step; Q6_K's s: two; Q5_K's a: four, adjacent), into one of two
+// window slots: per scale band (SC_BANDS) and row a box of SC_BOX values
+// from the 8-aligned column at or before the window's first (a
+// 16-byte-aligned box, and a window is longer than the ring, so a slot is
+// never reloaded before its last step is decoded). D_ALIGN: the D the pack
+// takes is a multiple of it.
 struct Q4K {
-  static constexpr int BANDS = 2, RAW_BYTES = BN * 64;
+  static constexpr int BANDS = 2, POS = 32, SLABS = 2, RAW_BYTES = BN * 64;
   static constexpr int RAW_TX = BN * 32;   // a weight step's codes
-  static constexpr int PER_STEP = 1, WIN = 16, SC_BOX = 24;
+  static constexpr int SC_BANDS = 2, PER_STEP = 1, WIN = 16, SC_BOX = 24;
   static constexpr bool AFFINE = true;
+  static constexpr int D_ALIGN = 256;
   static constexpr int stages(int bm) { return bm == 64 ? 10 : 7; }
 };
 
 struct Q6K {
-  static constexpr int BANDS = 4, RAW_BYTES = 3 * BN * 32;
+  static constexpr int BANDS = 4, POS = 32, SLABS = 4, RAW_BYTES = 3 * BN * 32;
   static constexpr int RAW_TX = RAW_BYTES;
-  static constexpr int PER_STEP = 2, WIN = 8, SC_BOX = 24;
+  static constexpr int SC_BANDS = 4, PER_STEP = 2, WIN = 8, SC_BOX = 24;
   static constexpr bool AFFINE = false;
+  static constexpr int D_ALIGN = 256;
+  static constexpr int stages(int bm) { return bm == 64 ? 6 : 4; }
+};
+
+struct Q5K {
+  static constexpr int BANDS = 1, POS = 4 * SLAB, SLABS = 4, RAW_BYTES = SLABS * BN * 32;
+  static constexpr int RAW_TX = RAW_BYTES;
+  static constexpr int SC_BANDS = 1, PER_STEP = SLABS, WIN = 8, SC_BOX = 40;
+  static constexpr bool AFFINE = true;
+  static constexpr int D_ALIGN = SLAB;
   static constexpr int stages(int bm) { return bm == 64 ? 6 : 4; }
 };
 
 // The tensor maps of a pack, encoded once for each placement of it: the code
-// planes (bytes, 32 columns x 128 rows: Q4_K qs in codes0; Q6_K ql in codes0,
-// qh in codes1), the scales (bf16, SC_BOX columns: Q4_K a, Q6_K s) and
-// Q4_K's b (bf16, 32 columns).
+// planes (bytes, 32 columns x 128 rows: Q4_K qs and Q5_K q5 in codes0; Q6_K
+// ql in codes0, qh in codes1), the scales (bf16, SC_BOX columns: Q4_K and
+// Q5_K a, Q6_K s) and the affine packs' b (bf16, 32 columns).
 struct PackMaps {
   CUtensorMap codes0, codes1, scales, b;
 };
@@ -138,23 +165,29 @@ struct Maps {
 template <class Dec, int BM>
 struct Geo {
   static constexpr int STAGES = Dec::stages(BM);
-  static constexpr int X_BYTES = Dec::BANDS * BM * 64;
+  static constexpr int X_BYTES = Dec::SLABS * BM * 64;
   static constexpr int RAW_OFF = X_BYTES;
   static constexpr int STAGE = (RAW_OFF + Dec::RAW_BYTES + 1023) / 1024 * 1024;
   static constexpr int SC_BAND = BN * Dec::SC_BOX * 2;          // a band's boxes
-  static constexpr int SC_SLOT = Dec::BANDS * SC_BAND;          // a window slot
+  static constexpr int SC_SLOT = Dec::SC_BANDS * SC_BAND;       // a window slot
   static constexpr int SC_OFF = STAGES * STAGE;                 // two window slots
   static constexpr int BAR_OFF = SC_OFF + 2 * SC_SLOT;   // full[STAGES], empty[STAGES]
   static constexpr int SMEM = BAR_OFF + 16 * STAGES + 1024;  // + slack to align the base
   static constexpr int ACC = BM / 2;                 // f32 accumulators a thread
-  static constexpr int NA = Dec::BANDS * 2 * 4;      // A registers a step: 4 a 16-deep MMA
+  static constexpr int NA = Dec::SLABS * 2 * 4;      // A registers a step: 4 a 16-deep MMA
   static constexpr int LDO = BN + 4;                 // f32 a row of the output tile
   static_assert(BM * LDO * 4 <= BAR_OFF, "the output tile fits in the stages");
   static_assert(Dec::WIN >= STAGES - 2, "a window outlives the ring");
   static_assert(Dec::PER_STEP * Dec::WIN + 8 <= Dec::SC_BOX, "a box holds its window");
+  static_assert(Dec::SLABS * SLAB == Dec::BANDS * Dec::POS, "a step's slabs cover its positions");
 };
 
-__host__ __device__ constexpr int main_steps(int D, int bands) { return D / (bands * POS); }
+// the weight's k-steps (the last one ragged where D / BANDS is not a
+// multiple of POS: Q5_K only)
+template <class Dec>
+__host__ __device__ constexpr int main_steps(int D) {
+  return (D + Dec::BANDS * Dec::POS - 1) / (Dec::BANDS * Dec::POS);
+}
 // the Q4_K offset term: 32 columns of [M, D/32] a step
 __host__ __device__ constexpr int tail_steps(int D, bool affine) {
   return affine ? (D / XSUM_SUB + SLAB - 1) / SLAB : 0;
@@ -384,6 +417,26 @@ __device__ __forceinline__ void decode(Q6K, const uint8_t* raw, const uint8_t* s
   }
 }
 
+// slab s of the step in a[8s .. 8s + 7], one scale a slab and row
+__device__ __forceinline__ void decode(Q5K, const uint8_t* raw, const uint8_t* sc, int r, int c,
+                                       int t, int D, uint32_t (&a)[32]) {
+  const __nv_bfloat162 bias = bits_bf16x2(0x43004300u);   // 128
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = r + 8 * h;
+#pragma unroll
+    for (int s = 0; s < Q5K::SLABS; ++s) {
+      const __nv_bfloat162 sc_s = splat(scale_at<Q5K>(sc, 0, rr, t, s, D));
+#pragma unroll
+      for (int kb = 0; kb < 2; ++kb) {
+        const uint32_t q = frag_bytes(raw + s * BN * 32 + rr * 32, kb, c);
+        a[8 * s + 4 * kb + h] = scaled_pair<0x4140u>(q, bias, sc_s);
+        a[8 * s + 4 * kb + 2 + h] = scaled_pair<0x4342u>(q, bias, sc_s);
+      }
+    }
+  }
+}
+
 // the offset term's A: b [128][32 bf16] as it is, in a[0..7]
 template <int N>
 __device__ __forceinline__ void offset_frags(const uint8_t* raw, int r, int c,
@@ -409,20 +462,31 @@ __device__ __forceinline__ void load_step(const Maps& maps, int D, int m0, int n
   const uint32_t raw = st + G::RAW_OFF;
   if (t < n_main) {
     const bool window = t == k0 || t % Dec::WIN == 0;
-    mbar_arrive_tx(full, G::X_BYTES + Dec::RAW_TX + (window ? G::SC_SLOT : 0));
-    const int p = t * POS, band = D / Dec::BANDS;
+    const int p = t * Dec::POS, band = D / Dec::BANDS;
+    const int sc_bytes = window ? G::SC_SLOT : 0;
+    if constexpr (Dec::BANDS == 1) {
+      // Q5_K: the step's slabs of x and of q5 that lie inside D
+      const int slabs = min(Dec::SLABS, (D - p) / SLAB);
+      mbar_arrive_tx(full, slabs * (BM * 64 + BN * SLAB) + sc_bytes);
+      for (int s = 0; s < slabs; ++s) {
+        tma_load(st + s * BM * 64, &maps.x, p + SLAB * s, m0, full);
+        tma_load(raw + s * BN * SLAB, &maps.pk.codes0, p + SLAB * s, n0, full);
+      }
+    } else {
+      mbar_arrive_tx(full, G::X_BYTES + Dec::RAW_TX + sc_bytes);
 #pragma unroll
-    for (int s = 0; s < Dec::BANDS; ++s)
-      tma_load(st + s * BM * 64, &maps.x, s * band + p, m0, full);
-    tma_load(raw, &maps.pk.codes0, p, n0, full);
-    if constexpr (!Dec::AFFINE) {   // Q6_K: ql of bands 1/3 and qh too
-      tma_load(raw + BN * 32, &maps.pk.codes0, D / 4 + p, n0, full);
-      tma_load(raw + 2 * BN * 32, &maps.pk.codes1, p, n0, full);
+      for (int s = 0; s < Dec::BANDS; ++s)
+        tma_load(st + s * BM * 64, &maps.x, s * band + p, m0, full);
+      tma_load(raw, &maps.pk.codes0, p, n0, full);
+      if constexpr (!Dec::AFFINE) {   // Q6_K: ql of bands 1/3 and qh too
+        tma_load(raw + BN * 32, &maps.pk.codes0, D / 4 + p, n0, full);
+        tma_load(raw + 2 * BN * 32, &maps.pk.codes1, p, n0, full);
+      }
     }
     if (window) {
       const uint32_t sc = sc0 + (t / Dec::WIN % 2) * G::SC_SLOT;
 #pragma unroll
-      for (int k = 0; k < Dec::BANDS; ++k)
+      for (int k = 0; k < Dec::SC_BANDS; ++k)
         tma_load(sc + k * G::SC_BAND, &maps.pk.scales, window_col<Dec>(k, t, D), n0, full);
     }
   } else {
@@ -449,7 +513,7 @@ kgemm_kernel(const __grid_constant__ Maps maps, float* __restrict__ part, void* 
   uint8_t* const sbase = smem_raw + (base - raw0);
   const uint32_t full0 = base + G::BAR_OFF, empty0 = full0 + 8 * G::STAGES;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int n_main = main_steps(D, Dec::BANDS);
+  const int n_main = main_steps<Dec>(D);
   const int total = n_main + tail_steps(D, Dec::AFFINE);
   const int k0 = blockIdx.z * sps;
   const int ns = min(total, k0 + sps) - k0;
@@ -527,6 +591,25 @@ kgemm_kernel(const __grid_constant__ Maps maps, float* __restrict__ part, void* 
       }
     }
   };
+  // a weight step: every slab, or in the ragged last step of a Q5_K D that
+  // 128 does not divide, only the slabs inside D (1 to 3: 2 to 6 MMAs)
+  const int last_slabs = (D - (n_main - 1) * Dec::POS * Dec::BANDS) / SLAB;
+  auto main_step = [&](int i, uint32_t(&cur)[G::NA], uint32_t(&next)[G::NA]) {
+    if constexpr (Dec::D_ALIGN < Dec::SLABS * SLAB) {
+      static_assert(Dec::SLABS == 4, "the ragged step's batches below");
+      if (k0 + i == n_main - 1 && last_slabs < Dec::SLABS) {
+        if (last_slabs == 1) {
+          step(i, Int<2>(), cur, next);
+        } else if (last_slabs == 2) {
+          step(i, Int<4>(), cur, next);
+        } else {
+          step(i, Int<6>(), cur, next);
+        }
+        return;
+      }
+    }
+    step(i, Int<2 * Dec::SLABS>(), cur, next);
+  };
   // the offset term: every slab but the last holds 32 real columns
   auto offset_step = [&](int i, uint32_t(&cur)[G::NA], uint32_t(&next)[G::NA]) {
     if (i + 1 < ns || nb - SLAB * (k0 + i - n_main) > 16) {
@@ -548,11 +631,11 @@ kgemm_kernel(const __grid_constant__ Maps maps, float* __restrict__ part, void* 
     const int i_main = min(ns, n_main - k0);
     int i = 0;
     for (; i + 1 < i_main; i += 2) {
-      step(i, Int<2 * Dec::BANDS>(), a0, a1);
-      step(i + 1, Int<2 * Dec::BANDS>(), a1, a0);
+      main_step(i, a0, a1);
+      main_step(i + 1, a1, a0);
     }
     if (i < i_main) {
-      step(i, Int<2 * Dec::BANDS>(), a0, a1);
+      main_step(i, a0, a1);
       if constexpr (Dec::AFFINE) offset_steps(i + 1, a1, a0);
     } else if constexpr (Dec::AFFINE) {
       offset_steps(i, a0, a1);
@@ -668,14 +751,14 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// [rows, cols] row-major in boxes of box_cols x box_rows, rows and columns
-// past the end read as 0
+// [rows, cols] row-major, rows `pitch` elements apart (0: cols), in boxes of
+// box_cols x box_rows, rows and columns past the end read as 0
 bool make_map(CUtensorMap* map, CUtensorMapDataType type, int esize, const void* base, int rows,
-              int cols, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+              int cols, int box_cols, int box_rows, CUtensorMapSwizzle swizzle, int pitch = 0) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
-  const cuuint64_t strides[1] = {cuuint64_t(cols) * esize};
+  const cuuint64_t strides[1] = {cuuint64_t(pitch ? pitch : cols) * esize};
   const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
@@ -690,15 +773,20 @@ bool act_map(CUtensorMap* map, const void* base, int rows, int cols, int bm) {
                   CU_TENSOR_MAP_SWIZZLE_64B);
 }
 bool byte_map(CUtensorMap* map, const void* base, int rows, int cols) {
-  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rows, cols, POS, BN,
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rows, cols, SLAB, BN,
                   CU_TENSOR_MAP_SWIZZLE_NONE);
 }
-bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols) {
+bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols,
+              int pitch = 0) {
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, box_cols, BN,
-                  CU_TENSOR_MAP_SWIZZLE_NONE);
+                  CU_TENSOR_MAP_SWIZZLE_NONE, pitch);
 }
 
-// the packs' maps: Q4_K (qs, a, b), Q6_K (ql, qh, s)
+// Q5_K's a and b rows as the maps read them: D/32 values, rows padded to a
+// multiple of 8 values (16 bytes, TMA's least row pitch)
+constexpr int scale_pitch(int D) { return (D / XSUM_SUB + 7) / 8 * 8; }
+
+// the packs' maps: Q4_K (qs, a, b), Q6_K (ql, qh, s), Q5_K (q5, a, b)
 bool pack_maps(PackMaps& m, Q4K, const void* qs, const void* a, const void* b, int D, int F) {
   return byte_map(&m.codes0, qs, F, D / 2) && byte_map(&m.codes1, qs, F, D / 2) &&
          bf16_map(&m.scales, a, F, D / 32, Q4K::SC_BOX) && bf16_map(&m.b, b, F, D / 32, SLAB);
@@ -707,14 +795,22 @@ bool pack_maps(PackMaps& m, Q6K, const void* ql, const void* qh, const void* s, 
   return byte_map(&m.codes0, ql, F, D / 2) && byte_map(&m.codes1, qh, F, D / 4) &&
          bf16_map(&m.scales, s, F, D / 16, Q6K::SC_BOX) && bf16_map(&m.b, s, F, D / 16, SLAB);
 }
+bool pack_maps(PackMaps& m, Q5K, const void* q5, const void* a, const void* b, int D, int F) {
+  const int pitch = scale_pitch(D);
+  return byte_map(&m.codes0, q5, F, D) && byte_map(&m.codes1, q5, F, D) &&
+         bf16_map(&m.scales, a, F, D / 32, Q5K::SC_BOX, pitch) &&
+         bf16_map(&m.b, b, F, D / 32, SLAB, pitch);
+}
 
 // The pack's maps into `out` (sizeof(PackMaps) bytes), for the caller to keep
 // while the pack stays where it is. p0, p1, p2: the pack's fields (Q4_K qs,
-// a, b; Q6_K ql, qh, s).
+// a, b; Q6_K ql, qh, s; Q5_K q5, and a, b with rows scale_pitch(D) values
+// apart).
 template <class Dec>
 cudaError_t encode_pack(const void* p0, const void* p1, const void* p2, int D, int F,
                         void* out) {
-  if (F < 1 || D < 256 || D % 256 || out == nullptr) return cudaErrorInvalidValue;
+  if (F < 1 || D < Dec::D_ALIGN || D % Dec::D_ALIGN || out == nullptr)
+    return cudaErrorInvalidValue;
   PackMaps m;
   if (!pack_maps(m, Dec{}, p0, p1, p2, D, F)) return cudaErrorInvalidValue;
   memcpy(out, &m, sizeof(m));
@@ -738,7 +834,7 @@ cudaError_t launch_bm(const void* x, const void* xs, const void* pack, float* pa
   return cudaGetLastError();
 }
 
-// One call: (Q4_K) the block sums into xs [M, xsum_cols(D)], the GEMM over
+// One call: (Q4_K, Q5_K) the block sums into xs [M, xsum_cols(D)], the GEMM over
 // `bm` (64 or 128) rows of x a block in `splits` splits of `sps` k-steps,
 // and (splits > 1) the reduction of part [splits, M, F] into out. pack: the
 // pack's maps (encode_pack) in host memory.
@@ -746,8 +842,9 @@ template <class Dec>
 cudaError_t launch(const void* x, void* xs, const void* pack, void* part, void* out,
                    int out_bf16, int M, int D, int F, int bm, int splits, int sps,
                    cudaStream_t st) {
-  const int total = main_steps(D, Dec::BANDS) + tail_steps(D, Dec::AFFINE);
-  if (M < 1 || F < 1 || D < 256 || D % 256 || (bm != 64 && bm != 128) || splits < 1 ||
+  const int total = main_steps<Dec>(D) + tail_steps(D, Dec::AFFINE);
+  if (M < 1 || F < 1 || D < Dec::D_ALIGN || D % Dec::D_ALIGN || (bm != 64 && bm != 128) ||
+      splits < 1 ||
       splits > 65535 || sps < 1 || splits * sps < total || (splits - 1) * sps >= total ||
       (splits > 1 && part == nullptr) || (Dec::AFFINE && xs == nullptr) || pack == nullptr)
     return cudaErrorInvalidValue;
@@ -769,10 +866,10 @@ cudaError_t launch(const void* x, void* xs, const void* pack, void* part, void* 
   return cudaGetLastError();
 }
 
-// out = {rows of x a block, rows of W a block, packed positions a k-step,
-// bands, columns of the offset term a k-step (0: none), stages, threads,
-// dynamic shared memory bytes, blocks an SM holds}: what ops/quant_matmul.py's
-// gemm_plan cuts by
+// out = {rows of x a block, rows of W a block, packed positions a k-step
+// and band, bands, columns of the offset term a k-step (0: none), stages,
+// threads, dynamic shared memory bytes, blocks an SM holds, the multiple of
+// which D must be}: what ops/quant_matmul.py's gemm_plan cuts by
 template <class Dec, int BM>
 cudaError_t geometry_bm(int* out) {
   using G = Geo<Dec, BM>;
@@ -781,9 +878,9 @@ cudaError_t geometry_bm(int* out) {
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kgemm_kernel<Dec, BM>, THREADS,
                                                         G::SMEM);
-  const int geo[9] = {BM, BN, POS, Dec::BANDS, Dec::AFFINE ? SLAB : 0, G::STAGES,
-                      THREADS, G::SMEM, blocks};
-  for (int i = 0; i < 9; ++i) out[i] = geo[i];
+  const int geo[10] = {BM,        BN,      Dec::POS, Dec::BANDS, Dec::AFFINE ? SLAB : 0,
+                       G::STAGES, THREADS, G::SMEM,  blocks,     Dec::D_ALIGN};
+  for (int i = 0; i < 10; ++i) out[i] = geo[i];
   return err;
 }
 

@@ -1,23 +1,29 @@
-// Split-KV attention through block tables for Hopper (sm_90a): the one
-// kernel template behind paged_attention.cu (K kv heads, n_rep = H / K) and
-// latent_attention.cu (one "kv head" of width r, n_rep = H).
+// Split-KV attention for Hopper (sm_90a): the one kernel template behind
+// paged_attention.cu (K kv heads, n_rep = H / K), latent_attention.cu (one
+// "kv head" of width r, n_rep = H) and flash_attention.cu (the dense cache).
 //
-// Contract: q [B,T,H,HD] attends the logical columns c of its batch row b,
-// column c living in physical block tables[b, c / bs] at offset c % bs of
-// the pools k, v [N,bs,K,HD]; query t sees c iff c <= lens[b] + t and, when
-// window > 0, lens[b] + t - c < window. Scores are scaled, soft-capped before
-// the mask and soft-maxed in f32; the output [B,T,H,HD] has q's dtype. K/V
-// are q's dtype, or int8 codes with one f32 scale per head vector, each value
-// dequantized as (code * scale) and rounded to q's dtype before the dot.
+// Contract: q [B,T,H,HD] attends the logical columns c of its batch row b;
+// query t sees c iff c <= lens[b] + t and, when window > 0, lens[b] + t - c <
+// window. Scores are scaled, soft-capped before the mask and soft-maxed in
+// f32; the output [B,T,H,HD] has q's dtype. K/V are q's dtype, or int8 codes
+// with one f32 scale per head vector, each value dequantized as
+// (code * scale) and rounded to q's dtype before the dot. Where column c
+// lives is the addressing policy, a template parameter:
+// - PagedKV: physical block tables[b, c / bs] at offset c % bs of the pools
+//   k, v [N,bs,K,HD] (scales [N,bs,K,1]).
+// - DenseKV: k[b, c] of the cache k, v [B,S,K,HD] (scales [B,S,K,1]); no
+//   table. Its "pages" are virtual runs of bs columns (NT = ceil(S / bs)),
+//   so the host's split plan cuts the dense walk as it cuts a paged one, and
+//   lens may be null, every row then at the scalar len0.
 //
 // Design (flash-decoding over pages):
 // - GQA folds into query rows: the n_rep heads that share a kv head become
 //   consecutive rows, row r at position lens[b] + r / n_rep.
 // - The grid is (query tile, split, batch row x kv head). A split is a fixed
 //   run of `pps` logical pages, chosen on the host from shapes alone
-//   (ops/paged_attention.py split_plan). A block reads its pages' table
-//   entries into shared memory once, then walks the columns the mask needs
-//   inside its split in tiles of BC columns.
+//   (ops/paged_attention.py split_plan). A paged block reads its pages'
+//   table entries into shared memory once, then walks the columns the mask
+//   needs inside its split in tiles of BC columns.
 // - Tiles move into a ring of STAGES buffers with 16-byte cp.async, in their
 //   stored type (bf16, f32, or int8 codes plus their f32 scales); tile i+1
 //   (and i+2 where the ring has three stages) is in flight while tile i is
@@ -32,7 +38,12 @@
 //   terms, hi = bf16(P) and lo = bf16(P - hi), and both go through the
 //   tensor cores against V (exact in bf16), so P is carried to about 16
 //   bits of mantissa (relative error ~2^-17, far below the output's bf16
-//   rounding). f32: the same fragments computed with f32 FMA, no TF32.
+//   rounding). The dense policy splits P into three terms (hi, then mid and
+//   lo of the exact residual: all of f32's 24 bits), one more MMA a tile:
+//   it serves the one-stream path, whose output is held against the plain
+//   f32 attention, and with two terms 0.1-0.24% of its outputs round the
+//   other way from an f32 P.V, with three 0.02-0.16% (PERF.md). f32: the
+//   same fragments computed with f32 FMA, no TF32.
 // - A split writes its rows' running max m, sum l and unnormalised f32
 //   accumulator to a workspace; a split with no visible column writes
 //   m = -1e30, l = 0 and exits. combine_kernel merges the splits of each
@@ -46,11 +57,12 @@
 #include <stdint.h>
 
 namespace dlp_paged {
-// Internal linkage: paged_attention.cu and latent_attention.cu instantiate
-// the same templates into two libraries that one process loads. With the
-// default linkage GCC makes a template's function-local static (launch's
-// `attr`) one process-wide symbol, so the second library would find it set
-// and launch without raising its own kernel's shared-memory limit.
+// Internal linkage: paged_attention.cu, latent_attention.cu and
+// flash_attention.cu instantiate the same templates into three libraries
+// that one process loads. With the default linkage GCC makes a template's
+// function-local static (launch's `attr`) one process-wide symbol, so a
+// second library would find it set and launch without raising its own
+// kernel's shared-memory limit.
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernels' masked-score fill
@@ -174,27 +186,46 @@ __device__ __forceinline__ void scores_bf16(float (&s)[NB][4], const unsigned ch
   }
 }
 
-// acc[dn] += P . V[:, d0 + 8dn ..] with P = hi + lo (bf16, tensor cores)
-template <int DW, int NB>
+// (x, y) -> three bf16 pairs, hi = bf16(x, y), mid = bf16 of the (exact)
+// residual, lo = bf16 of what mid leaves: hi + mid + lo carries x and y to
+// f32's 24 bits
+__device__ __forceinline__ void split3_bf16(float x, float y, uint32_t& hi, uint32_t& mid,
+                                            uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const float rx = x - hf.x, ry = y - hf.y;
+  split_bf16(rx, ry, mid, lo);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// acc[dn] += P . V[:, d0 + 8dn ..] with P = hi + lo (TERMS = 2) or hi + mid
+// + lo (TERMS = 3), each term bf16 on the tensor cores
+template <int DW, int NB, int TERMS>
 __device__ __forceinline__ void pv_bf16(float (&acc)[DW / 8][4], const float (&p)[NB][4],
                                         const unsigned char* vs, int vld, int d0,
                                         int lane) {
+  static_assert(TERMS == 2 || TERMS == 3, "P as two or three bf16 terms");
 #pragma unroll
   for (int kk = 0; kk < NB / 2; ++kk) {
-    uint32_t hi[4], lo[4];
-    split_bf16(p[2 * kk][0], p[2 * kk][1], hi[0], lo[0]);
-    split_bf16(p[2 * kk][2], p[2 * kk][3], hi[1], lo[1]);
-    split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], hi[2], lo[2]);
-    split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], hi[3], lo[3]);
+    uint32_t t[TERMS][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = p[2 * kk + i / 2][2 * (i % 2)], y = p[2 * kk + i / 2][2 * (i % 2) + 1];
+      if constexpr (TERMS == 2) {
+        split_bf16(x, y, t[0][i], t[1][i]);
+      } else {
+        split3_bf16(x, y, t[0][i], t[1][i], t[2][i]);
+      }
+    }
 #pragma unroll
     for (int dn = 0; dn < DW / 8; dn += 2) {
       uint32_t b[4];
       ldsm_x4_t(b, vs + (16 * kk + ((lane / 8) & 1) * 8 + lane % 8) * vld +
                        (d0 + 8 * dn + (lane / 16) * 8) * 2);
-      mma_bf16(acc[dn], hi, b[0], b[1]);
-      mma_bf16(acc[dn], lo, b[0], b[1]);
-      mma_bf16(acc[dn + 1], hi, b[2], b[3]);
-      mma_bf16(acc[dn + 1], lo, b[2], b[3]);
+#pragma unroll
+      for (int j = 0; j < TERMS; ++j) mma_bf16(acc[dn], t[j], b[0], b[1]);
+#pragma unroll
+      for (int j = 0; j < TERMS; ++j) mma_bf16(acc[dn + 1], t[j], b[2], b[3]);
     }
   }
 }
@@ -308,11 +339,25 @@ struct Params {
   int splits;  // ceil(NT / pps)
   float scale, softcap;
   int window;
+  int S;       // DenseKV: the cache's columns (NT = ceil(S / bs))
+  int len0;    // DenseKV: every row's length when lens is null
+};
+
+// The addressing policies: where column c of batch row b, kv head kvh lives,
+// as the index of its head vector (K/V at vec * HD, scales at vec).
+// kPvTerms: the bf16 terms P is split into for P.V (see pv_bf16).
+struct PagedKV {
+  static constexpr bool kTables = true;
+  static constexpr int kPvTerms = 2;
+};
+struct DenseKV {
+  static constexpr bool kTables = false;
+  static constexpr int kPvTerms = 3;
 };
 
 // (no __launch_bounds__: with them ptxas held one instantiation at 128
 // registers and spilled; blocks have at most 4 warps, so 255 registers fit)
-template <int HD, typename QT, typename KT>
+template <int HD, typename QT, typename KT, class Addr>
 __global__ void split_kernel(const Params p) {
   using G = Geo<HD, QT, KT>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -330,14 +375,16 @@ __global__ void split_kernel(const Params p) {
   const int Tq = p.T * p.n_rep;
   const int q0 = blockIdx.x * p.rpb;
   const int q_end = min(q0 + p.rpb, Tq);
-  const int S = p.NT * p.bs;
+  const int S = Addr::kTables ? p.NT * p.bs : p.S;
   const size_t R = size_t(p.B) * p.T * p.H;  // output rows
 
   // the split's table entries and the block's query rows (rows past q_end
   // are zeros) go out first; lens[b] is read while they are in flight
   const int p0 = split * p.pps, n_pages = min(p.NT - p0, p.pps);
-  for (int i = tid; i < n_pages; i += nthr)
-    cp_async4(tbl_s + i, p.tables + size_t(b) * p.NT + p0 + i, 4);
+  if constexpr (Addr::kTables) {
+    for (int i = tid; i < n_pages; i += nthr)
+      cp_async4(tbl_s + i, p.tables + size_t(b) * p.NT + p0 + i, 4);
+  }
   {
     constexpr int CPR = HD * int(sizeof(QT)) / 16;
     const unsigned char* qg = static_cast<const unsigned char*>(p.q);
@@ -353,7 +400,12 @@ __global__ void split_kernel(const Params p) {
     }
   }
   cp_async_commit();
-  const int cl = p.lens[b];
+  int cl;
+  if constexpr (Addr::kTables) {
+    cl = p.lens[b];
+  } else {
+    cl = p.lens ? p.lens[b] : p.len0;
+  }
 
   // the columns this block needs: inside its split, from the first one in the
   // window of its first row to the last one its last row sees causally (a
@@ -384,6 +436,15 @@ __global__ void split_kernel(const Params p) {
   const int bs_shift = __ffs(p.bs) - 1;
   const unsigned char* kg = static_cast<const unsigned char*>(p.k);
   const unsigned char* vg = static_cast<const unsigned char*>(p.v);
+  // the head vector of visible column c (lo <= c < hi)
+  auto column_vec = [&](int c) -> size_t {
+    if constexpr (Addr::kTables) {
+      const int pg = pow2 ? c >> bs_shift : c / p.bs;
+      return (size_t(tbl_s[pg - p0]) * p.bs + (c - pg * p.bs)) * p.K + kvh;
+    } else {
+      return (size_t(b) * p.S + c) * p.K + kvh;
+    }
+  };
 
   // stage tile `it` (columns lo + it BC ..) into ring buffer `slot`
   auto load_tile = [&](int it, int slot) {
@@ -394,12 +455,7 @@ __global__ void split_kernel(const Params p) {
     for (int i = tid; i < G::BC * CPC; i += nthr) {
       const int j = i / CPC, part = i % CPC, c = c0 + j;
       const bool ok = c < hi;
-      size_t off = 0;
-      if (ok) {
-        const int pg = pow2 ? c >> bs_shift : c / p.bs;
-        const size_t vec = (size_t(tbl_s[pg - p0]) * p.bs + (c - pg * p.bs)) * p.K + kvh;
-        off = vec * HD * sizeof(KT) + part * 16;
-      }
+      const size_t off = ok ? column_vec(c) * HD * sizeof(KT) + part * 16 : 0;
       cp_async16(kb + j * G::KLD + part * 16, kg + off, ok ? 16 : 0);
       cp_async16(vb + j * G::KLD + part * 16, vg + off, ok ? 16 : 0);
     }
@@ -408,11 +464,7 @@ __global__ void split_kernel(const Params p) {
       for (int j = tid; j < G::BC; j += nthr) {
         const int c = c0 + j;
         const bool ok = c < hi;
-        size_t vec = 0;
-        if (ok) {
-          const int pg = pow2 ? c >> bs_shift : c / p.bs;
-          vec = (size_t(tbl_s[pg - p0]) * p.bs + (c - pg * p.bs)) * p.K + kvh;
-        }
+        const size_t vec = ok ? column_vec(c) : 0;
         cp_async4(ksb + j, p.ks + vec, ok ? 4 : 0);
         cp_async4(ksb + G::BC + j, p.vs + vec, ok ? 4 : 0);
       }
@@ -519,7 +571,7 @@ __global__ void split_kernel(const Params p) {
       acc[dn][3] *= alpha[1];
     }
     if constexpr (G::BF16) {
-      pv_bf16<G::DW, G::NB>(acc, s, vt, ld, d0, lane);
+      pv_bf16<G::DW, G::NB, Addr::kPvTerms>(acc, s, vt, ld, d0, lane);
     } else {
       pv_f32<G::DW, G::NB>(acc, s, vt, ld, d0, lane);
     }
@@ -628,20 +680,22 @@ combine_kernel(const float* __restrict__ ws_acc, const float* __restrict__ ws_ml
 
 // -------------------------------------------------------------------- launch
 
-template <int HD, typename QT, typename KT>
+template <int HD, typename QT, typename KT, class Addr>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   using G = Geo<HD, QT, KT>;
   const int mt = (p.rpb + 15) / 16;
   if (p.rpb < 1 || mt * G::DS > kMaxWarps || p.pps < 1 || p.splits < 1 ||
       p.splits != (p.NT + p.pps - 1) / p.pps || (p.splits > 1 && !(p.ws_acc && p.ws_ml)))
     return cudaErrorInvalidValue;
-  auto kernel = split_kernel<HD, QT, KT>;
+  if (!Addr::kTables && (p.S < 1 || p.NT != (p.S + p.bs - 1) / p.bs))
+    return cudaErrorInvalidValue;
+  auto kernel = split_kernel<HD, QT, KT, Addr>;
   static cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
   if (attr != cudaSuccess) return attr;
   const int rows = p.T * p.n_rep;
   const dim3 grid((rows + p.rpb - 1) / p.rpb, p.splits, p.B * p.K);
-  kernel<<<grid, 32 * mt * G::DS, G::smem_bytes(mt, p.pps), stream>>>(p);
+  kernel<<<grid, 32 * mt * G::DS, G::smem_bytes(mt, Addr::kTables ? p.pps : 0), stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return err;
   const int out_rows = p.B * p.T * p.H;
@@ -660,12 +714,13 @@ inline void geometry(int hd, int* out) {
 }
 
 // q_dtype: 0 = float32, 1 = bfloat16 (K/V share it unless kv_int8 = 1)
-template <int HD>
+template <int HD, class Addr = PagedKV>
 cudaError_t dispatch_dtype(int q_dtype, int kv_int8, const Params& p, cudaStream_t st) {
   if (q_dtype == 0)
-    return kv_int8 ? launch<HD, float, int8_t>(p, st) : launch<HD, float, float>(p, st);
-  return kv_int8 ? launch<HD, __nv_bfloat16, int8_t>(p, st)
-                 : launch<HD, __nv_bfloat16, __nv_bfloat16>(p, st);
+    return kv_int8 ? launch<HD, float, int8_t, Addr>(p, st)
+                   : launch<HD, float, float, Addr>(p, st);
+  return kv_int8 ? launch<HD, __nv_bfloat16, int8_t, Addr>(p, st)
+                 : launch<HD, __nv_bfloat16, __nv_bfloat16, Addr>(p, st);
 }
 
 }  // namespace

@@ -11,6 +11,12 @@ before the mask, and soft-maxed in f32; the output has q's dtype. An int8 KV
 cache passes its codes with f32 scales ``[B, S, K, 1]``; each K/V value is
 dequantized as ``code * scale`` and rounded to q's dtype before the dot.
 
+The kernel is ``csrc/paged_tile.cuh``'s split-KV kernel with its dense
+addressing policy: the cache is cut into virtual pages of ``DENSE_PAGE``
+columns, and ``paged_attention.split_plan`` cuts the launch from shapes alone
+(``cache_len`` is never read on the host), with a workspace for the runs'
+partials (``paged_attention.workspace_numel``) when it splits.
+
 Dispatch: ``attention_any`` sends a CUDA tensor to the kernel and a CPU
 tensor to the plain version, which is the reference's einsum path. There is
 no fallback: a kernel that cannot take its inputs, or cannot build or
@@ -19,6 +25,7 @@ launch, raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -28,6 +35,9 @@ NEG_INF = -1e30   # the masked-score fill of the reference and the kernel
 # head dim r (the paged kernel stays at PAGED_HEAD_DIMS)
 HEAD_DIMS = (64, 128, 256, 512)
 PAGED_HEAD_DIMS = (64, 128, 256)
+# columns of a virtual page of the dense cache: the unit the split plan cuts
+# the walk into (NT = ceil(S / DENSE_PAGE) pages)
+DENSE_PAGE = 64
 
 # kernel launches since the last reset (chip_smoke.py reads it to prove the
 # served path ran the kernel); only the CUDA wrapper below increments it
@@ -44,8 +54,7 @@ def _kernel():
 
         fn = load_library("flash_attention").dlp_flash_attention
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, i, f, f,
-                       i, p]
+        fn.argtypes = [p] * 6 + [i, p, p] + [i] * 8 + [f, f] + [i] * 5 + [p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -55,14 +64,30 @@ def _scale(scale: float, head_dim: int) -> float:
     return float(scale) if scale else head_dim ** -0.5
 
 
+def dense_plan(B: int, T: int, H: int, K: int, S: int, geometry, sm_count: int):
+    """The split plan of a launch over a dense cache of S columns: the paged
+    kernel's plan (``paged_attention.split_plan``) over ``ceil(S /
+    DENSE_PAGE)`` virtual pages of ``DENSE_PAGE`` columns, from shapes and
+    the kernel's tiling only. Run s walks columns ``[s · pps · DENSE_PAGE,
+    min(S, (s + 1) · pps · DENSE_PAGE))``."""
+    # paged_attention imports this module: its plan is imported at call time
+    from .paged_attention import split_plan
+
+    return split_plan(B, T, H, K, -(-S // DENSE_PAGE), DENSE_PAGE, geometry, sm_count)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     cache_len, n_rep: int, *, scale: float = 0.0,
                     softcap: float = 0.0, window: int | None = None,
                     k_scale: torch.Tensor | None = None,
                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """The CUDA kernel. ``cache_len`` is an int, or an int tensor of shape
-    ``[]`` or ``[B]`` on q's device. Raises on any input the kernel does not
-    take, and when the launch fails."""
+    ``[]`` or ``[B]`` on q's device (an int goes to the kernel as a scalar
+    argument, never through a copy to the card). Raises on any input the
+    kernel does not take, and when the launch fails."""
+    # imported here for the reason dense_plan gives
+    from .paged_attention import check_aligned, sm_count, tile_geometry, workspace_numel
+
     global launches
     B, T, H, Hd = q.shape
     S, K = k.shape[1], k.shape[2]
@@ -91,6 +116,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"must match q's {q.dtype} (or be int8 with scales)")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
+    check_aligned("flash_attention", q, k, v)
     window = 0 if window is None else int(window)
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
@@ -103,18 +129,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         lens_scalar = int(cache_len)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    plan = dense_plan(B, T, H, K, S, tile_geometry("flash_attention", Hd),
+                      sm_count(q.device.index))
+    n = workspace_numel(plan, B, T, H, Hd)
+    ws = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
+    # the device's context only where it is not current (entering one costs
+    # host time on every launch of a host-bound decode step)
+    here = q.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if here else torch.cuda.device(q.device):
         rc = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None,
             lens.data_ptr() if lens is not None else None, lens_scalar,
-            out.data_ptr(), B, T, S, H, K, Hd,
-            0 if q.dtype == torch.float32 else 1, int(quant),
-            _scale(scale, Hd), float(softcap), window,
+            out.data_ptr(), ws.data_ptr() if ws is not None else None,
+            B, T, S, H, K, Hd, 0 if q.dtype == torch.float32 else 1, int(quant),
+            _scale(scale, Hd), float(softcap), window, DENSE_PAGE,
+            plan.rows_per_block, plan.pages_per_split, plan.splits,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed (cudaError {rc})")
+        raise RuntimeError(f"flash_attention: kernel launch failed (cudaError {rc}, {plan})")
     launches += 1
     return out
 

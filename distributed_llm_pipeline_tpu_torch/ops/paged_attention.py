@@ -62,8 +62,9 @@ class TileGeometry(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def tile_geometry(lib: str, head_dim: int) -> TileGeometry:
-    """``lib``'s tiling at ``head_dim`` (``paged_attention`` or
-    ``latent_attention``), read once from its ``*_geometry`` entry."""
+    """``lib``'s tiling at ``head_dim`` (``paged_attention``,
+    ``latent_attention`` or ``flash_attention``), read once from its
+    ``*_geometry`` entry."""
     from .cuda_build import load_library
 
     fn = getattr(load_library(lib), f"dlp_{lib}_geometry")
@@ -87,7 +88,9 @@ def pages_per_split(n_tables: int, splits: int) -> tuple[int, int]:
 def split_plan(B: int, T: int, H: int, K: int, NT: int, bs: int,
                geometry: TileGeometry, sm_count: int) -> SplitPlan:
     """The launch's cut, from shapes and the kernel's tiling only (reading
-    ``lengths`` would cost a host sync a layer). A query tile is up to
+    ``lengths`` would cost a host sync a layer). The dense cache's kernel
+    (``ops/flash_attention.py``) is cut the same way over virtual pages of
+    ``bs`` columns, ``NT = ceil(S / bs)``. A query tile is up to
     ``max_warps`` warps of 16 folded rows (fewer where ``dim_slices`` warps
     share a row tile); a run holds at least one staged tile of columns.
     Where even one tile a run leaves SMs idle the query tiles narrow (down

@@ -127,7 +127,9 @@ class QuantPack(nn.Module):
         self.shape = self._dense_shape()
         self.group = self._act_group()
         self._placed = None   # (device, field pointers), checked for a kernel
-        self._gemm_maps = None   # ((device, field pointers), the GEMM's tensor maps)
+        # ((device, field pointers), the GEMM's tensor maps, the fields they
+        # address)
+        self._gemm_maps = None
 
     def _dense_shape(self) -> tuple[int, int]:
         raise NotImplementedError
@@ -496,9 +498,9 @@ def w8a8_matmul(x: torch.Tensor, pack: QuantPack, out_dtype: torch.dtype,
 
 
 # --------------------------------------------------------------------------
-# the Q4_K and Q6_K GEMM's cut (csrc/kquant_gemm.cuh)
+# the Q4_K, Q6_K and Q5_K GEMM's cut (csrc/kquant_gemm.cuh)
 
-GEMM_KINDS = ("q4_k", "q6_k")
+GEMM_KINDS = ("q4_k", "q6_k", "q5_k")
 GEMM_WIDE_M = 64   # M above this takes 128 rows of x a block, 64 up to it
 MAX_SPLITS = 16
 
@@ -507,10 +509,11 @@ class GemmGeometry(NamedTuple):
     """The GEMM's tiling for one pack kind and block height, as
     ``csrc/kquant_gemm.cuh`` defines it (``gemm_geometry`` reads it from the
     library): rows of x and of W (output columns) a block, packed positions
-    a k-step, bands (one 32-column slab each a k-step), columns of the
-    affine offset term a k-step (0: none), ring stages, threads, dynamic
-    shared memory bytes, and blocks an SM holds (the card's occupancy
-    query)."""
+    a k-step covers in each band, bands (Q4_K 2, Q6_K 4: a k-step takes the
+    same positions of every band; Q5_K's one plane 1, 128 positions a
+    step), columns of the affine offset term a k-step (0: none), ring
+    stages, threads, dynamic shared memory bytes, blocks an SM holds (the
+    card's occupancy query), and the multiple of which D must be."""
     bm: int
     bn: int
     positions: int
@@ -520,6 +523,7 @@ class GemmGeometry(NamedTuple):
     threads: int
     smem: int
     blocks_per_sm: int
+    d_align: int = 256
 
 
 class GemmPlan(NamedTuple):
@@ -539,7 +543,7 @@ class GemmPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def gemm_geometry(kind: str, bm: int) -> GemmGeometry:
-    """The library's tiling for ``kind`` (``q4_k`` or ``q6_k``) over ``bm``
+    """The library's tiling for ``kind`` (one of ``GEMM_KINDS``) over ``bm``
     rows of x a block, read once from its ``*_geometry`` entry."""
     from .cuda_build import load_library
 
@@ -565,16 +569,18 @@ def gemm_plan(M: int, D: int, F: int, geometry: GemmGeometry, sm_count: int) -> 
     fewer tiles than the card has block slots (SMs × blocks an SM holds),
     split-K: the split count s (at most ``MAX_SPLITS``, no split empty) that
     minimises waves × k-steps a block, ``ceil(tiles · s / slots) ·
-    ceil(steps / s)``, the smallest on a tie. Raises ``ValueError`` on what
-    the kernel refuses."""
-    if M < 1 or F < 1 or D < 256 or D % 256:
-        raise ValueError(f"dequant_matmul: M={M}, D={D}, F={F} (the GEMM takes M, F ≥ 1 "
-                         "and D a multiple of 256)")
+    ceil(steps / s)``, the smallest on a tie. The weight's last k-step is
+    ragged where ``bands · positions`` does not divide D (Q5_K: only its
+    slabs inside D are loaded and multiplied). Raises ``ValueError`` on
+    what the kernel refuses."""
     g = geometry
+    if M < 1 or F < 1 or D < g.d_align or D % g.d_align:
+        raise ValueError(f"dequant_matmul: M={M}, D={D}, F={F} (the GEMM takes M, F ≥ 1 "
+                         f"and D a multiple of {g.d_align})")
     tiles_m, tiles_n = -(-M // g.bm), -(-F // g.bn)
     if tiles_m > 65535:
         raise ValueError(f"dequant_matmul: M={M} needs {tiles_m} row tiles (at most 65535)")
-    main = D // (g.bands * g.positions)
+    main = -(-D // (g.bands * g.positions))
     tail = -(-(D // 32) // g.tail_cols) if g.tail_cols else 0
     total = main + tail
     slots = max(1, sm_count * g.blocks_per_sm)
@@ -591,9 +597,26 @@ def gemm_plan(M: int, D: int, F: int, geometry: GemmGeometry, sm_count: int) -> 
     return GemmPlan(g.bm, g.bn, tiles_m, tiles_n, main, tail, splits, sps)
 
 
+def scale_rows(t: torch.Tensor) -> torch.Tensor:
+    """A Q5_K pack's ``a`` or ``b`` [F, D/32] as the GEMM's tensor maps read
+    it: rows a multiple of 8 values (16 bytes, the least row pitch TMA
+    takes) apart. The field itself where D/32 is such a multiple (D % 256 ==
+    0); else a copy padded with zeros (a tensor-parallel shard: D = 1056
+    gives 66-byte rows), at most 7 values a row."""
+    n = t.shape[1]
+    if n % 8 == 0:
+        return t
+    padded = torch.zeros(t.shape[0], -(-n // 8) * 8, dtype=t.dtype, device=t.device)
+    padded[:, :n] = t
+    return padded
+
+
 def gemm_pack_maps(pack: QuantPack, dev: torch.device) -> ctypes.Array:
     """The GEMM's tensor maps of ``pack``'s fields (host memory), encoded
-    once for each placement of the pack, as ``kernel_ptrs`` checks it once."""
+    once for each placement of the pack, as ``kernel_ptrs`` checks it once.
+    A Q5_K pack's scales and offsets go through ``scale_rows``; a padded copy
+    lives in the cache beside the maps, made once per placement, never per
+    call."""
     key = (dev, pack.kernel_ptrs(dev))
     cached = pack._gemm_maps
     if cached is None or cached[0] != key:
@@ -604,17 +627,20 @@ def gemm_pack_maps(pack: QuantPack, dev: torch.device) -> ctypes.Array:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
         fn.restype = ctypes.c_int
         buf = ctypes.create_string_buffer(lib.dlp_dequant_matmul_pack_maps_bytes())
-        rc = fn(*key[1], buf, pack.shape[1], pack.shape[0])
+        fields = [pack._buffers[name] for name in pack.fields]
+        if pack.kind == "q5_k":
+            fields[1:] = [scale_rows(t) for t in fields[1:]]
+        rc = fn(*(t.data_ptr() for t in fields), buf, pack.shape[1], pack.shape[0])
         if rc != 0:
             raise RuntimeError(f"dequant_matmul: {pack.kind} tensor maps failed (cudaError {rc})")
-        cached = pack._gemm_maps = (key, buf)
+        cached = pack._gemm_maps = (key, buf, fields)
     return cached[1]
 
 
 def gemm_workspace(plan: GemmPlan, M: int, D: int, F: int,
                    affine: bool) -> tuple[int, int]:
     """(bf16 values of the block sums, f32 values of the split partials) a
-    launch needs: ``M × ⌈D/32⌉₃₂`` for an affine pack (else 0) and
+    launch needs: ``M × ⌈D/32⌉₃₂`` for an affine pack (Q4_K, Q5_K; else 0) and
     ``splits × M × F`` when it splits (else 0). Shapes only."""
     xs = M * (-(-(D // 32) // 32) * 32) if affine else 0
     return xs, plan.splits * M * F if plan.splits > 1 else 0
@@ -623,11 +649,12 @@ def gemm_workspace(plan: GemmPlan, M: int, D: int, F: int,
 def dequant_matmul(x: torch.Tensor, pack: QuantPack,
                    out_dtype: torch.dtype) -> torch.Tensor:
     """The fused-dequant CUDA kernel: bf16 x [M, D] against a Q8_0, Q6_K,
-    Q4_K or Q5_K (byte-code) pack, each weight tile dequantized to bf16 in
-    shared memory and multiplied on the tensor cores with f32 accumulation
-    (an affine pack's offset term too) → [M, F] in ``out_dtype``. Q4_K and
-    Q6_K run the band-interleaved GEMM (``csrc/kquant_gemm.cuh``) cut by
-    ``gemm_plan``, with its workspaces allocated here; one count per call."""
+    Q4_K or Q5_K (byte-code) pack, each weight value dequantized to bf16 and
+    multiplied on the tensor cores with f32 accumulation (an affine pack's
+    offset term too) → [M, F] in ``out_dtype``. Q4_K, Q6_K and Q5_K run the
+    GEMM of ``csrc/kquant_gemm.cuh`` cut by ``gemm_plan``, with its
+    workspaces allocated here; Q8_0 the single-stage kernel of
+    ``csrc/dequant_matmul.cu``. One count per call."""
     what = "dequant_matmul"
     if pack.kind == "int8":   # its M > 32 route is int8_matmul's GEMM
         raise ValueError(f"{what}: no kernel for pack kind 'int8'")
@@ -639,7 +666,7 @@ def dequant_matmul(x: torch.Tensor, pack: QuantPack,
         maps = gemm_pack_maps(pack, dev)
         plan = gemm_plan(M, D, Fo, gemm_geometry(pack.kind, gemm_bm(M)),
                          sm_count(dev.index))
-        n_xs, n_part = gemm_workspace(plan, M, D, Fo, pack.kind == "q4_k")
+        n_xs, n_part = gemm_workspace(plan, M, D, Fo, plan.tail_steps > 0)
         xs = torch.empty(n_xs, dtype=torch.bfloat16, device=dev) if n_xs else None
         part = torch.empty(n_part, dtype=torch.float32, device=dev) if n_part else None
         out = torch.empty(M, Fo, dtype=out_dtype, device=dev)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the Q4_K and Q6_K fused-dequant kernels (``ops.quant_matmul.dequant_matmul``)
+"""Time the Q4_K, Q6_K and Q5_K fused-dequant kernels (``ops.quant_matmul.dequant_matmul``)
 of one tree of the port at ``chip_smoke.py``'s phase-3 cases, on one CUDA card.
 
-    python scripts/dequant_time.py [--root DIR] [--label NAME] [--seed N] [--ttft DIR]
+    python scripts/dequant_time.py [--root DIR] [--label NAME] [--seed N]
+                                   [--kinds q6_k,q4_k,q5_k] [--ttft DIR]
 
 ``--root`` is the directory whose ``distributed_llm_pipeline_tpu_torch``
 package is timed (default: this checkout), for example an earlier commit
@@ -11,7 +12,11 @@ from its own sources. Packs, inputs and the timing (median device time, the
 L2 flushed before each call) come from this checkout's ``chip_smoke.py``,
 with the same seed, so two trees timed in one process run see the same
 cases. Prints the card's name and power limit, then one JSON line per case
-(kind, projection pair, M, D, F, ms).
+(kind, projection pair, M, D, F, ms). Q6_K and Q4_K run at Llama-3.2-1B's
+projection pairs at phase 3's M; Q5_K (the byte codes of tp = 2 meshes) at
+the shard pairs and the D = 1056 edge at the shard M, then one line with
+its device time a mixed step of the ``--mesh 1x2 --parallel 4 --quant q5_k``
+path (rank 0, M = 64): 16 layers of wq, wk, wv, wo, gate, up and down.
 
 With ``--ttft DIR``, it also serves ``chip_smoke.py``'s phase-7 and phase-8
 models (Llama-3.2-1B geometry, Q6_K and Q4_K_M GGUFs from the same seeds,
@@ -36,6 +41,7 @@ def main() -> int:
     ap.add_argument("--root", default=str(HERE), help="tree whose package is timed")
     ap.add_argument("--label", default="", help="a name printed with each line")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kinds", default="q6_k,q4_k,q5_k", help="pack kinds to time")
     ap.add_argument("--ttft", default="", help="directory for the served models' GGUFs")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -57,16 +63,33 @@ def main() -> int:
           flush=True)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")   # 256 MiB > L2
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    for kind in ("q6_k", "q4_k"):
-        for pair, D, F in cs.QUANT_PAIRS:
+    for kind in args.kinds.split(","):
+        if kind == "q5_k":
+            # the shard pairs (a byte head serves only M <= 4) and the edge
+            pairs = [p for p in cs.SHARD_PAIRS if p[0] != "head"] + [
+                ("group32", cs.QUANT_EDGES[1]["D"]["q5_k"], cs.QUANT_EDGES[1]["F"])]
+            ms_of = cs.SHARD_DEQUANT_M
+        else:
+            pairs, ms_of = cs.QUANT_PAIRS, cs.DEQUANT_M
+        at64 = {}
+        for pair, D, F in pairs:
             pack = cs.random_pack(qm, kq, kind, D, F, gen)
             out_dtype = torch.float32 if pair == "head" else torch.bfloat16
-            for M in cs.DEQUANT_M:
+            for M in ms_of:
                 x = torch.randn(M, D, generator=gen, device="cuda").bfloat16()
                 ms = cs.event_ms(lambda: qm.dequant_matmul(x, pack, out_dtype), 50, flush)
                 print(json.dumps({"label": args.label, "kind": kind, "pair": pair, "M": M,
                                   "D": D, "F": F, "ms": ms, "card": card}), flush=True)
+                if M == 64:
+                    at64[pair] = ms
             del pack
+        if kind == "q5_k":
+            # a layer: wq, wk and wv (wk_wv twice), wo, gate and up, down
+            layer = (at64["wq"] + 2 * at64["wk_wv"] + at64["wo"] + 2 * at64["gate_up"]
+                     + at64["down"])
+            print(json.dumps({"label": args.label, "q5_k_mixed_step_ms": 16 * layer,
+                              "of": "16 x (wq + 2 wk_wv + wo + 2 gate_up + down) at M = 64, "
+                                    "cold L2", "card": card}), flush=True)
     del flush
     if args.ttft:
         serve_ttft(cs, Path(args.ttft), args.seed, args.label, card)

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither jax nor anything of the JAX
-package (distributed_llm_pipeline_tpu), and neither do chip_smoke.py,
-scripts/mesh_pack_time.py, nor the mesh's spawned follower processes."""
+package (distributed_llm_pipeline_tpu), and neither do chip_smoke.py, the
+timing scripts of scripts/, nor the mesh's spawned follower processes."""
 
 import ast
 import os
@@ -51,7 +51,9 @@ def test_every_port_module_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "mesh_pack_time.py"],
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "mesh_pack_time.py",
+    ROOT / "scripts" / "dequant_time.py", ROOT / "scripts" / "flash_time.py",
+    ROOT / "scripts" / "logit_drift.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -1,6 +1,6 @@
-"""The Q4_K / Q6_K fused-dequant GEMM (``csrc/kquant_gemm.cuh``) on the CPU,
-where its CUDA kernel cannot run: what surrounds the kernel, and mirrors of
-its arithmetic.
+"""The Q4_K / Q6_K / Q5_K fused-dequant GEMM (``csrc/kquant_gemm.cuh``) on the
+CPU, where its CUDA kernel cannot run: what surrounds the kernel, and mirrors
+of its arithmetic.
 
 - The decoder's bit tricks: a torch integer mirror of the kernel's code
   extraction (the nibble planes, Q6_K's 2-bit plane, band by band) and of its
@@ -19,6 +19,11 @@ its arithmetic.
   order, against the JAX package's ``q4_k_matmul_pallas`` and
   ``q6_k_matmul_pallas`` (interpret mode) on the same numpy packs and
   inputs: within 1e-5 of max |ref| in f32, one bf16 ulp of max |ref| in bf16.
+- Q5_K's byte codes (one plane, four 32-column slabs a k-step, D only a
+  multiple of 32 on a tensor-parallel shard, so a ragged last step): the
+  plan at the shard widths, the code-to-bf16 decode bit-equal to
+  ``q5_k_matmul_plain``'s weights on every code 0..31, and the k-step and
+  split-K order against ``q5_k_matmul_pallas`` (interpret mode), as above.
 """
 
 import math
@@ -41,6 +46,8 @@ GEOMETRY = {
     ("q4_k", 128): qm.GemmGeometry(128, 128, 32, 2, 32, 7, 288, 197744, 1),
     ("q6_k", 64): qm.GemmGeometry(64, 128, 32, 4, 0, 6, 288, 222304, 1),
     ("q6_k", 128): qm.GemmGeometry(128, 128, 32, 4, 0, 4, 288, 230464, 1),
+    ("q5_k", 64): qm.GemmGeometry(64, 128, 128, 1, 32, 6, 288, 218208, 1, 32),
+    ("q5_k", 128): qm.GemmGeometry(128, 128, 128, 1, 32, 4, 288, 218176, 1, 32),
 }
 
 
@@ -67,6 +74,9 @@ def _times(c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 def _mirror_weights(pack) -> torch.Tensor:
     """W [F, D] bf16 as the kernel decodes it from the raw planes."""
     F, D = pack.shape
+    if pack.kind == "q5_k":   # one byte a code, already 0..31
+        c = _pair_to_bf16(pack.q5.view(torch.uint8), 128.0)
+        return _times(c, pack.a.repeat_interleave(32, dim=1))
     if pack.kind == "q4_k":
         q = pack.qs.view(torch.uint8)                              # [F, D/2]
         bands = [q & 0x0F, q >> 4]                                 # (q >> 4) & 0x0F
@@ -139,10 +149,12 @@ SM_COUNTS = (1, 8, 132, 144)
 
 def _steps_of(plan, geo, D):
     """Each k-step's contraction columns: a weight step, the positions
-    [32t, 32t + 32) of every band; an offset step, 32 columns of D/32."""
+    [pt, pt + p) of every band (p = ``geo.positions``; a ragged last step
+    stops at the band's end); an offset step, 32 columns of D/32."""
     band = D // geo.bands
     main = [[b * band + geo.positions * t + j for b in range(geo.bands)
-             for j in range(geo.positions)] for t in range(plan.main_steps)]
+             for j in range(min(geo.positions, band - geo.positions * t))]
+            for t in range(plan.main_steps)]
     tail = [list(range(32 * u, min(D // 32, 32 * u + 32))) for u in range(plan.tail_steps)]
     return main, tail
 
@@ -211,7 +223,8 @@ def _gemm_mirror(x: torch.Tensor, pack, plan, out_dtype) -> torch.Tensor:
     order (a weight step: the 32-column slab of each band; an offset step:
     32 columns of -bf16(sum_32 x) against b), products summed in f32; the
     splits' partials summed in split order. Weights as the kernel decodes
-    them in bf16 (code * scale in x's dtype otherwise)."""
+    them in bf16 (code * scale in x's dtype otherwise). Q5_K's weight step
+    is 128 consecutive columns (fewer in a ragged last step)."""
     cd = x.dtype
     M, D = x.shape
     F = pack.shape[0]
@@ -221,7 +234,8 @@ def _gemm_mirror(x: torch.Tensor, pack, plan, out_dtype) -> torch.Tensor:
         codes, sc = pack.codes_and_scales()
         w = (codes.float().reshape(F, D // pack.sub, pack.sub) * sc.float()[..., None]
              ).reshape(F, D)
-    bands = 2 if pack.kind == "q4_k" else 4
+    bands = {"q4_k": 2, "q6_k": 4, "q5_k": 1}[pack.kind]
+    width = 128 if pack.kind == "q5_k" else 32   # a band's positions a step
     total = plan.main_steps + plan.tail_steps
     if plan.tail_steps:
         KT = plan.tail_steps * 32
@@ -235,7 +249,8 @@ def _gemm_mirror(x: torch.Tensor, pack, plan, out_dtype) -> torch.Tensor:
         for t in range(s * plan.steps_per_split, min(total, (s + 1) * plan.steps_per_split)):
             if t < plan.main_steps:
                 for b in range(bands):
-                    cols = slice(b * D // bands + 32 * t, b * D // bands + 32 * t + 32)
+                    c0 = b * D // bands + width * t
+                    cols = slice(c0, min(c0 + width, (b + 1) * D // bands))
                     part += x[:, cols].float() @ w[:, cols].float().t()
             else:
                 cols = slice(32 * (t - plan.main_steps), 32 * (t - plan.main_steps) + 32)
@@ -287,6 +302,123 @@ def test_kstep_order_matches_jax_pallas(kind, M, D, F, sms, dtype):
         assert err <= 2.0 ** (math.floor(math.log2(np.abs(ref).max())) - 7)
     if sms < 16 and F <= 160:
         assert plan.splits > 1   # the case exercises the split-K order
+
+
+# ---------------------------------------------------------------------------
+# Q5_K: byte codes, one plane, D a multiple of 32 only
+
+# (D, F) of the q5_k packs: the tp = 2 shards of Llama-3.2-1B (wq, wk/wv, wo,
+# gate/up, down) and of llama2-7b's w_down (D = 5504 = 11008 / 2), and phase
+# 3's D = 1056 edge
+Q5_SHAPES = [(2048, 1024), (2048, 256), (1024, 2048), (2048, 4096), (4096, 2048),
+             (5504, 4096), (1056, 1024)]
+Q5_M = (33, 64, 100, 256, 512)
+
+
+@pytest.mark.parametrize("sms", (1, 132))
+@pytest.mark.parametrize("D,F", Q5_SHAPES)
+def test_q5_k_plan_covers_every_tile_and_step_once(D, F, sms):
+    for M in Q5_M:
+        geo = _geometry("q5_k", M)
+        plan = qm.gemm_plan(M, D, F, geo, sms)
+        assert plan.bm == geo.bm and plan.bn == 128
+        assert (plan.tiles_m - 1) * plan.bm < M <= plan.tiles_m * plan.bm
+        assert (plan.tiles_n - 1) * plan.bn < F <= plan.tiles_n * plan.bn
+        total = plan.main_steps + plan.tail_steps
+        runs = [range(s * plan.steps_per_split,
+                      min(total, (s + 1) * plan.steps_per_split)) for s in range(plan.splits)]
+        assert all(len(r) > 0 for r in runs)
+        assert sorted(t for r in runs for t in r) == list(range(total))
+        # 128 columns a weight step, the last ragged where 128 does not
+        # divide D; the offset term's D/32 columns 32 a step
+        assert plan.main_steps == -(-D // 128)
+        main, tail = _steps_of(plan, geo, D)
+        assert [c for cols in main for c in cols] == list(range(D))
+        assert len(main[-1]) == (D % 128 or 128)
+        assert sorted(c for cols in tail for c in cols) == list(range(D // 32))
+        n_xs, n_part = qm.gemm_workspace(plan, M, D, F, True)
+        assert n_xs == M * math.ceil(D / 32 / 32) * 32
+        assert n_part == (plan.splits * M * F if plan.splits > 1 else 0)
+        assert plan == qm.gemm_plan.__wrapped__(M, D, F, geo, sms)
+
+
+@pytest.mark.parametrize("D", [1040, 1000, 16, 0])
+def test_q5_k_plan_refuses_a_d_that_32_does_not_divide(D):
+    with pytest.raises(ValueError, match="multiple of 32"):
+        qm.gemm_plan(64, D, 1024, GEOMETRY[("q5_k", 64)], 132)
+
+
+@pytest.mark.parametrize("D", [512, 1056])
+def test_q5_k_decode_is_the_plain_weights_on_every_code(D):
+    """Every code 0..31 in every row and column, through the kernel's
+    decode (each byte under the exponent of 128, less 128, one bf16
+    multiply by a): the weights ``q5_k_matmul_plain`` uses, bit for bit, and
+    through x = I the plain version's output less b per 32 rows."""
+    F = 64
+    codes = ((torch.arange(F)[:, None] * 7 + torch.arange(D)[None, :]) % 32).to(torch.int8)
+    a = _scales(F, D // 32, False, 3)
+    pack = kq.Q5KPack(q5=codes, a=a, b=(a.float() * 15.5).bfloat16())
+    w = _mirror_weights(pack)
+    got = kq.q5_k_matmul_plain(torch.eye(D, dtype=torch.bfloat16), pack, torch.float32)
+    want = w.float().t() - pack.b.float().repeat_interleave(32, dim=1).t()
+    assert torch.equal(got, want)
+    plain_w = (codes.to(torch.bfloat16).reshape(F, D // 32, 32)
+               * a[..., None]).reshape(F, D)
+    assert torch.equal(w.view(torch.int16), plain_w.view(torch.int16))
+    assert sorted(set(codes.flatten().tolist())) == list(range(32))
+
+
+def _q5_k_packs(D_whole, F, shards, i, seed):
+    """(JAX fields as numpy, port pack) of row shard i of ``shards`` of a
+    Q5_K weight [D_whole, F] (the whole weight when shards is 1)."""
+    w = _weight(D_whole, F, seed)
+    jp, tp = jkq.pack_q5_k(w), kq.pack_q5_k(w.T)
+    d = D_whole // shards
+    jp = {f: np.asarray(a)[i * d // (1 if f == "q5" else 32):
+                           (i + 1) * d // (1 if f == "q5" else 32)]
+          for f, a in jp.items()}
+    tp = kq.Q5KPack(q5=tp.q5[:, i * d:(i + 1) * d].contiguous(),
+                    a=tp.a[:, i * d // 32:(i + 1) * d // 32].contiguous(),
+                    b=tp.b[:, i * d // 32:(i + 1) * d // 32].contiguous())
+    return jp, tp
+
+
+# (M, whole D, F, row shards, SM count): a whole pack split over few SMs
+# (splits > 1, the offset term in the last split); a shard of D = 320 (the
+# last step 2 slabs), of D = 96 (one ragged step of 3 slabs) and of
+# D = 1056 (a last step of 1 slab, an offset term ending in 1 column)
+Q5_ORDER_CASES = [(40, 512, 160, 1, 4), (70, 1280, 128, 4, 8), (33, 768, 160, 8, 16),
+                  (36, 8448, 64, 8, 132)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("M,D_whole,F,shards,sms", Q5_ORDER_CASES)
+def test_q5_k_kstep_order_matches_jax_pallas(M, D_whole, F, shards, sms, dtype):
+    jp, pack = _q5_k_packs(D_whole, F, shards, shards // 2, seed=M)
+    D = pack.shape[1]
+    plan = qm.gemm_plan(M, D, F, _geometry("q5_k", M), sms)
+    assert plan.splits > 1 or D % 128   # split-K or a ragged step is exercised
+    x32 = np.random.default_rng(F + D).normal(size=(M, D)).astype(np.float32)
+    f = {k: jnp.asarray(v) for k, v in jp.items()}
+
+    def ref(x, out_dtype):
+        return jkq.q5_k_matmul_pallas(
+            x, f["q5"], f["a"], f["b"],
+            block_d=jqm.divisor_tile(D, (512, 384, 256, 128, 64), 32),
+            out_dtype=out_dtype, interpret=True)
+
+    if dtype == "f32":
+        want = np.asarray(ref(jnp.asarray(x32), jnp.float32))
+        got = _gemm_mirror(torch.from_numpy(x32), pack, plan, torch.float32).numpy()
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    else:
+        x = torch.from_numpy(x32).bfloat16()
+        want = np.asarray(ref(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+                              jnp.bfloat16), np.float32)
+        got = _gemm_mirror(x, pack, plan, torch.bfloat16)
+        assert got.dtype == torch.bfloat16
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= 2.0 ** (math.floor(math.log2(np.abs(want).max())) - 7)
 
 
 # ---------------------------------------------------------------------------
