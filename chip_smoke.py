@@ -9,7 +9,9 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    torch/CUDA versions. TF32 is switched off for matmuls and cuDNN, so f32
    products are full f32.
 2. Build: every kernel source of the paths (``cuda_build.SOURCES``) with
-   nvcc for sm_90a, one process per source, all started together.
+   nvcc for sm_90a, one process per source, all started together. The
+   split-KV kernels, the fused-dequant GEMM (``kgemm_kernel``) and the int8
+   GEMM (``int8_gemm_kernel``) print their ptxas reports and may not spill.
 3. Kernels: each kernel against its plain PyTorch version on the card, in
    bf16, at the main path's shapes and the contract's corner cases. For
    flash_attention: GQA and MHA, T=1 and T>1, per-row cache lengths, a
@@ -55,14 +57,18 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    at M >= 256, ``torch._int_mm`` on the same int8 operands, which applies
    no scales), and their bound counts int8 operations at 1979 TOP/s. Q5_KS,
    Q2_KS and Q3_KS at M > 32 run no kernel (dequant, then ``F.linear``, as
-   the reference's einsum): that route is timed once each. The Q4_K, Q6_K
-   and Q5_K GEMM's cases also print their split plan and grid and relaunch
-   once with host syncs turned into errors, for the same bits; x = I (M =
-   D = 2048) through all three must give ``dequant_matmul_plain``'s f32
-   output bit for bit; and a view of x one bf16 past a 16-byte boundary
-   (and a pack field so placed) must make ``dequant_matmul``,
-   ``w8a8_matmul`` and ``int8_matmul`` raise ValueError, as a misaligned q
-   must make ``flash_attention``, the CUDA context still usable after.
+   the reference's einsum): that route is timed once each. The Q4_K, Q6_K,
+   Q5_K and Q8_0 GEMM's cases also print their split plan and grid and
+   relaunch once with host syncs turned into errors, for the same bits; the
+   int8 GEMM's cases (M > 4) print their plan, grid and tiling, must equal
+   ``int8_matmul_plain`` bit for bit, relaunch the same way, and at M >=
+   256 print the quantize and GEMM launches' µs apart. x = I (M = D = 2048)
+   through all five must give the plain version's f32 output bit for bit
+   (the Q8_0 and int8 packs holding every byte value, -128 included); and
+   a view of x one bf16 past a 16-byte boundary (and a pack field so
+   placed) must make ``dequant_matmul`` (Q4_K and Q8_0), ``w8a8_matmul``
+   and ``int8_matmul`` raise ValueError, as a misaligned q must make
+   ``flash_attention``, the CUDA context still usable after.
 4. Serve, single stream: a GGUF of Llama-3.2-1B geometry (bf16 weights
    random from --seed, a synthetic 128256-token SPM vocab) goes through the
    port's Engine, which first runs the three requests once directly (the
@@ -144,7 +150,8 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    one-shot prefill is printed beside, for the mesh and for the
    single-device engine's own chunked run. Requests generate 16 tokens
    here.
-12. The kernels line (one JSON object), the card line, and last the ok line.
+12. The total wall time, the kernels line (one JSON object), the card line,
+   and last the ok line.
 """
 
 from __future__ import annotations
@@ -231,9 +238,17 @@ def event_ms(fn, reps: int, flush: torch.Tensor | None) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def split_kernel_us(fn, reps: int, flush: torch.Tensor) -> dict[str, float]:
-    """Device µs per call of each split-KV kernel ``fn`` launches (the split
-    kernel and, where it runs, the merge), from torch.profiler over ``reps``
+# the kernels split_kernel_us reports, by a piece of their names: the
+# split-KV kernel and its merge, or int8_matmul's quantize and GEMM launches
+SPLIT_KERNELS = {"split_kernel": "split_kernel", "combine_kernel": "combine_kernel"}
+INT8_KERNELS = {"quantize_kernel": "quantize_us", "int8_gemm_kernel": "gemm_us"}
+
+
+def split_kernel_us(fn, reps: int, flush: torch.Tensor,
+                    kernels: dict[str, str] = SPLIT_KERNELS) -> dict[str, float]:
+    """Device µs per call of each kernel ``fn`` launches whose name holds a
+    key of ``kernels`` (reported under its value): by default the split-KV
+    kernel and, where it runs, the merge. From torch.profiler over ``reps``
     calls with the L2 flushed before each (the flush is not counted)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -246,9 +261,11 @@ def split_kernel_us(fn, reps: int, flush: torch.Tensor) -> dict[str, float]:
         torch.cuda.synchronize()
     us: dict[str, float] = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and "dlp_paged" in e.name:
-            name = "split_kernel" if "split_kernel" in e.name else "combine_kernel"
-            us[name] = us.get(name, 0.0) + e.time_range.elapsed_us() / reps
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for piece, name in kernels.items():
+            if piece in e.name:
+                us[name] = us.get(name, 0.0) + e.time_range.elapsed_us() / reps
     return us
 
 
@@ -1059,6 +1076,10 @@ def quant_case(qm, pack, kernel: str, M: int, out_dtype, gen, flush,
     extra = {}
     if kernel == "dequant" and pack.kind in qm.GEMM_KINDS:
         extra = gemm_launch_check(qm, pack, M, kern, got, name)
+    if kernel == "int8" and M > qm.INT8_W8A8_MAX_M:
+        extra = int8_launch_check(qm, pack, M, kern, got, ref, name)
+        if M >= 256:
+            extra["device_us"] = split_kernel_us(kern, 20, flush, INT8_KERNELS)
     if kernel in ("w8a8", "int8"):
         group = pack.group
         xq = torch.empty(M, D, dtype=torch.int8, device="cuda")
@@ -1098,13 +1119,9 @@ def quant_case(qm, pack, kernel: str, M: int, out_dtype, gen, flush,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def gemm_launch_check(qm, pack, M: int, kern, got: torch.Tensor, name: str) -> dict:
-    """The Q4_K / Q6_K GEMM's cut of this case (``gemm_plan`` from the
-    library's geometry) and a second launch on the same inputs, made with
-    host syncs turned into errors, which must give the same bits."""
-    Fo, D = pack.shape
-    geo = qm.gemm_geometry(pack.kind, qm.gemm_bm(M))
-    plan = qm.gemm_plan(M, D, Fo, geo, qm.sm_count(torch.cuda.current_device()))
+def relaunch_check(kern, got: torch.Tensor, name: str) -> None:
+    """A second launch on the same inputs, made with host syncs turned into
+    errors, must give the same bits."""
     torch.cuda.set_sync_debug_mode("error")
     try:
         again = kern()
@@ -1112,33 +1129,85 @@ def gemm_launch_check(qm, pack, M: int, kern, got: torch.Tensor, name: str) -> d
         torch.cuda.set_sync_debug_mode(0)
     if not torch.equal(got, again):
         fail(f"{name}: two launches on the same inputs differ")
+
+
+def gemm_launch_check(qm, pack, M: int, kern, got: torch.Tensor, name: str) -> dict:
+    """The fused-dequant GEMM's cut of this case (``gemm_plan`` from the
+    library's geometry) and a relaunch for the same bits."""
+    Fo, D = pack.shape
+    geo = qm.gemm_geometry(pack.kind, qm.gemm_bm(M))
+    plan = qm.gemm_plan(M, D, Fo, geo, qm.sm_count(torch.cuda.current_device()))
+    relaunch_check(kern, got, name)
     grid = [plan.tiles_n, plan.tiles_m, plan.splits]
     return {"plan": plan._asdict(), "grid": grid, "blocks": grid[0] * grid[1] * grid[2],
             "threads": geo.threads, "smem": geo.smem, "blocks_per_sm": geo.blocks_per_sm,
             "bit_equal_relaunch": True}
 
 
-# the identity probe of the Q4_K / Q6_K GEMM: x = I at the gate_up pack
+def int8_launch_check(qm, pack, M: int, kern, got: torch.Tensor, ref: torch.Tensor,
+                      name: str) -> dict:
+    """The int8 GEMM's cut of this case (``int8_plan``, shapes only), the
+    library's geometry for it (which must tile as the plan assumes), the
+    output equal to the plain version's bit for bit (both sum each output's
+    groups in group order, every product and sum rounded alike), and a
+    relaunch for the same bits."""
+    Fo, D = pack.shape
+    if not torch.equal(got, ref):
+        fail(f"{name}: the int8 GEMM differs from int8_matmul_plain "
+             f"({(got != ref).sum().item()} outputs)")
+    plan = qm.int8_plan(M, D, Fo, pack.group, qm.sm_count(torch.cuda.current_device()))
+    geo = qm.int8_geometry(pack.group, plan.bn)
+    if (geo.bm, geo.bn, geo.kstep) != (plan.bm, plan.bn, qm.INT8_KSTEP):
+        fail(f"{name}: the library tiles {geo}, the plan assumes {plan}")
+    relaunch_check(kern, got, name)
+    grid = [plan.tiles_n, plan.tiles_m]
+    return {"plan": plan._asdict(), "grid": grid, "blocks": grid[0] * grid[1],
+            "threads": geo.threads, "smem": geo.smem, "stages": geo.stages,
+            "blocks_per_sm": geo.blocks_per_sm, "bit_equal_plain": True,
+            "bit_equal_relaunch": True}
+
+
+# the identity probe of the GEMMs: x = I at the gate_up pack
 IDENTITY_D, IDENTITY_F = 2048, 8192
 
 
+def every_byte(F: int, D: int) -> torch.Tensor:
+    """int8 codes [F, D] on the card holding every byte value, -128
+    included, in every row and column (random_pack's Q8_0 and int8 codes
+    stop at +-127, as the encoders' do; a GGUF block's raw bytes may not)."""
+    f = torch.arange(F, device="cuda")[:, None]
+    j = torch.arange(D, device="cuda")[None, :]
+    return ((f * 37 + j) % 256).to(torch.uint8).view(torch.int8)
+
+
 def check_gemm_identity(qm, kq, seed: int, card: str) -> list[dict]:
-    """x = I (M = D = 2048) through the Q4_K and Q6_K GEMMs into f32 must
+    """x = I (M = D = 2048) through each fused-dequant GEMM into f32 must
     equal ``dequant_matmul_plain`` bit for bit: the decoded weights'
-    transpose (less b per 32 rows for Q4_K), every product exact and
-    every sum of at most two nonzero terms. A decode, swizzle or band
-    mistake shows column by column, where the one-ulp tolerance would blur
-    it."""
+    transpose (less b per 32 rows for Q4_K and Q5_K), every product exact
+    and every sum of at most two nonzero terms; Q8_0's pack holds every byte
+    value. The same through the int8 GEMM must equal ``int8_matmul_plain``
+    (x = I quantizes to 127 on the diagonal: each output is one group's
+    term). A decode, swizzle, band or fold mistake shows column by column,
+    where the one-ulp tolerance would blur it."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.eye(IDENTITY_D, dtype=torch.bfloat16, device="cuda")
     rows = []
-    for kind in qm.GEMM_KINDS:
+    for kind in (*qm.GEMM_KINDS, "int8"):
         pack = random_pack(qm, kq, kind, IDENTITY_D, IDENTITY_F, gen)
-        got = qm.dequant_matmul(x, pack, torch.float32)
-        want = qm.dequant_matmul_plain(x, pack, torch.float32)
+        if kind in ("q8_0", "int8"):
+            pack.qs.copy_(every_byte(IDENTITY_F, IDENTITY_D))
+            if torch.unique(pack.qs).numel() != 256:
+                fail(f"{kind} identity probe: the pack lacks byte values")
+        if kind == "int8":
+            got = qm.int8_matmul(x, pack, torch.float32)
+            want = qm.int8_matmul_plain(x, pack, torch.float32)
+        else:
+            got = qm.dequant_matmul(x, pack, torch.float32)
+            want = qm.dequant_matmul_plain(x, pack, torch.float32)
         torch.cuda.synchronize()
         bad = (got != want).nonzero()
         row = {"identity_probe": kind, "M": IDENTITY_D, "D": IDENTITY_D, "F": IDENTITY_F,
+               "every_byte": kind in ("q8_0", "int8"),
                "bit_equal": bad.shape[0] == 0, "differing": bad.shape[0],
                "first_differing_rows_cols": bad[:8].tolist(), "card": card}
         print(json.dumps(row), flush=True)
@@ -1163,15 +1232,26 @@ def check_misaligned(qm, kq, seed: int) -> dict:
     x.normal_(generator=gen)
     q4 = random_pack(qm, kq, "q4_k", D, F, gen)
     q6 = random_pack(qm, kq, "q6_k", D, F, gen)
+    q8 = random_pack(qm, kq, "q8_0", D, F, gen)
     i8 = random_pack(qm, kq, "int8", D, F, gen)
     calls = {"dequant_matmul": lambda: qm.dequant_matmul(x, q4, torch.bfloat16),
+             "dequant_matmul, q8_0": lambda: qm.dequant_matmul(x, q8, torch.bfloat16),
              "w8a8_matmul": lambda: qm.w8a8_matmul(x[:4], q6, torch.bfloat16),
              "int8_matmul": lambda: qm.int8_matmul(x, i8, torch.bfloat16)}
-    ql = torch.empty(q6.ql.numel() + 1, dtype=torch.int8, device="cuda")[1:].view_as(q6.ql)
-    ql.copy_(q6.ql)
-    bad_field = kq.Q6KPack(ql=ql, qh=q6.qh, s=q6.s)
+
+    def off16(t: torch.Tensor) -> torch.Tensor:
+        """a copy of ``t`` one element past a 16-byte boundary"""
+        bad = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:].view_as(t)
+        return bad.copy_(t)
+
+    bad_q6 = kq.Q6KPack(ql=off16(q6.ql), qh=q6.qh, s=q6.s)
+    bad_q8 = qm.Q8_0Pack(qs=off16(q8.qs), scale=q8.scale)
+    bad_i8 = qm.Int8Pack(qs=off16(i8.qs), gs=i8.gs)
     calls["dequant_matmul, pack field"] = lambda: qm.dequant_matmul(
-        x.clone(), bad_field, torch.bfloat16)
+        x.clone(), bad_q6, torch.bfloat16)
+    calls["dequant_matmul, q8_0 pack field"] = lambda: qm.dequant_matmul(
+        x.clone(), bad_q8, torch.bfloat16)
+    calls["int8_matmul, pack field"] = lambda: qm.int8_matmul(x.clone(), bad_i8, torch.bfloat16)
     q = torch.empty(32 * 64 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(1, 1, 32, 64)
     kv = torch.zeros(1, 256, 8, 64, dtype=torch.bfloat16, device="cuda")
     calls["flash_attention"] = lambda: fa.flash_attention(q, kv, kv, 100, 4)
@@ -1185,8 +1265,10 @@ def check_misaligned(qm, kq, seed: int) -> dict:
             fail(f"{what}: a misaligned input did not raise ValueError")
     torch.cuda.synchronize()
     xa = x.clone()
-    ok = torch.equal(qm.dequant_matmul(xa, q4, torch.float32),
-                     qm.dequant_matmul(xa, q4, torch.float32))
+    ok = (torch.equal(qm.dequant_matmul(xa, q4, torch.float32),
+                      qm.dequant_matmul(xa, q4, torch.float32))
+          and torch.equal(qm.int8_matmul(xa, i8, torch.float32),
+                          qm.int8_matmul(xa, i8, torch.float32)))
     torch.cuda.synchronize()
     if not ok:
         fail("the CUDA context misbehaves after the misaligned calls")
@@ -2332,7 +2414,7 @@ def mesh_ref(engine, seed: int, weights: str, card: str) -> list[dict]:
 
 # the kernel templates the sources instantiate (a kernels-line entry's
 # "header"): the three attention sources' split-KV kernel, and the GEMM of
-# dequant_matmul.cu's q4_k, q6_k and q5_k
+# dequant_matmul.cu's q4_k, q6_k, q5_k and q8_0
 SPLIT_HEADER, GEMM_HEADER = "paged_tile.cuh", "kquant_gemm.cuh"
 
 
@@ -2396,9 +2478,9 @@ def main() -> int:
                if f.get("spill_stores", 0) > 0]
     if spilled:
         fail(f"split-KV kernels spill registers: {spilled}")
-    # the fused-dequant library: every kernel's report; the Q4_K / Q6_K /
-    # Q5_K GEMM instantiations (kgemm_kernel) may not spill, and ptxas's
-    # notes on serialized wgmma are printed
+    # the fused-dequant library: every kernel's report; the GEMM
+    # instantiations (kgemm_kernel) may not spill, and ptxas's notes on
+    # serialized wgmma are printed
     dequant_ptxas = ptxas_report({"dequant_matmul": built["dequant_matmul"]})
     print(json.dumps({"ptxas": dequant_ptxas, "wgmma_notes": [
         ln.strip() for ln in built["dequant_matmul"].ptxas.splitlines() if "wgmma" in ln]}),
@@ -2406,7 +2488,17 @@ def main() -> int:
     spilled = [f["function"] for f in dequant_ptxas["dequant_matmul"]
                if "kgemm_kernel" in f["function"] and f.get("spill_stores", 0) > 0]
     if spilled:
-        fail(f"the Q4_K / Q6_K / Q5_K GEMM spills registers: {spilled}")
+        fail(f"the Q4_K / Q6_K / Q5_K / Q8_0 GEMM spills registers: {spilled}")
+    # the int8 GEMM (int8_gemm_kernel, one instantiation per group and tile
+    # width) may not spill either
+    int8_ptxas = ptxas_report({"int8_matmul": built["int8_matmul"]})
+    print(json.dumps({"ptxas": int8_ptxas, "wgmma_notes": [
+        ln.strip() for ln in built["int8_matmul"].ptxas.splitlines() if "wgmma" in ln]}),
+        flush=True)
+    spilled = [f["function"] for f in int8_ptxas["int8_matmul"]
+               if "int8_gemm_kernel" in f["function"] and f.get("spill_stores", 0) > 0]
+    if spilled:
+        fail(f"the int8 GEMM spills registers: {spilled}")
 
     # 3. kernels against their plain versions
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")   # 256 MiB > L2
@@ -2598,6 +2690,7 @@ def main() -> int:
                                     served.get(name, 0), krows, timed, header))
     if any(e["launches"] <= 0 for e in entries):
         fail(f"a kernel of the path never launched: {entries}")
+    print(f"chip_smoke wall time {time.monotonic() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

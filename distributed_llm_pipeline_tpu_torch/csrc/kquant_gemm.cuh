@@ -1,10 +1,11 @@
 // Fused-dequant GEMM over the band-interleaved Q4_K and Q6_K packs and the
-// Q5_K byte-code pack for Hopper (sm_90a): the one kernel template behind
-// dequant_matmul.cu's dlp_dequant_matmul_q4_k, _q6_k and _q5_k.
+// Q5_K and Q8_0 byte-code packs for Hopper (sm_90a): the one kernel template
+// behind dequant_matmul.cu's dlp_dequant_matmul_q4_k, _q6_k, _q5_k and _q8_0.
 //
 // Replaces the TPU kernels `q4_k_matmul_pallas`, `q6_k_matmul_pallas` and
 // `q5_k_matmul_pallas` (distributed_llm_pipeline_tpu/ops/kquant_matmul.py,
-// `_q4k_kernel`, `_q6k_kernel`, `_q5k_kernel`). Contract (dequant_matmul.cu):
+// `_q4k_kernel`, `_q6k_kernel`, `_q5k_kernel`) and `q8_0_matmul_pallas`
+// (ops/quant_matmul.py, `_q8_kernel`). Contract (dequant_matmul.cu):
 // out [M, F] = x [M, D] . W^T, x bf16, each weight value bf16(code * scale)
 // -- the exact product rounded once -- and the products accumulated in f32;
 // Q4_K and Q5_K (w = a * q - b per 32 rows) do not fold b into the weight:
@@ -18,6 +19,8 @@
 //   Q5_K  q5 [F, D] (one code in [0, 31] a byte: a tensor-parallel row shard
 //         splits it like a dense weight, so D is only a multiple of 32),
 //         a, b bf16 [F, D/32]
+//   Q8_0  qs [F, D] (one signed code in [-128, 127] a byte, D a multiple of
+//         32), scale bf16 [F, D/32]
 //
 // What bounds it. At prefill widths (M = 512, D x F = 2048 x 8192) the
 // product's 17 GFLOP take 17 us at the bf16 tensor-core rate and the packs'
@@ -28,8 +31,8 @@
 //   [32t, 32t + 32) of every band at once -- two 32-column slabs of x and W
 //   for Q4_K (columns p.. of band 0 and D/2 + p.. of band 1), four for Q6_K
 //   -- the TPU kernels' contraction order: each packed byte is fetched once
-//   and decoded into all its bands. Q5_K has one plane and no bands: a
-//   k-step covers four consecutive 32-column slabs (128 codes a row), so
+//   and decoded into all its bands. Q5_K and Q8_0 have one plane and no
+//   bands: a k-step covers four consecutive 32-column slabs (128 codes a row), so
 //   that, as for Q6_K, 8 MMAs share each step's handoff (the full-barrier
 //   wait, the wgmma commit and wait, the release); with one slab a step the
 //   handoff would come once every 2 MMAs. A D that 128 does not divide ends
@@ -45,7 +48,12 @@
 //   code under the exponent of 128, giving 128 + code; a bf16x2 subtract of
 //   128, or of 160 for Q6_K's code + 32, leaves the code), then one bf16x2
 //   multiply by the scale rounds the exact product once: bf16(code * scale),
-//   the contract's value. The fragments of step i + 1 are decoded while the
+//   the contract's value. The trick holds for a byte below 128 only (its top
+//   bit would land in the exponent), so Q8_0's signed byte c goes in two
+//   halves: its low 7 bits under the exponent give 128 + (c & 127), its sign
+//   bit under the same exponent the bias, 128 (0x4300) or 256 (0x4380), and
+//   the one subtract leaves c exactly for all 256 byte values, -128
+//   included. The fragments of step i + 1 are decoded while the
 //   tensor cores multiply step i (two register sets). Nothing the threads
 //   write is read by the tensor cores through shared memory, so the loop
 //   needs no proxy fence and no block-wide barrier (a decoded W tile staged
@@ -64,10 +72,11 @@
 //   band, into two window slots: loaded a step at a time they were many
 //   tiny rows of TMA work and held the block back on the H100 (as did the
 //   codes staged by one warp's cp.async). Q5_K's four scales of a step are
-//   adjacent: one box a window. A TMA row pitch must be a multiple of 16
-//   bytes; a Q5_K shard's a and b rows are D/16 bytes, so the host hands the
-//   maps copies padded to 8 values a row where D/32 is not a multiple of 8
-//   (ops/quant_matmul.py gemm_pack_maps, once for each placement).
+//   adjacent (Q8_0's too): one box a window. A TMA row pitch must be a
+//   multiple of 16 bytes; a Q5_K shard's a and b rows and a Q8_0 scale row
+//   are D/16 bytes, so the host hands the maps copies padded to 8 values a
+//   row where D/32 is not a multiple of 8 (ops/quant_matmul.py
+//   gemm_pack_maps, once for each placement).
 // - The affine offset term as one more stretch of K: a first small kernel
 //   writes -bf16(sum_32 x) [M, D/32] (zero-padded to a multiple of 32
 //   columns) to a workspace; the GEMM's last k-steps multiply b (the A
@@ -108,7 +117,8 @@ constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 32;   // + the producer war
 // POS packed positions of each of BANDS bands: SLABS 32-column slabs of x
 // and of W. RAW_BYTES of codes, plane by plane (Q4_K: qs [128][32]; a step
 // of the offset term: b [128][64], 32 columns of bf16; Q6_K: ql bands 0/2,
-// ql bands 1/3, qh, each [128][32]; Q5_K: q5, one [128][32] box a slab).
+// ql bands 1/3, qh, each [128][32]; Q5_K: q5 and Q8_0: qs, one [128][32] box
+// a slab).
 // The scales come a window of WIN k-steps at a time (Q4_K's a: one a band
 // and step; Q6_K's s: two; Q5_K's a: four, adjacent), into one of two
 // window slots: per scale band (SC_BANDS) and row a box of SC_BOX values
@@ -143,10 +153,21 @@ struct Q5K {
   static constexpr int stages(int bm) { return bm == 64 ? 6 : 4; }
 };
 
+// Q5_K's layout without the offset: signed codes, one scale per 32 columns
+struct Q8 {
+  static constexpr int BANDS = 1, POS = 4 * SLAB, SLABS = 4, RAW_BYTES = SLABS * BN * 32;
+  static constexpr int RAW_TX = RAW_BYTES;
+  static constexpr int SC_BANDS = 1, PER_STEP = SLABS, WIN = 8, SC_BOX = 40;
+  static constexpr bool AFFINE = false;
+  static constexpr int D_ALIGN = SLAB;
+  static constexpr int stages(int bm) { return bm == 64 ? 6 : 4; }
+};
+
 // The tensor maps of a pack, encoded once for each placement of it: the code
-// planes (bytes, 32 columns x 128 rows: Q4_K qs and Q5_K q5 in codes0; Q6_K
-// ql in codes0, qh in codes1), the scales (bf16, SC_BOX columns: Q4_K and
-// Q5_K a, Q6_K s) and the affine packs' b (bf16, 32 columns).
+// planes (bytes, 32 columns x 128 rows: Q4_K qs, Q5_K q5 and Q8_0 qs in
+// codes0; Q6_K ql in codes0, qh in codes1), the scales (bf16, SC_BOX columns:
+// Q4_K and Q5_K a, Q6_K s, Q8_0 scale) and the affine packs' b (bf16, 32
+// columns).
 struct PackMaps {
   CUtensorMap codes0, codes1, scales, b;
 };
@@ -321,7 +342,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint
 }
 
 // ---------------------------------------------------------------------------
-// decode: codes (one per byte, each below 128) times a scale, in pairs
+// decode: codes (one per byte, each below 128, or signed for Q8_0) times a
+// scale, in pairs
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
@@ -338,6 +360,18 @@ __device__ __forceinline__ uint32_t scaled_pair(uint32_t codes, __nv_bfloat162 b
                                                 __nv_bfloat162 scale) {
   const uint32_t v = __byte_perm(codes, 0x43434343u, SEL);
   return bf16x2_bits(__hmul2(__hsub2(bits_bf16x2(v), bias), scale));
+}
+
+// Q8_0's signed bytes: the low 7 bits of each (`low7`, codes & 0x7f7f7f7f)
+// under the exponent of 128 give 128 + (c & 127); its sign bit (`sign`,
+// codes & 0x80808080) under the same exponent gives 0x4300 (128) or 0x4380
+// (256); the difference is c exactly, for every byte value
+template <uint32_t SEL>
+__device__ __forceinline__ uint32_t signed_pair(uint32_t low7, uint32_t sign,
+                                                __nv_bfloat162 scale) {
+  const uint32_t v = __byte_perm(low7, 0x43434343u, SEL);
+  const uint32_t bias = __byte_perm(sign, 0x43434343u, SEL);
+  return bf16x2_bits(__hmul2(__hsub2(bits_bf16x2(v), bits_bf16x2(bias)), scale));
 }
 
 __device__ __forceinline__ __nv_bfloat162 splat(uint16_t h) {
@@ -437,6 +471,26 @@ __device__ __forceinline__ void decode(Q5K, const uint8_t* raw, const uint8_t* s
   }
 }
 
+// Q8_0: as Q5_K, each code signed
+__device__ __forceinline__ void decode(Q8, const uint8_t* raw, const uint8_t* sc, int r, int c,
+                                       int t, int D, uint32_t (&a)[32]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = r + 8 * h;
+#pragma unroll
+    for (int s = 0; s < Q8::SLABS; ++s) {
+      const __nv_bfloat162 sc_s = splat(scale_at<Q8>(sc, 0, rr, t, s, D));
+#pragma unroll
+      for (int kb = 0; kb < 2; ++kb) {
+        const uint32_t q = frag_bytes(raw + s * BN * 32 + rr * 32, kb, c);
+        const uint32_t low7 = q & 0x7F7F7F7Fu, sign = q & 0x80808080u;
+        a[8 * s + 4 * kb + h] = signed_pair<0x4140u>(low7, sign, sc_s);
+        a[8 * s + 4 * kb + 2 + h] = signed_pair<0x4342u>(low7, sign, sc_s);
+      }
+    }
+  }
+}
+
 // the offset term's A: b [128][32 bf16] as it is, in a[0..7]
 template <int N>
 __device__ __forceinline__ void offset_frags(const uint8_t* raw, int r, int c,
@@ -465,7 +519,7 @@ __device__ __forceinline__ void load_step(const Maps& maps, int D, int m0, int n
     const int p = t * Dec::POS, band = D / Dec::BANDS;
     const int sc_bytes = window ? G::SC_SLOT : 0;
     if constexpr (Dec::BANDS == 1) {
-      // Q5_K: the step's slabs of x and of q5 that lie inside D
+      // Q5_K, Q8_0: the step's slabs of x and of the codes that lie inside D
       const int slabs = min(Dec::SLABS, (D - p) / SLAB);
       mbar_arrive_tx(full, slabs * (BM * 64 + BN * SLAB) + sc_bytes);
       for (int s = 0; s < slabs; ++s) {
@@ -591,8 +645,8 @@ kgemm_kernel(const __grid_constant__ Maps maps, float* __restrict__ part, void* 
       }
     }
   };
-  // a weight step: every slab, or in the ragged last step of a Q5_K D that
-  // 128 does not divide, only the slabs inside D (1 to 3: 2 to 6 MMAs)
+  // a weight step: every slab, or in the ragged last step of a Q5_K or Q8_0
+  // D that 128 does not divide, only the slabs inside D (1 to 3: 2 to 6 MMAs)
   const int last_slabs = (D - (n_main - 1) * Dec::POS * Dec::BANDS) / SLAB;
   auto main_step = [&](int i, uint32_t(&cur)[G::NA], uint32_t(&next)[G::NA]) {
     if constexpr (Dec::D_ALIGN < Dec::SLABS * SLAB) {
@@ -782,11 +836,13 @@ bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int box_co
                   CU_TENSOR_MAP_SWIZZLE_NONE, pitch);
 }
 
-// Q5_K's a and b rows as the maps read them: D/32 values, rows padded to a
-// multiple of 8 values (16 bytes, TMA's least row pitch)
+// Q5_K's a and b rows and Q8_0's scale rows as the maps read them: D/32
+// values, rows padded to a multiple of 8 values (16 bytes, TMA's least row
+// pitch)
 constexpr int scale_pitch(int D) { return (D / XSUM_SUB + 7) / 8 * 8; }
 
-// the packs' maps: Q4_K (qs, a, b), Q6_K (ql, qh, s), Q5_K (q5, a, b)
+// the packs' maps: Q4_K (qs, a, b), Q6_K (ql, qh, s), Q5_K (q5, a, b), Q8_0
+// (qs, scale; its b map, never loaded, over the scales)
 bool pack_maps(PackMaps& m, Q4K, const void* qs, const void* a, const void* b, int D, int F) {
   return byte_map(&m.codes0, qs, F, D / 2) && byte_map(&m.codes1, qs, F, D / 2) &&
          bf16_map(&m.scales, a, F, D / 32, Q4K::SC_BOX) && bf16_map(&m.b, b, F, D / 32, SLAB);
@@ -801,11 +857,17 @@ bool pack_maps(PackMaps& m, Q5K, const void* q5, const void* a, const void* b, i
          bf16_map(&m.scales, a, F, D / 32, Q5K::SC_BOX, pitch) &&
          bf16_map(&m.b, b, F, D / 32, SLAB, pitch);
 }
+bool pack_maps(PackMaps& m, Q8, const void* qs, const void* scale, const void*, int D, int F) {
+  const int pitch = scale_pitch(D);
+  return byte_map(&m.codes0, qs, F, D) && byte_map(&m.codes1, qs, F, D) &&
+         bf16_map(&m.scales, scale, F, D / 32, Q8::SC_BOX, pitch) &&
+         bf16_map(&m.b, scale, F, D / 32, SLAB, pitch);
+}
 
 // The pack's maps into `out` (sizeof(PackMaps) bytes), for the caller to keep
 // while the pack stays where it is. p0, p1, p2: the pack's fields (Q4_K qs,
 // a, b; Q6_K ql, qh, s; Q5_K q5, and a, b with rows scale_pitch(D) values
-// apart).
+// apart; Q8_0 qs and scale with rows so apart, p2 unused).
 template <class Dec>
 cudaError_t encode_pack(const void* p0, const void* p1, const void* p2, int D, int F,
                         void* out) {

@@ -1,8 +1,8 @@
-// Weight decoders shared by the quantized matmul kernels (dequant_matmul.cu,
-// w8a8_matmul.cu): the Q8_0, int8, Q6_K, Q4_K, Q5_KS, Q2_KS and Q3_KS packs
-// and the byte-code Q4_K8, Q5_K and Q6_K8 packs of tp > 1 meshes, of
-// ops/quant_matmul.py and ops/kquant_matmul.py, laid out out-features-major,
-// [F, .].
+// Weight decoders of the W8A8 kernels (w8a8_matmul.cu; int8_matmul.cu takes
+// load_f32 for its activations): the Q8_0, int8, Q6_K, Q4_K, Q5_KS, Q2_KS
+// and Q3_KS packs and the byte-code Q4_K8, Q5_K and Q6_K8 packs of tp > 1
+// meshes, of ops/quant_matmul.py and ops/kquant_matmul.py, laid out
+// out-features-major, [F, .].
 //
 // A decoder maps (output row f, logical contraction row d0, a multiple of 16)
 // to the 16 int8 codes of rows d0 .. d0+15, written to w[0..3] as four 32-bit
@@ -248,11 +248,6 @@ struct Q3KS {
     return __bfloat162float(s[size_t(f) * (D / SUB) + d0 / SUB]);
   }
 };
-
-// byte i (0..3) of a code word as a signed value
-__device__ __forceinline__ int code_byte(int w, int i) {
-  return int(int8_t(unsigned(w) >> (8 * i)));
-}
 
 __device__ __forceinline__ float load_f32(const void* p, size_t i, bool bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])

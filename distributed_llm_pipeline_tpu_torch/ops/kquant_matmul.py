@@ -64,7 +64,7 @@ takes the fused dequant (``csrc/dequant_matmul.cu``) for Q6_K, Q4_K and
 Q5_K (``q5_k_matmul``) and, for the sub-byte packs and the Q4_K8 and Q6_K8
 byte packs, which have no fused kernel in the reference either, the dense
 weight and one dense product. Each kernel decodes the bit planes itself
-(``csrc/quant_tile.cuh``; Q4_K, Q6_K and Q5_K at M > 32 in the GEMM of
+(``csrc/quant_tile.cuh`` at M ≤ 32; at M > 32 the GEMM of
 ``csrc/kquant_gemm.cuh``, cut by ``quant_matmul.gemm_plan``).
 """
 

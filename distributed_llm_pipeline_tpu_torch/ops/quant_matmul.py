@@ -14,9 +14,10 @@ along the contraction axis D. The fields are the JAX package's, transposed:
         qs     int8 [F, D]
         gs     f32  [F, D/g]
 
-Two kernels serve a pack (``csrc/dequant_matmul.cu``, ``csrc/w8a8_matmul.cu``),
-picked by M, the product of the leading dimensions of x, as the reference's
-``q8_0_matmul`` picks them:
+Two kernels serve a pack (``csrc/dequant_matmul.cu``, the GEMM of
+``csrc/kquant_gemm.cuh``; ``csrc/w8a8_matmul.cu``), picked by M, the product
+of the leading dimensions of x, as the reference's ``q8_0_matmul`` picks
+them:
 
 - M ≤ ``W8A8_MAX_M`` (decode, short prompts, the head of one position):
   activations are quantized per (row × group) to int8 (``quantize_acts``,
@@ -35,7 +36,7 @@ reference's ``int8_matmul`` has no cutover): the activations quantized per
 ``xs · gs``, summed over groups. M ≤ ``INT8_W8A8_MAX_M`` runs the W8A8
 kernel above with the int8 decoder (sub-block 32, the f32 group scale);
 larger M one quantize launch and an int8 tensor-core GEMM
-(``csrc/int8_matmul.cu``).
+(``csrc/int8_matmul.cu``, cut by ``int8_plan``).
 
 Affine packs (Q4_K, Q5_KS, Q2_KS and the byte-code Q4_K8 and Q5_K: ``w = a ·
 q − b``, ``QuantPack.offsets``) add the
@@ -498,9 +499,10 @@ def w8a8_matmul(x: torch.Tensor, pack: QuantPack, out_dtype: torch.dtype,
 
 
 # --------------------------------------------------------------------------
-# the Q4_K, Q6_K and Q5_K GEMM's cut (csrc/kquant_gemm.cuh)
+# the fused-dequant GEMM's cut (csrc/kquant_gemm.cuh)
 
-GEMM_KINDS = ("q4_k", "q6_k", "q5_k")
+# the pack kinds of the GEMM: every kind with a fused-dequant kernel
+GEMM_KINDS = ("q4_k", "q6_k", "q5_k", "q8_0")
 GEMM_WIDE_M = 64   # M above this takes 128 rows of x a block, 64 up to it
 MAX_SPLITS = 16
 
@@ -510,8 +512,8 @@ class GemmGeometry(NamedTuple):
     ``csrc/kquant_gemm.cuh`` defines it (``gemm_geometry`` reads it from the
     library): rows of x and of W (output columns) a block, packed positions
     a k-step covers in each band, bands (Q4_K 2, Q6_K 4: a k-step takes the
-    same positions of every band; Q5_K's one plane 1, 128 positions a
-    step), columns of the affine offset term a k-step (0: none), ring
+    same positions of every band; the one plane of Q5_K and Q8_0 1, 128
+    positions a step), columns of the affine offset term a k-step (0: none), ring
     stages, threads, dynamic shared memory bytes, blocks an SM holds (the
     card's occupancy query), and the multiple of which D must be."""
     bm: int
@@ -570,8 +572,8 @@ def gemm_plan(M: int, D: int, F: int, geometry: GemmGeometry, sm_count: int) -> 
     split-K: the split count s (at most ``MAX_SPLITS``, no split empty) that
     minimises waves × k-steps a block, ``ceil(tiles · s / slots) ·
     ceil(steps / s)``, the smallest on a tie. The weight's last k-step is
-    ragged where ``bands · positions`` does not divide D (Q5_K: only its
-    slabs inside D are loaded and multiplied). Raises ``ValueError`` on
+    ragged where ``bands · positions`` does not divide D (Q5_K, Q8_0: only
+    its slabs inside D are loaded and multiplied). Raises ``ValueError`` on
     what the kernel refuses."""
     g = geometry
     if M < 1 or F < 1 or D < g.d_align or D % g.d_align:
@@ -598,11 +600,12 @@ def gemm_plan(M: int, D: int, F: int, geometry: GemmGeometry, sm_count: int) -> 
 
 
 def scale_rows(t: torch.Tensor) -> torch.Tensor:
-    """A Q5_K pack's ``a`` or ``b`` [F, D/32] as the GEMM's tensor maps read
-    it: rows a multiple of 8 values (16 bytes, the least row pitch TMA
-    takes) apart. The field itself where D/32 is such a multiple (D % 256 ==
-    0); else a copy padded with zeros (a tensor-parallel shard: D = 1056
-    gives 66-byte rows), at most 7 values a row."""
+    """A Q5_K pack's ``a`` or ``b`` or a Q8_0 pack's ``scale`` [F, D/32] as
+    the GEMM's tensor maps read it: rows a multiple of 8 values (16 bytes,
+    the least row pitch TMA takes) apart. The field itself where D/32 is
+    such a multiple (D % 256 == 0); else a copy padded with zeros (a
+    tensor-parallel shard: D = 1056 gives 66-byte rows; Q8_0 at D = 2080
+    130-byte rows), at most 7 values a row."""
     n = t.shape[1]
     if n % 8 == 0:
         return t
@@ -614,9 +617,9 @@ def scale_rows(t: torch.Tensor) -> torch.Tensor:
 def gemm_pack_maps(pack: QuantPack, dev: torch.device) -> ctypes.Array:
     """The GEMM's tensor maps of ``pack``'s fields (host memory), encoded
     once for each placement of the pack, as ``kernel_ptrs`` checks it once.
-    A Q5_K pack's scales and offsets go through ``scale_rows``; a padded copy
-    lives in the cache beside the maps, made once per placement, never per
-    call."""
+    A Q5_K pack's scales and offsets and a Q8_0 pack's scales go through
+    ``scale_rows``; a padded copy lives in the cache beside the maps, made
+    once per placement, never per call."""
     key = (dev, pack.kernel_ptrs(dev))
     cached = pack._gemm_maps
     if cached is None or cached[0] != key:
@@ -624,11 +627,11 @@ def gemm_pack_maps(pack: QuantPack, dev: torch.device) -> ctypes.Array:
 
         lib = load_library("dequant_matmul")
         fn = getattr(lib, f"dlp_dequant_matmul_{pack.kind}_pack_maps")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+        fields = [pack._buffers[name] for name in pack.fields]
+        fn.argtypes = [ctypes.c_void_p] * (len(fields) + 1) + [ctypes.c_int] * 2
         fn.restype = ctypes.c_int
         buf = ctypes.create_string_buffer(lib.dlp_dequant_matmul_pack_maps_bytes())
-        fields = [pack._buffers[name] for name in pack.fields]
-        if pack.kind == "q5_k":
+        if pack.kind in ("q5_k", "q8_0"):
             fields[1:] = [scale_rows(t) for t in fields[1:]]
         rc = fn(*(t.data_ptr() for t in fields), buf, pack.shape[1], pack.shape[0])
         if rc != 0:
@@ -651,10 +654,9 @@ def dequant_matmul(x: torch.Tensor, pack: QuantPack,
     """The fused-dequant CUDA kernel: bf16 x [M, D] against a Q8_0, Q6_K,
     Q4_K or Q5_K (byte-code) pack, each weight value dequantized to bf16 and
     multiplied on the tensor cores with f32 accumulation (an affine pack's
-    offset term too) → [M, F] in ``out_dtype``. Q4_K, Q6_K and Q5_K run the
-    GEMM of ``csrc/kquant_gemm.cuh`` cut by ``gemm_plan``, with its
-    workspaces allocated here; Q8_0 the single-stage kernel of
-    ``csrc/dequant_matmul.cu``. One count per call."""
+    offset term too) → [M, F] in ``out_dtype``: the GEMM of
+    ``csrc/kquant_gemm.cuh`` cut by ``gemm_plan``, with its workspaces
+    allocated here. One count per call."""
     what = "dequant_matmul"
     if pack.kind == "int8":   # its M > 32 route is int8_matmul's GEMM
         raise ValueError(f"{what}: no kernel for pack kind 'int8'")
@@ -662,26 +664,93 @@ def dequant_matmul(x: torch.Tensor, pack: QuantPack,
     M, D = x.shape
     Fo, dev = pack.shape[0], x.device
     flag = _out_flag(out_dtype, what)
-    if pack.kind in GEMM_KINDS:
-        maps = gemm_pack_maps(pack, dev)
-        plan = gemm_plan(M, D, Fo, gemm_geometry(pack.kind, gemm_bm(M)),
-                         sm_count(dev.index))
-        n_xs, n_part = gemm_workspace(plan, M, D, Fo, plan.tail_steps > 0)
-        xs = torch.empty(n_xs, dtype=torch.bfloat16, device=dev) if n_xs else None
-        part = torch.empty(n_part, dtype=torch.float32, device=dev) if n_part else None
-        out = torch.empty(M, Fo, dtype=out_dtype, device=dev)
-        fn = _entry("dequant_matmul", f"dlp_dequant_matmul_{pack.kind}", 5, 7)
-        _launch(fn, dev, what, x.data_ptr(), ctypes.addressof(maps), out.data_ptr(),
-                None if xs is None else xs.data_ptr(),
-                None if part is None else part.data_ptr(),
-                flag, M, D, Fo, plan.bm, plan.splits, plan.steps_per_split)
-    else:
-        ptrs = pack.kernel_ptrs(dev)
-        out = torch.empty(M, Fo, dtype=out_dtype, device=dev)
-        fn = _entry("dequant_matmul", f"dlp_dequant_matmul_{pack.kind}", 2 + len(ptrs), 4)
-        _launch(fn, dev, what, x.data_ptr(), *ptrs, out.data_ptr(), flag, M, D, Fo)
+    maps = gemm_pack_maps(pack, dev)
+    plan = gemm_plan(M, D, Fo, gemm_geometry(pack.kind, gemm_bm(M)), sm_count(dev.index))
+    n_xs, n_part = gemm_workspace(plan, M, D, Fo, plan.tail_steps > 0)
+    xs = torch.empty(n_xs, dtype=torch.bfloat16, device=dev) if n_xs else None
+    part = torch.empty(n_part, dtype=torch.float32, device=dev) if n_part else None
+    out = torch.empty(M, Fo, dtype=out_dtype, device=dev)
+    fn = _entry("dequant_matmul", f"dlp_dequant_matmul_{pack.kind}", 5, 7)
+    _launch(fn, dev, what, x.data_ptr(), ctypes.addressof(maps), out.data_ptr(),
+            None if xs is None else xs.data_ptr(),
+            None if part is None else part.data_ptr(),
+            flag, M, D, Fo, plan.bm, plan.splits, plan.steps_per_split)
     launches[_NAMES[pack.kind][0]] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# the int8 GEMM's cut (csrc/int8_matmul.cu)
+
+INT8_BM = 128       # rows of x a block: two consumer warpgroups of 64
+INT8_BNS = (128, 64)  # rows of qs (output columns) a block, the wider first
+INT8_KSTEP = 128    # columns of a k-step: 128 / group whole groups, or half of a 256 group
+INT8_GROUPS = (256, 128, 64, 32)
+
+
+class Int8Geometry(NamedTuple):
+    """The int8 GEMM's tiling for one group and block width, as
+    ``csrc/int8_matmul.cu`` defines it (``int8_geometry`` reads it from the
+    library): rows of x and of qs a block, columns a k-step, ring stages,
+    threads, dynamic shared memory bytes, blocks an SM holds."""
+    bm: int
+    bn: int
+    kstep: int
+    stages: int
+    threads: int
+    smem: int
+    blocks_per_sm: int
+
+
+class Int8Plan(NamedTuple):
+    """How one int8 GEMM launch is cut: ``bm`` rows of x and ``bn`` output
+    columns a block, the grid (``tiles_n``, ``tiles_m``), the weight group,
+    the groups of D (``groups``, each summed in order within one block) and
+    the k-steps of ``INT8_KSTEP`` columns that carry them (a group of 256
+    spans two; the last ragged where the step does not divide D). There is
+    no split-K: ``splits`` is 1."""
+    bm: int
+    bn: int
+    tiles_m: int
+    tiles_n: int
+    group: int
+    groups: int
+    steps: int
+    splits: int = 1
+
+
+@functools.lru_cache(maxsize=None)
+def int8_geometry(group: int, bn: int) -> Int8Geometry:
+    """The library's tiling for ``group`` and ``bn``, read once from its
+    ``dlp_int8_matmul_geometry`` entry."""
+    from .cuda_build import load_library
+
+    fn = load_library("int8_matmul").dlp_int8_matmul_geometry
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(Int8Geometry._fields))()
+    rc = fn(group, bn, out)
+    if rc != 0:
+        raise RuntimeError(f"int8_matmul: geometry query failed (cudaError {rc})")
+    return Int8Geometry(*out)
+
+
+@functools.lru_cache(maxsize=None)
+def int8_plan(M: int, D: int, F: int, group: int, sm_count: int) -> Int8Plan:
+    """The int8 GEMM's cut, from shapes only: output tiles of ``INT8_BM`` ×
+    bn, bn 64 where that whole grid fits one wave of the card (one block an
+    SM), else 128: a thin grid takes narrower tiles to fill more SMs, never
+    split-K, so each output's groups stay in one block, summed in group
+    order. Raises ``ValueError`` on what the kernel refuses."""
+    if M < 1 or F < 1 or group not in INT8_GROUPS or D < group or D % group:
+        raise ValueError(f"int8_matmul: M={M}, D={D}, F={F}, group={group} (the GEMM "
+                         f"takes M, F >= 1 and D a multiple of a group of {INT8_GROUPS})")
+    tiles_m = -(-M // INT8_BM)
+    if tiles_m > 65535:
+        raise ValueError(f"int8_matmul: M={M} needs {tiles_m} row tiles (at most 65535)")
+    bn = INT8_BNS[1] if tiles_m * -(-F // INT8_BNS[1]) <= sm_count else INT8_BNS[0]
+    return Int8Plan(INT8_BM, bn, tiles_m, -(-F // bn), group, D // group,
+                    -(-D // INT8_KSTEP))
 
 
 def int8_matmul(x: torch.Tensor, pack: Int8Pack, out_dtype: torch.dtype,
@@ -690,9 +759,9 @@ def int8_matmul(x: torch.Tensor, pack: Int8Pack, out_dtype: torch.dtype,
     """The int8 CUDA kernel: x [M, D] (f32 or bf16) against an int8 pack →
     [M, F] in ``out_dtype``, at any M. M ≤ ``INT8_W8A8_MAX_M`` runs the W8A8
     kernel with the int8 decoder (it quantizes x in its prologue); above,
-    one launch
-    quantizes x per (row × group) into int8 codes and f32 scales, then the
-    int8 tensor-core GEMM of ``csrc/int8_matmul.cu`` consumes them.
+    one launch quantizes x per (row × group) into int8 codes and f32
+    scales, then the int8 tensor-core GEMM of ``csrc/int8_matmul.cu``, cut
+    by ``int8_plan``, consumes them.
     ``acts`` receive the quantized activations when given, as for
     ``w8a8_matmul``. One count per call, whichever route."""
     what = "int8_matmul"
@@ -707,13 +776,14 @@ def int8_matmul(x: torch.Tensor, pack: Int8Pack, out_dtype: torch.dtype,
         acts = (torch.empty(M, D, dtype=torch.int8, device=dev),
                 torch.empty(M, D // group, dtype=torch.float32, device=dev))
     xq, xs = _check_acts(acts, M, D, group, dev, what)
+    plan = int8_plan(M, D, Fo, group, sm_count(dev.index))
     out = torch.empty(M, Fo, dtype=out_dtype, device=dev)
     quant = _entry("int8_matmul", "dlp_int8_quantize_acts", 3, 4)
-    gemm = _entry("int8_matmul", "dlp_int8_matmul", 5, 5)
+    gemm = _entry("int8_matmul", "dlp_int8_matmul", 5, 6)
     _launch(quant, dev, what, x.data_ptr(), xq.data_ptr(), xs.data_ptr(),
             int(x.dtype == torch.bfloat16), M, D, group)
     _launch(gemm, dev, what, xq.data_ptr(), xs.data_ptr(), *pack.kernel_ptrs(dev),
-            out.data_ptr(), _out_flag(out_dtype, what), M, D, Fo, group)
+            out.data_ptr(), _out_flag(out_dtype, what), M, D, Fo, group, plan.bn)
     launches["int8_matmul"] += 1
     return out
 

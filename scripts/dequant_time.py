@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the Q4_K, Q6_K and Q5_K fused-dequant kernels (``ops.quant_matmul.dequant_matmul``)
-of one tree of the port at ``chip_smoke.py``'s phase-3 cases, on one CUDA card.
+"""Time the fused-dequant kernels (``ops.quant_matmul.dequant_matmul``: Q4_K,
+Q6_K, Q5_K, Q8_0) and the int8 GEMM (``ops.quant_matmul.int8_matmul``) of one
+tree of the port at ``chip_smoke.py``'s phase-3 cases, on one CUDA card.
 
     python scripts/dequant_time.py [--root DIR] [--label NAME] [--seed N]
-                                   [--kinds q6_k,q4_k,q5_k] [--ttft DIR]
+                                   [--kinds q6_k,q4_k,q5_k,q8_0,int8] [--ttft DIR]
 
 ``--root`` is the directory whose ``distributed_llm_pipeline_tpu_torch``
 package is timed (default: this checkout), for example an earlier commit
@@ -13,10 +14,14 @@ L2 flushed before each call) come from this checkout's ``chip_smoke.py``,
 with the same seed, so two trees timed in one process run see the same
 cases. Prints the card's name and power limit, then one JSON line per case
 (kind, projection pair, M, D, F, ms). Q6_K and Q4_K run at Llama-3.2-1B's
-projection pairs at phase 3's M; Q5_K (the byte codes of tp = 2 meshes) at
-the shard pairs and the D = 1056 edge at the shard M, then one line with
-its device time a mixed step of the ``--mesh 1x2 --parallel 4 --quant q5_k``
-path (rank 0, M = 64): 16 layers of wq, wk, wv, wo, gate, up and down.
+projection pairs at phase 3's M; Q8_0 and int8 there too (M = 33, 256, 512:
+the int8 cases above the W8A8 cutover) and at phase 3's edges at M = 100
+(the odd F; group 32, D = 2080; int8's group 128, D = 1152), and int8 at M
+>= 256 also prints its quantize and GEMM launches' µs apart. Q5_K (the byte
+codes of tp = 2 meshes) runs at the shard pairs and the D = 1056 edge at
+the shard M, then one line gives its device time a mixed step of the
+``--mesh 1x2 --parallel 4 --quant q5_k`` path (rank 0, M = 64): 16 layers
+of wq, wk, wv, wo, gate, up and down.
 
 With ``--ttft DIR``, it also serves ``chip_smoke.py``'s phase-7 and phase-8
 models (Llama-3.2-1B geometry, Q6_K and Q4_K_M GGUFs from the same seeds,
@@ -41,7 +46,8 @@ def main() -> int:
     ap.add_argument("--root", default=str(HERE), help="tree whose package is timed")
     ap.add_argument("--label", default="", help="a name printed with each line")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kinds", default="q6_k,q4_k,q5_k", help="pack kinds to time")
+    ap.add_argument("--kinds", default="q6_k,q4_k,q5_k", help="pack kinds to time "
+                    "(of q6_k, q4_k, q5_k, q8_0, int8)")
     ap.add_argument("--ttft", default="", help="directory for the served models' GGUFs")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -64,24 +70,25 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")   # 256 MiB > L2
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     for kind in args.kinds.split(","):
-        if kind == "q5_k":
-            # the shard pairs (a byte head serves only M <= 4) and the edge
-            pairs = [p for p in cs.SHARD_PAIRS if p[0] != "head"] + [
-                ("group32", cs.QUANT_EDGES[1]["D"]["q5_k"], cs.QUANT_EDGES[1]["F"])]
-            ms_of = cs.SHARD_DEQUANT_M
-        else:
-            pairs, ms_of = cs.QUANT_PAIRS, cs.DEQUANT_M
         at64 = {}
-        for pair, D, F in pairs:
+        for pair, D, F, ms_of in cases(cs, kind):
             pack = cs.random_pack(qm, kq, kind, D, F, gen)
             out_dtype = torch.float32 if pair == "head" else torch.bfloat16
             for M in ms_of:
                 x = torch.randn(M, D, generator=gen, device="cuda").bfloat16()
-                ms = cs.event_ms(lambda: qm.dequant_matmul(x, pack, out_dtype), 50, flush)
-                print(json.dumps({"label": args.label, "kind": kind, "pair": pair, "M": M,
-                                  "D": D, "F": F, "ms": ms, "card": card}), flush=True)
+                if kind == "int8":
+                    def call():
+                        return qm.int8_matmul(x, pack, out_dtype)
+                else:
+                    def call():
+                        return qm.dequant_matmul(x, pack, out_dtype)
+                row = {"label": args.label, "kind": kind, "pair": pair, "M": M, "D": D, "F": F,
+                       "ms": cs.event_ms(call, 50, flush)}
+                if kind == "int8" and M >= 256:
+                    row["device_us"] = cs.split_kernel_us(call, 20, flush, cs.INT8_KERNELS)
+                print(json.dumps({**row, "card": card}), flush=True)
                 if M == 64:
-                    at64[pair] = ms
+                    at64[pair] = row["ms"]
             del pack
         if kind == "q5_k":
             # a layer: wq, wk and wv (wk_wv twice), wo, gate and up, down
@@ -94,6 +101,23 @@ def main() -> int:
     if args.ttft:
         serve_ttft(cs, Path(args.ttft), args.seed, args.label, card)
     return 0
+
+
+def cases(cs, kind: str) -> list[tuple[str, int, int, tuple[int, ...]]]:
+    """(pair, D, F, the M timed) of phase 3 for ``kind``."""
+    if kind == "q5_k":
+        # the shard pairs (a byte head serves only M <= 4) and the edge
+        return [(p, D, F, cs.SHARD_DEQUANT_M) for p, D, F in cs.SHARD_PAIRS if p != "head"] + [
+            ("group32", cs.QUANT_EDGES[1]["D"]["q5_k"], cs.QUANT_EDGES[1]["F"],
+             cs.SHARD_DEQUANT_M)]
+    out = [(p, D, F, cs.DEQUANT_M) for p, D, F in cs.QUANT_PAIRS]
+    if kind in ("q8_0", "int8"):
+        for e in cs.QUANT_EDGES:
+            if not isinstance(e["D"], dict):
+                out.append((e["name"], e["D"], e["F"], (100,)))
+            elif kind in e["D"]:
+                out.append((e["name"], e["D"][kind], e["F"], (100,)))
+    return out
 
 
 def serve_ttft(cs, where: Path, seed: int, label: str, card: str) -> None:

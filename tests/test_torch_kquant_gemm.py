@@ -1,6 +1,6 @@
-"""The Q4_K / Q6_K / Q5_K fused-dequant GEMM (``csrc/kquant_gemm.cuh``) on the
-CPU, where its CUDA kernel cannot run: what surrounds the kernel, and mirrors
-of its arithmetic.
+"""The Q4_K / Q6_K / Q5_K / Q8_0 fused-dequant GEMM (``csrc/kquant_gemm.cuh``)
+on the CPU, where its CUDA kernel cannot run: what surrounds the kernel, and
+mirrors of its arithmetic.
 
 - The decoder's bit tricks: a torch integer mirror of the kernel's code
   extraction (the nibble planes, Q6_K's 2-bit plane, band by band) and of its
@@ -24,6 +24,12 @@ of its arithmetic.
   plan at the shard widths, the code-to-bf16 decode bit-equal to
   ``q5_k_matmul_plain``'s weights on every code 0..31, and the k-step and
   split-K order against ``q5_k_matmul_pallas`` (interpret mode), as above.
+- Q8_0's signed byte codes (Q5_K's layout without the offset): the decode
+  in two halves (the low 7 bits under the exponent of 128, less a bias of
+  128 or 256 built from the sign bit the same way) bit-equal to
+  ``dequant_matmul_plain``'s weights on all 256 byte values, -128
+  included; the plan at Llama-3.2-1B's pairs, the odd F and D = 2080; the
+  k-step and split-K order against ``q8_0_matmul_pallas`` (interpret mode).
 """
 
 import math
@@ -48,6 +54,8 @@ GEOMETRY = {
     ("q6_k", 128): qm.GemmGeometry(128, 128, 32, 4, 0, 4, 288, 230464, 1),
     ("q5_k", 64): qm.GemmGeometry(64, 128, 128, 1, 32, 6, 288, 218208, 1, 32),
     ("q5_k", 128): qm.GemmGeometry(128, 128, 128, 1, 32, 4, 288, 218176, 1, 32),
+    ("q8_0", 64): qm.GemmGeometry(64, 128, 128, 1, 0, 6, 288, 218208, 1, 32),
+    ("q8_0", 128): qm.GemmGeometry(128, 128, 128, 1, 0, 4, 288, 218176, 1, 32),
 }
 
 
@@ -65,6 +73,16 @@ def _pair_to_bf16(codes: torch.Tensor, bias: float) -> torch.Tensor:
     return (v.float() - bias).to(torch.bfloat16)
 
 
+def _signed_to_bf16(codes: torch.Tensor) -> torch.Tensor:
+    """Q8_0's code -> bf16 step for a signed byte c: the low 7 bits as the
+    low byte of bf16 0x43 (= 128 + (c & 127)), less the sign bit as the low
+    byte of bf16 0x43 (0x4300 = 128 or 0x4380 = 256), in bf16 (exact)."""
+    u = codes.view(torch.uint8).to(torch.int16)
+    v = ((u & 0x7F) | 0x4300).view(torch.bfloat16)
+    bias = ((u & 0x80) | 0x4300).view(torch.bfloat16)
+    return (v.float() - bias.float()).to(torch.bfloat16)
+
+
 def _times(c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """bf16x2 multiply: the exact product (two 8-bit mantissas fit f32)
     rounded once to bf16."""
@@ -77,6 +95,8 @@ def _mirror_weights(pack) -> torch.Tensor:
     if pack.kind == "q5_k":   # one byte a code, already 0..31
         c = _pair_to_bf16(pack.q5.view(torch.uint8), 128.0)
         return _times(c, pack.a.repeat_interleave(32, dim=1))
+    if pack.kind == "q8_0":   # one signed byte a code
+        return _times(_signed_to_bf16(pack.qs), pack.scale.repeat_interleave(32, dim=1))
     if pack.kind == "q4_k":
         q = pack.qs.view(torch.uint8)                              # [F, D/2]
         bands = [q & 0x0F, q >> 4]                                 # (q >> 4) & 0x0F
@@ -224,7 +244,7 @@ def _gemm_mirror(x: torch.Tensor, pack, plan, out_dtype) -> torch.Tensor:
     32 columns of -bf16(sum_32 x) against b), products summed in f32; the
     splits' partials summed in split order. Weights as the kernel decodes
     them in bf16 (code * scale in x's dtype otherwise). Q5_K's weight step
-    is 128 consecutive columns (fewer in a ragged last step)."""
+    is 128 consecutive columns (fewer in a ragged last step), as Q8_0's."""
     cd = x.dtype
     M, D = x.shape
     F = pack.shape[0]
@@ -234,8 +254,8 @@ def _gemm_mirror(x: torch.Tensor, pack, plan, out_dtype) -> torch.Tensor:
         codes, sc = pack.codes_and_scales()
         w = (codes.float().reshape(F, D // pack.sub, pack.sub) * sc.float()[..., None]
              ).reshape(F, D)
-    bands = {"q4_k": 2, "q6_k": 4, "q5_k": 1}[pack.kind]
-    width = 128 if pack.kind == "q5_k" else 32   # a band's positions a step
+    bands = {"q4_k": 2, "q6_k": 4, "q5_k": 1, "q8_0": 1}[pack.kind]
+    width = 32 if bands > 1 else 128   # a band's positions a step
     total = plan.main_steps + plan.tail_steps
     if plan.tail_steps:
         KT = plan.tail_steps * 32
@@ -419,6 +439,113 @@ def test_q5_k_kstep_order_matches_jax_pallas(M, D_whole, F, shards, sms, dtype):
         assert got.dtype == torch.bfloat16
         err = np.abs(got.float().numpy() - want).max()
         assert err <= 2.0 ** (math.floor(math.log2(np.abs(want).max())) - 7)
+
+
+# ---------------------------------------------------------------------------
+# Q8_0: signed byte codes, one plane, D a multiple of 32 only
+
+# (D, F): Llama-3.2-1B's five pairs, phase 3's odd F and its D = 2080 edge
+# (group 32: 16 full k-steps and a ragged one of one slab)
+Q8_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048), (2048, 128256),
+             (2048, 1001), (2080, 1024)]
+Q8_M = (33, 100, 256, 512, 2048)
+
+
+@pytest.mark.parametrize("sms", (1, 132))
+@pytest.mark.parametrize("D,F", Q8_SHAPES)
+def test_q8_0_plan_covers_every_tile_and_step_once(D, F, sms):
+    for M in Q8_M:
+        geo = _geometry("q8_0", M)
+        plan = qm.gemm_plan(M, D, F, geo, sms)
+        assert plan.bm == geo.bm and plan.bn == 128 and plan.tail_steps == 0
+        assert (plan.tiles_m - 1) * plan.bm < M <= plan.tiles_m * plan.bm
+        assert (plan.tiles_n - 1) * plan.bn < F <= plan.tiles_n * plan.bn
+        runs = [range(s * plan.steps_per_split,
+                      min(plan.main_steps, (s + 1) * plan.steps_per_split))
+                for s in range(plan.splits)]
+        assert all(len(r) > 0 for r in runs)
+        assert sorted(t for r in runs for t in r) == list(range(plan.main_steps))
+        # 128 columns a step in order, the last ragged where 128 does not
+        # divide D
+        main, tail = _steps_of(plan, geo, D)
+        assert [c for cols in main for c in cols] == list(range(D)) and tail == []
+        assert len(main[-1]) == (D % 128 or 128)
+        assert qm.gemm_workspace(plan, M, D, F, False) == (
+            0, plan.splits * M * F if plan.splits > 1 else 0)
+        if plan.tiles_m * plan.tiles_n >= sms * geo.blocks_per_sm:
+            assert plan.splits == 1
+        assert plan == qm.gemm_plan.__wrapped__(M, D, F, geo, sms)
+
+
+@pytest.mark.parametrize("D", [512, 2080])
+def test_q8_0_decode_is_the_plain_weights_on_every_byte(D):
+    """All 256 byte values (-128 included: a GGUF block's raw bytes may hold
+    it) in every row and column, through the kernel's decode: the weights
+    ``dequant_matmul_plain`` uses, bit for bit, and through x = I its
+    output. The exponent trick alone (each byte under 0x43) is wrong for
+    half of them, as is an offset of 128 before it."""
+    F = 256
+    codes = _all_bytes(F, D, 5)
+    pack = qm.Q8_0Pack(qs=codes, scale=_scales(F, D // 32, True, 4))
+    w = _mirror_weights(pack)
+    got = qm.dequant_matmul_plain(torch.eye(D, dtype=torch.bfloat16), pack, torch.float32)
+    assert torch.equal(got, w.float().t())
+    plain_w = (codes.to(torch.bfloat16).reshape(F, D // 32, 32)
+               * pack.scale[..., None]).reshape(F, D)
+    assert torch.equal(w.view(torch.int16), plain_w.view(torch.int16))
+    assert sorted(set(codes.flatten().tolist())) == list(range(-128, 128))
+    # the codes themselves, before the scale: every one exact
+    assert torch.equal(_signed_to_bf16(codes).float(), codes.float())
+    # the unsigned trick (byte under 0x43, less 128) fails the negative codes
+    naive = _pair_to_bf16(codes.view(torch.uint8), 128.0).float()
+    assert not torch.equal(naive[codes < 0], codes[codes < 0].float())
+    assert torch.equal(naive[codes >= 0], codes[codes >= 0].float())
+
+
+# (M, D, F, SM count): a one-tile grid split over few SMs (split-K), D = 2080
+# (a ragged last step of one slab) on the card's grid and split, and a D of
+# 9 full steps and a ragged one of one slab (1184)
+Q8_ORDER_CASES = [(40, 512, 160, 4), (33, 2080, 96, 132), (70, 1184, 128, 8)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("M,D,F,sms", Q8_ORDER_CASES)
+def test_q8_0_kstep_order_matches_jax_pallas(M, D, F, sms, dtype):
+    w = _weight(D, F, seed=M + D)
+    jp, pack = jqm.pack_q8_0(w), qm.pack_q8_0(w.T)
+    assert torch.equal(pack.qs, torch.from_numpy(np.ascontiguousarray(np.asarray(jp["qs"]).T)))
+    plan = qm.gemm_plan(M, D, F, _geometry("q8_0", M), sms)
+    assert plan.splits > 1 or D % 128   # split-K or a ragged step is exercised
+    x32 = np.random.default_rng(F + D).normal(size=(M, D)).astype(np.float32)
+    f = {k: jnp.asarray(v) for k, v in jp.items()}
+
+    def ref(x, out_dtype):
+        return jqm.q8_0_matmul_pallas(x, f["qs"], f["scale"], out_dtype=out_dtype,
+                                      interpret=True)
+
+    if dtype == "f32":
+        want = np.asarray(ref(jnp.asarray(x32), jnp.float32))
+        got = _gemm_mirror(torch.from_numpy(x32), pack, plan, torch.float32).numpy()
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    else:
+        x = torch.from_numpy(x32).bfloat16()
+        want = np.asarray(ref(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+                              jnp.bfloat16), np.float32)
+        got = _gemm_mirror(x, pack, plan, torch.bfloat16)
+        assert got.dtype == torch.bfloat16
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= 2.0 ** (math.floor(math.log2(np.abs(want).max())) - 7)
+
+
+def test_q8_0_scale_rows_pad_what_tma_cannot_address():
+    """D = 2080 gives 65 scales (130 bytes) a row: the maps read a copy
+    padded to 72 values; D = 2048's 64 scales are read as they are."""
+    pack = qm.pack_q8_0(_weight(2080, 16, 9).T)
+    padded = qm.scale_rows(pack.scale)
+    assert padded.shape == (16, 72) and torch.equal(padded[:, :65], pack.scale)
+    assert not padded[:, 65:].any()
+    whole = qm.pack_q8_0(_weight(2048, 16, 9).T)
+    assert qm.scale_rows(whole.scale) is whole.scale
 
 
 # ---------------------------------------------------------------------------
