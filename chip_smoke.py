@@ -10,8 +10,9 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    products are full f32.
 2. Build: every kernel source of the paths (``cuda_build.SOURCES``) with
    nvcc for sm_90a, one process per source, all started together. The
-   split-KV kernels, the fused-dequant GEMM (``kgemm_kernel``) and the int8
-   GEMM (``int8_gemm_kernel``) print their ptxas reports and may not spill.
+   split-KV kernels, the fused-dequant GEMM (``kgemm_kernel``), the int8
+   GEMM (``int8_gemm_kernel``) and the persistent W8A8 GEMV
+   (``gemv_kernel``) print their ptxas reports and may not spill.
 3. Kernels: each kernel against its plain PyTorch version on the card, in
    bf16, at the main path's shapes and the contract's corner cases. For
    flash_attention: GQA and MHA, T=1 and T>1, per-row cache lengths, a
@@ -59,7 +60,10 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    Q2_KS and Q3_KS at M > 32 run no kernel (dequant, then ``F.linear``, as
    the reference's einsum): that route is timed once each. The Q4_K, Q6_K,
    Q5_K and Q8_0 GEMM's cases also print their split plan and grid and
-   relaunch once with host syncs turned into errors, for the same bits; the
+   relaunch once with host syncs turned into errors, for the same bits, and
+   so do the Q2_KS and Q5_KS W8A8 cases (the persistent GEMV), which print
+   their ``gemv_plan`` (grid, rows a block, tile, stages, rows of x a pass;
+   the library refuses a launch whose shared memory is not the plan's); the
    int8 GEMM's cases (M > 4) print their plan, grid and tiling, must equal
    ``int8_matmul_plain`` bit for bit, relaunch the same way, and at M >=
    256 print the quantize and GEMM launches' µs apart. x = I (M = D = 2048)
@@ -1076,6 +1080,8 @@ def quant_case(qm, pack, kernel: str, M: int, out_dtype, gen, flush,
     extra = {}
     if kernel == "dequant" and pack.kind in qm.GEMM_KINDS:
         extra = gemm_launch_check(qm, pack, M, kern, got, name)
+    if kernel == "w8a8" and pack.kind in qm.GEMV_KINDS:
+        extra = gemv_launch_check(qm, pack, M, kern, got, name)
     if kernel == "int8" and M > qm.INT8_W8A8_MAX_M:
         extra = int8_launch_check(qm, pack, M, kern, got, ref, name)
         if M >= 256:
@@ -1142,6 +1148,17 @@ def gemm_launch_check(qm, pack, M: int, kern, got: torch.Tensor, name: str) -> d
     return {"plan": plan._asdict(), "grid": grid, "blocks": grid[0] * grid[1] * grid[2],
             "threads": geo.threads, "smem": geo.smem, "blocks_per_sm": geo.blocks_per_sm,
             "bit_equal_relaunch": True}
+
+
+def gemv_launch_check(qm, pack, M: int, kern, got: torch.Tensor, name: str) -> dict:
+    """The persistent W8A8 GEMV's cut of this case (``gemv_plan``, shapes
+    only; the library refuses a launch whose shared memory is not the
+    plan's) and a relaunch for the same bits."""
+    Fo, D = pack.shape
+    plan = qm.gemv_plan(pack.kind, M, D, Fo, qm.sm_count(torch.cuda.current_device()))
+    relaunch_check(kern, got, name)
+    return {"plan": plan._asdict(), "blocks": plan.grid, "threads": 32 * qm.GEMV_WARPS,
+            "smem": plan.smem, "bit_equal_relaunch": True}
 
 
 def int8_launch_check(qm, pack, M: int, kern, got: torch.Tensor, ref: torch.Tensor,
@@ -2416,16 +2433,21 @@ def mesh_ref(engine, seed: int, weights: str, card: str) -> list[dict]:
 # "header"): the three attention sources' split-KV kernel, and the GEMM of
 # dequant_matmul.cu's q4_k, q6_k, q5_k and q8_0
 SPLIT_HEADER, GEMM_HEADER = "paged_tile.cuh", "kquant_gemm.cuh"
+# the decoders' span view the persistent W8A8 GEMV reads (w8a8_matmul.cu)
+SPAN_HEADER, GEMV_PLAN_KINDS = "quant_tile.cuh", ("q2_ks", "q5_ks")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  rows: list[dict], timed: dict, header: str | None = None) -> dict:
-    return {"name": name, "route": "cuda", "source": source, "header": header,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": timed["kernel_ms"], "plain_ms": timed["plain_ms"],
-            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-            "library_ms": timed["library_ms"], "timed_case": timed["case"]}
+    entry = {"name": name, "route": "cuda", "source": source, "header": header,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "ms": timed["kernel_ms"], "plain_ms": timed["plain_ms"],
+             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+             "library_ms": timed["library_ms"], "timed_case": timed["case"]}
+    if timed.get("kind") in GEMV_PLAN_KINDS:
+        entry["plan"] = timed["plan"]   # the persistent GEMV's cut of that case
+    return entry
 
 
 def main() -> int:
@@ -2499,6 +2521,14 @@ def main() -> int:
                if "int8_gemm_kernel" in f["function"] and f.get("spill_stores", 0) > 0]
     if spilled:
         fail(f"the int8 GEMM spills registers: {spilled}")
+    # the persistent W8A8 GEMV (gemv_kernel, one instantiation per pack kind
+    # and register rows of x) may not spill
+    gemv_ptxas = [f for f in ptxas_report({"w8a8_matmul": built["w8a8_matmul"]})["w8a8_matmul"]
+                  if "gemv_kernel" in f["function"]]
+    print(json.dumps({"ptxas": {"w8a8_matmul gemv_kernel": gemv_ptxas}}), flush=True)
+    spilled = [f["function"] for f in gemv_ptxas if f.get("spill_stores", 0) > 0]
+    if spilled or not gemv_ptxas:
+        fail(f"the W8A8 GEMV spills registers or is missing: {spilled}")
 
     # 3. kernels against their plain versions
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")   # 256 MiB > L2
@@ -2686,6 +2716,8 @@ def main() -> int:
         timed = next(r for r in krows if r["pair"] == pair and r["M"] == M)
         served = mesh_launches if kind in BYTE_KINDS else quant_launches
         header = src + GEMM_HEADER if kernel == "dequant" and kind in qm.GEMM_KINDS else None
+        if kernel == "w8a8" and kind in qm.GEMV_KINDS:
+            header = src + SPAN_HEADER
         entries.append(kernel_entry(name, src + source, ref + replaces,
                                     served.get(name, 0), krows, timed, header))
     if any(e["launches"] <= 0 for e in entries):

@@ -76,12 +76,6 @@ using namespace dlp_quant;
 
 constexpr int kQWarps = 8;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
 __global__ void __launch_bounds__(kQWarps * 32)
 quantize_kernel(const void* __restrict__ x, bool x_bf16, int8_t* __restrict__ xq,
                 float* __restrict__ xs, int M, int D, int group) {
@@ -90,13 +84,7 @@ quantize_kernel(const void* __restrict__ x, bool x_bf16, int8_t* __restrict__ xq
   if (pair >= M * ng) return;
   const int m = pair / ng, g = pair % ng;
   const size_t base = size_t(m) * D + size_t(g) * group;
-  float amax = 0.f;
-  for (int i = lane; i < group; i += 32) amax = fmaxf(amax, fabsf(load_f32(x, base + i, x_bf16)));
-  amax = warp_max(amax);
-  const float s = amax * (1.0f / 127.0f);
-  const float inv = s > 0.f ? 1.0f / fmaxf(s, 1e-30f) : 0.f;
-  for (int i = lane; i < group; i += 32)
-    xq[base + i] = int8_t(fminf(fmaxf(rintf(load_f32(x, base + i, x_bf16) * inv), -127.f), 127.f));
+  const float s = quantize_group(x, x_bf16, base, group, xq + base);
   if (lane == 0) xs[size_t(m) * ng + g] = s;
 }
 
@@ -446,7 +434,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // of its launch (0 = launched).
 extern "C" int dlp_int8_quantize_acts(const void* x, int8_t* xq, float* xs, int x_bf16, int M,
                                       int D, int group, void* stream) {
-  if (M < 1 || group < 32 || group % 32 || D % group) return int(cudaErrorInvalidValue);
+  if (M < 1 || group < 32 || group > 256 || group % 32 || D % group)
+    return int(cudaErrorInvalidValue);
   const int pairs = M * (D / group);
   quantize_kernel<<<(pairs + kQWarps - 1) / kQWarps, kQWarps * 32, 0,
                     static_cast<cudaStream_t>(stream)>>>(x, x_bf16 != 0, xq, xs, M, D, group);

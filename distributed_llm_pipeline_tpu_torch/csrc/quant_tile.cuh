@@ -1,41 +1,36 @@
 // Weight decoders of the W8A8 kernels (w8a8_matmul.cu; int8_matmul.cu takes
-// load_f32 for its activations): the Q8_0, int8, Q6_K, Q4_K, Q5_KS, Q2_KS
+// quantize_group for its activations): the Q8_0, int8, Q6_K, Q4_K, Q5_KS, Q2_KS
 // and Q3_KS packs and the byte-code Q4_K8, Q5_K and Q6_K8 packs of tp > 1
 // meshes, of ops/quant_matmul.py and ops/kquant_matmul.py, laid out
 // out-features-major, [F, .].
 //
-// A decoder maps (output row f, logical contraction row d0, a multiple of 16)
-// to the 16 int8 codes of rows d0 .. d0+15, written to w[0..3] as four 32-bit
-// words of four bytes in row order (signed for Q8_0, int8, Q6_K and Q3_KS,
-// unsigned and below 128 for Q4_K, Q5_KS and Q2_KS, so all read as signed
-// bytes), and to the scale those rows share (bf16, f32 for int8). The weight
-// is code * scale, less the bf16 offset of the sub-block for an affine
-// decoder (AFFINE, offset_at). Each kernel takes a decoder as a template
-// argument, so one kernel body serves every format.
+// A decoder of w8a8_kernel maps (output row f, logical contraction row d0, a
+// multiple of 16) to the 16 int8 codes of rows d0 .. d0+15, written to
+// w[0..3] as four 32-bit words of four bytes in row order (signed for Q8_0,
+// int8, Q6_K and Q3_KS, unsigned and below 128 for Q4_K, Q5_KS and Q2_KS, so
+// all read as signed bytes), and to the scale those rows share (bf16, f32
+// for int8). The weight is code * scale, less the bf16 offset of the
+// sub-block for an affine decoder (AFFINE, offset_at). Each kernel takes a
+// decoder as a template argument, so one kernel body serves every format.
 //
-//   Q8_0  qs int8 [F, D], scale bf16 [F, D/32]        (sub-block 32)
-//   Q6_K8 q6 int8 [F, D] in [-32, 31], s bf16 [F, D/16] (sub-block 16)
-//   Q4_K8 q4 int8 [F, D] in [0, 15], a, b bf16 [F, D/32] (sub-block 32)
-//   Q5_K  q5 int8 [F, D] in [0, 31], a, b bf16 [F, D/32] (sub-block 32)
-//         (the byte codes: one code per logical row, weight a * code - b)
-//   int8  qs int8 [F, D], gs f32 [F, D/g]             (sub-block 32; the scale
-//         of rows d is gs[f, d / g], g = 256, 128, 64 or 32)
-//   Q6_K  ql int8 [F, D/2], qh int8 [F, D/4], s bf16 [F, D/16]   (sub-block 16)
-//         row d of band k = d / (D/4): low 4 bits from the nibble k >> 1 of
-//         ql[d % (D/2)], top 2 bits from bits 2k..2k+1 of qh[d % (D/4)],
-//         code = bits - 32.
-//   Q4_K  qs int8 [F, D/2], a bf16 [F, D/32], b bf16 [F, D/32]   (sub-block 32)
-//         row d of band k = d / (D/2): the nibble 4k of qs[d % (D/2)],
-//         code in [0, 15], weight a * code - b.
-//   Q5_KS q5n int8 [F, D/2], q5h int8 [F, D/8], a, b as Q4_K     (sub-block 32)
-//         low 4 bits as Q4_K from q5n; the fifth bit is bit 4k + d % 4 of
-//         q5h[(d % (D/2)) / 4]; code in [0, 31], weight a * code - b.
-//   Q2_KS q2l int8 [F, D/4], a bf16 [F, D/16], b bf16 [F, D/16] (sub-block 16)
-//         row d of band k = d / (D/4): bits 2k..2k+1 of q2l[d % (D/4)],
-//         code in [0, 3], weight a * code - b.
-//   Q3_KS q3l int8 [F, D/4], q3h int8 [F, D/8], s bf16 [F, D/16] (sub-block 16)
-//         low 2 bits as Q2_KS from q3l; the third bit of row r = d % (D/4)
-//         is bit 2k + r % 2 of q3h[r / 2]; code = bits - 4 in [-4, 3].
+// The Q2_KS and Q5_KS decoders give instead the span view of the persistent
+// GEMV (w8a8_matmul.cu, gemv_kernel), which stages whole rows of the pack in
+// shared memory and reads each packed byte once for all its bands. A span is
+// 64 logical rows: the packed positions [s * 64 / BANDS, (s + 1) * 64 /
+// BANDS) of every band, so a row of any pack has D / 64 spans and span s of
+// band k is the sub-block from column k * D / BANDS + s * 64 / BANDS on (its
+// scale and offset at index k * D / 64 + s). The decoder names its fields
+// (FIELDS, field, field_bytes: the bytes one row of the pack holds in each,
+// [F, .] each, so the fields of a run of rows are contiguous), loads span s
+// of a staged row into registers once (span_bytes: every byte of the span,
+// all bands), and decodes band k's codes from those registers (band_codes)
+// and reads its scale and offset (band_scale). A band's 64 / BANDS codes are
+// CH 16-byte chunks; chunk c holds the codes of the x columns at 16 * (c ^
+// h): a lane with h = 1 takes its two chunks in the other order, so that the
+// 16-byte loads of a quarter warp at a 32-byte lane stride fall in distinct
+// banks. ROWS(MT) is the rows of a tile one lane takes at MT register rows
+// of x: each load of x serves that many rows, as the registers allow
+// (ops/quant_matmul.py `gemv_lane_rows` mirrors it).
 
 #pragma once
 
@@ -173,21 +168,55 @@ struct Q5KS {
   __device__ __forceinline__ static unsigned fifth_bits(unsigned bits) {
     return ((bits * 0x00204081u) & 0x01010101u) << 4;
   }
-  __device__ __forceinline__ void codes16(int f, int d0, int* w) const {
-    const int D2 = D / 2, r = d0 % D2, sh = (d0 / D2) * 4;
-    const int4 v = *reinterpret_cast<const int4*>(q5n + size_t(f) * D2 + r);
-    // bytes r/4 .. r/4 + 3 of the bit plane: byte k holds rows r + 4k ..
-    const unsigned h = *reinterpret_cast<const unsigned*>(q5h + size_t(f) * (D / 8) + r / 4);
-    w[0] = int(((unsigned(v.x) >> sh) & 0x0F0F0F0Fu) | fifth_bits((h >> sh) & 0xFu));
-    w[1] = int(((unsigned(v.y) >> sh) & 0x0F0F0F0Fu) | fifth_bits((h >> (8 + sh)) & 0xFu));
-    w[2] = int(((unsigned(v.z) >> sh) & 0x0F0F0F0Fu) | fifth_bits((h >> (16 + sh)) & 0xFu));
-    w[3] = int(((unsigned(v.w) >> sh) & 0x0F0F0F0Fu) | fifth_bits((h >> (24 + sh)) & 0xFu));
+  // the span view: 32 packed positions, one 32-row sub-block of each band,
+  // from 32 bytes of q5n and 8 of q5h
+  static constexpr int BANDS = 2, CH = 2;
+  static constexpr int FIELDS = 4;  // q5n, q5h, a, b
+  __host__ __device__ static constexpr int ROWS(int /*MT*/) { return 2; }
+  __host__ __device__ static constexpr int field_bytes(int i, int D) {
+    return i == 0 ? D / 2 : i == 1 ? D / 8 : D / 16;
   }
-  __device__ __forceinline__ float scale_at(int f, int d0) const {
-    return __bfloat162float(a[size_t(f) * (D / SUB) + d0 / SUB]);
+  __host__ __device__ const void* field(int i) const {
+    return i == 0 ? static_cast<const void*>(q5n)
+           : i == 1 ? static_cast<const void*>(q5h)
+           : i == 2 ? static_cast<const void*>(a)
+                    : static_cast<const void*>(b);
   }
-  __device__ __forceinline__ float offset_at(int f, int d0) const {
-    return __bfloat162float(b[size_t(f) * (D / SUB) + d0 / SUB]);
+  // a span's bytes: the q5n chunks at 16h (va) and 16(1 - h) (vb), the four
+  // q5h bytes of each (ha, hb; byte i holds positions 4i .. 4i + 3, band 0
+  // in bits 0..3, band 1 in bits 4..7)
+  struct Span {
+    int4 va, vb;
+    unsigned ha, hb;
+  };
+  __device__ __forceinline__ static Span span_bytes(const uint8_t* st, int rows, int r, int D,
+                                                    int s, int h) {
+    const uint8_t* n = st + size_t(r) * (D / 2) + 32 * s;
+    const uint2 hw =
+        *reinterpret_cast<const uint2*>(st + size_t(rows) * (D / 2) + size_t(r) * (D / 8) + 8 * s);
+    return {*reinterpret_cast<const int4*>(n + 16 * h),
+            *reinterpret_cast<const int4*>(n + 16 * (h ^ 1)), h ? hw.y : hw.x, h ? hw.x : hw.y};
+  }
+  __device__ __forceinline__ static int code4(int v, unsigned hb, int i, int k) {
+    return int(((unsigned(v) >> (4 * k)) & 0x0F0F0F0Fu) | fifth_bits((hb >> (8 * i + 4 * k)) & 0xFu));
+  }
+  // band k's 32 codes, chunk by chunk: w[0..3] from va, w[4..7] from vb
+  __device__ __forceinline__ static void band_codes(const Span& sp, int k, int* w) {
+    w[0] = code4(sp.va.x, sp.ha, 0, k);
+    w[1] = code4(sp.va.y, sp.ha, 1, k);
+    w[2] = code4(sp.va.z, sp.ha, 2, k);
+    w[3] = code4(sp.va.w, sp.ha, 3, k);
+    w[4] = code4(sp.vb.x, sp.hb, 0, k);
+    w[5] = code4(sp.vb.y, sp.hb, 1, k);
+    w[6] = code4(sp.vb.z, sp.hb, 2, k);
+    w[7] = code4(sp.vb.w, sp.hb, 3, k);
+  }
+  __device__ __forceinline__ static void band_scale(const uint8_t* st, int rows, int r, int D,
+                                                    int s, int k, float& sc, float& off) {
+    const __nv_bfloat16* ar = reinterpret_cast<const __nv_bfloat16*>(
+                                  st + size_t(rows) * (D / 2 + D / 8)) + size_t(r) * (D / 32);
+    sc = __bfloat162float(ar[k * (D / 64) + s]);
+    off = __bfloat162float(ar[size_t(rows) * (D / 32) + k * (D / 64) + s]);
   }
 };
 
@@ -199,19 +228,39 @@ struct Q2KS {
   const __nv_bfloat16* b;
   int D;
 
-  __device__ __forceinline__ void codes16(int f, int d0, int* w) const {
-    const int D4 = D / 4, sh = 2 * (d0 / D4);
-    const int4 v = *reinterpret_cast<const int4*>(q2l + size_t(f) * D4 + d0 % D4);
-    w[0] = int((unsigned(v.x) >> sh) & 0x03030303u);
-    w[1] = int((unsigned(v.y) >> sh) & 0x03030303u);
-    w[2] = int((unsigned(v.z) >> sh) & 0x03030303u);
-    w[3] = int((unsigned(v.w) >> sh) & 0x03030303u);
+  // the span view: 16 packed positions, one 16-row sub-block of each of the
+  // four bands, from 16 bytes of q2l
+  static constexpr int BANDS = 4, CH = 1;
+  static constexpr int FIELDS = 3;  // q2l, a, b
+  __host__ __device__ static constexpr int ROWS(int MT) { return MT <= 8 ? 4 : 2; }
+  __host__ __device__ static constexpr int field_bytes(int i, int D) {
+    return i == 0 ? D / 4 : D / 8;
   }
-  __device__ __forceinline__ float scale_at(int f, int d0) const {
-    return __bfloat162float(a[size_t(f) * (D / SUB) + d0 / SUB]);
+  __host__ __device__ const void* field(int i) const {
+    return i == 0 ? static_cast<const void*>(q2l)
+           : i == 1 ? static_cast<const void*>(a)
+                    : static_cast<const void*>(b);
   }
-  __device__ __forceinline__ float offset_at(int f, int d0) const {
-    return __bfloat162float(b[size_t(f) * (D / SUB) + d0 / SUB]);
+  struct Span {
+    int4 v;  // rows r .. r + 15 of every band
+  };
+  __device__ __forceinline__ static Span span_bytes(const uint8_t* st, int /*rows*/, int r, int D,
+                                                    int s, int /*h*/) {
+    return {*reinterpret_cast<const int4*>(st + size_t(r) * (D / 4) + 16 * s)};
+  }
+  // band k's 16 codes: bits 2k..2k+1 of each byte
+  __device__ __forceinline__ static void band_codes(const Span& sp, int k, int* w) {
+    w[0] = int((unsigned(sp.v.x) >> (2 * k)) & 0x03030303u);
+    w[1] = int((unsigned(sp.v.y) >> (2 * k)) & 0x03030303u);
+    w[2] = int((unsigned(sp.v.z) >> (2 * k)) & 0x03030303u);
+    w[3] = int((unsigned(sp.v.w) >> (2 * k)) & 0x03030303u);
+  }
+  __device__ __forceinline__ static void band_scale(const uint8_t* st, int rows, int r, int D,
+                                                    int s, int k, float& sc, float& off) {
+    const __nv_bfloat16* ar = reinterpret_cast<const __nv_bfloat16*>(
+                                  st + size_t(rows) * (D / 4)) + size_t(r) * (D / 16);
+    sc = __bfloat162float(ar[k * (D / 64) + s]);
+    off = __bfloat162float(ar[size_t(rows) * (D / 16) + k * (D / 64) + s]);
   }
 };
 
@@ -252,6 +301,40 @@ struct Q3KS {
 __device__ __forceinline__ float load_f32(const void* p, size_t i, bool bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
               : static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// One warp quantizes the `group` (<= 256) values of x from element `base`
+// as the reference's quantize_acts does: xs = amax * f32(1/127), inv = xs >
+// 0 ? 1 / max(xs, 1e-30) : 0, code = clamp(rint(x * inv), -127, 127) into
+// xq[0 .. group). A lane loads its (at most 8) values once, all before their
+// use. Returns xs (every lane).
+__device__ __forceinline__ float quantize_group(const void* __restrict__ x, bool x_bf16,
+                                                size_t base, int group, int8_t* xq) {
+  const int lane = threadIdx.x % 32;
+  float v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int i = lane + 32 * k;
+    v[k] = i < group ? load_f32(x, base + i, x_bf16) : 0.f;
+  }
+  float amax = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) amax = fmaxf(amax, fabsf(v[k]));
+  amax = warp_max(amax);
+  const float xs = amax * (1.0f / 127.0f);
+  const float inv = xs > 0.f ? 1.0f / fmaxf(xs, 1e-30f) : 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int i = lane + 32 * k;
+    if (i < group) xq[i] = int8_t(fminf(fmaxf(rintf(v[k] * inv), -127.f), 127.f));
+  }
+  return xs;
 }
 
 __device__ __forceinline__ void store_f32(void* p, size_t i, float v, bool bf16) {

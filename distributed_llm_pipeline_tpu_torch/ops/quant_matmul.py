@@ -478,7 +478,9 @@ def w8a8_matmul(x: torch.Tensor, pack: QuantPack, out_dtype: torch.dtype,
     any kind in ``_NAMES`` → [M, F] in ``out_dtype``. The kernel quantizes x
     per (row × ``pack.group``) in its prologue. ``acts``, int8 [M, D] and f32
     [M, D/group] tensors, receive those activations when given (the check
-    that they equal ``quantize_acts``)."""
+    that they equal ``quantize_acts``). The ``GEMV_KINDS`` take the
+    persistent GEMV, cut by ``gemv_plan``, x quantized first by its own
+    launch into a workspace; the others ``w8a8_kernel``."""
     what = "w8a8_matmul"
     x = _check_x(x, pack, (torch.float32, torch.bfloat16), what, 1)
     M, D = x.shape
@@ -491,11 +493,149 @@ def w8a8_matmul(x: torch.Tensor, pack: QuantPack, out_dtype: torch.dtype,
         xq_ptr, xs_ptr = xq.data_ptr(), xs.data_ptr()
     ptrs = pack.kernel_ptrs(dev)
     out = torch.empty(M, Fo, dtype=out_dtype, device=dev)
-    fn = _entry("w8a8_matmul", f"dlp_w8a8_{pack.kind}", 4 + len(ptrs), 6)
-    _launch(fn, dev, what, x.data_ptr(), *ptrs, out.data_ptr(), xq_ptr, xs_ptr,
-            int(x.dtype == torch.bfloat16), _out_flag(out_dtype, what), M, D, Fo, group)
+    ws, cut = None, ()
+    if pack.kind in GEMV_KINDS:
+        p = gemv_plan(pack.kind, M, D, Fo, sm_count(dev.index))
+        # the activations' images; held until both kernels are queued
+        ws = torch.empty(p.ws_bytes, dtype=torch.uint8, device=dev)
+        cut = (p.grid, p.rows_per_block, p.rows_per_tile, p.stages, p.m_slice, p.smem)
+    ws_ptr = () if ws is None else (ws.data_ptr(),)
+    fn = _entry("w8a8_matmul", f"dlp_w8a8_{pack.kind}", 4 + len(ptrs) + len(ws_ptr),
+                6 + len(cut))
+    _launch(fn, dev, what, x.data_ptr(), *ptrs, out.data_ptr(), xq_ptr, xs_ptr, *ws_ptr,
+            int(x.dtype == torch.bfloat16), _out_flag(out_dtype, what), M, D, Fo, group, *cut)
     launches[_NAMES[pack.kind][1]] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# the persistent W8A8 GEMV's cut (csrc/w8a8_matmul.cu, gemv_kernel)
+
+GEMV_KINDS = ("q2_ks", "q5_ks")
+GEMV_WARPS = 8
+GEMV_SMEM_MAX = 232448   # a block's shared memory on the H100 (227 KB)
+GEMV_SM_SMEM = 233472    # an SM's (228 KB), of which the card keeps 1 KB a block
+GEMV_RING = 96 << 10     # the ring's bytes a block, about
+GEMV_MAX_STAGES = 8
+# kind: (bands, sub-block, each field's bytes a row as a divisor of D, the
+# register rows of x up to which a lane takes 4 rows of a tile, else 2): the
+# span view of csrc/quant_tile.cuh (its ROWS)
+_GEMV_PACKS = {"q2_ks": (4, 16, (4, 8, 8), 8), "q5_ks": (2, 32, (2, 8, 16, 16), 0)}
+
+
+class GemvPlan(NamedTuple):
+    """How one launch of the persistent GEMV is cut: ``grid`` blocks, each
+    the output rows ``[b · rows_per_block, (b + 1) · rows_per_block)`` (the
+    last block fewer), walked in tiles of ``rows_per_tile`` rows: each lane
+    takes ``lane_rows`` rows of a tile, each row taken by ``warps_per_row``
+    of the 8 warps; a ring of ``stages`` tiles; x quantized ``m_slice`` rows
+    a pass, ``passes`` passes, per activation group ``group``; ``smem``
+    bytes of shared memory a block, ``blocks_per_sm`` blocks an SM (the grid
+    is that times the SMs, or fewer where F has fewer rows); ``ws_bytes``
+    of workspace for the passes' images of x."""
+    grid: int
+    rows_per_block: int
+    rows_per_tile: int
+    lane_rows: int
+    warps_per_row: int
+    stages: int
+    m_slice: int
+    passes: int
+    group: int
+    smem: int
+    blocks_per_sm: int
+    ws_bytes: int
+
+
+def gemv_mt(m_slice: int) -> int:
+    """The kernel's register rows of x (its template MT) for ``m_slice``:
+    the power of two at or above it; the rows past the pass's are zeros."""
+    return 1 << (m_slice - 1).bit_length()
+
+
+def gemv_lane_rows(kind: str, m_slice: int) -> int:
+    """Rows of a tile one lane takes (the decoder's ``ROWS``): 4 where their
+    codes and sums fit the registers beside ``gemv_mt(m_slice)`` rows of x,
+    else 2."""
+    return 4 if gemv_mt(m_slice) <= _GEMV_PACKS[kind][3] else 2
+
+
+def gemv_image(kind: str, D: int, group: int, m_slice: int) -> int:
+    """The bytes of the GEMV's x region (one pass's image): xq, xs (rounded
+    up to 16 bytes) and -(float(S) · xs) of ``gemv_mt(m_slice)`` rows."""
+    mt = gemv_mt(m_slice)
+    return (mt * D + -(-(mt * (D // group) * 4) // 16) * 16
+            + mt * (D // _GEMV_PACKS[kind][1]) * 4)
+
+
+def gemv_smem(kind: str, D: int, group: int, rows_per_tile: int, stages: int,
+              m_slice: int) -> int:
+    """The shared memory bytes the GEMV takes (its ``gemv_layout``): the
+    ring, the x region, the warps' sums of two tiles, one mbarrier a stage
+    and one for x."""
+    row = sum(D // n for n in _GEMV_PACKS[kind][2])
+    return (stages * rows_per_tile * row + gemv_image(kind, D, group, m_slice)
+            + 2 * GEMV_WARPS * gemv_lane_rows(kind, m_slice) * gemv_mt(m_slice) * 4
+            + 8 * (stages + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_plan(kind: str, M: int, D: int, F: int, sm_count: int) -> GemvPlan:
+    """The GEMV's cut, from shapes only (no value is read from the card). A
+    row of the pack is D/64 spans of 64 weights; a warp's lanes take one
+    span each of ``lane_rows`` rows, ``warps_per_row`` warps sharing a row
+    where it has more than 32 spans (2 at D = 4096, 4 at 8192, at most 8),
+    so a tile is ``8 / warps_per_row · lane_rows`` rows. Two blocks an SM
+    where both fit the SM's shared memory with all M rows of x and a ring of
+    two stages (one where a block has one tile), else one; the rows split
+    evenly over that many blocks a card. The ring about ``GEMV_RING``
+    bytes, no more stages than a block has tiles, fewer where x needs the
+    room (at least 1). Where even one block cannot hold all M
+    rows of x, the fewest passes, rows shared evenly among them. Raises
+    ``ValueError`` on what the kernel refuses."""
+    if kind not in _GEMV_PACKS:
+        raise ValueError(f"gemv_plan: no GEMV for pack kind {kind!r} (of {GEMV_KINDS})")
+    if not 0 < M <= W8A8_MAX_M or F < 1 or D < 256 or D % 256 or sm_count < 1:
+        raise ValueError(f"gemv_plan: M={M}, D={D}, F={F} (the GEMV takes M in "
+                         f"1..{W8A8_MAX_M}, F >= 1 and D a multiple of 256)")
+    bands, _, fields, _ = _GEMV_PACKS[kind]
+    group = GROUP if (D // bands) % GROUP == 0 else 32
+    wpr = 1 << min(3, max(0, (D // 64 // 32).bit_length() - 1))
+    row = sum(D // n for n in fields)
+
+    def cut(ms: int, per_sm: int) -> tuple[int, int, int, int] | None:
+        """(rows_per_block, rows_per_tile, stages, smem) at ``ms`` rows of x
+        a pass and ``per_sm`` blocks an SM; None where it does not fit."""
+        rows_per_tile = GEMV_WARPS // wpr * gemv_lane_rows(kind, ms)
+        rows_per_block = -(-F // (sm_count * per_sm))
+        tiles = -(-rows_per_block // rows_per_tile)
+        stages = max(1, min(GEMV_MAX_STAGES, GEMV_RING // (rows_per_tile * row), tiles))
+        # two blocks an SM keep a tile in flight under each one's compute
+        least = 1 if per_sm == 1 else min(2, tiles)
+        limit = GEMV_SMEM_MAX if per_sm == 1 else GEMV_SM_SMEM // per_sm - 1024
+        while True:
+            need = gemv_smem(kind, D, group, rows_per_tile, stages, ms)
+            if need <= limit:
+                return rows_per_block, rows_per_tile, stages, need
+            if stages <= least:
+                return None
+            stages -= 1
+
+    per_sm, m_slice = 1, M
+    if cut(M, 2):
+        per_sm = 2
+    elif not cut(M, 1):
+        passes = 2   # the fewest whose even share of M fits
+        while passes < M and not cut(-(-M // passes), 1):
+            passes += 1
+        m_slice = -(-M // passes)
+        if not cut(m_slice, 1):
+            raise ValueError(f"gemv_plan: D={D} leaves no room for a row of x")
+    rows_per_block, rows_per_tile, stages, need = cut(m_slice, per_sm)
+    passes = -(-M // m_slice)
+    return GemvPlan(-(-F // rows_per_block), rows_per_block, rows_per_tile,
+                    gemv_lane_rows(kind, m_slice), wpr, stages, m_slice, passes, group, need,
+                    per_sm, passes * gemv_image(kind, D, group, m_slice))
 
 
 # --------------------------------------------------------------------------

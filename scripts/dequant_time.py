@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time the fused-dequant kernels (``ops.quant_matmul.dequant_matmul``: Q4_K,
-Q6_K, Q5_K, Q8_0) and the int8 GEMM (``ops.quant_matmul.int8_matmul``) of one
-tree of the port at ``chip_smoke.py``'s phase-3 cases, on one CUDA card.
+Q6_K, Q5_K, Q8_0), the int8 GEMM (``ops.quant_matmul.int8_matmul``) and the
+W8A8 kernels (``ops.quant_matmul.w8a8_matmul``) of one tree of the port at
+``chip_smoke.py``'s phase-3 cases, on one CUDA card.
 
     python scripts/dequant_time.py [--root DIR] [--label NAME] [--seed N]
-                                   [--kinds q6_k,q4_k,q5_k,q8_0,int8] [--ttft DIR]
+                                   [--kinds q6_k,q4_k,q5_k,q8_0,int8,q2_ks,q5_ks,q8_0:w8a8]
+                                   [--ttft DIR]
 
 ``--root`` is the directory whose ``distributed_llm_pipeline_tpu_torch``
 package is timed (default: this checkout), for example an earlier commit
@@ -22,6 +24,15 @@ codes of tp = 2 meshes) runs at the shard pairs and the D = 1056 edge at
 the shard M, then one line gives its device time a mixed step of the
 ``--mesh 1x2 --parallel 4 --quant q5_k`` path (rank 0, M = 64): 16 layers
 of wq, wk, wv, wo, gate, up and down.
+
+A kind with no fused-dequant kernel (Q2_KS, Q5_KS, Q3_KS, Q4_K8, Q6_K8), or
+any kind written ``<kind>:w8a8``, times its W8A8 kernel instead, at phase
+3's W8A8 cases: the projection pairs (a byte-code kind's tp = 2 shard pairs,
+its head at M <= 4) at M = 1, 4, 16, 32, the odd F and the activation-group-32
+edge at M = 3. Q5_KS and Q2_KS then print the W8A8 device time of a B = 4
+slot decode step of ``--quant q5_k`` (16 layers) and ``--quant q2_k`` (8
+layers, as phase 9 serves it) by these times: the layers' wq, wk, wv, wo,
+gate, up and down and the head, at M = 4.
 
 With ``--ttft DIR``, it also serves ``chip_smoke.py``'s phase-7 and phase-8
 models (Llama-3.2-1B geometry, Q6_K and Q4_K_M GGUFs from the same seeds,
@@ -47,7 +58,8 @@ def main() -> int:
     ap.add_argument("--label", default="", help="a name printed with each line")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kinds", default="q6_k,q4_k,q5_k", help="pack kinds to time "
-                    "(of q6_k, q4_k, q5_k, q8_0, int8)")
+                    "(of q6_k, q4_k, q5_k, q8_0, int8; q2_ks, q5_ks, q3_ks, q4_k8, "
+                    "q6_k8 or <kind>:w8a8 for a W8A8 kernel)")
     ap.add_argument("--ttft", default="", help="directory for the served models' GGUFs")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -69,7 +81,11 @@ def main() -> int:
           flush=True)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")   # 256 MiB > L2
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    for kind in args.kinds.split(","):
+    for spec in args.kinds.split(","):
+        kind, _, route = spec.partition(":")
+        if route == "w8a8" or qm._NAMES[kind][0] is None:
+            time_w8a8(cs, qm, kq, kind, gen, flush, card, args.label)
+            continue
         at64 = {}
         for pair, D, F, ms_of in cases(cs, kind):
             pack = cs.random_pack(qm, kq, kind, D, F, gen)
@@ -101,6 +117,42 @@ def main() -> int:
     if args.ttft:
         serve_ttft(cs, Path(args.ttft), args.seed, args.label, card)
     return 0
+
+
+# the served layers of the slot decode steps whose W8A8 time is summed
+STEP_LAYERS = {"q5_ks": 16, "q2_ks": 8}
+
+
+def time_w8a8(cs, qm, kq, kind: str, gen, flush, card: str, label: str) -> None:
+    """The W8A8 kernel of ``kind`` at phase 3's W8A8 cases, one line each."""
+    import torch
+
+    byte = kind in cs.BYTE_KINDS
+    cases = [(p, D, F, M) for p, D, F in (cs.SHARD_PAIRS if byte else cs.QUANT_PAIRS)
+             for M in cs.W8A8_M if not (byte and p == "head" and M > 4)]
+    for e in cs.QUANT_EDGES:
+        if isinstance(e["D"], dict) and kind not in e["D"]:
+            continue
+        D = e["D"][kind] if isinstance(e["D"], dict) else e["D"]
+        cases.append((e["name"], D, e["F"], 3))
+    at4, packs = {}, {}
+    for pair, D, F, M in cases:
+        if pair not in packs:
+            packs[pair] = cs.random_pack(qm, kq, kind, D, F, gen)
+        pack = packs[pair]
+        out_dtype = torch.float32 if pair == "head" else torch.bfloat16
+        x = torch.randn(M, D, generator=gen, device="cuda").bfloat16()
+        row = {"label": label, "kind": kind, "route": "w8a8", "pair": pair, "M": M, "D": D,
+               "F": F, "ms": cs.event_ms(lambda: qm.w8a8_matmul(x, pack, out_dtype), 50, flush)}
+        print(json.dumps({**row, "card": card}), flush=True)
+        if M == 4:
+            at4[pair] = row["ms"]
+    if kind in STEP_LAYERS:
+        n = STEP_LAYERS[kind]
+        step = n * (2 * at4["wq_wo"] + 2 * at4["wk_wv"] + 2 * at4["gate_up"] + at4["down"])
+        print(json.dumps({"label": label, f"{kind}_decode_step_w8a8_ms": step + at4["head"],
+                          "of": f"{n} x (2 wq_wo + 2 wk_wv + 2 gate_up + down) + head at M = 4, "
+                                "cold L2", "card": card}), flush=True)
 
 
 def cases(cs, kind: str) -> list[tuple[str, int, int, tuple[int, ...]]]:
