@@ -61,9 +61,11 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    the reference's einsum): that route is timed once each. The Q4_K, Q6_K,
    Q5_K and Q8_0 GEMM's cases also print their split plan and grid and
    relaunch once with host syncs turned into errors, for the same bits, and
-   so do the Q2_KS and Q5_KS W8A8 cases (the persistent GEMV), which print
-   their ``gemv_plan`` (grid, rows a block, tile, stages, rows of x a pass;
-   the library refuses a launch whose shared memory is not the plan's); the
+   so do the W8A8 cases of the persistent GEMV (``qm.gemv_takes``: Q6_K,
+   Q5_KS, Q2_KS, Q8_0 and the byte codes at D % 256 == 0; their other D, the
+   group-32 edges D = 2080 and 1056, run ``w8a8_kernel``), which print their
+   ``gemv_plan`` (grid, rows a block, tile, stages, rows of x a pass; the
+   library refuses a launch whose shared memory is not the plan's); the
    int8 GEMM's cases (M > 4) print their plan, grid and tiling, must equal
    ``int8_matmul_plain`` bit for bit, relaunch the same way, and at M >=
    256 print the quantize and GEMM launches' µs apart. x = I (M = D = 2048)
@@ -1080,7 +1082,7 @@ def quant_case(qm, pack, kernel: str, M: int, out_dtype, gen, flush,
     extra = {}
     if kernel == "dequant" and pack.kind in qm.GEMM_KINDS:
         extra = gemm_launch_check(qm, pack, M, kern, got, name)
-    if kernel == "w8a8" and pack.kind in qm.GEMV_KINDS:
+    if kernel == "w8a8" and qm.gemv_takes(pack.kind, D):
         extra = gemv_launch_check(qm, pack, M, kern, got, name)
     if kernel == "int8" and M > qm.INT8_W8A8_MAX_M:
         extra = int8_launch_check(qm, pack, M, kern, got, ref, name)
@@ -2434,7 +2436,7 @@ def mesh_ref(engine, seed: int, weights: str, card: str) -> list[dict]:
 # dequant_matmul.cu's q4_k, q6_k, q5_k and q8_0
 SPLIT_HEADER, GEMM_HEADER = "paged_tile.cuh", "kquant_gemm.cuh"
 # the decoders' span view the persistent W8A8 GEMV reads (w8a8_matmul.cu)
-SPAN_HEADER, GEMV_PLAN_KINDS = "quant_tile.cuh", ("q2_ks", "q5_ks")
+SPAN_HEADER = "quant_tile.cuh"
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
@@ -2445,7 +2447,7 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
              "ms": timed["kernel_ms"], "plain_ms": timed["plain_ms"],
              "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
              "library_ms": timed["library_ms"], "timed_case": timed["case"]}
-    if timed.get("kind") in GEMV_PLAN_KINDS:
+    if header and header.endswith(SPAN_HEADER):
         entry["plan"] = timed["plan"]   # the persistent GEMV's cut of that case
     return entry
 
@@ -2716,7 +2718,7 @@ def main() -> int:
         timed = next(r for r in krows if r["pair"] == pair and r["M"] == M)
         served = mesh_launches if kind in BYTE_KINDS else quant_launches
         header = src + GEMM_HEADER if kernel == "dequant" and kind in qm.GEMM_KINDS else None
-        if kernel == "w8a8" and kind in qm.GEMV_KINDS:
+        if kernel == "w8a8" and qm.gemv_takes(kind, timed["D"]):
             header = src + SPAN_HEADER
         entries.append(kernel_entry(name, src + source, ref + replaces,
                                     served.get(name, 0), krows, timed, header))

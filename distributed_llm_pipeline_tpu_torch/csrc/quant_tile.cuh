@@ -4,31 +4,40 @@
 // meshes, of ops/quant_matmul.py and ops/kquant_matmul.py, laid out
 // out-features-major, [F, .].
 //
-// A decoder of w8a8_kernel maps (output row f, logical contraction row d0, a
+// A decoder of w8a8_kernel (int8, Q4_K, Q3_KS, and the byte codes at a D
+// the GEMV does not take) maps (output row f, logical contraction row d0, a
 // multiple of 16) to the 16 int8 codes of rows d0 .. d0+15, written to
 // w[0..3] as four 32-bit words of four bytes in row order (signed for Q8_0,
-// int8, Q6_K and Q3_KS, unsigned and below 128 for Q4_K, Q5_KS and Q2_KS, so
-// all read as signed bytes), and to the scale those rows share (bf16, f32
-// for int8). The weight is code * scale, less the bf16 offset of the
+// int8, Q6_K8 and Q3_KS, unsigned and below 128 for Q4_K, Q4_K8 and Q5_K,
+// so all read as signed bytes), and to the scale those rows share (bf16,
+// f32 for int8). The weight is code * scale, less the bf16 offset of the
 // sub-block for an affine decoder (AFFINE, offset_at). Each kernel takes a
 // decoder as a template argument, so one kernel body serves every format.
 //
-// The Q2_KS and Q5_KS decoders give instead the span view of the persistent
-// GEMV (w8a8_matmul.cu, gemv_kernel), which stages whole rows of the pack in
-// shared memory and reads each packed byte once for all its bands. A span is
-// 64 logical rows: the packed positions [s * 64 / BANDS, (s + 1) * 64 /
-// BANDS) of every band, so a row of any pack has D / 64 spans and span s of
-// band k is the sub-block from column k * D / BANDS + s * 64 / BANDS on (its
-// scale and offset at index k * D / 64 + s). The decoder names its fields
+// The Q6_K, Q5_KS and Q2_KS decoders, and the byte-code decoders beside
+// their w8a8_kernel view, give the span view of the persistent GEMV
+// (w8a8_matmul.cu, gemv_kernel), which stages whole rows of the pack in
+// shared memory and reads each packed byte once for all its bands. A span
+// is 64 logical rows in BANDS sub-blocks ("bands") of 64 / BANDS rows, each
+// CH 16-byte chunks of codes, so a row has D / 64 spans. Where the pack
+// interleaves bands (Q6_K, Q5_KS, Q2_KS), span s holds the packed positions
+// [s * 64 / BANDS, (s + 1) * 64 / BANDS) of every band: band k is the
+// sub-block from column k * D / BANDS + s * 64 / BANDS on (its scale and
+// offset at index k * D / 64 + s). A byte-code pack (one plane) has no
+// bands: span s is the columns [64 s, 64 s + 64), band k the sub-block from
+// 64 s + k * SUB. `col` gives that column map. The decoder names its fields
 // (FIELDS, field, field_bytes: the bytes one row of the pack holds in each,
 // [F, .] each, so the fields of a run of rows are contiguous), loads span s
 // of a staged row into registers once (span_bytes: every byte of the span,
 // all bands), and decodes band k's codes from those registers (band_codes)
-// and reads its scale and offset (band_scale). A band's 64 / BANDS codes are
-// CH 16-byte chunks; chunk c holds the codes of the x columns at 16 * (c ^
-// h): a lane with h = 1 takes its two chunks in the other order, so that the
-// 16-byte loads of a quarter warp at a 32-byte lane stride fall in distinct
-// banks. ROWS(MT) is the rows of a tile one lane takes at MT register rows
+// and reads its scale and offset (band_scale). A lane takes the span's four
+// chunks in the order j ^ h, h = order(lane): its band k is then the
+// sub-block k ^ (h / CH), chunk c of it the codes of the x columns at 16 *
+// (c ^ (h % CH)) from the sub-block's column, so that the 16-byte loads of
+// a quarter warp fall in distinct banks (Q5_KS's lanes 32 bytes apart swap
+// their two chunks by one lane bit, the byte codes' lanes 64 bytes apart
+// permute four by two; Q6_K's and Q2_KS's lanes 16 bytes apart keep their
+// order). ROWS(MT) is the rows of a tile one lane takes at MT register rows
 // of x: each load of x serves that many rows, as the registers allow
 // (ops/quant_matmul.py `gemv_lane_rows` mirrors it).
 
@@ -50,6 +59,7 @@ struct ByteCodes {
   const __nv_bfloat16* scale;
   int D;
 
+  // w8a8_kernel's view (a D the GEMV does not take)
   __device__ __forceinline__ void codes16(int f, int d0, int* w) const {
     const int4 v = *reinterpret_cast<const int4*>(qs + size_t(f) * D + d0);
     w[0] = v.x;
@@ -59,6 +69,51 @@ struct ByteCodes {
   }
   __device__ __forceinline__ float scale_at(int f, int d0) const {
     return __bfloat162float(scale[size_t(f) * (D / SUB) + d0 / SUB]);
+  }
+
+  // the span view: 64 contiguous codes, 64 / SUB sub-blocks
+  static constexpr int BANDS = 64 / SUB, CH = SUB / 16;
+  static constexpr int FIELDS = 2;  // qs, scale
+  __host__ __device__ static constexpr int ROWS(int /*MT*/) { return 2; }
+  __host__ __device__ static constexpr int field_bytes(int i, int D) {
+    return i == 0 ? D : D / SUB * 2;
+  }
+  __host__ __device__ const void* field(int i) const {
+    return i == 0 ? static_cast<const void*>(qs) : static_cast<const void*>(scale);
+  }
+  __device__ __forceinline__ static int col(int s, int k, int /*D*/) { return 64 * s + SUB * k; }
+  // lanes 64 bytes apart: lane bits 1..2 order the four chunks
+  __device__ __forceinline__ static int order(int lane) { return (lane >> 1) & 3; }
+  struct Span {
+    int4 v[4];  // v[j]: the span's chunk j ^ h
+  };
+  __device__ __forceinline__ static Span span_bytes(const uint8_t* st, int /*rows*/, int r, int D,
+                                                    int s, int h) {
+    const uint8_t* p = st + size_t(r) * D + 64 * s;
+    Span sp;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sp.v[j] = *reinterpret_cast<const int4*>(p + 16 * (j ^ h));
+    return sp;
+  }
+  // band k's SUB codes, chunk by chunk
+  __device__ __forceinline__ static void band_codes(const Span& sp, int k, int* w) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      w[4 * c] = sp.v[k * CH + c].x;
+      w[4 * c + 1] = sp.v[k * CH + c].y;
+      w[4 * c + 2] = sp.v[k * CH + c].z;
+      w[4 * c + 3] = sp.v[k * CH + c].w;
+    }
+  }
+  // the scales of a staged row r (and, past them, an affine pack's offsets)
+  __device__ __forceinline__ static const __nv_bfloat16* staged_scale(const uint8_t* st, int rows,
+                                                                      int r, int D) {
+    return reinterpret_cast<const __nv_bfloat16*>(st + size_t(rows) * D) + size_t(r) * (D / SUB);
+  }
+  __device__ __forceinline__ static void band_scale(const uint8_t* st, int rows, int r, int D,
+                                                    int s, int k, float& sc, float& off) {
+    sc = __bfloat162float(staged_scale(st, rows, r, D)[s * BANDS + k]);
+    off = 0.f;
   }
 };
 
@@ -73,6 +128,17 @@ struct AffineBytes : ByteCodes<32> {
 
   __device__ __forceinline__ float offset_at(int f, int d0) const {
     return __bfloat162float(b[size_t(f) * (D / SUB) + d0 / SUB]);
+  }
+
+  static constexpr int FIELDS = 3;  // q, a, b (field_bytes: b's as a's)
+  __host__ __device__ const void* field(int i) const {
+    return i == 2 ? static_cast<const void*>(b) : ByteCodes<32>::field(i);
+  }
+  __device__ __forceinline__ static void band_scale(const uint8_t* st, int rows, int r, int D,
+                                                    int s, int k, float& sc, float& off) {
+    const __nv_bfloat16* ar = staged_scale(st, rows, r, D);
+    sc = __bfloat162float(ar[s * BANDS + k]);
+    off = __bfloat162float(ar[size_t(rows) * (D / SUB) + s * BANDS + k]);
   }
 };
 
@@ -114,18 +180,48 @@ struct Q6K {
     const unsigned hi = ((unsigned(hw) >> hsh) & 0x03030303u) << 4;
     return int(__vsub4(lo | hi, 0x20202020u));
   }
-  __device__ __forceinline__ void codes16(int f, int d0, int* w) const {
-    const int D4 = D / 4, band = d0 / D4;
-    const int4 l = *reinterpret_cast<const int4*>(ql + size_t(f) * (D / 2) + d0 % (D / 2));
-    const int4 h = *reinterpret_cast<const int4*>(qh + size_t(f) * D4 + d0 % D4);
-    const int nsh = (band >> 1) * 4, hsh = 2 * band;
-    w[0] = decode4(l.x, h.x, nsh, hsh);
-    w[1] = decode4(l.y, h.y, nsh, hsh);
-    w[2] = decode4(l.z, h.z, nsh, hsh);
-    w[3] = decode4(l.w, h.w, nsh, hsh);
+  // the span view: 16 packed positions, one 16-row sub-block of each of the
+  // four bands, from 16 bytes of ql at 16 s (bands 0 and 2, low and high
+  // nibble), 16 at D / 4 + 16 s (bands 1 and 3) and 16 of qh (two bits a
+  // band): each byte read once for all its bands
+  static constexpr int BANDS = 4, CH = 1;
+  static constexpr int FIELDS = 3;  // ql, qh, s
+  __host__ __device__ static constexpr int ROWS(int /*MT*/) { return 2; }
+  __host__ __device__ static constexpr int field_bytes(int i, int D) {
+    return i == 0 ? D / 2 : i == 1 ? D / 4 : D / 8;
   }
-  __device__ __forceinline__ float scale_at(int f, int d0) const {
-    return __bfloat162float(s[size_t(f) * (D / SUB) + d0 / SUB]);
+  __host__ __device__ const void* field(int i) const {
+    return i == 0 ? static_cast<const void*>(ql)
+           : i == 1 ? static_cast<const void*>(qh)
+                    : static_cast<const void*>(s);
+  }
+  __device__ __forceinline__ static int col(int s, int k, int D) { return k * (D / 4) + 16 * s; }
+  __device__ __forceinline__ static int order(int /*lane*/) { return 0; }
+  struct Span {
+    int4 la, lb, hq;
+  };
+  __device__ __forceinline__ static Span span_bytes(const uint8_t* st, int rows, int r, int D,
+                                                    int s, int /*h*/) {
+    const uint8_t* l = st + size_t(r) * (D / 2) + 16 * s;
+    return {*reinterpret_cast<const int4*>(l), *reinterpret_cast<const int4*>(l + D / 4),
+            *reinterpret_cast<const int4*>(st + size_t(rows) * (D / 2) + size_t(r) * (D / 4) +
+                                           16 * s)};
+  }
+  // band k's 16 codes
+  __device__ __forceinline__ static void band_codes(const Span& sp, int k, int* w) {
+    const int4& l = k & 1 ? sp.lb : sp.la;
+    const int nsh = (k >> 1) * 4, hsh = 2 * k;
+    w[0] = decode4(l.x, sp.hq.x, nsh, hsh);
+    w[1] = decode4(l.y, sp.hq.y, nsh, hsh);
+    w[2] = decode4(l.z, sp.hq.z, nsh, hsh);
+    w[3] = decode4(l.w, sp.hq.w, nsh, hsh);
+  }
+  __device__ __forceinline__ static void band_scale(const uint8_t* st, int rows, int r, int D,
+                                                    int s, int k, float& sc, float& off) {
+    const __nv_bfloat16* sr = reinterpret_cast<const __nv_bfloat16*>(
+                                  st + size_t(rows) * (D / 2 + D / 4)) + size_t(r) * (D / 16);
+    sc = __bfloat162float(sr[k * (D / 64) + s]);
+    off = 0.f;
   }
 };
 
@@ -182,6 +278,9 @@ struct Q5KS {
            : i == 2 ? static_cast<const void*>(a)
                     : static_cast<const void*>(b);
   }
+  __device__ __forceinline__ static int col(int s, int k, int D) { return k * (D / 2) + 32 * s; }
+  // lanes 32 bytes apart: lane bit 2 orders the two chunks
+  __device__ __forceinline__ static int order(int lane) { return (lane >> 2) & 1; }
   // a span's bytes: the q5n chunks at 16h (va) and 16(1 - h) (vb), the four
   // q5h bytes of each (ha, hb; byte i holds positions 4i .. 4i + 3, band 0
   // in bits 0..3, band 1 in bits 4..7)
@@ -241,6 +340,8 @@ struct Q2KS {
            : i == 1 ? static_cast<const void*>(a)
                     : static_cast<const void*>(b);
   }
+  __device__ __forceinline__ static int col(int s, int k, int D) { return k * (D / 4) + 16 * s; }
+  __device__ __forceinline__ static int order(int /*lane*/) { return 0; }
   struct Span {
     int4 v;  // rows r .. r + 15 of every band
   };

@@ -1,5 +1,6 @@
 // W8A8 integer-dot matmul of few activation rows against a Q8_0, int8, Q6_K,
-// Q4_K, Q5_KS, Q2_KS or Q3_KS pack, for Hopper (sm_90a), plain C ABI.
+// Q4_K, Q5_KS, Q2_KS or Q3_KS pack or a Q4_K8, Q5_K or Q6_K8 byte-code pack,
+// for Hopper (sm_90a), plain C ABI.
 //
 // Replaces the TPU kernels `gw8a8_matmul_pallas` (distributed_llm_pipeline_
 // tpu/ops/quant_matmul.py, math in `gw8a8_band_accum`) on Q8_0 packs,
@@ -29,14 +30,16 @@
 //
 // Two kernels serve the contract.
 //
-// gemv_kernel, the persistent GEMV, serves the Q2_KS and Q5_KS packs (the
-// entries dlp_w8a8_q2_ks and dlp_w8a8_q5_ks). What bounds it: a decode
-// step's projection is a GEMV over the weight bytes, 0.5 B a weight for
-// Q2_KS and 0.75 for Q5_KS with their bf16 a and b (Llama-3.2-1B's gate_up,
-// 2048 x 8192: 8.4 and 12.6 MB, 2.5 and 3.8 us at 3.35 TB/s), with M <= 32
-// rows of x reused against each code. So the design moves each weight byte
-// once, keeps enough of them in flight, and spends per code only what grows
-// with M:
+// gemv_kernel, the persistent GEMV, serves the Q6_K, Q5_KS, Q2_KS and Q8_0
+// packs and the byte codes Q4_K8, Q5_K and Q6_K8 (every entry but int8,
+// q4_k and q3_ks; a byte-code pack only at D % 256 == 0, below). What
+// bounds it: a decode step's projection is a GEMV over the weight bytes,
+// 0.5 B a weight for Q2_KS, 0.75 for Q5_KS, 0.875 for Q6_K, 1.0625 for Q8_0
+// and Q6_K8 and 1.125 for Q4_K8 and Q5_K with their bf16 scales and offsets
+// (Llama-3.2-1B's gate_up, 2048 x 8192: 8.4 to 18.9 MB, 2.5 to 5.6 us at
+// 3.35 TB/s), with M <= 32 rows of x reused against each code. So the design
+// moves each weight byte once, keeps enough of them in flight, and spends
+// per code only what grows with M:
 //
 // - x quantized once, not once a block. A small launch ahead of the GEMV
 //   (gemv_acts_kernel, one warp a group of x) writes each pass's image of the
@@ -60,16 +63,19 @@
 //   the bytes) and refills it once every warp has left it (the tile's
 //   closing barrier).
 // - Each packed byte read once for all its bands (quant_tile.cuh, the span
-//   view): a lane takes a span of ROWS rows of the tile, 16 bytes of q2l a
-//   row (four 16-row sub-blocks, one a band) or 32 of q5n and 8 of q5h (one
-//   32-row sub-block of each of the two bands), holds those bytes in
-//   registers and decodes each band's codes from them, then runs dp4a
-//   against the band's columns of xq: 16-byte shared loads with
-//   neighbouring lanes on neighbouring columns (Q5_KS's 32-byte lane stride
-//   takes its two chunks in a swizzled order, so a quarter warp hits
-//   distinct banks), each load serving the lane's ROWS rows. The shared
-//   loads of x, not the dp4a, set the pace at M >= 4: ROWS is 4 for Q2_KS
-//   (2 past 8 rows of x, for the registers) and 2 for Q5_KS.
+//   view): a lane takes a span (64 weights) of ROWS rows of the tile: 16
+//   bytes of q2l a row (four 16-row sub-blocks, one a band), 32 of q5n and
+//   8 of q5h (one 32-row sub-block of each of the two bands), 32 of ql and
+//   16 of qh (Q6_K: one 16-row sub-block of each of four bands), or 64
+//   codes of a byte-code pack (two or four sub-blocks of one plane). It
+//   holds those bytes in registers and decodes each sub-block's codes from
+//   them, then runs dp4a against the sub-block's columns of xq: 16-byte
+//   shared loads with neighbouring lanes on neighbouring spans, the chunks
+//   of a span taken in an order swizzled by lane bits where lanes lie 32 or
+//   64 bytes apart (Q5_KS, the byte codes), so a quarter warp hits distinct
+//   banks; each load serves the lane's ROWS rows. The shared loads of x,
+//   not the dp4a, set the pace at M >= 4: ROWS is 4 for Q2_KS (2 past 8
+//   rows of x, for the registers) and 2 for the others.
 // - Per-row accumulators, no per-sub-block shuffle: each sub-block's term
 //   goes straight into the lane's f32 accumulator of (row, m): float(P)
 //   from the bits 0x4B400000 + P (the dot's initial value) less 1.5 * 2^23,
@@ -86,22 +92,23 @@
 //   bf16 ulp holds both (chip_smoke.py), and tests/test_torch_w8a8_gemv.py
 //   holds a mirror of this order against the JAX kernels.
 //
-// w8a8_kernel serves the other kinds. One warp owns one output row f; lane
-// j takes sub-block s0 + j of the chunk, decodes its codes into registers
-// (quant_tile.cuh) and runs SUB/4 dp4a per activation row. The group sum
-// over the sub-blocks of one group is a butterfly over the group's adjacent
-// lanes; each group's sum times xs goes into a per-lane f32 accumulator,
-// summed across the warp at the end. Each block (8 warps, 8 output rows)
-// quantizes x itself, 1024 columns at a time into shared memory: no separate
-// launch per projection, at the price of re-reading x from L2 once per block
+// w8a8_kernel serves the Q4_K and Q3_KS packs, int8 (at M <= 4) and a
+// byte-code pack whose D is no multiple of 256 (a tp shard's edge; the host
+// routes by shape). One warp owns one output row f; lane j takes sub-block
+// s0 + j of the chunk, decodes its codes into registers (quant_tile.cuh)
+// and runs SUB/4 dp4a per activation row. The group sum over the
+// sub-blocks of one group is a butterfly over the group's adjacent lanes;
+// each group's sum times xs goes into a per-lane f32 accumulator, summed
+// across the warp at the end. Each block (8 warps, 8 output rows) quantizes
+// x itself, 1024 columns at a time into shared memory: no separate launch
+// per projection, at the price of re-reading x from L2 once per block
 // (cheap at decode's M, dominant at M = 32 against narrow F). For an affine
 // pack the prologue also stores each row's sums S over every SUB columns
 // (dp4a against ones), and each lane subtracts its sub-block's offset term.
-// The bands of a packed byte (two for Q4_K, four for Q3_KS and Q6_K's 2-bit
-// plane) are walked one after the other, so each packed byte is read once
-// per band, after the first time from L1 or L2. The gemv_kernel body takes
-// any decoder with a span view: these kinds can move onto it, each in its
-// own change.
+// The bands of a packed byte (two for Q4_K, four for Q3_KS) are walked one
+// after the other, so each packed byte is read once per band, after the
+// first time from L1 or L2. The gemv_kernel body takes any decoder with a
+// span view: these kinds can move onto it, each in its own change.
 
 #include <type_traits>
 
@@ -251,7 +258,7 @@ int launch(const Dec& dec, const void* x, int8_t* xq_out, float* xs_out, void* o
 }
 
 // ---------------------------------------------------------------------------
-// the persistent GEMV (Q2_KS, Q5_KS)
+// the persistent GEMV (Q6_K, Q5_KS, Q2_KS, Q8_0 and the byte codes)
 
 using dlp_kgemm::mbar_arrive_tx;
 using dlp_kgemm::mbar_init;
@@ -441,7 +448,7 @@ gemv_kernel(Dec dec, const GemvLayout L, const uint8_t* __restrict__ ws, void* _
   const int wpr = kGemvWarps * R / rows_per_tile;  // warps a row
   const int rstep = kGemvWarps / wpr;               // the tile rows of lane-row 0
   const int row0 = warp / wpr, slice = warp % wpr;
-  const int h = CH == 2 ? (lane >> 2) & 1 : 0;  // the lane's chunk order
+  const int h = Dec::order(lane);  // the lane's chunk order
 
   // step i's rows of every field into its stage (thread 0)
   const auto issue = [&](int i) {
@@ -500,13 +507,14 @@ gemv_kernel(Dec dec, const GemvLayout L, const uint8_t* __restrict__ ws, void* _
             sp[j] = Dec::span_bytes(st, rows_per_tile, row0 + rstep * j, D, s, h);
 #pragma unroll
           for (int k = 0; k < BANDS; ++k) {
-            const int col = k * (D / BANDS) + s * (64 / BANDS);
+            const int kb = k ^ (h / CH);  // the sub-block the lane takes k-th
+            const int col = Dec::col(s, kb, D);
             int w[R][4 * CH];
             float sc[R], off[R];
 #pragma unroll
             for (int j = 0; j < R; ++j) {
               Dec::band_codes(sp[j], k, w[j]);
-              Dec::band_scale(st, rows_per_tile, row0 + rstep * j, D, s, k, sc[j], off[j]);
+              Dec::band_scale(st, rows_per_tile, row0 + rstep * j, D, s, kb, sc[j], off[j]);
             }
 #pragma unroll
             for (int mi = 0; mi < MC; ++mi) {
@@ -515,7 +523,7 @@ gemv_kernel(Dec dec, const GemvLayout L, const uint8_t* __restrict__ ws, void* _
               int4 xv[CH];
 #pragma unroll
               for (int c = 0; c < CH; ++c)
-                xv[c] = *reinterpret_cast<const int4*>(xr + 16 * (c ^ h));
+                xv[c] = *reinterpret_cast<const int4*>(xr + 16 * (c ^ (h % CH)));
               const float xs = xs_s[m * ngr + col / group];
               const float nsx = Dec::AFFINE ? nsx_s[m * nsub + col / SUB] : 0.f;
 #pragma unroll
@@ -625,17 +633,26 @@ int gemv_launch(const Dec& dec, const void* x, int8_t* xq_out, float* xs_out, vo
   }
 }
 
+// A byte-code pack at a D the GEMV does not take (D % 256 != 0: a tp
+// shard's D = 1056, Q8_0 at D = 2080, whose rows of scales are no multiple
+// of 16 bytes and whose 64-column spans do not tile D) runs w8a8_kernel:
+// the host, which routes by shape alone (ops/quant_matmul.py `gemv_takes`),
+// then passes no workspace. Every other launch is the GEMV's.
+template <class Dec>
+int byte_launch(const Dec& dec, const void* x, int8_t* xq_out, float* xs_out, void* ws, void* out,
+                int x_bf16, int out_bf16, int M, int D, int F, int group, int grid,
+                int rows_per_block, int rows_per_tile, int stages, int m_slice, int smem,
+                void* stream) {
+  if (ws == nullptr)
+    return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
+  return gemv_launch(dec, x, xq_out, xs_out, ws, out, x_bf16, out_bf16, M, D, F, group, grid,
+                     rows_per_block, rows_per_tile, stages, m_slice, smem, stream);
+}
+
 }  // namespace
 
 // x_bf16 / out_bf16: 1 = bfloat16, 0 = float32. xq_out / xs_out may be null.
 // Returns the cudaError_t of the launch (0 = launched).
-extern "C" int dlp_w8a8_q8_0(const void* x, const void* qs, const void* scale, void* out,
-                             int8_t* xq_out, float* xs_out, int x_bf16, int out_bf16, int M,
-                             int D, int F, int group, void* stream) {
-  const Q8_0 dec{static_cast<const int8_t*>(qs), static_cast<const __nv_bfloat16*>(scale), D};
-  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
-}
-
 extern "C" int dlp_w8a8_int8(const void* x, const void* qs, const void* gs, void* out,
                              int8_t* xq_out, float* xs_out, int x_bf16, int out_bf16, int M,
                              int D, int F, int group, void* stream) {
@@ -651,11 +668,20 @@ extern "C" int dlp_w8a8_q4_k(const void* x, const void* qs, const void* a, const
   return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
 }
 
+extern "C" int dlp_w8a8_q3_ks(const void* x, const void* q3l, const void* q3h, const void* s,
+                              void* out, int8_t* xq_out, float* xs_out, int x_bf16,
+                              int out_bf16, int M, int D, int F, int group, void* stream) {
+  const Q3KS dec{static_cast<const int8_t*>(q3l), static_cast<const int8_t*>(q3h),
+                 static_cast<const __nv_bfloat16*>(s), D};
+  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
+}
+
 // The persistent GEMV's entries take a workspace for the activations'
-// images (ws, gemv_plan's ws_bytes; required) and the host's plan
-// (ops/quant_matmul.py gemv_plan) after the shapes: grid, rows_per_block,
-// rows_per_tile, stages, m_slice and smem, the shared memory bytes the plan
-// computed (a launch whose smem differs from gemv_layout's is refused).
+// images (ws, gemv_plan's ws_bytes; null only for a byte-code pack at a D
+// the GEMV does not take, above) and the host's plan (ops/quant_matmul.py gemv_plan)
+// after the shapes: grid, rows_per_block, rows_per_tile, stages, m_slice and
+// smem, the shared memory bytes the plan computed (a launch whose smem
+// differs from gemv_layout's is refused).
 extern "C" int dlp_w8a8_q5_ks(const void* x, const void* q5n, const void* q5h, const void* a,
                               const void* b, void* out, int8_t* xq_out, float* xs_out, void* ws,
                               int x_bf16, int out_bf16, int M, int D, int F, int group,
@@ -665,14 +691,6 @@ extern "C" int dlp_w8a8_q5_ks(const void* x, const void* q5n, const void* q5h, c
                  static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), D};
   return gemv_launch(dec, x, xq_out, xs_out, ws, out, x_bf16, out_bf16, M, D, F, group, grid,
                      rows_per_block, rows_per_tile, stages, m_slice, smem, stream);
-}
-
-extern "C" int dlp_w8a8_q6_k(const void* x, const void* ql, const void* qh, const void* s,
-                             void* out, int8_t* xq_out, float* xs_out, int x_bf16, int out_bf16,
-                             int M, int D, int F, int group, void* stream) {
-  const Q6K dec{static_cast<const int8_t*>(ql), static_cast<const int8_t*>(qh),
-                static_cast<const __nv_bfloat16*>(s), D};
-  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
 }
 
 extern "C" int dlp_w8a8_q2_ks(const void* x, const void* q2l, const void* a, const void* b,
@@ -686,33 +704,53 @@ extern "C" int dlp_w8a8_q2_ks(const void* x, const void* q2l, const void* a, con
                      rows_per_block, rows_per_tile, stages, m_slice, smem, stream);
 }
 
-extern "C" int dlp_w8a8_q3_ks(const void* x, const void* q3l, const void* q3h, const void* s,
-                              void* out, int8_t* xq_out, float* xs_out, int x_bf16,
-                              int out_bf16, int M, int D, int F, int group, void* stream) {
-  const Q3KS dec{static_cast<const int8_t*>(q3l), static_cast<const int8_t*>(q3h),
-                 static_cast<const __nv_bfloat16*>(s), D};
-  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
+extern "C" int dlp_w8a8_q6_k(const void* x, const void* ql, const void* qh, const void* s,
+                             void* out, int8_t* xq_out, float* xs_out, void* ws, int x_bf16,
+                             int out_bf16, int M, int D, int F, int group, int grid,
+                             int rows_per_block, int rows_per_tile, int stages, int m_slice,
+                             int smem, void* stream) {
+  const Q6K dec{static_cast<const int8_t*>(ql), static_cast<const int8_t*>(qh),
+                static_cast<const __nv_bfloat16*>(s), D};
+  return gemv_launch(dec, x, xq_out, xs_out, ws, out, x_bf16, out_bf16, M, D, F, group, grid,
+                     rows_per_block, rows_per_tile, stages, m_slice, smem, stream);
+}
+
+extern "C" int dlp_w8a8_q8_0(const void* x, const void* qs, const void* scale, void* out,
+                             int8_t* xq_out, float* xs_out, void* ws, int x_bf16, int out_bf16,
+                             int M, int D, int F, int group, int grid, int rows_per_block,
+                             int rows_per_tile, int stages, int m_slice, int smem, void* stream) {
+  const Q8_0 dec{static_cast<const int8_t*>(qs), static_cast<const __nv_bfloat16*>(scale), D};
+  return byte_launch(dec, x, xq_out, xs_out, ws, out, x_bf16, out_bf16, M, D, F, group, grid,
+                     rows_per_block, rows_per_tile, stages, m_slice, smem, stream);
 }
 
 extern "C" int dlp_w8a8_q4_k8(const void* x, const void* q4, const void* a, const void* b,
-                              void* out, int8_t* xq_out, float* xs_out, int x_bf16,
-                              int out_bf16, int M, int D, int F, int group, void* stream) {
+                              void* out, int8_t* xq_out, float* xs_out, void* ws, int x_bf16,
+                              int out_bf16, int M, int D, int F, int group, int grid,
+                              int rows_per_block, int rows_per_tile, int stages, int m_slice,
+                              int smem, void* stream) {
   const Q4K8 dec{{static_cast<const int8_t*>(q4), static_cast<const __nv_bfloat16*>(a), D},
                  static_cast<const __nv_bfloat16*>(b)};
-  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
+  return byte_launch(dec, x, xq_out, xs_out, ws, out, x_bf16, out_bf16, M, D, F, group, grid,
+                     rows_per_block, rows_per_tile, stages, m_slice, smem, stream);
 }
 
 extern "C" int dlp_w8a8_q5_k(const void* x, const void* q5, const void* a, const void* b,
-                             void* out, int8_t* xq_out, float* xs_out, int x_bf16, int out_bf16,
-                             int M, int D, int F, int group, void* stream) {
+                             void* out, int8_t* xq_out, float* xs_out, void* ws, int x_bf16,
+                             int out_bf16, int M, int D, int F, int group, int grid,
+                             int rows_per_block, int rows_per_tile, int stages, int m_slice,
+                             int smem, void* stream) {
   const Q5K dec{{static_cast<const int8_t*>(q5), static_cast<const __nv_bfloat16*>(a), D},
                 static_cast<const __nv_bfloat16*>(b)};
-  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
+  return byte_launch(dec, x, xq_out, xs_out, ws, out, x_bf16, out_bf16, M, D, F, group, grid,
+                     rows_per_block, rows_per_tile, stages, m_slice, smem, stream);
 }
 
 extern "C" int dlp_w8a8_q6_k8(const void* x, const void* q6, const void* s, void* out,
-                              int8_t* xq_out, float* xs_out, int x_bf16, int out_bf16, int M,
-                              int D, int F, int group, void* stream) {
+                              int8_t* xq_out, float* xs_out, void* ws, int x_bf16, int out_bf16,
+                              int M, int D, int F, int group, int grid, int rows_per_block,
+                              int rows_per_tile, int stages, int m_slice, int smem, void* stream) {
   const Q6K8 dec{static_cast<const int8_t*>(q6), static_cast<const __nv_bfloat16*>(s), D};
-  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
+  return byte_launch(dec, x, xq_out, xs_out, ws, out, x_bf16, out_bf16, M, D, F, group, grid,
+                     rows_per_block, rows_per_tile, stages, m_slice, smem, stream);
 }

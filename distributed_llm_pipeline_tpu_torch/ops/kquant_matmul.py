@@ -75,7 +75,7 @@ import torch
 
 from ..gguf.quants import (_fp16_field, _k4_scale_min, _q3k_unpack_scales, quant_q2_k,
                            quant_q3_k, quant_q4_k, quant_q5_k, quant_q6_k)
-from .quant_matmul import GROUP, QuantPack, _bf16, dequant_matmul_plain
+from .quant_matmul import QuantPack, _bf16, act_group, dequant_matmul_plain
 
 SUB4 = 32   # Q4_K / Q5_K sub-block length along D
 SUB6 = 16   # Q2_K / Q3_K / Q6_K sub-block length along D
@@ -99,9 +99,8 @@ class _FourBandPack(QuantPack):
         return per_sub.shape[0], SUB6 * per_sub.shape[1]
 
     def _act_group(self) -> int:
-        # the group must divide the band size D/4, so no group straddles a
-        # band (D % 256 == 0, so 32 always divides)
-        return GROUP if (self.shape[1] // 4) % GROUP == 0 else 32
+        # the group must divide the band size D/4 (D % 256 == 0, so 32 does)
+        return act_group(self.shape[1], 4)
 
 
 class Q6KPack(_FourBandPack):
@@ -152,7 +151,7 @@ class _TwoBandPack(QuantPack):
 
     def _act_group(self) -> int:
         # the group must divide the band size D/2 (D % 256 == 0, so 32 does)
-        return GROUP if (self.shape[1] // 2) % GROUP == 0 else SUB4
+        return act_group(self.shape[1], 2)
 
     def _low_nibbles(self) -> torch.Tensor:
         plane = self._buffers[self.fields[0]].view(torch.uint8)
@@ -194,7 +193,7 @@ class _BytePack(QuantPack):
 
     def _act_group(self) -> int:
         # a tp row shard's D is only a multiple of 32
-        return GROUP if self.shape[1] % GROUP == 0 else SUB4
+        return act_group(self.shape[1])
 
     def codes_and_scales(self) -> tuple[torch.Tensor, torch.Tensor]:
         return self._buffers[self.fields[0]], self._buffers[self.fields[1]]

@@ -22,8 +22,10 @@ them:
 - M ≤ ``W8A8_MAX_M`` (decode, short prompts, the head of one position):
   activations are quantized per (row × group) to int8 (``quantize_acts``,
   group 256 where D allows it, else 32), one int32 dot per 32-row sub-block,
-  times its scale, summed over the group, times the activation scale. The
-  kernel quantizes the activations itself, in its prologue.
+  times its scale, summed over the group, times the activation scale. A
+  small launch quantizes the activations into a workspace ahead of the
+  persistent GEMV (``gemv_plan``); at a D the GEMV does not take
+  (``gemv_takes``) the per-row kernel quantizes them in its prologue.
 - M > ``W8A8_MAX_M`` (prefill, mixed steps): the weight tile is dequantized
   in the activation dtype (``q · scale`` rounded to bf16 on the serving
   path) and multiplied with f32 accumulation. A pack kind without a
@@ -102,6 +104,14 @@ def route(kind: str, M: int) -> str | None:
     """The launch counter that a matmul of M rows against a ``kind`` pack
     moves on the card; None for ``dequant_linear``, which launches none."""
     return _NAMES[kind][M <= W8A8_MAX_M]
+
+
+def act_group(D: int, bands: int = 1) -> int:
+    """The W8A8 activation group of a pack of contraction D whose layout
+    pairs ``bands`` bands of D/bands rows in a byte (1 for one plane):
+    ``GROUP`` where it divides a band, else 32, so that no group straddles a
+    band. The packs' ``group`` and ``gemv_plan`` both take it from here."""
+    return GROUP if (D // bands) % GROUP == 0 else QBLOCK
 
 
 class QuantPack(nn.Module):
@@ -198,7 +208,7 @@ class Q8_0Pack(QuantPack):
         return tuple(self.qs.shape)
 
     def _act_group(self) -> int:
-        return GROUP if self.shape[1] % GROUP == 0 else QBLOCK
+        return act_group(self.shape[1])
 
     def codes_and_scales(self) -> tuple[torch.Tensor, torch.Tensor]:
         return self.qs, self.scale
@@ -475,12 +485,12 @@ def w8a8_matmul(x: torch.Tensor, pack: QuantPack, out_dtype: torch.dtype,
                 acts: tuple[torch.Tensor, torch.Tensor] | None = None
                 ) -> torch.Tensor:
     """The W8A8 CUDA kernel: x [M ≤ 32, D] (f32 or bf16) against a pack of
-    any kind in ``_NAMES`` → [M, F] in ``out_dtype``. The kernel quantizes x
-    per (row × ``pack.group``) in its prologue. ``acts``, int8 [M, D] and f32
-    [M, D/group] tensors, receive those activations when given (the check
-    that they equal ``quantize_acts``). The ``GEMV_KINDS`` take the
-    persistent GEMV, cut by ``gemv_plan``, x quantized first by its own
-    launch into a workspace; the others ``w8a8_kernel``."""
+    any kind in ``_NAMES`` → [M, F] in ``out_dtype``, x quantized per (row ×
+    ``pack.group``). ``acts``, int8 [M, D] and f32 [M, D/group] tensors,
+    receive those activations when given (the check that they equal
+    ``quantize_acts``). Where ``gemv_takes`` the kind and D, the persistent
+    GEMV, cut by ``gemv_plan``, x quantized first by its own launch into a
+    workspace; else ``w8a8_kernel``, which quantizes x in its prologue."""
     what = "w8a8_matmul"
     x = _check_x(x, pack, (torch.float32, torch.bfloat16), what, 1)
     M, D = x.shape
@@ -493,16 +503,20 @@ def w8a8_matmul(x: torch.Tensor, pack: QuantPack, out_dtype: torch.dtype,
         xq_ptr, xs_ptr = xq.data_ptr(), xs.data_ptr()
     ptrs = pack.kernel_ptrs(dev)
     out = torch.empty(M, Fo, dtype=out_dtype, device=dev)
-    ws, cut = None, ()
-    if pack.kind in GEMV_KINDS:
-        p = gemv_plan(pack.kind, M, D, Fo, sm_count(dev.index))
-        # the activations' images; held until both kernels are queued
-        ws = torch.empty(p.ws_bytes, dtype=torch.uint8, device=dev)
-        cut = (p.grid, p.rows_per_block, p.rows_per_tile, p.stages, p.m_slice, p.smem)
-    ws_ptr = () if ws is None else (ws.data_ptr(),)
-    fn = _entry("w8a8_matmul", f"dlp_w8a8_{pack.kind}", 4 + len(ptrs) + len(ws_ptr),
+    ws_arg, cut = (), ()
+    if pack.kind in GEMV_KINDS:   # its entry takes a workspace and the plan
+        ws, cut = None, (0,) * 6
+        # where gemv_takes refuses the shape (a byte-code pack's D % 256 !=
+        # 0), neither: the entry then runs w8a8_kernel
+        if gemv_takes(pack.kind, D):
+            p = gemv_plan(pack.kind, M, D, Fo, sm_count(dev.index))
+            # the activations' images; held until both kernels are queued
+            ws = torch.empty(p.ws_bytes, dtype=torch.uint8, device=dev)
+            cut = (p.grid, p.rows_per_block, p.rows_per_tile, p.stages, p.m_slice, p.smem)
+        ws_arg = (None if ws is None else ws.data_ptr(),)
+    fn = _entry("w8a8_matmul", f"dlp_w8a8_{pack.kind}", 4 + len(ptrs) + len(ws_arg),
                 6 + len(cut))
-    _launch(fn, dev, what, x.data_ptr(), *ptrs, out.data_ptr(), xq_ptr, xs_ptr, *ws_ptr,
+    _launch(fn, dev, what, x.data_ptr(), *ptrs, out.data_ptr(), xq_ptr, xs_ptr, *ws_arg,
             int(x.dtype == torch.bfloat16), _out_flag(out_dtype, what), M, D, Fo, group, *cut)
     launches[_NAMES[pack.kind][1]] += 1
     return out
@@ -511,16 +525,46 @@ def w8a8_matmul(x: torch.Tensor, pack: QuantPack, out_dtype: torch.dtype,
 # --------------------------------------------------------------------------
 # the persistent W8A8 GEMV's cut (csrc/w8a8_matmul.cu, gemv_kernel)
 
-GEMV_KINDS = ("q2_ks", "q5_ks")
 GEMV_WARPS = 8
 GEMV_SMEM_MAX = 232448   # a block's shared memory on the H100 (227 KB)
 GEMV_SM_SMEM = 233472    # an SM's (228 KB), of which the card keeps 1 KB a block
 GEMV_RING = 96 << 10     # the ring's bytes a block, about
 GEMV_MAX_STAGES = 8
-# kind: (bands, sub-block, each field's bytes a row as a divisor of D, the
-# register rows of x up to which a lane takes 4 rows of a tile, else 2): the
-# span view of csrc/quant_tile.cuh (its ROWS)
-_GEMV_PACKS = {"q2_ks": (4, 16, (4, 8, 8), 8), "q5_ks": (2, 32, (2, 8, 16, 16), 0)}
+
+
+class GemvPack(NamedTuple):
+    """A pack kind's span view (``csrc/quant_tile.cuh``) as the GEMV's cut
+    sees it: the bands its layout pairs in a byte (1: one plane of byte
+    codes; the activation group divides D/bands, ``act_group``), the rows a
+    scale, each field's bytes a row as a divisor of D, whether it has
+    offsets (the x image then holds -(float(S) · xs) per sub-block), and
+    the register rows of x up to which a lane takes 4 rows of a tile, else
+    2 (its ``ROWS``)."""
+    bands: int
+    sub: int
+    fields: tuple[int, ...]
+    affine: bool
+    four_rows_to: int = 0
+
+
+_GEMV_PACKS = {"q6_k": GemvPack(4, 16, (2, 4, 8), False),
+               "q5_ks": GemvPack(2, 32, (2, 8, 16, 16), True),
+               "q2_ks": GemvPack(4, 16, (4, 8, 8), True, 8),
+               "q8_0": GemvPack(1, 32, (1, 16), False),
+               "q4_k8": GemvPack(1, 32, (1, 16, 16), True),
+               "q5_k": GemvPack(1, 32, (1, 16, 16), True),
+               "q6_k8": GemvPack(1, 16, (1, 8), False)}
+GEMV_KINDS = tuple(_GEMV_PACKS)
+
+
+def gemv_takes(kind: str, D: int) -> bool:
+    """Whether ``w8a8_matmul`` runs the persistent GEMV for a ``kind`` pack
+    of contraction D, by shape alone: a GEMV kind with D a multiple of 256.
+    A byte-code pack of another D (a tp shard's D = 1056; Q8_0 at D =
+    2080), whose rows of scales are no multiple of 16 bytes and whose spans
+    of 64 columns do not tile D, runs ``w8a8_kernel``; the K-quant packs'
+    D is always such a multiple."""
+    return kind in _GEMV_PACKS and D % 256 == 0
 
 
 class GemvPlan(NamedTuple):
@@ -557,15 +601,16 @@ def gemv_lane_rows(kind: str, m_slice: int) -> int:
     """Rows of a tile one lane takes (the decoder's ``ROWS``): 4 where their
     codes and sums fit the registers beside ``gemv_mt(m_slice)`` rows of x,
     else 2."""
-    return 4 if gemv_mt(m_slice) <= _GEMV_PACKS[kind][3] else 2
+    return 4 if gemv_mt(m_slice) <= _GEMV_PACKS[kind].four_rows_to else 2
 
 
 def gemv_image(kind: str, D: int, group: int, m_slice: int) -> int:
     """The bytes of the GEMV's x region (one pass's image): xq, xs (rounded
-    up to 16 bytes) and -(float(S) · xs) of ``gemv_mt(m_slice)`` rows."""
-    mt = gemv_mt(m_slice)
+    up to 16 bytes) and, for an affine pack, -(float(S) · xs) of
+    ``gemv_mt(m_slice)`` rows."""
+    mt, pk = gemv_mt(m_slice), _GEMV_PACKS[kind]
     return (mt * D + -(-(mt * (D // group) * 4) // 16) * 16
-            + mt * (D // _GEMV_PACKS[kind][1]) * 4)
+            + (mt * (D // pk.sub) * 4 if pk.affine else 0))
 
 
 def gemv_smem(kind: str, D: int, group: int, rows_per_tile: int, stages: int,
@@ -573,7 +618,7 @@ def gemv_smem(kind: str, D: int, group: int, rows_per_tile: int, stages: int,
     """The shared memory bytes the GEMV takes (its ``gemv_layout``): the
     ring, the x region, the warps' sums of two tiles, one mbarrier a stage
     and one for x."""
-    row = sum(D // n for n in _GEMV_PACKS[kind][2])
+    row = sum(D // n for n in _GEMV_PACKS[kind].fields)
     return (stages * rows_per_tile * row + gemv_image(kind, D, group, m_slice)
             + 2 * GEMV_WARPS * gemv_lane_rows(kind, m_slice) * gemv_mt(m_slice) * 4
             + 8 * (stages + 1))
@@ -598,10 +643,10 @@ def gemv_plan(kind: str, M: int, D: int, F: int, sm_count: int) -> GemvPlan:
     if not 0 < M <= W8A8_MAX_M or F < 1 or D < 256 or D % 256 or sm_count < 1:
         raise ValueError(f"gemv_plan: M={M}, D={D}, F={F} (the GEMV takes M in "
                          f"1..{W8A8_MAX_M}, F >= 1 and D a multiple of 256)")
-    bands, _, fields, _ = _GEMV_PACKS[kind]
-    group = GROUP if (D // bands) % GROUP == 0 else 32
+    pk = _GEMV_PACKS[kind]
+    group = act_group(D, pk.bands)
     wpr = 1 << min(3, max(0, (D // 64 // 32).bit_length() - 1))
-    row = sum(D // n for n in fields)
+    row = sum(D // n for n in pk.fields)
 
     def cut(ms: int, per_sm: int) -> tuple[int, int, int, int] | None:
         """(rows_per_block, rows_per_tile, stages, smem) at ``ms`` rows of x

@@ -29,10 +29,13 @@ A kind with no fused-dequant kernel (Q2_KS, Q5_KS, Q3_KS, Q4_K8, Q6_K8), or
 any kind written ``<kind>:w8a8``, times its W8A8 kernel instead, at phase
 3's W8A8 cases: the projection pairs (a byte-code kind's tp = 2 shard pairs,
 its head at M <= 4) at M = 1, 4, 16, 32, the odd F and the activation-group-32
-edge at M = 3. Q5_KS and Q2_KS then print the W8A8 device time of a B = 4
-slot decode step of ``--quant q5_k`` (16 layers) and ``--quant q2_k`` (8
-layers, as phase 9 serves it) by these times: the layers' wq, wk, wv, wo,
-gate, up and down and the head, at M = 4.
+edge at M = 3, each line with the wrapper's host µs a call (``host_us``).
+Q5_KS, Q2_KS, Q8_0 and Q6_K then print the W8A8 device time of the decode
+step that serves them, by these times: a B = 4 slot step of ``--quant
+q5_k`` (16 layers), ``--quant q2_k`` (8 layers, as phase 9 serves it) and
+``--quant q8_0`` (16 layers), the layers' wq, wk, wv, wo, gate, up and
+down and the head at M = 4; and the one-stream step of the native Q6_K
+GGUF (16 layers at M = 1; its head is dense).
 
 With ``--ttft DIR``, it also serves ``chip_smoke.py``'s phase-7 and phase-8
 models (Llama-3.2-1B geometry, Q6_K and Q4_K_M GGUFs from the same seeds,
@@ -119,8 +122,10 @@ def main() -> int:
     return 0
 
 
-# the served layers of the slot decode steps whose W8A8 time is summed
-STEP_LAYERS = {"q5_ks": 16, "q2_ks": 8}
+# the served decode steps whose W8A8 time is summed: kind -> (layers, M,
+# whether the head is packed)
+STEPS = {"q5_ks": (16, 4, True), "q2_ks": (8, 4, True), "q8_0": (16, 4, True),
+         "q6_k": (16, 1, False)}
 
 
 def time_w8a8(cs, qm, kq, kind: str, gen, flush, card: str, label: str) -> None:
@@ -135,24 +140,29 @@ def time_w8a8(cs, qm, kq, kind: str, gen, flush, card: str, label: str) -> None:
             continue
         D = e["D"][kind] if isinstance(e["D"], dict) else e["D"]
         cases.append((e["name"], D, e["F"], 3))
-    at4, packs = {}, {}
+    at, packs = {}, {}
     for pair, D, F, M in cases:
         if pair not in packs:
             packs[pair] = cs.random_pack(qm, kq, kind, D, F, gen)
         pack = packs[pair]
         out_dtype = torch.float32 if pair == "head" else torch.bfloat16
         x = torch.randn(M, D, generator=gen, device="cuda").bfloat16()
+
+        def call():
+            return qm.w8a8_matmul(x, pack, out_dtype)
+
         row = {"label": label, "kind": kind, "route": "w8a8", "pair": pair, "M": M, "D": D,
-               "F": F, "ms": cs.event_ms(lambda: qm.w8a8_matmul(x, pack, out_dtype), 50, flush)}
+               "F": F, "ms": cs.event_ms(call, 50, flush), "host_us": cs.host_us(call)}
         print(json.dumps({**row, "card": card}), flush=True)
-        if M == 4:
-            at4[pair] = row["ms"]
-    if kind in STEP_LAYERS:
-        n = STEP_LAYERS[kind]
-        step = n * (2 * at4["wq_wo"] + 2 * at4["wk_wv"] + 2 * at4["gate_up"] + at4["down"])
-        print(json.dumps({"label": label, f"{kind}_decode_step_w8a8_ms": step + at4["head"],
-                          "of": f"{n} x (2 wq_wo + 2 wk_wv + 2 gate_up + down) + head at M = 4, "
-                                "cold L2", "card": card}), flush=True)
+        at[pair, M] = row["ms"]
+    if kind in STEPS:
+        n, M, head = STEPS[kind]
+        step = n * (2 * at["wq_wo", M] + 2 * at["wk_wv", M] + 2 * at["gate_up", M]
+                    + at["down", M]) + (at["head", M] if head else 0.0)
+        print(json.dumps({"label": label, f"{kind}_decode_step_w8a8_ms": step,
+                          "of": f"{n} x (2 wq_wo + 2 wk_wv + 2 gate_up + down)"
+                                f"{' + head' if head else ''} at M = {M}, cold L2",
+                          "card": card}), flush=True)
 
 
 def cases(cs, kind: str) -> list[tuple[str, int, int, tuple[int, ...]]]:
