@@ -31,7 +31,15 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    per-row lengths; x is drawn at 0.01 so that y is the attention half, and
    y is held to 4 bf16 ulp of its largest value, k_new / v_new to one; the
    served unfused attention half is held to the plain version too (4 ulp,
-   8 over W8A8's q8_0 weights) and timed beside it.
+   8 over W8A8's q8_0 weights) and timed beside it; each case relaunches
+   for the same bits and prints its plan (CTAs a kv head, CTAs, the
+   clusters the card holds at once), and any spill of the kernel's 18
+   instantiations fails the run. Four more cases at the largest batches
+   that fuse (f32 Llama-3.2-1B at 20 and 22 rows, f32 llama3-8b at 9, bf16
+   Llama-3.2-1B with q8_0 weights at 39), whose plans put the key tiles in
+   the ring's place, some with one-row ring tiles, are held to the plain
+   version (f32 within ``FUSED_F32_REL`` of the largest |value|) and
+   relaunched for the same bits.
    One JSON line per case: the max abs error and its tolerance, the
    kernel's (cold and warm L2), the plain version's and the library call's
    time, and the least time the card could take (bytes over 3.35 TB/s or
@@ -786,6 +794,23 @@ FUSED_KV_ULPS = 1  # k_new / v_new: one bf16 ulp of the largest |value|
 # RMSNorm makes h, and so everything after it, independent of x's scale, and
 # ulps of max|y| then measure what the kernel computes, not the residual
 FUSED_X_SCALE = 0.01
+# the cuts that fit no other way: the largest batches that fuse, where the
+# key tiles take the ring's place once its tiles are done (late_keys), the
+# ring down to one-row tiles for some; f32 rows at dtype "f32"
+FUSED_EDGE_CASES = [
+    dict(name="f32_b20_late_keys", preset="llama3.2-1b", B=20, dtype="f32", w="dense",
+         kv="f32"),
+    dict(name="f32_b22_int8_pool_row_tiles", preset="llama3.2-1b", B=22, dtype="f32",
+         w="dense", kv="q8_0"),
+    dict(name="f32_llama3_8b_b9_int8_pool", preset="llama3-8b", B=9, dtype="f32", w="dense",
+         kv="q8_0"),
+    dict(name="bf16_b39_q8_0_w_int8_pool_row_tiles", preset="llama3.2-1b", B=39,
+         dtype="bf16", w="q8_0", kv="q8_0"),
+]
+# an f32 case's y, k_new and v_new against the plain version, as a share of
+# their largest |value|: sums in other orders over D = 2048-4096 terms
+# (a few f32 ulp a sum); one key of 513 left out moves y by ~1e-3 of it
+FUSED_F32_REL = 1e-5
 # the served unfused half against the plain version: over q8_0 weights it
 # runs W8A8 (h and the attention output quantized to 127 levels a row) where
 # the plain version multiplies the dequantized weights (2.6 ulp of max|y| at
@@ -793,18 +818,19 @@ FUSED_X_SCALE = 0.01
 FUSED_SERVED_ULPS = {"dense": FUSED_Y_ULPS, "q8_0": 8}
 
 
-def fused_block(llama, qm, cfg, w: str, window: int, gen: torch.Generator):
+def fused_block(llama, qm, cfg, w: str, window: int, gen: torch.Generator,
+                dtype: torch.dtype = torch.bfloat16):
     """One block's attention leaves at ``cfg``'s widths, weights N(0, 0.02²)
-    and norm weights 1 + N(0, 0.1²) from ``gen``: the block the kernel runs
-    (q8_0 packs when ``w`` says so) and the dense block of the same weights
-    the plain version runs (for q8_0, each weight dequantized to bf16 as the
-    kernel dequantizes it)."""
+    and norm weights 1 + N(0, 0.1²) from ``gen`` in ``dtype``: the block the
+    kernel runs (q8_0 packs when ``w`` says so) and the dense block of the
+    same weights the plain version runs (for q8_0, each weight dequantized
+    to bf16 as the kernel dequantizes it)."""
     D, H, K, Hd = cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     leaves = {"attn_norm": (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
-                            ).bfloat16()}
+                            ).to(dtype)}
     for name, shape in (("wq", (H * Hd, D)), ("wk", (K * Hd, D)),
                         ("wv", (K * Hd, D)), ("wo", (D, H * Hd))):
-        leaves[name] = (0.02 * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
+        leaves[name] = (0.02 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
     if w == "dense":
         block = llama.Block(cfg, leaves, window)
         return block, block
@@ -906,9 +932,22 @@ def check_fused(fd, llama, qm, pa, kv_quantize, seed: int,
         if not unfused_err <= unfused_tol:
             fail(f"fused case {c['name']}: the served unfused half differs from the "
                  f"plain version by {unfused_err} > {unfused_tol}")
+        # the same bits again (no float atomics: the head sum is ordered)
+        again = kern()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"fused_decode_attn case {c['name']}: a relaunch gave other bits")
         bound_ms, bound_by = fused_bound(cfg, g, c["w"])
+        w_q8 = c["w"] == "q8_0"
+        plan = fd.fused_plan(c["B"], cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                             xin.element_size(), w_q8, g["quant"])
         row = {"case": c["name"], "kernel": "fused_decode_attn",
                "shape": {k: c[k] for k in c if k != "name"},
+               "plan": {"cluster": plan.cluster, "ctas": plan.ctas,
+                        "max_active_clusters": fd.max_active_clusters(
+                            plan, c["B"], cfg.dim, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.head_dim, xin.element_size(), w_q8, g["quant"]),
+                        **{k: v for k, v in plan._asdict().items()
+                           if k not in ("cluster", "ctas")}},
                "max_abs_err": errs[0], "tol": tols[0],
                "k_new_max_abs_err": errs[1], "k_new_tol": tols[1],
                "v_new_max_abs_err": errs[2], "v_new_tol": tols[2],
@@ -920,6 +959,67 @@ def check_fused(fd, llama, qm, pa, kv_quantize, seed: int,
                "plain_ms": event_ms(plain, 5, flush),
                "unfused_ms": event_ms(unfused, 20, flush),
                "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def check_fused_edges(fd, llama, qm, kv_quantize, seed: int) -> list[dict]:
+    """FUSED_EDGE_CASES, kernel against plain version at 512 cached tokens a
+    row, and a relaunch for the same bits; one JSON line a case with the
+    plan (no timing)."""
+    from distributed_llm_pipeline_tpu_torch.models import PRESETS
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    rows = []
+    for c in FUSED_EDGE_CASES:
+        cfg = PRESETS[c["preset"]]
+        dtype = torch.float32 if c["dtype"] == "f32" else torch.bfloat16
+        g = paged_geometry(dict(B=c["B"], T=1, lengths=[512] * c["B"], H=cfg.n_heads,
+                                K=cfg.n_kv_heads, Hd=cfg.head_dim, quant=c["kv"] == "q8_0"))
+        x = paged_inputs(g, gen)
+        kp, vp, tables, lengths = (x[k] for k in ("kp", "vp", "tables", "lengths"))
+        kp, vp = kp.to(dtype), vp.to(dtype)
+        ks = vs = None
+        if g["quant"]:
+            (kp, ks), (vp, vs) = kv_quantize(kp), kv_quantize(vp)
+        block, dense = fused_block(llama, qm, cfg, c["w"], 0, gen, dtype)
+        xin = (FUSED_X_SCALE * torch.randn(c["B"], cfg.dim, generator=gen,
+                                           device="cuda")).to(dtype)
+        cos, sin = (t[:, 0].contiguous() for t in
+                    llama.rope_freqs(cfg, lengths.long()[:, None]))
+        plan = fd.fused_plan(c["B"], cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                             xin.element_size(), c["w"] == "q8_0", g["quant"])
+        if not plan.late_keys:
+            fail(f"fused edge case {c['name']}: its plan keeps the key tiles apart: {plan}")
+
+        def kern():
+            return fd.fused_decode_attn(xin, block, cos, sin, kp, vp, tables, lengths,
+                                        k_scale=ks, v_scale=vs)
+
+        got = kern()
+        torch.cuda.synchronize()
+        pools = [t.clone() if t is not None else None for t in (kp, vp, ks, vs)]
+        want = fd.fused_decode_plain(xin, dense, cos, sin, pools[0], pools[1], tables,
+                                     lengths, k_scale=pools[2], v_scale=pools[3])
+        errs, tols = [], []
+        for name, a, b, ulps in zip(("y", "k_new", "v_new"), got, want,
+                                    (FUSED_Y_ULPS, FUSED_KV_ULPS, FUSED_KV_ULPS)):
+            err = (a.float() - b.float()).abs().max().item()
+            top = b.float().abs().max().item()
+            tol = FUSED_F32_REL * top if dtype == torch.float32 else ulps * bf16_ulp(top)
+            if not (err <= tol and torch.isfinite(a.float()).all()):
+                fail(f"fused_decode_attn edge case {c['name']}: {name} max abs err "
+                     f"{err} > {tol}")
+            errs.append(err)
+            tols.append(tol)
+        again = kern()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"fused_decode_attn edge case {c['name']}: a relaunch gave other bits")
+        row = {"case": c["name"], "kernel": "fused_decode_attn",
+               "shape": {k: c[k] for k in c if k != "name"}, "plan": plan._asdict(),
+               "max_abs_err": errs[0], "tol": tols[0], "k_new_max_abs_err": errs[1],
+               "v_new_max_abs_err": errs[2], "kv_tol": tols[1:]}
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -1239,11 +1339,14 @@ def check_gemm_identity(qm, kq, seed: int, card: str) -> list[dict]:
 
 def check_misaligned(qm, kq, seed: int) -> dict:
     """A contiguous view at a storage offset that is not a multiple of 16
-    bytes must raise ValueError from each quantized wrapper and from the
-    dense attention's (the kernels load x, q and the cache 16 bytes at a
-    time; a misaligned load would end the CUDA context), as must a pack
-    field so placed; the context stays usable."""
+    bytes must raise ValueError from each quantized wrapper, from the dense
+    attention's and from the fused decode step's (the kernels load x, q, the
+    cache and the weights 16 bytes at a time or by bulk copies; a misaligned
+    load would end the CUDA context), as must a pack field so placed; the
+    context stays usable."""
+    from distributed_llm_pipeline_tpu_torch.models import PRESETS, llama
     from distributed_llm_pipeline_tpu_torch.ops import flash_attention as fa
+    from distributed_llm_pipeline_tpu_torch.ops import fused_decode as fd
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     M, D, F = 64, 2048, 512
@@ -1274,6 +1377,17 @@ def check_misaligned(qm, kq, seed: int) -> dict:
     q = torch.empty(32 * 64 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(1, 1, 32, 64)
     kv = torch.zeros(1, 256, 8, 64, dtype=torch.bfloat16, device="cuda")
     calls["flash_attention"] = lambda: fa.flash_attention(q, kv, kv, 100, 4)
+    # the fused step over a pool view one element past a 16-byte boundary
+    cfg = PRESETS["llama3.2-1b"]
+    block, _ = fused_block(llama, qm, cfg, "dense", 0, gen)
+    fx = (FUSED_X_SCALE * torch.randn(4, cfg.dim, generator=gen, device="cuda")).bfloat16()
+    pool = torch.zeros(9, 64, cfg.n_kv_heads, cfg.head_dim, dtype=torch.bfloat16, device="cuda")
+    fargs = dict(tables=torch.arange(1, 9, dtype=torch.int32, device="cuda").view(4, 2),
+                 lengths=torch.full((4,), 100, dtype=torch.int32, device="cuda"))
+    fcos, fsin = (t[:, 0].contiguous() for t in llama.rope_freqs(
+        cfg, fargs["lengths"].long()[:, None]))
+    calls["fused_decode_attn, pool"] = lambda: fd.fused_decode_attn(
+        fx, block, fcos, fsin, off16(pool), pool, **fargs)
     out = {}
     for what, call in calls.items():
         try:
@@ -1287,7 +1401,9 @@ def check_misaligned(qm, kq, seed: int) -> dict:
     ok = (torch.equal(qm.dequant_matmul(xa, q4, torch.float32),
                       qm.dequant_matmul(xa, q4, torch.float32))
           and torch.equal(qm.int8_matmul(xa, i8, torch.float32),
-                          qm.int8_matmul(xa, i8, torch.float32)))
+                          qm.int8_matmul(xa, i8, torch.float32))
+          and torch.equal(fd.fused_decode_attn(fx, block, fcos, fsin, pool, pool, **fargs)[0],
+                          fd.fused_decode_attn(fx, block, fcos, fsin, pool, pool, **fargs)[0]))
     torch.cuda.synchronize()
     if not ok:
         fail("the CUDA context misbehaves after the misaligned calls")
@@ -2447,8 +2563,8 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
              "ms": timed["kernel_ms"], "plain_ms": timed["plain_ms"],
              "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
              "library_ms": timed["library_ms"], "timed_case": timed["case"]}
-    if header and header.endswith(SPAN_HEADER):
-        entry["plan"] = timed["plan"]   # the persistent GEMV's cut of that case
+    if (header and header.endswith(SPAN_HEADER)) or name == "fused_decode_attn":
+        entry["plan"] = timed["plan"]   # the GEMV's or the fused kernel's cut of that case
     return entry
 
 
@@ -2531,6 +2647,15 @@ def main() -> int:
     spilled = [f["function"] for f in gemv_ptxas if f.get("spill_stores", 0) > 0]
     if spilled or not gemv_ptxas:
         fail(f"the W8A8 GEMV spills registers or is missing: {spilled}")
+    # the fused decode step (one instantiation per head-dim bound, activation,
+    # weight and pool type) may not spill
+    fused_ptxas = ptxas_report({"fused_decode": built["fused_decode"]})["fused_decode"]
+    print(json.dumps({"ptxas": {"fused_decode": fused_ptxas}}), flush=True)
+    spilled = [f["function"] for f in fused_ptxas
+               if f.get("spill_stores", 0) > 0 or f.get("spill_loads", 0) > 0]
+    if spilled or len(fused_ptxas) != 18:
+        fail(f"the fused decode kernel spills registers or an instantiation is missing: "
+             f"{spilled}, {len(fused_ptxas)} instantiations")
 
     # 3. kernels against their plain versions
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")   # 256 MiB > L2
@@ -2551,6 +2676,7 @@ def main() -> int:
         "unfused_decode_hbm_bytes": fd.decode_hbm_bytes(cfg1b, 512, 4, fused=False)}),
         flush=True)
     fused_rows = check_fused(fd, llama, qm, pa, llama.kv_quantize, args.seed, flush)
+    check_fused_edges(fd, llama, qm, llama.kv_quantize, args.seed)
     quant_rows = check_quant(qm, kq, args.seed, flush, card)
     check_gemm_identity(qm, kq, args.seed, card)
     check_misaligned(qm, kq, args.seed)

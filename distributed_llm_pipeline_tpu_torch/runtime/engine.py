@@ -346,7 +346,8 @@ class Engine:
             wq = self.model.layers[0]._modules.get("wq")
             reason = fused_supported(
                 self.cfg, weight_kind=wq.kind if wq is not None else None,
-                batch=n_slots, act_bytes=torch.finfo(self.dtype).bits // 8)
+                batch=n_slots, act_bytes=torch.finfo(self.dtype).bits // 8,
+                kv_int8=self.kv_quant == "q8_0")
         if reason is not None:
             capabilities.check_reason(reason)
         active = reason is None
