@@ -12,7 +12,9 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    nvcc for sm_90a, one process per source, all started together. The
    split-KV kernels, the fused-dequant GEMM (``kgemm_kernel``), the int8
    GEMM (``int8_gemm_kernel``) and the persistent W8A8 GEMV
-   (``gemv_kernel``) print their ptxas reports and may not spill.
+   (``gemv_kernel``) print their ptxas reports and may not spill; the GEMV
+   has instantiations of every pack kind's decoder, and ``w8a8_kernel``
+   none of Q4_K's or Q3_KS's.
 3. Kernels: each kernel against its plain PyTorch version on the card, in
    bf16, at the main path's shapes and the contract's corner cases. For
    flash_attention: GQA and MHA, T=1 and T>1, per-row cache lengths, a
@@ -70,8 +72,9 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    Q5_K and Q8_0 GEMM's cases also print their split plan and grid and
    relaunch once with host syncs turned into errors, for the same bits, and
    so do the W8A8 cases of the persistent GEMV (``qm.gemv_takes``: Q6_K,
-   Q5_KS, Q2_KS, Q8_0 and the byte codes at D % 256 == 0; their other D, the
-   group-32 edges D = 2080 and 1056, run ``w8a8_kernel``), which print their
+   Q4_K, Q5_KS, Q2_KS, Q3_KS, Q8_0 and the byte codes at D % 256 == 0; the
+   byte codes' other D, the group-32 edges D = 2080 and 1056, and int8 run
+   ``w8a8_kernel``), which print their
    ``gemv_plan`` (grid, rows a block, tile, stages, rows of x a pass; the
    library refuses a launch whose shared memory is not the plan's); the
    int8 GEMM's cases (M > 4) print their plan, grid and tiling, must equal
@@ -120,12 +123,13 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    and ffn_down in Q6_K on the ``use_more_bits`` layers, the other
    projections in Q4_K, token_embd in Q6_K) served with
    ``Engine(quant="native")`` single-stream (its mixed attn_v and ffn_down
-   stacks load dense, as in the reference), and the bf16 GGUF with
-   ``Engine(quant="q5_k")`` on 4 slots, held and printed as phase 7. Q5_KS
-   forwards of M > 32 count their dequant + F.linear calls in place of a
-   kernel launch.
+   stacks load dense, as in the reference), and a bf16 GGUF of 8 of the
+   model's 16 layers (the widths unchanged: the cut keeps the whole run
+   under 900 s) with ``Engine(quant="q5_k")`` on 4 slots, held and printed
+   as phase 7. Q5_KS forwards of M > 32 count their dequant + F.linear
+   calls in place of a kernel launch.
 9. Serve int8, Q3_K and Q2_K, at 8 of the model's 16 layers (the widths
-   unchanged; the cut keeps the whole run near 900 s): a bf16 GGUF with
+   unchanged; the cut keeps the whole run under 900 s): a bf16 GGUF with
    ``Engine(quant="int8")``
    single-stream (the int8 kernel at every M: its GEMM at the 512 prefill
    bucket, the W8A8 route at decode), a Q3_K GGUF (projections in Q3_K,
@@ -149,7 +153,8 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    process of its own on this one card, its collectives on gloo through
    host memory. ``--mesh 2x2`` over the bf16 GGUF answers the phase-4
    requests through ChatServer; ``--mesh 1x2 --parallel 4 --quant q5_k``
-   the phase-5 requests (its mixed steps are 4 x 16 = 64 lanes:
+   over the 8-layer bf16 GGUF the phase-5 requests (its mixed steps are 4
+   x 16 = 64 lanes:
    q5_k_matmul; decode the q5_k W8A8 form); ``--mesh 1x2 --quant native``
    over the Q4_K_M GGUF (its Q4_K stacks as q4_k8 byte codes; its mixed
    attn_v / ffn_down stacks load dense) and over the Q6_K GGUF (q6_k8), one
@@ -165,7 +170,8 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    single-device engine's own chunked run. Requests generate 16 tokens
    here.
 12. The total wall time, the kernels line (one JSON object), the card line,
-   and last the ok line.
+   and last the ok line. Each phase, and each served path of phases 7-9
+   and 11, prints its seconds on a line of its own as it ends.
 """
 
 from __future__ import annotations
@@ -2553,6 +2559,12 @@ def mesh_ref(engine, seed: int, weights: str, card: str) -> list[dict]:
 SPLIT_HEADER, GEMM_HEADER = "paged_tile.cuh", "kquant_gemm.cuh"
 # the decoders' span view the persistent W8A8 GEMV reads (w8a8_matmul.cu)
 SPAN_HEADER = "quant_tile.cuh"
+# each GEMV pack kind's decoder (quant_tile.cuh) as it appears in the
+# mangled names of its gemv_kernel instantiations
+GEMV_DECODERS = {"q6_k": "dlp_quant3Q6KE", "q4_k": "dlp_quant3Q4KE",
+                 "q5_ks": "dlp_quant4Q5KSE", "q2_ks": "dlp_quant4Q2KSE",
+                 "q3_ks": "dlp_quant4Q3KSE", "q8_0": "ByteCodesILi32E",
+                 "q6_k8": "ByteCodesILi16E", "q4_k8, q5_k": "dlp_quant11AffineBytesE"}
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
@@ -2566,6 +2578,15 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
     if (header and header.endswith(SPAN_HEADER)) or name == "fused_decode_attn":
         entry["plan"] = timed["plan"]   # the GEMV's or the fused kernel's cut of that case
     return entry
+
+
+def phase_seconds(phase: str, since: float, t_start: float) -> float:
+    """Print, on a line of its own, the seconds a phase (or one path of it)
+    took and when it ended; returns now."""
+    now = time.monotonic()
+    print(json.dumps({"phase": phase, "seconds": round(now - since, 1),
+                      "ended_at_s": round(now - t_start, 1)}), flush=True)
+    return now
 
 
 def main() -> int:
@@ -2640,13 +2661,20 @@ def main() -> int:
     if spilled:
         fail(f"the int8 GEMM spills registers: {spilled}")
     # the persistent W8A8 GEMV (gemv_kernel, one instantiation per pack kind
-    # and register rows of x) may not spill
-    gemv_ptxas = [f for f in ptxas_report({"w8a8_matmul": built["w8a8_matmul"]})["w8a8_matmul"]
-                  if "gemv_kernel" in f["function"]]
+    # and register rows of x) may not spill; every GEMV decoder has its
+    # instantiations, and w8a8_kernel has none of the Q4_K and Q3_KS packs
+    w8a8_ptxas = ptxas_report({"w8a8_matmul": built["w8a8_matmul"]})["w8a8_matmul"]
+    gemv_ptxas = [f for f in w8a8_ptxas if "gemv_kernel" in f["function"]]
     print(json.dumps({"ptxas": {"w8a8_matmul gemv_kernel": gemv_ptxas}}), flush=True)
     spilled = [f["function"] for f in gemv_ptxas if f.get("spill_stores", 0) > 0]
-    if spilled or not gemv_ptxas:
-        fail(f"the W8A8 GEMV spills registers or is missing: {spilled}")
+    missing = [kind for kind, piece in GEMV_DECODERS.items()
+               if not any(piece in f["function"] for f in gemv_ptxas)]
+    if spilled or missing:
+        fail(f"the W8A8 GEMV spills registers or lacks a decoder: {spilled}, {missing}")
+    stale = [f["function"] for f in w8a8_ptxas if "w8a8_kernel" in f["function"]
+             and any(GEMV_DECODERS[k] in f["function"] for k in ("q4_k", "q3_ks"))]
+    if stale:
+        fail(f"w8a8_kernel still has Q4_K or Q3_KS instantiations: {stale}")
     # the fused decode step (one instantiation per head-dim bound, activation,
     # weight and pool type) may not spill
     fused_ptxas = ptxas_report({"fused_decode": built["fused_decode"]})["fused_decode"]
@@ -2656,6 +2684,8 @@ def main() -> int:
     if spilled or len(fused_ptxas) != 18:
         fail(f"the fused decode kernel spills registers or an instantiation is missing: "
              f"{spilled}, {len(fused_ptxas)} instantiations")
+
+    t_phase = phase_seconds("1-2", t_start, t_start)
 
     # 3. kernels against their plain versions
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")   # 256 MiB > L2
@@ -2683,6 +2713,7 @@ def main() -> int:
     del flush
     print(f"phase 3 done at {time.monotonic() - t_start:.0f}s: "
           f"{sum(map(len, quant_rows.values()))} quantized kernel cases held", flush=True)
+    t_phase = phase_seconds("3", t_phase, t_start)
 
     cfg = PRESETS["llama3.2-1b"]
     model_dir = ROOT / "build" / "chip_smoke"
@@ -2713,12 +2744,14 @@ def main() -> int:
         launches = serve_single(engine, requests, card, fa)
         print(json.dumps({"decode_step": profile_decode(engine), "card": card}),
               flush=True)
+        t_phase = phase_seconds("4", t_phase, t_start)
 
         # 5. the served path, four slots over the paged pool
         paged_launches = serve_slots(engine, pa, fa, cfg, card,
                                      args.seed)["paged_attention"]
         print(json.dumps({"paged_decode_step_b4": profile_paged_decode(engine),
                           "card": card}), flush=True)
+        t_phase = phase_seconds("5", t_phase, t_start)
 
         # 6. served logits: kernel against plain attention, paged against dense
         print(json.dumps({"logits": compare_logits(
@@ -2730,6 +2763,7 @@ def main() -> int:
         refs = {"bf16": mesh_ref(engine, args.seed, "bf16", card)}
         del engine
         torch.cuda.empty_cache()
+        t_phase = phase_seconds("6", t_phase, t_start)
 
         # 7. serve quantized: the paper's demo (a Q6_K GGUF, one stream) and
         # --quant q8_0 --parallel 4; 8. Q4_K_M native, one stream, and
@@ -2737,40 +2771,46 @@ def main() -> int:
         # one stream, and --quant q2_k --parallel 4. The bf16 GGUF goes once
         # q2_k has packed it
         quant_launches = {}
-        # phase 9 runs at 8 of the 16 layers (widths unchanged) so that the
-        # whole run, phase 11's mesh included, stays near 900 s
+        # phase 9, and the --quant q5_k slots of phases 8 and 11 (the slowest
+        # paths: the device's Q5_K packing and the mesh's 64-lane mixed
+        # steps), run at 8 of the 16 layers (widths unchanged) so that the
+        # whole run stays under 900 s
         cfg9 = cfg.replace(n_layers=8)
         write_model(path9, cfg9, args.seed)
         for phase, pcfg, qpath, wtype, seed, runs in (
                 (7, cfg, q6_path, GGMLType.Q6_K, args.seed + 1,
-                 (("native", q6_path, False), ("q8_0", path, True))),
+                 (("native", q6_path, cfg, False), ("q8_0", path, cfg, True))),
                 (8, cfg, q4_path, q4_k_m_types(cfg.n_layers), args.seed + 2,
-                 (("native", q4_path, False), ("q5_k", path, True))),
+                 (("native", q4_path, cfg, False), ("q5_k", path9, cfg9, True))),
                 (9, cfg9, q3_path, q3_k_types, args.seed + 3,
-                 (("int8", path9, False), ("native", q3_path, False),
-                  ("q2_k", path9, True)))):
+                 (("int8", path9, cfg9, False), ("native", q3_path, cfg9, False),
+                  ("q2_k", path9, cfg9, True)))):
             t0 = time.monotonic()
             write_model(qpath, pcfg, seed, wtype=wtype)
             print(f"phase {phase} at {time.monotonic() - t_start:.0f}s: wrote {qpath.name}: "
                   f"{qpath.stat().st_size / 2**30:.2f} GiB in {time.monotonic() - t0:.1f}s "
                   f"(encoded on the host)", flush=True)
-            for quant, gguf, slots in runs:
+            for quant, gguf, rcfg, slots in runs:
+                t_run = time.monotonic()
                 # phase 11 serves the Q6_K and Q4_K_M GGUFs again
                 qengine = load_quant_engine(Engine, gguf, quant, card,
                                             unlink=gguf not in (path, path9, q6_path, q4_path))
                 quant_launches.update(serve_quant(qengine, slots, requests, fa, pa, qm,
-                                                  llama, pcfg, card, args.seed))
+                                                  llama, rcfg, card, args.seed))
                 ref = {(7, "native"): "q6_k", (8, "native"): "q4_k_m",
                        (8, "q5_k"): "q5_k"}.get((phase, quant))
                 if ref:
                     refs[ref] = mesh_ref(qengine, args.seed, ref, card)
                 del qengine
                 torch.cuda.empty_cache()
+                phase_seconds(f"{phase} {quant} {gguf.name}", t_run, t_start)
+            t_phase = phase_seconds(str(phase), t_phase, t_start)
 
         # 10. --kv-quant q8_0, the fused decode step and latent KV
         print(f"phase 10 at {time.monotonic() - t_start:.0f}s", flush=True)
         served10 = serve_kv_modes(Engine, path, requests, fa, pa, la, fd, qm, llama,
                                   cfg, card, args.seed)
+        t_phase = phase_seconds("10", t_phase, t_start)
 
         # 11. the mesh: --mesh 2x2 over the bf16 GGUF, --mesh 1x2 --parallel 4
         # --quant q5_k, and --mesh 1x2 --quant native over the Q4_K_M and
@@ -2787,9 +2827,10 @@ def main() -> int:
         problems = []
         for spec, gguf, quant, key, slots, tol in (
                 ("2x2", path, None, "bf16", False, MESH_LOGIT_TOL),
-                ("1x2", path, "q5_k", "q5_k", True, QUANT_LOGIT_TOL),
+                ("1x2", path9, "q5_k", "q5_k", True, QUANT_LOGIT_TOL),
                 ("1x2", q4_path, "native", "q4_k_m", False, QUANT_LOGIT_TOL),
                 ("1x2", q6_path, "native", "q6_k", False, QUANT_LOGIT_TOL)):
+            t_run = time.monotonic()
             got, problem = serve_mesh(
                 ShardedEngine, MeshSpec, gguf, spec, quant,
                 shorter(slot_requests(args.seed) if slots else requests),
@@ -2797,9 +2838,11 @@ def main() -> int:
             for k, v in got.items():
                 mesh_launches[k] = mesh_launches.get(k, 0) + v
             problems += [problem] if problem else []
+            phase_seconds(f"11 {spec} {quant} {gguf.name}", t_run, t_start)
         if problems:
             fail("; ".join(problems))
         print(json.dumps({"mesh_launches": mesh_launches, "card": card}), flush=True)
+        phase_seconds("11", t_phase, t_start)
     finally:
         for p in (path, path9, q6_path, q4_path, q3_path):
             p.unlink(missing_ok=True)

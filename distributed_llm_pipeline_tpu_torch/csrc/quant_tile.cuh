@@ -4,41 +4,41 @@
 // meshes, of ops/quant_matmul.py and ops/kquant_matmul.py, laid out
 // out-features-major, [F, .].
 //
-// A decoder of w8a8_kernel (int8, Q4_K, Q3_KS, and the byte codes at a D
-// the GEMV does not take) maps (output row f, logical contraction row d0, a
-// multiple of 16) to the 16 int8 codes of rows d0 .. d0+15, written to
-// w[0..3] as four 32-bit words of four bytes in row order (signed for Q8_0,
-// int8, Q6_K8 and Q3_KS, unsigned and below 128 for Q4_K, Q4_K8 and Q5_K,
-// so all read as signed bytes), and to the scale those rows share (bf16,
-// f32 for int8). The weight is code * scale, less the bf16 offset of the
-// sub-block for an affine decoder (AFFINE, offset_at). Each kernel takes a
-// decoder as a template argument, so one kernel body serves every format.
+// A decoder of w8a8_kernel (int8, and the byte codes at a D the GEMV does
+// not take) maps (output row f, logical contraction row d0, a multiple of
+// 16) to the 16 int8 codes of rows d0 .. d0+15, written to w[0..3] as four
+// 32-bit words of four bytes in row order (signed for Q8_0, int8 and
+// Q6_K8, unsigned and below 128 for Q4_K8 and Q5_K, so all read as signed
+// bytes), and to the scale those rows share (bf16, f32 for int8). The
+// weight is code * scale, less the bf16 offset of the sub-block for an
+// affine decoder (AFFINE, offset_at). Each kernel takes a decoder as a
+// template argument, so one kernel body serves every format.
 //
-// The Q6_K, Q5_KS and Q2_KS decoders, and the byte-code decoders beside
-// their w8a8_kernel view, give the span view of the persistent GEMV
+// Every decoder but int8's gives the span view of the persistent GEMV
 // (w8a8_matmul.cu, gemv_kernel), which stages whole rows of the pack in
 // shared memory and reads each packed byte once for all its bands. A span
 // is 64 logical rows in BANDS sub-blocks ("bands") of 64 / BANDS rows, each
 // CH 16-byte chunks of codes, so a row has D / 64 spans. Where the pack
-// interleaves bands (Q6_K, Q5_KS, Q2_KS), span s holds the packed positions
-// [s * 64 / BANDS, (s + 1) * 64 / BANDS) of every band: band k is the
-// sub-block from column k * D / BANDS + s * 64 / BANDS on (its scale and
-// offset at index k * D / 64 + s). A byte-code pack (one plane) has no
-// bands: span s is the columns [64 s, 64 s + 64), band k the sub-block from
-// 64 s + k * SUB. `col` gives that column map. The decoder names its fields
-// (FIELDS, field, field_bytes: the bytes one row of the pack holds in each,
-// [F, .] each, so the fields of a run of rows are contiguous), loads span s
-// of a staged row into registers once (span_bytes: every byte of the span,
-// all bands), and decodes band k's codes from those registers (band_codes)
-// and reads its scale and offset (band_scale). A lane takes the span's four
-// chunks in the order j ^ h, h = order(lane): its band k is then the
-// sub-block k ^ (h / CH), chunk c of it the codes of the x columns at 16 *
-// (c ^ (h % CH)) from the sub-block's column, so that the 16-byte loads of
-// a quarter warp fall in distinct banks (Q5_KS's lanes 32 bytes apart swap
-// their two chunks by one lane bit, the byte codes' lanes 64 bytes apart
-// permute four by two; Q6_K's and Q2_KS's lanes 16 bytes apart keep their
-// order). ROWS(MT) is the rows of a tile one lane takes at MT register rows
-// of x: each load of x serves that many rows, as the registers allow
+// interleaves bands (Q6_K, Q4_K, Q5_KS, Q2_KS, Q3_KS), span s holds the
+// packed positions [s * 64 / BANDS, (s + 1) * 64 / BANDS) of every band:
+// band k is the sub-block from column k * D / BANDS + s * 64 / BANDS on (its
+// scale and offset at index k * D / 64 + s). A byte-code pack (one plane)
+// has no bands: span s is the columns [64 s, 64 s + 64), band k the
+// sub-block from 64 s + k * SUB. `col` gives that column map. The decoder
+// names its fields (FIELDS, field, field_bytes: the bytes one row of the
+// pack holds in each, [F, .] each, so the fields of a run of rows are
+// contiguous), loads span s of a staged row into registers once
+// (span_bytes: every byte of the span, all bands), and decodes band k's
+// codes from those registers (band_codes) and reads its scale and offset
+// (band_scale). A lane takes the span's four chunks in the order j ^ h, h =
+// order(lane): its band k is then the sub-block k ^ (h / CH), chunk c of it
+// the codes of the x columns at 16 * (c ^ (h % CH)) from the sub-block's
+// column, so that the 16-byte loads of a quarter warp fall in distinct
+// banks (Q4_K's and Q5_KS's lanes 32 bytes apart swap their two chunks by
+// one lane bit, the byte codes' lanes 64 bytes apart permute four by two;
+// Q6_K's, Q2_KS's and Q3_KS's lanes 16 bytes apart keep their order).
+// ROWS(MT) is the rows of a tile one lane takes at MT register rows of x:
+// each load of x serves that many rows, as the registers allow
 // (ops/quant_matmul.py `gemv_lane_rows` mirrors it).
 
 #pragma once
@@ -233,19 +233,50 @@ struct Q4K {
   const __nv_bfloat16* b;
   int D;
 
-  __device__ __forceinline__ void codes16(int f, int d0, int* w) const {
-    const int D2 = D / 2, sh = (d0 / D2) * 4;
-    const int4 v = *reinterpret_cast<const int4*>(qs + size_t(f) * D2 + d0 % D2);
-    w[0] = int((unsigned(v.x) >> sh) & 0x0F0F0F0Fu);
-    w[1] = int((unsigned(v.y) >> sh) & 0x0F0F0F0Fu);
-    w[2] = int((unsigned(v.z) >> sh) & 0x0F0F0F0Fu);
-    w[3] = int((unsigned(v.w) >> sh) & 0x0F0F0F0Fu);
+  // the span view: 32 packed positions, one 32-row sub-block of each band
+  // (the low and the high nibble), from 32 bytes of qs: Q5KS's layout
+  // without its fifth-bit plane
+  static constexpr int BANDS = 2, CH = 2;
+  static constexpr int FIELDS = 3;  // qs, a, b
+  __host__ __device__ static constexpr int ROWS(int /*MT*/) { return 2; }
+  __host__ __device__ static constexpr int field_bytes(int i, int D) {
+    return i == 0 ? D / 2 : D / 16;
   }
-  __device__ __forceinline__ float scale_at(int f, int d0) const {
-    return __bfloat162float(a[size_t(f) * (D / SUB) + d0 / SUB]);
+  __host__ __device__ const void* field(int i) const {
+    return i == 0 ? static_cast<const void*>(qs)
+           : i == 1 ? static_cast<const void*>(a)
+                    : static_cast<const void*>(b);
   }
-  __device__ __forceinline__ float offset_at(int f, int d0) const {
-    return __bfloat162float(b[size_t(f) * (D / SUB) + d0 / SUB]);
+  __device__ __forceinline__ static int col(int s, int k, int D) { return k * (D / 2) + 32 * s; }
+  // lanes 32 bytes apart: lane bit 2 orders the two chunks (as Q5KS)
+  __device__ __forceinline__ static int order(int lane) { return (lane >> 2) & 1; }
+  struct Span {
+    int4 va, vb;  // the qs chunks at 16h and 16(1 - h)
+  };
+  __device__ __forceinline__ static Span span_bytes(const uint8_t* st, int /*rows*/, int r, int D,
+                                                    int s, int h) {
+    const uint8_t* n = st + size_t(r) * (D / 2) + 32 * s;
+    return {*reinterpret_cast<const int4*>(n + 16 * h),
+            *reinterpret_cast<const int4*>(n + 16 * (h ^ 1))};
+  }
+  // band k's 32 codes, chunk by chunk: the nibble at 4k of each byte
+  __device__ __forceinline__ static void band_codes(const Span& sp, int k, int* w) {
+    const int sh = 4 * k;
+    w[0] = int((unsigned(sp.va.x) >> sh) & 0x0F0F0F0Fu);
+    w[1] = int((unsigned(sp.va.y) >> sh) & 0x0F0F0F0Fu);
+    w[2] = int((unsigned(sp.va.z) >> sh) & 0x0F0F0F0Fu);
+    w[3] = int((unsigned(sp.va.w) >> sh) & 0x0F0F0F0Fu);
+    w[4] = int((unsigned(sp.vb.x) >> sh) & 0x0F0F0F0Fu);
+    w[5] = int((unsigned(sp.vb.y) >> sh) & 0x0F0F0F0Fu);
+    w[6] = int((unsigned(sp.vb.z) >> sh) & 0x0F0F0F0Fu);
+    w[7] = int((unsigned(sp.vb.w) >> sh) & 0x0F0F0F0Fu);
+  }
+  __device__ __forceinline__ static void band_scale(const uint8_t* st, int rows, int r, int D,
+                                                    int s, int k, float& sc, float& off) {
+    const __nv_bfloat16* ar =
+        reinterpret_cast<const __nv_bfloat16*>(st + size_t(rows) * (D / 2)) + size_t(r) * (D / 32);
+    sc = __bfloat162float(ar[k * (D / 64) + s]);
+    off = __bfloat162float(ar[size_t(rows) * (D / 32) + k * (D / 64) + s]);
   }
 };
 
@@ -384,18 +415,45 @@ struct Q3KS {
     const unsigned hi = ((bits * 0x00204081u) & 0x01010101u) << 2;
     return int(__vsub4(lo | hi, 0x04040404u));
   }
-  __device__ __forceinline__ void codes16(int f, int d0, int* w) const {
-    const int D4 = D / 4, r = d0 % D4, sh = 2 * (d0 / D4);
-    const int4 l = *reinterpret_cast<const int4*>(q3l + size_t(f) * D4 + r);
-    // bytes r/2 .. r/2 + 7 of the bit plane: rows r .. r + 15 of the band
-    const uint2 h = *reinterpret_cast<const uint2*>(q3h + size_t(f) * (D / 8) + r / 2);
-    w[0] = decode4(unsigned(l.x), h.x, sh);
-    w[1] = decode4(unsigned(l.y), h.x >> 16, sh);
-    w[2] = decode4(unsigned(l.z), h.y, sh);
-    w[3] = decode4(unsigned(l.w), h.y >> 16, sh);
+  // the span view: 16 packed positions, one 16-row sub-block of each of the
+  // four bands, from 16 bytes of q3l (Q2KS's plane) and the 8 bytes of q3h
+  // that hold their third bits: each byte read once for all its bands
+  static constexpr int BANDS = 4, CH = 1;
+  static constexpr int FIELDS = 3;  // q3l, q3h, s
+  __host__ __device__ static constexpr int ROWS(int MT) { return MT <= 8 ? 4 : 2; }
+  __host__ __device__ static constexpr int field_bytes(int i, int D) {
+    return i == 0 ? D / 4 : D / 8;
   }
-  __device__ __forceinline__ float scale_at(int f, int d0) const {
-    return __bfloat162float(s[size_t(f) * (D / SUB) + d0 / SUB]);
+  __host__ __device__ const void* field(int i) const {
+    return i == 0 ? static_cast<const void*>(q3l)
+           : i == 1 ? static_cast<const void*>(q3h)
+                    : static_cast<const void*>(s);
+  }
+  __device__ __forceinline__ static int col(int s, int k, int D) { return k * (D / 4) + 16 * s; }
+  __device__ __forceinline__ static int order(int /*lane*/) { return 0; }
+  struct Span {
+    int4 l;   // rows r .. r + 15 of every band, two bits each
+    uint2 h;  // their third bits: two rows of every band a byte
+  };
+  __device__ __forceinline__ static Span span_bytes(const uint8_t* st, int rows, int r, int D,
+                                                    int s, int /*h*/) {
+    return {*reinterpret_cast<const int4*>(st + size_t(r) * (D / 4) + 16 * s),
+            *reinterpret_cast<const uint2*>(st + size_t(rows) * (D / 4) + size_t(r) * (D / 8) +
+                                            8 * s)};
+  }
+  // band k's 16 codes: word i's third bits are q3h bytes 2i and 2i + 1
+  __device__ __forceinline__ static void band_codes(const Span& sp, int k, int* w) {
+    w[0] = decode4(unsigned(sp.l.x), sp.h.x, 2 * k);
+    w[1] = decode4(unsigned(sp.l.y), sp.h.x >> 16, 2 * k);
+    w[2] = decode4(unsigned(sp.l.z), sp.h.y, 2 * k);
+    w[3] = decode4(unsigned(sp.l.w), sp.h.y >> 16, 2 * k);
+  }
+  __device__ __forceinline__ static void band_scale(const uint8_t* st, int rows, int r, int D,
+                                                    int s, int k, float& sc, float& off) {
+    const __nv_bfloat16* sr = reinterpret_cast<const __nv_bfloat16*>(
+                                  st + size_t(rows) * (D / 4 + D / 8)) + size_t(r) * (D / 16);
+    sc = __bfloat162float(sr[k * (D / 64) + s]);
+    off = 0.f;
   }
 };
 

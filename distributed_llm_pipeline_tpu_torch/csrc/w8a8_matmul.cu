@@ -30,14 +30,15 @@
 //
 // Two kernels serve the contract.
 //
-// gemv_kernel, the persistent GEMV, serves the Q6_K, Q5_KS, Q2_KS and Q8_0
-// packs and the byte codes Q4_K8, Q5_K and Q6_K8 (every entry but int8,
-// q4_k and q3_ks; a byte-code pack only at D % 256 == 0, below). What
+// gemv_kernel, the persistent GEMV, serves the Q6_K, Q4_K, Q5_KS, Q2_KS,
+// Q3_KS and Q8_0 packs and the byte codes Q4_K8, Q5_K and Q6_K8 (every
+// entry but int8; a byte-code pack only at D % 256 == 0, below). What
 // bounds it: a decode step's projection is a GEMV over the weight bytes,
-// 0.5 B a weight for Q2_KS, 0.75 for Q5_KS, 0.875 for Q6_K, 1.0625 for Q8_0
-// and Q6_K8 and 1.125 for Q4_K8 and Q5_K with their bf16 scales and offsets
-// (Llama-3.2-1B's gate_up, 2048 x 8192: 8.4 to 18.9 MB, 2.5 to 5.6 us at
-// 3.35 TB/s), with M <= 32 rows of x reused against each code. So the design
+// 0.5 B a weight for Q2_KS and Q3_KS, 0.625 for Q4_K, 0.75 for Q5_KS,
+// 0.875 for Q6_K, 1.0625 for Q8_0 and Q6_K8 and 1.125 for Q4_K8 and Q5_K
+// with their bf16 scales and offsets (Llama-3.2-1B's gate_up, 2048 x 8192:
+// 8.4 to 18.9 MB, 2.5 to 5.6 us at 3.35 TB/s), with M <= 32 rows of x
+// reused against each code. So the design
 // moves each weight byte once, keeps enough of them in flight, and spends
 // per code only what grows with M:
 //
@@ -64,18 +65,23 @@
 //   closing barrier).
 // - Each packed byte read once for all its bands (quant_tile.cuh, the span
 //   view): a lane takes a span (64 weights) of ROWS rows of the tile: 16
-//   bytes of q2l a row (four 16-row sub-blocks, one a band), 32 of q5n and
-//   8 of q5h (one 32-row sub-block of each of the two bands), 32 of ql and
-//   16 of qh (Q6_K: one 16-row sub-block of each of four bands), or 64
-//   codes of a byte-code pack (two or four sub-blocks of one plane). It
+//   bytes of q2l a row (four 16-row sub-blocks, one a band), 16 of q3l and
+//   8 of q3h (Q3_KS: the same four, with their third bits), 32 of qs (Q4_K:
+//   one 32-row sub-block of each of the two bands), 32 of q5n and 8 of q5h
+//   (Q5_KS: the same two), 32 of ql and 16 of qh (Q6_K: one 16-row
+//   sub-block of each of four bands), or 64 codes of a byte-code pack (two
+//   or four sub-blocks of one plane). It
 //   holds those bytes in registers and decodes each sub-block's codes from
 //   them, then runs dp4a against the sub-block's columns of xq: 16-byte
 //   shared loads with neighbouring lanes on neighbouring spans, the chunks
 //   of a span taken in an order swizzled by lane bits where lanes lie 32 or
-//   64 bytes apart (Q5_KS, the byte codes), so a quarter warp hits distinct
-//   banks; each load serves the lane's ROWS rows. The shared loads of x,
-//   not the dp4a, set the pace at M >= 4: ROWS is 4 for Q2_KS (2 past 8
-//   rows of x, for the registers) and 2 for the others.
+//   64 bytes apart (Q4_K, Q5_KS, the byte codes), so a quarter warp hits
+//   distinct banks; each load serves the lane's ROWS rows. The shared loads
+//   of x, not the dp4a, set the pace at M >= 4: ROWS is 4 for Q2_KS and
+//   Q3_KS (2 past 8 rows of x, for the registers) and 2 for the others
+//   (Q4_K at 4 rows up to 4 rows of x: 0.91-0.98x the time on gate_up,
+//   down and the head, 1.02-1.13x on wq_wo and wk_wv, a served step within
+//   2%; 2 rows also fit the ring at every D: PERF.md).
 // - Per-row accumulators, no per-sub-block shuffle: each sub-block's term
 //   goes straight into the lane's f32 accumulator of (row, m): float(P)
 //   from the bits 0x4B400000 + P (the dot's initial value) less 1.5 * 2^23,
@@ -92,23 +98,19 @@
 //   bf16 ulp holds both (chip_smoke.py), and tests/test_torch_w8a8_gemv.py
 //   holds a mirror of this order against the JAX kernels.
 //
-// w8a8_kernel serves the Q4_K and Q3_KS packs, int8 (at M <= 4) and a
-// byte-code pack whose D is no multiple of 256 (a tp shard's edge; the host
-// routes by shape). One warp owns one output row f; lane j takes sub-block
-// s0 + j of the chunk, decodes its codes into registers (quant_tile.cuh)
-// and runs SUB/4 dp4a per activation row. The group sum over the
-// sub-blocks of one group is a butterfly over the group's adjacent lanes;
-// each group's sum times xs goes into a per-lane f32 accumulator, summed
-// across the warp at the end. Each block (8 warps, 8 output rows) quantizes
-// x itself, 1024 columns at a time into shared memory: no separate launch
-// per projection, at the price of re-reading x from L2 once per block
-// (cheap at decode's M, dominant at M = 32 against narrow F). For an affine
-// pack the prologue also stores each row's sums S over every SUB columns
-// (dp4a against ones), and each lane subtracts its sub-block's offset term.
-// The bands of a packed byte (two for Q4_K, four for Q3_KS) are walked one
-// after the other, so each packed byte is read once per band, after the
-// first time from L1 or L2. The gemv_kernel body takes any decoder with a
-// span view: these kinds can move onto it, each in its own change.
+// w8a8_kernel serves int8 (at M <= 4) and a byte-code pack whose D is no
+// multiple of 256 (a tp shard's edge; the host routes by shape). One warp
+// owns one output row f; lane j takes sub-block s0 + j of the chunk, loads
+// its 16-byte codes into registers (quant_tile.cuh) and runs SUB/4 dp4a per
+// activation row. The group sum over the sub-blocks of one group is a
+// butterfly over the group's adjacent lanes; each group's sum times xs goes
+// into a per-lane f32 accumulator, summed across the warp at the end. Each
+// block (8 warps, 8 output rows) quantizes x itself, 1024 columns at a time
+// into shared memory: no separate launch per projection, at the price of
+// re-reading x from L2 once per block (cheap at decode's M, dominant at M =
+// 32 against narrow F). For an affine pack the prologue also stores each
+// row's sums S over every SUB columns (dp4a against ones), and each lane
+// subtracts its sub-block's offset term.
 
 #include <type_traits>
 
@@ -258,7 +260,7 @@ int launch(const Dec& dec, const void* x, int8_t* xq_out, float* xs_out, void* o
 }
 
 // ---------------------------------------------------------------------------
-// the persistent GEMV (Q6_K, Q5_KS, Q2_KS, Q8_0 and the byte codes)
+// the persistent GEMV (every pack but int8)
 
 using dlp_kgemm::mbar_arrive_tx;
 using dlp_kgemm::mbar_init;
@@ -660,22 +662,6 @@ extern "C" int dlp_w8a8_int8(const void* x, const void* qs, const void* gs, void
   return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
 }
 
-extern "C" int dlp_w8a8_q4_k(const void* x, const void* qs, const void* a, const void* b,
-                             void* out, int8_t* xq_out, float* xs_out, int x_bf16, int out_bf16,
-                             int M, int D, int F, int group, void* stream) {
-  const Q4K dec{static_cast<const int8_t*>(qs), static_cast<const __nv_bfloat16*>(a),
-                static_cast<const __nv_bfloat16*>(b), D};
-  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
-}
-
-extern "C" int dlp_w8a8_q3_ks(const void* x, const void* q3l, const void* q3h, const void* s,
-                              void* out, int8_t* xq_out, float* xs_out, int x_bf16,
-                              int out_bf16, int M, int D, int F, int group, void* stream) {
-  const Q3KS dec{static_cast<const int8_t*>(q3l), static_cast<const int8_t*>(q3h),
-                 static_cast<const __nv_bfloat16*>(s), D};
-  return launch(dec, x, xq_out, xs_out, out, x_bf16, out_bf16, M, D, F, group, stream);
-}
-
 // The persistent GEMV's entries take a workspace for the activations'
 // images (ws, gemv_plan's ws_bytes; null only for a byte-code pack at a D
 // the GEMV does not take, above) and the host's plan (ops/quant_matmul.py gemv_plan)
@@ -700,6 +686,28 @@ extern "C" int dlp_w8a8_q2_ks(const void* x, const void* q2l, const void* a, con
                               int smem, void* stream) {
   const Q2KS dec{static_cast<const int8_t*>(q2l), static_cast<const __nv_bfloat16*>(a),
                  static_cast<const __nv_bfloat16*>(b), D};
+  return gemv_launch(dec, x, xq_out, xs_out, ws, out, x_bf16, out_bf16, M, D, F, group, grid,
+                     rows_per_block, rows_per_tile, stages, m_slice, smem, stream);
+}
+
+extern "C" int dlp_w8a8_q4_k(const void* x, const void* qs, const void* a, const void* b,
+                             void* out, int8_t* xq_out, float* xs_out, void* ws, int x_bf16,
+                             int out_bf16, int M, int D, int F, int group, int grid,
+                             int rows_per_block, int rows_per_tile, int stages, int m_slice,
+                             int smem, void* stream) {
+  const Q4K dec{static_cast<const int8_t*>(qs), static_cast<const __nv_bfloat16*>(a),
+                static_cast<const __nv_bfloat16*>(b), D};
+  return gemv_launch(dec, x, xq_out, xs_out, ws, out, x_bf16, out_bf16, M, D, F, group, grid,
+                     rows_per_block, rows_per_tile, stages, m_slice, smem, stream);
+}
+
+extern "C" int dlp_w8a8_q3_ks(const void* x, const void* q3l, const void* q3h, const void* s,
+                              void* out, int8_t* xq_out, float* xs_out, void* ws, int x_bf16,
+                              int out_bf16, int M, int D, int F, int group, int grid,
+                              int rows_per_block, int rows_per_tile, int stages, int m_slice,
+                              int smem, void* stream) {
+  const Q3KS dec{static_cast<const int8_t*>(q3l), static_cast<const int8_t*>(q3h),
+                 static_cast<const __nv_bfloat16*>(s), D};
   return gemv_launch(dec, x, xq_out, xs_out, ws, out, x_bf16, out_bf16, M, D, F, group, grid,
                      rows_per_block, rows_per_tile, stages, m_slice, smem, stream);
 }

@@ -550,6 +550,8 @@ class GemvPack(NamedTuple):
 _GEMV_PACKS = {"q6_k": GemvPack(4, 16, (2, 4, 8), False),
                "q5_ks": GemvPack(2, 32, (2, 8, 16, 16), True),
                "q2_ks": GemvPack(4, 16, (4, 8, 8), True, 8),
+               "q4_k": GemvPack(2, 32, (2, 16, 16), True),
+               "q3_ks": GemvPack(4, 16, (4, 8, 8), False, 8),
                "q8_0": GemvPack(1, 32, (1, 16), False),
                "q4_k8": GemvPack(1, 32, (1, 16, 16), True),
                "q5_k": GemvPack(1, 32, (1, 16, 16), True),
@@ -562,8 +564,8 @@ def gemv_takes(kind: str, D: int) -> bool:
     of contraction D, by shape alone: a GEMV kind with D a multiple of 256.
     A byte-code pack of another D (a tp shard's D = 1056; Q8_0 at D =
     2080), whose rows of scales are no multiple of 16 bytes and whose spans
-    of 64 columns do not tile D, runs ``w8a8_kernel``; the K-quant packs'
-    D is always such a multiple."""
+    of 64 columns do not tile D, runs ``w8a8_kernel``, as int8 does at
+    every D; the K-quant packs' D is always such a multiple."""
     return kind in _GEMV_PACKS and D % 256 == 0
 
 

@@ -30,12 +30,16 @@ any kind written ``<kind>:w8a8``, times its W8A8 kernel instead, at phase
 3's W8A8 cases: the projection pairs (a byte-code kind's tp = 2 shard pairs,
 its head at M <= 4) at M = 1, 4, 16, 32, the odd F and the activation-group-32
 edge at M = 3, each line with the wrapper's host µs a call (``host_us``).
-Q5_KS, Q2_KS, Q8_0 and Q6_K then print the W8A8 device time of the decode
-step that serves them, by these times: a B = 4 slot step of ``--quant
-q5_k`` (16 layers), ``--quant q2_k`` (8 layers, as phase 9 serves it) and
-``--quant q8_0`` (16 layers), the layers' wq, wk, wv, wo, gate, up and
-down and the head at M = 4; and the one-stream step of the native Q6_K
-GGUF (16 layers at M = 1; its head is dense).
+Q5_KS, Q2_KS, Q8_0, Q6_K, Q4_K and Q3_KS then print the W8A8 device time
+of the decode step that serves them, by these times: a B = 4 slot step of
+``--quant q5_k`` (16 layers), ``--quant q2_k`` (8 layers, as phase 9
+serves it) and ``--quant q8_0`` (16 layers), the layers' wq, wk, wv, wo,
+gate, up and down and the head at M = 4; and the one-stream steps at M =
+1 of the native Q6_K GGUF (16 layers, every projection), of the Q4_K_M
+GGUF (16 layers; its Q4_K projections wq, wk, wo, gate and up, as
+``chip_smoke.q4_k_m_types`` leaves wv and down in mixed stacks that load
+dense) and of the Q3_K GGUF (8 layers, as phase 9 serves it, every
+projection); their heads are dense.
 
 With ``--ttft DIR``, it also serves ``chip_smoke.py``'s phase-7 and phase-8
 models (Llama-3.2-1B geometry, Q6_K and Q4_K_M GGUFs from the same seeds,
@@ -123,9 +127,12 @@ def main() -> int:
 
 
 # the served decode steps whose W8A8 time is summed: kind -> (layers, M,
-# whether the head is packed)
-STEPS = {"q5_ks": (16, 4, True), "q2_ks": (8, 4, True), "q8_0": (16, 4, True),
-         "q6_k": (16, 1, False)}
+# whether the head is packed, a layer's launches by pair)
+EVERY = {"wq_wo": 2, "wk_wv": 2, "gate_up": 2, "down": 1}
+STEPS = {"q5_ks": (16, 4, True, EVERY), "q2_ks": (8, 4, True, EVERY),
+         "q8_0": (16, 4, True, EVERY), "q6_k": (16, 1, False, EVERY),
+         "q4_k": (16, 1, False, {"wq_wo": 2, "wk_wv": 1, "gate_up": 2}),
+         "q3_ks": (8, 1, False, EVERY)}
 
 
 def time_w8a8(cs, qm, kq, kind: str, gen, flush, card: str, label: str) -> None:
@@ -156,13 +163,12 @@ def time_w8a8(cs, qm, kq, kind: str, gen, flush, card: str, label: str) -> None:
         print(json.dumps({**row, "card": card}), flush=True)
         at[pair, M] = row["ms"]
     if kind in STEPS:
-        n, M, head = STEPS[kind]
-        step = n * (2 * at["wq_wo", M] + 2 * at["wk_wv", M] + 2 * at["gate_up", M]
-                    + at["down", M]) + (at["head", M] if head else 0.0)
+        n, M, head, layer = STEPS[kind]
+        step = n * sum(c * at[p, M] for p, c in layer.items()) + (at["head", M] if head else 0.0)
+        terms = " + ".join(f"{c} {p}" for p, c in layer.items())
         print(json.dumps({"label": label, f"{kind}_decode_step_w8a8_ms": step,
-                          "of": f"{n} x (2 wq_wo + 2 wk_wv + 2 gate_up + down)"
-                                f"{' + head' if head else ''} at M = {M}, cold L2",
-                          "card": card}), flush=True)
+                          "of": f"{n} x ({terms}){' + head' if head else ''} at M = {M}, "
+                                "cold L2", "card": card}), flush=True)
 
 
 def cases(cs, kind: str) -> list[tuple[str, int, int, tuple[int, ...]]]:

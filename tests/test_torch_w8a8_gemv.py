@@ -1,6 +1,6 @@
 """The persistent W8A8 GEMV (``csrc/w8a8_matmul.cu`` ``gemv_kernel``) of the
-Q6_K, Q5_KS, Q2_KS and Q8_0 packs and the Q4_K8, Q5_K and Q6_K8 byte codes,
-as far as the CPU reaches it.
+Q6_K, Q4_K, Q5_KS, Q2_KS, Q3_KS and Q8_0 packs and the Q4_K8, Q5_K and Q6_K8
+byte codes, as far as the CPU reaches it.
 
 - ``gemv_plan``, from shapes only: every output row in exactly one block and
   one tile of it, every row of x in one pass, the shared memory within the
@@ -8,19 +8,21 @@ as far as the CPU reaches it.
   pairs and head, its tp = 2 shard pairs, an odd F (1001) and D = 1280
   (activation group 32 for the banded packs), for a card of 114 and of 132
   SMs; it refuses what the kernel refuses. ``gemv_takes`` routes a byte-code
-  pack whose D is no multiple of 256 (phase 3's edges, D = 1056 and 2080)
-  to ``w8a8_kernel`` by shape, and every shape the model serves to the GEMV.
-- A torch integer mirror of the span decoders (``Q6K``, ``Q5KS``, ``Q2KS``,
-  ``ByteCodes`` and ``AffineBytes`` of ``csrc/quant_tile.cuh``: the bit
-  tricks, each lane order's chunks, the column map, the scale and offset
-  indices) equals the pack's ``codes_and_scales`` and ``offsets`` on every
-  byte value of every plane.
+  pack whose D is no multiple of 256 (phase 3's edges, D = 1056 and 2080),
+  and int8 at every D, to ``w8a8_kernel`` by shape, and every shape the
+  model serves to the GEMV.
+- A torch integer mirror of the span decoders (``Q6K``, ``Q4K``, ``Q5KS``,
+  ``Q2KS``, ``Q3KS``, ``ByteCodes`` and ``AffineBytes`` of
+  ``csrc/quant_tile.cuh``: the bit tricks, each lane order's chunks, the
+  column map, the scale and offset indices) equals the pack's
+  ``codes_and_scales`` and ``offsets`` on every byte value of every plane.
 - A torch mirror of the kernel's arithmetic (the plan's blocks, tiles and
   passes; each lane's spans in order and its sub-blocks in its lane order,
   each sub-block's term fused into the lane's f32 accumulator; the warp's
   butterfly; a row's warps summed in order) against the JAX
-  ``q6_k_w8a8_matmul_pallas`` / ``q5_ks_w8a8_matmul_pallas`` /
-  ``q2_ks_w8a8_matmul_pallas`` / ``gw8a8_matmul_pallas`` (the byte codes,
+  ``q6_k_w8a8_matmul_pallas`` / ``q4_k_w8a8_matmul_pallas`` /
+  ``q5_ks_w8a8_matmul_pallas`` / ``q2_ks_w8a8_matmul_pallas`` /
+  ``q3_ks_w8a8_matmul_pallas`` / ``gw8a8_matmul_pallas`` (the byte codes,
   with their offsets for Q4_K8 and Q5_K) in interpret mode, on the same
   numpy inputs: max error <= 1e-5 x max |ref| in f32 (the f32 order
   differs), one bf16 ulp of max |ref| in bf16.
@@ -45,8 +47,9 @@ jax_quantize_acts = jax.jit(jqm.quantize_acts, static_argnums=1)
 # kind: the bands its layout pairs in a byte (1: one plane; the activation
 # group divides D / bands), its rows a scale, and the lane bits that order a
 # span's chunks (quant_tile.cuh `order`)
-LAYOUT = {"q6_k": (4, 16, 0), "q5_ks": (2, 32, 1), "q2_ks": (4, 16, 0), "q8_0": (1, 32, 2),
-          "q4_k8": (1, 32, 2), "q5_k": (1, 32, 2), "q6_k8": (1, 16, 2)}
+LAYOUT = {"q6_k": (4, 16, 0), "q5_ks": (2, 32, 1), "q2_ks": (4, 16, 0), "q4_k": (2, 32, 1),
+          "q3_ks": (4, 16, 0), "q8_0": (1, 32, 2), "q4_k8": (1, 32, 2), "q5_k": (1, 32, 2),
+          "q6_k8": (1, 16, 2)}
 SUB = {k: v[1] for k, v in LAYOUT.items()}
 BYTE_KINDS = ("q8_0", "q4_k8", "q5_k", "q6_k8")
 
@@ -131,7 +134,7 @@ def test_gemv_plan_is_shape_only():
     assert a.passes == 1 and a.blocks_per_sm == 2 and a.grid == 256 and a.lane_rows == 2
 
 
-@pytest.mark.parametrize("args", [("q4_k", 4, 2048, 8192), ("q3_ks", 4, 2048, 8192),
+@pytest.mark.parametrize("args", [("int8", 4, 2048, 8192), ("q4_k", 4, 1000, 8192),
                                   ("q2_ks", 0, 2048, 8192), ("q2_ks", 33, 2048, 8192),
                                   ("q5_ks", 4, 1000, 8192), ("q5_ks", 4, 128, 8192),
                                   ("q2_ks", 4, 2048, 0)])
@@ -145,7 +148,7 @@ def test_the_gemv_route_is_by_shape():
     every pair, shard pair and head the model serves, and the banded packs'
     group-32 edge (D = 1280). A byte-code pack whose D is not (phase 3's
     edges: the tp shards' D = 1056, Q8_0's D = 2080) runs ``w8a8_kernel``,
-    which the GEMV's plan refuses; q4_k, q3_ks and int8 always do."""
+    which the GEMV's plan refuses; int8 always does."""
     for kind in qm.GEMV_KINDS:
         for D, F in PAIRS + SHARD_PAIRS:
             assert qm.gemv_takes(kind, D), (kind, D)
@@ -154,12 +157,13 @@ def test_the_gemv_route_is_by_shape():
         assert not qm.gemv_takes(kind, D)
         with pytest.raises(ValueError):
             qm.gemv_plan(kind, 4, D, 1024, 132)
-    assert not any(qm.gemv_takes(k, 2048) for k in ("q4_k", "q3_ks", "int8"))
+    assert not any(qm.gemv_takes("int8", D) for D, _ in PAIRS + SHARD_PAIRS)
     assert set(qm.GEMV_KINDS) == set(LAYOUT)
 
 
 @pytest.mark.parametrize("kind,D", [("q8_0", 2080), ("q8_0", 2304), ("q6_k8", 1056),
-                                    ("q6_k8", 2304), ("q5_k", 1056), ("q6_k", 1280)])
+                                    ("q6_k8", 2304), ("q5_k", 1056), ("q6_k", 1280),
+                                    ("q4_k", 1280), ("q3_ks", 1280), ("q3_ks", 2048)])
 def test_the_plan_group_is_the_packs(kind, D):
     """``gemv_plan``'s activation group is the pack's (``act_group``): a
     one-plane pack's group follows D, a banded pack's its band."""
@@ -213,6 +217,33 @@ def _span_q5ks(pack, s: int, h: int):
     return out
 
 
+def _span_q4k(pack, s: int, h: int):
+    """``Q4K``'s span: chunk 0 the 16 qs bytes at 32 s + 16 h, chunk 1 the
+    other 16; band k's codes the nibble at 4k of each byte."""
+    n = pack.qs.view(torch.uint8)[:, 32 * s:32 * s + 32]
+    v = [_words(n[:, 16 * (c ^ h):16 * (c ^ h) + 16]) for c in range(2)]   # [chunk] [F, 4]
+    return [[(w >> (4 * k)) & 0x0F0F0F0F for w in v] for k in range(2)]
+
+
+def _span_q3ks(pack, s: int, h: int):
+    """``Q3KS``'s span: l = q3l[:, 16s : 16s + 16], hw = the two words of
+    q3h[:, 8s : 8s + 8]; band k's one chunk is ``decode4`` of word i of l
+    with the half-word i % 2 of hw[i // 2] at sh = 2k: the two bits at sh
+    of each byte, the third bits of its rows 4i .. 4i + 3 from bits sh, sh
+    + 1 of the half-word's two bytes, minus 4 bytewise. h plays no part."""
+    lw = _words(pack.q3l.view(torch.uint8)[:, 16 * s:16 * s + 16])         # [F, 4]
+    hw = _words(pack.q3h.view(torch.uint8)[:, 8 * s:8 * s + 8])            # [F, 2]
+    half = torch.stack([hw[:, 0], hw[:, 0] >> 16, hw[:, 1], hw[:, 1] >> 16], dim=1)
+    out = []
+    for k in range(4):
+        sh = 2 * k
+        lo = (lw >> sh) & 0x03030303
+        bits = ((half >> sh) & 3) | (((half >> (8 + sh)) & 3) << 2)
+        hi = (((bits * 0x00204081) & M32) & 0x01010101) << 2
+        out.append([_vsub4(lo | hi, 0x04040404)])
+    return out
+
+
 def _span_q6k(pack, s: int, h: int):
     """``Q6K``'s span: la = ql[:, 16s:], lb = ql[:, D/4 + 16s:], hq =
     qh[:, 16s:], 16 bytes each; band k's one chunk is ``decode4``: the
@@ -240,7 +271,8 @@ def _span_bytes(pack, s: int, h: int):
     return [v[k * ch:(k + 1) * ch] for k in range(span_bands(pack.kind))]
 
 
-SPANS = {"q2_ks": _span_q2ks, "q5_ks": _span_q5ks, "q6_k": _span_q6k,
+SPANS = {"q2_ks": _span_q2ks, "q5_ks": _span_q5ks, "q6_k": _span_q6k, "q4_k": _span_q4k,
+         "q3_ks": _span_q3ks,
          **{k: _span_bytes for k in BYTE_KINDS}}
 
 
@@ -261,6 +293,10 @@ def _byte_pack(kind: str, F: int, D: int):
     if kind == "q5_ks":
         return kq.Q5KSPack(q5n=_every_byte(F, D // 2, 37), q5h=_every_byte(F, D // 8, 64),
                            a=a, b=b)
+    if kind == "q4_k":
+        return kq.Q4KPack(qs=_every_byte(F, D // 2, 37), a=a, b=b)
+    if kind == "q3_ks":
+        return kq.Q3KSPack(q3l=_every_byte(F, D // 4, 37), q3h=_every_byte(F, D // 8, 64), s=a)
     if kind == "q6_k":
         return kq.Q6KPack(ql=_every_byte(F, D // 2, 37), qh=_every_byte(F, D // 4, 64), s=a)
     if kind == "q8_0":
@@ -403,6 +439,12 @@ def _jax_w8a8(kind, x, jp, out_dtype, group):
     if kind == "q6_k":
         return jkq.q6_k_w8a8_matmul_pallas(xq, xs, f["ql"], f["qh"], f["s"],
                                            out_dtype=out_dtype, interpret=True)
+    if kind == "q4_k":
+        return jkq.q4_k_w8a8_matmul_pallas(xq, xs, f["qs"], f["a"], f["b"],
+                                           out_dtype=out_dtype, interpret=True)
+    if kind == "q3_ks":
+        return jkq.q3_ks_w8a8_matmul_pallas(xq, xs, f["q3l"], f["q3h"], f["s"],
+                                            out_dtype=out_dtype, interpret=True)
     # the byte codes: the reference's gw8a8 over the code plane, its scales
     # and (Q4_K8, Q5_K) its offsets
     code, sc = (f[n] for n in CODE_FIELDS[kind])
@@ -426,8 +468,8 @@ def _packs(kind, w):
 # multiple of 256, so its group is); D = 4096 gives two warps a row
 # (warps_per_row 2)
 GEMV_SHAPES = [("q2_ks", 1024), ("q2_ks", 1280), ("q5_ks", 512), ("q5_ks", 1280),
-               ("q6_k", 1024), ("q6_k", 1280), ("q8_0", 512), ("q4_k8", 512), ("q5_k", 512),
-               ("q6_k8", 512)]
+               ("q6_k", 1024), ("q6_k", 1280), ("q4_k", 512), ("q4_k", 1280), ("q3_ks", 1024),
+               ("q3_ks", 1280), ("q8_0", 512), ("q4_k8", 512), ("q5_k", 512), ("q6_k8", 512)]
 F_ODD = 160   # no multiple of 128
 
 
@@ -460,7 +502,8 @@ def test_gemv_mirror_two_warps_a_row(kind):
 
 @pytest.mark.parametrize("kind,D,M", [("q2_ks", 1024, 4), ("q2_ks", 1280, 16),
                                       ("q5_ks", 512, 32), ("q5_ks", 1280, 4),
-                                      ("q6_k", 1280, 4), ("q8_0", 512, 16),
+                                      ("q6_k", 1280, 4), ("q4_k", 512, 3), ("q3_ks", 1280, 16),
+                                      ("q8_0", 512, 16),
                                       ("q4_k8", 512, 1), ("q5_k", 512, 32),
                                       ("q6_k8", 512, 3)])
 def test_gemv_mirror_matches_jax_pallas_bf16(kind, D, M):
