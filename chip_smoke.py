@@ -169,7 +169,22 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    one-shot prefill is printed beside, for the mesh and for the
    single-device engine's own chunked run. Requests generate 16 tokens
    here.
-12. The total wall time, the kernels line (one JSON object), the card line,
+12. The llama-server / OpenAI routes, run between phases 6 and 7 on the
+   engine of phases 4-5 (no model is loaded for them): /apply-template
+   renders the chat prompt, /chat answers it greedy, and
+   /v1/chat/completions, whole and streamed, must give the same text.
+   /completion with n_probs 5 and a streamed /v1/completions with
+   logprobs 5 must give, for each greedy token, top logprobs that are
+   sorted and <= 0 with the token on top; a /completion that bans the
+   first eight distinct greedy tokens (logit_bias false) may not generate
+   any of them; a sampled typical_p 0.9 and a mirostat 2 request end in
+   their done summary, and mirostat's μ is finite. flash_attention must
+   launch n_layers times per forward of these requests. Then
+   ChatServer(parallel=4) answers two logprob requests beside the biased
+   one, all at once, held the same way, with paged_flash_attention at
+   n_layers launches per paged forward. Each route prints its client-side
+   TTFT (streamed) and tok/s with the card.
+13. The total wall time, the kernels line (one JSON object), the card line,
    and last the ok line. Each phase, and each served path of phases 7-9
    and 11, prints its seconds on a line of its own as it ends.
 """
@@ -179,6 +194,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import math
 import re
 import socket
 import subprocess
@@ -2158,6 +2174,261 @@ def serve_slots(engine, pa, fa, cfg, card: str, seed: int, watch=None,
     return {name: launches, "fused_decode_attn": fused_launches}
 
 
+ROUTE_MESSAGES = [{"role": "system", "content": "be brief"},
+                  {"role": "user", "content": "hello hello"}]
+
+
+async def post_route(s, base: str, route: str, body: dict) -> dict:
+    """POST one completion route: the JSON answer, or with ``stream`` the
+    SSE payloads; with the client-side send, first-payload and last-payload
+    times."""
+    t0 = time.monotonic()
+    t_first = t_last = None
+    async with s.post(f"{base}{route}", json=body) as r:
+        if r.status != 200:
+            fail(f"{route} answered {r.status}: {await r.text()}")
+        if not body.get("stream"):
+            answer = await r.json()
+            t_last = time.monotonic()
+        else:
+            if not r.headers["Content-Type"].startswith("text/event-stream"):
+                fail(f"{route} streamed {r.headers['Content-Type']}")
+            answer = []
+            async for raw in r.content:
+                line = raw.decode().strip()
+                if not line.startswith("data: "):
+                    continue
+                answer.append(line[6:] if line[6:] == "[DONE]" else json.loads(line[6:]))
+                t_last = time.monotonic()
+                t_first = t_first or t_last
+    return {"route": route, "body": body, "answer": answer, "t0": t0,
+            "t_first": t_first, "t_last": t_last}
+
+
+async def route_requests(server, requests: list[tuple[str, dict]],
+                         together: bool = False) -> list[dict]:
+    """Boot ``server`` (a port ChatServer) on a free localhost port and POST
+    each (route, body): one after another, or all at once."""
+    import aiohttp
+    from aiohttp import web
+
+    runner = web.AppRunner(server.app)
+    await runner.setup()
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    site = web.SockSite(runner, sock)
+    await site.start()
+    base = f"http://127.0.0.1:{sock.getsockname()[1]}"
+    try:
+        async with aiohttp.ClientSession(
+                timeout=aiohttp.ClientTimeout(total=600)) as s:
+            if together:
+                return list(await asyncio.gather(
+                    *(post_route(s, base, r, b) for r, b in requests)))
+            return [await post_route(s, base, r, b) for r, b in requests]
+    finally:
+        await runner.cleanup()   # closes a slot scheduler too
+
+
+def route_text(res: dict) -> tuple[str, int, str]:
+    """(text, tokens generated, finish) of a completion route's answer,
+    whole or streamed, in either dialect."""
+    route, a = res["route"], res["answer"]
+    llama = route == "/completion"
+    if isinstance(a, list):
+        chunks = [c for c in a if c != "[DONE]"]
+        if llama:
+            last = chunks[-1]
+            return ("".join(c["content"] for c in chunks), last["tokens_predicted"],
+                    "stop" if last["stopped_eos"] else "length")
+        key = "delta" if route == "/v1/chat/completions" else None
+        text = "".join((c["choices"][0][key].get("content", "") if key
+                        else c["choices"][0]["text"]) for c in chunks)
+        n = sum(1 for c in chunks if (c["choices"][0]["delta"].get("content") if key
+                                      else c["choices"][0]["text"]))
+        return text, n, chunks[-1]["choices"][0]["finish_reason"]
+    if llama:
+        return (a["content"], a["tokens_predicted"],
+                "stop" if a["stopped_eos"] else "length")
+    c = a["choices"][0]
+    text = c["message"]["content"] if route == "/v1/chat/completions" else c["text"]
+    return text, a["usage"]["completion_tokens"], c["finish_reason"]
+
+
+def route_logprobs(res: dict) -> list[tuple[str, float | None, list[float], str]]:
+    """Per token (its text, its logprob or None, the top logprobs, the top-1
+    text) of an answer that carries logprobs."""
+    route, a = res["route"], res["answer"]
+    out = []
+    if route == "/completion":
+        for c in (a if isinstance(a, list) else [a]):
+            for p in c.get("completion_probabilities") or []:
+                out.append((p["content"], None,
+                            [math.log(x["prob"]) for x in p["probs"]],
+                            p["probs"][0]["tok_str"]))
+        return out
+    chunks = [c for c in a if c != "[DONE]"] if isinstance(a, list) else [a]
+    for c in chunks:
+        lp = c["choices"][0]["logprobs"]
+        if not lp:
+            continue
+        if route == "/v1/chat/completions":
+            for e in lp["content"]:
+                top = e["top_logprobs"]
+                out.append((e["token"], e["logprob"], [t["logprob"] for t in top],
+                            top[0]["token"]))
+        else:
+            for tok, v, top in zip(lp["tokens"], lp["token_logprobs"], lp["top_logprobs"]):
+                out.append((tok, v, list(top.values()), next(iter(top))))
+    return out
+
+
+def check_greedy_logprobs(res: dict, what: str) -> int:
+    """A greedy answer's logprobs: each token's top logprobs sorted and <= 0,
+    and the token's logprob the top value (OpenAI), or the token the top one
+    unless the top two tie (llama-server's answer has no logprob of the
+    token itself; bf16 logits of a 128256-token vocabulary tie now and
+    then). Returns the tokens checked."""
+    rows = route_logprobs(res)
+    if not rows:
+        fail(f"{what}: no logprobs in {str(res['answer'])[:300]}")
+    for tok, v, top, top_tok in rows:
+        if top != sorted(top, reverse=True) or any(x > 0 for x in top):
+            fail(f"{what}: top logprobs not sorted or above 0: {top}")
+        tie = len(top) > 1 and top[0] == top[1]
+        if v is not None and v != top[0] or v is None and tok != top_tok and not tie:
+            fail(f"{what}: greedy token {tok!r} ({v}) is not the top one "
+                 f"{top_tok!r} ({top[0]})")
+    return len(rows)
+
+
+def route_line(res: dict, path: str, card: str) -> dict:
+    """One route's client-side numbers: TTFT (streamed answers: send to the
+    first payload) and tok/s (streamed: first to last payload; whole: send
+    to answer)."""
+    text, n_gen, finish = route_text(res)
+    stream = bool(res["body"].get("stream"))
+    if stream:
+        ttft = (res["t_first"] - res["t0"]) * 1e3
+        span = res["t_last"] - res["t_first"]
+        tok_s = (n_gen - 1) / span if n_gen > 1 and span > 0 else None
+    else:
+        ttft, span = None, res["t_last"] - res["t0"]
+        tok_s = n_gen / span if span > 0 else None
+    line = {"route": res["route"], "path": path, "stream": stream, "n_gen": n_gen,
+            "finish": finish, "client_ttft_ms": ttft, "client_tok_s": tok_s,
+            "card": card}
+    print(json.dumps({"route_served": line}), flush=True)
+    return line
+
+
+def serve_routes(engine, fa, pa, cfg, card: str, seed: int) -> dict:
+    """Phase 12: the llama-server / OpenAI routes on the phase 4-5 engine,
+    one stream and then 4 slots. Returns each path's attention launches."""
+    from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig
+    from distributed_llm_pipeline_tpu_torch.serving import ChatServer
+
+    n = 32
+    greedy = {"temperature": 0.0}
+    gen = GenerationConfig(max_new_tokens=n)
+    # the greedy tokens of the llama-server prompt, read off the engine: the
+    # biased requests ban the first eight distinct ones of the vocabulary's
+    # pieces (a byte token's text is not its own)
+    n_special = 3 + 256
+    greedy_ids = [e.data["id"] for e in engine.generate("hello hello", GenerationConfig(
+        max_new_tokens=n, temperature=0.0, logprobs=1)) if e.kind == "token" and e.data]
+    banned = [t for t in dict.fromkeys(greedy_ids) if t >= n_special][:8]
+    if not banned:
+        fail(f"no greedy token of the vocabulary's pieces to ban: {greedy_ids}")
+    banned_text = {engine.tokenizer.token_bytes(t).decode("utf-8", "replace")
+                   for t in banned}
+    ban = {"prompt": "hello hello", "n_predict": n, **greedy, "n_probs": 1,
+           "logit_bias": [[t, False] for t in banned]}
+    # μ of a mirostat run, as its done event reports it
+    mu = list(engine.generate("hello hello", GenerationConfig(
+        max_new_tokens=n, temperature=0.9, mirostat=2, seed=seed)))[-1].data["mirostat_mu"]
+
+    # one stream: /apply-template, then /chat on its prompt, then the routes
+    server = ChatServer(engine, gen)
+    template = asyncio.run(route_requests(server, [
+        ("/apply-template", {"messages": ROUTE_MESSAGES})]))[0]["answer"]["prompt"]
+    fa.launches = 0
+    forwards0 = engine.forwards
+    chat = asyncio.run(chat_requests(ChatServer(engine, gen), [
+        {"prompt": template, "max_new_tokens": n, **greedy}]))[1][0]
+    chat_text = "".join(e["content"] for e in chat["events"] if e["msg_type"] == "token")
+    single = asyncio.run(route_requests(ChatServer(engine, gen), [
+        ("/v1/chat/completions", {"messages": ROUTE_MESSAGES, "max_tokens": n, **greedy}),
+        ("/v1/chat/completions", {"messages": ROUTE_MESSAGES, "max_tokens": n, **greedy,
+                                  "stream": True}),
+        ("/completion", {"prompt": "hello hello", "n_predict": n, **greedy,
+                         "n_probs": 5}),
+        ("/v1/completions", {"prompt": "hello hello", "max_tokens": n, **greedy,
+                             "logprobs": 5, "stream": True}),
+        ("/completion", ban),
+        ("/v1/completions", {"prompt": "hello hello", "max_tokens": n,
+                             "temperature": 0.9, "typical_p": 0.9, "seed": seed}),
+        ("/completion", {"prompt": "hello hello", "n_predict": n, "temperature": 0.9,
+                         "mirostat": 2, "seed": seed, "stream": True})]))
+    launches, forwards = fa.launches, engine.forwards - forwards0
+    for i, res in enumerate(single):
+        if i < 2 and route_text(res)[0] != chat_text:
+            fail(f"{res['route']} (stream {bool(res['body'].get('stream'))}) gave "
+                 f"{route_text(res)[0]!r}, /chat on the templated prompt {chat_text!r}")
+        text, n_gen, finish = route_text(res)
+        if finish not in ("stop", "length") or (finish == "length" and n_gen != n):
+            fail(f"{res['route']}: {n_gen} tokens, finish {finish}")
+    checked = sum(check_greedy_logprobs(single[i], f"one stream, request {i}")
+                  for i in (2, 3))
+    got = {tok for tok, *_ in route_logprobs(single[4])}
+    if got & banned_text or route_text(single[4])[0] == route_text(single[2])[0]:
+        fail(f"a banned token was generated: {sorted(got & banned_text)}")
+    if not math.isfinite(mu):
+        fail(f"mirostat's μ is {mu}")
+    n_layers = cfg.n_layers
+    if forwards <= 0 or launches != n_layers * forwards:
+        fail(f"the routes launched flash_attention {launches} times for {forwards} "
+             f"forwards of {n_layers} layers")
+    lines = [route_line(r, "single", card) for r in single]
+    print(json.dumps({"routes_single": {
+        "requests": len(single) + 1, "forwards": forwards,
+        "flash_attention_launches": launches, "greedy_logprob_tokens": checked,
+        "banned": len(banned), "mirostat_mu": mu, "card": card}}), flush=True)
+
+    # four slots: two logprob requests beside a biased one, all at once
+    server = ChatServer(engine, gen, parallel=4)
+    sched = server.scheduler
+    pa.launches = fa.launches = 0
+    forwards0 = sched.forwards
+    slots = asyncio.run(route_requests(server, [
+        ("/v1/completions", {"prompt": "hello hello", "max_tokens": n, **greedy,
+                             "logprobs": 5}),
+        ("/v1/chat/completions", {"messages": ROUTE_MESSAGES, "max_tokens": n, **greedy,
+                                  "logprobs": True, "top_logprobs": 5, "stream": True}),
+        ("/completion", ban)], together=True))
+    p_launches, d_launches = pa.launches, fa.launches
+    s_forwards = sched.forwards - forwards0
+    checked = sum(check_greedy_logprobs(slots[i], f"slots, request {i}") for i in (0, 1))
+    got = {tok for tok, *_ in route_logprobs(slots[2])}
+    if got & banned_text:
+        fail(f"a banned token was generated on the slots: {sorted(got & banned_text)}")
+    if s_forwards <= 0 or p_launches != n_layers * s_forwards or d_launches:
+        fail(f"the slot routes launched paged_flash_attention {p_launches} times "
+             f"(flash_attention {d_launches}) for {s_forwards} paged forwards of "
+             f"{n_layers} layers")
+    lines += [route_line(r, "slots", card) for r in slots]
+    print(json.dumps({"routes_slots": {
+        "requests": len(slots), "paged_forwards": s_forwards,
+        "paged_attention_launches": p_launches, "greedy_logprob_tokens": checked,
+        "card": card}}), flush=True)
+    print(f"completion routes: {forwards} forwards one stream ({launches} "
+          f"flash_attention launches), {s_forwards} paged forwards on 4 slots "
+          f"({p_launches} paged_flash_attention launches) = {n_layers} layers x "
+          f"forwards", flush=True)
+    return {"flash_attention": launches, "paged_flash_attention": p_launches,
+            "routes": lines}
+
+
 def load_quant_engine(Engine, gguf: Path, quant: str, card: str, unlink: bool):
     """An engine over ``gguf`` with ``quant``, its load line printed; the
     GGUF is deleted once loaded when ``unlink``."""
@@ -2761,9 +3032,14 @@ def main() -> int:
               flush=True)
         # the single-device logits phase 11's mesh paths are held against
         refs = {"bf16": mesh_ref(engine, args.seed, "bf16", card)}
+        t_phase = phase_seconds("6", t_phase, t_start)
+
+        # 12. the completion routes, run here: they reuse phases 4-5's engine
+        print(f"phase 12 at {time.monotonic() - t_start:.0f}s", flush=True)
+        serve_routes(engine, fa, pa, cfg, card, args.seed)
         del engine
         torch.cuda.empty_cache()
-        t_phase = phase_seconds("6", t_phase, t_start)
+        t_phase = phase_seconds("12", t_phase, t_start)
 
         # 7. serve quantized: the paper's demo (a Q6_K GGUF, one stream) and
         # --quant q8_0 --parallel 4; 8. Q4_K_M native, one stream, and
@@ -2847,7 +3123,7 @@ def main() -> int:
         for p in (path, path9, q6_path, q4_path, q3_path):
             p.unlink(missing_ok=True)
 
-    # 12. results
+    # 13. results
     src = "distributed_llm_pipeline_tpu_torch/csrc/"
     ref = "distributed_llm_pipeline_tpu/ops/"
     entries = [

@@ -23,6 +23,7 @@ Entry points run on CUDA unless the caller asks for the CPU
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from dataclasses import dataclass
@@ -39,7 +40,8 @@ from ..models.llama import (check_kv_mode, check_kv_quant, check_quant,
                             quantize_params, quantized_bytes)
 from ..ops.latent_attention import LATENT_RANKS
 from ..ops.quant_matmul import QuantPack
-from ..ops.sampling import apply_penalties, sample
+from ..ops.sampling import (apply_penalties, bias_vector, lp_payload,
+                            mirostat_init, mirostat_step, sample, topk_logprobs)
 from ..tokenizer import StreamDecoder, Tokenizer, tokenizer_from_metadata
 from ..utils import Event, done, log, token
 from . import capabilities
@@ -56,9 +58,21 @@ class GenerationConfig:
     repeat_last_n: int = 64         # penalty window
     presence_penalty: float = 0.0   # 0 disables
     frequency_penalty: float = 0.0  # 0 disables
+    # (token_id, bias) pairs added to the raw logits before any filtering;
+    # −inf bans a token
+    logit_bias: tuple[tuple[int, float], ...] = ()
     seed: int | None = None
     stop_on_eos: bool = True
     stop: tuple[str, ...] = ()      # stop strings
+    # top-N alternative logprobs per generated token, of the raw (biased,
+    # unpenalized) distribution; None = off
+    logprobs: int | None = None
+    typical_p: float = 1.0          # 1 disables
+    # mirostat v1/v2 (0 off): targets surprise τ with learning rate η and
+    # replaces top-k, top-p, typical-p and min-p; single stream only
+    mirostat: int = 0
+    mirostat_tau: float = 5.0
+    mirostat_eta: float = 0.1
 
 
 class StopMatcher:
@@ -140,6 +154,23 @@ def check_token_ids(ids: list[int], vocab_size: int) -> list[int]:
     if bad is not None:
         raise ValueError(f"token id {bad} outside the vocabulary [0, {vocab_size})")
     return ids
+
+
+def check_sampler(gen: GenerationConfig) -> GenerationConfig:
+    """The single-stream engine's checks of a request's sampler, as the
+    reference's: ``ValueError`` on a mirostat version other than 0, 1 or 2,
+    or on mirostat with logprobs (its truncation is adaptive state, not a
+    fixed distribution to report). A greedy request runs neither mirostat
+    nor typical-p, so both are switched off for it."""
+    if gen.mirostat not in (0, 1, 2):
+        raise ValueError(f"mirostat must be 0, 1 or 2, got {gen.mirostat}")
+    if gen.temperature <= 0.0 and (gen.mirostat or gen.typical_p < 1.0):
+        gen = dataclasses.replace(gen, mirostat=0, typical_p=1.0)
+    if gen.mirostat and gen.logprobs is not None:
+        raise ValueError("mirostat does not combine with logprobs (its "
+                         "truncation is adaptive state, not a fixed "
+                         "distribution to report)")
+    return gen
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -376,52 +407,85 @@ class Engine:
 
     @torch.inference_mode()
     def _sample(self, logits: torch.Tensor, gen: GenerationConfig,
-                rng: torch.Generator, recent: torch.Tensor | None):
-        """Penalties (when set) and the sampler chain: logits [B, V] → the
-        next token [B, 1] and the updated recent-token window."""
+                rng: torch.Generator, st: dict):
+        """One step of the sampler chain on logits [B, V]: the bias on the raw
+        logits, the raw logits kept for logprobs, the penalties, then
+        mirostat or the typical-p / min-p / top-k / top-p chain. ``st``
+        holds the device state that rides between steps (``recent``,
+        ``mu``, ``bias``; None when off) and is updated in place. Returns
+        the next token [B, 1] and, with ``gen.logprobs``, the tuple
+        (sampled logprob [B], top values [B, N], top ids [B, N])."""
+        if st["bias"] is not None:
+            logits = logits + st["bias"].to(logits.dtype)
+        raw = logits
+        recent = st["recent"]
         if recent is not None:
             logits = apply_penalties(logits, recent, gen.repeat_penalty,
                                      gen.presence_penalty, gen.frequency_penalty)
-        nxt = sample(logits, rng, gen.temperature, gen.top_k, gen.top_p,
-                     gen.min_p)[:, None]
+        if gen.mirostat:
+            nxt, st["mu"] = mirostat_step(
+                logits, rng, st["mu"], version=gen.mirostat, tau=gen.mirostat_tau,
+                eta=gen.mirostat_eta, temperature=gen.temperature)
+        else:
+            nxt = sample(logits, rng, gen.temperature, gen.top_k, gen.top_p,
+                         gen.min_p, gen.typical_p)
         if recent is not None:
-            recent = torch.cat([recent[:, 1:], nxt], dim=1)
-        return nxt, recent
+            st["recent"] = torch.cat([recent[:, 1:], nxt[:, None]], dim=1)
+        lp = topk_logprobs(raw, nxt, gen.logprobs) if gen.logprobs is not None else None
+        return nxt[:, None], lp
 
     def _decode_chunk(self, n: int, tok: torch.Tensor, cache: KVCache,
-                      gen: GenerationConfig, rng: torch.Generator,
-                      recent: torch.Tensor | None):
+                      gen: GenerationConfig, rng: torch.Generator, st: dict):
         """n forward + sample steps on the device, nothing read back:
-        returns the chunk's tokens [n, B], the last token [B, 1] and the
-        recent-token window."""
-        toks = []
+        returns the chunk's outputs (its tokens [n, B], and with logprobs
+        the stacked logprob tensors [n, B(, N)]) and the last token [B, 1]."""
+        toks, lps = [], []
         for _ in range(n):
             logits = self.model(tok, cache)[:, -1]
             self.forwards += 1
-            tok, recent = self._sample(logits, gen, rng, recent)
+            tok, lp = self._sample(logits, gen, rng, st)
             toks.append(tok[:, 0])
-        return torch.stack(toks), tok, recent
+            if lp is not None:
+                lps.append(lp)
+        outs = (torch.stack(toks),)
+        if lps:
+            outs += tuple(torch.stack(x) for x in zip(*lps))
+        return outs, tok
 
-    def _to_host(self, t: torch.Tensor):
-        """Queue a device→host copy of ``t``; returns a callable that waits
-        for it and gives the values as a list."""
-        if t.device.type != "cuda":
-            return t.tolist
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
+    def _to_host(self, *ts: torch.Tensor):
+        """Queue device→host copies of the tensors ``ts``; returns a callable
+        that waits for them (one event) and gives their values as lists: one
+        list for one tensor, else a tuple of them."""
+        if ts[0].device.type != "cuda":
+            def read_now():
+                vals = tuple(t.tolist() for t in ts)
+                return vals[0] if len(vals) == 1 else vals
+
+            return read_now
+        hosts = []
+        for t in ts:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            hosts.append(host)
         ready = torch.cuda.Event()
         ready.record()
 
         def read():
             ready.synchronize()
-            return host.tolist()
+            vals = tuple(h.tolist() for h in hosts)
+            return vals[0] if len(vals) == 1 else vals
 
         return read
 
     def generate(self, prompt: str | list[int],
                  gen: GenerationConfig | None = None) -> Iterator[Event]:
-        """Streaming generation: yields log / token / done events."""
-        gen = gen or GenerationConfig()
+        """Streaming generation: yields log / token / done events. Raises
+        ``ValueError`` on a sampler combination the engine does not run."""
+        gen = check_sampler(gen or GenerationConfig())
+        return self._generate(prompt, gen)
+
+    def _generate(self, prompt: str | list[int],
+                  gen: GenerationConfig) -> Iterator[Event]:
         yield from self._events_on_load
         ids = check_token_ids(list(prompt), self.cfg.vocab_size) \
             if isinstance(prompt, (list, tuple)) else self.tokenizer.encode(prompt)
@@ -439,29 +503,41 @@ class Engine:
             return
         rng = torch.Generator(device=self.device)
         rng.manual_seed(gen.seed if gen.seed is not None else time.time_ns() % 2**31)
-        recent = None
+        # the device state that rides between steps and chunks
+        st = {"recent": None, "mu": None, "bias": None}
         if (gen.repeat_penalty != 1.0 or gen.presence_penalty != 0.0
                 or gen.frequency_penalty != 0.0):
             W = max(1, gen.repeat_last_n)
-            recent = torch.tensor([([-1] * W + ids)[-W:]], dtype=torch.long,
-                                  device=self.device)
+            st["recent"] = torch.tensor([([-1] * W + ids)[-W:]], dtype=torch.long,
+                                        device=self.device)
+        if gen.logit_bias:
+            st["bias"] = bias_vector(gen.logit_bias, self.cfg.vocab_size, self.device)
+        if gen.mirostat:
+            st["mu"] = mirostat_init(gen.mirostat_tau, self.device)
+        lp_mode = gen.logprobs is not None
         stopper = StopMatcher(tuple(gen.stop)) if gen.stop else None
         sd = StreamDecoder(self.tokenizer)
         eos = self.tokenizer.eos_id
 
         t_start = time.monotonic()
         cache = self.make_cache()
-        tok, recent = self._sample(self.prefill(ids, cache), gen, rng, recent)
-        first = self._to_host(tok[:, 0])()[0]
+        tok, lp = self._sample(self.prefill(ids, cache), gen, rng, st)
+        first = self._to_host(tok[:, 0], *(lp or ()))()
+        first_data = None
+        if lp_mode:
+            first_data = lp_payload(first[0][0], first[1][0], first[2][0],
+                                    first[3][0], gen.logprobs)
+            first = first[0]
         ttft = time.monotonic() - t_start
         yield log(f"prefill: {len(ids)} tokens in {ttft * 1000:.1f} ms (TTFT)")
         t_decode = time.monotonic()
 
         n_gen, finish_reason, stopped, stop_matched = 0, "length", False, False
 
-        def take(t: int):
-            """Account one sampled token: returns the text to emit (or None)
-            and sets the stop state."""
+        def take(t: int, data: dict | None):
+            """Account one sampled token: returns its token event (or None)
+            and sets the stop state. With logprobs every token gets an
+            event, even while the decoder holds its bytes back."""
             nonlocal n_gen, finish_reason, stopped, stop_matched
             if gen.stop_on_eos and eos is not None and t == eos:
                 finish_reason, stopped = "stop", True
@@ -474,25 +550,29 @@ class Engine:
                     finish_reason, stopped, stop_matched = "stop", True, True
             if n_gen >= budget:
                 stopped = True
-            return text
+            return token(text, **(data or {})) if text or data is not None else None
 
-        text = take(first)
-        if text:
-            yield token(text)
+        ev = take(first[0], first_data)
+        if ev is not None:
+            yield ev
         pending = None   # (read, n) of the chunk whose tokens are in flight
         while True:
             launched = None
             room = budget - n_gen - (pending[1] if pending else 0)
             n = min(self.decode_chunk, room, self.max_seq - cache.length)
             if not stopped and n > 0:
-                toks, tok, recent = self._decode_chunk(n, tok, cache, gen, rng, recent)
-                launched = (self._to_host(toks[:, 0]), n)
+                outs, tok = self._decode_chunk(n, tok, cache, gen, rng, st)
+                launched = (self._to_host(*(o[:, 0] for o in outs)), n)
             if pending is not None and not stopped:
                 # read the previous chunk while the one just queued runs
-                for t in pending[0]():
-                    text = take(t)
-                    if text:
-                        yield token(text)
+                got = pending[0]()
+                toks = got[0] if lp_mode else got
+                for i, t in enumerate(toks):
+                    data = (lp_payload(t, got[1][i], got[2][i], got[3][i],
+                                       gen.logprobs) if lp_mode else None)
+                    ev = take(t, data)
+                    if ev is not None:
+                        yield ev
                     if stopped:
                         break
             # once stopped, a chunk still in flight is junk past the stop
@@ -511,8 +591,9 @@ class Engine:
         tps = (n_gen - 1) / dt if n_gen > 1 and dt > 0 else float("nan")
         dt_e2e = time.monotonic() - t_start
         tps_e2e = n_gen / dt_e2e if n_gen and dt_e2e > 0 else float("nan")
+        extra = {"mirostat_mu": float(st["mu"][0])} if gen.mirostat else {}
         yield done(f"generated {n_gen} tokens | TTFT {ttft * 1000:.1f} ms | "
                    f"decode {tps:.2f} tok/s",
                    n_prompt=len(ids), n_gen=n_gen, finish_reason=finish_reason,
                    ttft_ms=ttft * 1000, tok_s=tps, tok_s_e2e=tps_e2e,
-                   stop_match=stopper.matched if stopper else None)
+                   stop_match=stopper.matched if stopper else None, **extra)

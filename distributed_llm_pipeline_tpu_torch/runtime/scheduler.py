@@ -20,8 +20,11 @@ row dimension over one paged, ref-counted KV block pool
   stays on the device, so host state is one chunk behind, as in the
   reference.
 
-Each row has its own sampling parameters and its own generator, so a
-seeded request's tokens do not depend on its co-tenants. Free rows compute
+Each row has its own sampling parameters, its own generator and its own
+row of the logit-bias matrix, so a seeded request's tokens do not depend on
+its co-tenants. When any row asks for logprobs, every step also computes
+the top ``LP_TOPK`` logprobs of each row's raw distribution, read back with
+the step's tokens. Free rows compute
 junk that is discarded; their writes are parked at ``max_seq``.
 
 The engine builds the backend that holds the rows (``Engine.slot_backend``):
@@ -32,8 +35,10 @@ place.
 
 Not ported yet (the reference has them): preemption and the swap store, the
 disaggregation handoff, the watchdog, poison/quarantine, load shedding,
-tenants and quotas, slot save/restore, constrained rows, logprobs and logit
-bias, metrics and tracing, the single-device dense slot backend.
+tenants and quotas, slot save/restore, constrained rows, metrics and
+tracing, the single-device dense slot backend. Typical-p and mirostat stay
+on the single-stream engine, as in the reference: a request that would run
+either is refused here.
 
 The worker thread owns every device buffer and all slot state; it runs
 under ``torch.inference_mode()`` and on the engine's device, both of which
@@ -54,7 +59,8 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from ..ops.sampling import apply_penalties, sample_rows
+from ..ops.sampling import (apply_penalties, bias_vector, lp_payload, sample_rows,
+                            topk_logprobs)
 from ..tokenizer import StreamDecoder
 from ..utils import Event, done, log, token
 from .engine import (Engine, GenerationConfig, StopMatcher, _bucket,
@@ -63,6 +69,7 @@ from .paged import PoolExhausted, upload
 
 RECENT_W = 64    # repeat-penalty window capacity per slot (llama.cpp default)
 MIN_PREFIX = 16  # shortest reusable per-slot KV prefix
+LP_TOPK = 20     # alternatives computed per step when any row wants logprobs
 
 # per-row sampling parameters, one row each of the [8, B] parameter array
 _TEMP, _TOP_K, _TOP_P, _MIN_P, _PEN, _PRES, _FREQ, _LAST_N = range(8)
@@ -170,12 +177,19 @@ def _penalized(g: GenerationConfig) -> bool:
 def _sample_chain(lg: torch.Tensor, recent: torch.Tensor,
                   params: torch.Tensor | None, penalized: bool,
                   gens: list[torch.Generator | None],
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+                  bias: torch.Tensor | None = None, lp: bool = False,
+                  ) -> tuple[torch.Tensor, torch.Tensor, tuple | None]:
     """The per-step batched sampling chain, shared by decode chunks, mixed
-    steps and the first token: penalties over each row's recent window,
-    then the per-row sampler. logits [B, V] → (next tokens [B], the recent
-    windows shifted by them). ``params`` ([8, B] on the device) may be None
-    when no row is penalized or sampled."""
+    steps and the first token: the per-row bias ([B, V], None when no row
+    is biased), penalties over each row's recent window, then the per-row
+    sampler. logits [B, V] → (next tokens [B], the recent windows shifted
+    by them, and with ``lp`` the raw distribution's logprobs: the sampled
+    token's [B], the top ``LP_TOPK`` values and ids [B, LP_TOPK]).
+    ``params`` ([8, B] on the device) may be None when no row is
+    penalized or sampled."""
+    if bias is not None:
+        lg = lg + bias.to(lg.dtype)
+    raw = lg
     if penalized:
         W = recent.shape[1]
         last_n = params[_LAST_N].long()
@@ -188,7 +202,8 @@ def _sample_chain(lg: torch.Tensor, recent: torch.Tensor,
                           params[_MIN_P], gens)
     else:   # every row greedy: the sorted-first token is the argmax
         nxt = torch.argmax(lg, dim=-1)
-    return nxt, torch.cat([recent[:, 1:], nxt[:, None]], dim=1)
+    lps = topk_logprobs(raw, nxt, LP_TOPK) if lp else None
+    return nxt, torch.cat([recent[:, 1:], nxt[:, None]], dim=1), lps
 
 
 class SlotScheduler:
@@ -270,6 +285,11 @@ class SlotScheduler:
         self._recent_dev = torch.full((B, RECENT_W), -1, dtype=torch.long,
                                       device=self.device)
         self._gens: list[torch.Generator | None] = [None] * B
+        # the per-row logit-bias matrix [B, V], made on the first biased
+        # request; a row is set when its request arms and zeroed when an
+        # unbiased one takes it (``_bias_rows``: the rows not all zero)
+        self._bias_dev: torch.Tensor | None = None
+        self._bias_rows: set[int] = set()
 
     # -- public API ---------------------------------------------------------
 
@@ -287,11 +307,22 @@ class SlotScheduler:
                abort: threading.Event | None = None) -> _Request:
         """Enqueue a request; its events flow through ``emit`` (called from
         the scheduler thread). Raises when the scheduler is closed or the
-        wait queue is full, or on a token id outside the vocabulary."""
+        wait queue is full, on a token id outside the vocabulary, and
+        (``ValueError``) on a sampler the slots do not run: typical-p or
+        mirostat on a sampled request, more than ``LP_TOPK`` logprobs."""
         if self._closed.is_set():
             raise RuntimeError("scheduler is closed")
         if isinstance(prompt, (list, tuple)):
             check_token_ids(prompt, self.cfg.vocab_size)
+        g = gen or GenerationConfig()
+        if g.temperature > 0.0 and (g.mirostat or g.typical_p < 1.0):
+            raise ValueError(
+                "mirostat / typical_p are single-stream features (per-request "
+                "adaptive state / entropy filtering are not in the batched "
+                "row sampler); send them through the engine path")
+        if g.logprobs is not None and g.logprobs > LP_TOPK:
+            raise ValueError(f"logprobs alternatives capped at {LP_TOPK} "
+                             f"on the parallel-slot path")
         if self._subq.qsize() >= self.max_queue:
             raise QueueFull(f"request queue full ({self.max_queue})")
         req = _Request(prompt, gen or GenerationConfig(), emit,
@@ -319,6 +350,21 @@ class SlotScheduler:
                     return
         finally:
             abort.set()
+
+    def slot_states(self) -> list[dict]:
+        """llama-server's ``GET /slots`` shape: one dict per slot."""
+        out = []
+        for i, s in enumerate(self._slots):
+            if s is None:
+                out.append({"id": i, "state": "idle", "n_decoded": 0})
+            else:
+                out.append({"id": i, "state": "processing", "n_decoded": s.n_gen,
+                            "n_prompt": len(s.ids),
+                            "params": {"temperature": s.req.gen.temperature,
+                                       "top_k": s.req.gen.top_k,
+                                       "top_p": s.req.gen.top_p,
+                                       "n_predict": s.req.gen.max_new_tokens}})
+        return out
 
     def generate_text(self, prompt: str | list[int],
                       gen: GenerationConfig | None = None) -> str:
@@ -569,6 +615,22 @@ class SlotScheduler:
                 f"prefix cache hit (slot {slot.idx}): reused KV for "
                 f"{reuse_k} of {len(slot.ids)} prompt tokens"))
 
+    def _arm_bias_row(self, r: int, gen: GenerationConfig) -> torch.Tensor | None:
+        """Set row ``r`` of the bias matrix to the request's vector (returned,
+        for the first token), or zero the row a biased request left."""
+        if gen.logit_bias:
+            vec = bias_vector(gen.logit_bias, self.cfg.vocab_size, self.device)
+            if self._bias_dev is None:
+                self._bias_dev = torch.zeros((self.n_slots, self.cfg.vocab_size),
+                                             dtype=torch.float32, device=self.device)
+            self._bias_dev[r] = vec
+            self._bias_rows.add(r)
+            return vec
+        if r in self._bias_rows:
+            self._bias_dev[r] = 0.0
+            self._bias_rows.discard(r)
+        return None
+
     def _first_token(self, slot: _Slot, logits: torch.Tensor, reuse_k: int,
                      n_prompt: int) -> None:
         """Sample the prompt's first token from the prefill logits [1, V]
@@ -578,6 +640,7 @@ class SlotScheduler:
         req = slot.req
         gen = req.gen
         dev = self.device
+        vec = self._arm_bias_row(r, gen)
         slot.phase = "decode"
         slot.pending = []
         window = np.asarray(([-1] * RECENT_W + slot.ids)[-RECENT_W:], np.int64)
@@ -589,9 +652,17 @@ class SlotScheduler:
         params = None
         if rng is not None or _penalized(gen):
             params = upload(_row_param_array([gen]), dev)
-        first, recent = _sample_chain(logits, upload(window[None], dev), params,
-                                      _penalized(gen), [rng])
-        t0 = int(first[0])
+        lp_mode = gen.logprobs is not None
+        first, recent, lps = _sample_chain(
+            logits, upload(window[None], dev), params, _penalized(gen), [rng],
+            bias=None if vec is None else vec[None], lp=lp_mode)
+        got = self._readback(first, *(lps or ()))()
+        first_data = None
+        if lp_mode:
+            first_data = lp_payload(got[0][0], got[1][0], got[2][0], got[3][0],
+                                    gen.logprobs)
+            got = got[0]
+        t0 = got[0]
         self._gens[r] = rng
         self._tok_dev[r] = first[0]
         # the first token enters the penalty window like every later one
@@ -603,13 +674,15 @@ class SlotScheduler:
         slot.decoder = StreamDecoder(self.engine.tokenizer)
         slot.stopper = StopMatcher(tuple(gen.stop)) if gen.stop else None
         self._slots[r] = slot
-        self._accept(slot, t0)
+        self._accept(slot, t0, first_data)
         if slot.stopped:
             self._finish(slot, slot.finish)
 
-    def _accept(self, slot: _Slot, t: int) -> None:
+    def _accept(self, slot: _Slot, t: int, data: dict | None = None) -> None:
         """Feed one sampled token through the slot's EOS/stop/budget chain.
-        Sets ``slot.stopped`` when the row is done; the caller finishes it."""
+        Sets ``slot.stopped`` when the row is done; the caller finishes it.
+        ``data`` is the token's logprob payload: with it every token gets an
+        event, even while the decoder holds its bytes back."""
         gen = slot.req.gen
         eos = self.engine.tokenizer.eos_id
         if gen.stop_on_eos and eos is not None and t == eos:
@@ -621,15 +694,15 @@ class SlotScheduler:
         piece = slot.decoder.feed(t)
         if slot.stopper is not None:
             piece, hit = slot.stopper.feed(piece)
-            if piece:
-                self._emit(slot.req, token(piece))
+            if piece or data is not None:
+                self._emit(slot.req, token(piece, **(data or {})))
             if hit:
                 slot.finish = "stop"
                 slot.stopped = True
                 slot.stop_matched = True
                 return
-        elif piece:
-            self._emit(slot.req, token(piece))
+        elif piece or data is not None:
+            self._emit(slot.req, token(piece, **(data or {})))
         if slot.n_gen >= slot.budget:
             slot.stopped = True
 
@@ -674,13 +747,12 @@ class SlotScheduler:
 
     # -- decode -------------------------------------------------------------
 
-    def _row_params(self, running: list[tuple[int, int]],
-                    ) -> tuple[torch.Tensor | None, bool,
-                               list[torch.Generator | None]]:
+    def _row_params(self, running: list[tuple[int, int]]):
         """The per-row sampling parameters of a launch: the [8, B] array on
         the device (None when no row needs it), whether any row is
-        penalized, and each row's generator (None for greedy and idle
-        rows)."""
+        penalized, each row's generator (None for greedy and idle rows),
+        the bias matrix (None when no running row is biased) and whether any
+        row wants logprobs."""
         gens_cfg: list[GenerationConfig | None] = [None] * self.n_slots
         rngs: list[torch.Generator | None] = [None] * self.n_slots
         for r, _ in running:
@@ -692,15 +764,19 @@ class SlotScheduler:
         params = None
         if penalized or any(g is not None for g in rngs):
             params = upload(_row_param_array(gens_cfg), self.device)
-        return params, penalized, rngs
+        biased = any(g is not None and g.logit_bias for g in gens_cfg)
+        lp = any(g is not None and g.logprobs is not None for g in gens_cfg)
+        return params, penalized, rngs, self._bias_dev if biased else None, lp
 
-    def _readback(self, t: torch.Tensor) -> Callable[[], list]:
-        """Queue a device→host copy of ``t`` (its own copy: the device
+    def _readback(self, *ts: torch.Tensor) -> Callable:
+        """Queue device→host copies of ``ts`` (their own copies: the device
         chains are written in place later); returns a callable that waits
-        for it and gives the values as a list."""
-        if t.device.type != "cuda":
-            return t.clone().tolist
-        return self.engine._to_host(t)
+        for them and gives their values as lists (one list for one tensor,
+        else a tuple of them)."""
+        if ts[0].device.type != "cuda":
+            vals = tuple(t.tolist() for t in ts)
+            return lambda: vals[0] if len(vals) == 1 else vals
+        return self.engine._to_host(*ts)
 
     def _launch(self, running: list[tuple[int, int]]):
         """Queue one decode chunk for all running rows; returns the handle
@@ -732,19 +808,23 @@ class SlotScheduler:
         active = {r for r, _ in running}
         step_pos = np.asarray([int(pos[r]) if r in active else self.max_seq
                                for r in range(B)], np.int32)
-        params, penalized, rngs = self._row_params(running)
+        params, penalized, rngs, bias, lp = self._row_params(running)
         cache = self._backend.cache(self._bufs, upload(step_pos, self.device))
         tok, recent = self._tok_dev, self._recent_dev
-        toks = []
+        toks, lps = [], []
         for _ in range(n):
             lg = self._backend.vstep(tok, cache)
             self.forwards += 1
-            tok, recent = _sample_chain(lg, recent, params, penalized, rngs)
+            tok, recent, step_lp = _sample_chain(lg, recent, params, penalized,
+                                                 rngs, bias, lp)
             toks.append(tok)
+            if lp:
+                lps.append(step_lp)
         self._tok_dev, self._recent_dev = tok, recent
         for r, _ in running:
             self._pos[r] += n
-        return self._readback(torch.stack(toks)), n, running, ()
+        outs = [torch.stack(toks)] + [torch.stack(x) for x in zip(*lps)]
+        return self._readback(*outs), n, running, (), lp
 
     def _launch_mixed(self, running: list[tuple[int, int]],
                       prefilling: list[_Slot]):
@@ -792,15 +872,15 @@ class SlotScheduler:
             packed[s.idx, :f] = s.pending[:f]
             packed[s.idx, Tc] = f
             packed[s.idx, Tc + 2] = pos[s.idx]
-        params, penalized, rngs = self._row_params(running)
+        params, penalized, rngs, bias, lp = self._row_params(running)
         dev = upload(packed, self.device)
         block, n_tok = dev[:, :Tc], dev[:, Tc]
         block[:, 0] = torch.where(dev[:, Tc + 1].bool(), self._tok_dev, block[:, 0])
         cache = self._backend.cache(self._bufs, dev[:, Tc + 2].to(torch.int32))
         lg = self._backend.mstep(block, n_tok, cache)
         self.forwards += 1
-        self._tok_dev, self._recent_dev = _sample_chain(
-            lg, self._recent_dev, params, penalized, rngs)
+        self._tok_dev, self._recent_dev, lps = _sample_chain(
+            lg, self._recent_dev, params, penalized, rngs, bias, lp)
         if running:
             # in-flight streams paid a wide step instead of a decode chunk
             self.counters["prefill_steps_stolen_total"] += 1
@@ -814,13 +894,16 @@ class SlotScheduler:
                 del s.pending[:f]
                 self.counters["prefill_tokens_total"] += f
             prefill_meta.append((s.idx, s.serial))
-        return (self._readback(self._tok_dev[None]), 1, running,
-                tuple(prefill_meta))
+        outs = [self._tok_dev] + list(lps or ())
+        return (self._readback(*(o[None] for o in outs)), 1, running,
+                tuple(prefill_meta), lp)
 
-    def _consume(self, read: Callable[[], list], n: int,
-                 rows: list[tuple[int, int]], prefill: tuple = ()) -> None:
-        """Read back a finished chunk and route its tokens to their slots."""
-        toks = read()                                     # [n][B]
+    def _consume(self, read: Callable, n: int, rows: list[tuple[int, int]],
+                 prefill: tuple = (), lp: bool = False) -> None:
+        """Read back a finished chunk and route its tokens (and, to the rows
+        that asked, their logprobs) to their slots."""
+        got = read()
+        toks = got[0] if lp else got                      # [n][B]
         for r, serial in rows:
             slot = self._slots[r]
             if slot is None or slot.serial != serial:
@@ -828,8 +911,12 @@ class SlotScheduler:
             if slot.req.abort.is_set():
                 self._finish(slot, "abort")
                 continue
+            want = slot.req.gen.logprobs if lp else None
             for i in range(n):
-                self._accept(slot, int(toks[i][r]))
+                t = int(toks[i][r])
+                data = None if want is None else lp_payload(
+                    t, got[1][i][r], got[2][i][r], got[3][i][r], want)
+                self._accept(slot, t, data)
                 if slot.stopped:
                     break
             if slot.stopped:

@@ -1,4 +1,5 @@
-"""The SSE chat server: ``POST /chat`` on the engine or the slot scheduler.
+"""The SSE chat server: ``POST /chat`` and the completion routes, on the
+engine or the slot scheduler.
 
 The counterpart of ``distributed_llm_pipeline_tpu/serving/server.py`` on its
 default path and on ``--parallel N``. ``POST /chat`` with JSON
@@ -6,7 +7,9 @@ default path and on ``--parallel N``. ``POST /chat`` with JSON
 ``data: {"msg_type": "log"|"token", "content": ...}``, closed by the
 ``done`` summary (sent as a ``log`` with ``finish_reason`` and ``n_gen``);
 ``OPTIONS /chat`` answers CORS preflight, ``GET /healthz`` reports the model,
-the queue and the slots, and ``GET /`` serves the web UI.
+the queue and the slots, and ``GET /`` serves the web UI. The llama-server
+and OpenAI routes (``/completion``, ``/v1/completions``,
+``/v1/chat/completions`` and their utilities) are ``openai.CompletionAPI``'s.
 
 With ``--parallel 1`` (the default) requests take the one decode stream in
 turn through an asyncio lock, writing SSE keep-alives while they wait. With
@@ -18,9 +21,12 @@ With ``--mesh PPxTP`` (e.g. ``2x2``) the model is served by a
 process per rank; this process is rank 0 and starts the others. ``/chat``
 streams from rank 0, one stream or ``--parallel N`` slots.
 
-Run: ``python -m distributed_llm_pipeline_tpu_torch.serving.server --model
-m.gguf [--parallel N] [--quant MODE] [--kv-quant q8_0] [--mesh PPxTP] [--cpu]``
-(port 3005 by default). Without ``--cpu`` it needs a CUDA device. ``--quant``
+Run: ``dlp-serve-torch --model m.gguf [--parallel N] [--quant MODE]
+[--kv-quant q8_0] [--mesh PPxTP] [--dtype D] [--cpu] [--config FILE]`` or
+``python -m distributed_llm_pipeline_tpu_torch.serving.server ...`` (port
+3005 by default; settings also from a JSON/TOML ``--config`` file and
+``DLP_*`` variables, flags winning). Without ``--cpu`` it needs a CUDA
+device. ``--quant``
 takes the reference's choices: int8, q8_0, q2_k, q3_k, q4_k, q5_k, q6_k or
 native; ``--kv-quant q8_0`` keeps the KV cache in int8. As in the reference,
 ``DLP_FUSED_DECODE=1`` runs the slots' decode steps through the fused
@@ -40,11 +46,13 @@ from pathlib import Path
 
 from aiohttp import web
 
+from ..config import DTYPES, config_from_args, torch_dtype
 from ..models.llama import QUANT_MODES
 from ..runtime import Engine, GenerationConfig, SlotScheduler
 from ..runtime.engine import check_token_ids
 from .common import (acquire_with_keepalive, cors, engine_events,
                      json_response, sse_response)
+from .openai import CompletionAPI
 
 STATIC_DIR = Path(__file__).parent / "static"
 
@@ -56,7 +64,7 @@ _OVERRIDES = ("max_new_tokens", "temperature", "top_k", "top_p", "min_p",
 
 class ChatServer:
     def __init__(self, engine: Engine, gen: GenerationConfig | None = None,
-                 parallel: int = 1):
+                 parallel: int = 1, model_id: str = "default"):
         self.engine = engine
         self.gen = gen or GenerationConfig()
         self._busy = asyncio.Lock()
@@ -68,6 +76,9 @@ class ChatServer:
         self.app.router.add_options("/chat", self.preflight)
         self.app.router.add_get("/healthz", self.healthz)
         self.app.router.add_get("/", self.index)
+        self.api = CompletionAPI(engine, self._busy, self.gen, model_id=model_id,
+                                 slots=self.scheduler)
+        self.api.register(self.app)
         self.app.router.add_static("/", STATIC_DIR, show_index=False)
         if self.scheduler is not None:
             async def close_scheduler(app):
@@ -169,8 +180,9 @@ class ChatServer:
 def build_argparser():
     import argparse
 
-    ap = argparse.ArgumentParser(description="LLM pipeline chat server (PyTorch/CUDA)")
-    ap.add_argument("--model", required=True, help="GGUF model file")
+    ap = argparse.ArgumentParser(prog="dlp-serve-torch",
+                                 description="LLM pipeline chat server (PyTorch/CUDA)")
+    ap.add_argument("--model", default=None, help="GGUF model file")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=3005)
     ap.add_argument("--ctx-size", type=int, default=2048)
@@ -189,16 +201,19 @@ def build_argparser():
     ap.add_argument("--mesh", default=None,
                     help="stages x chips, e.g. 2x1 (pp x tp ranks, one process "
                          "each)")
+    ap.add_argument("--dtype", default="bfloat16", choices=DTYPES,
+                    help="weight and activation dtype")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA device)")
     return ap
 
 
 def build_engine(args) -> Engine:
-    """The engine the parsed arguments ask for: a ShardedEngine with
-    ``--mesh``, else the single-device Engine."""
+    """The engine the parsed arguments (or an ``AppConfig``) ask for: a
+    ShardedEngine with ``--mesh``, else the single-device Engine."""
     kw = dict(max_seq=args.ctx_size, device="cpu" if args.cpu else None,
-              quant=args.quant, kv_quant=args.kv_quant)
+              quant=args.quant, kv_quant=args.kv_quant,
+              dtype=torch_dtype(args.dtype))
     if args.mesh:
         from ..parallel import MeshSpec, ShardedEngine
 
@@ -207,19 +222,26 @@ def build_engine(args) -> Engine:
 
 
 def main(argv: list[str] | None = None) -> None:
-    args = build_argparser().parse_args(argv)
     try:
-        engine = build_engine(args)
+        cfg, _ = config_from_args(argv, build_argparser)
+        model = cfg.require_model()
+        cfg.validate()
+        engine = build_engine(cfg)
     except (NotImplementedError, ValueError) as e:   # an unserved mode or model
         print(f"error: {e}", file=sys.stderr)
         raise SystemExit(2) from None
     try:
-        server = ChatServer(engine, GenerationConfig(max_new_tokens=args.n_predict),
-                            parallel=args.parallel)
-        print(f"chat server listening on http://{args.host}:{args.port}", flush=True)
-        web.run_app(server.app, host=args.host, port=args.port, print=None)
+        # the config's seed is not a server-wide default: every request with
+        # the same prompt would give the same text
+        gen = GenerationConfig(max_new_tokens=cfg.n_predict,
+                               temperature=cfg.temperature, top_k=cfg.top_k,
+                               top_p=cfg.top_p)
+        server = ChatServer(engine, gen, parallel=cfg.parallel,
+                            model_id=Path(model).stem)
+        print(f"chat server listening on http://{cfg.host}:{cfg.port}", flush=True)
+        web.run_app(server.app, host=cfg.host, port=cfg.port, print=None)
     finally:
-        if args.mesh:
+        if cfg.mesh:
             engine.close()
 
 

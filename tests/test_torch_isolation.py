@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax nor anything of the JAX
 package (distributed_llm_pipeline_tpu), and neither do chip_smoke.py, the
-timing scripts of scripts/, nor the mesh's spawned follower processes."""
+timing scripts of scripts/, the mesh's spawned follower processes, nor the
+CLI and the completion routes while they serve."""
 
 import ast
 import os
@@ -29,6 +30,9 @@ sys.meta_path.insert(0, Block())
 sys.path.insert(0, {root!r})
 import distributed_llm_pipeline_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+NEW = {{"cli", "config", "serving.openai", "serving.chat_template"}}
+missing = {{n for n in NEW if pkg.__name__ + "." + n not in names}}
+assert not missing, missing
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -101,6 +105,64 @@ leaked = [m for m in sys.modules if m.split(".")[0] in {forbidden!r}]
 assert not leaked, leaked
 print("ok")
 """
+
+
+_SERVE_RUN = r"""
+import asyncio, io, sys
+from pathlib import Path
+sys.path.insert(0, {root!r})
+import chip_smoke
+from aiohttp.test_utils import TestClient, TestServer
+from distributed_llm_pipeline_tpu_torch import cli
+from distributed_llm_pipeline_tpu_torch.models import ModelConfig
+from distributed_llm_pipeline_tpu_torch.runtime import Engine, GenerationConfig
+from distributed_llm_pipeline_tpu_torch.serving import ChatServer
+
+cfg = ModelConfig(vocab_size=320, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                  head_dim=16, hidden_dim=128, max_seq_len=64)
+path = Path({tmp!r}) / "m.gguf"
+chip_smoke.write_model(path, cfg, 0, device="cpu")
+sys.stdin = io.StringIO("hello\n")
+assert cli.main(["-m", str(path), "--cpu", "-n", "2", "-c", "64", "-i", "-p", "hi"]) == 0
+server = ChatServer(Engine(path, device="cpu"), GenerationConfig(max_new_tokens=2),
+                    parallel=2)
+
+async def go():
+    client = TestClient(TestServer(server.app))
+    await client.start_server()
+    try:
+        out = []
+        for route, body in (("/v1/chat/completions", {{"messages": [
+                                {{"role": "user", "content": "hi"}}], "logprobs": True,
+                                "top_logprobs": 2}}),
+                            ("/completion", {{"prompt": "hi", "n_probs": 2, "stream": True,
+                                             "logit_bias": [[5, False]]}}),
+                            ("/v1/completions", {{"prompt": "hi", "typical_p": 0.9,
+                                                 "mirostat": 2, "temperature": 0.9}}),
+                            ("/apply-template", {{"messages": [
+                                {{"role": "user", "content": "hi"}}]}})):
+            out.append((await client.post(route, json=body)).status)
+        return out
+    finally:
+        await client.close()
+
+assert asyncio.run(go()) == [200] * 4
+leaked = [m for m in sys.modules if m.split(".")[0] in {forbidden!r}]
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_cli_and_completion_routes_serve_with_jax_blocked(tmp_path):
+    """The CLI (an interactive turn) and the completion routes (logprobs,
+    a bias, typical-p and mirostat, the chat template) run with jax and
+    the JAX package blocked from import."""
+    (tmp_path / "sitecustomize.py").write_text(_SITE_BLOCK.format(forbidden=FORBIDDEN))
+    code = _SERVE_RUN.format(root=str(ROOT), tmp=str(tmp_path), forbidden=FORBIDDEN)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(tmp_path), str(ROOT)])}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=tmp_path, timeout=300, env=env)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
 
 
 def test_spawned_follower_ranks_import_no_jax(tmp_path):
