@@ -109,34 +109,33 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    with the plain attention on the card: max abs logit error within a bf16
    tolerance and the same argmax. Then the same prompt through the paged
    forward on the pool against the dense forward, held the same way.
-7. Serve quantized: a Q6_K GGUF of the same geometry (projections and
-   token_embd in Q6_K, norms in F32) served with ``Engine(quant="native")``
-   through ChatServer with the phase-4 requests, and the bf16 GGUF served
-   with ``Engine(quant="q8_0")`` through ChatServer(parallel=4) with the
-   phase-5 requests. Each packed projection must launch exactly one quant
-   kernel per forward, W8A8 where the forward's M = B·T ≤ 32 and fused
-   dequant above (7 × 16 per forward, +1 for a packed head, which sees M =
-   B). Load and pack times, TTFT, decode tok/s and a profiled quantized
+7. Serve quantized, like phases 8-9 at 8 of the model's 16 layers (the
+   widths unchanged; the cut keeps the whole run under 900 s): a Q6_K GGUF
+   (projections and token_embd in Q6_K, norms in F32) served with
+   ``Engine(quant="native")`` through ChatServer with the phase-4
+   requests, and the 8-layer bf16 GGUF served with ``Engine(quant="q8_0")``
+   through ChatServer(parallel=4) with the phase-5 requests. Each packed
+   projection must launch exactly one quant kernel per forward, W8A8 where
+   the forward's M = B·T ≤ 32 and fused dequant above (7 × n_layers per
+   forward, +1 for a packed head, which sees M = B). Load and pack times, TTFT, decode tok/s and a profiled quantized
    decode step are printed; then each engine's logits with the kernels
    against the plain versions, held as in phase 6.
 8. Serve Q4_K and Q5_K: a GGUF with llama.cpp's Q4_K_M assignment (attn_v
    and ffn_down in Q6_K on the ``use_more_bits`` layers, the other
    projections in Q4_K, token_embd in Q6_K) served with
    ``Engine(quant="native")`` single-stream (its mixed attn_v and ffn_down
-   stacks load dense, as in the reference), and a bf16 GGUF of 8 of the
-   model's 16 layers (the widths unchanged: the cut keeps the whole run
-   under 900 s) with ``Engine(quant="q5_k")`` on 4 slots, held and printed
-   as phase 7. Q5_KS forwards of M > 32 count their dequant + F.linear
+   stacks load dense, as in the reference), and the 8-layer bf16 GGUF
+   with ``Engine(quant="q5_k")`` on 4 slots, held and printed as phase 7. Q5_KS forwards of M > 32 count their dequant + F.linear
    calls in place of a kernel launch.
-9. Serve int8, Q3_K and Q2_K, at 8 of the model's 16 layers (the widths
-   unchanged; the cut keeps the whole run under 900 s): a bf16 GGUF with
+9. Serve int8, Q3_K and Q2_K: the 8-layer bf16 GGUF with
    ``Engine(quant="int8")``
    single-stream (the int8 kernel at every M: its GEMM at the 512 prefill
    bucket, the W8A8 route at decode), a Q3_K GGUF (projections in Q3_K,
    token_embd in Q6_K, norms F32) with ``Engine(quant="native")``
    single-stream, and the bf16 GGUF with ``Engine(quant="q2_k")`` on 4
    slots, held and printed as phase 7.
-10. ``--kv-quant q8_0``, fused decode and latent KV over the bf16 GGUF:
+10. ``--kv-quant q8_0``, fused decode and latent KV over the 8-layer bf16
+   GGUF (the depth cut of phases 7-9):
    ``Engine(kv_quant="q8_0")`` single-stream (the phase-4 requests; its
    int8 cache through flash_attention); ``DLP_FUSED_DECODE=1`` with
    ChatServer(parallel=4) (the phase-5 requests) on bf16 weights and pools,
@@ -183,7 +182,18 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    ChatServer(parallel=4) answers two logprob requests beside the biased
    one, all at once, held the same way, with paged_flash_attention at
    n_layers launches per paged forward. Each route prints its client-side
-   TTFT (streamed) and tok/s with the card.
+   TTFT (streamed) and tok/s with the card. Constrained decoding: a
+   response_format json_object, a GBNF grammar and a json_schema request,
+   one stream and then on 4 slots beside a free request, each output
+   meeting its constraint (or the budget ended it) and the slots' text
+   equal to the stream's, with flash_attention (paged_flash_attention) at
+   n_layers launches per (paged) forward; the refused combinations must
+   answer the reference's 400 texts; tok/s, host reads a token and
+   shortlist misses are printed. Then the context shift: an engine of the
+   same GGUF with a 128-token window generates past it with at least two
+   shifts logged, and four decode steps on a shifted cache through the
+   dense kernel are held against its plain version within LOGIT_TOL, both
+   fed the tokens the kernel's run chose.
 13. The total wall time, the kernels line (one JSON object), the card line,
    and last the ok line. Each phase, and each served path of phases 7-9
    and 11, prints its seconds on a line of its own as it ends.
@@ -2178,16 +2188,16 @@ ROUTE_MESSAGES = [{"role": "system", "content": "be brief"},
                   {"role": "user", "content": "hello hello"}]
 
 
-async def post_route(s, base: str, route: str, body: dict) -> dict:
+async def post_route(s, base: str, route: str, body: dict, status: int = 200) -> dict:
     """POST one completion route: the JSON answer, or with ``stream`` the
     SSE payloads; with the client-side send, first-payload and last-payload
-    times."""
+    times. Any status but ``status`` fails the run."""
     t0 = time.monotonic()
     t_first = t_last = None
     async with s.post(f"{base}{route}", json=body) as r:
-        if r.status != 200:
-            fail(f"{route} answered {r.status}: {await r.text()}")
-        if not body.get("stream"):
+        if r.status != status:
+            fail(f"{route} answered {r.status}, not {status}: {await r.text()}")
+        if not body.get("stream") or status != 200:
             answer = await r.json()
             t_last = time.monotonic()
         else:
@@ -2208,7 +2218,8 @@ async def post_route(s, base: str, route: str, body: dict) -> dict:
 async def route_requests(server, requests: list[tuple[str, dict]],
                          together: bool = False) -> list[dict]:
     """Boot ``server`` (a port ChatServer) on a free localhost port and POST
-    each (route, body): one after another, or all at once."""
+    each (route, body) or (route, body, expected status): one after
+    another, or all at once."""
     import aiohttp
     from aiohttp import web
 
@@ -2224,8 +2235,8 @@ async def route_requests(server, requests: list[tuple[str, dict]],
                 timeout=aiohttp.ClientTimeout(total=600)) as s:
             if together:
                 return list(await asyncio.gather(
-                    *(post_route(s, base, r, b) for r, b in requests)))
-            return [await post_route(s, base, r, b) for r, b in requests]
+                    *(post_route(s, base, *req) for req in requests)))
+            return [await post_route(s, base, *req) for req in requests]
     finally:
         await runner.cleanup()   # closes a slot scheduler too
 
@@ -2427,6 +2438,253 @@ def serve_routes(engine, fa, pa, cfg, card: str, seed: int) -> dict:
           f"forwards", flush=True)
     return {"flash_attention": launches, "paged_flash_attention": p_launches,
             "routes": lines}
+
+
+# phase 12, continued: constrained decoding and the context shift
+
+CONSTRAINED_GRAMMAR = 'root ::= ("yes" | "no" | "maybe") "."'
+CONSTRAINED_SCHEMA = {"type": "object", "properties": {"n": {"type": "integer"}},
+                      "required": ["n"]}
+CONSTRAINED_TOKENS = 16
+# the refused combinations and the reference's 400 texts (a text ending in
+# ": " is the start of one: the parser's own message follows)
+CONSTRAINED_REFUSED = [
+    ("/completion", {"prompt": "x", "grammar": CONSTRAINED_GRAMMAR,
+                     "response_format": {"type": "json_object"}},
+     "response_format json_object and 'grammar' are mutually exclusive "
+     "constraints; pick one"),
+    ("/completion", {"prompt": "x", "grammar": CONSTRAINED_GRAMMAR,
+                     "json_schema": CONSTRAINED_SCHEMA},
+     "'json_schema' and 'grammar' are mutually exclusive constraints; pick one"),
+    ("/v1/completions", {"prompt": "x", "logprobs": 2,
+                         "response_format": {"type": "json_object"}},
+     "logprobs does not combine with constrained sampling"),
+    ("/v1/chat/completions", {"messages": ROUTE_MESSAGES, "repeat_penalty": 1.3,
+                              "response_format": {"type": "json_schema", "json_schema":
+                                                  {"schema": CONSTRAINED_SCHEMA}}},
+     "repeat/presence/frequency penalties do not combine with constrained sampling"),
+    ("/completion", {"prompt": "x", "grammar": CONSTRAINED_GRAMMAR,
+                     "logit_bias": [[5, 1.0]]},
+     "logit_bias does not combine with constrained sampling"),
+    ("/completion", {"prompt": "x", "grammar": "root = broken"}, "invalid grammar: "),
+    ("/v1/completions", {"prompt": "x", "context_shift": "yes"},
+     "'context_shift' must be a boolean"),
+    ("/completion", {"prompt": "x", "n_keep": -1}, "'n_keep' must be a non-negative int"),
+]
+SHIFT_CTX = 128       # the context-shift engine's window
+SHIFT_TOKENS = 224    # generated through it: two shifts (after ~125 and ~187)
+
+
+class DoneTap:
+    """Records the done event of every stream that ``target.generate`` (an
+    Engine's or a SlotScheduler's) yields while installed."""
+
+    def __init__(self, target):
+        self.target, self.done = target, []
+        inner = target.generate
+
+        def generate(prompt, gen=None):
+            events = inner(prompt, gen)
+
+            def tap():
+                try:
+                    for ev in events:
+                        if ev.kind == "done":
+                            self.done.append(ev.data)
+                        yield ev
+                finally:
+                    events.close()
+
+            return tap()
+
+        target.generate = generate
+
+    def close(self) -> None:
+        del self.target.generate
+
+    def stats(self) -> dict:
+        """Tokens, decode tok/s of each stream, host reads a token and the
+        shortlist misses of the constrained streams recorded."""
+        cs = [d for d in self.done if "shortlist_misses" in d]
+        n = sum(d["n_gen"] for d in cs)
+        return {"streams": len(cs), "tokens": n,
+                "decode_tok_s": [d.get("tok_s") for d in cs],
+                "readbacks_per_token": sum(d["readbacks"] for d in cs) / max(1, n),
+                "shortlist_misses": sum(d["shortlist_misses"] for d in cs),
+                "constraint_complete": [d["constraint_complete"] for d in cs]}
+
+
+def check_constrained(res: dict, what: str) -> None:
+    """A constrained answer meets its constraint: one JSON value (an object
+    with an integer "n" under the schema), or the grammar's text; or the
+    budget ended it first."""
+    text, n_gen, finish = route_text(res)
+    body = res["body"]
+    if finish == "length":
+        if n_gen != CONSTRAINED_TOKENS:
+            fail(f"{what}: stopped after {n_gen} of {CONSTRAINED_TOKENS} tokens "
+                 f"without completing its constraint: {text!r}")
+        return
+    if finish != "stop":
+        fail(f"{what}: finish {finish}: {text!r}")
+    if "grammar" in body:
+        if text not in ("yes.", "no.", "maybe."):
+            fail(f"{what}: {text!r} is not a text of {CONSTRAINED_GRAMMAR}")
+        return
+    try:
+        doc = json.loads(text)
+    except ValueError:
+        fail(f"{what}: complete but not JSON: {text!r}")
+    if "json_schema" in body and not (isinstance(doc, dict) and isinstance(doc.get("n"), int)):
+        fail(f"{what}: {text!r} does not meet {CONSTRAINED_SCHEMA}")
+
+
+def serve_constrained(engine, fa, pa, cfg, card: str) -> None:
+    """Phase 12's constrained requests (response_format json_object, a GBNF
+    grammar, a json_schema) on one stream and then on 4 slots, each held to
+    its constraint and the slots' greedy text to the stream's; the refused
+    combinations answer the reference's 400s. The attention launches of
+    each path are held to its forwards; tok/s, host reads a token and
+    shortlist misses are printed."""
+    from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig
+    from distributed_llm_pipeline_tpu_torch.serving import ChatServer
+
+    n = CONSTRAINED_TOKENS
+    gen = GenerationConfig(max_new_tokens=n)
+    greedy = {"temperature": 0.0}
+    bodies = [
+        ("/v1/chat/completions", {"messages": ROUTE_MESSAGES, "max_tokens": n, **greedy,
+                                  "response_format": {"type": "json_object"}}),
+        ("/completion", {"prompt": "answer:", "n_predict": n, **greedy,
+                         "grammar": CONSTRAINED_GRAMMAR}),
+        ("/completion", {"prompt": "produce:", "n_predict": n, **greedy,
+                         "json_schema": CONSTRAINED_SCHEMA, "stream": True}),
+    ]
+    n_layers = cfg.n_layers
+    fa.launches = 0
+    forwards0 = engine.forwards
+    tap = DoneTap(engine)
+    try:
+        single = asyncio.run(route_requests(ChatServer(engine, gen), bodies))
+    finally:
+        tap.close()
+    launches, forwards = fa.launches, engine.forwards - forwards0
+    for i, res in enumerate(single):
+        check_constrained(res, f"one stream, constrained request {i}")
+    if forwards <= 0 or launches != n_layers * forwards:
+        fail(f"the constrained requests launched flash_attention {launches} times for "
+             f"{forwards} forwards of {n_layers} layers")
+    lines = [route_line(r, "single", card) for r in single]
+    print(json.dumps({"constrained_single": {
+        **tap.stats(), "forwards": forwards, "flash_attention_launches": launches,
+        "texts": [route_text(r)[0] for r in single], "card": card}}), flush=True)
+
+    refused = asyncio.run(route_requests(ChatServer(engine, gen), [
+        (route, body, 400) for route, body, _ in CONSTRAINED_REFUSED]))
+    for res, (route, _, want) in zip(refused, CONSTRAINED_REFUSED):
+        err = res["answer"]["error"]
+        msg = err["message"] if isinstance(err, dict) else err
+        if not (msg == want or want.endswith(": ") and msg.startswith(want)):
+            fail(f"{route}: refused with {msg!r}, not the reference's {want!r}")
+
+    # four slots: the three constrained requests beside a free one, at once
+    server = ChatServer(engine, gen, parallel=4)
+    sched = server.scheduler
+    tap = DoneTap(sched)
+    pa.launches = fa.launches = 0
+    forwards0 = sched.forwards
+    try:
+        slots = asyncio.run(route_requests(server, bodies + [
+            ("/v1/completions", {"prompt": "hello hello", "max_tokens": n, **greedy})],
+            together=True))
+    finally:
+        tap.close()
+    p_launches, d_launches = pa.launches, fa.launches
+    s_forwards = sched.forwards - forwards0
+    for i, (a, b) in enumerate(zip(slots, single)):
+        check_constrained(a, f"slots, constrained request {i}")
+        if route_text(a)[0] != route_text(b)[0]:
+            fail(f"slots, constrained request {i}: {route_text(a)[0]!r}, one stream "
+                 f"{route_text(b)[0]!r}")
+    if s_forwards <= 0 or p_launches != n_layers * s_forwards or d_launches:
+        fail(f"the constrained slots launched paged_flash_attention {p_launches} times "
+             f"(flash_attention {d_launches}) for {s_forwards} paged forwards of "
+             f"{n_layers} layers")
+    lines += [route_line(r, "slots", card) for r in slots]
+    print(json.dumps({"constrained_slots": {
+        **tap.stats(), "paged_forwards": s_forwards,
+        "paged_attention_launches": p_launches, "refused_400s": len(refused),
+        "card": card}}), flush=True)
+
+
+def serve_context_shift(Engine, path: Path, fa, llama, cfg, card: str, seed: int) -> None:
+    """Phase 12's context shift: an engine of the phase-4 GGUF with a
+    ``SHIFT_CTX`` window generates ``SHIFT_TOKENS`` greedy tokens with
+    ``context_shift`` (each shift logged; flash_attention launched once per
+    layer and forward, on the shifted cache too); then a near-full cache is
+    shifted and four greedy decode steps on it run through the dense kernel
+    and through its plain version, their logits held within LOGIT_TOL."""
+    from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig
+
+    t0 = time.monotonic()
+    engine = Engine(path, max_seq=SHIFT_CTX)
+    up_s = time.monotonic() - t0
+    fa.launches = 0
+    forwards0 = engine.forwards
+    events = list(engine.generate("hello hello", GenerationConfig(
+        max_new_tokens=SHIFT_TOKENS, temperature=0.0, stop_on_eos=False,
+        context_shift=True, keep=4)))
+    launches, forwards = fa.launches, engine.forwards - forwards0
+    shifts = [e.content for e in events if e.kind == "log" and "context shift" in e.content]
+    done = events[-1].data
+    if done["n_gen"] != SHIFT_TOKENS or len(shifts) < 2 or \
+            engine.context_shifts != len(shifts):
+        fail(f"context shift: {done['n_gen']} tokens of {SHIFT_TOKENS} in a "
+             f"{SHIFT_CTX} window, shifts {shifts}")
+    if launches != cfg.n_layers * forwards:
+        fail(f"the shifted run launched flash_attention {launches} times for "
+             f"{forwards} forwards of {cfg.n_layers} layers")
+
+    # the dense kernel on a shifted cache against its plain version
+    ids = prompt_ids(engine, seed)[:, :SHIFT_CTX - 8]
+    cache = engine.make_cache()
+    first = engine.model.forward_last(ids, cache, ids.shape[1] - 1)
+    keep = 4
+    drop = (cache.length - keep) // 2
+    engine._shift_cache(cache, keep, drop)
+
+    def decode(plain: bool, toks: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Four decode steps on a copy of the shifted cache; the kernel's
+        run feeds itself its argmax and records it in ``toks``, the plain
+        run is fed the same tokens."""
+        c = llama.KVCache(cache.k.clone(), cache.v.clone(), cache.length)
+        orig = llama.attention_any
+        if plain:
+            llama.attention_any = fa.flash_attention_plain
+        try:
+            outs = []
+            for i in range(4):
+                if not plain:
+                    toks.append((first if i == 0 else outs[-1]).argmax(-1).view(1, 1))
+                outs.append(engine.model(toks[i], c)[:, -1])
+            return outs
+        finally:
+            llama.attention_any = orig
+
+    fa.launches = 0
+    toks: list[torch.Tensor] = []
+    kern = decode(False, toks)
+    if fa.launches != 4 * cfg.n_layers:
+        fail(f"the shifted decode steps launched flash_attention {fa.launches} times")
+    held = hold_logits(kern, decode(True, toks), "kernel", "plain")
+    print(json.dumps({"context_shift": {
+        "ctx": SHIFT_CTX, "n_gen": done["n_gen"], "shifts": len(shifts),
+        "shift_logs": shifts, "decode_tok_s": done["tok_s"], "forwards": forwards,
+        "flash_attention_launches": launches, "engine_up_s": up_s,
+        "shifted_cache": {"length": cache.length, "keep": keep, "drop": drop},
+        "shifted_logits": held, "card": card}}), flush=True)
+    del engine, cache
+    torch.cuda.empty_cache()
 
 
 def load_quant_engine(Engine, gguf: Path, quant: str, card: str, unlink: bool):
@@ -3037,8 +3295,10 @@ def main() -> int:
         # 12. the completion routes, run here: they reuse phases 4-5's engine
         print(f"phase 12 at {time.monotonic() - t_start:.0f}s", flush=True)
         serve_routes(engine, fa, pa, cfg, card, args.seed)
+        serve_constrained(engine, fa, pa, cfg, card)
         del engine
         torch.cuda.empty_cache()
+        serve_context_shift(Engine, path, fa, llama, cfg, card, args.seed)
         t_phase = phase_seconds("12", t_phase, t_start)
 
         # 7. serve quantized: the paper's demo (a Q6_K GGUF, one stream) and
@@ -3047,17 +3307,17 @@ def main() -> int:
         # one stream, and --quant q2_k --parallel 4. The bf16 GGUF goes once
         # q2_k has packed it
         quant_launches = {}
-        # phase 9, and the --quant q5_k slots of phases 8 and 11 (the slowest
-        # paths: the device's Q5_K packing and the mesh's 64-lane mixed
-        # steps), run at 8 of the 16 layers (widths unchanged) so that the
-        # whole run stays under 900 s
+        # phases 7-10, and phase 11's quantized meshes over their GGUFs, run
+        # at 8 of the 16 layers (widths unchanged): the host's encoding,
+        # packing and factorizing and its launches a step scale with depth,
+        # and the cut keeps the whole run near 900 s
         cfg9 = cfg.replace(n_layers=8)
         write_model(path9, cfg9, args.seed)
         for phase, pcfg, qpath, wtype, seed, runs in (
-                (7, cfg, q6_path, GGMLType.Q6_K, args.seed + 1,
-                 (("native", q6_path, cfg, False), ("q8_0", path, cfg, True))),
-                (8, cfg, q4_path, q4_k_m_types(cfg.n_layers), args.seed + 2,
-                 (("native", q4_path, cfg, False), ("q5_k", path9, cfg9, True))),
+                (7, cfg9, q6_path, GGMLType.Q6_K, args.seed + 1,
+                 (("native", q6_path, cfg9, False), ("q8_0", path9, cfg9, True))),
+                (8, cfg9, q4_path, q4_k_m_types(cfg9.n_layers), args.seed + 2,
+                 (("native", q4_path, cfg9, False), ("q5_k", path9, cfg9, True))),
                 (9, cfg9, q3_path, q3_k_types, args.seed + 3,
                  (("int8", path9, cfg9, False), ("native", q3_path, cfg9, False),
                   ("q2_k", path9, cfg9, True)))):
@@ -3082,10 +3342,11 @@ def main() -> int:
                 phase_seconds(f"{phase} {quant} {gguf.name}", t_run, t_start)
             t_phase = phase_seconds(str(phase), t_phase, t_start)
 
-        # 10. --kv-quant q8_0, the fused decode step and latent KV
+        # 10. --kv-quant q8_0, the fused decode step and latent KV, at 8
+        # layers as phases 7-9
         print(f"phase 10 at {time.monotonic() - t_start:.0f}s", flush=True)
-        served10 = serve_kv_modes(Engine, path, requests, fa, pa, la, fd, qm, llama,
-                                  cfg, card, args.seed)
+        served10 = serve_kv_modes(Engine, path9, requests, fa, pa, la, fd, qm, llama,
+                                  cfg9, card, args.seed)
         t_phase = phase_seconds("10", t_phase, t_start)
 
         # 11. the mesh: --mesh 2x2 over the bf16 GGUF, --mesh 1x2 --parallel 4

@@ -5,7 +5,10 @@ generated tokens stream to stdout; the engine's log lines go to stderr
 (with ``--verbose``; the closing summary always) and to ``--log-file``. One
 shot with ``-p``, or interactive with ``-i`` / ``--interactive-first``
 (stdin lines, each wrapped in ``--in-prefix`` / ``--in-suffix``), or a chat
-through the model's template with ``-cnv``.
+through the model's template with ``-cnv``. ``--json``, ``--grammar-file``
+and ``--json-schema`` constrain the output; generation past the context
+limit shifts the KV window (``--keep``), as llama-cli does, unless
+``--no-context-shift``.
 
 Settings: defaults < ``--config`` file (JSON/TOML) < ``DLP_*`` env < flags.
 Without ``--cpu`` it runs on the CUDA device, and raises when there is none.
@@ -18,7 +21,9 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import json
 import sys
+from pathlib import Path
 
 from .config import DTYPES, config_from_args
 
@@ -74,6 +79,21 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--logit-bias", default=None, metavar="ID(+|-)BIAS,...",
                     help="bias token ids (llama.cpp's format, e.g. "
                          "'29871+1.5,15043-1'); ID-inf bans a token")
+    ap.add_argument("--json", dest="json_mode", action="store_true",
+                    help="constrain the output to one valid JSON value")
+    ap.add_argument("--grammar-file", default=None, metavar="GBNF",
+                    help="constrain the output with a GBNF grammar file "
+                         "(llama.cpp --grammar-file)")
+    ap.add_argument("--json-schema", default=None, metavar="SCHEMA",
+                    help="constrain the output to a JSON schema (inline JSON, "
+                         "or @file.json), converted to a grammar as "
+                         "llama-cli --json-schema does")
+    ap.add_argument("--no-context-shift", action="store_true",
+                    help="stop at the context limit instead of shifting the "
+                         "KV window (llama.cpp --no-context-shift)")
+    ap.add_argument("--keep", type=int, default=0,
+                    help="positions never shifted out of the context "
+                         "(llama.cpp --keep)")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--mesh", default=None,
                     help="stages x chips, e.g. 2x1 (pp x tp ranks, one process each)")
@@ -168,12 +188,40 @@ def _interactive_loop(engine, gen, cfg, args, log_fh) -> None:
         print(flush=True)
 
 
+def read_grammar(cfg) -> str | None:
+    """The GBNF text of ``--grammar-file`` or of ``--json-schema`` (inline
+    JSON, or ``@file``), compiled once so that a bad one fails before the
+    model loads; None without either. Raises ``ValueError`` naming the
+    flag."""
+    if cfg.grammar_file:
+        from .ops.gbnf import GBNFError, compile_grammar
+
+        try:
+            text = Path(cfg.grammar_file).read_text()
+            compile_grammar(text)
+        except (OSError, GBNFError) as e:
+            raise ValueError(f"--grammar-file: {e}") from None
+        return text
+    if cfg.json_schema:
+        from .ops.json_schema import schema_to_gbnf
+
+        try:
+            raw = cfg.json_schema
+            if raw.startswith("@"):
+                raw = Path(raw[1:]).read_text()
+            return schema_to_gbnf(json.loads(raw))
+        except (OSError, ValueError) as e:
+            raise ValueError(f"--json-schema: {e}") from None
+    return None
+
+
 def main(argv: list[str] | None = None) -> int:
     try:
         cfg, args = config_from_args(argv, build_argparser)
         cfg.require_model()
         cfg.validate()
         bias_pairs = cfg.logit_bias_pairs()
+        grammar = read_grammar(cfg)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -199,6 +247,9 @@ def main(argv: list[str] | None = None) -> int:
                                presence_penalty=cfg.presence_penalty,
                                frequency_penalty=cfg.frequency_penalty,
                                logit_bias=bias_pairs, seed=cfg.seed,
+                               json_mode=cfg.json_mode, grammar=grammar,
+                               context_shift=cfg.resolve_context_shift(),
+                               keep=cfg.keep,
                                # reverse prompts are stop strings in both modes
                                stop=tuple(args.reverse_prompt))
         try:

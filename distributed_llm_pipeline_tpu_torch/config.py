@@ -41,6 +41,14 @@ class AppConfig:
     presence_penalty: float = 0.0
     frequency_penalty: float = 0.0
     logit_bias: str | None = None    # "TOKEN_ID(+|-)BIAS,..." (llama.cpp)
+    json_mode: bool = False          # constrain the output to one JSON value
+    grammar_file: str | None = None  # GBNF grammar file (llama.cpp --grammar-file)
+    json_schema: str | None = None   # JSON schema text or @file (--json-schema)
+    # llama.cpp's context shift, on by default as in llama-cli: generation
+    # past the ctx limit drops half the cached window after --keep
+    context_shift: bool = True
+    no_context_shift: bool = False   # the CLI flag's spelling
+    keep: int = 0
     seed: int | None = None
     host: str = "0.0.0.0"
     port: int = 3005
@@ -53,10 +61,10 @@ class AppConfig:
     verbose: bool = False
 
     _INT = ("ctx_size", "n_predict", "top_k", "seed", "port", "repeat_last_n",
-            "parallel", "mirostat")
+            "parallel", "mirostat", "keep")
     _FLOAT = ("temperature", "top_p", "min_p", "repeat_penalty", "typical_p",
               "mirostat_tau", "mirostat_eta", "presence_penalty", "frequency_penalty")
-    _BOOL = ("cpu", "verbose")
+    _BOOL = ("cpu", "verbose", "json_mode", "context_shift", "no_context_shift")
 
     @classmethod
     def field_names(cls) -> list[str]:
@@ -103,6 +111,9 @@ class AppConfig:
                              "DLP_MODEL, or put 'model' in the config file")
         return self.model
 
+    def resolve_context_shift(self) -> bool:
+        return self.context_shift and not self.no_context_shift
+
     def validate(self) -> None:
         """Checks that fail before a model load starts (env and config-file
         values bypass argparse's choices)."""
@@ -112,6 +123,14 @@ class AppConfig:
         check_kv_quant(self.kv_quant)
         if self.mirostat not in (0, 1, 2):
             raise ValueError(f"mirostat must be 0, 1 or 2, got {self.mirostat}")
+        if (self.json_mode or self.grammar_file or self.json_schema) \
+                and self.repeat_penalty != 1.0:
+            raise ValueError("--json/--grammar-file/--json-schema does not "
+                             "combine with --repeat-penalty")
+        if sum(bool(x) for x in
+               (self.json_mode, self.grammar_file, self.json_schema)) > 1:
+            raise ValueError("--json, --grammar-file and --json-schema are "
+                             "mutually exclusive constraints; pick one")
         if self.parallel < 1:
             raise ValueError(f"--parallel must be >= 1, got {self.parallel}")
         self.torch_dtype()

@@ -189,17 +189,23 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float,
     return (y * (w.float() + offset)).to(x.dtype)
 
 
+def rope_inv_freqs(cfg: ModelConfig, device) -> torch.Tensor:
+    """The rotary frequencies [head_dim // 2], f32, divided by the Phi-3
+    longrope factors when the config carries them."""
+    half = cfg.head_dim // 2
+    freqs = cfg.rope_theta ** (
+        -torch.arange(0, half, dtype=torch.float32, device=device) / half)
+    if cfg.rope_factors:
+        freqs = freqs / torch.tensor(cfg.rope_factors, dtype=torch.float32,
+                                     device=device)
+    return freqs
+
+
 def rope_freqs(cfg: ModelConfig, positions: torch.Tensor,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables for ``positions``: [..., head_dim // 2], f32, with the
     Phi-3 longrope factors and magnitude when the config carries them."""
-    half = cfg.head_dim // 2
-    freqs = cfg.rope_theta ** (
-        -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half)
-    if cfg.rope_factors:
-        freqs = freqs / torch.tensor(cfg.rope_factors, dtype=torch.float32,
-                                     device=positions.device)
-    angles = positions[..., None].float() * freqs
+    angles = positions[..., None].float() * rope_inv_freqs(cfg, positions.device)
     m = cfg.rope_attn_factor or 1.0
     return torch.cos(angles) * m, torch.sin(angles) * m
 
@@ -207,19 +213,56 @@ def rope_freqs(cfg: ModelConfig, positions: torch.Tensor,
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                style: str) -> torch.Tensor:
     """x [B, T, H, Hd]; cos/sin [B, T, Hd/2] broadcast over heads."""
-    xf = x.float()
-    c = cos[..., None, :]
-    s = sin[..., None, :]
-    if style == "interleaved":  # ggml NORM: pairs (2i, 2i+1)
-        x1, x2 = xf[..., 0::2], xf[..., 1::2]
-        out = torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).reshape(x.shape)
-    elif style == "half":       # HF rotate_half: pairs (i, i + Hd/2)
+    return _rotate_pairs(x.float(), cos[..., None, :], sin[..., None, :],
+                         style).to(x.dtype)
+
+
+def _rotate_pairs(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
+                  style: str) -> torch.Tensor:
+    """Rotate the (f32) pairs of x's last dim by angles with cos ``c`` and
+    sin ``s`` (broadcast against x's pair halves): ggml's NORM pairs (2i,
+    2i+1) for ``"interleaved"``, HF rotate_half's (i, i + Hd/2) for
+    ``"half"``."""
+    if style == "interleaved":
+        x1, x2 = x[..., 0::2], x[..., 1::2]
+        return torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).reshape(x.shape)
+    if style == "half":
         half = x.shape[-1] // 2
-        x1, x2 = xf[..., :half], xf[..., half:]
-        out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
-    else:
-        raise ValueError(f"unknown rope style {style!r}")
-    return out.to(x.dtype)
+        x1, x2 = x[..., :half], x[..., half:]
+        return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    raise ValueError(f"unknown rope style {style!r}")
+
+
+def shift_kv(cache: KVCache, keep: int, drop: int, new_len: int,
+             cfg: ModelConfig) -> KVCache:
+    """llama.cpp's context shift, in place: drop ``drop`` positions after
+    the first ``keep``, sliding the tail down and re-rotating the moved K
+    vectors by −drop positions (K is cached after rope; a vector moved from
+    position p to p − drop must carry R(p − drop) = R(−drop)·R(p)). V has no
+    positional encoding and only slides. ``new_len`` becomes the cache
+    length. The rotation runs in f32 and is cast back once.
+
+    This is the approximation llama.cpp ships (the attention that produced
+    the kept vectors saw the dropped context); it lets a chat run past the
+    context window instead of ending at ctx."""
+    if cache.k_scale is not None:
+        raise NotImplementedError(
+            "context shift with --kv-quant is not supported yet (rotating "
+            "int8 K codes needs a dequant->rotate->requant pass); drop one")
+    # only [keep, new_len) changes: the head stays, the cells from new_len
+    # on are past the length and never read. One layer at a time, so the
+    # extra memory is one layer's moved slice, not copies of the cache.
+    n = max(0, new_len - keep)
+    inv = rope_inv_freqs(cfg, cache.k.device)
+    ang = -float(drop) * inv                                  # [half]
+    c, s = torch.cos(ang), torch.sin(ang)
+    dst, src = slice(keep, keep + n), slice(keep + drop, keep + drop + n)
+    for layer in range(cache.k.shape[0]):                     # [L, B, S, K, Hd]
+        k = cache.k[layer, :, src].float()
+        cache.k[layer, :, dst] = _rotate_pairs(k, c, s, cfg.rope_style).to(cache.k.dtype)
+        cache.v[layer, :, dst] = cache.v[layer, :, src].clone()
+    cache.length = new_len
+    return cache
 
 
 def _act(x: torch.Tensor, act: str) -> torch.Tensor:

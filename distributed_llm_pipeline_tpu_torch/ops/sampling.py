@@ -139,6 +139,16 @@ def topk_logprobs(raw_logits: torch.Tensor, sampled: torch.Tensor, k: int
     return tok_lp, tv, ti
 
 
+def shortlist(logits: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k highest of the f32 logits [..., V] (values, int64 ids),
+    descending, ties in index order, as ``jax.lax.top_k`` breaks them
+    (``torch.topk`` leaves the order of ties unspecified, and a constrained
+    sampler's greedy pick is the first valid candidate): a stable sort."""
+    vals, idx = torch.sort(logits.float(), dim=-1, descending=True, stable=True)
+    k = min(k, logits.shape[-1])
+    return vals[..., :k], idx[..., :k]
+
+
 def lp_payload(tok_id: int, tok_lp, top_v, top_i, n_alts: int) -> dict:
     """A token event's logprob data, from host values."""
     return {"id": int(tok_id), "logprob": float(tok_lp),

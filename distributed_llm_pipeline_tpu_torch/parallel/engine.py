@@ -41,7 +41,7 @@ import torch.distributed as dist
 from ..gguf import GGUFReader
 from ..models import ModelConfig
 from ..models.convert import load_params, native_quant_layers, select_rope_factors
-from ..models.llama import check_quant, quantized_bytes
+from ..models.llama import KVCache, check_quant, quantized_bytes, shift_kv
 from ..ops import flash_attention as fa
 from ..ops import quant_matmul as qm
 from ..runtime import capabilities
@@ -145,6 +145,8 @@ class RankRuntime:
         """``cache`` (name, batch): allocate (or replace) a named cache.
         ``forward`` (name, tokens, pos0, last, rows): one pipelined forward
         over rows [r0, r1) of that cache (all rows when None).
+        ``shift`` (name, keep, drop, new_len): the context shift of that cache's
+        stage layers (``models.llama.shift_kv``), in place.
         ``stats``: this process's kernel launch counters, the M of each
         chunk its blocks ran and of each call of its head, its packs by kind
         and the time in collectives; ``reset_stats`` zeroes them.
@@ -162,6 +164,10 @@ class RankRuntime:
                 k, v = k[:, r0:r1], v[:, r0:r1]
             return pipeline_forward(self.model, self.mesh, self.comm, k, v,
                                     kw["tokens"], kw["pos0"], kw.get("last"))
+        if op == "shift":
+            k, v = self.caches[kw["name"]]
+            shift_kv(KVCache(k, v), kw["keep"], kw["drop"], kw["new_len"], self.cfg)
+            return None
         if op == "stats":
             packs: dict[str, int] = {}
             for blk in self.model.layers:
@@ -362,6 +368,13 @@ class MeshModel:
                         rows=(r, r + 1))
         return self.stage.lm_logits(h)[:, 0]
 
+    def shift(self, cache: MeshCache, keep: int, drop: int) -> None:
+        """The context shift of ``cache`` on every rank, each over its own
+        stage's layers and heads; the length drops by ``drop``."""
+        self.command("shift", name=cache.name, keep=keep, drop=drop,
+                     new_len=cache.length - drop)
+        cache.length = cache.length - drop
+
     def stats(self) -> list[dict]:
         """Each rank's counters, rank 0 first."""
         return self.command("stats")
@@ -539,6 +552,7 @@ class ShardedEngine(Engine):
         self.decode_chunk = max(1, int(os.environ.get("DLP_DECODE_CHUNK", "32")))
         self._prompt_quantum = CHUNK
         self.forwards = 0
+        self.context_shifts = 0
         self._fused_resolved = {}
         self.stage_counts = loaded.counts
         self._events_on_load = list(loaded.events)
@@ -580,6 +594,9 @@ class ShardedEngine(Engine):
 
     def make_cache(self, batch: int = 1) -> MeshCache:
         return self.model.make_cache("stream", batch)
+
+    def _shift_cache(self, cache: MeshCache, keep: int, drop: int) -> None:
+        self.model.shift(cache, keep, drop)
 
     def slot_backend(self, n_slots: int, max_seq: int, *, block_size: int | None = None,
                      n_blocks: int | None = None) -> MeshSlotBackend:

@@ -15,7 +15,14 @@ Decode runs in chunks of ``DLP_DECODE_CHUNK`` steps (default 32). Each step
 forwards and samples on the device; the sampled token feeds the next step
 without leaving the device, and the host reads a chunk's tokens back once,
 after the next chunk is already queued. The KV cache is written in place
-(the reference donates it to XLA for the same effect).
+(the reference donates it to XLA for the same effect). With
+``context_shift`` a stream runs past the context: when the cache is full
+and no chunk is in flight, half the cached positions after ``keep`` are
+dropped and the moved keys re-rotated (llama.cpp's shift).
+
+A JSON-mode or grammar request decodes one forward a token instead: the
+host picks each token from the device's shortlist of the logits
+(``runtime/constrained.py``).
 
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``); with no CUDA device and no such request they raise.
@@ -37,11 +44,12 @@ from ..models import KVCache, LlamaModel, ModelConfig, PagedKVCache, Params
 from ..models.convert import load_params, native_quant_layers, select_rope_factors
 from ..models.convert import latent_default_rank, latent_factorize
 from ..models.llama import (check_kv_mode, check_kv_quant, check_quant,
-                            quantize_params, quantized_bytes)
+                            quantize_params, quantized_bytes, shift_kv)
 from ..ops.latent_attention import LATENT_RANKS
 from ..ops.quant_matmul import QuantPack
 from ..ops.sampling import (apply_penalties, bias_vector, lp_payload,
-                            mirostat_init, mirostat_step, sample, topk_logprobs)
+                            mirostat_init, mirostat_step, sample, shortlist,
+                            topk_logprobs)
 from ..tokenizer import StreamDecoder, Tokenizer, tokenizer_from_metadata
 from ..utils import Event, done, log, token
 from . import capabilities
@@ -73,6 +81,15 @@ class GenerationConfig:
     mirostat: int = 0
     mirostat_tau: float = 5.0
     mirostat_eta: float = 0.1
+    # constrained decoding: the output is one valid JSON value, or a text
+    # of the GBNF grammar given (llama.cpp --grammar); exclusive
+    json_mode: bool = False
+    grammar: str | None = None
+    # llama.cpp's context shift: at the context limit, drop half the cached
+    # positions after the first ``keep`` and re-rotate the rest instead of
+    # stopping (off here; the CLI turns it on, as llama-cli does)
+    context_shift: bool = False
+    keep: int = 0
 
 
 class StopMatcher:
@@ -159,9 +176,11 @@ def check_token_ids(ids: list[int], vocab_size: int) -> list[int]:
 def check_sampler(gen: GenerationConfig) -> GenerationConfig:
     """The single-stream engine's checks of a request's sampler, as the
     reference's: ``ValueError`` on a mirostat version other than 0, 1 or 2,
-    or on mirostat with logprobs (its truncation is adaptive state, not a
-    fixed distribution to report). A greedy request runs neither mirostat
-    nor typical-p, so both are switched off for it."""
+    on mirostat with logprobs (its truncation is adaptive state, not a
+    fixed distribution to report), and on a constrained request (JSON mode
+    or a grammar) with mirostat, typical-p, the other constraint, logprobs,
+    a penalty or a logit bias. A greedy request runs neither mirostat nor
+    typical-p, so both are switched off for it."""
     if gen.mirostat not in (0, 1, 2):
         raise ValueError(f"mirostat must be 0, 1 or 2, got {gen.mirostat}")
     if gen.temperature <= 0.0 and (gen.mirostat or gen.typical_p < 1.0):
@@ -170,7 +189,45 @@ def check_sampler(gen: GenerationConfig) -> GenerationConfig:
         raise ValueError("mirostat does not combine with logprobs (its "
                          "truncation is adaptive state, not a fixed "
                          "distribution to report)")
+    if gen.json_mode or gen.grammar:
+        if gen.mirostat:
+            raise ValueError("mirostat does not combine with constrained "
+                             "sampling (the grammar re-filters and "
+                             "renormalizes candidates host-side)")
+        if gen.typical_p < 1.0:
+            raise ValueError("typical_p does not combine with "
+                             "constrained sampling (the grammar "
+                             "re-filters candidates host-side); drop "
+                             "one of the two")
+        check_constraint_combination(gen)
     return gen
+
+
+def check_constraint_combination(gen: GenerationConfig) -> None:
+    """The checks a constrained request (JSON mode or a grammar) meets on
+    every path, the slots included, each a ``ValueError`` in the
+    reference's words: one constraint only, no logprobs, no penalty, no
+    logit bias."""
+    if not (gen.json_mode or gen.grammar):
+        return
+    if gen.json_mode and gen.grammar:
+        raise ValueError("json mode and a GBNF grammar are mutually "
+                         "exclusive constraints; pick one")
+    if gen.logprobs is not None:
+        raise ValueError("logprobs does not combine with constrained "
+                         "sampling (the grammar re-filters and "
+                         "renormalizes candidates host-side)")
+    if (gen.repeat_penalty != 1.0 or gen.presence_penalty
+            or gen.frequency_penalty):
+        raise ValueError(
+            "repeat/presence/frequency penalties do not compose "
+            "with constrained sampling (the grammar re-filters "
+            "candidates host-side); drop one of the two")
+    if gen.logit_bias:
+        raise ValueError(
+            "logit_bias does not compose with constrained sampling "
+            "(the grammar shortlists candidates from the raw "
+            "distribution); drop one of the two")
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -304,6 +361,7 @@ class Engine:
         self.decode_chunk = max(1, int(os.environ.get("DLP_DECODE_CHUNK", "32")))
         self._prompt_quantum = 1   # prefill buckets are multiples of this
         self.forwards = 0   # model forwards run: one per prefill, one per decode step
+        self.context_shifts = 0   # context shifts applied
         self._fused_resolved: dict[tuple[int, int], bool] = {}
         dev = (torch.cuda.get_device_name(self.device)
                if self.device.type == "cuda" else "CPU")
@@ -480,9 +538,16 @@ class Engine:
     def generate(self, prompt: str | list[int],
                  gen: GenerationConfig | None = None) -> Iterator[Event]:
         """Streaming generation: yields log / token / done events. Raises
-        ``ValueError`` on a sampler combination the engine does not run."""
+        ``ValueError`` on a sampler combination the engine does not run.
+        A JSON-mode or grammar request takes the constrained path."""
         gen = check_sampler(gen or GenerationConfig())
+        if gen.json_mode or gen.grammar:
+            return self._generate_constrained(prompt, gen)
         return self._generate(prompt, gen)
+
+    def _shift_cache(self, cache: KVCache, keep: int, drop: int) -> None:
+        """The context shift of a dense cache (``models.llama.shift_kv``)."""
+        shift_kv(cache, keep, drop, cache.length - drop, self.cfg)
 
     def _generate(self, prompt: str | list[int],
                   gen: GenerationConfig) -> Iterator[Event]:
@@ -493,7 +558,13 @@ class Engine:
         if n_prompt >= self.max_prompt:
             ids = ids[-(self.max_prompt - 1):]
             yield log(f"prompt truncated to last {len(ids)} tokens (ctx {self.max_seq})")
-        budget = max(0, min(gen.max_new_tokens, self.max_seq - len(ids)))
+        # latents cache projected post-rope K: the shift's re-rotation pairs
+        # head_dim lanes, which the rank-r mixing destroyed, so no exact
+        # shift exists; int8 K codes would need a requantizing pass
+        shift_on = (gen.context_shift and not self.kv_quant
+                    and self.kv_mode != "latent")
+        budget = gen.max_new_tokens if shift_on else \
+            max(0, min(gen.max_new_tokens, self.max_seq - len(ids)))
         yield log(f"prompt: {n_prompt} tokens; generating up to {budget} "
                   f"(ctx {self.max_seq}, t={gen.temperature}, top_k={gen.top_k}, "
                   f"top_p={gen.top_p})")
@@ -559,7 +630,25 @@ class Engine:
         while True:
             launched = None
             room = budget - n_gen - (pending[1] if pending else 0)
-            n = min(self.decode_chunk, room, self.max_seq - cache.length)
+            if (shift_on and not stopped and room > 0 and pending is None
+                    and self.max_seq - cache.length < 2):
+                # the context is full and nothing is in flight: drop half
+                # the past after ``keep`` and re-rotate (llama.cpp's shift)
+                pos = cache.length
+                keep = max(0, min(gen.keep, pos - 2))
+                drop = max(1, (pos - keep) // 2)
+                self._shift_cache(cache, keep, drop)
+                self.context_shifts += 1
+                yield log(f"context shift: dropped {drop} cached positions "
+                          f"(keep {keep}, {cache.length} remain of ctx "
+                          f"{self.max_seq})")
+            # a step needs a free position for its token and one more for
+            # the token it samples; a chunk the context bounds is a power of
+            # two, as the reference's, so both shift at the same position
+            ctx_room = self.max_seq - cache.length
+            n = min(self.decode_chunk, room, ctx_room)
+            if n == ctx_room:
+                n = 1 << (n.bit_length() - 1) if ctx_room >= 2 else 0
             if not stopped and n > 0:
                 outs, tok = self._decode_chunk(n, tok, cache, gen, rng, st)
                 launched = (self._to_host(*(o[:, 0] for o in outs)), n)
@@ -577,7 +666,7 @@ class Engine:
                         break
             # once stopped, a chunk still in flight is junk past the stop
             pending = None if stopped else launched
-            if pending is None:
+            if pending is None and (stopped or not shift_on or n_gen >= budget):
                 break
         tail = sd.flush()
         if not stop_matched:
@@ -597,3 +686,111 @@ class Engine:
                    n_prompt=len(ids), n_gen=n_gen, finish_reason=finish_reason,
                    ttft_ms=ttft * 1000, tok_s=tps, tok_s_e2e=tps_e2e,
                    stop_match=stopper.matched if stopper else None, **extra)
+
+    # -- constrained decoding (llama.cpp's grammar sampling: JSON mode, its
+    # shipped json.gbnf, or a GBNF grammar) --------------------------------
+
+    _JSON_TOPK = 64   # candidate shortlist read back per step
+
+    def _shortlist(self, row: torch.Tensor) -> tuple[list[float], list[int]]:
+        """The top ``_JSON_TOPK`` of one step's f32 logits [V], descending,
+        values and ids read back in one synchronisation."""
+        return self._to_host(*shortlist(row, self._JSON_TOPK))()
+
+    def _generate_constrained(self, prompt: str | list[int],
+                              gen: GenerationConfig) -> Iterator[Event]:
+        """Constrained decoding in llama.cpp's candidates-then-grammar order:
+        each step the device proposes its top-K shortlist, and the host keeps
+        the candidates whose text extends a valid prefix of the constraint
+        (JSON, or a compiled GBNF grammar), renormalizes and samples. The
+        full [V] row is read back only when no shortlisted candidate is
+        valid (a miss). One host round trip per token, one forward per
+        token; generation ends when the constraint is satisfied. The done
+        event carries ``constraint_complete`` (and ``json_complete``), the
+        readbacks and the misses."""
+        from .constrained import ConstrainedSampler
+
+        yield from self._events_on_load
+        ids = check_token_ids(list(prompt), self.cfg.vocab_size) \
+            if isinstance(prompt, (list, tuple)) else self.tokenizer.encode(prompt)
+        n_prompt = len(ids)
+        if n_prompt >= self.max_prompt:
+            ids = ids[-(self.max_prompt - 1):]
+            yield log(f"prompt truncated to last {len(ids)} tokens "
+                      f"(ctx {self.max_seq})")
+        budget = max(0, min(gen.max_new_tokens, self.max_seq - len(ids)))
+        kind = "GBNF-grammar" if gen.grammar else "JSON"
+        yield log(f"prompt: {n_prompt} tokens; generating up to {budget} "
+                  f"{kind}-constrained (t={gen.temperature}, "
+                  f"candidates={self._JSON_TOPK})")
+        if budget == 0:
+            yield done("generated 0 tokens (no budget)", n_prompt=len(ids),
+                       n_gen=0, finish_reason="length")
+            return
+        sampler = ConstrainedSampler(gen, self.tokenizer.token_bytes,
+                                     self.tokenizer.eos_id)
+        stopper = StopMatcher(tuple(gen.stop)) if gen.stop else None
+        t_start = time.monotonic()
+        cache = self.make_cache()
+        row = self.prefill(ids, cache)[0]
+        ttft = time.monotonic() - t_start
+        yield log(f"prefill: {len(ids)} tokens in {ttft * 1000:.1f} ms (TTFT)")
+        t_decode = time.monotonic()
+        n_gen, finish_reason = 0, "length"
+        readbacks = misses = 0
+
+        def full_row(r: torch.Tensor):
+            nonlocal readbacks, misses
+            readbacks += 1
+            misses += 1
+            return r.float().cpu().numpy()
+
+        while n_gen < budget:
+            vals, idx = self._shortlist(row)
+            readbacks += 1
+            res = sampler.pick(vals, idx, full_logits=lambda r=row: full_row(r),
+                               cap=self._JSON_TOPK)
+            if res is None:
+                # the constraint cannot be extended: an honest length-style
+                # end ("stop" would tell clients to parse a truncated prefix)
+                yield log("constrained mode: no token extends a valid "
+                          "prefix; stopping")
+                break
+            tok_id, delta = res
+            n_gen += 1
+            if delta:   # exactly the validated text, nothing else
+                if stopper is not None:
+                    emitted, hit = stopper.feed(delta)
+                    if emitted:
+                        yield token(emitted)
+                    if hit:
+                        finish_reason = "stop"
+                        break
+                else:
+                    yield token(delta)
+            if sampler.complete:
+                finish_reason = "stop"
+                if stopper is not None:   # release the held-back tail
+                    held, _ = stopper.finish("")
+                    if held:
+                        yield token(held)
+                break
+            if n_gen >= budget:
+                break
+            tok = torch.full((1, 1), tok_id, dtype=torch.long, device=self.device)
+            row = self.model(tok, cache)[0, -1]
+            self.forwards += 1
+        if stopper is not None and finish_reason != "stop":
+            held, _ = stopper.finish("")
+            if held:
+                yield token(held)
+        dt = time.monotonic() - t_decode
+        tps = (n_gen - 1) / dt if n_gen > 1 and dt > 0 else float("nan")
+        yield done(f"generated {n_gen} tokens | TTFT {ttft * 1000:.1f} ms "
+                   f"| decode {tps:.2f} tok/s | constraint "
+                   f"{'satisfied' if sampler.complete else 'truncated'}",
+                   n_prompt=len(ids), n_gen=n_gen, finish_reason=finish_reason,
+                   ttft_ms=ttft * 1000, tok_s=tps,
+                   json_complete=sampler.complete,
+                   constraint_complete=sampler.complete,
+                   readbacks=readbacks, shortlist_misses=misses)

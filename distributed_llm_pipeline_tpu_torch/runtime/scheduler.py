@@ -27,6 +27,14 @@ the top ``LP_TOPK`` logprobs of each row's raw distribution, read back with
 the step's tokens. Free rows compute
 junk that is discarded; their writes are parked at ``max_seq``.
 
+A constrained row (JSON mode or a GBNF grammar) picks its tokens on the
+host (``runtime/constrained.py``): while one runs, every step also returns
+the top ``CS_TOPK`` of each row's raw logits, and the loop runs serially,
+one step a launch, each read back before the next is queued, so the host's
+pick can replace the row's device token before the next step feeds it.
+Its full [V] row is read back only when the shortlist holds no valid
+candidate. Free rows keep decoding in the same batch.
+
 The engine builds the backend that holds the rows (``Engine.slot_backend``):
 over a :class:`ShardedEngine` (``--mesh``) they are dense pipeline-cache
 rows on every rank instead (``parallel.engine.MeshSlotBackend``): a mixed
@@ -35,10 +43,10 @@ place.
 
 Not ported yet (the reference has them): preemption and the swap store, the
 disaggregation handoff, the watchdog, poison/quarantine, load shedding,
-tenants and quotas, slot save/restore, constrained rows, metrics and
-tracing, the single-device dense slot backend. Typical-p and mirostat stay
-on the single-stream engine, as in the reference: a request that would run
-either is refused here.
+tenants and quotas, slot save/restore, metrics and tracing, the
+single-device dense slot backend. Typical-p, mirostat and the context
+shift stay on the single-stream engine, as in the reference: a request
+that would run one is refused here.
 
 The worker thread owns every device buffer and all slot state; it runs
 under ``torch.inference_mode()`` and on the engine's device, both of which
@@ -60,16 +68,18 @@ import numpy as np
 import torch
 
 from ..ops.sampling import (apply_penalties, bias_vector, lp_payload, sample_rows,
-                            topk_logprobs)
+                            shortlist, topk_logprobs)
 from ..tokenizer import StreamDecoder
 from ..utils import Event, done, log, token
 from .engine import (Engine, GenerationConfig, StopMatcher, _bucket,
-                     check_token_ids)
+                     check_constraint_combination, check_token_ids)
 from .paged import PoolExhausted, upload
 
 RECENT_W = 64    # repeat-penalty window capacity per slot (llama.cpp default)
 MIN_PREFIX = 16  # shortest reusable per-slot KV prefix
 LP_TOPK = 20     # alternatives computed per step when any row wants logprobs
+CS_TOPK = 512    # the device top-K of a constrained row read back per step;
+                 # its full [V] row is fetched only when all of it misses
 
 # per-row sampling parameters, one row each of the [8, B] parameter array
 _TEMP, _TOP_K, _TOP_P, _MIN_P, _PEN, _PRES, _FREQ, _LAST_N = range(8)
@@ -127,7 +137,8 @@ class _Slot:
     __slots__ = ("idx", "serial", "req", "decoder", "stopper", "ids", "n_gen",
                  "budget", "finish", "t_start", "t_decode", "ttft_ms",
                  "stopped", "stop_matched", "out_ids", "starved", "phase",
-                 "pending", "prefix_k", "n_prompt")
+                 "pending", "prefix_k", "n_prompt", "sampler", "readbacks",
+                 "misses")
 
     def __init__(self, idx: int, serial: int, req: _Request):
         self.idx = idx
@@ -153,6 +164,9 @@ class _Slot:
         self.t_start = 0.0
         self.t_decode = 0.0
         self.ttft_ms = float("nan")
+        self.sampler = None   # the ConstrainedSampler of a JSON / GBNF row
+        self.readbacks = 0    # a constrained row's host reads: one a token,
+        self.misses = 0       # and one more per full-row fetch (a miss)
 
 
 def _row_param_array(gens: list[GenerationConfig | None]) -> np.ndarray:
@@ -178,15 +192,18 @@ def _sample_chain(lg: torch.Tensor, recent: torch.Tensor,
                   params: torch.Tensor | None, penalized: bool,
                   gens: list[torch.Generator | None],
                   bias: torch.Tensor | None = None, lp: bool = False,
-                  ) -> tuple[torch.Tensor, torch.Tensor, tuple | None]:
+                  cs: bool = False,
+                  ) -> tuple[torch.Tensor, torch.Tensor, tuple | None, tuple | None]:
     """The per-step batched sampling chain, shared by decode chunks, mixed
     steps and the first token: the per-row bias ([B, V], None when no row
     is biased), penalties over each row's recent window, then the per-row
     sampler. logits [B, V] → (next tokens [B], the recent windows shifted
-    by them, and with ``lp`` the raw distribution's logprobs: the sampled
-    token's [B], the top ``LP_TOPK`` values and ids [B, LP_TOPK]).
-    ``params`` ([8, B] on the device) may be None when no row is
-    penalized or sampled."""
+    by them, with ``lp`` the raw distribution's logprobs: the sampled
+    token's [B], the top ``LP_TOPK`` values and ids [B, LP_TOPK], and with
+    ``cs`` the constrained rows' shortlist: the top ``CS_TOPK`` values and
+    ids of the raw f32 logits and the raw rows [B, V] themselves, which
+    stay on the device). ``params`` ([8, B] on the device) may be None when
+    no row is penalized or sampled."""
     if bias is not None:
         lg = lg + bias.to(lg.dtype)
     raw = lg
@@ -203,7 +220,11 @@ def _sample_chain(lg: torch.Tensor, recent: torch.Tensor,
     else:   # every row greedy: the sorted-first token is the argmax
         nxt = torch.argmax(lg, dim=-1)
     lps = topk_logprobs(raw, nxt, LP_TOPK) if lp else None
-    return nxt, torch.cat([recent[:, 1:], nxt[:, None]], dim=1), lps
+    cso = None
+    if cs:
+        rawf = raw.float()
+        cso = (*shortlist(rawf, CS_TOPK), rawf)
+    return nxt, torch.cat([recent[:, 1:], nxt[:, None]], dim=1), lps, cso
 
 
 class SlotScheduler:
@@ -309,7 +330,9 @@ class SlotScheduler:
         the scheduler thread). Raises when the scheduler is closed or the
         wait queue is full, on a token id outside the vocabulary, and
         (``ValueError``) on a sampler the slots do not run: typical-p or
-        mirostat on a sampled request, more than ``LP_TOPK`` logprobs."""
+        mirostat on a sampled request, a constraint with another
+        constraint, logprobs, a penalty or a bias, a context shift, more
+        than ``LP_TOPK`` logprobs."""
         if self._closed.is_set():
             raise RuntimeError("scheduler is closed")
         if isinstance(prompt, (list, tuple)):
@@ -320,6 +343,11 @@ class SlotScheduler:
                 "mirostat / typical_p are single-stream features (per-request "
                 "adaptive state / entropy filtering are not in the batched "
                 "row sampler); send them through the engine path")
+        check_constraint_combination(g)
+        if g.context_shift:
+            raise ValueError("context shift is a single-stream feature "
+                             "(per-row shifted windows are not supported); "
+                             "use the engine path")
         if g.logprobs is not None and g.logprobs > LP_TOPK:
             raise ValueError(f"logprobs alternatives capped at {LP_TOPK} "
                              f"on the parallel-slot path")
@@ -389,6 +417,20 @@ class SlotScheduler:
                     self._finish_prefills()
                     self._admit()
                     running, prefilling = self._active_rows()
+                    if any(self._slots[r].sampler is not None for r, _ in running):
+                        # a constrained row's next token is the host's pick
+                        # from this step's shortlist: no launch overlaps a
+                        # readback while one runs
+                        if pending is not None:
+                            self._consume(*pending)
+                            pending = None
+                            # consuming may have finished rows
+                            running, prefilling = self._active_rows()
+                        if running or prefilling:
+                            launched = self._launch_any(running, prefilling)
+                            if launched is not None:
+                                self._consume(*launched)
+                        continue
                     launched = None
                     if running or prefilling:
                         launched = self._launch_any(running, prefilling)
@@ -644,6 +686,9 @@ class SlotScheduler:
         slot.phase = "decode"
         slot.pending = []
         window = np.asarray(([-1] * RECENT_W + slot.ids)[-RECENT_W:], np.int64)
+        if gen.json_mode or gen.grammar:
+            self._first_constrained(slot, logits[0], window, n_prompt)
+            return
         rng = None
         if gen.temperature > 0.0:
             seed = gen.seed if gen.seed is not None else time.time_ns() % (2**31)
@@ -653,7 +698,7 @@ class SlotScheduler:
         if rng is not None or _penalized(gen):
             params = upload(_row_param_array([gen]), dev)
         lp_mode = gen.logprobs is not None
-        first, recent, lps = _sample_chain(
+        first, recent, lps, _ = _sample_chain(
             logits, upload(window[None], dev), params, _penalized(gen), [rng],
             bias=None if vec is None else vec[None], lp=lp_mode)
         got = self._readback(first, *(lps or ()))()
@@ -677,6 +722,104 @@ class SlotScheduler:
         self._accept(slot, t0, first_data)
         if slot.stopped:
             self._finish(slot, slot.finish)
+
+    def _first_constrained(self, slot: _Slot, row: torch.Tensor,
+                           window: np.ndarray, n_prompt: int) -> None:
+        """A constrained row's first token: the host's pick from the top
+        ``Engine._JSON_TOPK`` of the prefill logits [V], the full row on a
+        miss. The pick becomes the row's device token; the row has no
+        generator."""
+        from .constrained import ConstrainedSampler
+
+        r = slot.idx
+        req = slot.req
+        tok = self.engine.tokenizer
+        slot.sampler = ConstrainedSampler(req.gen, tok.token_bytes, tok.eos_id)
+        cap = self.engine._JSON_TOPK
+        vals, idx = self._readback(*shortlist(row, cap))()
+        slot.readbacks += 1
+        res = slot.sampler.pick(vals, idx, cap=cap,
+                                full_logits=lambda: self._fetch_row(slot, row))
+        self._gens[r] = None
+        slot.ttft_ms = (time.monotonic() - slot.t_start) * 1000
+        slot.t_decode = time.monotonic()
+        self._emit(req, log(f"prefill: {n_prompt} tokens in "
+                            f"{slot.ttft_ms:.1f} ms (TTFT)"))
+        slot.stopper = StopMatcher(tuple(req.gen.stop)) if req.gen.stop else None
+        self._slots[r] = slot
+        if res is None:
+            self._no_extension(slot)
+        else:
+            t, delta = res
+            self._tok_dev[r] = t
+            self._recent_dev[r] = upload(np.append(window[1:], t), self.device)
+            self._constrained_accept(slot, t, delta)
+        if slot.stopped:
+            self._finish(slot, slot.finish)
+
+    def _fetch_row(self, slot: _Slot, row: torch.Tensor) -> np.ndarray:
+        """A constrained row's full f32 logits [V] on the host: the
+        sampler's last tier, read only when no shortlisted token is valid."""
+        slot.readbacks += 1
+        slot.misses += 1
+        return row.float().cpu().numpy()
+
+    def _no_extension(self, slot: _Slot) -> None:
+        """No token extends the constraint: an honest length-style end."""
+        self._emit(slot.req, log("constrained mode: no token extends a "
+                                 "valid prefix; stopping"))
+        slot.finish = "length"
+        slot.stopped = True
+
+    def _advance_constrained(self, slot: _Slot, sl_v: list[float],
+                             sl_i: list[int], raw: torch.Tensor) -> None:
+        """One constrained step of a row: the host's pick from the step's
+        device shortlist (descending), whose first ``Engine._JSON_TOPK``
+        are the primary tier, then the rest, then the row's full logits
+        ``raw`` [V]. The pick replaces the row's device-sampled token (junk) as the
+        next step's input and as the newest entry of its recent window."""
+        cap = self.engine._JSON_TOPK
+        res = slot.sampler.pick(sl_v, sl_i, cap=cap, shortlist=cap,
+                                full_logits=lambda: self._fetch_row(slot, raw))
+        slot.readbacks += 1
+        if res is None:
+            self._no_extension(slot)
+            return
+        t, delta = res
+        r = slot.idx
+        self._tok_dev[r] = t
+        self._recent_dev[r, -1] = t
+        self._constrained_accept(slot, t, delta)
+
+    def _constrained_accept(self, slot: _Slot, t: int, delta: str) -> None:
+        """Feed one host-picked token through the row's stop / budget /
+        completion chain: its text is the validator's exact delta, not the
+        stream decoder's."""
+        slot.n_gen += 1
+        slot.out_ids.append(t)
+        if delta:
+            if slot.stopper is not None:
+                emitted, hit = slot.stopper.feed(delta)
+                if emitted:
+                    self._emit(slot.req, token(emitted))
+                if hit:
+                    slot.finish = "stop"
+                    slot.stopped = True
+                    slot.stop_matched = True
+                    return
+            else:
+                self._emit(slot.req, token(delta))
+        if slot.sampler.complete:
+            slot.finish = "stop"
+            slot.stopped = True
+            if slot.stopper is not None:   # release the held-back tail
+                held, _ = slot.stopper.finish("")
+                if held:
+                    self._emit(slot.req, token(held))
+                slot.stop_matched = True   # _finish must not drain again
+            return
+        if slot.n_gen >= slot.budget:
+            slot.stopped = True
 
     def _accept(self, slot: _Slot, t: int, data: dict | None = None) -> None:
         """Feed one sampled token through the slot's EOS/stop/budget chain.
@@ -730,8 +873,10 @@ class SlotScheduler:
         # discarded; on EOS or budget the decoder's remainder and the text
         # the matcher held back are output
         if finish_reason != "abort" and not slot.stop_matched \
-                and slot.decoder is not None:
-            tail = slot.decoder.flush()
+                and (slot.decoder is not None or slot.stopper is not None):
+            # a constrained row has no stream decoder: its text is the
+            # validator's, and only the matcher may hold some back
+            tail = slot.decoder.flush() if slot.decoder is not None else ""
             if slot.stopper is not None:
                 tail, hit = slot.stopper.finish(tail)
                 if hit:
@@ -741,6 +886,10 @@ class SlotScheduler:
         msg = note or (f"generated {n_gen} tokens | TTFT "
                        f"{slot.ttft_ms:.1f} ms | decode {tps:.2f} tok/s")
         extra = {"error": note} if finish_reason == "error" and note else {}
+        if slot.sampler is not None:   # the engine's constrained done event
+            extra.update(json_complete=slot.sampler.complete,
+                         constraint_complete=slot.sampler.complete,
+                         readbacks=slot.readbacks, shortlist_misses=slot.misses)
         self._emit(slot.req, done(msg, n_prompt=len(slot.ids), n_gen=n_gen,
                                   finish_reason=finish_reason,
                                   ttft_ms=slot.ttft_ms, tok_s=tps, **extra))
@@ -750,12 +899,19 @@ class SlotScheduler:
     def _row_params(self, running: list[tuple[int, int]]):
         """The per-row sampling parameters of a launch: the [8, B] array on
         the device (None when no row needs it), whether any row is
-        penalized, each row's generator (None for greedy and idle rows),
-        the bias matrix (None when no running row is biased) and whether any
-        row wants logprobs."""
+        penalized, each row's generator (None for greedy, idle and
+        constrained rows: a constrained row's device token is replaced by
+        the host's pick, so it samples greedily with neutral parameters and
+        draws from no generator), the bias matrix (None when no running row
+        is biased), whether any row wants logprobs and whether any row is
+        constrained."""
         gens_cfg: list[GenerationConfig | None] = [None] * self.n_slots
         rngs: list[torch.Generator | None] = [None] * self.n_slots
+        cs = False
         for r, _ in running:
+            if self._slots[r].sampler is not None:
+                cs = True
+                continue
             g = self._slots[r].req.gen
             gens_cfg[r] = g
             if g.temperature > 0.0:
@@ -766,7 +922,7 @@ class SlotScheduler:
             params = upload(_row_param_array(gens_cfg), self.device)
         biased = any(g is not None and g.logit_bias for g in gens_cfg)
         lp = any(g is not None and g.logprobs is not None for g in gens_cfg)
-        return params, penalized, rngs, self._bias_dev if biased else None, lp
+        return params, penalized, rngs, self._bias_dev if biased else None, lp, cs
 
     def _readback(self, *ts: torch.Tensor) -> Callable:
         """Queue device→host copies of ``ts`` (their own copies: the device
@@ -783,7 +939,9 @@ class SlotScheduler:
         ``_consume`` reads next iteration."""
         B = self.n_slots
         pos = self._pos
-        n = self.decode_chunk
+        # serial mode: one step while a constrained row runs
+        n = 1 if any(self._slots[r].sampler is not None for r, _ in running) \
+            else self.decode_chunk
         for r, _ in running:
             n = min(n, self.max_seq - int(pos[r]))
         n = max(1, 1 << (max(1, n).bit_length() - 1))  # pow2: few variants
@@ -808,15 +966,16 @@ class SlotScheduler:
         active = {r for r, _ in running}
         step_pos = np.asarray([int(pos[r]) if r in active else self.max_seq
                                for r in range(B)], np.int32)
-        params, penalized, rngs, bias, lp = self._row_params(running)
+        params, penalized, rngs, bias, lp, cs = self._row_params(running)
         cache = self._backend.cache(self._bufs, upload(step_pos, self.device))
         tok, recent = self._tok_dev, self._recent_dev
         toks, lps = [], []
+        cso = None
         for _ in range(n):
             lg = self._backend.vstep(tok, cache)
             self.forwards += 1
-            tok, recent, step_lp = _sample_chain(lg, recent, params, penalized,
-                                                 rngs, bias, lp)
+            tok, recent, step_lp, cso = _sample_chain(lg, recent, params, penalized,
+                                                      rngs, bias, lp, cs)
             toks.append(tok)
             if lp:
                 lps.append(step_lp)
@@ -824,7 +983,10 @@ class SlotScheduler:
         for r, _ in running:
             self._pos[r] += n
         outs = [torch.stack(toks)] + [torch.stack(x) for x in zip(*lps)]
-        return self._readback(*outs), n, running, (), lp
+        if cso is not None:
+            outs += [cso[0][None], cso[1][None]]
+        return (self._readback(*outs), n, running, (), lp,
+                None if cso is None else cso[2])
 
     def _launch_mixed(self, running: list[tuple[int, int]],
                       prefilling: list[_Slot]):
@@ -872,15 +1034,15 @@ class SlotScheduler:
             packed[s.idx, :f] = s.pending[:f]
             packed[s.idx, Tc] = f
             packed[s.idx, Tc + 2] = pos[s.idx]
-        params, penalized, rngs, bias, lp = self._row_params(running)
+        params, penalized, rngs, bias, lp, cs = self._row_params(running)
         dev = upload(packed, self.device)
         block, n_tok = dev[:, :Tc], dev[:, Tc]
         block[:, 0] = torch.where(dev[:, Tc + 1].bool(), self._tok_dev, block[:, 0])
         cache = self._backend.cache(self._bufs, dev[:, Tc + 2].to(torch.int32))
         lg = self._backend.mstep(block, n_tok, cache)
         self.forwards += 1
-        self._tok_dev, self._recent_dev, lps = _sample_chain(
-            lg, self._recent_dev, params, penalized, rngs, bias, lp)
+        self._tok_dev, self._recent_dev, lps, cso = _sample_chain(
+            lg, self._recent_dev, params, penalized, rngs, bias, lp, cs)
         if running:
             # in-flight streams paid a wide step instead of a decode chunk
             self.counters["prefill_steps_stolen_total"] += 1
@@ -894,22 +1056,32 @@ class SlotScheduler:
                 del s.pending[:f]
                 self.counters["prefill_tokens_total"] += f
             prefill_meta.append((s.idx, s.serial))
-        outs = [self._tok_dev] + list(lps or ())
+        outs = [self._tok_dev] + list(lps or ()) + list(cso[:2] if cso else ())
         return (self._readback(*(o[None] for o in outs)), 1, running,
-                tuple(prefill_meta), lp)
+                tuple(prefill_meta), lp, None if cso is None else cso[2])
 
     def _consume(self, read: Callable, n: int, rows: list[tuple[int, int]],
-                 prefill: tuple = (), lp: bool = False) -> None:
+                 prefill: tuple = (), lp: bool = False,
+                 cs_raw: torch.Tensor | None = None) -> None:
         """Read back a finished chunk and route its tokens (and, to the rows
-        that asked, their logprobs) to their slots."""
+        that asked, their logprobs) to their slots; a constrained row (a
+        one-step chunk, ``cs_raw`` its raw logits [B, V] on the device)
+        takes the host's pick from its shortlist instead."""
         got = read()
-        toks = got[0] if lp else got                      # [n][B]
+        toks = got[0] if lp or cs_raw is not None else got   # [n][B]
+        if cs_raw is not None:
+            cs_v, cs_i = got[4 if lp else 1], got[5 if lp else 2]   # [1][B][K]
         for r, serial in rows:
             slot = self._slots[r]
             if slot is None or slot.serial != serial:
                 continue  # freed in an earlier chunk: a junk row
             if slot.req.abort.is_set():
                 self._finish(slot, "abort")
+                continue
+            if slot.sampler is not None:
+                self._advance_constrained(slot, cs_v[0][r], cs_i[0][r], cs_raw[r])
+                if slot.stopped:
+                    self._finish(slot, slot.finish)
                 continue
             want = slot.req.gen.logprobs if lp else None
             for i in range(n):

@@ -10,15 +10,17 @@ The counterpart of ``distributed_llm_pipeline_tpu/serving/openai.py``:
   ``GET /props``, ``GET /health``, ``GET /slots``: llama-server's utilities
 
 A request decodes in the slot scheduler's shared batch when the server has
-one (``--parallel N``), except typical-p and mirostat requests, which run on
-the engine as one stream under the decode lock, as every request does
-without slots. Usage counts come from the engine's ``done`` event.
+one (``--parallel N``), constrained requests (``grammar``, ``json_schema``,
+``response_format`` ``json_object`` / ``json_schema``) included, except
+typical-p, mirostat and ``context_shift`` requests, which run on the engine
+as one stream under the decode lock, as every request does without slots.
+Usage counts come from the engine's ``done`` event.
 
 The server holds one model: ``model`` may name it or be left out, and any
 other name is a 404. Fields and routes of the reference that the port does
-not serve yet (constrained decoding, LoRA, context shift, priority,
-deadlines, batches of prompts, infill, embeddings, slot save and restore)
-get a 400 that names them; none is ignored.
+not serve yet (LoRA, priority, deadlines, ``n`` > 1, batches of prompts,
+infill, embeddings, slot save and restore) get a 400 that names them; none
+is ignored.
 """
 
 from __future__ import annotations
@@ -42,9 +44,8 @@ from .common import (acquire_with_keepalive, cors, engine_events, json_response,
 
 # request fields of the reference the port does not serve yet, each with the
 # values that ask for nothing (a client may send those)
-_NOT_SERVED = {"grammar": (None, ""), "json_schema": (None,), "lora": (None, []),
-               "context_shift": (None, False), "n_keep": (None, 0),
-               "priority": (None, "normal"), "deadline_ms": (None,)}
+_NOT_SERVED = {"lora": (None, []), "priority": (None, "normal"),
+               "deadline_ms": (None,)}
 
 
 def not_served(what: str) -> str:
@@ -147,11 +148,13 @@ class CompletionAPI:
 
     def _target(self, engine, gen: GenerationConfig):
         """(target, needs_lock): the slot scheduler, without the lock, when
-        the server has one, except for sampled typical-p and mirostat
-        requests (per-request entropy filtering and μ state are not in the
-        batched row sampler); else the engine under the decode lock."""
+        the server has one (constrained requests run on a slot too), except
+        for context-shift requests and sampled typical-p and mirostat ones
+        (per-row shifted windows, per-request entropy filtering and μ state
+        are not in the batched row sampler); else the engine under the
+        decode lock."""
         single = gen.temperature > 0.0 and (gen.typical_p < 1.0 or bool(gen.mirostat))
-        if self.slots is not None and not single:
+        if self.slots is not None and not gen.context_shift and not single:
             return self.slots, False
         return engine, True
 
@@ -260,22 +263,14 @@ class CompletionAPI:
     def _gen_config(self, body: dict, *, n_key: str) -> GenerationConfig:
         """Client overrides with strict validation: absent or null keys fall
         back to the server's defaults; a non-numeric value is a 400, as is a
-        field the port does not serve yet."""
+        field the port does not serve yet and a constraint combined with
+        another constraint, a penalty, a bias or logprobs (the reference's
+        texts)."""
         g = self.gen
         for k, neutral in _NOT_SERVED.items():
             v = body.get(k)
             if not any(v is n or v == n for n in neutral):
                 raise BadRequest(not_served(f"'{k}'"))
-        rf = body.get("response_format")
-        if rf is not None:
-            if not (isinstance(rf, dict) and rf.get("type") in
-                    ("json_object", "text", "json_schema")):
-                raise BadRequest(
-                    "response_format must be {'type': 'json_object'}, "
-                    "{'type': 'text'} or {'type': 'json_schema', "
-                    "'json_schema': {...}}")
-            if rf["type"] != "text":
-                raise BadRequest(not_served(f"'response_format' {rf['type']!r}"))
 
         def take(keys: tuple[str, ...], conv, default):
             for k in keys:
@@ -298,6 +293,59 @@ class CompletionAPI:
         else:
             raise BadRequest(f"parameter 'stop' must be a string or list of "
                              f"strings, got {stop!r}")
+        rf = body.get("response_format")
+        json_mode = g.json_mode
+        schema = body.get("json_schema")    # llama-server dialect
+        if rf is not None:
+            if not (isinstance(rf, dict) and rf.get("type") in
+                    ("json_object", "text", "json_schema")):
+                raise BadRequest(
+                    "response_format must be {'type': 'json_object'}, "
+                    "{'type': 'text'} or {'type': 'json_schema', "
+                    "'json_schema': {...}}")
+            json_mode = rf["type"] == "json_object"
+            if rf["type"] == "json_schema":   # OpenAI structured outputs
+                js = rf.get("json_schema")
+                if not isinstance(js, dict) or "schema" not in js:
+                    # the wrapper dict as a schema would constrain nothing
+                    # while the client believes the output was validated
+                    raise BadRequest("response_format json_schema needs "
+                                     "{'json_schema': {'schema': {...}}}")
+                schema = js["schema"]
+        grammar = body.get("grammar", g.grammar)
+        if grammar is not None and not isinstance(grammar, str):
+            raise BadRequest("'grammar' must be a GBNF string")
+        if schema is not None:
+            if grammar:
+                raise BadRequest("'json_schema' and 'grammar' are mutually "
+                                 "exclusive constraints; pick one")
+            if not isinstance(schema, (dict, bool)):
+                raise BadRequest("'json_schema' must be a schema object")
+            from ..ops.json_schema import schema_to_gbnf
+
+            try:
+                grammar = schema_to_gbnf(schema)
+            except ValueError as e:
+                raise BadRequest(f"unsupported json_schema: {e}") from None
+        if grammar:
+            from ..ops.gbnf import GBNFError, compile_grammar
+
+            try:
+                compile_grammar(grammar)   # a bad grammar is a 400
+            except GBNFError as e:
+                raise BadRequest(f"invalid grammar: {e}") from None
+        if json_mode and grammar:
+            raise BadRequest("response_format json_object and 'grammar' are "
+                             "mutually exclusive constraints; pick one")
+        if (json_mode or grammar) and (
+                take(("repeat_penalty",), float, g.repeat_penalty) != 1.0
+                or take(("presence_penalty",), float, g.presence_penalty) != 0.0
+                or take(("frequency_penalty",), float, g.frequency_penalty) != 0.0):
+            raise BadRequest("repeat/presence/frequency penalties do not "
+                             "combine with constrained sampling")
+        if (json_mode or grammar) and (body.get("logit_bias") or g.logit_bias):
+            raise BadRequest("logit_bias does not combine with constrained "
+                             "sampling")
         # logit_bias: OpenAI's {"token_id": bias}, or llama-server's
         # [[id, bias], ...] where false bans the token
         lb = body.get("logit_bias")
@@ -339,10 +387,19 @@ class CompletionAPI:
             else:
                 raise BadRequest(f"'logprobs' must be a bool or an int "
                                  f"in [0, {LP_TOPK}]")
+        if lp is not None and (json_mode or grammar):
+            raise BadRequest("logprobs does not combine with constrained "
+                             "sampling")
         miro = take(("mirostat",), int, g.mirostat)
         temp = take(("temperature",), float, g.temperature)
         if lp is not None and miro and temp > 0.0:
             raise BadRequest("logprobs does not combine with mirostat")
+        ctx_shift = body.get("context_shift", False)
+        if not isinstance(ctx_shift, bool):
+            raise BadRequest("'context_shift' must be a boolean")
+        n_keep = body.get("n_keep", 0)
+        if not isinstance(n_keep, int) or n_keep < 0:
+            raise BadRequest("'n_keep' must be a non-negative int")
         return GenerationConfig(
             max_new_tokens=take((n_key, "n_predict"), int, g.max_new_tokens),
             temperature=temp,
@@ -360,7 +417,11 @@ class CompletionAPI:
             logit_bias=bias_pairs,
             seed=take(("seed",), int, g.seed),
             stop=stop,
+            json_mode=json_mode,
+            grammar=grammar,
             logprobs=lp,
+            context_shift=ctx_shift,
+            keep=n_keep,
         )
 
     @staticmethod

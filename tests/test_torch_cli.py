@@ -3,9 +3,12 @@ on the CPU, on the same tiny f32 GGUF, greedy: one-shot ``-p`` puts the
 reference's text on stdout and the logs on stderr; interactive turns
 (``-i``, ``--interactive-first`` with ``--in-prefix`` / ``--in-suffix``,
 ``-cnv``) read stdin and give the reference's text; settings layer as the
-reference's (config file < env < flags); and without ``--cpu`` on a machine
-with no CUDA device it raises instead of running on the CPU. The server's
-entry point reads the same settings.
+reference's (config file < env < flags); ``--json``, ``--grammar-file`` and
+``--json-schema`` constrain the output as the reference's do; past the
+context it shifts by default and gives the reference's text, and stops at
+ctx with ``--no-context-shift``; and without ``--cpu`` on a machine with no
+CUDA device it raises instead of running on the CPU. The server's entry
+point reads the same settings.
 """
 
 import asyncio
@@ -223,3 +226,65 @@ def test_console_scripts_name_the_entry_points():
         "distributed_llm_pipeline_tpu_torch.serving.server:main"
     assert cli.build_argparser().prog == "dlp-tpu-torch"
     assert srv.build_argparser().prog == "dlp-serve-torch"
+
+
+SCHEMA = '{"type": "object", "properties": {"n": {"type": "integer"}}, "required": ["n"]}'
+
+
+@pytest.mark.parametrize("kind", ["json", "grammar_file", "json_schema", "json_schema_file"])
+def test_constraint_flags_match_the_reference(model_path, monkeypatch, capsys, tmp_path,
+                                              kind):
+    gfile = tmp_path / "g.gbnf"
+    gfile.write_text('root ::= "once" | "upon" | "time"\n')
+    sfile = tmp_path / "s.json"
+    sfile.write_text(SCHEMA)
+    flags = {"json": ["--json"], "grammar_file": ["--grammar-file", str(gfile)],
+             "json_schema": ["--json-schema", SCHEMA],
+             "json_schema_file": ["--json-schema", f"@{sfile}"]}[kind]
+    (rc_ref, out_ref, _), (rc, out, err) = _both(
+        model_path, ["-p", "produce:", "-n", "40", *flags], monkeypatch, capsys)
+    assert rc == rc_ref == 0 and out == out_ref
+    text = out.rstrip("\n")
+    if "constraint satisfied" in err:
+        if kind == "grammar_file":
+            assert text in ("once", "upon", "time")
+        else:
+            doc = json.loads(text)
+            assert kind == "json" or isinstance(doc["n"], int)
+    else:
+        assert "constraint truncated" in err
+
+
+@pytest.mark.parametrize("extra,needle", [
+    (["--json", "--grammar-file", "x.gbnf"], "mutually exclusive"),
+    (["--json", "--repeat-penalty", "1.2"], "--repeat-penalty"),
+    (["--grammar-file", "missing.gbnf"], "--grammar-file"),
+    (["--json-schema", '{"type": "array", "maxItems": 1000}'], "--json-schema"),
+    (["--json-schema", "not json"], "--json-schema"),
+])
+def test_bad_constraint_flags_exit_2(model_path, monkeypatch, capsys, tmp_path, extra,
+                                     needle):
+    monkeypatch.chdir(tmp_path)
+    (rc_ref, _, err_ref), (rc, _, err) = _both(model_path, ["-p", "x", *extra],
+                                               monkeypatch, capsys)
+    assert rc == rc_ref == 2 and needle in err
+    line = [x for x in err.splitlines() if x.startswith("error:")]
+    assert line == [x for x in err_ref.splitlines() if x.startswith("error:")]
+
+
+@pytest.mark.parametrize("shift", [True, False])
+def test_context_shift_by_default_and_no_context_shift(model_path, monkeypatch, capsys,
+                                                       shift):
+    extra = ["-p", "once upon a time", "-c", "48", "-n", "100", "--keep", "2", "--verbose"]
+    if not shift:
+        extra.append("--no-context-shift")
+    (rc_ref, out_ref, err_ref), (rc, out, err) = _both(model_path, extra, monkeypatch,
+                                                       capsys)
+    assert rc == rc_ref == 0 and out == out_ref
+    shifts = [x for x in err.splitlines() if "context shift: dropped" in x]
+    assert shifts == [x for x in err_ref.splitlines() if "context shift: dropped" in x]
+    n = int(re.search(r"generated (\d+) tokens", err).group(1))
+    if shift:
+        assert len(shifts) >= 2 and n == 100
+    else:
+        assert not shifts and n < 48

@@ -30,7 +30,8 @@ sys.meta_path.insert(0, Block())
 sys.path.insert(0, {root!r})
 import distributed_llm_pipeline_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-NEW = {{"cli", "config", "serving.openai", "serving.chat_template"}}
+NEW = {{"cli", "config", "serving.openai", "serving.chat_template", "ops.gbnf",
+       "ops.json_constraint", "ops.json_schema", "runtime.constrained"}}
 missing = {{n for n in NEW if pkg.__name__ + "." + n not in names}}
 assert not missing, missing
 for name in names:
@@ -124,6 +125,8 @@ path = Path({tmp!r}) / "m.gguf"
 chip_smoke.write_model(path, cfg, 0, device="cpu")
 sys.stdin = io.StringIO("hello\n")
 assert cli.main(["-m", str(path), "--cpu", "-n", "2", "-c", "64", "-i", "-p", "hi"]) == 0
+assert cli.main(["-m", str(path), "--cpu", "-n", "4", "-c", "64", "--json", "-p", "hi"]) == 0
+assert cli.main(["-m", str(path), "--cpu", "-n", "70", "-c", "64", "-p", "hi"]) == 0
 server = ChatServer(Engine(path, device="cpu"), GenerationConfig(max_new_tokens=2),
                     parallel=2)
 
@@ -140,13 +143,19 @@ async def go():
                             ("/v1/completions", {{"prompt": "hi", "typical_p": 0.9,
                                                  "mirostat": 2, "temperature": 0.9}}),
                             ("/apply-template", {{"messages": [
-                                {{"role": "user", "content": "hi"}}]}})):
+                                {{"role": "user", "content": "hi"}}]}}),
+                            ("/v1/completions", {{"prompt": "hi", "max_tokens": 4,
+                                "response_format": {{"type": "json_schema", "json_schema":
+                                    {{"schema": {{"type": "object"}}}}}}}}),
+                            ("/completion", {{"prompt": "hi", "grammar": 'root ::= "a"'}}),
+                            ("/completion", {{"prompt": "hi", "n_predict": 70,
+                                             "context_shift": True}})):
             out.append((await client.post(route, json=body)).status)
         return out
     finally:
         await client.close()
 
-assert asyncio.run(go()) == [200] * 4
+assert asyncio.run(go()) == [200] * 7
 leaked = [m for m in sys.modules if m.split(".")[0] in {forbidden!r}]
 assert not leaked, leaked
 print("ok")
@@ -154,9 +163,10 @@ print("ok")
 
 
 def test_cli_and_completion_routes_serve_with_jax_blocked(tmp_path):
-    """The CLI (an interactive turn) and the completion routes (logprobs,
-    a bias, typical-p and mirostat, the chat template) run with jax and
-    the JAX package blocked from import."""
+    """The CLI (an interactive turn, --json, a run past the context) and
+    the completion routes (logprobs, a bias, typical-p and mirostat, the
+    chat template, a json_schema, a grammar, a context shift) run with jax
+    and the JAX package blocked from import."""
     (tmp_path / "sitecustomize.py").write_text(_SITE_BLOCK.format(forbidden=FORBIDDEN))
     code = _SERVE_RUN.format(root=str(ROOT), tmp=str(tmp_path), forbidden=FORBIDDEN)
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(tmp_path), str(ROOT)])}

@@ -6,8 +6,13 @@ reference's, single-stream and on ``parallel=4`` slots. ``/v1/chat/completions``
 and value kinds; ``id``, ``created``, ``timings`` and the reference tracer's
 ``request_id`` aside); logprobs of the greedy tokens agree within 1e-4; a
 logit bias that bans the greedy token gives identical text; ``/tokenize``,
-``/detokenize`` and ``/apply-template`` agree; bad bodies get the reference's
-400s, and fields the port does not serve yet get a 400 that names them.
+``/detokenize`` and ``/apply-template`` agree; constrained requests
+(``response_format`` ``json_object`` / ``json_schema``, ``grammar``,
+``json_schema``) give the reference's text on one stream and on the slots,
+and meet their constraint; ``context_shift`` requests run past the context
+with the reference's text; bad bodies and refused combinations get the
+reference's 400s, and fields the port does not serve yet get a 400 that
+names them.
 """
 
 import asyncio
@@ -23,6 +28,7 @@ from aiohttp import web
 from aiohttp.test_utils import TestClient, TestServer
 
 from distributed_llm_pipeline_tpu.models import PRESETS, random_params, write_model_gguf
+from distributed_llm_pipeline_tpu.ops.json_constraint import prefix_ok
 from distributed_llm_pipeline_tpu.runtime import Engine as JaxEngine
 from distributed_llm_pipeline_tpu.runtime import GenerationConfig as JaxGen
 from distributed_llm_pipeline_tpu.serving import ChatServer as JaxChatServer
@@ -41,6 +47,8 @@ N = 6                  # tokens a request
 IGNORED = {"id", "created", "timings", "request_id"}
 MESSAGES = [{"role": "system", "content": "be brief"},
             {"role": "user", "content": "hello world"}]
+GRAMMAR = 'root ::= "hello" | "world" | "time"'
+SCHEMA = {"type": "object", "properties": {"n": {"type": "integer"}}, "required": ["n"]}
 
 
 @pytest.fixture(scope="module")
@@ -112,6 +120,19 @@ def _requests(ban_id: int, stop: str) -> dict:
     reqs["llama_ban"] = ("/completion", {**llama, "logit_bias": [[ban_id, False]],
                                          "n_probs": 2})
     reqs["cmpl_stop_lp"] = ("/v1/completions", {**cmpl, "logprobs": 1, "stop": stop})
+    # constrained: a longer budget, so that a JSON value can close
+    cons = {"max_tokens": 3 * N, **greedy}
+    reqs["cmpl_json"] = ("/v1/completions", {
+        "prompt": "produce json:", **cons, "response_format": {"type": "json_object"}})
+    reqs["cmpl_json_stream"] = ("/v1/completions", {
+        **reqs["cmpl_json"][1], "stream": True})
+    reqs["llama_grammar"] = ("/completion", {
+        "prompt": "pick:", "n_predict": 3 * N, **greedy, "grammar": GRAMMAR})
+    reqs["llama_schema"] = ("/completion", {
+        "prompt": "produce:", "n_predict": 8 * N, **greedy, "json_schema": SCHEMA})
+    reqs["chat_schema"] = ("/v1/chat/completions", {
+        "messages": MESSAGES, "max_tokens": 8 * N, **greedy,
+        "response_format": {"type": "json_schema", "json_schema": {"schema": SCHEMA}}})
     reqs["tokenize"] = ("/tokenize", {"content": "hello world once"})
     reqs["apply_template"] = ("/apply-template", {"messages": MESSAGES})
     return reqs
@@ -161,7 +182,8 @@ def answers(engines):
     reqs = _requests(ids[0], stop)
     out = {}
     for slots in (1, 4):
-        together = ("cmpl_lp", "llama_lp", "llama_ban") if slots > 1 else ()
+        together = (("cmpl_lp", "llama_lp", "llama_ban", "llama_schema")
+                    if slots > 1 else ())
         port = ChatServer(peng, GenerationConfig(temperature=0.0), parallel=slots)
         ref = JaxChatServer(jeng, JaxGen(temperature=0.0), parallel=slots)
         out[slots] = (_serve(ref.app, reqs, together), _serve(port.app, reqs, together))
@@ -170,6 +192,8 @@ def answers(engines):
 
 COMPLETIONS = ["chat", "cmpl", "llama", "chat_lp", "cmpl_lp", "llama_lp", "cmpl_ban",
                "llama_ban", "cmpl_stop_lp"]
+CONSTRAINED = ["cmpl_json", "cmpl_json_stream", "llama_grammar", "llama_schema",
+               "chat_schema"]
 
 
 def _text_and_finish(name: str, status_body) -> tuple[str, object]:
@@ -192,11 +216,26 @@ def _text_and_finish(name: str, status_body) -> tuple[str, object]:
 
 
 @pytest.mark.parametrize("slots", [1, 4])
-@pytest.mark.parametrize("name", COMPLETIONS + [c + "_stream" for c in COMPLETIONS[:6]])
+@pytest.mark.parametrize("name", COMPLETIONS + [c + "_stream" for c in COMPLETIONS[:6]]
+                         + CONSTRAINED)
 def test_routes_give_the_reference_text_and_shape(answers, slots, name):
     ref, port = answers[slots]
     assert _text_and_finish(name, port[name]) == _text_and_finish(name, ref[name])
     assert _shape(port[name][1]) == _shape(ref[name][1])
+
+
+@pytest.mark.parametrize("slots", [1, 4])
+@pytest.mark.parametrize("name", CONSTRAINED)
+def test_constrained_answers_meet_their_constraint(answers, slots, name):
+    text, finish = _text_and_finish(name, answers[slots][1][name])
+    done = finish in ("stop", (True, False))
+    if name.endswith("grammar"):
+        assert done and text in ("hello", "world", "time")
+    elif done:
+        doc = json.loads(text)
+        assert "schema" not in name or isinstance(doc["n"], int)
+    else:   # the budget cut it: still a prefix of a JSON value
+        assert prefix_ok(text)
 
 
 @pytest.mark.parametrize("slots", [1, 4])
@@ -300,6 +339,35 @@ BAD = {
     "detokenize_str": ("/detokenize", {"tokens": ["x"]}),
     "detokenize_range": ("/detokenize", {"tokens": [10_000]}),
     "apply_template_str": ("/apply-template", {"messages": "x"}),
+    # constraints and the context shift: the refused values and combinations
+    "rf_yaml": ("/v1/completions", {"prompt": "x", "response_format": {"type": "yaml"}}),
+    "rf_schema_missing": ("/v1/chat/completions", {
+        "messages": MESSAGES, "response_format": {"type": "json_schema",
+                                                  "json_schema": {"name": "x"}}}),
+    "json_and_grammar": ("/completion", {"prompt": "x", "grammar": GRAMMAR,
+                                         "response_format": {"type": "json_object"}}),
+    "schema_and_grammar": ("/completion", {"prompt": "x", "grammar": GRAMMAR,
+                                           "json_schema": SCHEMA}),
+    "schema_not_object": ("/completion", {"prompt": "x", "json_schema": 5}),
+    "schema_unsupported": ("/completion", {"prompt": "x", "json_schema": {
+        "type": "array", "maxItems": 1000}}),
+    "grammar_broken": ("/v1/completions", {"prompt": "x", "grammar": "root = broken"}),
+    "grammar_int": ("/completion", {"prompt": "x", "grammar": 5}),
+    "json_penalty": ("/v1/completions", {"prompt": "x", "repeat_penalty": 1.3,
+                                         "response_format": {"type": "json_object"}}),
+    "grammar_presence": ("/completion", {"prompt": "x", "grammar": GRAMMAR,
+                                         "presence_penalty": 0.5}),
+    "json_bias": ("/v1/completions", {"prompt": "x", "logit_bias": {"5": 1.0},
+                                      "response_format": {"type": "json_object"}}),
+    "grammar_logprobs": ("/completion", {"prompt": "x", "grammar": GRAMMAR,
+                                         "n_probs": 2}),
+    "schema_logprobs": ("/v1/chat/completions", {
+        "messages": MESSAGES, "logprobs": True, "response_format": {
+            "type": "json_schema", "json_schema": {"schema": SCHEMA}}}),
+    "context_shift_str": ("/v1/completions", {"prompt": "x", "context_shift": "yes"}),
+    "context_shift_null": ("/completion", {"prompt": "x", "context_shift": None}),
+    "n_keep_negative": ("/completion", {"prompt": "x", "n_keep": -1}),
+    "n_keep_float": ("/v1/completions", {"prompt": "x", "n_keep": 1.5}),
 }
 
 
@@ -340,16 +408,7 @@ def test_bad_bodies_get_the_reference_errors(bad_answers, name):
 
 # a field or route the port does not serve yet, and the word its 400 names
 UNSERVED = {
-    "grammar": ("/completion", {"prompt": "x", "grammar": 'root ::= "a"'}, "grammar"),
-    "json_schema": ("/completion", {"prompt": "x", "json_schema": {"type": "object"}},
-                    "json_schema"),
-    "response_format": ("/v1/chat/completions", {
-        "messages": MESSAGES, "response_format": {"type": "json_object"}},
-        "response_format"),
     "lora": ("/completion", {"prompt": "x", "lora": [{"id": 0, "scale": 1.0}]}, "lora"),
-    "context_shift": ("/v1/completions", {"prompt": "x", "context_shift": True},
-                      "context_shift"),
-    "n_keep": ("/completion", {"prompt": "x", "n_keep": 4}, "n_keep"),
     "priority": ("/v1/completions", {"prompt": "x", "priority": "high"}, "priority"),
     "deadline_ms": ("/completion", {"prompt": "x", "deadline_ms": 500}, "deadline_ms"),
     "n": ("/v1/chat/completions", {"messages": MESSAGES, "n": 2}, "'n'"),
@@ -393,7 +452,7 @@ def test_neutral_values_of_unserved_fields_are_accepted(engines):
     (as SDKs send nulls and defaults) is served."""
     body = {"prompt": "x", "max_tokens": 2, "grammar": None, "context_shift": False,
             "n_keep": 0, "priority": "normal", "deadline_ms": None, "n": 1,
-            "response_format": {"type": "text"}, "lora": []}
+            "response_format": {"type": "text"}, "lora": [], "json_schema": None}
     got = _post_all(ChatServer(engines[1], GenerationConfig(temperature=0.0)).app,
                     {"ok": ("/v1/completions", body)})["ok"]
     assert got[0] == 200 and got[1]["usage"]["completion_tokens"] == 2
@@ -478,3 +537,54 @@ def test_apply_template_matches_the_reference(name):
     want = _post_all(app_of(JaxAPI(Registry(), asyncio.Lock(), JaxGen())),
                      {"t": ("/apply-template", body)})["t"]
     assert got == want and got[0] == 200
+
+
+# name → (route, body) of the context-shift requests: past the 64-token ctx
+SHIFTED = {
+    "cmpl": ("/v1/completions", {"prompt": "hello world", "max_tokens": 100,
+                                 "temperature": 0.0, "context_shift": True,
+                                 "n_keep": 2}),
+    "llama_stream": ("/completion", {"prompt": "hello world once upon a time",
+                                     "n_predict": 90, "temperature": 0.0,
+                                     "context_shift": True, "stream": True}),
+    "chat": ("/v1/chat/completions", {"messages": MESSAGES, "max_tokens": 80,
+                                      "temperature": 0.0, "context_shift": True,
+                                      "n_keep": 4}),
+}
+
+
+@pytest.fixture(scope="module")
+def shifted_answers(engines):
+    """The context-shift requests, on servers with 4 slots: they run on the
+    engine, as the reference routes them."""
+    jeng, peng = engines
+    port = ChatServer(peng, GenerationConfig(temperature=0.0), parallel=4)
+    ref = JaxChatServer(jeng, JaxGen(temperature=0.0), parallel=4)
+    for name, (route, body) in SHIFTED.items():
+        gen = port.api._gen_config(body, n_key="n_predict" if route == "/completion"
+                                   else "max_tokens")
+        assert gen.context_shift and port.api._target(peng, gen) == (peng, True)
+
+    def serve(app):
+        async def go():
+            client = TestClient(TestServer(app))
+            await client.start_server()
+            try:
+                return {k: await _answer(client, *v) for k, v in SHIFTED.items()}
+            finally:
+                await client.close()
+
+        return asyncio.run(go())
+
+    return serve(ref.app), serve(port.app)
+
+
+@pytest.mark.parametrize("name", sorted(SHIFTED))
+def test_context_shift_runs_past_ctx_with_the_reference_text(shifted_answers, name):
+    ref, port = shifted_answers
+    assert _text_and_finish(name, port[name]) == _text_and_finish(name, ref[name])
+    assert _shape(port[name][1]) == _shape(ref[name][1])
+    body = port[name][1]
+    n = (body[-1]["tokens_predicted"] if isinstance(body, list)
+         else body["usage"]["completion_tokens"])
+    assert n == SHIFTED[name][1].get("max_tokens", SHIFTED[name][1].get("n_predict")) > 64
