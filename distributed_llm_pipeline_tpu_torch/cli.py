@@ -5,10 +5,13 @@ generated tokens stream to stdout; the engine's log lines go to stderr
 (with ``--verbose``; the closing summary always) and to ``--log-file``. One
 shot with ``-p``, or interactive with ``-i`` / ``--interactive-first``
 (stdin lines, each wrapped in ``--in-prefix`` / ``--in-suffix``), or a chat
-through the model's template with ``-cnv``. ``--json``, ``--grammar-file``
+through the model's template with ``-cnv``; each turn prefills only what
+the engine's prefix cache does not hold. ``--json``, ``--grammar-file``
 and ``--json-schema`` constrain the output; generation past the context
 limit shifts the KV window (``--keep``), as llama-cli does, unless
-``--no-context-shift``.
+``--no-context-shift``. ``--prompt-cache FILE`` loads the prompt's KV at
+start and saves it at exit; ``--perplexity TEXTFILE`` prints the model's
+perplexity over the file instead of generating.
 
 Settings: defaults < ``--config`` file (JSON/TOML) < ``DLP_*`` env < flags.
 Without ``--cpu`` it runs on the CUDA device, and raises when there is none.
@@ -103,6 +106,13 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="keep the weights quantized on the device")
     ap.add_argument("--kv-quant", default=None, choices=["q8_0"],
                     help="int8 KV cache (llama.cpp -ctk/-ctv q8_0)")
+    ap.add_argument("--perplexity", default=None, metavar="TEXTFILE",
+                    help="evaluation mode: print the model's perplexity over "
+                         "the file's text instead of generating "
+                         "(llama-perplexity)")
+    ap.add_argument("--prompt-cache", default=None, metavar="FILE",
+                    help="persist the prompt's KV cache to FILE and reuse it "
+                         "on the next run (llama-cli --prompt-cache)")
     ap.add_argument("--verbose", action="store_true")
     ap.add_argument("--log-file", default=None)
     ap.add_argument("--cpu", action="store_true",
@@ -141,7 +151,9 @@ def _drain(events, cfg, log_fh, catch_interrupt: bool = False) -> tuple[str, dic
 def _interactive_loop(engine, gen, cfg, args, log_fh) -> None:
     """llama-cli's interactive and conversation modes: each turn grows one
     transcript (``-i``) or message list rendered through the chat template
-    (``-cnv``) and generates again over all of it. A matched reverse prompt
+    (``-cnv``) and generates again over all of it; the engine's prefix
+    cache holds the transcript so far, so a turn prefills only its new
+    tokens (a mesh prefills the whole transcript). A matched reverse prompt
     is withheld from stdout but stays in the transcript. ctrl-C during a
     generation returns control; EOF or ctrl-C at the prompt ends the
     session."""
@@ -236,6 +248,29 @@ def main(argv: list[str] | None = None) -> int:
         except (ValueError, NotImplementedError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
+        if cfg.perplexity:
+            try:
+                r = engine.perplexity(Path(cfg.perplexity).read_text())
+            except (OSError, ValueError, NotImplementedError) as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 2
+            finally:
+                if cfg.mesh:
+                    engine.close()
+            print(f"perplexity: {r['ppl']:.4f} over {r['n_tokens']} tokens "
+                  f"(nll {r['nll']:.2f})", file=sys.stderr)
+            print(json.dumps(r))
+            return 0
+        if cfg.prompt_cache and Path(cfg.prompt_cache).exists():
+            try:
+                n = engine.load_session(cfg.prompt_cache)
+                print(f"prompt cache: loaded {n} tokens from "
+                      f"{cfg.prompt_cache}" if n else
+                      f"prompt cache: {cfg.prompt_cache} does not match this "
+                      f"model/ctx; ignored", file=sys.stderr)
+            except Exception as e:
+                print(f"prompt cache: failed to load ({e!r}); ignored",
+                      file=sys.stderr)
         gen = GenerationConfig(max_new_tokens=cfg.n_predict,
                                temperature=cfg.temperature, top_k=cfg.top_k,
                                top_p=cfg.top_p, min_p=cfg.min_p,
@@ -258,6 +293,13 @@ def main(argv: list[str] | None = None) -> int:
             else:
                 prompt = args.prompt if args.prompt is not None else "Once upon a time"
                 _drain(engine.generate(prompt, gen), cfg, log_fh)
+            if cfg.prompt_cache:
+                try:
+                    if engine.save_session(cfg.prompt_cache):
+                        print(f"prompt cache: saved to {cfg.prompt_cache}",
+                              file=sys.stderr)
+                except NotImplementedError as e:
+                    print(f"prompt cache: {e}; not saved", file=sys.stderr)
         except (ValueError, NotImplementedError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2

@@ -57,6 +57,10 @@ class AppConfig:
     quant: str | None = None         # keep the weights quantized on the device
     kv_quant: str | None = None      # int8 KV cache (llama.cpp -ctk/-ctv q8_0)
     parallel: int = 1                # server decode slots (llama-server -np)
+    pooling: str = "mean"            # embedding pooling (llama-server --pooling)
+    slot_save_path: str | None = None  # dir for /slots/{id} save/restore files
+    prompt_cache: str | None = None  # session file (llama-cli --prompt-cache)
+    perplexity: str | None = None    # eval mode: text file to score (llama-perplexity)
     log_file: str | None = None
     verbose: bool = False
 
@@ -133,6 +137,9 @@ class AppConfig:
                              "mutually exclusive constraints; pick one")
         if self.parallel < 1:
             raise ValueError(f"--parallel must be >= 1, got {self.parallel}")
+        if self.pooling not in ("mean", "cls", "last"):
+            raise ValueError(f"unsupported pooling {self.pooling!r} "
+                             f"(mean, cls, last)")
         self.torch_dtype()
 
     def logit_bias_pairs(self) -> tuple[tuple[int, float], ...]:

@@ -53,11 +53,15 @@ class KVCache:
     the number of valid positions: per-head K/V ``[n_kv_heads, head_dim]``,
     or one rank-r latent per side ``[1, r]`` for a latent model. With an
     int8 cache ``k``/``v`` hold codes and ``k_scale``/``v_scale`` one f32
-    scale per cached vector ([..., 1])."""
+    scale per cached vector ([..., 1]).
+
+    ``length`` is one host int for every row (the single stream), or an
+    int32 tensor [batch] on the device (batch generation): each row then
+    writes its new tokens at its own offset and attends its own length."""
 
     k: torch.Tensor
     v: torch.Tensor
-    length: int = 0
+    length: int | torch.Tensor = 0
     k_scale: torch.Tensor | None = None
     v_scale: torch.Tensor | None = None
 
@@ -136,6 +140,7 @@ def check_kv_quant(kv_quant: str | None) -> None:
 
 
 KV_MODES = ("dense", "latent")
+POOLING_TYPES = ("mean", "cls", "last")   # llama-server --pooling subset
 
 
 def check_kv_mode(kv_mode: str) -> None:
@@ -382,37 +387,40 @@ class Block(nn.Module):
                                 cfg.head_dim).to(dtype)
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                cache: KVCache, layer: int) -> torch.Tensor:
+                cache: KVCache, layer: int, dense_kv: bool = False) -> torch.Tensor:
         """One block over the dense cache: the new tokens' K/V are written
         at [cache.length, cache.length + T) (quantized per vector on an int8
-        cache), then attention reads the layer's whole buffer. A latent
-        block writes the latents instead and attends them with the absorbed
-        queries, n_rep = H over its one [.., 1, r] "kv head" (the same
-        kernel at head dim r), then up-projects the output."""
+        cache), each row at its own offset when the length is per row, then
+        attention reads the layer's whole buffer. A latent block writes the
+        latents instead and attends them with the absorbed queries, n_rep =
+        H over its one [.., 1, r] "kv head" (the same kernel at head dim r),
+        then up-projects the output; with ``dense_kv`` it caches the dense
+        K/V as any block does (a throwaway scratch cache)."""
         cfg = self.cfg
+        latent = self.latent and not dense_kv
         q, k, v = self.qkv(x, cos, sin)
-        if self.latent:
+        if latent:
             q, k, v = self._latent_kv(q, k, v)
-        at = slice(cache.length, cache.length + x.shape[1])
+        at = write_index(cache, x.shape[1])
         ks = vs = None
         if cache.k_scale is not None:
             (kq, k_s), (vq, v_s) = kv_quantize(k), kv_quantize(v)
-            cache.k[layer, :, at] = kq
-            cache.v[layer, :, at] = vq
-            cache.k_scale[layer, :, at] = k_s
-            cache.v_scale[layer, :, at] = v_s
+            cache.k[layer][at] = kq
+            cache.v[layer][at] = vq
+            cache.k_scale[layer][at] = k_s
+            cache.v_scale[layer][at] = v_s
             ks, vs = cache.k_scale[layer], cache.v_scale[layer]
         else:
-            cache.k[layer, :, at] = k
-            cache.v[layer, :, at] = v
+            cache.k[layer][at] = k
+            cache.v[layer][at] = v
         # the absorbed score is the dense q·k: the head dim's scale, not r's
         n_rep, scale = ((cfg.n_heads, cfg.attn_scale or cfg.head_dim ** -0.5)
-                        if self.latent else
+                        if latent else
                         (cfg.n_heads // cfg.n_kv_heads, cfg.attn_scale))
         attn = attention_any(q, cache.k[layer], cache.v[layer], cache.length,
                              n_rep, scale=scale, softcap=cfg.attn_softcap,
                              window=self.window, k_scale=ks, v_scale=vs)
-        if self.latent:
+        if latent:
             attn = self._latent_out(attn, x.dtype)
         return self.ffn(self.attn_out(x, attn))
 
@@ -477,6 +485,21 @@ class Block(nn.Module):
         _paged_kv_write(cache.k[layer], cache.v[layer], ks, vs, k_new[:, None],
                         v_new[:, None], *where)
         return self.ffn(y[:, None])
+
+
+def write_index(cache: KVCache, T: int) -> tuple:
+    """Where T new tokens go in one layer's dense buffer [B, S, ...]: the
+    positions [length, length + T) of every row for a host-int length, or,
+    for a per-row length tensor, each row's own [length[b], length[b] + T)
+    clamped to the last position (a batch row past its stop writes junk
+    there, which no live row reads)."""
+    if not isinstance(cache.length, torch.Tensor):
+        return (slice(None), slice(cache.length, cache.length + T))
+    B, S = cache.k.shape[1], cache.k.shape[2]
+    dev = cache.length.device
+    pos = (cache.length.long()[:, None]
+           + torch.arange(T, device=dev)[None, :]).clamp_max(S - 1)
+    return (torch.arange(B, device=dev)[:, None], pos)
 
 
 def paged_write_index(tables: torch.Tensor, lengths: torch.Tensor, T: int,
@@ -545,28 +568,42 @@ class LlamaModel(nn.Module):
             x = (x.float() * self.cfg.embed_scale).to(x.dtype)
         return x
 
-    def backbone(self, tokens: torch.Tensor, cache: KVCache) -> torch.Tensor:
+    def backbone(self, tokens: torch.Tensor, cache: KVCache,
+                 dense_kv: bool = False) -> torch.Tensor:
         """tokens [B, T] → pre-norm hidden states [B, T, D]; advances
-        ``cache.length`` by T."""
+        ``cache.length`` by T (a per-row length tensor stays within the
+        cache's last position). ``dense_kv`` caches dense K/V even in latent
+        blocks (``Block.forward``)."""
         B, T = tokens.shape
         x = self.embed_tokens(tokens)
-        pos = cache.length + torch.arange(T, device=tokens.device)
-        cos, sin = rope_freqs(self.cfg, pos[None, :].expand(B, T))
+        lane = torch.arange(T, device=tokens.device)
+        if isinstance(cache.length, torch.Tensor):
+            pos = cache.length.long()[:, None] + lane[None, :]
+        else:
+            pos = (cache.length + lane)[None, :].expand(B, T)
+        cos, sin = rope_freqs(self.cfg, pos)
         for i, block in enumerate(self.layers):
-            x = block(x, cos, sin, cache, i)
-        cache.length += T
+            x = block(x, cos, sin, cache, i, dense_kv)
+        if isinstance(cache.length, torch.Tensor):
+            cache.length = (cache.length + T).clamp_max(cache.k.shape[2] - 1)
+        else:
+            cache.length += T
         return x
+
+    def final_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """The output norm of the hidden states (``out_norm``)."""
+        cfg = self.cfg
+        if cfg.norm_type == "layer":
+            return layernorm(x, self.out_norm, self._parameters.get("out_norm_b"),
+                             cfg.norm_eps)
+        return rmsnorm(x, self.out_norm, cfg.norm_eps, cfg.norm_offset)
 
     def lm_logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and vocab projection: [B, T, D] → [B, T, V] f32,
         accumulated in f32; tied embeddings contract against the embedding
         table unless ``quantize_params`` packed its transpose as the head."""
         cfg = self.cfg
-        if cfg.norm_type == "layer":
-            x = layernorm(x, self.out_norm, self._parameters.get("out_norm_b"),
-                          cfg.norm_eps)
-        else:
-            x = rmsnorm(x, self.out_norm, cfg.norm_eps, cfg.norm_offset)
+        x = self.final_norm(x)
         head = getattr(self, "lm_head", None)
         out = proj(x, self.embed if head is None else head, out_dtype=torch.float32)
         if cfg.final_softcap:   # Gemma-2
@@ -574,10 +611,42 @@ class LlamaModel(nn.Module):
         return out
 
     @torch.inference_mode()
-    def forward(self, tokens: torch.Tensor, cache: KVCache) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, cache: KVCache,
+                dense_kv: bool = False) -> torch.Tensor:
         """tokens [B, T] → logits [B, T, V] f32; the T tokens occupy
         positions [cache.length, cache.length + T)."""
-        return self.lm_logits(self.backbone(tokens, cache))
+        return self.lm_logits(self.backbone(tokens, cache, dense_kv))
+
+    @torch.inference_mode()
+    def forward_rows_last(self, tokens: torch.Tensor, cache: KVCache,
+                          last: torch.Tensor) -> torch.Tensor:
+        """Prefill of a batch of padded prompts: logits [B, V] f32 at each
+        row's own last position ``last`` ([B]) only."""
+        x = self.backbone(tokens, cache)
+        xl = torch.gather(x, 1, last.long()[:, None, None].expand(-1, 1, x.shape[-1]))
+        return self.lm_logits(xl)[:, 0]
+
+    @torch.inference_mode()
+    def embed_pooled(self, tokens: torch.Tensor, cache: KVCache, n_valid: int,
+                     pooling: str = "mean") -> torch.Tensor:
+        """The L2-normalized pooled final hidden state over the first
+        ``n_valid`` positions ([B, D] f32), llama-server's ``/embedding``:
+        ``pooling`` "mean" (the default for models not trained for
+        embeddings), "cls" (the first position) or "last" (the last valid
+        one). The cache is dense scratch on every KV mode (nothing decodes
+        from it), so a latent engine's embeddings stay exact, not
+        rank-truncated."""
+        hidden = self.final_norm(self.backbone(tokens, cache, dense_kv=True))
+        if pooling == "cls":
+            v = hidden[:, 0].float()
+        elif pooling == "last":
+            v = hidden[:, max(n_valid - 1, 0)].float()
+        elif pooling == "mean":
+            v = hidden[:, :n_valid].float().sum(dim=1) / max(n_valid, 1)
+        else:
+            raise ValueError(f"unsupported pooling {pooling!r} "
+                             f"(one of {', '.join(POOLING_TYPES)})")
+        return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True).clamp_min(1e-9)
 
     @torch.inference_mode()
     def forward_last(self, tokens: torch.Tensor, cache: KVCache,

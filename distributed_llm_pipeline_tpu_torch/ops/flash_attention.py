@@ -40,8 +40,11 @@ PAGED_HEAD_DIMS = (64, 128, 256)
 DENSE_PAGE = 64
 
 # kernel launches since the last reset (chip_smoke.py reads it to prove the
-# served path ran the kernel); only the CUDA wrapper below increments it
+# served path ran the kernel); only the CUDA wrapper below increments it.
+# ``row_launches`` counts the launches whose cache_len was a [B] tensor of
+# per-row lengths (batch generation's decode steps)
 launches = 0
+row_launches = 0
 
 _fn = None
 
@@ -88,7 +91,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # imported here for the reason dense_plan gives
     from .paged_attention import check_aligned, sm_count, tile_geometry, workspace_numel
 
-    global launches
+    global launches, row_launches
     B, T, H, Hd = q.shape
     S, K = k.shape[1], k.shape[2]
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -150,6 +153,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed (cudaError {rc}, {plan})")
     launches += 1
+    if lens is not None and cache_len.dim() == 1:
+        row_launches += 1
     return out
 
 

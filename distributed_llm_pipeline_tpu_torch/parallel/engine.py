@@ -554,6 +554,11 @@ class ShardedEngine(Engine):
         self.forwards = 0
         self.context_shifts = 0
         self._fused_resolved = {}
+        # no prefix cache and no session files on a mesh yet (ROADMAP.md
+        # §1): every request prefills its whole prompt, the same output
+        self.prefix_cache_enabled = False
+        self._prefix_ids, self._prefix_cache = [], None
+        self.prefix_hits = self.prefix_tokens = 0
         self.stage_counts = loaded.counts
         self._events_on_load = list(loaded.events)
         dev = (torch.cuda.get_device_name(mesh.device) if mesh.device.type == "cuda"
@@ -621,6 +626,23 @@ class ShardedEngine(Engine):
     def perplexity(self, text: str, *args, **kw):
         raise NotImplementedError("perplexity evaluation runs on the "
                                   "single-device engine")
+
+    def generate_batch(self, prompts, gen: GenerationConfig | None = None):
+        raise NotImplementedError(
+            "batch generation (n > 1, a list of prompts) on a mesh needs the "
+            "dp throughput mode, which is not ported yet (ROADMAP.md §1)")
+
+    def save_session(self, path) -> bool:
+        raise NotImplementedError("session and slot files on a mesh (--mesh) "
+                                  "are not ported yet (ROADMAP.md §1)")
+
+    def load_session(self, path) -> int:
+        raise NotImplementedError("session and slot files on a mesh (--mesh) "
+                                  "are not ported yet (ROADMAP.md §1)")
+
+    def erase_session(self) -> None:
+        raise NotImplementedError("session and slot files on a mesh (--mesh) "
+                                  "are not ported yet (ROADMAP.md §1)")
 
     def close(self) -> None:
         self.model.close()

@@ -214,6 +214,7 @@ class StageModel(nn.Module):
     follow them)."""
 
     embed_tokens = LlamaModel.embed_tokens
+    final_norm = LlamaModel.final_norm
 
     def __init__(self, cfg: ModelConfig, params: Params, pp: int, tp: int,
                  rank: int, counts: list[int]):

@@ -24,6 +24,14 @@ A JSON-mode or grammar request decodes one forward a token instead: the
 host picks each token from the device's shortlist of the logits
 (``runtime/constrained.py``).
 
+The engine keeps the last request's KV as a prefix cache: a prompt that
+extends its ids by at least ``MIN_PREFIX`` tokens prefills only the rest.
+``save_session`` / ``load_session`` keep it in a file (``save_kv_file``,
+the reference's npz format, shared with the scheduler's slot files). The
+other entry points: ``embed`` (pooled embeddings), ``infill_ids``
+(fill-in-middle prompts), ``perplexity`` and ``generate_batch`` (several
+prompts at once over a cache whose rows each have their own length).
+
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``); with no CUDA device and no such request they raise.
 """
@@ -37,19 +45,20 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator
 
+import numpy as np
 import torch
 
 from ..gguf import GGUFReader
 from ..models import KVCache, LlamaModel, ModelConfig, PagedKVCache, Params
 from ..models.convert import load_params, native_quant_layers, select_rope_factors
 from ..models.convert import latent_default_rank, latent_factorize
-from ..models.llama import (check_kv_mode, check_kv_quant, check_quant,
-                            quantize_params, quantized_bytes, shift_kv)
+from ..models.llama import (POOLING_TYPES, check_kv_mode, check_kv_quant,
+                            check_quant, quantize_params, quantized_bytes, shift_kv)
 from ..ops.latent_attention import LATENT_RANKS
 from ..ops.quant_matmul import QuantPack
 from ..ops.sampling import (apply_penalties, bias_vector, lp_payload,
-                            mirostat_init, mirostat_step, sample, shortlist,
-                            topk_logprobs)
+                            mirostat_init, mirostat_step, sample, sample_rows,
+                            shortlist, topk_logprobs)
 from ..tokenizer import StreamDecoder, Tokenizer, tokenizer_from_metadata
 from ..utils import Event, done, log, token
 from . import capabilities
@@ -151,6 +160,9 @@ def _utf8_prefix(tail: bytes) -> bool:
     return all(0x80 <= c < 0xC0 for c in tail[1:])
 
 
+MIN_PREFIX = 16   # the shortest stored prefix a prompt reuses
+
+
 def _bucket(n: int, cap: int, minimum: int = 16, quantum: int = 1) -> int:
     """Prompt length padded to a power of two ≥ 16, capped at ``cap``: a
     small, fixed set of prefill shapes, as the reference buckets them. The
@@ -160,6 +172,94 @@ def _bucket(n: int, cap: int, minimum: int = 16, quantum: int = 1) -> int:
     while b < n:
         b *= 2
     return min(b, cap)
+
+
+# the npz dtype name of each cache dtype (the reference's ``str(k.dtype)``):
+# 2-byte floats are stored as a uint16 view under their name
+_KV_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+              "float32": torch.float32, "int8": torch.int8}
+_KV_NAMES = {v: k for k, v in _KV_DTYPES.items()}
+
+
+def _kv_host(t: torch.Tensor) -> np.ndarray:
+    """A cache slice as the file stores it: a 2-byte float as its uint16
+    bits, any other dtype as itself."""
+    t = t.detach().contiguous().cpu()
+    if t.element_size() == 2 and t.is_floating_point():
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _kv_npz_arrays(ids: list[int], cache: KVCache, length: int) -> dict:
+    """The npz array dict of the KV file: the token ids, the first
+    ``length`` positions of K and V (axis -3 is the sequence axis; a
+    2-byte float as a uint16 view, its dtype name beside it), the length,
+    and on an int8 cache the per-vector scales ``ks`` / ``vs``. The
+    reference's format: files cross the two packages both ways."""
+    def cut(t: torch.Tensor) -> np.ndarray:
+        return _kv_host(t[..., :length, :, :])
+
+    extra = {}
+    if cache.k_scale is not None:   # an int8 cache: the scales go too
+        extra["ks"] = cut(cache.k_scale)
+        extra["vs"] = cut(cache.v_scale)
+    return dict(ids=np.asarray(ids, np.int32), k=cut(cache.k), v=cut(cache.v),
+                dtype=np.bytes_(_KV_NAMES[cache.k.dtype]),
+                length=np.asarray(length, np.int32), **extra)
+
+
+def save_kv_file(path: str | Path, ids: list[int], cache: KVCache,
+                 length: int) -> None:
+    """Write ``length`` positions of a KV cache and their token ids to
+    ``path`` (llama-cli's --prompt-cache file, llama-server's slot file):
+    one format for the engine's session and the scheduler's slots. Only
+    the first ``length`` positions are stored, so a short session on a long
+    context writes a short file and loads under another ``--ctx-size``."""
+    with open(path, "wb") as fh:  # np.savez(path) would append '.npz'
+        np.savez(fh, **_kv_npz_arrays(ids, cache, length))
+
+
+def _kv_from_npz(z, template: KVCache, max_len: int,
+                 ) -> tuple[KVCache, list[int]] | None:
+    """Fill ``template`` (a zeroed cache of the engine's layout) from an
+    open npz: the stored positions first, the rest left as they are, the
+    length set. None when the file does not match: another layout (every
+    axis but the sequence one must be equal), a length past the template's
+    capacity or ``max_len``, another dtype, or a dense file for an int8
+    cache (or the reverse), which would change the numerics."""
+    dt = _KV_DTYPES.get(z["dtype"].item().decode())
+    ids = z["ids"].tolist()
+    length = int(z["length"])
+    k, v = z["k"], z["v"]
+    quant = template.k_scale is not None
+    has_scales = "ks" in z.files
+    exp = tuple(template.k.shape)
+    if (dt is None or k.shape[:-3] + k.shape[-2:] != exp[:-3] + exp[-2:]
+            or k.shape[-3] != length or length > exp[-3] or length > max_len
+            or dt != template.k.dtype or quant != has_scales):
+        return None
+
+    def put(dst: torch.Tensor, a: np.ndarray) -> None:
+        t = torch.from_numpy(a.view(np.int16)).view(dt) if a.dtype == np.uint16 \
+            else torch.from_numpy(a)
+        dst[..., :length, :, :] = t.to(dst.device)
+
+    put(template.k, k)
+    put(template.v, v)
+    if quant:
+        put(template.k_scale, z["ks"])
+        put(template.v_scale, z["vs"])
+    template.length = length
+    return template, ids[:length]
+
+
+def load_kv_file(path: str | Path, template: KVCache, max_len: int,
+                 ) -> tuple[KVCache, list[int]] | None:
+    """Load a saved KV file into ``template``'s layout: (the cache with
+    ``length`` set, the ids), or None when the file does not match (another
+    model, context or quantization); callers then ignore the file."""
+    with np.load(path) as z:
+        return _kv_from_npz(z, template, max_len)
 
 
 def check_token_ids(ids: list[int], vocab_size: int) -> list[int]:
@@ -360,8 +460,19 @@ class Engine:
         self.max_seq = min(max_seq or cfg.max_seq_len, cfg.max_seq_len)
         self.decode_chunk = max(1, int(os.environ.get("DLP_DECODE_CHUNK", "32")))
         self._prompt_quantum = 1   # prefill buckets are multiples of this
-        self.forwards = 0   # model forwards run: one per prefill, one per decode step
+        # model forwards run: one per prefill, decode step, embedding and
+        # perplexity chunk
+        self.forwards = 0
         self.context_shifts = 0   # context shifts applied
+        # the prefix cache: the last request's KV and the token ids it holds.
+        # A prompt that extends those ids (a chat's next turn, a repeated
+        # system prompt) prefills only its suffix
+        self.prefix_cache_enabled = True
+        self._prefix_ids: list[int] = []
+        self._prefix_cache: KVCache | None = None
+        self.prefix_hits = 0      # requests that reused a stored prefix
+        self.prefix_tokens = 0    # prompt tokens they did not prefill
+        self._embed_caches: dict[int, KVCache] = {}
         self._fused_resolved: dict[tuple[int, int], bool] = {}
         dev = (torch.cuda.get_device_name(self.device)
                if self.device.type == "cuda" else "CPU")
@@ -555,137 +666,211 @@ class Engine:
         ids = check_token_ids(list(prompt), self.cfg.vocab_size) \
             if isinstance(prompt, (list, tuple)) else self.tokenizer.encode(prompt)
         n_prompt = len(ids)
-        if n_prompt >= self.max_prompt:
-            ids = ids[-(self.max_prompt - 1):]
-            yield log(f"prompt truncated to last {len(ids)} tokens (ctx {self.max_seq})")
-        # latents cache projected post-rope K: the shift's re-rotation pairs
-        # head_dim lanes, which the rank-r mixing destroyed, so no exact
-        # shift exists; int8 K codes would need a requantizing pass
-        shift_on = (gen.context_shift and not self.kv_quant
-                    and self.kv_mode != "latent")
-        budget = gen.max_new_tokens if shift_on else \
-            max(0, min(gen.max_new_tokens, self.max_seq - len(ids)))
-        yield log(f"prompt: {n_prompt} tokens; generating up to {budget} "
-                  f"(ctx {self.max_seq}, t={gen.temperature}, top_k={gen.top_k}, "
-                  f"top_p={gen.top_p})")
-        if budget == 0:
-            yield done("generated 0 tokens (no budget)", n_prompt=len(ids),
-                       n_gen=0, finish_reason="length")
-            return
-        rng = torch.Generator(device=self.device)
-        rng.manual_seed(gen.seed if gen.seed is not None else time.time_ns() % 2**31)
-        # the device state that rides between steps and chunks
-        st = {"recent": None, "mu": None, "bias": None}
-        if (gen.repeat_penalty != 1.0 or gen.presence_penalty != 0.0
-                or gen.frequency_penalty != 0.0):
-            W = max(1, gen.repeat_last_n)
-            st["recent"] = torch.tensor([([-1] * W + ids)[-W:]], dtype=torch.long,
-                                        device=self.device)
-        if gen.logit_bias:
-            st["bias"] = bias_vector(gen.logit_bias, self.cfg.vocab_size, self.device)
-        if gen.mirostat:
-            st["mu"] = mirostat_init(gen.mirostat_tau, self.device)
-        lp_mode = gen.logprobs is not None
-        stopper = StopMatcher(tuple(gen.stop)) if gen.stop else None
-        sd = StreamDecoder(self.tokenizer)
-        eos = self.tokenizer.eos_id
+        # what the prefix cache keeps when the stream ends, however it ends:
+        # the ids fed, the tokens emitted, whether the cache is sound (False
+        # while a forward runs, so a crashed one is never reused) and
+        # whether a context shift broke the mapping of ids to positions
+        fed: list[int] | None = None
+        out_tokens: list[int] = []
+        n_gen, cache_valid, shifted, cache = 0, False, False, None
+        try:
+            if n_prompt >= self.max_prompt:
+                ids = ids[-(self.max_prompt - 1):]
+                yield log(f"prompt truncated to last {len(ids)} tokens "
+                          f"(ctx {self.max_seq})")
+            # latents cache projected post-rope K: the shift's re-rotation
+            # pairs head_dim lanes, which the rank-r mixing destroyed, so no
+            # exact shift exists; int8 K codes would need a requantizing pass
+            shift_on = (gen.context_shift and not self.kv_quant
+                        and self.kv_mode != "latent")
+            budget = gen.max_new_tokens if shift_on else \
+                max(0, min(gen.max_new_tokens, self.max_seq - len(ids)))
+            yield log(f"prompt: {n_prompt} tokens; generating up to {budget} "
+                      f"(ctx {self.max_seq}, t={gen.temperature}, top_k={gen.top_k}, "
+                      f"top_p={gen.top_p})")
+            if budget == 0:
+                yield done("generated 0 tokens (no budget)", n_prompt=len(ids),
+                           n_gen=0, finish_reason="length")
+                return
+            rng = torch.Generator(device=self.device)
+            rng.manual_seed(gen.seed if gen.seed is not None
+                            else time.time_ns() % 2**31)
+            # the device state that rides between steps and chunks
+            st = {"recent": None, "mu": None, "bias": None}
+            if (gen.repeat_penalty != 1.0 or gen.presence_penalty != 0.0
+                    or gen.frequency_penalty != 0.0):
+                W = max(1, gen.repeat_last_n)
+                st["recent"] = torch.tensor([([-1] * W + ids)[-W:]],
+                                            dtype=torch.long, device=self.device)
+            if gen.logit_bias:
+                st["bias"] = bias_vector(gen.logit_bias, self.cfg.vocab_size,
+                                         self.device)
+            if gen.mirostat:
+                st["mu"] = mirostat_init(gen.mirostat_tau, self.device)
+            lp_mode = gen.logprobs is not None
+            stopper = StopMatcher(tuple(gen.stop)) if gen.stop else None
+            sd = StreamDecoder(self.tokenizer)
+            eos = self.tokenizer.eos_id
 
-        t_start = time.monotonic()
-        cache = self.make_cache()
-        tok, lp = self._sample(self.prefill(ids, cache), gen, rng, st)
-        first = self._to_host(tok[:, 0], *(lp or ()))()
-        first_data = None
-        if lp_mode:
-            first_data = lp_payload(first[0][0], first[1][0], first[2][0],
-                                    first[3][0], gen.logprobs)
-            first = first[0]
-        ttft = time.monotonic() - t_start
-        yield log(f"prefill: {len(ids)} tokens in {ttft * 1000:.1f} ms (TTFT)")
-        t_decode = time.monotonic()
+            t_start = time.monotonic()
+            cache, reuse_k = self._take_prefix_cache(ids)
+            tok, lp = self._sample(self.prefill(ids[reuse_k:], cache), gen, rng, st)
+            fed, cache_valid = list(ids), True
+            first = self._to_host(tok[:, 0], *(lp or ()))()
+            first_data = None
+            if lp_mode:
+                first_data = lp_payload(first[0][0], first[1][0], first[2][0],
+                                        first[3][0], gen.logprobs)
+                first = first[0]
+            ttft = time.monotonic() - t_start
+            if reuse_k:
+                self.prefix_hits += 1
+                self.prefix_tokens += reuse_k
+                yield log(f"prefix cache hit: reused KV for {reuse_k} of "
+                          f"{n_prompt} prompt tokens")
+            yield log(f"prefill: {len(ids)} tokens in {ttft * 1000:.1f} ms (TTFT)")
+            t_decode = time.monotonic()
 
-        n_gen, finish_reason, stopped, stop_matched = 0, "length", False, False
+            finish_reason, stopped, stop_matched = "length", False, False
 
-        def take(t: int, data: dict | None):
-            """Account one sampled token: returns its token event (or None)
-            and sets the stop state. With logprobs every token gets an
-            event, even while the decoder holds its bytes back."""
-            nonlocal n_gen, finish_reason, stopped, stop_matched
-            if gen.stop_on_eos and eos is not None and t == eos:
-                finish_reason, stopped = "stop", True
-                return None
-            n_gen += 1
-            text = sd.feed(t)
-            if stopper is not None:
-                text, hit = stopper.feed(text)
-                if hit:
-                    finish_reason, stopped, stop_matched = "stop", True, True
-            if n_gen >= budget:
-                stopped = True
-            return token(text, **(data or {})) if text or data is not None else None
+            def take(t: int, data: dict | None):
+                """Account one sampled token: returns its token event (or
+                None) and sets the stop state. With logprobs every token
+                gets an event, even while the decoder holds its bytes
+                back."""
+                nonlocal n_gen, finish_reason, stopped, stop_matched
+                if gen.stop_on_eos and eos is not None and t == eos:
+                    finish_reason, stopped = "stop", True
+                    return None
+                out_tokens.append(t)
+                n_gen += 1
+                text = sd.feed(t)
+                if stopper is not None:
+                    text, hit = stopper.feed(text)
+                    if hit:
+                        finish_reason, stopped, stop_matched = "stop", True, True
+                if n_gen >= budget:
+                    stopped = True
+                return token(text, **(data or {})) if text or data is not None else None
 
-        ev = take(first[0], first_data)
-        if ev is not None:
-            yield ev
-        pending = None   # (read, n) of the chunk whose tokens are in flight
-        while True:
-            launched = None
-            room = budget - n_gen - (pending[1] if pending else 0)
-            if (shift_on and not stopped and room > 0 and pending is None
-                    and self.max_seq - cache.length < 2):
-                # the context is full and nothing is in flight: drop half
-                # the past after ``keep`` and re-rotate (llama.cpp's shift)
-                pos = cache.length
-                keep = max(0, min(gen.keep, pos - 2))
-                drop = max(1, (pos - keep) // 2)
-                self._shift_cache(cache, keep, drop)
-                self.context_shifts += 1
-                yield log(f"context shift: dropped {drop} cached positions "
-                          f"(keep {keep}, {cache.length} remain of ctx "
-                          f"{self.max_seq})")
-            # a step needs a free position for its token and one more for
-            # the token it samples; a chunk the context bounds is a power of
-            # two, as the reference's, so both shift at the same position
-            ctx_room = self.max_seq - cache.length
-            n = min(self.decode_chunk, room, ctx_room)
-            if n == ctx_room:
-                n = 1 << (n.bit_length() - 1) if ctx_room >= 2 else 0
-            if not stopped and n > 0:
-                outs, tok = self._decode_chunk(n, tok, cache, gen, rng, st)
-                launched = (self._to_host(*(o[:, 0] for o in outs)), n)
-            if pending is not None and not stopped:
-                # read the previous chunk while the one just queued runs
-                got = pending[0]()
-                toks = got[0] if lp_mode else got
-                for i, t in enumerate(toks):
-                    data = (lp_payload(t, got[1][i], got[2][i], got[3][i],
-                                       gen.logprobs) if lp_mode else None)
-                    ev = take(t, data)
-                    if ev is not None:
-                        yield ev
-                    if stopped:
-                        break
-            # once stopped, a chunk still in flight is junk past the stop
-            pending = None if stopped else launched
-            if pending is None and (stopped or not shift_on or n_gen >= budget):
-                break
-        tail = sd.flush()
-        if not stop_matched:
-            if stopper is not None:
-                tail, hit = stopper.finish(tail)
-                if hit:
-                    finish_reason = "stop"
-            if tail:
-                yield token(tail)
-        dt = time.monotonic() - t_decode
-        tps = (n_gen - 1) / dt if n_gen > 1 and dt > 0 else float("nan")
-        dt_e2e = time.monotonic() - t_start
-        tps_e2e = n_gen / dt_e2e if n_gen and dt_e2e > 0 else float("nan")
-        extra = {"mirostat_mu": float(st["mu"][0])} if gen.mirostat else {}
-        yield done(f"generated {n_gen} tokens | TTFT {ttft * 1000:.1f} ms | "
-                   f"decode {tps:.2f} tok/s",
-                   n_prompt=len(ids), n_gen=n_gen, finish_reason=finish_reason,
-                   ttft_ms=ttft * 1000, tok_s=tps, tok_s_e2e=tps_e2e,
-                   stop_match=stopper.matched if stopper else None, **extra)
+            ev = take(first[0], first_data)
+            if ev is not None:
+                yield ev
+            pending = None   # (read, n) of the chunk whose tokens are in flight
+            while True:
+                launched = None
+                room = budget - n_gen - (pending[1] if pending else 0)
+                if (shift_on and not stopped and room > 0 and pending is None
+                        and self.max_seq - cache.length < 2):
+                    # the context is full and nothing is in flight: drop half
+                    # the past after ``keep`` and re-rotate (llama.cpp's
+                    # shift); the prefix cache is dropped when the stream ends
+                    pos = cache.length
+                    keep = max(0, min(gen.keep, pos - 2))
+                    drop = max(1, (pos - keep) // 2)
+                    cache_valid = False
+                    self._shift_cache(cache, keep, drop)
+                    cache_valid = shifted = True
+                    self.context_shifts += 1
+                    yield log(f"context shift: dropped {drop} cached positions "
+                              f"(keep {keep}, {cache.length} remain of ctx "
+                              f"{self.max_seq})")
+                # a step needs a free position for its token and one more for
+                # the token it samples; a chunk the context bounds is a power
+                # of two, as the reference's, so both shift at the same
+                # position
+                ctx_room = self.max_seq - cache.length
+                n = min(self.decode_chunk, room, ctx_room)
+                if n == ctx_room:
+                    n = 1 << (n.bit_length() - 1) if ctx_room >= 2 else 0
+                if not stopped and n > 0:
+                    cache_valid = False
+                    outs, tok = self._decode_chunk(n, tok, cache, gen, rng, st)
+                    cache_valid = True
+                    launched = (self._to_host(*(o[:, 0] for o in outs)), n)
+                if pending is not None and not stopped:
+                    # read the previous chunk while the one just queued runs
+                    got = pending[0]()
+                    toks = got[0] if lp_mode else got
+                    for i, t in enumerate(toks):
+                        data = (lp_payload(t, got[1][i], got[2][i], got[3][i],
+                                           gen.logprobs) if lp_mode else None)
+                        ev = take(t, data)
+                        if ev is not None:
+                            yield ev
+                        if stopped:
+                            break
+                # once stopped, a chunk still in flight is junk past the stop
+                pending = None if stopped else launched
+                if pending is None and (stopped or not shift_on or n_gen >= budget):
+                    break
+            tail = sd.flush()
+            if not stop_matched:
+                if stopper is not None:
+                    tail, hit = stopper.finish(tail)
+                    if hit:
+                        finish_reason = "stop"
+                if tail:
+                    yield token(tail)
+            dt = time.monotonic() - t_decode
+            tps = (n_gen - 1) / dt if n_gen > 1 and dt > 0 else float("nan")
+            dt_e2e = time.monotonic() - t_start
+            tps_e2e = n_gen / dt_e2e if n_gen and dt_e2e > 0 else float("nan")
+            extra = {"mirostat_mu": float(st["mu"][0])} if gen.mirostat else {}
+            yield done(f"generated {n_gen} tokens | TTFT {ttft * 1000:.1f} ms | "
+                       f"decode {tps:.2f} tok/s",
+                       n_prompt=len(ids), n_gen=n_gen, finish_reason=finish_reason,
+                       ttft_ms=ttft * 1000, tok_s=tps, tok_s_e2e=tps_e2e,
+                       stop_match=stopper.matched if stopper else None, **extra)
+        finally:
+            self._store_prefix(cache, fed, out_tokens, n_gen, cache_valid, shifted)
+
+    def _store_prefix(self, cache, fed: list[int] | None, out_tokens: list[int],
+                      n_gen: int, cache_valid: bool, shifted: bool) -> None:
+        """Keep a finished (or aborted) stream's cache as the prefix cache.
+        Every emitted token but the newest has been fed, so the cache holds
+        the ids fed and the first ``n_gen - 1`` tokens emitted; its length
+        is cut there, so KV a chunk wrote past the stop is never reused.
+        After a context shift (positions no longer follow the ids), a
+        crashed forward, or with caching off, the stored prefix is
+        dropped."""
+        if shifted:
+            self._prefix_ids, self._prefix_cache = [], None
+        elif self.prefix_cache_enabled and cache_valid and fed is not None:
+            n_fed_gen = max(0, n_gen - 1)
+            self._prefix_ids = fed + out_tokens[:n_fed_gen]
+            cache.length = len(fed) + n_fed_gen
+            self._prefix_cache = cache
+        elif not cache_valid or not self.prefix_cache_enabled:
+            self._prefix_ids, self._prefix_cache = [], None
+
+    def _take_prefix_cache(self, ids: list[int]) -> tuple[KVCache, int]:
+        """A cache to prefill into, and how many prompt tokens it already
+        holds: the stored prefix cache when its ids share at least
+        ``MIN_PREFIX`` leading tokens with ``ids`` (at least one prompt
+        token always runs, for the logits, and the suffix's bucket must fit
+        behind the prefix), else a cache of length 0. A miss reuses the
+        stored buffers with the length reset (their contents are masked as
+        bucket padding is) rather than allocating new ones. The stored
+        prefix is consumed either way."""
+        stored, cache = self._prefix_ids, self._prefix_cache
+        self._prefix_ids, self._prefix_cache = [], None
+        if cache is None:
+            return self.make_cache(batch=1), 0
+        if self.prefix_cache_enabled:
+            k = 0
+            for a, b in zip(stored, ids):
+                if a != b:
+                    break
+                k += 1
+            k = min(k, len(ids) - 1)   # >= 1 suffix token must run for logits
+            if k >= MIN_PREFIX and k + _bucket(
+                    len(ids) - k, self.max_prompt,
+                    quantum=self._prompt_quantum) <= self.max_seq:
+                cache.length = k
+                return cache, k
+        cache.length = 0
+        return cache, 0
 
     # -- constrained decoding (llama.cpp's grammar sampling: JSON mode, its
     # shipped json.gbnf, or a GBNF grammar) --------------------------------
@@ -708,11 +893,22 @@ class Engine:
         token; generation ends when the constraint is satisfied. The done
         event carries ``constraint_complete`` (and ``json_complete``), the
         readbacks and the misses."""
-        from .constrained import ConstrainedSampler
-
         yield from self._events_on_load
         ids = check_token_ids(list(prompt), self.cfg.vocab_size) \
             if isinstance(prompt, (list, tuple)) else self.tokenizer.encode(prompt)
+        try:
+            yield from self._constrained_stream(ids, gen)
+        finally:
+            # constrained decoding keeps no prefix: the stored one it may
+            # have reused is consumed, and nothing new is stored
+            self._prefix_ids, self._prefix_cache = [], None
+
+    def _constrained_stream(self, ids: list[int],
+                            gen: GenerationConfig) -> Iterator[Event]:
+        """The constrained path's prefill (the prefix cache's stored KV
+        reused, as on the unconstrained path) and decode loop."""
+        from .constrained import ConstrainedSampler
+
         n_prompt = len(ids)
         if n_prompt >= self.max_prompt:
             ids = ids[-(self.max_prompt - 1):]
@@ -731,9 +927,12 @@ class Engine:
                                      self.tokenizer.eos_id)
         stopper = StopMatcher(tuple(gen.stop)) if gen.stop else None
         t_start = time.monotonic()
-        cache = self.make_cache()
-        row = self.prefill(ids, cache)[0]
+        cache, reuse_k = self._take_prefix_cache(ids)
+        row = self.prefill(ids[reuse_k:], cache)[0]
         ttft = time.monotonic() - t_start
+        if reuse_k:
+            self.prefix_hits += 1
+            self.prefix_tokens += reuse_k
         yield log(f"prefill: {len(ids)} tokens in {ttft * 1000:.1f} ms (TTFT)")
         t_decode = time.monotonic()
         n_gen, finish_reason = 0, "length"
@@ -794,3 +993,309 @@ class Engine:
                    json_complete=sampler.complete,
                    constraint_complete=sampler.complete,
                    readbacks=readbacks, shortlist_misses=misses)
+
+    # -- fill-in-middle (llama-server /infill) -----------------------------
+
+    def infill_ids(self, input_prefix: str, input_suffix: str) -> list[int]:
+        """The PSM-order fill-in-middle prompt: [bos] <FIM_PRE> prefix
+        <FIM_SUF> suffix <FIM_MID>, as llama-server's /infill builds it.
+        Raises ``ValueError`` when the vocabulary has no FIM tokens."""
+        v = self.tokenizer.vocab
+        if v.fim_pre_id is None or v.fim_suf_id is None \
+                or v.fim_mid_id is None:
+            raise ValueError(
+                "this model's vocab has no fill-in-middle tokens "
+                "(tokenizer.ggml.prefix/suffix/middle_token_id); /infill "
+                "needs a FIM-trained checkpoint")
+        pre = self.tokenizer.encode(input_prefix, add_bos=False)
+        suf = self.tokenizer.encode(input_suffix, add_bos=False)
+        # an oversized context is trimmed before the markers are placed (the
+        # prompt's tail truncation would cut <FIM_PRE> / <FIM_SUF>): the
+        # prefix's tail and the suffix's head stay, the text nearest the
+        # hole, prefix-weighted as llama-server trims
+        budget = self.max_prompt - 5   # bos + 3 markers + >= 1 decode margin
+        if len(pre) + len(suf) > budget:
+            # the suffix gets at most half, then each side takes the share
+            # the other leaves unused
+            keep_suf = min(len(suf), budget // 2)
+            keep_pre = min(len(pre), budget - keep_suf)
+            keep_suf = min(len(suf), budget - keep_pre)
+            pre = pre[-keep_pre:] if keep_pre else []
+            suf = suf[:keep_suf]
+        ids: list[int] = []
+        if v.add_bos and v.bos_id is not None:
+            ids.append(v.bos_id)
+        ids.append(v.fim_pre_id)
+        ids += pre
+        ids.append(v.fim_suf_id)
+        ids += suf
+        ids.append(v.fim_mid_id)
+        return ids
+
+    # -- embeddings (llama-server /embedding) ------------------------------
+
+    def embed(self, text: str, with_count: bool = False, pooling: str = "mean"):
+        """The L2-normalized pooled embedding of ``text`` (llama-server's
+        ``/embedding``; ``pooling`` as its ``--pooling``: mean, cls or
+        last), the prompt cut to ``max_prompt`` tokens. It runs on a dense
+        scratch cache of the prompt's bucket, kept per bucket and on every
+        KV mode: the prefix cache and the decode state are untouched.
+        ``with_count`` also returns the number of tokens evaluated."""
+        if pooling not in POOLING_TYPES:
+            raise ValueError(f"unsupported pooling {pooling!r} "
+                             f"(one of {', '.join(POOLING_TYPES)})")
+        ids = self.tokenizer.encode(text)
+        if len(ids) > self.max_prompt:
+            ids = ids[: self.max_prompt]
+        b = _bucket(len(ids), self.max_prompt, quantum=self._prompt_quantum)
+        padded = torch.zeros((1, b), dtype=torch.long)
+        padded[0, : len(ids)] = torch.tensor(ids, dtype=torch.long)
+        cache = self._embed_caches.get(b)
+        if cache is None:
+            # dense whatever the KV mode: the scratch serves one pass, so a
+            # latent engine's embeddings stay exact, not rank-truncated
+            cache = KVCache.zeros(self.cfg, batch=1, max_seq=b, dtype=self.dtype,
+                                  device=self.device)
+            self._embed_caches[b] = cache
+        cache.length = 0   # the last call's contents are masked as padding
+        vec = self.model.embed_pooled(padded.to(self.device), cache, len(ids),
+                                      pooling)
+        self.forwards += 1
+        out = vec[0].tolist()
+        return (out, len(ids)) if with_count else out
+
+    # -- perplexity (llama-perplexity) -------------------------------------
+
+    @torch.inference_mode()
+    def perplexity(self, text: str, chunk: int = 128) -> dict:
+        """The perplexity of ``text``: exp of the mean negative log-likelihood
+        of each token given the ones before it, run in ``chunk``-token
+        forwards through a dense cache so the logits stay [1, chunk, V].
+        A text longer than the context is scored in independent
+        ``max_seq``-token windows (llama-perplexity's non-overlapping
+        default). Returns {"ppl", "nll", "n_tokens"}."""
+        ids = self.tokenizer.encode(text)
+        if len(ids) < 2:
+            raise ValueError("perplexity needs at least 2 tokens")
+        # the cache's capacity rounded up to a chunk multiple: the last
+        # (padded) chunk's KV write then ends at the capacity instead of
+        # running past it (the reference's update would clamp its start into
+        # earlier positions and corrupt the window's KV; a slice write here
+        # would fail)
+        cap = -(-self.max_seq // chunk) * chunk
+        cache = KVCache.zeros(self.cfg, batch=1, max_seq=cap, dtype=self.dtype,
+                              device=self.device)
+        nlls, total_n = [], 0
+        for w0 in range(0, len(ids) - 1, self.max_seq):
+            window = ids[w0: w0 + self.max_seq + 1]
+            if len(window) < 2:
+                break
+            cache.length = 0
+            # positions [0, n - 1) predict [1, n); a window's first token
+            # is conditioned on nothing and never scored
+            for c0 in range(0, len(window) - 1, chunk):
+                piece = window[c0: c0 + chunk]
+                tgt = window[c0 + 1: c0 + 1 + len(piece)]
+                toks = torch.zeros((1, chunk), dtype=torch.long)
+                toks[0, : len(piece)] = torch.tensor(piece, dtype=torch.long)
+                logits = self.model(toks.to(self.device), cache, dense_kv=True)
+                self.forwards += 1
+                lp = torch.log_softmax(logits[0, : len(tgt)].float(), dim=-1)
+                t = torch.tensor(tgt, dtype=torch.long, device=self.device)
+                nlls.append(-lp.gather(-1, t[:, None]).sum())
+                total_n += len(tgt)
+        # each chunk's sum in f32, the total over chunks in f64, as the
+        # reference adds its chunks' sums on the host
+        total_nll = sum(torch.stack(nlls).tolist())
+        return {"ppl": float(np.exp(total_nll / max(1, total_n))),
+                "nll": total_nll, "n_tokens": total_n}
+
+    # -- sessions (llama-cli --prompt-cache: the prefix cache on disk) -----
+
+    def save_session(self, path: str | Path) -> bool:
+        """Write the prefix cache and its token ids to ``path``; False when
+        there is nothing to save."""
+        if self._prefix_cache is None or not self._prefix_ids:
+            return False
+        c = self._prefix_cache
+        save_kv_file(path, self._prefix_ids, c, int(c.length))
+        return True
+
+    def load_session(self, path: str | Path) -> int:
+        """Load a saved session as the prefix cache. Returns the number of
+        tokens it holds, 0 when the file does not match this engine (another
+        model, context or KV layout), which is then ignored."""
+        res = load_kv_file(path, self.make_cache(batch=1), self.max_seq)
+        if res is None:
+            return 0
+        self._prefix_cache, self._prefix_ids = res
+        return len(self._prefix_ids)
+
+    def erase_session(self) -> None:
+        """Drop the prefix cache (``POST /slots/0?action=erase``)."""
+        self._prefix_ids, self._prefix_cache = [], None
+
+    # -- batch generation (n > 1, a list of prompts) -----------------------
+
+    def _batch_prefill(self, tokens: np.ndarray, lengths: np.ndarray,
+                       ) -> tuple[torch.Tensor, KVCache]:
+        """(tokens [B, bucket], true lengths [B]) → (each row's logits at its
+        own last prompt position [B, V], a cache of B rows whose per-row
+        lengths are ``lengths``)."""
+        cache = self.make_cache(batch=tokens.shape[0])
+        dev = self.device
+        last = self.model.forward_rows_last(
+            torch.from_numpy(tokens).long().to(dev), cache,
+            torch.from_numpy(lengths - 1).to(dev))
+        self.forwards += 1
+        cache.length = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+        return last, cache
+
+    def _batch_step(self, tok: torch.Tensor, cache: KVCache) -> torch.Tensor:
+        """One decode step of every row, each at its own length: tok [B] →
+        logits [B, V]."""
+        self.forwards += 1
+        return self.model(tok[:, None], cache)[:, -1]
+
+    @torch.inference_mode()
+    def generate_batch(self, prompts: list[str],
+                       gen: GenerationConfig | None = None) -> list[dict]:
+        """Generate for several prompts at once (``n`` > 1, a list of
+        prompts): one cache of a row per prompt, each row at its own length,
+        every step one batched forward. Each row samples as ``generate``
+        would, from a generator of its own; a row past its EOS or budget
+        keeps computing junk that is discarded until the whole batch ends.
+        Returns one dict per prompt: text, n_prompt, n_gen, finish_reason."""
+        gen = gen or GenerationConfig()
+        if gen.json_mode or gen.grammar:
+            raise ValueError(
+                "constrained sampling (json mode / GBNF grammar) is a "
+                "single-stream feature (per-token candidate filtering); "
+                "batched/n>1 requests cannot use it")
+        if gen.logprobs is not None:
+            raise ValueError(
+                "logprobs is a single-stream feature; batched/n>1 requests "
+                "cannot use it")
+        if gen.mirostat and gen.temperature > 0.0:
+            raise ValueError(
+                "mirostat is a single-stream feature (per-request adaptive "
+                "μ state); batched/n>1 requests cannot use it")
+        B = len(prompts)
+        if B == 0:
+            return []
+        # release the stored prefix before allocating the batch's rows
+        self._prefix_ids, self._prefix_cache = [], None
+        ids_list = []
+        for p in prompts:
+            ids = self.tokenizer.encode(p)
+            if len(ids) >= self.max_prompt:
+                ids = ids[-(self.max_prompt - 1):]
+            ids_list.append(ids)
+        lengths = np.array([len(i) for i in ids_list], np.int64)
+        budgets = np.minimum(gen.max_new_tokens, self.max_seq - lengths)
+        bucket = _bucket(int(lengths.max()), self.max_prompt,
+                         quantum=self._prompt_quantum)
+        tokens = np.zeros((B, bucket), np.int64)
+        for r, ids in enumerate(ids_list):
+            tokens[r, :len(ids)] = ids
+        dev = self.device
+
+        last, cache = self._batch_prefill(tokens, lengths)
+        penalized = (gen.repeat_penalty != 1.0 or gen.presence_penalty != 0.0
+                     or gen.frequency_penalty != 0.0)
+        W = max(1, gen.repeat_last_n)
+        recent = None
+        if penalized:
+            win = np.full((B, W), -1, np.int64)
+            for r, ids in enumerate(ids_list):
+                w = min(W, len(ids))
+                win[r, W - w:] = ids[-w:]
+            recent = torch.from_numpy(win).to(dev)
+        bias = (bias_vector(gen.logit_bias, self.cfg.vocab_size, dev)
+                if gen.logit_bias else None)
+        sampled = gen.temperature > 0.0
+        gens: list[torch.Generator | None] = [None] * B
+        if sampled:
+            # one generator a row, seeded from the request's seed: the rows
+            # of n > 1 over one prompt draw different samples
+            seeder = torch.Generator().manual_seed(
+                gen.seed if gen.seed is not None else time.time_ns() % 2**31)
+            for r, s in enumerate(torch.randint(0, 2**62, (B,), generator=seeder)):
+                gens[r] = torch.Generator(device=dev)
+                gens[r].manual_seed(int(s))
+        params = [torch.full((B,), v, dtype=dt, device=dev) for v, dt in (
+            (gen.temperature, torch.float32), (gen.top_k, torch.long),
+            (gen.top_p, torch.float32), (gen.min_p, torch.float32))]
+
+        def draw(lg: torch.Tensor) -> torch.Tensor:
+            nonlocal recent
+            if bias is not None:
+                lg = lg + bias.to(lg.dtype)
+            if penalized:
+                lg = apply_penalties(lg, recent, gen.repeat_penalty,
+                                     gen.presence_penalty, gen.frequency_penalty)
+            if not sampled:
+                nxt = torch.argmax(lg, dim=-1)
+            elif gen.typical_p < 1.0:
+                # typical-p is not in the batched row chain: each row runs
+                # the single-stream chain on its own generator
+                nxt = torch.cat([sample(lg[r:r + 1], gens[r], gen.temperature,
+                                        gen.top_k, gen.top_p, gen.min_p,
+                                        gen.typical_p) for r in range(B)])
+            else:
+                nxt = sample_rows(lg, *params, gens)
+            if penalized:
+                recent = torch.cat([recent[:, 1:], nxt[:, None]], dim=1)
+            return nxt
+
+        tok = draw(last)
+        eos = self.tokenizer.eos_id
+        decoders = [StreamDecoder(self.tokenizer) for _ in range(B)]
+        texts: list[list[str]] = [[] for _ in range(B)]
+        n_gen = np.zeros(B, np.int64)
+        finish = ["length"] * B
+        active = budgets > 0
+
+        def consume(row_toks: list[int]) -> bool:
+            """One sampled token per active row through the EOS and budget
+            checks; True while any row is still active."""
+            for r in np.nonzero(active)[0]:
+                t = int(row_toks[r])
+                if gen.stop_on_eos and eos is not None and t == eos:
+                    active[r] = False
+                    finish[r] = "stop"
+                    continue
+                piece = decoders[r].feed(t)
+                n_gen[r] += 1
+                if piece:
+                    texts[r].append(piece)
+                if n_gen[r] >= budgets[r]:
+                    active[r] = False
+            return bool(active.any())
+
+        alive = consume(tok.tolist())
+        while alive:
+            # n decode steps with on-device sampling, read back once
+            room = int((budgets - n_gen)[active].max())
+            n = min(self.decode_chunk, max(1, room))
+            n = 1 << (n.bit_length() - 1)
+            steps = []
+            for _ in range(n):
+                tok = draw(self._batch_step(tok, cache))
+                steps.append(tok)
+            for step_toks in torch.stack(steps).tolist():
+                alive = consume(step_toks)
+                if not alive:
+                    break
+
+        def final_text(r: int) -> tuple[str, str]:
+            text = "".join(texts[r]) + decoders[r].flush()
+            cuts = [i for i in (text.find(s) for s in gen.stop if s) if i >= 0]
+            if cuts:   # a batch returns whole texts: cut at the stop
+                return text[: min(cuts)], "stop"
+            return text, finish[r]
+
+        finals = [final_text(r) for r in range(B)]
+        return [{"text": finals[r][0], "n_prompt": int(lengths[r]),
+                 "n_gen": int(n_gen[r]), "finish_reason": finals[r][1]}
+                for r in range(B)]

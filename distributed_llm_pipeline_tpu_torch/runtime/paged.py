@@ -21,10 +21,11 @@ The pools are written in place; the reference donates its buffers to XLA
 for the same effect, which is why it needs an ``uncache`` and this port does
 not. Host tables reach the device from a fresh pinned copy (``upload``):
 the allocator mutates its numpy tables right after an upload, and a copy
-still in flight must not see that. The reference backend's slot
-save/restore (``gather``, ``adopt_row``, ``row_cache``) and the wrappers its
-handoff, restore and quarantine paths call (``register_prefix``,
-``release_row``) come with those paths.
+still in flight must not see that. A slot's KV is saved and restored
+through a dense row cache (``row_cache``, ``gather``, ``adopt_row``), the
+file format of the engine's sessions (``runtime/engine.py``
+``save_kv_file``), so slot files and ``--prompt-cache`` files are one
+format.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import os
 import numpy as np
 import torch
 
-from ..models import PagedKVCache
+from ..models import KVCache, PagedKVCache
 from .engine import _bucket
 
 
@@ -456,6 +457,68 @@ class PagedSlotBackend:
         if self.allocator.dirty:
             bufs["tables"] = upload(self.allocator.tables, self.eng.device)
             self.allocator.dirty = False
+
+    # -- save / restore -----------------------------------------------------
+
+    def row_cache(self) -> KVCache:
+        """A zeroed dense row in this pool's representation: the template a
+        slot file loads into. A dense pool's files load as ``--prompt-cache``
+        sessions too; a latent pool's load into latent engines of the same
+        rank."""
+        e = self.eng
+        return KVCache.zeros(self.cfg, batch=1, max_seq=self.S, dtype=e.dtype,
+                             device=e.device, kv_quant=self.kv_quant,
+                             kv_mode=self.kv_mode, latent_rank=self.latent_rank)
+
+    def gather(self, bufs: dict, r: int) -> KVCache:
+        """Row ``r``'s logical KV window as a dense row cache [L, 1, S, ...]
+        (length 0: the caller knows how many positions are valid)."""
+        self._sync_tables(bufs)
+        blocks = torch.as_tensor(self.allocator.tables[r], dtype=torch.long,
+                                 device=self.eng.device)
+        out = {}
+        for name in ("k", "v", "ks", "vs"):
+            a = bufs.get(name)
+            if a is None:
+                continue
+            g = a[:, blocks]                                 # [L, NT, bs, ...]
+            out[name] = g.reshape(g.shape[0], -1, *g.shape[3:])[:, None, :self.S]
+        return KVCache(out["k"], out["v"], 0, out.get("ks"), out.get("vs"))
+
+    def adopt_row(self, sched, bufs: dict, rc: KVCache, r: int,
+                  n_tokens: int) -> dict:
+        """Write the first ``n_tokens`` positions of a dense row cache (a
+        restored slot file) into freshly allocated blocks of row ``r``."""
+        al = self.allocator
+        al.release_row(r)
+        try:
+            al.ensure_writable(r, 0, n_tokens)
+        except PoolExhausted:
+            # idle retained prefixes are a cache, not a reservation
+            self._evict_idle(sched, exclude=r)
+            al.ensure_writable(r, 0, n_tokens)
+        nb = -(-n_tokens // self.bs)
+        blocks = torch.as_tensor(al.tables[r, :nb], dtype=torch.long,
+                                 device=self.eng.device)
+        for name, a in (("k", rc.k), ("v", rc.v), ("ks", rc.k_scale),
+                        ("vs", rc.v_scale)):
+            pool = bufs.get(name)
+            if a is None or pool is None:
+                continue
+            seg = a[:, 0, :nb * self.bs]                     # [L, <= nb·bs, ...]
+            if seg.shape[1] < nb * self.bs:                  # a last partial block
+                seg = torch.cat([seg, seg.new_zeros(
+                    (seg.shape[0], nb * self.bs - seg.shape[1], *seg.shape[2:]))], 1)
+            pool[:, blocks] = seg.reshape(seg.shape[0], nb, self.bs,
+                                          *seg.shape[2:]).to(pool.device)
+        return bufs
+
+    def register_prefix(self, r: int, ids: list[int]) -> None:
+        """Index row ``r``'s full blocks of ``ids`` for prefix sharing."""
+        self.allocator.register_row(r, ids)
+
+    def release_row(self, r: int) -> None:
+        self.allocator.release_row(r)
 
     # -- internals ----------------------------------------------------------
 

@@ -41,10 +41,16 @@ rows on every rank instead (``parallel.engine.MeshSlotBackend``): a mixed
 step is one pipeline chunk wide, and a row keeps its own retained prefix in
 place.
 
+A slot's retained KV is saved to, restored from and erased as the
+engine's session files (``save_slot``, ``restore_slot``, ``erase_slot``,
+llama-server's ``POST /slots/{id}``). They run on the worker thread
+between steps (``_control``); a restored row's blocks join the prefix
+index, so a prompt that extends its ids prefills only the suffix.
+
 Not ported yet (the reference has them): preemption and the swap store, the
 disaggregation handoff, the watchdog, poison/quarantine, load shedding,
-tenants and quotas, slot save/restore, metrics and tracing, the
-single-device dense slot backend. Typical-p, mirostat and the context
+tenants and quotas, metrics and tracing, the single-device dense slot
+backend, and slot files on a mesh. Typical-p, mirostat and the context
 shift stay on the single-stream engine, as in the reference: a request
 that would run one is refused here.
 
@@ -62,7 +68,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Iterator
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -71,12 +77,11 @@ from ..ops.sampling import (apply_penalties, bias_vector, lp_payload, sample_row
                             shortlist, topk_logprobs)
 from ..tokenizer import StreamDecoder
 from ..utils import Event, done, log, token
-from .engine import (Engine, GenerationConfig, StopMatcher, _bucket,
+from .engine import (MIN_PREFIX, Engine, GenerationConfig, StopMatcher, _bucket,
                      check_constraint_combination, check_token_ids)
 from .paged import PoolExhausted, upload
 
 RECENT_W = 64    # repeat-penalty window capacity per slot (llama.cpp default)
-MIN_PREFIX = 16  # shortest reusable per-slot KV prefix
 LP_TOPK = 20     # alternatives computed per step when any row wants logprobs
 CS_TOPK = 512    # the device top-K of a constrained row read back per step;
                  # its full [V] row is fetched only when all of it misses
@@ -284,6 +289,8 @@ class SlotScheduler:
         self._slots: list[_Slot | None] = [None] * self.n_slots
         self._serial = 0
         self._subq = _DeadlineQueue()
+        # operations run on the worker thread between steps (slot files)
+        self._ctlq: queue.Queue[tuple[Callable[[], Any], queue.Queue]] = queue.Queue()
         self._closed = threading.Event()
         self._wake = threading.Event()
         self._worker = threading.Thread(target=self._loop, daemon=True,
@@ -413,6 +420,7 @@ class SlotScheduler:
             pending: tuple | None = None
             while not self._closed.is_set():
                 try:
+                    self._run_controls()
                     self._sweep_starved()
                     self._finish_prefills()
                     self._admit()
@@ -449,9 +457,127 @@ class SlotScheduler:
                     pending = None
                     self._fail_all(e)
             self._drain_queue("scheduler closed")
+            self._drain_controls("scheduler closed")
             for s in self._slots:
                 if s is not None:
                     self._finish(s, "error", note="scheduler closed")
+
+    # -- operations on the worker thread ------------------------------------
+
+    def _run_controls(self) -> None:
+        while True:
+            try:
+                fn, out = self._ctlq.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                out.put(("ok", fn()))
+            except Exception as e:   # relayed to the blocked caller, who raises it
+                out.put(("err", e))
+
+    def _drain_controls(self, reason: str) -> None:
+        """Fail every queued operation at once: nothing runs them after the
+        worker exits."""
+        while True:
+            try:
+                _, out = self._ctlq.get_nowait()
+            except queue.Empty:
+                return
+            out.put(("err", RuntimeError(reason)))
+
+    def _control(self, fn: Callable[[], Any], timeout: float = 120.0):
+        """Run ``fn`` on the worker thread between steps and return its
+        result; raises whatever ``fn`` raised."""
+        if threading.current_thread() is self._worker:
+            return fn()
+        if self._closed.is_set():
+            raise RuntimeError("scheduler is closed")
+        out: queue.Queue = queue.Queue()
+        self._ctlq.put((fn, out))
+        self._wake.set()
+        if self._closed.is_set():
+            # close() may have passed its last drain between the check and
+            # the put: drain again, so the caller fails now, not at timeout
+            self._drain_controls("scheduler closed")
+        try:
+            status, val = out.get(timeout=timeout)
+        except queue.Empty:
+            raise TimeoutError("scheduler control operation timed out") from None
+        if status == "err":
+            raise val
+        return val
+
+    # -- slot files (llama-server POST /slots/{id}?action=...) --------------
+
+    def _check_slot_files(self, slot_id: int) -> None:
+        if not hasattr(self._backend, "gather"):
+            raise NotImplementedError("slot save/restore/erase on a mesh "
+                                      "(--mesh) is not ported yet")
+        if not 0 <= slot_id < self.n_slots:
+            raise ValueError(f"slot id {slot_id} out of range "
+                             f"(0..{self.n_slots - 1})")
+
+    def save_slot(self, slot_id: int, path) -> int:
+        """Write slot ``slot_id``'s retained KV and its token ids to ``path``
+        in the engine's session format (slot files and ``--prompt-cache``
+        files are interchangeable). Returns the tokens saved, 0 when the
+        slot retains nothing; raises ``RuntimeError`` while the slot is
+        busy."""
+        self._check_slot_files(slot_id)
+
+        def do() -> int:
+            if self._slots[slot_id] is not None:
+                raise RuntimeError(f"slot {slot_id} is busy (processing); "
+                                   "save it between requests")
+            ids = self._row_ids[slot_id]
+            if not ids:
+                return 0
+            from .engine import save_kv_file
+
+            save_kv_file(path, ids, self._backend.gather(self._bufs, slot_id),
+                         len(ids))
+            return len(ids)
+
+        return self._control(do)
+
+    def restore_slot(self, slot_id: int, path) -> int:
+        """Load a saved KV file into idle slot ``slot_id``. Returns the
+        tokens restored, 0 when the file does not match this engine's
+        layout. A prompt that extends those ids prefills only its suffix."""
+        self._check_slot_files(slot_id)
+
+        def do() -> int:
+            if self._slots[slot_id] is not None:
+                raise RuntimeError(f"slot {slot_id} is busy (processing); "
+                                   "restore it between requests")
+            from .engine import load_kv_file
+
+            res = load_kv_file(path, self._backend.row_cache(), self.max_seq)
+            if res is None:
+                return 0
+            rc, ids = res
+            # the row's provenance goes before adopt_row releases its blocks:
+            # should the adoption fail, no stale ids claim KV that is gone
+            self._row_ids[slot_id] = []
+            self._bufs = self._backend.adopt_row(self, self._bufs, rc, slot_id,
+                                                 len(ids))
+            self._backend.register_prefix(slot_id, ids)
+            self._row_ids[slot_id] = ids
+            return len(ids)
+
+        return self._control(do)
+
+    def erase_slot(self, slot_id: int) -> None:
+        """Drop idle slot ``slot_id``'s retained prefix."""
+        self._check_slot_files(slot_id)
+
+        def do() -> None:
+            if self._slots[slot_id] is not None:
+                raise RuntimeError(f"slot {slot_id} is busy (processing)")
+            self._row_ids[slot_id] = []
+            self._backend.release_row(slot_id)
+
+        self._control(do)
 
     def _active_rows(self) -> tuple[list[tuple[int, int]], list[_Slot]]:
         """(decode rows, prefill-phase slots) eligible for the next launch.

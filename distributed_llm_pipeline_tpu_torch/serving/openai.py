@@ -6,6 +6,10 @@ The counterpart of ``distributed_llm_pipeline_tpu/serving/openai.py``:
 - ``POST /v1/completions``        OpenAI text completion (+ SSE streaming)
 - ``POST /v1/chat/completions``   OpenAI chat (+ SSE streaming)
 - ``GET  /v1/models``             the one loaded model
+- ``POST /infill``                llama-server fill-in-middle (FIM tokens)
+- ``POST /embedding``, ``POST /v1/embeddings``: pooled embeddings
+- ``POST /slots/{id}?action=save|restore|erase``: a slot's KV as a file
+  under ``--slot-save-path`` (the engine's prefix cache without slots)
 - ``POST /tokenize``, ``POST /detokenize``, ``POST /apply-template``,
   ``GET /props``, ``GET /health``, ``GET /slots``: llama-server's utilities
 
@@ -14,12 +18,13 @@ one (``--parallel N``), constrained requests (``grammar``, ``json_schema``,
 ``response_format`` ``json_object`` / ``json_schema``) included, except
 typical-p, mirostat and ``context_shift`` requests, which run on the engine
 as one stream under the decode lock, as every request does without slots.
+``n`` > 1 and a list of prompts run as one batch on the engine
+(``Engine.generate_batch``) under the decode lock, as embeddings do.
 Usage counts come from the engine's ``done`` event.
 
 The server holds one model: ``model`` may name it or be left out, and any
 other name is a 404. Fields and routes of the reference that the port does
-not serve yet (LoRA, priority, deadlines, ``n`` > 1, batches of prompts,
-infill, embeddings, slot save and restore) get a 400 that names them; none
+not serve yet (LoRA, priority, deadlines) get a 400 that names them; none
 is ignored.
 """
 
@@ -29,12 +34,15 @@ import asyncio
 import contextlib
 import json
 import math
+import re
 import threading
 import time
 import uuid
+from pathlib import Path
 
 from aiohttp import web
 
+from ..models.llama import POOLING_TYPES
 from ..runtime import GenerationConfig
 from ..runtime.scheduler import LP_TOPK
 from .chat_template import ChatTemplateError, render_chat_template
@@ -104,12 +112,18 @@ class CompletionAPI:
     ``--parallel``)."""
 
     def __init__(self, engine, busy: asyncio.Lock, gen: GenerationConfig,
-                 model_id: str = "default", slots=None):
+                 model_id: str = "default", slots=None,
+                 slot_save_path: str | None = None, pooling: str = "mean"):
+        if pooling not in POOLING_TYPES:
+            raise ValueError(f"unsupported pooling {pooling!r} "
+                             f"(one of {', '.join(POOLING_TYPES)})")
         self.engine = engine
         self._busy = busy
         self.gen = gen
         self.model_id = model_id
         self.slots = slots
+        self.slot_save_path = slot_save_path   # llama-server --slot-save-path
+        self.pooling = pooling                 # llama-server --pooling
 
     def _resolve(self, body: dict):
         """The engine and model label for a body's ``model`` field."""
@@ -126,19 +140,20 @@ class CompletionAPI:
         for path in ("/completion", "/v1/completions", "/v1/chat/completions"):
             app.router.add_options(path, self._preflight)
         app.router.add_post("/completion", self.completion)
+        app.router.add_post("/infill", self.infill)
         app.router.add_post("/v1/completions", self.v1_completions)
         app.router.add_post("/v1/chat/completions", self.v1_chat)
         app.router.add_get("/v1/models", self.v1_models)
+        app.router.add_post("/embedding", self.embedding)
+        app.router.add_post("/v1/embeddings", self.v1_embeddings)
         app.router.add_post("/tokenize", self.tokenize)
         app.router.add_post("/detokenize", self.detokenize)
         app.router.add_post("/apply-template", self.apply_template)
         app.router.add_get("/props", self.props)
         app.router.add_get("/health", self.health)
         app.router.add_get("/slots", self.slots_handler)
-        for method, path in (("POST", "/infill"), ("POST", "/embedding"),
-                             ("POST", "/v1/embeddings"), ("POST", "/slots/{slot_id}"),
-                             ("GET", "/lora-adapters")):
-            app.router.add_route(method, path, self._not_served)
+        app.router.add_post("/slots/{slot_id}", self.slot_action)
+        app.router.add_get("/lora-adapters", self._not_served)
 
     async def _not_served(self, request: web.Request) -> web.Response:
         path = request.match_info.route.resource.canonical
@@ -530,6 +545,209 @@ class CompletionAPI:
         text, final, tok_data = await self._collect(engine, body["prompt"], gen)
         return self._llama_final(engine, gen, text, final, tok_data)
 
+    async def infill(self, request: web.Request) -> web.StreamResponse:
+        """llama-server's ``POST /infill``: a completion between
+        ``input_prefix`` and ``input_suffix`` through the model's
+        fill-in-middle tokens, in ``/completion``'s shape, streamed or
+        whole."""
+        body = await self._read_json(request)
+        if body is None or not isinstance(body.get("input_prefix"), str) \
+                or not isinstance(body.get("input_suffix"), str):
+            return json_response(
+                {"error": "body must be JSON with string 'input_prefix' "
+                          "and 'input_suffix'"}, status=400)
+        try:
+            gen = self._gen_config(body, n_key="n_predict")
+            engine, _ = self._resolve(body)
+        except BadRequest as e:
+            return json_response({"error": str(e)}, status=400)
+        except ModelNotFound as e:
+            return json_response({"error": str(e)}, status=404)
+        if gen.json_mode or gen.grammar:
+            return json_response({"error": "constrained sampling does not "
+                                           "combine with /infill"}, status=400)
+        try:
+            ids = engine.infill_ids(body["input_prefix"], body["input_suffix"])
+        except ValueError as e:   # a vocabulary without FIM tokens
+            return json_response({"error": str(e)}, status=400)
+        if body.get("stream"):
+            return await self._stream(request, engine, ids, gen,
+                                      self._llama_writer(engine, gen))
+        text, final, tok_data = await self._collect(engine, ids, gen)
+        return self._llama_final(engine, gen, text, final, tok_data)
+
+    async def embedding(self, request: web.Request) -> web.Response:
+        """llama-server's ``POST /embedding``: {"embedding": [...]}, pooled
+        by the body's ``pooling`` or the server's ``--pooling``."""
+        body = await self._read_json(request)
+        if body is None or not isinstance(body.get("content"), str):
+            return json_response({"error": "body must be JSON with string "
+                                           "'content'"}, status=400)
+        try:
+            engine, _ = self._resolve(body)
+        except ModelNotFound as e:
+            return self._openai_error(str(e), status=404)
+        except BadRequest as e:
+            return self._openai_error(str(e))
+        pooling = body.get("pooling", self.pooling)
+        if pooling not in POOLING_TYPES:
+            return json_response({"error": "pooling must be one of "
+                                           + ", ".join(POOLING_TYPES)},
+                                 status=400)
+        try:
+            async with self._busy:
+                emb = await asyncio.get_running_loop().run_in_executor(
+                    None, lambda: engine.embed(body["content"], pooling=pooling))
+        except NotImplementedError as e:   # the mesh
+            return json_response({"error": str(e)}, status=400)
+        return json_response({"embedding": emb})
+
+    async def v1_embeddings(self, request: web.Request) -> web.Response:
+        """OpenAI's ``POST /v1/embeddings``: one string or a list of them,
+        pooled by ``--pooling``."""
+        body = await self._read_json(request)
+        if body is None or "input" not in body:
+            return self._openai_error("body must be JSON with 'input'")
+        inp = body["input"]
+        if isinstance(inp, str):
+            texts = [inp]
+        elif isinstance(inp, list) and inp and all(isinstance(t, str) for t in inp):
+            texts = inp
+        else:
+            return self._openai_error(
+                "'input' must be a string or non-empty list of strings")
+        try:
+            engine, model_label = self._resolve(body)
+        except BadRequest as e:
+            return self._openai_error(str(e))
+        except ModelNotFound as e:
+            return self._openai_error(str(e), status=404)
+        loop = asyncio.get_running_loop()
+        data, n_tok = [], 0
+        try:
+            async with self._busy:
+                for i, t in enumerate(texts):
+                    emb, n = await loop.run_in_executor(
+                        None, lambda t=t: engine.embed(t, with_count=True,
+                                                       pooling=self.pooling))
+                    data.append({"object": "embedding", "index": i,
+                                 "embedding": emb})
+                    n_tok += n   # the tokens evaluated, after truncation
+        except NotImplementedError as e:   # the mesh
+            return self._openai_error(str(e))
+        return json_response({
+            "object": "list", "data": data, "model": model_label,
+            "usage": {"prompt_tokens": n_tok, "total_tokens": n_tok}})
+
+    async def slot_action(self, request: web.Request) -> web.Response:
+        """llama-server's ``POST /slots/{id}?action=save|restore|erase``: a
+        slot's KV and token ids saved to or restored from a file under
+        ``--slot-save-path``, or dropped. Without slots there is one slot,
+        id 0, the engine's prefix cache: the state ``--prompt-cache``
+        keeps."""
+        action = request.query.get("action")
+        if action not in ("save", "restore", "erase"):
+            return json_response(
+                {"error": "action must be save, restore or erase"}, status=400)
+        try:
+            slot_id = int(request.match_info["slot_id"])
+        except ValueError:
+            return json_response({"error": "slot id must be an integer"},
+                                 status=400)
+        sched = self.slots
+        if sched is None and slot_id != 0:
+            return json_response(
+                {"error": "without --parallel there is one slot (id 0)"},
+                status=400)
+        if sched is not None and not 0 <= slot_id < sched.n_slots:
+            return json_response(
+                {"error": f"slot id out of range (0..{sched.n_slots - 1})"},
+                status=400)
+        engine = self.engine
+        loop = asyncio.get_running_loop()
+        try:
+            if action == "erase":
+                if sched is not None:
+                    await loop.run_in_executor(None, lambda: sched.erase_slot(slot_id))
+                else:
+                    # under the decode lock: a request in flight owns the
+                    # prefix cache until it ends
+                    async with self._busy:
+                        engine.erase_session()
+                return json_response({"id_slot": slot_id, "erased": True})
+            if self.slot_save_path is None:
+                return json_response(
+                    {"error": "slot save/restore needs --slot-save-path"},
+                    status=400)
+            body = await self._read_json(request) or {}
+            fname = body.get("filename")
+            if not isinstance(fname, str) or not re.fullmatch(
+                    r"[A-Za-z0-9._-]{1,128}", fname) or fname.startswith("."):
+                return json_response(
+                    {"error": "'filename' must be a plain file name "
+                              "(letters, digits, ., _, -)"}, status=400)
+            path = Path(self.slot_save_path) / fname
+            if action == "save":
+                # the directory may not exist yet; a missing one is no 404
+                Path(self.slot_save_path).mkdir(parents=True, exist_ok=True)
+                if sched is not None:
+                    n_saved = await loop.run_in_executor(
+                        None, lambda: sched.save_slot(slot_id, path))
+                else:
+                    async with self._busy:
+                        ok = await loop.run_in_executor(
+                            None, lambda: engine.save_session(path))
+                        # counted under the lock: the next request replaces
+                        # the prefix
+                        n_saved = len(engine._prefix_ids) if ok else 0
+                if not n_saved:
+                    return json_response(
+                        {"error": "no decode state to save (slot is idle "
+                                  "and holds no KV)"}, status=400)
+                return json_response({"id_slot": slot_id, "filename": fname,
+                                      "n_saved": n_saved})
+            if sched is not None:
+                n = await loop.run_in_executor(
+                    None, lambda: sched.restore_slot(slot_id, path))
+            else:
+                async with self._busy:
+                    n = await loop.run_in_executor(
+                        None, lambda: engine.load_session(path))
+            if n == 0:
+                return json_response(
+                    {"error": "session file does not match this model/ctx"},
+                    status=400)
+            return json_response({"id_slot": slot_id, "filename": fname,
+                                  "n_restored": n})
+        except NotImplementedError as e:   # the mesh
+            return json_response({"error": str(e)}, status=400)
+        except RuntimeError as e:   # a busy slot
+            return json_response({"error": str(e)}, status=409)
+        except FileNotFoundError:
+            return json_response({"error": f"no such session: {fname}"},
+                                 status=404)
+        except Exception as e:
+            return json_response({"error": repr(e)}, status=500)
+
+    async def _batch(self, engine, prompts: list[str], gen: GenerationConfig):
+        """A batch on the engine under the decode lock: (results, None), or
+        (None, the error response)."""
+        try:
+            async with self._busy:
+                results = await asyncio.get_running_loop().run_in_executor(
+                    None, lambda: engine.generate_batch(prompts, gen))
+        except (NotImplementedError, ValueError) as e:
+            return None, self._openai_error(str(e))
+        except Exception as e:
+            return None, self._openai_error(repr(e), status=500)
+        return results, None
+
+    @staticmethod
+    def _batch_usage(results: list[dict]) -> dict:
+        return {"prompt_tokens": sum(r["n_prompt"] for r in results),
+                "completion_tokens": sum(r["n_gen"] for r in results),
+                "total_tokens": sum(r["n_prompt"] + r["n_gen"] for r in results)}
+
     async def tokenize(self, request: web.Request) -> web.Response:
         body = await self._read_json(request)
         if body is None or not isinstance(body.get("content"), str):
@@ -620,17 +838,6 @@ class CompletionAPI:
             {"id": self.model_id, "object": "model", "created": int(time.time()),
              "owned_by": "distributed_llm_pipeline_tpu_torch"}]})
 
-    @staticmethod
-    def _check_n(body: dict) -> str | None:
-        """The client error of an ``n`` field, or None: n > 1 (several
-        completions as one batch) is not served yet."""
-        n = body.get("n", 1)
-        if not isinstance(n, int) or not 1 <= n <= 64:
-            return "'n' must be an int in [1, 64]"
-        if n > 1:
-            return not_served("'n' > 1")
-        return None
-
     async def v1_completions(self, request: web.Request) -> web.StreamResponse:
         body = await self._read_json(request)
         if body is None or "prompt" not in body:
@@ -650,13 +857,34 @@ class CompletionAPI:
             return self._openai_error(str(e))
         except ModelNotFound as e:
             return self._openai_error(str(e), status=404)
-        err = self._check_n(body)
-        if err is None and isinstance(prompt, list):
-            err = not_served("a list of several prompts")
-        if err is not None:
-            return self._openai_error(err)
         rid = f"cmpl-{uuid.uuid4().hex[:24]}"
         created = int(time.time())
+        n = body.get("n", 1)
+        if not isinstance(n, int) or not 1 <= n <= 64:
+            return self._openai_error("'n' must be an int in [1, 64]")
+        if n > 1:
+            # n completions of one prompt: an n-row batch, each row sampling
+            # on its own
+            if isinstance(prompt, list):
+                return self._openai_error(
+                    "'n' > 1 does not combine with a list of prompts")
+            prompt = [prompt] * n
+        if isinstance(prompt, list):
+            # a batch completes as one unit: no streaming
+            if body.get("stream"):
+                return self._openai_error(
+                    "streaming is not supported with a batch of prompts")
+            results, err = await self._batch(engine, prompt, gen)
+            if err is not None:
+                return err
+            return json_response({
+                "id": rid, "object": "text_completion", "created": created,
+                "model": model_label,
+                "choices": [{"index": i, "text": r["text"], "logprobs": None,
+                             "finish_reason": r["finish_reason"]}
+                            for i, r in enumerate(results)],
+                "usage": self._batch_usage(results),
+            })
 
         if body.get("stream"):
             run_offset = [0]  # the completion's text so far, across chunks
@@ -714,11 +942,27 @@ class CompletionAPI:
             prompt = build_prompt(body["messages"], engine.tokenizer)
         except (KeyError, TypeError, ValueError):
             return self._openai_error("messages must be [{role, content}, ...]")
-        err = self._check_n(body)
-        if err is not None:
-            return self._openai_error(err)
         rid = f"chatcmpl-{uuid.uuid4().hex[:24]}"
         created = int(time.time())
+        n = body.get("n", 1)
+        if not isinstance(n, int) or not 1 <= n <= 64:
+            return self._openai_error("'n' must be an int in [1, 64]")
+        if n > 1:
+            # n samples of one conversation: an n-row batch, not streamed
+            if body.get("stream"):
+                return self._openai_error("streaming is not supported with 'n' > 1")
+            results, err = await self._batch(engine, [prompt] * n, gen)
+            if err is not None:
+                return err
+            return json_response({
+                "id": rid, "object": "chat.completion", "created": created,
+                "model": model_label,
+                "choices": [{"index": i, "logprobs": None,
+                             "finish_reason": r["finish_reason"],
+                             "message": {"role": "assistant", "content": r["text"]}}
+                            for i, r in enumerate(results)],
+                "usage": self._batch_usage(results),
+            })
 
         def chunk_bytes(delta: dict, finish: str | None,
                         logprobs: dict | None = None) -> bytes:

@@ -22,7 +22,8 @@ process per rank; this process is rank 0 and starts the others. ``/chat``
 streams from rank 0, one stream or ``--parallel N`` slots.
 
 Run: ``dlp-serve-torch --model m.gguf [--parallel N] [--quant MODE]
-[--kv-quant q8_0] [--mesh PPxTP] [--dtype D] [--cpu] [--config FILE]`` or
+[--kv-quant q8_0] [--mesh PPxTP] [--dtype D] [--slot-save-path DIR]
+[--pooling mean|cls|last] [--cpu] [--config FILE]`` or
 ``python -m distributed_llm_pipeline_tpu_torch.serving.server ...`` (port
 3005 by default; settings also from a JSON/TOML ``--config`` file and
 ``DLP_*`` variables, flags winning). Without ``--cpu`` it needs a CUDA
@@ -47,7 +48,7 @@ from pathlib import Path
 from aiohttp import web
 
 from ..config import DTYPES, config_from_args, torch_dtype
-from ..models.llama import QUANT_MODES
+from ..models.llama import POOLING_TYPES, QUANT_MODES
 from ..runtime import Engine, GenerationConfig, SlotScheduler
 from ..runtime.engine import check_token_ids
 from .common import (acquire_with_keepalive, cors, engine_events,
@@ -64,7 +65,8 @@ _OVERRIDES = ("max_new_tokens", "temperature", "top_k", "top_p", "min_p",
 
 class ChatServer:
     def __init__(self, engine: Engine, gen: GenerationConfig | None = None,
-                 parallel: int = 1, model_id: str = "default"):
+                 parallel: int = 1, model_id: str = "default",
+                 slot_save_path: str | None = None, pooling: str = "mean"):
         self.engine = engine
         self.gen = gen or GenerationConfig()
         self._busy = asyncio.Lock()
@@ -77,7 +79,8 @@ class ChatServer:
         self.app.router.add_get("/healthz", self.healthz)
         self.app.router.add_get("/", self.index)
         self.api = CompletionAPI(engine, self._busy, self.gen, model_id=model_id,
-                                 slots=self.scheduler)
+                                 slots=self.scheduler,
+                                 slot_save_path=slot_save_path, pooling=pooling)
         self.api.register(self.app)
         self.app.router.add_static("/", STATIC_DIR, show_index=False)
         if self.scheduler is not None:
@@ -203,6 +206,11 @@ def build_argparser():
                          "each)")
     ap.add_argument("--dtype", default="bfloat16", choices=DTYPES,
                     help="weight and activation dtype")
+    ap.add_argument("--slot-save-path", default=None, metavar="DIR",
+                    help="directory for POST /slots/{id}?action=save|restore "
+                         "files (llama-server --slot-save-path)")
+    ap.add_argument("--pooling", default="mean", choices=list(POOLING_TYPES),
+                    help="embedding pooling type (llama-server --pooling)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA device)")
     return ap
@@ -237,7 +245,8 @@ def main(argv: list[str] | None = None) -> None:
                                temperature=cfg.temperature, top_k=cfg.top_k,
                                top_p=cfg.top_p)
         server = ChatServer(engine, gen, parallel=cfg.parallel,
-                            model_id=Path(model).stem)
+                            model_id=Path(model).stem,
+                            slot_save_path=cfg.slot_save_path, pooling=cfg.pooling)
         print(f"chat server listening on http://{cfg.host}:{cfg.port}", flush=True)
         web.run_app(server.app, host=cfg.host, port=cfg.port, print=None)
     finally:

@@ -8,7 +8,10 @@ reference's (config file < env < flags); ``--json``, ``--grammar-file`` and
 context it shifts by default and gives the reference's text, and stops at
 ctx with ``--no-context-shift``; and without ``--cpu`` on a machine with no
 CUDA device it raises instead of running on the CPU. The server's entry
-point reads the same settings.
+point reads the same settings. ``--prompt-cache`` saves the prompt's KV at
+exit and loads it at the next start (the reference's lines, text and file;
+a file of another model is ignored), and ``--perplexity`` prints the
+reference's score.
 """
 
 import asyncio
@@ -288,3 +291,63 @@ def test_context_shift_by_default_and_no_context_shift(model_path, monkeypatch, 
         assert len(shifts) >= 2 and n == 100
     else:
         assert not shifts and n < 48
+
+
+def test_prompt_cache_saves_then_loads_as_the_reference(model_path, monkeypatch, capsys,
+                                                        tmp_path):
+    """--prompt-cache FILE: the first run saves the prompt's KV at exit, the
+    second loads it at start and prefills only what the file lacks; the
+    texts, the stderr lines and the files are the reference's."""
+    runs = {}
+    for who, main in (("ref", jax_cli.main), ("port", cli.main)):
+        cache = tmp_path / f"{who}.bin"
+        extra = ["-p", "once upon a time the world hello world " * 2, "--prompt-cache",
+                 str(cache), "--verbose"]
+        first = _run(main, model_path, extra, monkeypatch, capsys)
+        second = _run(main, model_path, extra[:1] + [extra[1] + "once"] + extra[2:],
+                      monkeypatch, capsys)
+        runs[who] = (first, second, cache)
+    for (rc1, out1, err1), (rc2, out2, err2), cache in runs.values():
+        assert rc1 == rc2 == 0 and cache.exists()
+        assert f"prompt cache: saved to {cache}" in err1 and "prompt cache: loaded" not in err1
+        assert re.search(rf"prompt cache: loaded \d+ tokens from {re.escape(str(cache))}",
+                         err2)
+        assert "prefix cache hit: reused KV for" in err2
+    (ref1, ref2, ref_cache), (got1, got2, got_cache) = runs["ref"], runs["port"]
+    assert got1[1] == ref1[1] and got2[1] == ref2[1]
+    hits = [[x for x in err.splitlines() if "prefix cache hit" in x or "cache: loaded" in x]
+            for err in (ref2[2], got2[2])]
+    assert [h.replace(str(ref_cache), "F") for h in hits[0]] == \
+        [h.replace(str(got_cache), "F") for h in hits[1]]
+    with np.load(ref_cache) as a, np.load(got_cache) as b:
+        assert sorted(a.files) == sorted(b.files)
+        np.testing.assert_array_equal(a["ids"], b["ids"])
+
+
+def test_prompt_cache_of_another_model_is_ignored(model_path, monkeypatch, capsys,
+                                                  tmp_path):
+    for main in (jax_cli.main, cli.main):
+        bad = tmp_path / "bad.bin"   # a one-layer cache of another width
+        with open(bad, "wb") as fh:
+            np.savez(fh, ids=np.arange(3, dtype=np.int32),
+                     k=np.zeros((1, 1, 3, 1, 4), np.float32),
+                     v=np.zeros((1, 1, 3, 1, 4), np.float32),
+                     dtype=np.bytes_("float32"), length=np.asarray(3, np.int32))
+        rc, _, err = _run(main, model_path, ["-p", "hello", "--prompt-cache", str(bad)],
+                          monkeypatch, capsys)
+        assert rc == 0 and "does not match this model/ctx; ignored" in err
+
+
+def test_perplexity_flag_matches_the_reference(model_path, monkeypatch, capsys, tmp_path):
+    text = tmp_path / "t.txt"
+    text.write_text("hello world once upon a time the world " * 12)
+    (rc_ref, out_ref, err_ref), (rc, out, err) = _both(
+        model_path, ["--perplexity", str(text)], monkeypatch, capsys)
+    assert rc == rc_ref == 0
+    got, want = json.loads(out), json.loads(out_ref)
+    assert got["n_tokens"] == want["n_tokens"] > 100
+    np.testing.assert_allclose(got["nll"], want["nll"], rtol=1e-5)
+    assert err.startswith("perplexity: ") and err_ref.startswith("perplexity: ")
+    rc, _, err = _run(cli.main, model_path, ["--perplexity", str(tmp_path / "none")],
+                      monkeypatch, capsys)
+    assert rc == 2 and err.startswith("error: ")

@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither jax nor anything of the JAX
-package (distributed_llm_pipeline_tpu), and neither do chip_smoke.py, the
-timing scripts of scripts/, the mesh's spawned follower processes, nor the
-CLI and the completion routes while they serve."""
+package (distributed_llm_pipeline_tpu) nor ml_dtypes (the card's machine has
+none), and neither do chip_smoke.py, the timing scripts of scripts/, the
+mesh's spawned follower processes, nor the CLI and the completion routes
+while they serve: the batch, embedding, /infill and slot-file routes, a
+prompt cache and perplexity included."""
 
 import ast
 import os
@@ -13,7 +15,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "distributed_llm_pipeline_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "distributed_llm_pipeline_tpu")
+FORBIDDEN = ("jax", "jaxlib", "distributed_llm_pipeline_tpu", "ml_dtypes")
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
@@ -127,8 +129,18 @@ sys.stdin = io.StringIO("hello\n")
 assert cli.main(["-m", str(path), "--cpu", "-n", "2", "-c", "64", "-i", "-p", "hi"]) == 0
 assert cli.main(["-m", str(path), "--cpu", "-n", "4", "-c", "64", "--json", "-p", "hi"]) == 0
 assert cli.main(["-m", str(path), "--cpu", "-n", "70", "-c", "64", "-p", "hi"]) == 0
-server = ChatServer(Engine(path, device="cpu"), GenerationConfig(max_new_tokens=2),
-                    parallel=2)
+cache = str(Path({tmp!r}) / "prompt.bin")
+for _ in range(2):
+    assert cli.main(["-m", str(path), "--cpu", "-n", "2", "-c", "64", "-p", "hi " * 20,
+                     "--prompt-cache", cache]) == 0
+text = Path({tmp!r}) / "t.txt"
+text.write_text("hi " * 80)
+assert cli.main(["-m", str(path), "--cpu", "-c", "64", "--perplexity", str(text)]) == 0
+engine = Engine(path, device="cpu")
+server = ChatServer(engine, GenerationConfig(max_new_tokens=2), parallel=2,
+                    slot_save_path={tmp!r})
+single = ChatServer(engine, GenerationConfig(max_new_tokens=2),
+                    slot_save_path={tmp!r})
 
 async def go():
     client = TestClient(TestServer(server.app))
@@ -149,13 +161,25 @@ async def go():
                                     {{"schema": {{"type": "object"}}}}}}}}),
                             ("/completion", {{"prompt": "hi", "grammar": 'root ::= "a"'}}),
                             ("/completion", {{"prompt": "hi", "n_predict": 70,
-                                             "context_shift": True}})):
+                                             "context_shift": True}}),
+                            ("/v1/completions", {{"prompt": ["hi", "hello"], "n": 1}}),
+                            ("/v1/chat/completions", {{"messages": [
+                                {{"role": "user", "content": "hi"}}], "n": 2}}),
+                            ("/embedding", {{"content": "hi", "pooling": "last"}}),
+                            ("/v1/embeddings", {{"input": ["hi", "hello"]}}),
+                            ("/infill", {{"input_prefix": "a", "input_suffix": "b"}}),
+                            ("/completion", {{"prompt": "hi " * 30}}),
+                            ("/slots/0?action=save", {{"filename": "s.bin"}}),
+                            ("/slots/0?action=erase", {{}}),
+                            ("/slots/0?action=restore", {{"filename": "s.bin"}})):
             out.append((await client.post(route, json=body)).status)
         return out
     finally:
         await client.close()
 
-assert asyncio.run(go()) == [200] * 7
+assert asyncio.run(go()) == [200] * 16
+server = single
+assert asyncio.run(go())[-4:] == [200] * 4
 leaked = [m for m in sys.modules if m.split(".")[0] in {forbidden!r}]
 assert not leaked, leaked
 print("ok")
@@ -163,10 +187,12 @@ print("ok")
 
 
 def test_cli_and_completion_routes_serve_with_jax_blocked(tmp_path):
-    """The CLI (an interactive turn, --json, a run past the context) and
-    the completion routes (logprobs, a bias, typical-p and mirostat, the
-    chat template, a json_schema, a grammar, a context shift) run with jax
-    and the JAX package blocked from import."""
+    """The CLI (an interactive turn, --json, a run past the context, a
+    prompt cache saved and loaded, perplexity) and the completion routes
+    (logprobs, a bias, typical-p and mirostat, the chat template, a
+    json_schema, a grammar, a context shift, batches, embeddings, /infill,
+    slot files on the slots and on the engine) run with jax, the JAX package
+    and ml_dtypes blocked from import."""
     (tmp_path / "sitecustomize.py").write_text(_SITE_BLOCK.format(forbidden=FORBIDDEN))
     code = _SERVE_RUN.format(root=str(ROOT), tmp=str(tmp_path), forbidden=FORBIDDEN)
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(tmp_path), str(ROOT)])}

@@ -12,7 +12,9 @@ logit bias that bans the greedy token gives identical text; ``/tokenize``,
 and meet their constraint; ``context_shift`` requests run past the context
 with the reference's text; bad bodies and refused combinations get the
 reference's 400s, and fields the port does not serve yet get a 400 that
-names them.
+names them. Batches (``n`` > 1, a list of prompts), ``/embedding`` and
+``/v1/embeddings`` (vectors within 1e-5), ``POST /slots/{id}`` (save, erase,
+restore) and ``/infill`` give the reference's answers, refusals included.
 """
 
 import asyncio
@@ -411,12 +413,6 @@ UNSERVED = {
     "lora": ("/completion", {"prompt": "x", "lora": [{"id": 0, "scale": 1.0}]}, "lora"),
     "priority": ("/v1/completions", {"prompt": "x", "priority": "high"}, "priority"),
     "deadline_ms": ("/completion", {"prompt": "x", "deadline_ms": 500}, "deadline_ms"),
-    "n": ("/v1/chat/completions", {"messages": MESSAGES, "n": 2}, "'n'"),
-    "prompt_list": ("/v1/completions", {"prompt": ["a", "b"]}, "list"),
-    "infill": ("/infill", {"input_prefix": "a", "input_suffix": "b"}, "/infill"),
-    "embedding": ("/embedding", {"content": "x"}, "/embedding"),
-    "v1_embeddings": ("/v1/embeddings", {"input": "x"}, "/v1/embeddings"),
-    "slot_save": ("/slots/0?action=save", {"filename": "a.bin"}, "/slots/{slot_id}"),
 }
 
 
@@ -588,3 +584,171 @@ def test_context_shift_runs_past_ctx_with_the_reference_text(shifted_answers, na
     n = (body[-1]["tokens_predicted"] if isinstance(body, list)
          else body["usage"]["completion_tokens"])
     assert n == SHIFTED[name][1].get("max_tokens", SHIFTED[name][1].get("n_predict")) > 64
+
+
+# the batch, embedding, fill-in-middle and slot-file routes, in the order
+# each server answers them: name → (route, body). The slot is saved before
+# the batches, which drop the engine's prefix cache. The fixture's
+# vocabulary has no FIM tokens, so /infill answers the reference's 400 for it
+ENTRY = {
+    "cmpl": ("/v1/completions", {"prompt": "hello world once upon a time the world",
+                                 "max_tokens": N, "temperature": 0.0}),
+    "slot_save": ("/slots/0?action=save", {"filename": "s.bin"}),
+    "cmpl_n": ("/v1/completions", {"prompt": "hello world", "n": 3, "max_tokens": N,
+                                   "temperature": 0.0}),
+    "cmpl_list": ("/v1/completions", {"prompt": ["hello world", "once upon a time the",
+                                                 "a"], "max_tokens": N, "temperature": 0.0}),
+    "chat_n": ("/v1/chat/completions", {"messages": MESSAGES, "n": 2, "max_tokens": N,
+                                        "temperature": 0.0}),
+    "cmpl_list_stop": ("/v1/completions", {"prompt": ["hello world", "once upon"],
+                                           "max_tokens": N, "temperature": 0.0,
+                                           "stop": "o"}),
+    "embedding": ("/embedding", {"content": "hello world once"}),
+    "embedding_cls": ("/embedding", {"content": "hello world once", "pooling": "cls"}),
+    "embedding_last": ("/embedding", {"content": "hello world once", "pooling": "last"}),
+    "v1_embeddings": ("/v1/embeddings", {"input": ["hello world", "once upon a time"]}),
+    "v1_embeddings_str": ("/v1/embeddings", {"input": "hello"}),
+    "slot_erase": ("/slots/0?action=erase", {}),
+    "slot_save_empty": ("/slots/0?action=save", {"filename": "t.bin"}),
+    "slot_restore": ("/slots/0?action=restore", {"filename": "s.bin"}),
+    "after_restore": ("/v1/completions", {
+        "prompt": "hello world once upon a time the world once", "max_tokens": N,
+        "temperature": 0.0}),
+    # the reference's 400s (and one 404)
+    "chat_n_stream": ("/v1/chat/completions", {"messages": MESSAGES, "n": 2,
+                                               "stream": True}),
+    "cmpl_n_stream": ("/v1/completions", {"prompt": "a", "n": 2, "stream": True}),
+    "cmpl_list_stream": ("/v1/completions", {"prompt": ["a", "b"], "stream": True}),
+    "cmpl_n_list": ("/v1/completions", {"prompt": ["a", "b"], "n": 2}),
+    "n_big": ("/v1/chat/completions", {"messages": MESSAGES, "n": 65}),
+    "n_str": ("/v1/completions", {"prompt": "a", "n": "2"}),
+    "batch_logprobs": ("/v1/completions", {"prompt": ["a", "b"], "logprobs": 2}),
+    "batch_grammar": ("/v1/completions", {"prompt": "a", "n": 2, "grammar": GRAMMAR}),
+    "infill_no_fim": ("/infill", {"input_prefix": "a", "input_suffix": "b"}),
+    "infill_bad_body": ("/infill", {"input_prefix": 1, "input_suffix": "b"}),
+    "infill_grammar": ("/infill", {"input_prefix": "a", "input_suffix": "b",
+                                   "grammar": GRAMMAR}),
+    "embedding_bad_pooling": ("/embedding", {"content": "x", "pooling": "max"}),
+    "embedding_no_content": ("/embedding", {"text": "x"}),
+    "v1_embeddings_bad": ("/v1/embeddings", {"input": [1, 2]}),
+    "slot_bad_name": ("/slots/0?action=save", {"filename": "../up"}),
+    "slot_dot_name": ("/slots/0?action=restore", {"filename": ".hidden"}),
+    "slot_bad_action": ("/slots/0?action=copy", {}),
+    "slot_bad_id": ("/slots/x?action=erase", {}),
+    "slot_out_of_range": ("/slots/9?action=erase", {}),
+    "slot_missing": ("/slots/0?action=restore", {"filename": "none.bin"}),
+}
+# the answers whose float vectors are compared within EMBED_TOL
+EMBED_TOL = 1e-5
+
+
+def _entry_answers(app, bodies: dict) -> dict:
+    async def go():
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            out = {}
+            for name, (route, body) in bodies.items():
+                resp = await client.post(route, json=body)
+                out[name] = (resp.status, await resp.json())
+            return out
+        finally:
+            await client.close()
+
+    return asyncio.run(go())
+
+
+@pytest.fixture(scope="module")
+def entry_answers(engines, tmp_path_factory):
+    """The reference's and the port's answers, one stream and four slots,
+    each server saving its slot files in a directory of its own."""
+    jeng, peng = engines
+    out = {}
+    for slots in (1, 4):
+        dirs = [tmp_path_factory.mktemp(f"slots{slots}_{who}") for who in ("ref", "port")]
+        ref = JaxChatServer(jeng, JaxGen(temperature=0.0), parallel=slots,
+                            slot_save_path=str(dirs[0]))
+        port = ChatServer(peng, GenerationConfig(temperature=0.0), parallel=slots,
+                          slot_save_path=str(dirs[1]))
+        out[slots] = (_entry_answers(ref.app, ENTRY), _entry_answers(port.app, ENTRY))
+    return out
+
+
+def _vectors(body) -> list:
+    if "embedding" in body:
+        return [body["embedding"]]
+    return [d["embedding"] for d in body["data"]]
+
+
+@pytest.mark.parametrize("slots", [1, 4])
+@pytest.mark.parametrize("name", list(ENTRY))
+def test_entry_routes_give_the_reference_answer(entry_answers, slots, name):
+    """Batches give the reference's texts and usage, embeddings its vectors
+    within EMBED_TOL, slot files its counts, every refusal its status and
+    text."""
+    ref, port = entry_answers[slots]
+    (status, body), (want_status, want) = port[name], ref[name]
+    assert status == want_status, (body, want)
+    assert _shape(body) == _shape(want)
+    if status == 200 and name.startswith(("embedding", "v1_embeddings")):
+        for got_v, want_v in zip(_vectors(body), _vectors(want), strict=True):
+            np.testing.assert_allclose(got_v, want_v, rtol=0, atol=EMBED_TOL)
+            assert abs(np.linalg.norm(got_v) - 1.0) < 1e-5
+        if "usage" in body:
+            assert body["usage"] == want["usage"]
+    else:
+        strip = (lambda d: {k: v for k, v in d.items() if k not in IGNORED}
+                 if isinstance(d, dict) else d)
+        assert strip(body) == strip(want)
+
+
+def test_entry_routes_serve_what_they_should(entry_answers):
+    """The served answers are not refusals: batches have a choice a row,
+    the slot file saved and restored the prefix, and the request after the
+    restore reused it."""
+    for slots in (1, 4):
+        port = entry_answers[slots][1]
+        assert [len(port[n][1]["choices"]) for n in ("cmpl_n", "cmpl_list", "chat_n")] \
+            == [3, 3, 2]
+        assert port["slot_save"][1]["n_saved"] == port["slot_restore"][1]["n_restored"] > 16
+        assert port["slot_save_empty"][0] == 400
+        assert port["slot_missing"][0] == 404
+        assert port["infill_no_fim"][0] == 400 and \
+            "fill-in-middle" in port["infill_no_fim"][1]["error"]
+
+
+def test_infill_is_served_on_a_fim_model(tmp_path):
+    """/infill on a GGUF with FIM markers, streamed and whole, gives the
+    reference's text and evaluates the reference's PSM prompt."""
+    vocab = make_spm_vocab()
+    cfg = PRESETS["tiny"].replace(vocab_size=len(vocab.tokens), max_seq_len=64)
+    params = random_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    md = spm_metadata(vocab)
+    for key, i in (("prefix", 10), ("suffix", 11), ("middle", 12)):
+        md[f"tokenizer.ggml.{key}_token_id"] = np.int32(i)
+    path = tmp_path / "fim.gguf"
+    write_model_gguf(path, cfg, jax.tree.map(np.asarray, params), tokenizer_metadata=md)
+    bodies = {"whole": ("/infill", {"input_prefix": "hello ", "input_suffix": "world",
+                                    "n_predict": N, "temperature": 0.0}),
+              "stream": ("/infill", {"input_prefix": "hello ", "input_suffix": "world",
+                                     "n_predict": N, "temperature": 0.0, "stream": True})}
+    ref = JaxChatServer(JaxEngine(path, dtype=jnp.float32), JaxGen(temperature=0.0))
+    port = ChatServer(Engine(path, dtype=torch.float32, device="cpu"),
+                      GenerationConfig(temperature=0.0))
+
+    def answers(app):
+        async def go():
+            client = TestClient(TestServer(app))
+            await client.start_server()
+            try:
+                return {k: await _answer(client, *v) for k, v in bodies.items()}
+            finally:
+                await client.close()
+        return asyncio.run(go())
+
+    want, got = answers(ref.app), answers(port.app)
+    for name in bodies:
+        assert _text_and_finish("llama" + name, got[name]) == \
+            _text_and_finish("llama" + name, want[name])
+        assert _shape(got[name][1]) == _shape(want[name][1])
+    assert got["whole"][1]["tokens_evaluated"] == want["whole"][1]["tokens_evaluated"] == 7
