@@ -209,7 +209,35 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    one prompt): each row's logits at each step held against the one
    stream's within LOGIT_TOL, flash_attention launched with a per-row
    [B] cache_len.
-14. The total wall time, the kernels line (one JSON object), the card line,
+14. SLO scheduling and request-lifecycle resilience, on the engine of
+   phases 4-5 and inside phase 12's block, on ChatServer(parallel=4): four
+   batch-class greedy rows decode and an interactive request arrives; one
+   batch victim swaps its KV and sampling chains out through the handoff
+   wire format into the swap store and back in with no prefill (the
+   prefill counters and forwards held flat across each swap-in), the
+   interactive request's first token comes before any batch row ends, and
+   every batch text equals its text in the same run without preemption,
+   where the interactive request waits for a row (or differs first at a
+   near tie). The victim's row was taken, so it resumes through adopt_row (the
+   slow path); a forced preemption with nobody waiting resumes in place
+   (the fast path). The interactive TTFT is printed with preemption and
+   without it, with the payload bytes and the swap-out and swap-in ms.
+   Deadlines: a slot request and a one-stream /completion whose step hangs
+   0.8 s, past a 0.6 s deadline, at the third decode chunk end with timeout
+   (/completion's timed_out), each text a prefix of its unbounded run; a
+   backed-up queue answers an unmeetable deadline with a 429 and an integer
+   Retry-After. Quarantine: decode_chunk_crash armed for one row fails that
+   request alone, its three siblings give their uninjected texts, and a
+   request that crashes poison_limit times then gets a 400. The watchdog:
+   a device_stall of three 0.4 s budgets fails the stalled step's request,
+   a /chat sent meanwhile gets a 503 with Retry-After, and the next request
+   is served with the uncontended text. Tenants: with a quota of 1 tenant
+   a's second request is a 429 while tenant b is served.
+   paged_flash_attention launches n_layers times per paged forward and
+   flash_attention n_layers times per one-stream forward. The phase decodes
+   in chunks of 8 steps (DLP_DECODE_CHUNK=8), so a short request pays no
+   32-step chunk and a preemption's safe point comes every 8 steps.
+15. The total wall time, the kernels line (one JSON object), the card line,
    and last the ok line. Each phase, and each served path of phases 7-9
    and 11, prints its seconds on a line of its own as it ends.
 """
@@ -218,12 +246,14 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import math
 import re
 import socket
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -2999,6 +3029,435 @@ def serve_entry_points(engine, fa, pa, llama, cfg, card: str, seed: int,
             "flash_attention_batch_per_row": row_launches}
 
 
+# phase 14: SLO scheduling and request-lifecycle resilience on the slots:
+# priority classes and preemption through the swap store, deadlines, load
+# shedding, quarantine and poison, the watchdog, tenant quotas
+
+LIFE_CHUNK = 8           # phase 14's decode chunk (DLP_DECODE_CHUNK): a short
+                         # request pays no 32-step chunk of junk steps, and a
+                         # preemption's safe point comes every 8 steps
+LIFE_TOKENS = 32         # a batch row's greedy tokens: four chunks
+SHORT_TOKENS = 16        # the other phase-14 requests' greedy tokens
+STALL_BUDGET_S = 0.4     # the watchdog's budget in phase 14
+STALL_S = 1.2            # the injected device_stall: three budgets
+DEADLINE_MS = 600.0      # the mid-decode deadlines: a hang of DEADLINE_STALL_S
+DEADLINE_STALL_S = 0.8   # at the third decode chunk makes them expire there
+DEADLINE_TOKENS = 32     # the deadline requests' budget
+
+
+def on_device(device) -> None:
+    """Wait for the device's queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def held(sched):
+    """Hold the scheduler's worker inside a control operation: what is
+    submitted meanwhile is admitted together, in EDF order, on release."""
+    inside, release = threading.Event(), threading.Event()
+
+    def block():
+        inside.set()
+        release.wait(120)
+
+    t = threading.Thread(target=sched._control, args=(block,), daemon=True)
+    t.start()
+    if not inside.wait(120):
+        fail("the scheduler's worker never ran the holding operation")
+    try:
+        yield
+    finally:
+        release.set()
+        t.join(120)
+
+
+def slot_stream(sched, prompt, gen, out: dict, key, **kw) -> threading.Thread:
+    """Run one request on ``sched`` in a thread: ``out[key]`` gets its text,
+    token data, done data, logs and the first-token and end times."""
+    def go():
+        t0, t_first, evs = time.monotonic(), None, []
+        for ev in sched.generate(prompt, gen, **kw):
+            if ev.kind == "token" and t_first is None:
+                t_first = time.monotonic()
+            evs.append(ev)
+        out[key] = {"text": "".join(e.content for e in evs if e.kind == "token"),
+                    "toks": [e.data for e in evs if e.kind == "token" and e.data],
+                    "done": evs[-1].data, "t0": t0, "t_first": t_first,
+                    "t_end": time.monotonic(),
+                    "logs": [e.content for e in evs if e.kind == "log"]}
+
+    t = threading.Thread(target=go, daemon=True)
+    t.start()
+    return t
+
+
+def wait_for(cond, what: str, timeout: float = 120.0) -> None:
+    t_end = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > t_end:
+            fail(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def erase_idle(sched) -> None:
+    """Drop every idle row's retained prefix (rows a quarantine deferred
+    release themselves), so the next run of a prompt prefills it cold."""
+    for i in range(sched.n_slots):
+        if sched._slots[i] is None and i not in sched._deferred_rows():
+            sched.erase_slot(i)
+
+
+async def post_status(s, base: str, route: str, body: dict,
+                      headers: dict | None = None) -> tuple[int, dict | str, str | None]:
+    """POST one route: (status, the JSON answer or the SSE text, Retry-After)."""
+    async with s.post(f"{base}{route}", json=body, headers=headers or {}) as r:
+        ra = r.headers.get("Retry-After")
+        if r.content_type == "text/event-stream":
+            return r.status, await r.text(), ra
+        return r.status, await r.json(), ra
+
+
+def check_shed(res, status: int, word: str, what: str) -> dict:
+    code, ans, ra = res
+    err = ans["error"] if isinstance(ans, dict) else ans
+    msg = err["message"] if isinstance(err, dict) else str(err)
+    if code != status or ra is None or not ra.isdigit() or int(ra) < 1 or word not in msg:
+        fail(f"{what}: {code} (Retry-After {ra!r}) {msg!r}, not {status} naming {word!r}")
+    return {"status": code, "retry_after": int(ra), "error": msg}
+
+
+def serve_lifecycle(engine, fa, pa, cfg, card: str, seed: int) -> dict:
+    """Phase 14 on the phase 4-5 engine. Returns the attention launches of
+    its served paths."""
+    return asyncio.run(lifecycle(engine, fa, pa, cfg, card, seed))
+
+
+async def lifecycle(engine, fa, pa, cfg, card: str, seed: int) -> dict:
+    import aiohttp
+    from aiohttp import web
+
+    from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig, faults
+    from distributed_llm_pipeline_tpu_torch.runtime.scheduler import SchedulerStalled
+    from distributed_llm_pipeline_tpu_torch.serving import ChatServer
+
+    n_layers, V, dev = cfg.n_layers, cfg.vocab_size, engine.device
+    g = torch.Generator().manual_seed(seed + 14)
+
+    def rand_ids(n: int) -> list[int]:
+        return torch.randint(3 + 256, V - 3, (n,), generator=g).tolist()
+
+    def gen(n: int = LIFE_TOKENS, lp: bool = True, **kw) -> GenerationConfig:
+        return GenerationConfig(max_new_tokens=n, temperature=0.0, stop_on_eos=False,
+                                logprobs=2 if lp else None, **kw)
+
+    out: dict = {"card": card, "decode_chunk": LIFE_CHUNK}
+    engine.prefix_cache_enabled = False   # one-stream texts compared cold
+    chunk0, engine.decode_chunk = engine.decode_chunk, LIFE_CHUNK
+    server = ChatServer(engine, GenerationConfig(max_new_tokens=LIFE_TOKENS,
+                                                 temperature=0.0), parallel=4)
+    sched = server.scheduler
+    be = sched._backend
+    fa.launches = pa.launches = 0
+    forwards0, eng_forwards0 = sched.forwards, engine.forwards
+
+    # every swap-out and swap-in timed, its payload sized, and each swap-in
+    # held to no prefill: the prefill counters and forwards stay where they
+    # were across it
+    swaps: dict[str, list] = {"out_ms": [], "in_ms": [], "bytes": [], "adopted": []}
+    swap_out, restore, adopt, put = (sched._swap_out, sched._restore_swapped,
+                                     be.adopt_row, sched._swap_store.put)
+
+    def timed_swap_out(slot):
+        t0 = time.monotonic()
+        ok = swap_out(slot)
+        on_device(dev)
+        swaps["out_ms"].append((time.monotonic() - t0) * 1e3)
+        return ok
+
+    def timed_restore(free, req):
+        keys = ("prefill_tokens_total", "paged_prefix_tokens_total")
+        before = ([sched.counters[k] for k in keys], sched.forwards)
+        n_adopt = len(swaps["adopted"])
+        t0 = time.monotonic()
+        restore(free, req)
+        on_device(dev)
+        swaps["in_ms"].append((time.monotonic() - t0) * 1e3)
+        if ([sched.counters[k] for k in keys], sched.forwards) != before:
+            fail(f"a swap-in prefilled: {before} -> {sched.counters}, {sched.forwards}")
+        swaps.setdefault("paths", []).append(
+            "slow" if len(swaps["adopted"]) > n_adopt else "fast")
+
+    def counted_adopt(*a, **k):
+        swaps["adopted"].append(a[3])
+        return adopt(*a, **k)
+
+    def sized_put(sid, data):
+        swaps["bytes"].append(len(data))
+        return put(sid, data)
+
+    sched._swap_out, sched._restore_swapped = timed_swap_out, timed_restore
+    be.adopt_row, sched._swap_store.put = counted_adopt, sized_put
+
+    runner = web.AppRunner(server.app)
+    await runner.setup()
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    site = web.SockSite(runner, sock)
+    await site.start()
+    base = f"http://127.0.0.1:{sock.getsockname()[1]}"
+    try:
+        async with aiohttp.ClientSession(
+                timeout=aiohttp.ClientTimeout(total=600)) as s:
+            # (a) priority and preemption. Four batch rows with an
+            # interactive request arriving once all four decode: without
+            # preemption (it waits for a row, so the batch rows run as if
+            # alone: their uncontended texts) and with it (a batch victim
+            # swaps out: the slow path, the interactive request took its row)
+            batch = [rand_ids(24) for _ in range(4)]
+            inter = rand_ids(24)
+            bgen = gen(LIFE_TOKENS, priority="batch")
+
+            def contended(preempt: bool) -> dict:
+                sched.preempt = preempt
+                erase_idle(sched)
+                res: dict = {}
+                with held(sched):
+                    ts = [slot_stream(sched, p, bgen, res, i) for i, p in enumerate(batch)]
+                    wait_for(lambda: sched.queue_depth == 4, "the batch rows queued")
+                wait_for(lambda: all(x is not None and x.n_gen >= 1 for x in sched._slots),
+                         "four decoding batch rows")
+                ts.append(slot_stream(sched, inter, gen(SHORT_TOKENS, priority="interactive"),
+                                      res, "i"))
+                for t in ts:
+                    t.join(300)
+                return res
+
+            c0 = dict(sched.counters)
+            waited = contended(False)
+            if sched.counters.get('kv_swaps_total{result="out"}', 0):
+                fail("a preemption with preemption off")
+            got = contended(True)
+            c1 = sched.counters
+            n_pre = c1.get('preemptions_total{class="batch"}', 0) - c0.get(
+                'preemptions_total{class="batch"}', 0)
+            n_out = c1.get('kv_swaps_total{result="out"}', 0)
+            n_in = c1.get('kv_swaps_total{result="in"}', 0)
+            first_done = min(got[i]["t_end"] for i in range(4))
+            victims = [i for i in range(4) if any(m.startswith("preempted (slot")
+                                                  for m in got[i]["logs"])]
+            if (n_pre != 1 or n_out != 1 or n_in != 1 or len(victims) != 1
+                    or swaps["paths"] != ["slow"]
+                    or got["i"]["t_first"] >= first_done):
+                fail(f"preemption: {n_pre} preemptions, swaps out {n_out} in {n_in}, "
+                     f"victims {victims}, swap-in paths {swaps.get('paths')}; the "
+                     f"interactive first token at {got['i']['t_first']}, the first batch "
+                     f"row done at {first_done}")
+            same = {i: same_greedy(got[i], waited[i], f"batch row {i} against its "
+                                   f"uncontended run") for i in range(4)}
+            # a forced preemption of one running batch row: nothing takes
+            # its row, so it resumes in place (the fast path)
+            erase_idle(sched)
+            sched.preempt_now()
+            forced: dict = {}
+            slot_stream(sched, batch[0], bgen, forced, 0).join(300)
+            if swaps["paths"] != ["slow", "fast"]:
+                fail(f"the forced preemption's swap-in took {swaps['paths']}")
+            same["forced"] = same_greedy(forced[0], waited[0], "the forced victim")
+            out["preemption"] = {
+                "victim": victims[0], "payload_bytes": swaps["bytes"],
+                "swap_out_ms": swaps["out_ms"], "swap_in_ms": swaps["in_ms"],
+                "swap_in_paths": swaps["paths"], "adopted_rows": swaps["adopted"],
+                "interactive_ttft_ms_preempt": (got["i"]["t_first"] - got["i"]["t0"]) * 1e3,
+                "interactive_ttft_ms_no_preempt":
+                    (waited["i"]["t_first"] - waited["i"]["t0"]) * 1e3,
+                "same_text": same}
+            print(json.dumps({"lifecycle_preemption": out["preemption"], "card": card}),
+                  flush=True)
+
+            # (b) deadlines: a slot request and a one-stream /completion
+            # whose deadline passes mid-decode (a step hangs past it at the
+            # third decode chunk), each a prefix of its unbounded run; then
+            # a backed-up queue refuses a deadline it cannot meet with a 429
+            dl_ids = rand_ids(24)
+            erase_idle(sched)
+            unbounded: dict = {}
+            slot_stream(sched, dl_ids, gen(DEADLINE_TOKENS, lp=False), unbounded, 0).join(300)
+            erase_idle(sched)
+            timed: dict = {}
+            with faults.armed("device_stall", seconds=DEADLINE_STALL_S, skip=2, times=1):
+                slot_stream(sched, dl_ids, gen(DEADLINE_TOKENS, lp=False,
+                                               deadline_ms=DEADLINE_MS), timed, 0).join(300)
+            d = timed[0]["done"]
+            if (d["finish_reason"] != "timeout" or not 1 <= d["n_gen"] < DEADLINE_TOKENS
+                    or not unbounded[0]["text"].startswith(timed[0]["text"])):
+                fail(f"slot deadline: {d}, text {timed[0]['text']!r} not a prefix of "
+                     f"{unbounded[0]['text']!r}")
+            prompt_text = " ".join(["hello"] * 24)
+            body = {"prompt": prompt_text, "n_predict": DEADLINE_TOKENS, "temperature": 0.0}
+            chunk = engine._decode_chunk
+            calls = [0]
+
+            def hung_chunk(*a, **k):
+                calls[0] += 1
+                if calls[0] == 3:
+                    time.sleep(DEADLINE_STALL_S)
+                return chunk(*a, **k)
+
+            # one stream (no --parallel): the deadline runs on the engine
+            free = (await route_requests_in(ChatServer(engine), [("/completion", body)]))[0]
+            engine._decode_chunk = hung_chunk
+            try:
+                cut = (await route_requests_in(ChatServer(engine), [("/completion", {
+                    **body, "deadline_ms": DEADLINE_MS})]))[0]
+            finally:
+                del engine._decode_chunk
+            if (not cut["timed_out"] or cut["stopped_limit"]
+                    or not 1 <= cut["tokens_predicted"] < DEADLINE_TOKENS
+                    or not free["content"].startswith(cut["content"])):
+                fail(f"/completion deadline: {cut} against {free}")
+            with held(sched):
+                for _ in range(8):
+                    sched.submit(rand_ids(8), gen(1, lp=False), emit=lambda ev: None)
+                backed = check_shed(await post_status(s, base, "/chat", {
+                    "prompt": prompt_text, "deadline_ms": 1}), 429, "deadline",
+                    "an unmeetable deadline")
+            out["deadlines"] = {
+                "slot": {"n_gen": d["n_gen"], "finish_reason": d["finish_reason"],
+                         "prefix_of_unbounded": True},
+                "one_stream": {"tokens_predicted": cut["tokens_predicted"],
+                               "timed_out": cut["timed_out"], "prefix_of_unbounded": True},
+                "backed_up_queue": backed, "deadline_ms": DEADLINE_MS,
+                "stall_s": DEADLINE_STALL_S}
+            wait_for(lambda: sched.queue_depth == 0 and sched.slots_active == 0,
+                     "the backlog to drain")
+
+            # (c) quarantine: a crash armed for row 1 fails that request
+            # alone, its three siblings give their uninjected texts; then one
+            # request that crashes poison_limit times is refused with a 400
+            q_prompts = [rand_ids(20) for _ in range(4)]
+            clean: dict = {}
+            erase_idle(sched)
+            with held(sched):
+                ts = [slot_stream(sched, p, gen(SHORT_TOKENS), clean, i)
+                      for i, p in enumerate(q_prompts)]
+            for t in ts:
+                t.join(300)
+            erase_idle(sched)
+            hurt: dict = {}
+            with faults.armed("decode_chunk_crash", times=1, row=1) as spec:
+                with held(sched):
+                    ts = [slot_stream(sched, p, gen(SHORT_TOKENS), hurt, i)
+                          for i, p in enumerate(q_prompts)]
+                for t in ts:
+                    t.join(300)
+            failed = [i for i in range(4) if hurt[i]["done"]["finish_reason"] == "error"]
+            if spec.fired != 1 or len(failed) != 1 or \
+                    "slot quarantined" not in hurt[failed[0]]["done"]["error"]:
+                fail(f"quarantine: fired {spec.fired}, failed {failed}: "
+                     f"{[hurt[i]['done'] for i in range(4)]}")
+            q_same = {i: same_greedy(hurt[i], clean[i], f"quarantine sibling {i}")
+                      for i in range(4) if i not in failed}
+            poison_body = {"prompt": "poisoned " + prompt_text, "max_new_tokens": 4}
+            with faults.armed("decode_chunk_crash", times=sched.poison_limit):
+                for _ in range(sched.poison_limit):
+                    res = await stream_chat(s, base, poison_body)
+                    if res["events"][-1].get("finish_reason") != "error":
+                        fail(f"a poisoning run did not fail: {res['events'][-1]}")
+            poisoned = check_shed(await post_status(s, base, "/chat", poison_body), 400,
+                                  "crashed its slot", "a poisoned request")
+            out["quarantine"] = {"failed_row": failed[0], "siblings": q_same,
+                                 "poison_limit": sched.poison_limit, "refusal": poisoned}
+
+            # (d) the watchdog: a step hangs three budgets; the watchdog fails
+            # its request at the budget and a request sent meanwhile is shed
+            # with a 503; the next request is served with the uncontended text
+            w_ids, w_prompt = rand_ids(20), rand_ids(20)
+            erase_idle(sched)
+            alone: dict = {}
+            slot_stream(sched, w_prompt, gen(SHORT_TOKENS), alone, 0).join(300)
+            erase_idle(sched)
+            stalled: dict = {}
+            # the short budget covers the stalled step only: the watchdog
+            # re-reads it at every poll
+            budget, sched.stall_budget_s = sched.stall_budget_s, STALL_BUDGET_S
+            with faults.armed("device_stall", seconds=STALL_S, times=1):
+                t = slot_stream(sched, w_ids, gen(SHORT_TOKENS), stalled, 0)
+                t_stall = time.monotonic()
+                while not sched._stalled.is_set():
+                    if time.monotonic() - t_stall > 30:
+                        fail("the watchdog never flagged the stalled step")
+                    await asyncio.sleep(0.002)
+                shed503 = check_shed(await post_status(s, base, "/chat", {
+                    "prompt": prompt_text}), 503, "stalled", "a request during the stall")
+                refused = None
+                try:
+                    sched.submit(w_prompt, gen(), emit=lambda ev: None)
+                except SchedulerStalled as e:
+                    refused = str(e)
+                if refused is None:
+                    fail("a submit during the stall was admitted")
+                t.join(300)
+            sd = stalled[0]["done"]
+            claimed_ms = (stalled[0]["t_end"] - stalled[0]["t0"]) * 1e3
+            if sd["finish_reason"] != "error" or "watchdog" not in sd["error"]:
+                fail(f"the stalled request ended {sd}")
+            wait_for(lambda: not sched._stalled.is_set(), "the scheduler's recovery")
+            sched.stall_budget_s = budget
+            erase_idle(sched)
+            after: dict = {}
+            slot_stream(sched, w_prompt, gen(SHORT_TOKENS), after, 0).join(300)
+            out["watchdog"] = {"budget_s": STALL_BUDGET_S, "stall_s": STALL_S,
+                               "stalled_request_ms": claimed_ms, "shed": shed503,
+                               "submit_refused": refused,
+                               "stalls": sched.counters["watchdog_stalls_total"],
+                               "after": same_greedy(after[0], alone[0],
+                                                    "the request after the stall")}
+
+            # (e) tenants: with a quota of 1, tenant a's second request is a
+            # 429 while tenant b is admitted
+            sched.tenant_quota = 1
+            with held(sched):
+                sched.submit(rand_ids(8), gen(1, lp=False), emit=lambda ev: None,
+                             tenant="a")
+                over = check_shed(await post_status(
+                    s, base, "/chat", {"prompt": prompt_text}, {"X-DLP-Tenant": "a"}),
+                    429, "over quota", "tenant a's second request")
+                depth = sched.queue_depth
+                b_task = asyncio.ensure_future(post_status(
+                    s, base, "/chat", {"prompt": prompt_text, "tenant": "b",
+                                       "max_new_tokens": 4}))
+                while sched.queue_depth == depth:
+                    if b_task.done():
+                        fail(f"tenant b was refused: {b_task.result()}")
+                    await asyncio.sleep(0.002)
+            b_status, b_sse, _ = await b_task
+            if b_status != 200 or '"finish_reason": "length"' not in b_sse:
+                fail(f"tenant b answered {b_status}: {b_sse[-300:]}")
+            sched.tenant_quota = 0
+            out["tenants"] = {"quota": 1, "over_quota": over, "other_tenant": b_status}
+    finally:
+        await runner.cleanup()   # closes the scheduler
+        engine.prefix_cache_enabled = True
+        engine.decode_chunk = chunk0
+    forwards, eng_forwards = sched.forwards - forwards0, engine.forwards - eng_forwards0
+    if (pa.launches != n_layers * forwards or fa.launches != n_layers * eng_forwards
+            or not forwards or not eng_forwards):
+        fail(f"phase 14: paged_flash_attention {pa.launches} launches for {forwards} "
+             f"paged forwards, flash_attention {fa.launches} for {eng_forwards} forwards, "
+             f"of {n_layers} layers")
+    out["launches"] = {"paged_flash_attention": pa.launches, "paged_forwards": forwards,
+                       "flash_attention": fa.launches, "forwards": eng_forwards,
+                       "counters": sched.counters}
+    print(json.dumps({"lifecycle": out}), flush=True)
+    return {"paged_flash_attention": pa.launches, "flash_attention": fa.launches}
+
+
+async def route_requests_in(server, requests: list[tuple[str, dict]]) -> list[dict]:
+    """``route_requests``' answers from inside a running event loop."""
+    return [r["answer"] for r in await route_requests(server, requests)]
+
+
 def load_quant_engine(Engine, gguf: Path, quant: str, card: str, unlink: bool):
     """An engine over ``gguf`` with ``quant``, its load line printed; the
     GGUF is deleted once loaded when ``unlink``."""
@@ -3622,6 +4081,14 @@ def main() -> int:
         print(json.dumps({"phase13_launches": entry_launches, "card": card}),
               flush=True)
         t_phase = phase_seconds("13", t_phase, t_start)
+
+        # 14. SLO scheduling and request-lifecycle resilience, on the same
+        # engine: preemption, deadlines, shedding, quarantine, the watchdog
+        print(f"phase 14 at {time.monotonic() - t_start:.0f}s", flush=True)
+        life_launches = serve_lifecycle(engine, fa, pa, cfg, card, args.seed)
+        print(json.dumps({"phase14_launches": life_launches, "card": card}),
+              flush=True)
+        t_phase = phase_seconds("14", t_phase, t_start)
         del engine
         torch.cuda.empty_cache()
         t0 = time.monotonic()
@@ -3711,7 +4178,7 @@ def main() -> int:
         for p in (path, path9, q6_path, q4_path, q3_path):
             p.unlink(missing_ok=True)
 
-    # 14. results
+    # 15. results
     src = "distributed_llm_pipeline_tpu_torch/csrc/"
     ref = "distributed_llm_pipeline_tpu/ops/"
     entries = [

@@ -475,6 +475,10 @@ class MeshSlotBackend:
     def prepare_chunk(self, sched, running, n) -> list[tuple[int, int]]:
         return []   # dense rows always have room
 
+    def release_row(self, r: int) -> None:
+        """Dense rows own their storage: a quarantined row has nothing to
+        give back."""
+
 
 class ShardedEngine(Engine):
     """``Engine`` over a pp × tp mesh (dp = 1) of one process per rank, on

@@ -61,7 +61,12 @@ from ..ops.sampling import (apply_penalties, bias_vector, lp_payload,
                             shortlist, topk_logprobs)
 from ..tokenizer import StreamDecoder, Tokenizer, tokenizer_from_metadata
 from ..utils import Event, done, log, token
-from . import capabilities
+from . import capabilities, faults
+
+# the priority classes a request names, best first: slot grants, the mixed
+# step's prefill budget and the queue-wait estimates are class-major
+# (``runtime/scheduler.py``). Both serving dialects take the class name
+PRIORITY_CLASSES = ("interactive", "normal", "batch")
 
 
 @dataclass
@@ -84,6 +89,16 @@ class GenerationConfig:
     # top-N alternative logprobs per generated token, of the raw (biased,
     # unpenalized) distribution; None = off
     logprobs: int | None = None
+    # wall-clock budget of the whole request: the engine anchors it at
+    # generation start, the slots at submission (queue wait counts). Checked
+    # at admission, after prefill and at every chunk boundary; an expired
+    # request ends with finish reason "timeout", the tokens produced so far
+    # delivered. None = no deadline
+    deadline_ms: float | None = None
+    # the request's priority class, one of PRIORITY_CLASSES; the slots grant
+    # rows class-major, earliest deadline first within a class, and only a
+    # batch-class row may be preempted. The single-stream engine ignores it
+    priority: str = "normal"
     typical_p: float = 1.0          # 1 disables
     # mirostat v1/v2 (0 off): targets surprise τ with learning rate η and
     # replaces top-k, top-p, typical-p and min-p; single stream only
@@ -650,8 +665,13 @@ class Engine:
                  gen: GenerationConfig | None = None) -> Iterator[Event]:
         """Streaming generation: yields log / token / done events. Raises
         ``ValueError`` on a sampler combination the engine does not run.
-        A JSON-mode or grammar request takes the constrained path."""
-        gen = check_sampler(gen or GenerationConfig())
+        A JSON-mode or grammar request takes the constrained path, and
+        ``ValueError`` also meets a non-positive ``deadline_ms``."""
+        gen = gen or GenerationConfig()
+        if gen.deadline_ms is not None and gen.deadline_ms <= 0:
+            raise ValueError(f"deadline_ms must be positive, "
+                             f"got {gen.deadline_ms}")
+        gen = check_sampler(gen)
         if gen.json_mode or gen.grammar:
             return self._generate_constrained(prompt, gen)
         return self._generate(prompt, gen)
@@ -663,6 +683,11 @@ class Engine:
     def _generate(self, prompt: str | list[int],
                   gen: GenerationConfig) -> Iterator[Event]:
         yield from self._events_on_load
+        # the deadline runs from generation start: this path has no queue
+        deadline = (time.monotonic() + gen.deadline_ms / 1000.0
+                    if gen.deadline_ms else None)
+        if faults.ACTIVE:
+            faults.check("tokenizer_error")
         ids = check_token_ids(list(prompt), self.cfg.vocab_size) \
             if isinstance(prompt, (list, tuple)) else self.tokenizer.encode(prompt)
         n_prompt = len(ids)
@@ -712,6 +737,8 @@ class Engine:
             sd = StreamDecoder(self.tokenizer)
             eos = self.tokenizer.eos_id
 
+            if faults.ACTIVE:
+                faults.check("prefill_oom")
             t_start = time.monotonic()
             cache, reuse_k = self._take_prefix_cache(ids)
             tok, lp = self._sample(self.prefill(ids[reuse_k:], cache), gen, rng, st)
@@ -753,11 +780,23 @@ class Engine:
                     stopped = True
                 return token(text, **(data or {})) if text or data is not None else None
 
-            ev = take(first[0], first_data)
-            if ev is not None:
-                yield ev
+            if deadline is not None and time.monotonic() > deadline:
+                # the budget burned in prefill: no sampled token may be
+                # emitted past it
+                yield log("deadline exceeded during prefill; stopping")
+                finish_reason, stopped = "timeout", True
+            else:
+                ev = take(first[0], first_data)
+                if ev is not None:
+                    yield ev
             pending = None   # (read, n) of the chunk whose tokens are in flight
             while True:
+                if (deadline is not None and not stopped
+                        and time.monotonic() > deadline):
+                    # the tokens already emitted stand; the chunk in flight
+                    # is past the budget and is dropped below
+                    yield log("deadline exceeded; stopping")
+                    finish_reason, stopped = "timeout", True
                 launched = None
                 room = budget - n_gen - (pending[1] if pending else 0)
                 if (shift_on and not stopped and room > 0 and pending is None
@@ -937,6 +976,8 @@ class Engine:
         t_decode = time.monotonic()
         n_gen, finish_reason = 0, "length"
         readbacks = misses = 0
+        deadline = (t_start + gen.deadline_ms / 1000.0
+                    if gen.deadline_ms else None)
 
         def full_row(r: torch.Tensor):
             nonlocal readbacks, misses
@@ -945,6 +986,10 @@ class Engine:
             return r.float().cpu().numpy()
 
         while n_gen < budget:
+            if deadline is not None and time.monotonic() > deadline:
+                yield log("deadline exceeded; stopping")
+                finish_reason = "timeout"
+                break
             vals, idx = self._shortlist(row)
             readbacks += 1
             res = sampler.pick(vals, idx, full_logits=lambda r=row: full_row(r),

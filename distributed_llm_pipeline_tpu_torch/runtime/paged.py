@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..models import KVCache, PagedKVCache
+from . import faults
 from .engine import _bucket
 
 
@@ -230,6 +231,11 @@ class BlockAllocator:
         cow = [j for j in range(jb0, min(jb1, len(row)))
                if self.ref[row[j]] > 1]
         n_new = max(0, jb1 - len(row))
+        if faults.ACTIVE and faults.fires("pool_exhausted", row=r):
+            # injected at the capacity check, before any mutation, so the
+            # callers run the real degradation ladder: evict idle prefixes,
+            # then starve the row gracefully
+            raise PoolExhausted("injected fault: KV block pool exhausted")
         if len(self.free) < len(cow) + n_new:
             raise PoolExhausted(
                 f"KV block pool exhausted ({len(self.free)} free of "
@@ -524,9 +530,13 @@ class PagedSlotBackend:
 
     def _evict_idle(self, sched, exclude: int | None = None) -> None:
         """Release every idle slot's retained blocks; their prefix-cache
-        entries go with them. Busy slots are never touched."""
+        entries go with them. Busy slots are never touched, and neither are
+        rows whose release a quarantine deferred behind the steps in flight
+        (``SlotScheduler._deferred_rows``): a step launched before the
+        quarantine may still write through the row's uploaded table."""
+        deferred = sched._deferred_rows()
         for i in range(self.B):
-            if i == exclude or sched._slots[i] is not None:
+            if i == exclude or sched._slots[i] is not None or i in deferred:
                 continue
             if self.allocator.rows[i]:
                 self.allocator.release_row(i)

@@ -47,12 +47,39 @@ llama-server's ``POST /slots/{id}``). They run on the worker thread
 between steps (``_control``); a restored row's blocks join the prefix
 index, so a prompt that extends its ids prefills only the suffix.
 
-Not ported yet (the reference has them): preemption and the swap store, the
-disaggregation handoff, the watchdog, poison/quarantine, load shedding,
-tenants and quotas, metrics and tracing, the single-device dense slot
-backend, and slot files on a mesh. Typical-p, mirostat and the context
-shift stay on the single-stream engine, as in the reference: a request
-that would run one is refused here.
+Request-lifecycle resilience and SLO scheduling, as the reference's:
+
+- admission is ordered by priority class (``interactive`` < ``normal`` <
+  ``batch``), then earliest deadline, then submission time (``_edf_key``),
+  and the mixed step's prefill budget follows the same order;
+- ``deadline_ms`` is anchored at submission and checked at admission,
+  after prefill, at every fed chunk and at every chunk boundary; an expired
+  request ends with finish reason ``timeout`` and keeps its KV;
+- ``shed_check`` turns a full queue, a deadline the queue would already
+  blow or an over-quota tenant into a 429 decision, a stalled device into
+  a 503 and a poisoned request into a 400, each with a Retry-After;
+- an exception tied to one row quarantines that row alone (its blocks are
+  released two consumed steps later, after the steps in flight); a request
+  that crashed its slot ``poison_limit`` times is refused;
+- a watchdog thread fails the requests of a device step that outlives the
+  stall budget and sheds new work until the step returns (a CUDA kernel
+  cannot be interrupted: the worker waits in its readback as before);
+- on the single-device pool, queued interactive work with no free row
+  preempts a batch-class row: its KV and sampling chains go out through
+  the handoff wire format (``runtime/disagg.py``) into a bounded host-RAM
+  swap store (``runtime/swapstore.py``), the row is freed, and the request
+  resumes later with zero re-prefill.
+
+The counts the reference keeps in its metrics registry (prefill tokens,
+prefix hits, sheds, timeouts, quarantines, stalls, preemptions, swaps by
+result) are in the plain ``counters`` dict under the reference's names.
+
+Not ported yet (the reference has them): the disaggregation handoff
+registry and roles, metrics and tracing, the supervised engine restart
+(repeat stalls rebuild the device state instead), the single-device dense
+slot backend, and slot files on a mesh. Typical-p, mirostat and the
+context shift stay on the single-stream engine, as in the reference: a
+request that would run one is refused here.
 
 The worker thread owns every device buffer and all slot state; it runs
 under ``torch.inference_mode()`` and on the engine's device, both of which
@@ -62,11 +89,13 @@ are thread-local.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import heapq
 import os
 import queue
 import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterator
 
@@ -77,21 +106,38 @@ from ..ops.sampling import (apply_penalties, bias_vector, lp_payload, sample_row
                             shortlist, topk_logprobs)
 from ..tokenizer import StreamDecoder
 from ..utils import Event, done, log, token
-from .engine import (MIN_PREFIX, Engine, GenerationConfig, StopMatcher, _bucket,
-                     check_constraint_combination, check_token_ids)
-from .paged import PoolExhausted, upload
+from . import faults
+from .engine import (MIN_PREFIX, PRIORITY_CLASSES, Engine, GenerationConfig,
+                     StopMatcher, _bucket, check_constraint_combination,
+                     check_token_ids)
+from .paged import PagedSlotBackend, PoolExhausted, upload
 
 RECENT_W = 64    # repeat-penalty window capacity per slot (llama.cpp default)
 LP_TOPK = 20     # alternatives computed per step when any row wants logprobs
 CS_TOPK = 512    # the device top-K of a constrained row read back per step;
                  # its full [V] row is fetched only when all of it misses
+POISON_KEEP = 256   # poisoned-request fingerprints kept (LRU-bounded)
+CLASS_RANK = {c: i for i, c in enumerate(PRIORITY_CLASSES)}
 
 # per-row sampling parameters, one row each of the [8, B] parameter array
 _TEMP, _TOP_K, _TOP_P, _MIN_P, _PEN, _PRES, _FREQ, _LAST_N = range(8)
 
 
 class QueueFull(RuntimeError):
-    """Admission refused: the wait queue is at capacity."""
+    """Admission refused: the wait queue is at capacity, or the tenant is
+    over its quota (a 429 with Retry-After at the serving layer)."""
+
+
+class PoisonedRequest(RuntimeError):
+    """Admission refused: this exact request has crashed its slot
+    ``poison_limit`` times; admitting it again would quarantine another
+    slot for a deterministic failure."""
+
+
+class SchedulerStalled(RuntimeError):
+    """Admission refused: a device step is past its stall budget and the
+    worker is blocked behind it (a 503 with Retry-After at the serving
+    layer; admission resumes when the step returns)."""
 
 
 @dataclass
@@ -101,39 +147,70 @@ class _Request:
     emit: Callable[[Event], None]
     abort: threading.Event
     submitted: float = field(default_factory=time.monotonic)
+    # the tenant the request is charged to (quotas, the victim's fair
+    # share) and, once preempted, its swap-store entry and its parked slot
+    # (decoder, stop matcher, out_ids: host state that needs no bytes). Not
+    # on GenerationConfig: the poison fingerprint hashes the config
+    tenant: str = "default"
+    swap: str | None = None
+    swap_slot: Any = None
 
 
-def _edf_key(req: _Request) -> tuple[float]:
-    """The scheduling order of slot grants and of prefill chunk budgets.
-    The reference orders by priority class, then earliest deadline, then
-    submission time; the port's GenerationConfig has neither a class nor a
-    deadline yet, so the order is submission time."""
-    return (req.submitted,)
+def _edf_key(req: _Request) -> tuple[int, float, float]:
+    """The scheduling order of slot grants and of prefill chunk budgets:
+    priority class rank first, the earliest absolute deadline within a
+    class (no deadline sorts last), submission time as the tiebreak."""
+    dl = (req.submitted + req.gen.deadline_ms / 1000.0
+          if req.gen.deadline_ms else float("inf"))
+    return (CLASS_RANK.get(req.gen.priority, CLASS_RANK["normal"]),
+            dl, req.submitted)
 
 
 class _DeadlineQueue:
     """The admission queue: ``get_nowait`` pops the request with the
-    smallest ``_edf_key``."""
+    smallest ``_edf_key``, and it keeps each tenant's queued count."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._heap: list[tuple[tuple, int, _Request]] = []
         self._seq = 0  # heap tiebreak: _Request is not orderable
+        self._n_tenant: dict[str, int] = {}
 
     def put(self, req: _Request) -> None:
         with self._lock:
             self._seq += 1
+            t = req.tenant
+            self._n_tenant[t] = self._n_tenant.get(t, 0) + 1
             heapq.heappush(self._heap, (_edf_key(req), self._seq, req))
 
     def get_nowait(self) -> _Request:
         with self._lock:
             if not self._heap:
                 raise queue.Empty
-            return heapq.heappop(self._heap)[2]
+            req = heapq.heappop(self._heap)[2]
+            t = req.tenant
+            n = self._n_tenant.get(t, 0) - 1
+            if n > 0:
+                self._n_tenant[t] = n
+            else:
+                self._n_tenant.pop(t, None)
+            return req
 
     def qsize(self) -> int:
         with self._lock:
             return len(self._heap)
+
+    def depth_for(self, rank: int) -> int:
+        """Queued requests granted a slot before a new arrival of class
+        ``rank`` (the same or a better class): the per-class wait
+        estimate's depth."""
+        with self._lock:
+            return sum(1 for key, _, _ in self._heap if key[0] <= rank)
+
+    def tenant_depth(self, tenant: str) -> int:
+        """Queued requests charged to ``tenant``."""
+        with self._lock:
+            return self._n_tenant.get(tenant, 0)
 
 
 class _Slot:
@@ -143,7 +220,7 @@ class _Slot:
                  "budget", "finish", "t_start", "t_decode", "ttft_ms",
                  "stopped", "stop_matched", "out_ids", "starved", "phase",
                  "pending", "prefix_k", "n_prompt", "sampler", "readbacks",
-                 "misses")
+                 "misses", "deadline", "abandoned")
 
     def __init__(self, idx: int, serial: int, req: _Request):
         self.idx = idx
@@ -172,6 +249,13 @@ class _Slot:
         self.sampler = None   # the ConstrainedSampler of a JSON / GBNF row
         self.readbacks = 0    # a constrained row's host reads: one a token,
         self.misses = 0       # and one more per full-row fetch (a miss)
+        # the monotonic deadline, anchored at submission (queue wait counts
+        # against it); None = no deadline
+        self.deadline = (req.submitted + req.gen.deadline_ms / 1000.0
+                         if req.gen.deadline_ms else None)
+        # the watchdog already emitted this slot's terminal event; the
+        # worker only reclaims its bookkeeping when the step returns
+        self.abandoned = False
 
 
 def _row_param_array(gens: list[GenerationConfig | None]) -> np.ndarray:
@@ -246,7 +330,13 @@ class SlotScheduler:
                  kv_block: int | None = None,
                  kv_pool_blocks: int | None = None,
                  prefill_chunk: int | None = None,
-                 prefill_chunked: bool | None = None):
+                 prefill_chunked: bool | None = None,
+                 stall_budget_s: float | None = None,
+                 poison_limit: int | None = None,
+                 preempt: bool | None = None,
+                 swap_store_mb: int | None = None,
+                 swap_ttl_s: float | None = None,
+                 tenant_quota: int | None = None):
         if n_slots < 2:
             raise ValueError("--parallel needs at least 2 slots")
         self.engine = engine
@@ -283,8 +373,33 @@ class SlotScheduler:
         self.counters = dict.fromkeys(
             ("prefill_tokens_total", "paged_prefix_hits_total",
              "paged_prefix_tokens_total", "prefill_steps_stolen_total",
-             "kv_cow_copies_total"), 0)
+             "kv_cow_copies_total", "requests_shed_total",
+             "requests_timed_out_total", "requests_poisoned_total",
+             "slots_quarantined_total", "watchdog_stalls_total"), 0)
         self.forwards = 0   # paged model forwards (each runs every layer)
+        # -- preemption: a batch-class victim's KV and sampling chains go
+        # through the handoff wire format into the bounded host-RAM swap
+        # store; single-device pool only (the mesh's rows are not gathered)
+        if preempt is None:
+            preempt = os.environ.get("DLP_PREEMPT", "1") != "0"
+        self.preempt = bool(preempt) and isinstance(self._backend, PagedSlotBackend)
+        swap_mb = (int(os.environ.get("DLP_SWAP_STORE_MB", "256"))
+                   if swap_store_mb is None else int(swap_store_mb))
+        swap_ttl = (float(os.environ.get("DLP_SWAP_TTL_S", "60"))
+                    if swap_ttl_s is None else float(swap_ttl_s))
+        from .swapstore import SwapStore
+
+        # worker-thread owned, as every slot structure; on_evict fires inside
+        # put(), on the worker too
+        self._swap_store = SwapStore(
+            max(1, swap_mb) * 2 ** 20, swap_ttl,
+            on_evict=lambda sid: self._drop_swapped(sid, "evicted"))
+        self._swapped: dict[str, _Request] = {}   # sid -> the parked request
+        self._swap_seq = 0
+        self._force_preempt = 0   # preempt_now() requests not yet served
+        # per-tenant in-flight quota (0 = unlimited): queued plus resident
+        self.tenant_quota = (int(os.environ.get("DLP_TENANT_QUOTA", "0"))
+                             if tenant_quota is None else int(tenant_quota))
         self._alloc_state()
         self._slots: list[_Slot | None] = [None] * self.n_slots
         self._serial = 0
@@ -293,9 +408,39 @@ class SlotScheduler:
         self._ctlq: queue.Queue[tuple[Callable[[], Any], queue.Queue]] = queue.Queue()
         self._closed = threading.Event()
         self._wake = threading.Event()
+        # -- the poisoned-request detector: fingerprint -> slot failures.
+        # Written by the worker only; a serving thread's read racing an
+        # update admits or refuses against the previous count
+        self.poison_limit = (int(os.environ.get("DLP_POISON_LIMIT", "3"))
+                             if poison_limit is None else int(poison_limit))
+        self._poison: OrderedDict[int, int] = OrderedDict()
+        # quarantined rows whose blocks are released once the steps in
+        # flight at quarantine time are consumed: [countdown, row]
+        self._release_q: list[list[int]] = []
+        # request wall-time EWMAs, overall and per class: the wait estimate
+        # shedding and Retry-After run on (worker-written, read lock-free)
+        self._avg_request_s = 1.0
+        self._avg_class_s = {c: 1.0 for c in PRIORITY_CLASSES}
+        # -- the decode watchdog: the device-step window [launch, readback]
+        # the watchdog thread holds against the stall budget
+        self.stall_budget_s = (
+            float(os.environ.get("DLP_WATCHDOG_STALL_S", "60"))
+            if stall_budget_s is None else float(stall_budget_s))
+        self._step_lock = threading.Lock()
+        self._step_t0: float | None = None    # guarded by _step_lock
+        self._step_rows: tuple = ()           # guarded by _step_lock
+        self._step_flagged = False            # this window already reported
+        self._stall_streak = 0                # guarded by _step_lock
+        self._needs_restart = False           # repeat-stall escalation
+        self._stalled = threading.Event()     # shed new work while wedged
         self._worker = threading.Thread(target=self._loop, daemon=True,
                                         name="slot-scheduler")
         self._worker.start()
+        self._watchdog = None
+        if self.stall_budget_s > 0:
+            self._watchdog = threading.Thread(target=self._watch, daemon=True,
+                                              name="slot-watchdog")
+            self._watchdog.start()
 
     def _alloc_state(self) -> None:
         """(Re)allocate the pool and the per-row device chains: one
@@ -329,22 +474,141 @@ class SlotScheduler:
     def slots_active(self) -> int:
         return sum(1 for s in self._slots if s is not None)
 
+    @property
+    def queue_full(self) -> bool:
+        return self._subq.qsize() >= self.max_queue
+
+    def _count(self, name: str, n: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
+
+    # -- load shedding and the poisoned-request detector ---------------------
+
+    @staticmethod
+    def _fingerprint(prompt, gen: GenerationConfig) -> int:
+        """The identity of a request for the poison detector: the exact
+        prompt and sampling config."""
+        p = tuple(prompt) if isinstance(prompt, (list, tuple)) else prompt
+        return hash((p, dataclasses.astuple(gen)))
+
+    def _record_poison(self, req: _Request) -> int:
+        """Count one slot failure against the request's fingerprint; LRU-
+        bounded, so a client cycling prompts cannot grow it without end."""
+        fp = self._fingerprint(req.prompt, req.gen)
+        n = self._poison.pop(fp, 0) + 1
+        self._poison[fp] = n
+        while len(self._poison) > POISON_KEEP:
+            self._poison.popitem(last=False)
+        return n
+
+    def estimated_wait_s(self, priority: str | None = None) -> float:
+        """Rough seconds a new request would queue before a slot frees: the
+        requests granted ahead of it (the same or a better class) spread
+        over the slots, times the EWMA request time (per class when
+        ``priority`` is given). An estimate for shedding, not a promise."""
+        if priority is None:
+            return (self._subq.qsize() / self.n_slots) * self._avg_request_s
+        rank = CLASS_RANK.get(priority, CLASS_RANK["normal"])
+        ahead = self._subq.depth_for(rank)
+        return (ahead / self.n_slots) * self._avg_class_s.get(
+            priority, self._avg_request_s)
+
+    def tenant_load(self, tenant: str) -> int:
+        """In-flight requests charged to ``tenant``: queued (a preempted
+        request waits in the queue, so it keeps counting) plus resident."""
+        n = self._subq.tenant_depth(tenant)
+        for s in self._slots:
+            if s is not None and s.req.tenant == tenant:
+                n += 1
+        return n
+
+    def shed_check(self, gen: GenerationConfig | None = None,
+                   prompt=None, tenant: str | None = None) -> dict | None:
+        """Admission control for the serving layer: None admits; otherwise
+        ``{reason, retry_after_s, status}`` describes the refusal (429 full
+        queue, unmeetable deadline or over-quota tenant, 503 stalled
+        device, 400 poisoned request), which the caller answers with a
+        ``Retry-After`` header. Counts every shed."""
+
+        def shed(reason: str, status: int, retry_after: int) -> dict:
+            return {"reason": reason, "retry_after_s": retry_after,
+                    "status": status}
+
+        if self._stalled.is_set():
+            self._count("requests_shed_total")
+            return shed("device step stalled; scheduler is recovering",
+                        503, max(1, int(self.stall_budget_s)))
+        # Retry-After reflects the queue this class would see under EDF
+        wait = self.estimated_wait_s(gen.priority if gen is not None else None)
+        retry = max(1, int(wait) + 1)
+        if self.queue_full:
+            self._count("requests_shed_total")
+            return shed(f"request queue full ({self.max_queue})", 429, retry)
+        if (gen is not None and gen.deadline_ms is not None
+                and wait * 1000.0 > gen.deadline_ms):
+            # a request that would spend its whole deadline queued is dead
+            # on arrival: refuse it now rather than burn a slot
+            self._count("requests_shed_total")
+            self._count("requests_timed_out_total")
+            return shed(f"cannot finish before deadline: estimated "
+                        f"queue wait {wait:.1f}s exceeds deadline "
+                        f"{gen.deadline_ms:.0f}ms", 429, retry)
+        if (self.tenant_quota > 0 and tenant is not None
+                and self.tenant_load(tenant) >= self.tenant_quota):
+            # only the over-quota tenant is refused
+            self._count("requests_shed_total")
+            return shed(f"tenant {tenant!r} over quota "
+                        f"({self.tenant_quota} in-flight requests)", 429, retry)
+        if prompt is not None and gen is not None:
+            fails = self._poison.get(self._fingerprint(prompt, gen), 0)
+            if fails >= self.poison_limit:
+                self._count("requests_poisoned_total")
+                return shed(f"request refused: it crashed its slot "
+                            f"{fails} times (poison_limit "
+                            f"{self.poison_limit})", 400, retry)
+        return None
+
     def submit(self, prompt: str | list[int],
                gen: GenerationConfig | None = None, *,
                emit: Callable[[Event], None],
-               abort: threading.Event | None = None) -> _Request:
+               abort: threading.Event | None = None,
+               tenant: str | None = None) -> _Request:
         """Enqueue a request; its events flow through ``emit`` (called from
-        the scheduler thread). Raises when the scheduler is closed or the
-        wait queue is full, on a token id outside the vocabulary, and
-        (``ValueError``) on a sampler the slots do not run: typical-p or
+        the scheduler thread). Raises when the scheduler is closed,
+        ``SchedulerStalled`` while a device step is past its stall budget,
+        ``PoisonedRequest`` for a request that crashed its slot
+        ``poison_limit`` times, ``QueueFull`` when the wait queue is full or
+        ``tenant`` is over its quota, and ``ValueError`` on a token id
+        outside the vocabulary, a non-positive deadline, an unknown
+        priority class and a sampler the slots do not run: typical-p or
         mirostat on a sampled request, a constraint with another
         constraint, logprobs, a penalty or a bias, a context shift, more
         than ``LP_TOPK`` logprobs."""
+        g = gen or GenerationConfig()
         if self._closed.is_set():
             raise RuntimeError("scheduler is closed")
+        if self._stalled.is_set():
+            # the worker is blocked behind a stalled step: queueing would
+            # only grow the casualty list
+            self._count("requests_shed_total")
+            raise SchedulerStalled(
+                "scheduler stalled: a device step exceeded its "
+                f"{self.stall_budget_s:.0f}s stall budget; shedding new work")
         if isinstance(prompt, (list, tuple)):
             check_token_ids(prompt, self.cfg.vocab_size)
-        g = gen or GenerationConfig()
+        if g.deadline_ms is not None and g.deadline_ms <= 0:
+            raise ValueError(f"deadline_ms must be positive, "
+                             f"got {g.deadline_ms}")
+        if g.priority not in PRIORITY_CLASSES:
+            raise ValueError(
+                f"unknown priority class {g.priority!r} "
+                f"(one of {', '.join(PRIORITY_CLASSES)})")
+        fails = self._poison.get(self._fingerprint(prompt, g), 0)
+        if fails >= self.poison_limit:
+            self._count("requests_poisoned_total")
+            raise PoisonedRequest(
+                f"request refused: it crashed its slot {fails} times "
+                f"(poison_limit {self.poison_limit}); re-admission would "
+                "quarantine another slot for a deterministic failure")
         if g.temperature > 0.0 and (g.mirostat or g.typical_p < 1.0):
             raise ValueError(
                 "mirostat / typical_p are single-stream features (per-request "
@@ -358,10 +622,18 @@ class SlotScheduler:
         if g.logprobs is not None and g.logprobs > LP_TOPK:
             raise ValueError(f"logprobs alternatives capped at {LP_TOPK} "
                              f"on the parallel-slot path")
-        if self._subq.qsize() >= self.max_queue:
+        if self.queue_full:
+            self._count("requests_shed_total")
             raise QueueFull(f"request queue full ({self.max_queue})")
-        req = _Request(prompt, gen or GenerationConfig(), emit,
-                       abort or threading.Event())
+        if (self.tenant_quota > 0 and tenant is not None
+                and self.tenant_load(tenant) >= self.tenant_quota):
+            # a preempted request is requeued by the worker without passing
+            # here, so preemption never sheds its own victim
+            self._count("requests_shed_total")
+            raise QueueFull(f"tenant {tenant!r} over quota "
+                            f"({self.tenant_quota} in-flight requests)")
+        req = _Request(prompt, g, emit, abort or threading.Event(),
+                       tenant=tenant or "default")
         self._subq.put(req)
         if self._closed.is_set():
             # close() may have drained the queue between the check and the
@@ -371,12 +643,14 @@ class SlotScheduler:
         return req
 
     def generate(self, prompt: str | list[int],
-                 gen: GenerationConfig | None = None) -> Iterator[Event]:
+                 gen: GenerationConfig | None = None, *,
+                 tenant: str | None = None) -> Iterator[Event]:
         """Blocking per-request event stream, safe from any thread. Closing
-        the generator aborts the request at the next chunk boundary."""
+        the generator aborts the request at the next chunk boundary.
+        ``tenant`` charges the request to a quota bucket."""
         q: queue.Queue[Event] = queue.Queue()
         abort = threading.Event()
-        self.submit(prompt, gen, emit=q.put, abort=abort)
+        self.submit(prompt, gen, emit=q.put, abort=abort, tenant=tenant)
         try:
             while True:
                 ev = q.get()
@@ -410,6 +684,243 @@ class SlotScheduler:
         self._closed.set()
         self._wake.set()
         self._worker.join(timeout=30)
+        if self._watchdog is not None:
+            self._watchdog.join(timeout=5)
+
+    # -- preemption and the swap store ---------------------------------------
+    # With queued interactive work and no free row, a batch-class victim's KV
+    # and sampling chains are serialized out through the handoff wire format
+    # into the swap store, its row is freed for the interactive request, and
+    # the victim re-admits when a row frees, with zero prefill. All state is
+    # the worker's. The only safe point for the gather is after the step in
+    # flight has been consumed (``_loop`` consumes it first): host slot
+    # state is one step behind while a step is in flight.
+
+    def preempt_now(self) -> None:
+        """Force one preemption at the next safe point (a victim
+        permitting). The request is counted on the worker thread, as every
+        control operation runs; the swap happens in the loop."""
+
+        def do() -> None:
+            self._force_preempt += 1
+
+        self._control(do)
+        self._wake.set()
+
+    def _preempt_wanted(self) -> bool:
+        """Is there pressure (queued interactive work with no free row, a
+        forced preemption, or an armed ``preempt_storm``) and a victim? The
+        victim is looked for first, so an armed fault's firing is never
+        spent on a pass that could not preempt."""
+        if not self.preempt or self._closed.is_set():
+            return False
+        if self._find_victim() is None:
+            return False
+        if self._force_preempt > 0:
+            return True
+        if faults.ACTIVE and faults.fires("preempt_storm"):
+            return True
+        if self._subq.depth_for(CLASS_RANK["interactive"]) == 0:
+            return False
+        deferred = self._deferred_rows()
+        return not any(self._slots[i] is None and i not in deferred
+                       for i in range(self.n_slots))
+
+    def _find_victim(self) -> _Slot | None:
+        """The slot to preempt, or None. Only batch-class, decode-phase,
+        unconstrained rows that have sampled a token qualify, never a row
+        whose release a quarantine deferred. Fair share: the victim comes
+        from the tenant holding the most slots, and within it the least
+        urgent request (the largest ``_edf_key``) loses its row."""
+        deferred = self._deferred_rows()
+        batch = CLASS_RANK["batch"]
+        cands = [s for s in self._slots
+                 if s is not None and s.phase == "decode"
+                 and not s.stopped and not s.starved and not s.abandoned
+                 and s.sampler is None and s.n_gen >= 1
+                 and CLASS_RANK.get(s.req.gen.priority,
+                                    CLASS_RANK["normal"]) >= batch
+                 and s.idx not in deferred]
+        if not cands:
+            return None
+        active: dict[str, int] = {}
+        for s in self._slots:
+            if s is not None:
+                active[s.req.tenant] = active.get(s.req.tenant, 0) + 1
+        tenant = max(sorted({c.req.tenant for c in cands}),
+                     key=lambda t: active.get(t, 0))
+        pool = [c for c in cands if c.req.tenant == tenant]
+        return max(pool, key=lambda s: _edf_key(s.req))
+
+    def _preempt_one(self) -> None:
+        """One preemption attempt at the loop's safe point. A forced request
+        is spent whether or not the swap lands, so an unswappable victim
+        cannot spin the loop."""
+        victim = self._find_victim()
+        if self._force_preempt > 0:
+            self._force_preempt -= 1
+        if victim is not None:
+            self._swap_out(victim)
+
+    def _swap_out(self, slot: _Slot) -> bool:
+        """Serialize ``slot``'s KV and device-side sampling chains (the next
+        token, the penalty window, the generator's state) into the swap
+        store, free the row and requeue the request under its own EDF key:
+        interactive arrivals outrank it, so the freed row goes to the
+        pressure that caused the preemption."""
+        from .disagg import save_handoff_bytes
+
+        r = slot.idx
+        req = slot.req
+        full_ids = slot.ids + slot.out_ids[:max(0, slot.n_gen - 1)]
+        if int(self._pos[r]) != len(full_ids):
+            # not at the safe point after all (a stopping row's last chunk,
+            # a row parked at max_seq): skip; the loop may retry later
+            return False
+        rc = self._backend.gather(self._bufs, r)
+        extras = {"tok": self._tok_dev[r].cpu().numpy(),
+                  "recent": self._recent_dev[r].cpu().numpy()}
+        if self._gens[r] is not None:
+            extras["rng"] = self._gens[r].get_state().numpy()
+        data = save_handoff_bytes(full_ids, rc, len(full_ids),
+                                  np.zeros((1, 1), np.float32),
+                                  kv_mode=self.kv_mode, extras=extras)
+        self._swap_seq += 1
+        sid = f"s{self._swap_seq}-{os.urandom(4).hex()}"
+        if not self._swap_store.put(sid, data):
+            # the payload alone exceeds the whole store: keep the victim
+            # resident rather than evict every sibling for it
+            self._emit(req, log(
+                f"preemption aborted (slot {r}): swapped state "
+                f"({len(data)} bytes) exceeds DLP_SWAP_STORE_MB"))
+            return False
+        req.swap = sid
+        req.swap_slot = slot
+        self._swapped[sid] = req
+        # free the row now; its retained ids keep the blocks warm, so a
+        # re-admission into the same row is a re-point with no copy
+        self._slots[r] = None
+        self._pos[r] = 0
+        self._row_ids[r] = full_ids
+        self._count(f'preemptions_total{{class="{req.gen.priority}"}}')
+        self._count('kv_swaps_total{result="out"}')
+        self._emit(req, log(
+            f"preempted (slot {r}): {slot.n_gen} tokens generated; KV + "
+            f"sampling state swapped out ({len(data)} bytes); resumes "
+            f"when a slot frees"))
+        self._subq.put(req)
+        return True
+
+    def _restore_swapped(self, free: list[int], req: _Request) -> None:
+        """Re-admit a preempted request: its KV and sampling chains come back
+        with no prefill forward and no prefill count. Fast path: a free row
+        still holds exactly its ids (re-point, no device copy). Slow path:
+        ``adopt_row`` writes the payload into another free row's fresh
+        blocks. A missing or unloadable payload ends the request with a
+        typed Retry-After error."""
+        from .disagg import handoff_extras, load_handoff_bytes
+
+        sid = req.swap
+        slot = req.swap_slot
+        self._swapped.pop(sid, None)
+        data = self._swap_store.take(sid)
+        if data is None:
+            req.swap_slot = None
+            self._swap_error(req, slot, "expired in the swap store", "dropped")
+            return
+        loaded = load_handoff_bytes(data, self._backend.row_cache(), self.max_seq)
+        if loaded is None:
+            req.swap_slot = None
+            self._swap_error(req, slot, "no longer matches this "
+                             "pool's KV representation", "dropped")
+            return
+        rc, ids, _logits, _text = loaded
+        full_ids = list(ids)
+        extras = handoff_extras(data)
+        r = next((i for i in free if self._row_ids[i] == full_ids), None)
+        if r is None:
+            r = min(free, key=lambda i: len(self._row_ids[i]))
+            # the restore_slot order: drop the row's provenance before
+            # adopt_row releases its old blocks
+            self._row_ids[r] = []
+            self._bufs = self._backend.adopt_row(self, self._bufs, rc, r,
+                                                 len(full_ids))
+            self._backend.register_prefix(r, full_ids)
+            self._row_ids[r] = list(full_ids)
+        # a fresh serial: rows of a stale step carrying the old one are
+        # dropped by _consume's serial check
+        self._serial += 1
+        slot.serial = self._serial
+        slot.idx = r
+        self._pos[r] = len(full_ids)
+        dev = self.device
+        self._tok_dev[r] = int(extras["tok"])
+        self._recent_dev[r] = upload(extras["recent"], dev)
+        rng = None
+        if "rng" in extras:
+            rng = torch.Generator(device=dev)
+            rng.set_state(torch.from_numpy(extras["rng"]))
+        self._gens[r] = rng
+        self._arm_bias_row(r, req.gen)
+        req.swap = None
+        req.swap_slot = None
+        self._count('kv_swaps_total{result="in"}')
+        self._emit(req, log(
+            f"resumed from swap (slot {r}): {len(full_ids)} tokens "
+            f"resident; zero re-prefill"))
+        self._slots[r] = slot
+        if slot.deadline is not None and time.monotonic() > slot.deadline:
+            # the budget burned while parked: a timeout, the KV kept
+            self._timeout(slot)
+
+    def _swap_error(self, req: _Request, slot: _Slot | None, why: str,
+                    result: str) -> None:
+        """The terminal of a preempted request whose swapped state is gone
+        (TTL expiry, eviction, a representation change): finish reason
+        ``error`` with ``retry_after_s``, never a silent hang."""
+        self._count(f'kv_swaps_total{{result="{result}"}}')
+        n_prompt = len(slot.ids) if slot is not None else 0
+        n_gen = slot.n_gen if slot is not None else 0
+        retry = max(1, int(self.estimated_wait_s(req.gen.priority)) + 1)
+        msg = (f"request was preempted and its swapped state {why}; "
+               f"resubmit (Retry-After {retry}s)")
+        self._emit(req, done(msg, n_prompt=n_prompt, n_gen=n_gen,
+                             finish_reason="error", error=msg,
+                             retry_after_s=retry))
+
+    def _sweep_swaps(self) -> None:
+        """Loop-top TTL sweep: every expired entry's request gets its typed
+        terminal now (``_drop_swapped``)."""
+        if not self._swapped:
+            return
+        for sid in self._swap_store.sweep():
+            self._drop_swapped(sid, "expired")
+
+    def _drop_swapped(self, sid: str, result: str) -> None:
+        """A swap entry died before re-admission (``expired`` by the sweep,
+        ``evicted`` by a sibling's put): emit the typed terminal. The
+        request's queue entry keeps ``req.swap`` set, so ``_admit`` and
+        ``_drain_queue`` drop it silently later."""
+        req = self._swapped.pop(sid, None)
+        self._swap_store.take(sid)
+        if req is None:
+            return
+        why = ("expired in the swap store (DLP_SWAP_TTL_S)"
+               if result == "expired"
+               else "was evicted from the swap store (DLP_SWAP_STORE_MB)")
+        slot = req.swap_slot
+        req.swap_slot = None
+        self._swap_error(req, slot, why, result)
+
+    def _discard_swap(self, req: _Request) -> None:
+        """Release a live swap entry whose request ends another way (abort,
+        a deadline in the queue, close); the caller emits the terminal."""
+        sid = req.swap
+        self._swapped.pop(sid, None)
+        self._swap_store.take(sid)
+        self._count('kv_swaps_total{result="dropped"}')
+        req.swap = None
+        req.swap_slot = None
 
     # -- worker loop --------------------------------------------------------
 
@@ -420,9 +931,26 @@ class SlotScheduler:
             pending: tuple | None = None
             while not self._closed.is_set():
                 try:
+                    with self._step_lock:
+                        needs_restart = self._needs_restart
+                        self._needs_restart = False
+                    if needs_restart:
+                        # the repeat-stall escalation lands here, on the
+                        # worker, once the stalled step has returned
+                        pending = None
+                        self._recover_engine()
                     self._run_controls()
                     self._sweep_starved()
                     self._finish_prefills()
+                    self._sweep_swaps()
+                    if self._preempt_wanted():
+                        # a safe-point operation: host slot state is one
+                        # step behind while a step is in flight, so its
+                        # readback lands before the victim is gathered
+                        if pending is not None:
+                            self._consume(*pending)
+                            pending = None
+                        self._preempt_one()
                     self._admit()
                     running, prefilling = self._active_rows()
                     if any(self._slots[r].sampler is not None for r, _ in running):
@@ -447,6 +975,9 @@ class SlotScheduler:
                         self._consume(*pending)
                     pending = launched
                     if pending is None and not running and not prefilling:
+                        # idle: nothing is in flight, so deferred quarantine
+                        # releases are safe now
+                        self._flush_releases(force=True)
                         self._wake.wait(timeout=0.05)
                         self._wake.clear()
                 except Exception as e:
@@ -458,6 +989,10 @@ class SlotScheduler:
                     self._fail_all(e)
             self._drain_queue("scheduler closed")
             self._drain_controls("scheduler closed")
+            # after the drain: a parked preempted request is in the queue,
+            # and the drain reads _swapped to give it its terminal event
+            self._swapped.clear()
+            self._swap_store.clear()
             for s in self._slots:
                 if s is not None:
                     self._finish(s, "error", note="scheduler closed")
@@ -550,6 +1085,12 @@ class SlotScheduler:
             if self._slots[slot_id] is not None:
                 raise RuntimeError(f"slot {slot_id} is busy (processing); "
                                    "restore it between requests")
+            if slot_id in self._deferred_rows():
+                # adopt_row releases the row's old blocks inline, inside the
+                # window the deferral protects
+                raise RuntimeError(
+                    f"slot {slot_id} is draining (quarantined blocks "
+                    f"awaiting in-flight chunks); retry shortly")
             from .engine import load_kv_file
 
             res = load_kv_file(path, self._backend.row_cache(), self.max_seq)
@@ -574,6 +1115,11 @@ class SlotScheduler:
         def do() -> None:
             if self._slots[slot_id] is not None:
                 raise RuntimeError(f"slot {slot_id} is busy (processing)")
+            if slot_id in self._deferred_rows():
+                # the deferred release erases the row itself
+                raise RuntimeError(
+                    f"slot {slot_id} is draining (quarantined blocks "
+                    f"awaiting in-flight chunks); retry shortly")
             self._row_ids[slot_id] = []
             self._backend.release_row(slot_id)
 
@@ -617,10 +1163,17 @@ class SlotScheduler:
         r = slot.idx
         fill = len(slot.ids) - len(slot.pending)
         try:
+            if faults.ACTIVE:
+                faults.check("prefill_chunk_crash", row=r, serial=slot.serial,
+                             phase="finish")
             logits, fill = self._backend.prefill_row(self, r, slot.ids, fill)
         except PoolExhausted as e:
-            # no pool room for the suffix bucket: the server is overloaded
+            # no pool room for the suffix bucket: the server is overloaded,
+            # not the prompt (no poison strike)
             self._finish(slot, "error", note=f"engine error: {e!r}")
+            return
+        except Exception as e:
+            self._quarantine(slot, f"row failed finishing prefill: {e!r}")
             return
         self._pos[r] = len(slot.ids)
         self._first_token(slot, logits, slot.prefix_k, slot.n_prompt)
@@ -648,16 +1201,181 @@ class SlotScheduler:
 
     def _fail_all(self, e: Exception) -> None:
         """Fail every in-flight request with a terminal event and rebuild
-        the pool and the device chains."""
-        for s in self._slots:
-            if s is not None:
+        the pool and the device chains: for an error that belongs to no
+        row."""
+        # close the step window first: a watchdog claim in flight has then
+        # either landed (abandoned is set, visible below) or backed off
+        self._step_end()
+        resident = [s for s in self._slots if s is not None]
+        for s in resident:
+            if s.abandoned:   # the watchdog already told this client
+                self._forget(s)
+            else:
                 self._finish(s, "error", note=f"engine error: {e!r}")
+                if len(resident) == 1:
+                    # a step-wide crash is the request's only when it ran
+                    # alone; with siblings the culprit is ambiguous
+                    self._record_poison(s.req)
         self._slots = [None] * self.n_slots
+        self._pos[:] = 0
+        self._release_q.clear()   # the pool is rebuilt below
         try:
             self._alloc_state()
         except Exception:
             # the device is gone: closing makes every later submit fail fast
             self._closed.set()
+
+    # -- slot-level fault isolation ----------------------------------------
+
+    def _quarantine(self, slot: _Slot, note: str) -> None:
+        """Fail one slot's request (terminal event, slot freed) while every
+        sibling row keeps decoding. The row's blocks are not released
+        inline: a step launched before the failure may still write through
+        the row's uploaded table, so the release waits until those steps
+        are consumed (``_release_q``)."""
+        r = slot.idx
+        fails = self._record_poison(slot.req)
+        self._count("slots_quarantined_total")
+        if fails >= self.poison_limit:
+            note += (f" (request has now failed {fails}x: further "
+                     "submissions will be refused)")
+        self._emit(slot.req, log(f"slot {r} quarantined: {note}"))
+        self._finish(slot, "error", note=f"slot quarantined: {note}")
+        self._release_q.append([2, r])
+
+    def _forget(self, slot: _Slot) -> None:
+        """Reclaim a slot whose terminal event was already emitted (the
+        watchdog failed it mid-stall): bookkeeping only, no events."""
+        r = slot.idx
+        if self._slots[r] is slot:
+            self._slots[r] = None
+            self._pos[r] = 0
+            self._row_ids[r] = []
+        self._release_q.append([2, r])
+
+    def _timeout(self, slot: _Slot) -> None:
+        """Deadline exceeded: finish the request with the typed ``timeout``
+        reason. Its KV is valid (a healthy request that ran out of time), so
+        the row keeps it as a retained prefix."""
+        self._count("requests_timed_out_total")
+        waited = time.monotonic() - slot.req.submitted
+        self._emit(slot.req, log(
+            f"deadline exceeded ({slot.req.gen.deadline_ms:.0f} ms budget, "
+            f"{waited * 1000:.0f} ms elapsed); stopping"))
+        slot.finish = "timeout"
+        slot.stopped = True
+        self._finish(slot, "timeout")
+
+    def _deferred_rows(self) -> set[int]:
+        """Rows whose block release the quarantine deferred behind steps in
+        flight: not grantable, restorable or evictable until
+        ``_flush_releases`` reclaims them."""
+        return {e[1] for e in self._release_q}
+
+    def _flush_releases(self, force: bool = False) -> None:
+        """Release quarantined rows' blocks once the steps in flight at
+        quarantine time are consumed (two ``_consume`` calls: launch and
+        consume alternate). ``force`` releases now (the idle loop: nothing
+        is in flight)."""
+        if not self._release_q:
+            return
+        rest: list[list[int]] = []
+        for entry in self._release_q:
+            entry[0] -= 1
+            r = entry[1]
+            if not force and entry[0] > 0:
+                rest.append(entry)
+                continue
+            if self._slots[r] is None and not self._row_ids[r]:
+                # not re-admitted meanwhile (admission owns the row's blocks
+                # from then on)
+                self._backend.release_row(r)
+        self._release_q = rest
+
+    # -- the decode watchdog ------------------------------------------------
+
+    def _step_begin(self, rows: list[tuple[int, int]]) -> None:
+        with self._step_lock:
+            self._step_t0 = time.monotonic()
+            self._step_rows = tuple(rows)
+            self._step_flagged = False
+
+    def _step_end(self) -> None:
+        with self._step_lock:
+            flagged = self._step_flagged
+            self._step_t0 = None
+            self._step_rows = ()
+            self._step_flagged = False
+            if not flagged:
+                # only an on-time completion resets the repeat-stall count
+                self._stall_streak = 0
+        # a completed readback proves the device serves again. Cleared
+        # unconditionally: with overlap, the next launch's _step_begin may
+        # have reset the flag before the stalled step's consume got here
+        self._stalled.clear()
+
+    def _watch(self) -> None:
+        """The watchdog thread: a device step (launch to readback) past the
+        stall budget fails its requests now, so every consumer unblocks
+        with a terminal event instead of waiting with the worker, and new
+        work is shed until the step returns; a repeat stall rebuilds the
+        device state once it does. The poll interval follows the budget,
+        so a live scheduler's ``stall_budget_s`` may be changed."""
+        while not self._closed.wait(
+                max(0.01, min(0.5, self.stall_budget_s / 5.0))):
+            victims, streak = self._claim_stalled()
+            if victims is None:
+                continue
+            self._count("watchdog_stalls_total")
+            self._stalled.set()
+            msg = (f"device step stalled > {self.stall_budget_s:.1f}s "
+                   f"(stall {streak}; "
+                   f"{'restarting engine when it returns' if streak >= 2 else 'failing affected requests'})")
+            for slot in victims:
+                self._emit(slot.req, log(f"watchdog: {msg}"))
+                self._emit(slot.req, done(
+                    f"request failed: {msg}", n_prompt=len(slot.ids),
+                    n_gen=slot.n_gen, finish_reason="error",
+                    error=f"watchdog: {msg}"))
+
+    def _claim_stalled(self) -> tuple[list[_Slot] | None, int]:
+        """Flag the current step window as stalled and claim its victims:
+        ``(slots to fail, stall streak)``, or ``(None, 0)`` when the window
+        is healthy, closed or already flagged. The claim (``abandoned``)
+        happens under ``_step_lock`` with the window re-checked, so a step
+        finishing right at the budget either closes its window first (the
+        claim backs off and the worker delivers the chunk) or is claimed
+        first (the worker's ``abandoned`` check reclaims it silently):
+        never two terminal events for one request."""
+        with self._step_lock:
+            t0, rows, flagged = (self._step_t0, self._step_rows,
+                                 self._step_flagged)
+            if (t0 is None or flagged
+                    or time.monotonic() - t0 < self.stall_budget_s):
+                return None, 0
+            self._step_flagged = True
+            self._stall_streak += 1
+            streak = self._stall_streak
+            if streak >= 2:
+                self._needs_restart = True
+            victims: list[_Slot] = []
+            for r, serial in rows:
+                slot = self._slots[r]
+                if slot is None or slot.serial != serial or slot.abandoned:
+                    continue
+                slot.abandoned = True   # the worker reclaims it (_forget)
+                victims.append(slot)
+        return victims, streak
+
+    def _recover_engine(self) -> None:
+        """Repeat-stall escalation, on the worker thread: the stalled step's
+        buffers are suspect, so fail what is resident and rebuild the device
+        state (the reference's path without a supervised engine)."""
+        self._fail_all(RuntimeError(
+            "engine restarted after repeated device-step stalls"))
+        with self._step_lock:
+            self._stall_streak = 0
+        self._stalled.clear()
 
     def _drain_queue(self, reason: str) -> None:
         while True:
@@ -665,6 +1383,12 @@ class SlotScheduler:
                 req = self._subq.get_nowait()
             except queue.Empty:
                 return
+            if req.swap is not None and self._swapped.get(req.swap) is not req:
+                # the swap entry died and _drop_swapped already emitted this
+                # request's terminal: its queue entry goes silently
+                continue
+            if req.swap is not None:
+                self._discard_swap(req)
             self._emit(req, done(f"request dropped: {reason}", n_prompt=0,
                                  n_gen=0, finish_reason="error", error=reason))
 
@@ -678,28 +1402,60 @@ class SlotScheduler:
     # -- admission and the first token --------------------------------------
 
     def _admit(self) -> None:
-        """Assign waiting requests to free slots."""
+        """Assign waiting requests to free slots, in EDF order. A row whose
+        release a quarantine deferred is not grantable: admission releases
+        a row's old blocks inline, inside the window the deferral protects."""
         while True:
-            free = [i for i in range(self.n_slots) if self._slots[i] is None]
+            deferred = self._deferred_rows()
+            free = [i for i in range(self.n_slots)
+                    if self._slots[i] is None and i not in deferred]
             if not free:
                 return
             try:
                 req = self._subq.get_nowait()
             except queue.Empty:
                 return
+            if req.swap is not None and self._swapped.get(req.swap) is not req:
+                # the swap entry expired or was evicted while queued:
+                # _drop_swapped already emitted the typed terminal
+                continue
             if req.abort.is_set():
+                if req.swap is not None:
+                    self._discard_swap(req)
                 self._emit(req, done("request aborted while queued",
                                      n_prompt=0, n_gen=0,
                                      finish_reason="abort"))
                 continue
+            if (req.gen.deadline_ms is not None and time.monotonic()
+                    > req.submitted + req.gen.deadline_ms / 1000.0):
+                # the whole budget burned in the queue: a prefill now could
+                # only produce late tokens
+                self._count("requests_timed_out_total")
+                if req.swap is not None:
+                    self._discard_swap(req)
+                self._emit(req, done(
+                    f"deadline exceeded while queued "
+                    f"({req.gen.deadline_ms:.0f} ms budget)", n_prompt=0,
+                    n_gen=0, finish_reason="timeout"))
+                continue
             try:
                 self._assign(free, req)
-            except PoolExhausted as e:
-                # the server is overloaded, not the request: a terminal
-                # event for this request, siblings untouched
-                self._emit(req, done(f"engine error: {e!r}", n_prompt=0,
-                                     n_gen=0, finish_reason="error",
-                                     error=repr(e)))
+            except Exception as e:
+                self._fail_request(req, e, free)
+
+    def _fail_request(self, req: _Request, e: Exception,
+                      free: list[int]) -> None:
+        """One request failed during admission or prefill (a tokenizer
+        error, a prefill fault, an exhausted pool): a terminal event for
+        that request, a poison strike unless the pool was the cause (the
+        server is overloaded, not the prompt), siblings untouched."""
+        if not isinstance(e, PoolExhausted):
+            self._record_poison(req)
+        self._emit(req, done(f"engine error: {e!r}", n_prompt=0, n_gen=0,
+                             finish_reason="error", error=repr(e)))
+        for i in free:
+            if self._slots[i] is not None and self._slots[i].req is req:
+                self._slots[i] = None
 
     def _pick_slot(self, free: list[int], ids: list[int]) -> tuple[int, int]:
         """(slot, reusable-prefix length): the free slot whose retained KV
@@ -726,12 +1482,17 @@ class SlotScheduler:
 
     def _assign(self, free: list[int], req: _Request) -> None:
         """Prefill one row of the pool and emit the first token, or start a
-        chunked prefill."""
+        chunked prefill; a preempted request swaps back in instead."""
+        if req.swap is not None:
+            self._restore_swapped(free, req)
+            return
         eng = self.engine
         gen = req.gen
         self._serial += 1
         for ev in eng._events_on_load:
             self._emit(req, ev)
+        if faults.ACTIVE:
+            faults.check("tokenizer_error", serial=self._serial)
         ids = list(req.prompt) if isinstance(req.prompt, (list, tuple)) \
             else eng.tokenizer.encode(req.prompt)
         n_prompt = len(ids)
@@ -760,6 +1521,8 @@ class SlotScheduler:
             return
         slot.t_start = time.monotonic()
         self._row_ids[r] = []  # the row is being overwritten either way
+        if faults.ACTIVE:
+            faults.check("prefill_oom", row=r, serial=self._serial)
         if self.prefill_chunked and len(ids) - reuse_k > self.prefill_chunk:
             # chunked admission: claim the row's blocks host-side only; the
             # suffix is fed through mixed steps (_launch_mixed) and the last
@@ -808,9 +1571,15 @@ class SlotScheduler:
         req = slot.req
         gen = req.gen
         dev = self.device
-        vec = self._arm_bias_row(r, gen)
         slot.phase = "decode"
         slot.pending = []
+        if slot.deadline is not None and time.monotonic() > slot.deadline:
+            # the KV is valid and kept, but no token may be sampled past
+            # the budget
+            self._slots[r] = slot
+            self._timeout(slot)
+            return
+        vec = self._arm_bias_row(r, gen)
         window = np.asarray(([-1] * RECENT_W + slot.ids)[-RECENT_W:], np.int64)
         if gen.json_mode or gen.grammar:
             self._first_constrained(slot, logits[0], window, n_prompt)
@@ -981,7 +1750,7 @@ class SlotScheduler:
         if self._slots[r] is slot:
             self._slots[r] = None
             self._pos[r] = 0
-            if finish_reason in ("stop", "length"):
+            if finish_reason in ("stop", "length", "timeout"):
                 # every emitted token but the newest has been fed, so the
                 # row's KV is valid for prompt + n_gen - 1 tokens; a row
                 # finishing mid-prefill fed only part of its prompt
@@ -1009,6 +1778,13 @@ class SlotScheduler:
                     finish_reason = "stop"
             if tail:
                 self._emit(slot.req, token(tail))
+        # request-time EWMAs, overall and of the request's class: the
+        # shedding wait estimates
+        dt_req = time.monotonic() - slot.req.submitted
+        self._avg_request_s = 0.8 * self._avg_request_s + 0.2 * dt_req
+        cls = slot.req.gen.priority
+        if cls in self._avg_class_s:
+            self._avg_class_s[cls] = 0.8 * self._avg_class_s[cls] + 0.2 * dt_req
         msg = note or (f"generated {n_gen} tokens | TTFT "
                        f"{slot.ttft_ms:.1f} ms | decode {tps:.2f} tok/s")
         extra = {"error": note} if finish_reason == "error" and note else {}
@@ -1094,6 +1870,11 @@ class SlotScheduler:
                                for r in range(B)], np.int32)
         params, penalized, rngs, bias, lp, cs = self._row_params(running)
         cache = self._backend.cache(self._bufs, upload(step_pos, self.device))
+        # the watchdog window opens at launch and closes when the chunk's
+        # readback completes (_consume); a device_stall fault sleeps inside
+        self._step_begin(running)
+        if faults.ACTIVE:
+            faults.stall("device_stall")
         tok, recent = self._tok_dev, self._recent_dev
         toks, lps = [], []
         cso = None
@@ -1165,6 +1946,9 @@ class SlotScheduler:
         block, n_tok = dev[:, :Tc], dev[:, Tc]
         block[:, 0] = torch.where(dev[:, Tc + 1].bool(), self._tok_dev, block[:, 0])
         cache = self._backend.cache(self._bufs, dev[:, Tc + 2].to(torch.int32))
+        self._step_begin(running + [(s.idx, s.serial) for s in prefilling])
+        if faults.ACTIVE:
+            faults.stall("device_stall")
         lg = self._backend.mstep(block, n_tok, cache)
         self.forwards += 1
         self._tok_dev, self._recent_dev, lps, cso = _sample_chain(
@@ -1192,8 +1976,10 @@ class SlotScheduler:
         """Read back a finished chunk and route its tokens (and, to the rows
         that asked, their logprobs) to their slots; a constrained row (a
         one-step chunk, ``cs_raw`` its raw logits [B, V] on the device)
-        takes the host's pick from its shortlist instead."""
+        takes the host's pick from its shortlist instead. An exception in a
+        row's own work quarantines that row; its siblings keep decoding."""
         got = read()
+        self._step_end()   # the chunk's readback completed: the window closes
         toks = got[0] if lp or cs_raw is not None else got   # [n][B]
         if cs_raw is not None:
             cs_v, cs_i = got[4 if lp else 1], got[5 if lp else 2]   # [1][B][K]
@@ -1201,27 +1987,57 @@ class SlotScheduler:
             slot = self._slots[r]
             if slot is None or slot.serial != serial:
                 continue  # freed in an earlier chunk: a junk row
+            if slot.abandoned:
+                # the watchdog failed this request during a stall and its
+                # terminal event is out: reclaim the bookkeeping only
+                self._forget(slot)
+                continue
             if slot.req.abort.is_set():
                 self._finish(slot, "abort")
                 continue
-            if slot.sampler is not None:
-                self._advance_constrained(slot, cs_v[0][r], cs_i[0][r], cs_raw[r])
+            if slot.deadline is not None and time.monotonic() > slot.deadline:
+                # this chunk's tokens are already past the budget: drop them
+                self._timeout(slot)
+                continue
+            try:
+                if faults.ACTIVE:
+                    faults.check("decode_chunk_crash", row=r, serial=serial)
+                if slot.sampler is not None:
+                    self._advance_constrained(slot, cs_v[0][r], cs_i[0][r],
+                                              cs_raw[r])
+                    if slot.stopped:
+                        self._finish(slot, slot.finish)
+                    continue
+                want = slot.req.gen.logprobs if lp else None
+                for i in range(n):
+                    t = int(toks[i][r])
+                    data = None if want is None else lp_payload(
+                        t, got[1][i][r], got[2][i][r], got[3][i][r], want)
+                    self._accept(slot, t, data)
+                    if slot.stopped:
+                        break
                 if slot.stopped:
                     self._finish(slot, slot.finish)
-                continue
-            want = slot.req.gen.logprobs if lp else None
-            for i in range(n):
-                t = int(toks[i][r])
-                data = None if want is None else lp_payload(
-                    t, got[1][i][r], got[2][i][r], got[3][i][r], want)
-                self._accept(slot, t, data)
-                if slot.stopped:
-                    break
-            if slot.stopped:
-                self._finish(slot, slot.finish)
+            except Exception as e:
+                self._quarantine(slot, f"row failed mid-decode-chunk: {e!r}")
         for r, serial in prefill:
+            # prefill-phase rows route no tokens, but abort, the deadline
+            # and fault isolation apply at every fed chunk
             slot = self._slots[r]
             if slot is None or slot.serial != serial or slot.stopped:
                 continue
+            if slot.abandoned:
+                self._forget(slot)
+                continue
             if slot.req.abort.is_set():
                 self._finish(slot, "abort")
+                continue
+            if slot.deadline is not None and time.monotonic() > slot.deadline:
+                self._timeout(slot)
+                continue
+            try:
+                if faults.ACTIVE:
+                    faults.check("prefill_chunk_crash", row=r, serial=serial)
+            except Exception as e:
+                self._quarantine(slot, f"row failed mid-prefill-chunk: {e!r}")
+        self._flush_releases()

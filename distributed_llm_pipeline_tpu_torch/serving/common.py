@@ -12,11 +12,13 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import math
 import threading
 from typing import AsyncIterator
 
 from aiohttp import web
 
+from ..runtime.engine import PRIORITY_CLASSES
 from ..utils import Event
 
 KEEPALIVE_S = 1.0
@@ -29,8 +31,39 @@ def cors(resp: web.StreamResponse) -> web.StreamResponse:
     return resp
 
 
-def json_response(data, status: int = 200) -> web.Response:
-    return cors(web.json_response(data, status=status))
+def json_response(data, status: int = 200,
+                  headers: dict | None = None) -> web.Response:
+    resp = cors(web.json_response(data, status=status))
+    if headers:
+        resp.headers.update(headers)
+    return resp
+
+
+def priority_error(value) -> str | None:
+    """The wire validation of the priority class, shared by /chat and both
+    completion dialects: None (absent, or an explicit JSON null) means the
+    server's default; anything else must name a class. Returns the
+    client-facing error, or None when the value is acceptable."""
+    if value is None or value in PRIORITY_CLASSES:
+        return None
+    return f"'priority' must be one of {', '.join(PRIORITY_CLASSES)}"
+
+
+def retry_after_value(seconds) -> str:
+    """The ``Retry-After`` header: RFC 9110 allows delay-seconds (a
+    non-negative integer) or an HTTP date, so a float is rounded up, with a
+    floor of 1."""
+    return str(max(1, math.ceil(float(seconds))))
+
+
+def shed_response(shed: dict) -> web.Response:
+    """The HTTP form of a scheduler shed decision
+    (``SlotScheduler.shed_check``): its status (429, 503 or 400) with
+    ``Retry-After``, so clients back off from a saturated or recovering
+    server."""
+    return json_response(
+        {"error": shed["reason"]}, status=shed["status"],
+        headers={"Retry-After": retry_after_value(shed["retry_after_s"])})
 
 
 async def sse_response(request: web.Request) -> web.StreamResponse:
@@ -61,11 +94,13 @@ async def acquire_with_keepalive(lock: asyncio.Lock,
 
 
 async def engine_events(engine, prompt, gen, abort: threading.Event,
+                        tenant: str | None = None,
                         ) -> AsyncIterator[Event | None]:
     """Yield the events of ``engine.generate`` (an Engine or a
     SlotScheduler); ``None`` marks an idle gap of
     ``KEEPALIVE_S`` (handlers turn it into a keep-alive). An engine failure becomes a
     terminal ``done`` event carrying ``data["error"]``, never an exception.
+    ``tenant`` (a SlotScheduler only) charges the request to a quota.
 
     The finally clause joins the worker thread, but an async generator's
     finally runs only when the generator is closed: callers that may break
@@ -80,7 +115,8 @@ async def engine_events(engine, prompt, gen, abort: threading.Event,
             # closing: on abort the generator is closed here, on the worker
             # thread, so a scheduler stream frees its slot at the next chunk
             # boundary instead of whenever the collector runs
-            with contextlib.closing(engine.generate(prompt, gen)) as events:
+            kw = {"tenant": tenant} if tenant is not None else {}
+            with contextlib.closing(engine.generate(prompt, gen, **kw)) as events:
                 for ev in events:
                     if abort.is_set():
                         break

@@ -22,10 +22,16 @@ as one stream under the decode lock, as every request does without slots.
 (``Engine.generate_batch``) under the decode lock, as embeddings do.
 Usage counts come from the engine's ``done`` event.
 
+``priority`` (a class name) and ``deadline_ms`` are served on both
+dialects, with the reference's 400 texts for bad values; on the slots a
+request the scheduler sheds (``SlotScheduler.shed_check``: a full queue or
+an unmeetable deadline, a stalled device, a poisoned request) gets its
+status with an integer ``Retry-After``, and a request that runs out of
+time ends with finish reason ``timeout`` (``timed_out`` on /completion).
+
 The server holds one model: ``model`` may name it or be left out, and any
 other name is a 404. Fields and routes of the reference that the port does
-not serve yet (LoRA, priority, deadlines) get a 400 that names them; none
-is ignored.
+not serve yet (LoRA) get a 400 that names them; none is ignored.
 """
 
 from __future__ import annotations
@@ -48,12 +54,19 @@ from ..runtime.scheduler import LP_TOPK
 from .chat_template import ChatTemplateError, render_chat_template
 from .chat_template import _text_of as text_of
 from .common import (acquire_with_keepalive, cors, engine_events, json_response,
+                     priority_error, retry_after_value, shed_response,
                      sse_response)
 
 # request fields of the reference the port does not serve yet, each with the
 # values that ask for nothing (a client may send those)
-_NOT_SERVED = {"lora": (None, []), "priority": (None, "normal"),
-               "deadline_ms": (None,)}
+_NOT_SERVED = {"lora": (None, [])}
+
+
+def _retry_headers(final: dict) -> dict | None:
+    """``Retry-After`` for an error that came from a shed decision (its
+    ``retry_after_s``), in integer seconds."""
+    ra = final.get("retry_after_s")
+    return {"Retry-After": retry_after_value(ra)} if ra is not None else None
 
 
 def not_served(what: str) -> str:
@@ -259,7 +272,8 @@ class CompletionAPI:
                      final: dict, tok_data: list[dict]) -> web.Response:
         if "error" in final:
             return json_response({"error": final["error"]},
-                                 status=final.get("status", 500))
+                                 status=final.get("status", 500),
+                                 headers=_retry_headers(final))
         extra = {}
         if gen.logprobs is not None:
             extra["completion_probabilities"] = self._llama_probs(
@@ -415,7 +429,19 @@ class CompletionAPI:
         n_keep = body.get("n_keep", 0)
         if not isinstance(n_keep, int) or n_keep < 0:
             raise BadRequest("'n_keep' must be a non-negative int")
+        deadline = take(("deadline_ms",), float, g.deadline_ms)
+        if deadline is not None and deadline <= 0:
+            raise BadRequest("'deadline_ms' must be a positive number "
+                             "of milliseconds")
+        prio = body.get("priority")
+        err = priority_error(prio)
+        if err is not None:
+            raise BadRequest(err)
+        if prio is None:
+            prio = g.priority   # null: the server's default
         return GenerationConfig(
+            deadline_ms=deadline,
+            priority=prio,
             max_new_tokens=take((n_key, "n_predict"), int, g.max_new_tokens),
             temperature=temp,
             top_k=take(("top_k",), int, g.top_k),
@@ -454,16 +480,24 @@ class CompletionAPI:
                 "total_tokens": d.get("n_prompt", 0) + d.get("n_gen", 0)}
 
     @staticmethod
-    def _openai_error(msg: str, status: int = 400) -> web.Response:
+    def _openai_error(msg: str, status: int = 400,
+                      headers: dict | None = None) -> web.Response:
         err_type = "invalid_request_error" if status < 500 else "server_error"
         return json_response({"error": {"message": msg, "type": err_type}},
-                             status=status)
+                             status=status, headers=headers)
 
     async def _collect(self, engine, prompt, gen: GenerationConfig
                        ) -> tuple[str, dict, list[dict]]:
         """Run to completion: (text, the done event's data, the token
         events' data, each stamped with its offset in the text)."""
         target, lock = self._target(engine, gen)
+        if not lock:
+            shed = target.shed_check(
+                gen, prompt if isinstance(prompt, str) else None)
+            if shed is not None:   # 429 / 503 / 400 with Retry-After
+                return "", {"error": shed["reason"], "finish_reason": "error",
+                            "status": shed["status"],
+                            "retry_after_s": shed["retry_after_s"]}, []
         abort = threading.Event()
         text: list[str] = []
         final: dict = {}
@@ -496,6 +530,11 @@ class CompletionAPI:
         """SSE with keep-alives while queued and while idle; ``write_event``
         maps an engine event to bytes (or None to skip it)."""
         target, lock = self._target(engine, gen)
+        if not lock:
+            shed = target.shed_check(
+                gen, prompt if isinstance(prompt, str) else None)
+            if shed is not None:   # 429 / 503 / 400 with Retry-After
+                return shed_response(shed)
         resp = await sse_response(request)
         if lock and not await acquire_with_keepalive(self._busy, resp):
             return resp
@@ -916,7 +955,8 @@ class CompletionAPI:
 
         text, final, tok_data = await self._collect(engine, prompt, gen)
         if "error" in final:
-            return self._openai_error(final["error"], status=final.get("status", 500))
+            return self._openai_error(final["error"], status=final.get("status", 500),
+                                      headers=_retry_headers(final))
         lp_obj = (self._openai_lp(engine, tok_data, gen.logprobs)
                   if gen.logprobs is not None else None)
         return json_response({
@@ -992,7 +1032,8 @@ class CompletionAPI:
 
         text, final, tok_data = await self._collect(engine, prompt, gen)
         if "error" in final:
-            return self._openai_error(final["error"], status=final.get("status", 500))
+            return self._openai_error(final["error"], status=final.get("status", 500),
+                                      headers=_retry_headers(final))
         lp_obj = (self._chat_lp(engine, tok_data, gen.logprobs)
                   if gen.logprobs is not None else None)
         return json_response({

@@ -52,7 +52,7 @@ from ..models.llama import POOLING_TYPES, QUANT_MODES
 from ..runtime import Engine, GenerationConfig, SlotScheduler
 from ..runtime.engine import check_token_ids
 from .common import (acquire_with_keepalive, cors, engine_events,
-                     json_response, sse_response)
+                     json_response, priority_error, shed_response, sse_response)
 from .openai import CompletionAPI
 
 STATIC_DIR = Path(__file__).parent / "static"
@@ -60,7 +60,8 @@ STATIC_DIR = Path(__file__).parent / "static"
 # request-body fields a client may override per request (plus "stop"), as
 # the reference's /chat takes them
 _OVERRIDES = ("max_new_tokens", "temperature", "top_k", "top_p", "min_p",
-              "repeat_penalty", "repeat_last_n", "seed")
+              "repeat_penalty", "repeat_last_n", "seed", "deadline_ms",
+              "priority")
 
 
 class ChatServer:
@@ -115,6 +116,19 @@ class ChatServer:
     def _gen_for(self, body) -> GenerationConfig | str:
         """The request's generation config, or the client-facing error."""
         overrides = {k: body[k] for k in _OVERRIDES if k in body}
+        if "priority" in overrides:
+            err = priority_error(overrides["priority"])
+            if err is not None:
+                return err
+            if overrides["priority"] is None:
+                del overrides["priority"]   # null: the server's default
+        if overrides.get("deadline_ms") is not None:
+            try:
+                overrides["deadline_ms"] = float(overrides["deadline_ms"])
+                if overrides["deadline_ms"] <= 0:
+                    raise ValueError
+            except (TypeError, ValueError):
+                return "'deadline_ms' must be a positive number"
         stop = body.get("stop")
         if isinstance(stop, str):
             overrides["stop"] = (stop,)
@@ -148,10 +162,18 @@ class ChatServer:
         gen = self._gen_for(body)
         if isinstance(gen, str):
             return json_response({"error": gen}, status=400)
-        resp = await sse_response(request)
         # the slot scheduler batches concurrent requests itself; the
         # single-stream engine takes them in turn under the decode lock
         locked = self.scheduler is None
+        # the tenant a quota charges: the X-DLP-Tenant header or the body's
+        # field; only the slots keep quotas (the lock path serves one stream)
+        tenant = request.headers.get("X-DLP-Tenant") or body.get("tenant")
+        if not locked:
+            shed = self.scheduler.shed_check(
+                gen, prompt if isinstance(prompt, str) else None, tenant=tenant)
+            if shed is not None:   # 429 / 503 / 400 with Retry-After
+                return shed_response(shed)
+        resp = await sse_response(request)
         if locked and not await acquire_with_keepalive(self._busy, resp):
             return resp  # client gave up while queued; lock not held
         target = self.engine if locked else self.scheduler
@@ -159,8 +181,9 @@ class ChatServer:
         try:
             # aclosing: a break closes the generator (joining the engine
             # thread) before the decode lock is released below
-            async with contextlib.aclosing(
-                    engine_events(target, prompt, gen, abort)) as events:
+            async with contextlib.aclosing(engine_events(
+                    target, prompt, gen, abort,
+                    tenant=None if locked else tenant)) as events:
                 async for ev in events:
                     try:
                         await resp.write(

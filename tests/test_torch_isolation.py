@@ -33,7 +33,8 @@ sys.path.insert(0, {root!r})
 import distributed_llm_pipeline_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 NEW = {{"cli", "config", "serving.openai", "serving.chat_template", "ops.gbnf",
-       "ops.json_constraint", "ops.json_schema", "runtime.constrained"}}
+       "ops.json_constraint", "ops.json_schema", "runtime.constrained",
+       "runtime.faults", "runtime.swapstore", "runtime.disagg"}}
 missing = {{n for n in NEW if pkg.__name__ + "." + n not in names}}
 assert not missing, missing
 for name in names:

@@ -408,18 +408,24 @@ def test_bad_bodies_get_the_reference_errors(bad_answers, name):
     assert port[name][1] == ref[name][1]
 
 
-# a field or route the port does not serve yet, and the word its 400 names
+# a field or route the port does not serve yet, and the word its 400 names.
+# priority and deadline_ms are served: a bad value of each gets the
+# reference's 400, which names the field
 UNSERVED = {
     "lora": ("/completion", {"prompt": "x", "lora": [{"id": 0, "scale": 1.0}]}, "lora"),
     "priority": ("/v1/completions", {"prompt": "x", "priority": "high"}, "priority"),
-    "deadline_ms": ("/completion", {"prompt": "x", "deadline_ms": 500}, "deadline_ms"),
+    "deadline_ms": ("/completion", {"prompt": "x", "deadline_ms": -5}, "deadline_ms"),
 }
+SERVED = {"priority", "deadline_ms"}
 
 
 @pytest.fixture(scope="module")
 def unserved_answers(engines):
     app = ChatServer(engines[1], GenerationConfig(temperature=0.0)).app
     out = _post_all(app, {k: v[:2] for k, v in UNSERVED.items()})
+    ref = _post_all(JaxChatServer(engines[0], JaxGen(temperature=0.0)).app,
+                    {k: UNSERVED[k][:2] for k in SERVED})
+    out.update({f"ref_{k}": v for k, v in ref.items()})
 
     async def lora_adapters():
         client = TestClient(TestServer(ChatServer(engines[1]).app))
@@ -440,7 +446,11 @@ def test_unserved_fields_and_routes_are_400(unserved_answers, name):
     word = UNSERVED[name][2] if name in UNSERVED else "/lora-adapters"
     err = body["error"]
     msg = err["message"] if isinstance(err, dict) else err
-    assert status == 400 and word in msg and "not yet served" in msg, body
+    assert status == 400 and word in msg, body
+    if name in SERVED:
+        assert (status, body) == tuple(unserved_answers[f"ref_{name}"]), body
+    else:
+        assert "not yet served" in msg, body
 
 
 def test_neutral_values_of_unserved_fields_are_accepted(engines):
