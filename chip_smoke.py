@@ -237,7 +237,25 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    flash_attention n_layers times per one-stream forward. The phase decodes
    in chunks of 8 steps (DLP_DECODE_CHUNK=8), so a short request pays no
    32-step chunk and a preemption's safe point comes every 8 steps.
-15. The total wall time, the kernels line (one JSON object), the card line,
+15. The supervised engine, the model registry, LoRA and /metrics, after
+   phase 10: ``dlp-serve-torch``'s own constructors (``build_engine``,
+   ``load_engine``) serve phase 4's GGUF with a
+   rank-8 adapter over attn_q, attn_v and ffn_down of every layer (written
+   by ``write_lora_gguf``) through a SupervisedEngine and a ModelRegistry.
+   The merged projections on the card must equal the host merge, the
+   greedy text differ from phase 4's and ``/lora-adapters`` list the
+   adapter; a prefill_oom fault inside a generation restarts the engine
+   (the adapter merged again) and the retried request's greedy text equals
+   the uncrashed one, device memory after the restart within 64 MiB of
+   before (the peak printed); ``/models/load`` of the 8-layer GGUF runs
+   while a /chat on the default model streams (its TTFT printed beside an
+   uncontended one), a request goes to each model by ``model``, and
+   ``/models/unload`` returns memory within 64 MiB of its level before the
+   load; two requests on 2 slots read the supervised engine; /metrics'
+   request counters equal the requests sent. One ``{"phase15": ...}`` line
+   with the load, restart and unload ms and the memory readings; its
+   attention launches join the kernels line's.
+16. The total wall time, the kernels line (one JSON object), the card line,
    and last the ok line. Each phase, and each served path of phases 7-9
    and 11, prints its seconds on a line of its own as it ends.
 """
@@ -2172,7 +2190,7 @@ def serve_slots(engine, pa, fa, cfg, card: str, seed: int, watch=None,
             **{k: v for k, v in body.items() if k != "prompt"})))[-1]
         print(json.dumps({"slots_warm_up": warm.content, "card": card}), flush=True)
     requests = slot_requests(seed)
-    sched.counters = dict.fromkeys(sched.counters, 0)
+    counters0 = dict(sched.counters)   # the served run's counts are from here
     forwards0 = sched.forwards
     pa.launches = fa.launches = attn.launches = 0
     if fd is not None:
@@ -2201,7 +2219,7 @@ def serve_slots(engine, pa, fa, cfg, card: str, seed: int, watch=None,
                           "prompt_chars": len(res["body"]["prompt"]),
                           "sampled": res["body"]["temperature"] > 0, **summary,
                           "card": card}), flush=True)
-    c = sched.counters
+    c = {k: v - counters0.get(k, 0) for k, v in sched.counters.items()}
     if c["paged_prefix_hits_total"] < 1:
         fail(f"no paged prefix hit in the slots run: {c}")
     if c["prefill_steps_stolen_total"] < 1:
@@ -3448,7 +3466,7 @@ async def lifecycle(engine, fa, pa, cfg, card: str, seed: int) -> dict:
              f"of {n_layers} layers")
     out["launches"] = {"paged_flash_attention": pa.launches, "paged_forwards": forwards,
                        "flash_attention": fa.launches, "forwards": eng_forwards,
-                       "counters": sched.counters}
+                       "counters": dict(sched.counters)}
     print(json.dumps({"lifecycle": out}), flush=True)
     return {"paged_flash_attention": pa.launches, "flash_attention": fa.launches}
 
@@ -3456,6 +3474,238 @@ async def lifecycle(engine, fa, pa, cfg, card: str, seed: int) -> dict:
 async def route_requests_in(server, requests: list[tuple[str, dict]]) -> list[dict]:
     """``route_requests``' answers from inside a running event loop."""
     return [r["answer"] for r in await route_requests(server, requests)]
+
+
+# phase 15: the supervised engine, the model registry, LoRA and /metrics
+
+LORA_RANK = 8            # phase 15's adapter: rank 8 over attn_q, attn_v and
+LORA_ALPHA = 16.0        # ffn_down of every layer, factors N(0, 0.05²): a
+LORA_STD = 0.05          # delta of ~0.014 a weight beside the base's 0.02
+MEM_SLACK = 64 << 20     # device bytes a restart or an unload may leave behind
+
+
+def lora_adapter(path: Path, cfg, seed: int) -> Path:
+    """Phase 15's adapter GGUF at ``cfg``'s widths, written by the port's
+    ``write_lora_gguf``."""
+    from distributed_llm_pipeline_tpu_torch.models.lora import write_lora_gguf
+
+    gen = torch.Generator().manual_seed(seed + 15)
+    H, K, Hd, D, F = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dim,
+                      cfg.hidden_dim)
+    tensors = {}
+    for i in range(cfg.n_layers):
+        for name, (out, inn) in (("attn_q", (H * Hd, D)), ("attn_v", (K * Hd, D)),
+                                 ("ffn_down", (D, F))):
+            a = torch.randn(LORA_RANK, inn, generator=gen) * LORA_STD
+            b = torch.randn(out, LORA_RANK, generator=gen) * LORA_STD
+            tensors[f"blk.{i}.{name}.weight"] = (a.numpy(), b.numpy())
+    return write_lora_gguf(path, LORA_ALPHA, tensors)
+
+
+def host_merge(path: Path, adapter: Path, cfg, dtype: torch.dtype) -> dict:
+    """The adapted projections merged on the host: the GGUF's stored
+    weights and the adapter through ``models.lora.apply_lora``."""
+    from distributed_llm_pipeline_tpu_torch.gguf import GGUFReader
+    from distributed_llm_pipeline_tpu_torch.models.convert import load_params
+    from distributed_llm_pipeline_tpu_torch.models.lora import apply_lora
+
+    others = frozenset({"wk", "wo", "w_gate", "w_up", "attn_norm", "ffn_norm"})
+    with GGUFReader(path) as reader:
+        params = load_params(reader, cfg, dtype=dtype, device="cpu", skip=others,
+                             keep=lambda key: key.startswith("layers."))
+    apply_lora(params, cfg, [(str(adapter), 1.0)])
+    return params
+
+
+def device_bytes(device) -> int:
+    return torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+
+
+def sse_text(res: dict) -> str:
+    return "".join(e["content"] for e in res["events"] if e["msg_type"] == "token")
+
+
+async def supervised_session(server, steps):
+    """Boot ``server`` on a free localhost port and run ``steps(session,
+    base)``, a coroutine of the whole exchange."""
+    import aiohttp
+    from aiohttp import web
+
+    runner = web.AppRunner(server.app)
+    await runner.setup()
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    await web.SockSite(runner, sock).start()
+    try:
+        async with aiohttp.ClientSession(
+                timeout=aiohttp.ClientTimeout(total=600)) as s:
+            return await steps(s, f"http://127.0.0.1:{sock.getsockname()[1]}")
+    finally:
+        await runner.cleanup()
+
+
+def serve_supervised(path: Path, path9: Path, fa, pa, cfg, card: str, seed: int,
+                     base_text: str, model_dir: Path, cpu: bool = False) -> dict:
+    """Phase 15: ``dlp-serve-torch --model <phase 4's GGUF> --lora <rank 8>``
+    as the server's ``main`` builds it (a SupervisedEngine over
+    ``build_engine``, a ModelRegistry loading through ``load_engine``).
+    The merged projections on the device must equal the host merge and the
+    greedy text must differ from the base model's (phase 4's); a fault in
+    the middle of a generation restarts the engine (the adapter merged
+    again) and the retried request gives the uncrashed text, the device
+    memory after the restart within MEM_SLACK of before; ``/models/load``
+    of the 8-layer GGUF runs while a /chat on the default model streams
+    (its TTFT beside an uncontended one), a request to each model by
+    ``model``, ``/models/unload`` (memory back within MEM_SLACK); two
+    requests on 2 slots read the supervised engine; and /metrics counts
+    the requests sent. Returns the attention kernels' launches."""
+    from distributed_llm_pipeline_tpu_torch.config import AppConfig
+    from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig, faults
+    from distributed_llm_pipeline_tpu_torch.serving import (ChatServer, ModelRegistry,
+                                                            SupervisedEngine)
+    from distributed_llm_pipeline_tpu_torch.serving.server import build_engine, load_engine
+
+    t0 = time.monotonic()
+    adapter = lora_adapter(model_dir / f"lora-r{LORA_RANK}-seed{seed}.gguf", cfg, seed)
+    acfg = AppConfig(model=str(path), ctx_size=2048, lora=str(adapter), cpu=cpu,
+                     dtype="float32" if cpu else "bfloat16")
+    builds: list[float] = []
+
+    def factory():
+        t = time.monotonic()
+        engine = build_engine(acfg)
+        builds.append((time.monotonic() - t) * 1e3)
+        return engine
+
+    sup = SupervisedEngine(factory)
+    registry = ModelRegistry(path.stem, sup, max_models=2,
+                             loader=lambda mid, p, mesh, ctx: load_engine(acfg, p, mesh, ctx))
+    server = ChatServer(sup, GenerationConfig(max_new_tokens=32), model_id=path.stem,
+                        registry=registry)
+    dev = sup.engine.device
+    # the device's merged projections against the host merge
+    want = host_merge(path, adapter, sup.cfg, sup.engine.dtype)
+    state = sup.engine.model.state_dict()
+    unequal = [k for k, w in want.items() if not torch.equal(state[k].cpu(), w.to(state[k].dtype))]
+    if len(want) != 3 * cfg.n_layers or unequal:
+        fail(f"phase 15: merged projections differ from the host merge: {unequal[:4]}")
+    del want, state
+    greedy = {"prompt": " ".join(["hello"] * 480), "max_new_tokens": 32,
+              "temperature": 0.0}
+    long_greedy = {**greedy, "max_new_tokens": 96}
+    alt = "alt"
+    out: dict = {"adapter_bytes": adapter.stat().st_size, "load_ms": builds[0]}
+    fa.launches = pa.launches = 0
+
+    async def steps(s, base):
+        async def get(route, text=False):
+            async with s.get(base + route) as r:
+                return r.status, await (r.text() if text else r.json())
+
+        async def post(route, body):
+            t = time.monotonic()
+            async with s.post(base + route, json=body) as r:
+                return r.status, await r.json(), (time.monotonic() - t) * 1e3
+
+        sent = 0
+        res = await stream_chat(s, base, greedy)
+        sent += 1
+        text = sse_text(res)
+        if text == base_text:
+            fail("phase 15: the adapter left the greedy text unchanged")
+        out["ttft_ms_uncontended"] = (res["t_first"] - res["t0"]) * 1e3
+        status, listed = await get("/lora-adapters")
+        if status != 200 or listed != [{"id": 0, "path": str(adapter), "scale": 1.0}]:
+            fail(f"phase 15: /lora-adapters answered {status} {listed}")
+        # a fault in the middle of a generation: restart, adapter merged again
+        on_device(dev)
+        out["mem_before_restart"] = device_bytes(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        with faults.armed("prefill_oom", times=1):
+            res = await stream_chat(s, base, greedy)
+        sent += 1
+        logs = [e["content"] for e in res["events"] if e["msg_type"] == "log"]
+        if sup.restarts != 1 or not any("retrying request" in ln for ln in logs):
+            fail(f"phase 15: no supervised restart: {sup.health()}, {logs[-4:]}")
+        if sse_text(res) != text:
+            fail("phase 15: the retried request's text differs from the uncrashed one")
+        on_device(dev)
+        out["mem_after_restart"] = device_bytes(dev)
+        out["mem_peak_restart"] = (torch.cuda.max_memory_allocated(dev)
+                                   if dev.type == "cuda" else 0)
+        out["restart_ms"] = builds[1]
+        if abs(out["mem_after_restart"] - out["mem_before_restart"]) > MEM_SLACK:
+            fail(f"phase 15: device memory after the restart {out}")
+        # the registry: a load while the default model streams
+        out["mem_before_load"] = device_bytes(dev)
+        load = asyncio.create_task(post("/models/load", {"id": alt, "path": str(path9),
+                                                         "ctx": 2048}))
+        first = asyncio.Event()
+        chat = asyncio.create_task(stream_chat(s, base, long_greedy, first))
+        await first.wait()
+        out["load_running_at_first_token"] = not load.done()
+        res = await chat
+        sent += 1
+        status, body, out["models_load_ms"] = await load
+        if status != 200 or body.get("loaded") != alt:
+            fail(f"phase 15: /models/load answered {status} {body}")
+        out["ttft_ms_during_load"] = (res["t_first"] - res["t0"]) * 1e3
+        for model in (path.stem, alt):
+            res = await stream_chat(s, base, {**greedy, "model": model})
+            sent += 1
+            if not sse_text(res) or check_sse(res)["n_gen"] != greedy["max_new_tokens"]:
+                fail(f"phase 15: model {model!r} served nothing")
+        status, models = await get("/models")
+        if status != 200 or set(models["models"]) != {path.stem, alt}:
+            fail(f"phase 15: /models answered {status} {models}")
+        status, body, out["models_unload_ms"] = await post("/models/unload", {"id": alt})
+        if status != 200:
+            fail(f"phase 15: /models/unload answered {status} {body}")
+        on_device(dev)
+        out["mem_after_unload"] = device_bytes(dev)
+        if abs(out["mem_after_unload"] - out["mem_before_load"]) > MEM_SLACK:
+            fail(f"phase 15: device memory after the unload {out}")
+        status, health = await get("/healthz")
+        if status != 200 or health["status"] != "ok" or list(health["models"]) != [path.stem]:
+            fail(f"phase 15: /healthz answered {status} {health}")
+        # /metrics: the requests sent, one aborted by the fault, one restart
+        status, text = await get("/metrics", text=True)   # Prometheus text
+        async with s.get(base + "/metrics", headers={"Accept": "application/json"}) as r:
+            c = (await r.json())["counters"]
+        if (status != 200 or f"\ndlp_requests_total {sent}\n" not in text
+                or c["requests_total"] != sent or c["requests_aborted_total"] != 1
+                or c["engine_restarts_total"] != 1):
+            fail(f"phase 15: /metrics counts {c} for {sent} requests")
+        out["requests_sent"] = sent
+        out["metrics_requests_total"] = c["requests_total"]
+        return out
+
+    result = asyncio.run(supervised_session(server, steps))
+    flash = fa.launches
+    # the supervised engine on two slots: the scheduler reads through it
+    slots = ChatServer(sup, GenerationConfig(max_new_tokens=16), model_id=path.stem,
+                       registry=registry, parallel=2)
+    pa.launches = 0
+    _, results = asyncio.run(chat_requests(slots, [{**greedy, "max_new_tokens": 16},
+                                                   {"prompt": "hello there", "max_new_tokens": 16,
+                                                    "temperature": 0.0}]))
+    for res in results:
+        check_sse(res)
+    paged = pa.launches
+    if flash <= 0 or paged <= 0:
+        fail(f"phase 15: flash_attention {flash}, paged_flash_attention {paged} launches")
+    total = registry.metrics.snapshot()["counters"]["requests_total"]
+    if total != result["requests_sent"] + 2:
+        fail(f"phase 15: the metrics count {total} requests after the slots' two")
+    del slots, server, registry, sup
+    adapter.unlink(missing_ok=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    result.update(flash_attention=flash, paged_attention=paged,
+                  seconds=round(time.monotonic() - t0, 1))
+    print(json.dumps({"phase15": result, "card": card}), flush=True)
+    return {"flash_attention": flash, "paged_attention": paged}
 
 
 def load_quant_engine(Engine, gguf: Path, quant: str, card: str, unlink: bool):
@@ -3907,7 +4157,7 @@ def main() -> int:
     from distributed_llm_pipeline_tpu_torch.ops import latent_attention as la
     from distributed_llm_pipeline_tpu_torch.ops import paged_attention as pa
     from distributed_llm_pipeline_tpu_torch.ops import quant_matmul as qm
-    from distributed_llm_pipeline_tpu_torch.runtime import Engine
+    from distributed_llm_pipeline_tpu_torch.runtime import Engine, GenerationConfig
 
     # 1. the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4089,6 +4339,10 @@ def main() -> int:
         print(json.dumps({"phase14_launches": life_launches, "card": card}),
               flush=True)
         t_phase = phase_seconds("14", t_phase, t_start)
+        # phase 15's reference: the base model's greedy text
+        base_text = "".join(e.content for e in engine.generate(
+            " ".join(["hello"] * 480), GenerationConfig(max_new_tokens=32, temperature=0.0))
+            if e.kind == "token")
         del engine
         torch.cuda.empty_cache()
         t0 = time.monotonic()
@@ -4143,6 +4397,16 @@ def main() -> int:
                                   cfg9, card, args.seed)
         t_phase = phase_seconds("10", t_phase, t_start)
 
+        # 15. the supervised engine over phase 4's GGUF with a LoRA adapter,
+        # a restart, the model registry (the 8-layer GGUF loaded and
+        # unloaded) and /metrics
+        print(f"phase 15 at {time.monotonic() - t_start:.0f}s", flush=True)
+        served15 = serve_supervised(path, path9, fa, pa, cfg, card, args.seed, base_text,
+                                    model_dir)
+        launches += served15["flash_attention"]
+        paged_launches += served15["paged_attention"]
+        t_phase = phase_seconds("15", t_phase, t_start)
+
         # 11. the mesh: --mesh 2x2 over the bf16 GGUF, --mesh 1x2 --parallel 4
         # --quant q5_k, and --mesh 1x2 --quant native over the Q4_K_M and
         # Q6_K GGUFs, every rank a process on this card
@@ -4178,7 +4442,7 @@ def main() -> int:
         for p in (path, path9, q6_path, q4_path, q3_path):
             p.unlink(missing_ok=True)
 
-    # 15. results
+    # 16. results
     src = "distributed_llm_pipeline_tpu_torch/csrc/"
     ref = "distributed_llm_pipeline_tpu/ops/"
     entries = [

@@ -11,7 +11,8 @@ and ``--json-schema`` constrain the output; generation past the context
 limit shifts the KV window (``--keep``), as llama-cli does, unless
 ``--no-context-shift``. ``--prompt-cache FILE`` loads the prompt's KV at
 start and saves it at exit; ``--perplexity TEXTFILE`` prints the model's
-perplexity over the file instead of generating.
+perplexity over the file instead of generating. ``--lora GGUF[=SCALE],...``
+merges LoRA adapters into the weights at load.
 
 Settings: defaults < ``--config`` file (JSON/TOML) < ``DLP_*`` env < flags.
 Without ``--cpu`` it runs on the CUDA device, and raises when there is none.
@@ -106,6 +107,9 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="keep the weights quantized on the device")
     ap.add_argument("--kv-quant", default=None, choices=["q8_0"],
                     help="int8 KV cache (llama.cpp -ctk/-ctv q8_0)")
+    ap.add_argument("--lora", default=None, metavar="GGUF[=SCALE],...",
+                    help="LoRA adapter GGUF(s), merged into the weights at "
+                         "load (llama.cpp --lora / --lora-scaled)")
     ap.add_argument("--perplexity", default=None, metavar="TEXTFILE",
                     help="evaluation mode: print the model's perplexity over "
                          "the file's text instead of generating "

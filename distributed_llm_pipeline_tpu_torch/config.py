@@ -53,9 +53,11 @@ class AppConfig:
     host: str = "0.0.0.0"
     port: int = 3005
     cpu: bool = False                # run on the CPU (default: the CUDA device)
+    max_models: int = 2              # registry LRU bound
     dtype: str = "bfloat16"          # weight and activation dtype
     quant: str | None = None         # keep the weights quantized on the device
     kv_quant: str | None = None      # int8 KV cache (llama.cpp -ctk/-ctv q8_0)
+    lora: str | None = None          # adapters: "a.gguf,b.gguf=0.5" (--lora)
     parallel: int = 1                # server decode slots (llama-server -np)
     pooling: str = "mean"            # embedding pooling (llama-server --pooling)
     slot_save_path: str | None = None  # dir for /slots/{id} save/restore files
@@ -64,8 +66,8 @@ class AppConfig:
     log_file: str | None = None
     verbose: bool = False
 
-    _INT = ("ctx_size", "n_predict", "top_k", "seed", "port", "repeat_last_n",
-            "parallel", "mirostat", "keep")
+    _INT = ("ctx_size", "n_predict", "top_k", "seed", "port", "max_models",
+            "repeat_last_n", "parallel", "mirostat", "keep")
     _FLOAT = ("temperature", "top_p", "min_p", "repeat_penalty", "typical_p",
               "mirostat_tau", "mirostat_eta", "presence_penalty", "frequency_penalty")
     _BOOL = ("cpu", "verbose", "json_mode", "context_shift", "no_context_shift")
@@ -135,12 +137,20 @@ class AppConfig:
                (self.json_mode, self.grammar_file, self.json_schema)) > 1:
             raise ValueError("--json, --grammar-file and --json-schema are "
                              "mutually exclusive constraints; pick one")
+        if self.lora and self.quant == "native":
+            raise ValueError("--lora merges into dense weights; --quant "
+                             "native serves packed blocks — drop one "
+                             "of the two")
         if self.parallel < 1:
             raise ValueError(f"--parallel must be >= 1, got {self.parallel}")
         if self.pooling not in ("mean", "cls", "last"):
             raise ValueError(f"unsupported pooling {self.pooling!r} "
                              f"(mean, cls, last)")
         self.torch_dtype()
+
+    def lora_adapters(self) -> list[tuple[str, float]]:
+        """Parsed --lora list: comma-separated "path" / "path=scale" specs."""
+        return lora_list(self.lora)
 
     def logit_bias_pairs(self) -> tuple[tuple[int, float], ...]:
         """The parsed --logit-bias: comma-separated TOKEN_ID(+|-)BIAS entries
@@ -170,6 +180,16 @@ class AppConfig:
 
     def torch_dtype(self):
         return torch_dtype(self.dtype)
+
+
+def lora_list(spec: str | None) -> list[tuple[str, float]]:
+    """A --lora value, comma-separated "path" / "path=scale" specs, as
+    (path, scale) pairs."""
+    if not spec:
+        return []
+    from .models.lora import parse_lora_arg
+
+    return [parse_lora_arg(s.strip()) for s in spec.split(",") if s.strip()]
 
 
 def torch_dtype(name: str):

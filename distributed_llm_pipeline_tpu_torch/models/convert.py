@@ -165,8 +165,11 @@ def load_params(reader: GGUFReader, cfg: ModelConfig,
     def get(name: str) -> torch.Tensor:
         ti = reader.tensors[name]
         if ti.ggml_type == GGMLType.BF16 and dtype == torch.bfloat16:
-            raw = bytearray(reader.tensor_data(name))
-            t = torch.frombuffer(raw, dtype=torch.bfloat16).reshape(ti.shape)
+            # numpy's copy out of the mapped file lets go of the interpreter
+            # lock (a bytearray copy holds it throughout, and a load in one
+            # thread then stalls every stream that another thread serves)
+            raw = np.frombuffer(reader.tensor_data(name), dtype=np.uint16).copy()
+            t = torch.from_numpy(raw).view(torch.bfloat16).reshape(ti.shape)
         else:
             t = torch.from_numpy(reader.tensor_f32(name))
         return t.to(device=device, dtype=dtype)

@@ -47,7 +47,7 @@ from ..ops import quant_matmul as qm
 from ..runtime import capabilities
 from ..runtime.engine import Engine, GenerationConfig, _bucket, resolve_device
 from ..tokenizer import tokenizer_from_metadata
-from ..utils import log
+from ..utils import Metrics, log
 from .balance import stage_spans
 from .dist import TIMEOUT_S, Comm, connect, initialize, spawn_followers
 from .mesh import Mesh, MeshSpec, placement
@@ -74,11 +74,14 @@ class Loaded:
 
 
 def load_rank(model_path: str | Path, mesh: Mesh, *, max_seq: int | None,
-              dtype: torch.dtype, quant: str | None) -> Loaded:
+              dtype: torch.dtype, quant: str | None,
+              lora: list[tuple[str, float]] | None = None) -> Loaded:
     """Load one rank's shard of a GGUF: its stage's layers (and, on rank 0,
     the tokenizer, final norm and head; on stage 0 the embedding table),
-    packed with ``quant`` when asked (the byte-code K-quant packs at
-    tp > 1), split to its tp slice and moved to its device."""
+    merged with the ``lora`` adapters, packed with ``quant`` when asked (the
+    byte-code K-quant packs at tp > 1), split to its tp slice and moved to
+    its device. The merge runs on the dense host weights before the split,
+    so each rank holds its slice of the merged model."""
     spec, rank = mesh.spec, mesh.rank
     events, pack_s = [], 0.0
     with GGUFReader(model_path) as reader:
@@ -113,6 +116,15 @@ def load_rank(model_path: str | Path, mesh: Mesh, *, max_seq: int | None,
                                  "weight stack the mesh serves packed")
         skip = frozenset(k.rsplit(".", 1)[1] for k in packs)
         params = load_params(reader, cfg, dtype=dtype, device="cpu", skip=skip, keep=keep)
+        if lora:
+            if quant == "native":
+                raise ValueError(
+                    "--lora merges into dense weights; --quant native "
+                    "serves packed blocks — drop one of the two")
+            from ..models.lora import apply_lora
+
+            for line in apply_lora(params, cfg, list(lora), keep=keep):
+                events.append(log(line))
         params.update(packs)
     t_q = time.monotonic()
     params = rank_params(params, cfg, spec.pp, spec.tp, rank, counts,
@@ -226,7 +238,8 @@ def follower_main(conn, rank: int, port: int, spec: MeshSpec, model_path: str,
         connect(rank, spec.pp * spec.tp, port, opts["backend"])
         mesh = Mesh.build(spec, rank, device, opts["backend"])
         loaded = load_rank(model_path, mesh, max_seq=opts["max_seq"],
-                           dtype=opts["dtype"], quant=opts["quant"])
+                           dtype=opts["dtype"], quant=opts["quant"],
+                           lora=opts["lora"])
         rt = RankRuntime(mesh, loaded, opts["max_seq"], opts["dtype"])
         conn.send(("ready", rank))
         while True:
@@ -277,15 +290,16 @@ class MeshModel:
         self.stage = rt.model
         self.followers = followers
         self.broken: str | None = None
+        self._closed = False
         self._lock = threading.Lock()
 
     def command(self, op: str, **kw):
         """Run ``op`` on every rank; returns rank 0's result, and for the
         ops that reply, [rank 0's, rank 1's, ...]. Raises, and leaves the
         mesh down, when any rank fails."""
-        if self.broken is not None:
-            raise RuntimeError(f"the mesh is down: {self.broken}")
         with self._lock:
+            if self.broken is not None:
+                raise RuntimeError(f"the mesh is down: {self.broken}")
             try:
                 for _, conn in self.followers:
                     conn.send((op, kw))
@@ -380,11 +394,17 @@ class MeshModel:
         return self.command("stats")
 
     def close(self) -> None:
-        """Shut the followers down and leave the process group."""
-        end_followers(self.followers)
-        self.followers = []
-        if self.broken is None:
-            self.broken = "closed"
+        """Shut the followers down and leave the process group, once the
+        command in flight (another thread's step) has returned. Once only:
+        the group a later mesh of this process brings up is not this one's."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            if self.broken is None:
+                self.broken = "closed"
+            end_followers(self.followers)
+            self.followers = []
 
 
 def follower_errors(followers: list) -> str:
@@ -469,7 +489,7 @@ class MeshSlotBackend:
         padded[0, :len(suffix)] = suffix
         logits = eng.model.prefill_row("slots", r, padded, reuse_k, len(suffix) - 1)
         sched.forwards += 1
-        sched.counters["prefill_tokens_total"] += b
+        sched.metrics.inc("prefill_tokens_total", b)
         return logits, reuse_k
 
     def prepare_chunk(self, sched, running, n) -> list[tuple[int, int]]:
@@ -491,7 +511,8 @@ class ShardedEngine(Engine):
     def __init__(self, model_path: str | Path, *, mesh_spec: MeshSpec | None = None,
                  max_seq: int | None = None, dtype: torch.dtype = torch.bfloat16,
                  device=None, quant: str | None = None, kv_quant: str | None = None,
-                 kv_mode: str | None = None):
+                 kv_mode: str | None = None,
+                 lora: list[tuple[str, float]] | None = None):
         spec = mesh_spec or MeshSpec()
         check_quant(quant)
         if spec.dp != 1:
@@ -505,6 +526,12 @@ class ShardedEngine(Engine):
         if kv_mode == "latent" or (kv_mode is None and capabilities.env_kv_latent()):
             raise NotImplementedError("latent KV (TPLA) on a mesh is not ported "
                                       "yet (ROADMAP.md §1)")
+        if dist.is_initialized():
+            # the default process group is the live mesh's: a second one
+            # would tear it down on its way out
+            raise NotImplementedError(
+                "this process already serves a mesh; one mesh per process "
+                "(close the live one first)")
         self.device = resolve_device(device)
         if quant and self.device.type == "cuda" and dtype != torch.bfloat16:
             raise ValueError(f"quant {quant!r} on the card serves bf16 "
@@ -525,15 +552,17 @@ class ShardedEngine(Engine):
 
             # once, before any rank could start its own nvcc
             cuda_build.build(cuda_build.SOURCES)
+        lora = list(lora or [])
         opts = {"devices": devices, "backend": backend, "max_seq": max_seq,
-                "dtype": dtype, "quant": quant,
+                "dtype": dtype, "quant": quant, "lora": lora,
                 "threads": max(1, (os.cpu_count() or 1) // world)}
         store, followers = spawn_followers(world, follower_main,
                                            (spec, str(model_path), opts))
         try:
             initialize(0, world, store=store, backend=backend)
             mesh = Mesh.build(spec, 0, torch.device(devices[0]), backend)
-            loaded = load_rank(model_path, mesh, max_seq=max_seq, dtype=dtype, quant=quant)
+            loaded = load_rank(model_path, mesh, max_seq=max_seq, dtype=dtype,
+                               quant=quant, lora=lora)
             cfg = loaded.cfg
             rt = RankRuntime(mesh, loaded, self.max_seq, dtype)
             self.model = MeshModel(rt, followers)
@@ -553,6 +582,9 @@ class ShardedEngine(Engine):
         self.kv_quant = None
         self.kv_mode = "dense"
         self.kv_latent_rank = None
+        self.lora_adapters = lora
+        self.metrics = Metrics()
+        self._register_boot_series()
         self.decode_chunk = max(1, int(os.environ.get("DLP_DECODE_CHUNK", "32")))
         self._prompt_quantum = CHUNK
         self.forwards = 0

@@ -32,6 +32,12 @@ other entry points: ``embed`` (pooled embeddings), ``infill_ids``
 (fill-in-middle prompts), ``perplexity`` and ``generate_batch`` (several
 prompts at once over a cache whose rows each have their own length).
 
+``lora`` merges LoRA adapters (``models/lora.py``) into the dense host
+weights at load, before any packing, factorization or device placement, as
+the reference does. Every request is recorded in ``metrics``
+(``utils/metrics.py``) at the reference's points and under its names; a
+supervisor assigns its own registry there, so a restart keeps the history.
+
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``); with no CUDA device and no such request they raise.
 """
@@ -60,7 +66,7 @@ from ..ops.sampling import (apply_penalties, bias_vector, lp_payload,
                             mirostat_init, mirostat_step, sample, sample_rows,
                             shortlist, topk_logprobs)
 from ..tokenizer import StreamDecoder, Tokenizer, tokenizer_from_metadata
-from ..utils import Event, done, log, token
+from ..utils import Event, Metrics, done, log, preregister_boot_series, token
 from . import capabilities, faults
 
 # the priority classes a request names, best first: slot grants, the mixed
@@ -373,14 +379,20 @@ class Engine:
     weight packing); left None it is ``"latent"`` under
     ``DLP_KV_LATENT=1``, whose rank ``DLP_KV_LATENT_RANK`` may set, as in
     the reference. On the card the rank must be one the kernels take
-    (``LATENT_RANKS``)."""
+    (``LATENT_RANKS``).
+
+    ``lora``: ``[(adapter GGUF path, scale), ...]``, merged in order into
+    the dense weights on the host before anything else touches them, so
+    it composes with every ``quant`` but ``native`` (which raises
+    ``ValueError``); ``lora_adapters`` records the list."""
 
     def __init__(self, model_path: str | Path | None = None, *,
                  cfg: ModelConfig | None = None, params: Params | None = None,
                  tokenizer: Tokenizer | None = None, max_seq: int | None = None,
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  quant: str | None = None, kv_quant: str | None = None,
-                 kv_mode: str | None = None, kv_latent_rank: int | None = None):
+                 kv_mode: str | None = None, kv_latent_rank: int | None = None,
+                 lora: list[tuple[str, float]] | None = None):
         check_quant(quant)
         check_kv_quant(kv_quant)
         if kv_mode is not None:
@@ -392,9 +404,13 @@ class Engine:
             raise ValueError(f"quant {quant!r} on the card serves bf16 "
                              f"activations, not {dtype}")
         self._events_on_load: list[Event] = []
+        self.metrics = Metrics()
+        self.lora_adapters: list[tuple[str, float]] = []
         t0 = time.monotonic()
-        # a repacked model loads on the host, packs there, then moves
-        load_dev = "cpu" if quant not in (None, "native") else self.device
+        # a repacked model loads on the host, packs there, then moves; so
+        # does one that merges adapters
+        load_dev = ("cpu" if quant not in (None, "native") or lora
+                    else self.device)
         pack_s = 0.0   # host time spent building packs
         if model_path is not None:
             with GGUFReader(model_path) as reader:
@@ -426,12 +442,28 @@ class Engine:
                 skip = frozenset(k.rsplit(".", 1)[1] for k in packs)
                 params = load_params(reader, cfg, dtype=dtype, device=load_dev,
                                      skip=skip)
+                if lora:
+                    # merged into the dense host weights before any packing,
+                    # factorization or placement (llama.cpp --lora)
+                    if quant == "native":
+                        raise ValueError(
+                            "--lora merges into dense weights; --quant native "
+                            "serves packed blocks — drop one of the two")
+                    from ..models.lora import apply_lora
+
+                    for line in apply_lora(params, cfg, list(lora)):
+                        self._events_on_load.append(log(line))
+                    self.lora_adapters = list(lora)
+                    if not quant:
+                        params = {k: t.to(self.device) for k, t in params.items()}
                 params.update({k: p.to(self.device) for k, p in packs.items()})
         else:
             if cfg is None or tokenizer is None or params is None:
                 raise ValueError("need model_path, or cfg + tokenizer + params")
             if quant == "native":
                 raise ValueError("--quant native needs a GGUF model path")
+            if lora:
+                raise ValueError("--lora needs a GGUF model path")
             self.tokenizer = tokenizer
             params = {k: t.to(load_dev) if isinstance(t, QuantPack)
                       else t.to(device=load_dev, dtype=dtype)
@@ -489,6 +521,7 @@ class Engine:
         self.prefix_tokens = 0    # prompt tokens they did not prefill
         self._embed_caches: dict[int, KVCache] = {}
         self._fused_resolved: dict[tuple[int, int], bool] = {}
+        self._register_boot_series()
         dev = (torch.cuda.get_device_name(self.device)
                if self.device.type == "cuda" else "CPU")
         self._events_on_load.append(log(
@@ -500,6 +533,27 @@ class Engine:
             f"weights ready in {time.monotonic() - t0:.2f}s; kv cache capacity "
             f"{self.max_seq} tokens"
             f"{f' ({kv_quant})' if kv_quant else ''}"))
+
+    def _register_boot_series(self) -> None:
+        """The documented boot schema at 0, the per-mode KV cost catalog and
+        the labelled outcome family, as the reference registers them when
+        an engine is built, so /metrics exports every series from the first
+        scrape."""
+        from .paged import kv_token_bytes
+
+        m, cfg = self.metrics, self.cfg
+        preregister_boot_series(m)
+        rank = self.kv_latent_rank or latent_default_rank(cfg)
+        for mode, args in (("dense", (None, "dense", None)),
+                           ("q8_0", ("q8_0", "dense", None)),
+                           ("latent", (None, "latent", rank)),
+                           ("latent_q8_0", ("q8_0", "latent", rank))):
+            m.set_gauge("kv_bytes_per_token", kv_token_bytes(cfg, *args),
+                        labels={"mode": mode})
+        m.set_gauge("kv_latent_rank", rank if self.kv_mode == "latent" else 0)
+        for outcome in ("stop", "length", "abort", "error", "timeout"):
+            m.inc("requests_finished_total", 0,
+                  labels={"model": cfg.arch, "outcome": outcome})
 
     @property
     def max_prompt(self) -> int:
@@ -551,6 +605,7 @@ class Engine:
         if key in self._fused_resolved:
             return self._fused_resolved[key]
         if not capabilities.fused_requested():
+            self.metrics.set_gauge("fused_decode_active", 0)
             self._fused_resolved[key] = False
             return False
         if self.kv_mode == "latent":
@@ -564,8 +619,16 @@ class Engine:
                 batch=n_slots, act_bytes=torch.finfo(self.dtype).bits // 8,
                 kv_int8=self.kv_quant == "q8_0")
         if reason is not None:
+            # a counted degrade, as the reference's lattice counts it
             capabilities.check_reason(reason)
+            self.metrics.inc("capability_degradations_total")
+            self.metrics.inc("capability_degradations_total", labels={
+                "axis": "decode", "reason": capabilities.reason_family(reason)})
+            self.metrics.inc("fused_decode_fallbacks_total")
+            self.metrics.inc("fused_decode_fallbacks_total",
+                             labels={"reason": reason})
         active = reason is None
+        self.metrics.set_gauge("fused_decode_active", 1 if active else 0)
         self._events_on_load.append(log(
             f"fused decode-step kernel active (DLP_FUSED_DECODE=1): RMSNorm + "
             f"QKV + RoPE + paged attention + O-proj in one launch per layer, "
@@ -698,6 +761,7 @@ class Engine:
         fed: list[int] | None = None
         out_tokens: list[int] = []
         n_gen, cache_valid, shifted, cache = 0, False, False, None
+        recorded = False   # the request's traffic is in the metrics
         try:
             if n_prompt >= self.max_prompt:
                 ids = ids[-(self.max_prompt - 1):]
@@ -714,6 +778,10 @@ class Engine:
                       f"(ctx {self.max_seq}, t={gen.temperature}, top_k={gen.top_k}, "
                       f"top_p={gen.top_p})")
             if budget == 0:
+                self.metrics.record_request(n_prompt=len(ids), n_gen=0,
+                                            ttft_ms=float("nan"),
+                                            tok_s=float("nan"))
+                recorded = True
                 yield done("generated 0 tokens (no budget)", n_prompt=len(ids),
                            n_gen=0, finish_reason="length")
                 return
@@ -753,6 +821,8 @@ class Engine:
             if reuse_k:
                 self.prefix_hits += 1
                 self.prefix_tokens += reuse_k
+                self.metrics.inc("prefix_cache_hits_total")
+                self.metrics.inc("prefix_cache_tokens_total", reuse_k)
                 yield log(f"prefix cache hit: reused KV for {reuse_k} of "
                           f"{n_prompt} prompt tokens")
             yield log(f"prefill: {len(ids)} tokens in {ttft * 1000:.1f} ms (TTFT)")
@@ -783,6 +853,7 @@ class Engine:
             if deadline is not None and time.monotonic() > deadline:
                 # the budget burned in prefill: no sampled token may be
                 # emitted past it
+                self.metrics.inc("requests_timed_out_total")
                 yield log("deadline exceeded during prefill; stopping")
                 finish_reason, stopped = "timeout", True
             else:
@@ -795,6 +866,7 @@ class Engine:
                         and time.monotonic() > deadline):
                     # the tokens already emitted stand; the chunk in flight
                     # is past the budget and is dropped below
+                    self.metrics.inc("requests_timed_out_total")
                     yield log("deadline exceeded; stopping")
                     finish_reason, stopped = "timeout", True
                 launched = None
@@ -811,6 +883,7 @@ class Engine:
                     self._shift_cache(cache, keep, drop)
                     cache_valid = shifted = True
                     self.context_shifts += 1
+                    self.metrics.inc("context_shifts_total")
                     yield log(f"context shift: dropped {drop} cached positions "
                               f"(keep {keep}, {cache.length} remain of ctx "
                               f"{self.max_seq})")
@@ -856,13 +929,34 @@ class Engine:
             dt_e2e = time.monotonic() - t_start
             tps_e2e = n_gen / dt_e2e if n_gen and dt_e2e > 0 else float("nan")
             extra = {"mirostat_mu": float(st["mu"][0])} if gen.mirostat else {}
+            self._record_finished(len(ids), n_gen, ttft * 1000, tps,
+                                  finish_reason)
+            recorded = True
             yield done(f"generated {n_gen} tokens | TTFT {ttft * 1000:.1f} ms | "
                        f"decode {tps:.2f} tok/s",
                        n_prompt=len(ids), n_gen=n_gen, finish_reason=finish_reason,
                        ttft_ms=ttft * 1000, tok_s=tps, tok_s_e2e=tps_e2e,
                        stop_match=stopper.matched if stopper else None, **extra)
         finally:
+            if not recorded:
+                self._record_aborted(len(ids), n_gen)
             self._store_prefix(cache, fed, out_tokens, n_gen, cache_valid, shifted)
+
+    def _record_finished(self, n_prompt: int, n_gen: int, ttft_ms: float,
+                         tok_s: float, finish_reason: str) -> None:
+        """A finished request's traffic and its outcome counters."""
+        self.metrics.record_request(n_prompt=n_prompt, n_gen=n_gen,
+                                    ttft_ms=ttft_ms, tok_s=tok_s)
+        self.metrics.inc(f"requests_finished_{finish_reason}_total")
+        self.metrics.inc("requests_finished_total",
+                         labels={"model": self.cfg.arch, "outcome": finish_reason})
+
+    def _record_aborted(self, n_prompt: int, n_gen: int) -> None:
+        """A stream that ended without its done event (the client left, or
+        the forward raised): its traffic still counts."""
+        self.metrics.inc("requests_aborted_total")
+        self.metrics.inc("prompt_tokens_total", n_prompt)
+        self.metrics.inc("generated_tokens_total", n_gen)
 
     def _store_prefix(self, cache, fed: list[int] | None, out_tokens: list[int],
                       n_gen: int, cache_valid: bool, shifted: bool) -> None:
@@ -935,17 +1029,22 @@ class Engine:
         yield from self._events_on_load
         ids = check_token_ids(list(prompt), self.cfg.vocab_size) \
             if isinstance(prompt, (list, tuple)) else self.tokenizer.encode(prompt)
+        tally = {"n_gen": 0, "recorded": False}
         try:
-            yield from self._constrained_stream(ids, gen)
+            yield from self._constrained_stream(ids, gen, tally)
         finally:
+            if not tally["recorded"]:
+                self._record_aborted(len(ids), tally["n_gen"])
             # constrained decoding keeps no prefix: the stored one it may
             # have reused is consumed, and nothing new is stored
             self._prefix_ids, self._prefix_cache = [], None
 
-    def _constrained_stream(self, ids: list[int],
-                            gen: GenerationConfig) -> Iterator[Event]:
+    def _constrained_stream(self, ids: list[int], gen: GenerationConfig,
+                            tally: dict) -> Iterator[Event]:
         """The constrained path's prefill (the prefix cache's stored KV
-        reused, as on the unconstrained path) and decode loop."""
+        reused, as on the unconstrained path) and decode loop. ``tally``
+        carries the tokens generated and whether the request was recorded
+        out to the caller, which records an abort."""
         from .constrained import ConstrainedSampler
 
         n_prompt = len(ids)
@@ -959,6 +1058,9 @@ class Engine:
                   f"{kind}-constrained (t={gen.temperature}, "
                   f"candidates={self._JSON_TOPK})")
         if budget == 0:
+            self.metrics.record_request(n_prompt=len(ids), n_gen=0,
+                                        ttft_ms=float("nan"), tok_s=float("nan"))
+            tally["recorded"] = True
             yield done("generated 0 tokens (no budget)", n_prompt=len(ids),
                        n_gen=0, finish_reason="length")
             return
@@ -987,6 +1089,7 @@ class Engine:
 
         while n_gen < budget:
             if deadline is not None and time.monotonic() > deadline:
+                self.metrics.inc("requests_timed_out_total")
                 yield log("deadline exceeded; stopping")
                 finish_reason = "timeout"
                 break
@@ -1002,6 +1105,7 @@ class Engine:
                 break
             tok_id, delta = res
             n_gen += 1
+            tally["n_gen"] = n_gen
             if delta:   # exactly the validated text, nothing else
                 if stopper is not None:
                     emitted, hit = stopper.feed(delta)
@@ -1030,6 +1134,8 @@ class Engine:
                 yield token(held)
         dt = time.monotonic() - t_decode
         tps = (n_gen - 1) / dt if n_gen > 1 and dt > 0 else float("nan")
+        self._record_finished(len(ids), n_gen, ttft * 1000, tps, finish_reason)
+        tally["recorded"] = True
         yield done(f"generated {n_gen} tokens | TTFT {ttft * 1000:.1f} ms "
                    f"| decode {tps:.2f} tok/s | constraint "
                    f"{'satisfied' if sampler.complete else 'truncated'}",
@@ -1245,6 +1351,7 @@ class Engine:
             tokens[r, :len(ids)] = ids
         dev = self.device
 
+        t_start = time.monotonic()
         last, cache = self._batch_prefill(tokens, lengths)
         penalized = (gen.repeat_penalty != 1.0 or gen.presence_penalty != 0.0
                      or gen.frequency_penalty != 0.0)
@@ -1340,6 +1447,13 @@ class Engine:
                 return text[: min(cuts)], "stop"
             return text, finish[r]
 
+        dt = time.monotonic() - t_start
+        total = int(n_gen.sum())
+        self.metrics.inc("requests_total", B)
+        self.metrics.inc("prompt_tokens_total", int(lengths.sum()))
+        self.metrics.inc("generated_tokens_total", total)
+        if dt > 0 and total:
+            self.metrics.observe("batch_tok_s", total / dt)
         finals = [final_text(r) for r in range(B)]
         return [{"text": finals[r][0], "n_prompt": int(lengths[r]),
                  "n_gen": int(n_gen[r]), "finish_reason": finals[r][1]}

@@ -383,11 +383,11 @@ class PagedSlotBackend:
             shared_k = min(len(shared) * self.bs, len(ids) - 1)
         if shared_k > reuse_k:
             al.attach_shared(r, shared)  # increfs before releasing r's own
-            sched.counters["paged_prefix_hits_total"] += 1
+            sched.metrics.inc("paged_prefix_hits_total")
             # only the tokens the index newly served beyond what the row
             # already held: the finishing sub-chunk re-runs this with the
             # chunk-fed fill as reuse_k
-            sched.counters["paged_prefix_tokens_total"] += shared_k - reuse_k
+            sched.metrics.inc("paged_prefix_tokens_total", shared_k - reuse_k)
             reuse_k = shared_k
         elif not reuse_k:
             al.release_row(r)
@@ -423,8 +423,9 @@ class PagedSlotBackend:
         logits = eng.model.forward_paged_last(upload(padded, dev), cache,
                                               len(suffix) - 1)
         sched.forwards += 1
-        sched.counters["prefill_tokens_total"] += b
+        sched.metrics.inc("prefill_tokens_total", b)
         al.register_row(r, ids)
+        self.export_gauges(sched)
         return logits, reuse_k
 
     # -- decode-step preparation --------------------------------------------
@@ -456,6 +457,7 @@ class PagedSlotBackend:
                     stop.append((r, serial))
         self._run_copies(sched, pairs)
         self._sync_tables(sched._bufs)
+        self.export_gauges(sched)
         return stop
 
     def _sync_tables(self, bufs: dict) -> None:
@@ -517,6 +519,7 @@ class PagedSlotBackend:
                     (seg.shape[0], nb * self.bs - seg.shape[1], *seg.shape[2:]))], 1)
             pool[:, blocks] = seg.reshape(seg.shape[0], nb, self.bs,
                                           *seg.shape[2:]).to(pool.device)
+        self.export_gauges(sched)
         return bufs
 
     def register_prefix(self, r: int, ids: list[int]) -> None:
@@ -541,6 +544,7 @@ class PagedSlotBackend:
             if self.allocator.rows[i]:
                 self.allocator.release_row(i)
                 sched._row_ids[i] = []
+                sched.metrics.inc("kv_pool_evictions_total")
 
     def _run_copies(self, sched, pairs: list[tuple[int, int]]) -> None:
         """Copy-on-write block copies on every pool array (codes and scales
@@ -555,4 +559,22 @@ class PagedSlotBackend:
             a = sched._bufs.get(name)
             if a is not None:
                 a[:, dst] = a[:, src]
-        sched.counters["kv_cow_copies_total"] += len(pairs)
+        sched.metrics.inc("kv_cow_copies_total", len(pairs))
+
+    def export_gauges(self, sched) -> None:
+        """Publish the pool's occupancy gauges (the reference's names).
+        Called on every path that changes it and from the scheduler's
+        per-loop and scrape-time refresh, so an idle pool still reports."""
+        al = self.allocator
+        m = sched.metrics
+        m.set_gauge("kv_pool_blocks_total", al.n_blocks - 1)
+        m.set_gauge("kv_pool_blocks_used", al.used)
+        m.set_gauge("kv_pool_blocks_shared", al.shared)
+        m.set_gauge("kv_pool_block_size", al.bs)
+        m.set_gauge("kv_pool_used_bytes", al.used * self.block_bytes)
+        m.set_gauge("kv_pool_shared_ratio",
+                    al.shared / al.used if al.used else 0.0)
+        m.set_gauge("kv_latent_rank",
+                    self.latent_rank if self.kv_mode == "latent" else 0)
+        # the port pins no row for a disaggregation handoff
+        m.set_gauge("kv_pool_pinned_rows", 0)

@@ -70,16 +70,21 @@ Request-lifecycle resilience and SLO scheduling, as the reference's:
   swap store (``runtime/swapstore.py``), the row is freed, and the request
   resumes later with zero re-prefill.
 
-The counts the reference keeps in its metrics registry (prefill tokens,
-prefix hits, sheds, timeouts, quarantines, stalls, preemptions, swaps by
-result) are in the plain ``counters`` dict under the reference's names.
+The scheduler records into the engine's metrics registry
+(``utils/metrics.py``) at the reference's points and under its names:
+traffic, outcomes, queue waits, prefill tokens, prefix hits, sheds,
+timeouts, quarantines, stalls, preemptions and swaps by result, and the
+queue, slot and pool gauges. ``counters`` is a read-only view of the
+counters this scheduler recorded (the registry is shared by every
+scheduler of an engine and every model of a server).
 
-Not ported yet (the reference has them): the disaggregation handoff
-registry and roles, metrics and tracing, the supervised engine restart
-(repeat stalls rebuild the device state instead), the single-device dense
-slot backend, and slot files on a mesh. Typical-p, mirostat and the
-context shift stay on the single-stream engine, as in the reference: a
-request that would run one is refused here.
+The engine may be a ``serving.supervisor.SupervisedEngine``: the scheduler
+then reads the current engine through it, and a repeat stall restarts it
+and rebuilds the backend against the new engine. Not ported yet (the
+reference has them): the disaggregation handoff registry and roles,
+tracing, the single-device dense slot backend, and slot files on a mesh.
+Typical-p, mirostat and the context shift stay on the single-stream
+engine, as in the reference: a request that would run one is refused here.
 
 The worker thread owns every device buffer and all slot state; it runs
 under ``torch.inference_mode()`` and on the engine's device, both of which
@@ -96,6 +101,7 @@ import queue
 import threading
 import time
 from collections import OrderedDict
+from collections.abc import Mapping
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterator
 
@@ -105,7 +111,7 @@ import torch
 from ..ops.sampling import (apply_penalties, bias_vector, lp_payload, sample_rows,
                             shortlist, topk_logprobs)
 from ..tokenizer import StreamDecoder
-from ..utils import Event, done, log, token
+from ..utils import Event, Metrics, done, log, token
 from . import faults
 from .engine import (MIN_PREFIX, PRIORITY_CLASSES, Engine, GenerationConfig,
                      StopMatcher, _bucket, check_constraint_combination,
@@ -121,6 +127,48 @@ CLASS_RANK = {c: i for i, c in enumerate(PRIORITY_CLASSES)}
 
 # per-row sampling parameters, one row each of the [8, B] parameter array
 _TEMP, _TOP_K, _TOP_P, _MIN_P, _PEN, _PRES, _FREQ, _LAST_N = range(8)
+
+
+# the counters every scheduler reads as 0 before they first fire
+_COUNTER_KEYS = ("prefill_tokens_total", "paged_prefix_hits_total",
+                 "paged_prefix_tokens_total", "prefill_steps_stolen_total",
+                 "kv_cow_copies_total", "requests_shed_total",
+                 "requests_timed_out_total", "requests_poisoned_total",
+                 "slots_quarantined_total", "watchdog_stalls_total")
+
+
+class CounterView(Mapping):
+    """A read-only view of what the engine's metrics registry counted since
+    the scheduler started, under the registry's names: flat names, labelled
+    ones as ``name{k="v"}`` (the snapshot's keys); the counters every
+    scheduler keeps read 0 before they fire. ``metrics`` reads the current
+    registry (a supervisor may swap it in)."""
+
+    def __init__(self, metrics: Callable[[], Metrics]):
+        self._metrics = metrics
+        self._m0 = metrics()
+        self._base = self._m0.snapshot()["counters"]
+
+    def _now(self) -> dict:
+        m = self._metrics()
+        base = self._base if m is self._m0 else {}
+        return {k: v - base.get(k, 0)
+                for k, v in m.snapshot()["counters"].items()}
+
+    def __getitem__(self, key: str):
+        now = self._now()
+        if key not in now and key not in _COUNTER_KEYS:
+            raise KeyError(key)
+        return now.get(key, 0)
+
+    def __iter__(self):
+        return iter(dict.fromkeys((*_COUNTER_KEYS, *self._now())))
+
+    def __len__(self) -> int:
+        return len(set(_COUNTER_KEYS) | set(self._now()))
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
 
 
 class QueueFull(RuntimeError):
@@ -339,22 +387,26 @@ class SlotScheduler:
                  tenant_quota: int | None = None):
         if n_slots < 2:
             raise ValueError("--parallel needs at least 2 slots")
-        self.engine = engine
-        self.cfg = engine.cfg
-        self.device = engine.device
+        # a SupervisedEngine or the engine itself; ``engine`` reads through
+        # the supervisor, so a restart's new engine serves every later step
+        self._src = engine
+        base = self.engine
+        self.cfg = base.cfg
+        self.device = base.device
         self.n_slots = int(n_slots)
-        self.max_seq = engine.max_seq
+        self.max_seq = base.max_seq
         self.max_queue = max_queue
-        self.decode_chunk = int(decode_chunk or engine.decode_chunk or 32)
+        self.decode_chunk = int(decode_chunk or base.decode_chunk or 32)
         # the engine's KV representation (int8 codes under kv_quant, rank-r
         # latents under kv_mode "latent") sizes the pool; the backend asks
         # the engine once whether decode steps run the fused kernel
-        self.kv_quant = engine.kv_quant
-        self.kv_mode = engine.kv_mode
-        self.kv_latent_rank = engine.kv_latent_rank
-        self._backend = engine.slot_backend(self.n_slots, self.max_seq,
-                                            block_size=kv_block,
-                                            n_blocks=kv_pool_blocks)
+        self.kv_quant = base.kv_quant
+        self.kv_mode = base.kv_mode
+        self.kv_latent_rank = base.kv_latent_rank
+        self._kv_block, self._kv_pool_blocks = kv_block, kv_pool_blocks
+        self._backend = base.slot_backend(self.n_slots, self.max_seq,
+                                          block_size=kv_block,
+                                          n_blocks=kv_pool_blocks)
         self.fused_decode = self._backend.fused
         # the chunk width is also the mixed step's fixed lane count, and the
         # finishing sub-chunk reuses the pow2 prompt buckets
@@ -368,14 +420,7 @@ class SlotScheduler:
         if prefill_chunked is None:
             prefill_chunked = os.environ.get("DLP_PREFILL_CHUNKED", "1") != "0"
         self.prefill_chunked = bool(prefill_chunked)
-        # the counts the tests and chip_smoke.py read, under the
-        # reference's metric names
-        self.counters = dict.fromkeys(
-            ("prefill_tokens_total", "paged_prefix_hits_total",
-             "paged_prefix_tokens_total", "prefill_steps_stolen_total",
-             "kv_cow_copies_total", "requests_shed_total",
-             "requests_timed_out_total", "requests_poisoned_total",
-             "slots_quarantined_total", "watchdog_stalls_total"), 0)
+        self.counters = CounterView(lambda: self.metrics)
         self.forwards = 0   # paged model forwards (each runs every layer)
         # -- preemption: a batch-class victim's KV and sampling chains go
         # through the handoff wire format into the bounded host-RAM swap
@@ -392,7 +437,7 @@ class SlotScheduler:
         # worker-thread owned, as every slot structure; on_evict fires inside
         # put(), on the worker too
         self._swap_store = SwapStore(
-            max(1, swap_mb) * 2 ** 20, swap_ttl,
+            max(1, swap_mb) * 2 ** 20, swap_ttl, metrics=self.metrics,
             on_evict=lambda sid: self._drop_swapped(sid, "evicted"))
         self._swapped: dict[str, _Request] = {}   # sid -> the parked request
         self._swap_seq = 0
@@ -433,6 +478,7 @@ class SlotScheduler:
         self._stall_streak = 0                # guarded by _step_lock
         self._needs_restart = False           # repeat-stall escalation
         self._stalled = threading.Event()     # shed new work while wedged
+        self._export_queue_gauges()   # gauges present from the first scrape
         self._worker = threading.Thread(target=self._loop, daemon=True,
                                         name="slot-scheduler")
         self._worker.start()
@@ -464,6 +510,18 @@ class SlotScheduler:
         self._bias_dev: torch.Tensor | None = None
         self._bias_rows: set[int] = set()
 
+    # -- the engine, read through a supervisor ------------------------------
+
+    @property
+    def engine(self) -> Engine:
+        return getattr(self._src, "engine", self._src)
+
+    @property
+    def metrics(self) -> Metrics:
+        """The engine's current registry (a supervisor may swap it), shared
+        by every scheduler of the engine and every model of a registry."""
+        return self.engine.metrics
+
     # -- public API ---------------------------------------------------------
 
     @property
@@ -478,8 +536,25 @@ class SlotScheduler:
     def queue_full(self) -> bool:
         return self._subq.qsize() >= self.max_queue
 
-    def _count(self, name: str, n: int = 1) -> None:
-        self.counters[name] = self.counters.get(name, 0) + n
+    def _count_finished(self, outcome: str) -> None:
+        """The per-outcome counters, flat and labelled by model."""
+        self.metrics.inc(f"requests_finished_{outcome}_total")
+        self.metrics.inc("requests_finished_total",
+                         labels={"model": self.cfg.arch, "outcome": outcome})
+
+    def _export_queue_gauges(self) -> None:
+        """Publish the admission state: queue depth, the wait estimate
+        shedding runs on, slot occupancy and the pool's occupancy. The port
+        has one pool role ("both", gauge 0) and pins no handoff."""
+        m = self.metrics
+        m.set_gauge("queue_depth", self._subq.qsize())
+        m.set_gauge("queue_wait_est_s", round(self.estimated_wait_s(), 3))
+        m.set_gauge("slots_active", self.slots_active)
+        m.set_gauge("slots_total", self.n_slots)
+        m.set_gauge("pool_role", 0)
+        m.set_gauge("kv_handoffs_pinned", 0)
+        if isinstance(self._backend, PagedSlotBackend):
+            self._backend.export_gauges(self)
 
     # -- load shedding and the poisoned-request detector ---------------------
 
@@ -534,34 +609,34 @@ class SlotScheduler:
                     "status": status}
 
         if self._stalled.is_set():
-            self._count("requests_shed_total")
+            self.metrics.inc("requests_shed_total")
             return shed("device step stalled; scheduler is recovering",
                         503, max(1, int(self.stall_budget_s)))
         # Retry-After reflects the queue this class would see under EDF
         wait = self.estimated_wait_s(gen.priority if gen is not None else None)
         retry = max(1, int(wait) + 1)
         if self.queue_full:
-            self._count("requests_shed_total")
+            self.metrics.inc("requests_shed_total")
             return shed(f"request queue full ({self.max_queue})", 429, retry)
         if (gen is not None and gen.deadline_ms is not None
                 and wait * 1000.0 > gen.deadline_ms):
             # a request that would spend its whole deadline queued is dead
             # on arrival: refuse it now rather than burn a slot
-            self._count("requests_shed_total")
-            self._count("requests_timed_out_total")
+            self.metrics.inc("requests_shed_total")
+            self.metrics.inc("requests_timed_out_total")
             return shed(f"cannot finish before deadline: estimated "
                         f"queue wait {wait:.1f}s exceeds deadline "
                         f"{gen.deadline_ms:.0f}ms", 429, retry)
         if (self.tenant_quota > 0 and tenant is not None
                 and self.tenant_load(tenant) >= self.tenant_quota):
             # only the over-quota tenant is refused
-            self._count("requests_shed_total")
+            self.metrics.inc("requests_shed_total")
             return shed(f"tenant {tenant!r} over quota "
                         f"({self.tenant_quota} in-flight requests)", 429, retry)
         if prompt is not None and gen is not None:
             fails = self._poison.get(self._fingerprint(prompt, gen), 0)
             if fails >= self.poison_limit:
-                self._count("requests_poisoned_total")
+                self.metrics.inc("requests_poisoned_total")
                 return shed(f"request refused: it crashed its slot "
                             f"{fails} times (poison_limit "
                             f"{self.poison_limit})", 400, retry)
@@ -589,7 +664,7 @@ class SlotScheduler:
         if self._stalled.is_set():
             # the worker is blocked behind a stalled step: queueing would
             # only grow the casualty list
-            self._count("requests_shed_total")
+            self.metrics.inc("requests_shed_total")
             raise SchedulerStalled(
                 "scheduler stalled: a device step exceeded its "
                 f"{self.stall_budget_s:.0f}s stall budget; shedding new work")
@@ -604,7 +679,7 @@ class SlotScheduler:
                 f"(one of {', '.join(PRIORITY_CLASSES)})")
         fails = self._poison.get(self._fingerprint(prompt, g), 0)
         if fails >= self.poison_limit:
-            self._count("requests_poisoned_total")
+            self.metrics.inc("requests_poisoned_total")
             raise PoisonedRequest(
                 f"request refused: it crashed its slot {fails} times "
                 f"(poison_limit {self.poison_limit}); re-admission would "
@@ -623,13 +698,13 @@ class SlotScheduler:
             raise ValueError(f"logprobs alternatives capped at {LP_TOPK} "
                              f"on the parallel-slot path")
         if self.queue_full:
-            self._count("requests_shed_total")
+            self.metrics.inc("requests_shed_total")
             raise QueueFull(f"request queue full ({self.max_queue})")
         if (self.tenant_quota > 0 and tenant is not None
                 and self.tenant_load(tenant) >= self.tenant_quota):
             # a preempted request is requeued by the worker without passing
             # here, so preemption never sheds its own victim
-            self._count("requests_shed_total")
+            self.metrics.inc("requests_shed_total")
             raise QueueFull(f"tenant {tenant!r} over quota "
                             f"({self.tenant_quota} in-flight requests)")
         req = _Request(prompt, g, emit, abort or threading.Event(),
@@ -802,8 +877,8 @@ class SlotScheduler:
         self._slots[r] = None
         self._pos[r] = 0
         self._row_ids[r] = full_ids
-        self._count(f'preemptions_total{{class="{req.gen.priority}"}}')
-        self._count('kv_swaps_total{result="out"}')
+        self.metrics.inc("preemptions_total", labels={"class": req.gen.priority})
+        self.metrics.inc("kv_swaps_total", labels={"result": "out"})
         self._emit(req, log(
             f"preempted (slot {r}): {slot.n_gen} tokens generated; KV + "
             f"sampling state swapped out ({len(data)} bytes); resumes "
@@ -864,7 +939,7 @@ class SlotScheduler:
         self._arm_bias_row(r, req.gen)
         req.swap = None
         req.swap_slot = None
-        self._count('kv_swaps_total{result="in"}')
+        self.metrics.inc("kv_swaps_total", labels={"result": "in"})
         self._emit(req, log(
             f"resumed from swap (slot {r}): {len(full_ids)} tokens "
             f"resident; zero re-prefill"))
@@ -878,12 +953,18 @@ class SlotScheduler:
         """The terminal of a preempted request whose swapped state is gone
         (TTL expiry, eviction, a representation change): finish reason
         ``error`` with ``retry_after_s``, never a silent hang."""
-        self._count(f'kv_swaps_total{{result="{result}"}}')
+        self.metrics.inc("kv_swaps_total", labels={"result": result})
         n_prompt = len(slot.ids) if slot is not None else 0
         n_gen = slot.n_gen if slot is not None else 0
         retry = max(1, int(self.estimated_wait_s(req.gen.priority)) + 1)
         msg = (f"request was preempted and its swapped state {why}; "
                f"resubmit (Retry-After {retry}s)")
+        # the tokens delivered before the preemption stay counted
+        self.metrics.record_request(
+            n_prompt=n_prompt, n_gen=n_gen,
+            ttft_ms=slot.ttft_ms if slot is not None else float("nan"),
+            tok_s=float("nan"))
+        self._count_finished("error")
         self._emit(req, done(msg, n_prompt=n_prompt, n_gen=n_gen,
                              finish_reason="error", error=msg,
                              retry_after_s=retry))
@@ -918,7 +999,7 @@ class SlotScheduler:
         sid = req.swap
         self._swapped.pop(sid, None)
         self._swap_store.take(sid)
-        self._count('kv_swaps_total{result="dropped"}')
+        self.metrics.inc("kv_swaps_total", labels={"result": "dropped"})
         req.swap = None
         req.swap_slot = None
 
@@ -939,6 +1020,9 @@ class SlotScheduler:
                         # worker, once the stalled step has returned
                         pending = None
                         self._recover_engine()
+                    elif self._backend.eng is not self.engine \
+                            and self._follow_restart():
+                        pending = None
                     self._run_controls()
                     self._sweep_starved()
                     self._finish_prefills()
@@ -952,6 +1036,7 @@ class SlotScheduler:
                             pending = None
                         self._preempt_one()
                     self._admit()
+                    self._export_queue_gauges()
                     running, prefilling = self._active_rows()
                     if any(self._slots[r].sampler is not None for r, _ in running):
                         # a constrained row's next token is the host's pick
@@ -1170,6 +1255,7 @@ class SlotScheduler:
         except PoolExhausted as e:
             # no pool room for the suffix bucket: the server is overloaded,
             # not the prompt (no poison strike)
+            self.metrics.inc("requests_aborted_total")
             self._finish(slot, "error", note=f"engine error: {e!r}")
             return
         except Exception as e:
@@ -1188,6 +1274,7 @@ class SlotScheduler:
             if slot.phase == "prefill":
                 # nothing was sampled: a "length" finish would present an
                 # empty completion as a success
+                self.metrics.inc("requests_aborted_total")
                 self._finish(slot, "error",
                              note="kv block pool exhausted during prefill "
                                   "(raise DLP_KV_POOL_BLOCKS or lower "
@@ -1203,6 +1290,7 @@ class SlotScheduler:
         """Fail every in-flight request with a terminal event and rebuild
         the pool and the device chains: for an error that belongs to no
         row."""
+        self.metrics.inc("scheduler_faults_total")
         # close the step window first: a watchdog claim in flight has then
         # either landed (abandoned is set, visible below) or backed off
         self._step_end()
@@ -1235,7 +1323,7 @@ class SlotScheduler:
         are consumed (``_release_q``)."""
         r = slot.idx
         fails = self._record_poison(slot.req)
-        self._count("slots_quarantined_total")
+        self.metrics.inc("slots_quarantined_total")
         if fails >= self.poison_limit:
             note += (f" (request has now failed {fails}x: further "
                      "submissions will be refused)")
@@ -1257,7 +1345,7 @@ class SlotScheduler:
         """Deadline exceeded: finish the request with the typed ``timeout``
         reason. Its KV is valid (a healthy request that ran out of time), so
         the row keeps it as a retained prefix."""
-        self._count("requests_timed_out_total")
+        self.metrics.inc("requests_timed_out_total")
         waited = time.monotonic() - slot.req.submitted
         self._emit(slot.req, log(
             f"deadline exceeded ({slot.req.gen.deadline_ms:.0f} ms budget, "
@@ -1326,7 +1414,7 @@ class SlotScheduler:
             victims, streak = self._claim_stalled()
             if victims is None:
                 continue
-            self._count("watchdog_stalls_total")
+            self.metrics.inc("watchdog_stalls_total")
             self._stalled.set()
             msg = (f"device step stalled > {self.stall_budget_s:.1f}s "
                    f"(stall {streak}; "
@@ -1337,6 +1425,11 @@ class SlotScheduler:
                     f"request failed: {msg}", n_prompt=len(slot.ids),
                     n_gen=slot.n_gen, finish_reason="error",
                     error=f"watchdog: {msg}"))
+                # this terminal replaces _finish's: count the traffic here
+                self._count_finished("error")
+                self.metrics.record_request(
+                    n_prompt=len(slot.ids), n_gen=slot.n_gen,
+                    ttft_ms=slot.ttft_ms, tok_s=float("nan"))
 
     def _claim_stalled(self) -> tuple[list[_Slot] | None, int]:
         """Flag the current step window as stalled and claim its victims:
@@ -1368,14 +1461,54 @@ class SlotScheduler:
         return victims, streak
 
     def _recover_engine(self) -> None:
-        """Repeat-stall escalation, on the worker thread: the stalled step's
-        buffers are suspect, so fail what is resident and rebuild the device
-        state (the reference's path without a supervised engine)."""
-        self._fail_all(RuntimeError(
-            "engine restarted after repeated device-step stalls"))
+        """Repeat-stall escalation, on the worker thread: restart a
+        supervised engine (its weights reload), rebuild the backend against
+        the new engine, then fail what is resident and rebuild the device
+        state, since the stalled step's buffers are suspect. Without a
+        supervisor only the device state is rebuilt. A restart that fails
+        (the budget spent, the rebuild crashed) is terminal: every request
+        fails and the scheduler closes, so later submits fail fast."""
+        err: Exception = RuntimeError(
+            "engine restarted after repeated device-step stalls")
+        restart = getattr(self._src, "restart", None)
+        if callable(restart):
+            # the old pool goes before the rebuild: the new engine's weights
+            # and pool then never sit beside it on the device
+            self._bufs = None
+            try:
+                restart()
+                self._backend = self.engine.slot_backend(
+                    self.n_slots, self.max_seq, block_size=self._kv_block,
+                    n_blocks=self._kv_pool_blocks)
+                self.fused_decode = self._backend.fused
+            except Exception as e:
+                err = e
+                self._closed.set()
+        self._fail_all(err)
         with self._step_lock:
             self._stall_streak = 0
         self._stalled.clear()
+
+    def _follow_restart(self) -> bool:
+        """The supervisor rebuilt the engine outside the watchdog (a crash
+        on a request that runs on the engine under the decode lock): the
+        slots move to the new engine here, on the worker, between steps, so
+        the old engine's weights go with its last reference. The pool's KV
+        came from the same weights, so a paged backend keeps it and what is
+        resident; a mesh's cache rows ended with its ranks, so its backend
+        is rebuilt and what was resident fails. Returns True then."""
+        eng = self.engine
+        if isinstance(self._backend, PagedSlotBackend):
+            self._backend.eng = eng
+            return False
+        self._bufs = None
+        self._backend = eng.slot_backend(self.n_slots, self.max_seq,
+                                         block_size=self._kv_block,
+                                         n_blocks=self._kv_pool_blocks)
+        self.fused_decode = self._backend.fused
+        self._fail_all(RuntimeError(
+            "engine restarted: the mesh's slot rows ended with it"))
+        return True
 
     def _drain_queue(self, reason: str) -> None:
         while True:
@@ -1430,7 +1563,8 @@ class SlotScheduler:
                     > req.submitted + req.gen.deadline_ms / 1000.0):
                 # the whole budget burned in the queue: a prefill now could
                 # only produce late tokens
-                self._count("requests_timed_out_total")
+                self.metrics.inc("requests_timed_out_total")
+                self._count_finished("timeout")
                 if req.swap is not None:
                     self._discard_swap(req)
                 self._emit(req, done(
@@ -1449,6 +1583,7 @@ class SlotScheduler:
         error, a prefill fault, an exhausted pool): a terminal event for
         that request, a poison strike unless the pool was the cause (the
         server is overloaded, not the prompt), siblings untouched."""
+        self.metrics.inc("requests_aborted_total")
         if not isinstance(e, PoolExhausted):
             self._record_poison(req)
         self._emit(req, done(f"engine error: {e!r}", n_prompt=0, n_gen=0,
@@ -1489,6 +1624,11 @@ class SlotScheduler:
         eng = self.engine
         gen = req.gen
         self._serial += 1
+        # the slot grant ends the queue phase
+        wait_ms = (time.monotonic() - req.submitted) * 1000.0
+        self.metrics.observe("queue_wait_ms", wait_ms)
+        self.metrics.observe("queue_wait_ms", wait_ms,
+                             labels={"class": gen.priority})
         for ev in eng._events_on_load:
             self._emit(req, ev)
         if faults.ACTIVE:
@@ -1515,6 +1655,9 @@ class SlotScheduler:
                 f"repeat_last_n {gen.repeat_last_n} clamped to {RECENT_W} "
                 f"(parallel-slot window capacity)"))
         if slot.budget == 0:
+            self.metrics.record_request(n_prompt=len(ids), n_gen=0,
+                                        ttft_ms=float("nan"),
+                                        tok_s=float("nan"))
             self._emit(req, done("generated 0 tokens (no budget)",
                                  n_prompt=len(ids), n_gen=0,
                                  finish_reason="length"))
@@ -1542,6 +1685,8 @@ class SlotScheduler:
 
     def _note_reuse(self, slot: _Slot, reuse_k: int) -> None:
         if reuse_k:
+            self.metrics.inc("prefix_cache_hits_total")
+            self.metrics.inc("prefix_cache_tokens_total", reuse_k)
             self._emit(slot.req, log(
                 f"prefix cache hit (slot {slot.idx}): reused KV for "
                 f"{reuse_k} of {len(slot.ids)} prompt tokens"))
@@ -1745,7 +1890,7 @@ class SlotScheduler:
             slot.stopped = True
 
     def _finish(self, slot: _Slot, finish_reason: str, note: str = "") -> None:
-        """Emit the terminal event and free the slot."""
+        """Emit the terminal event, record the request, free the slot."""
         r = slot.idx
         if self._slots[r] is slot:
             self._slots[r] = None
@@ -1778,6 +1923,14 @@ class SlotScheduler:
                     finish_reason = "stop"
             if tail:
                 self._emit(slot.req, token(tail))
+        if finish_reason == "abort":
+            self.metrics.inc("requests_aborted_total")
+            self.metrics.inc("prompt_tokens_total", len(slot.ids))
+            self.metrics.inc("generated_tokens_total", n_gen)
+        else:
+            self.metrics.record_request(n_prompt=len(slot.ids), n_gen=n_gen,
+                                        ttft_ms=slot.ttft_ms, tok_s=tps)
+        self._count_finished(finish_reason)
         # request-time EWMAs, overall and of the request's class: the
         # shedding wait estimates
         dt_req = time.monotonic() - slot.req.submitted
@@ -1955,7 +2108,7 @@ class SlotScheduler:
             lg, self._recent_dev, params, penalized, rngs, bias, lp, cs)
         if running:
             # in-flight streams paid a wide step instead of a decode chunk
-            self.counters["prefill_steps_stolen_total"] += 1
+            self.metrics.inc("prefill_steps_stolen_total")
         for r, _ in running:
             self._pos[r] += 1
         prefill_meta = []
@@ -1964,7 +2117,8 @@ class SlotScheduler:
             self._pos[s.idx] += f
             if f:
                 del s.pending[:f]
-                self.counters["prefill_tokens_total"] += f
+                self.metrics.observe("prefill_chunk_tokens", f)
+                self.metrics.inc("prefill_tokens_total", f)
             prefill_meta.append((s.idx, s.serial))
         outs = [self._tok_dev] + list(lps or ()) + list(cso[:2] if cso else ())
         return (self._readback(*(o[None] for o in outs)), 1, running,

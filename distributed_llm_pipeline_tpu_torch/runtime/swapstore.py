@@ -8,8 +8,8 @@ bounded by LRU and TTL, until the request is re-admitted with zero
 re-prefill. The store is deliberately dumb: bytes in, bytes out, capacity
 accounting. Victim selection, restore and the typed expiry error live in
 the scheduler, and every call happens on the scheduler's worker thread.
-The reference's gauges and per-operation timing feed its metrics registry
-and tracer, which the port does not have yet.
+With ``metrics`` the store publishes its ``swap_store_bytes`` and
+``swap_store_entries`` gauges after every change, as the reference's does.
 """
 
 from __future__ import annotations
@@ -31,17 +31,20 @@ class SwapStore:
     """
 
     def __init__(self, max_bytes: int, ttl_s: float,
+                 metrics=None,
                  on_evict: Callable[[str], None] | None = None):
         if max_bytes <= 0:
             raise ValueError(f"swap store budget must be positive, "
                              f"got {max_bytes} bytes")
         self.max_bytes = int(max_bytes)
         self.ttl_s = float(ttl_s)
+        self.metrics = metrics
         self.on_evict = on_evict
         # sid -> {data, t}; insertion order is the LRU order (entries are
         # write-once: a swapped request re-admits at most once)
         self._entries: OrderedDict[str, dict] = OrderedDict()
         self._bytes = 0
+        self._export()
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -49,6 +52,11 @@ class SwapStore:
     @property
     def bytes_used(self) -> int:
         return self._bytes
+
+    def _export(self) -> None:
+        if self.metrics is not None:
+            self.metrics.set_gauge("swap_store_bytes", self._bytes)
+            self.metrics.set_gauge("swap_store_entries", len(self._entries))
 
     def put(self, sid: str, data: bytes) -> bool:
         """Insert a payload, evicting oldest-first until it fits. Returns
@@ -63,6 +71,7 @@ class SwapStore:
                 self.on_evict(victim)
         self._entries[sid] = {"data": data, "t": time.monotonic()}
         self._bytes += len(data)
+        self._export()
         return True
 
     def take(self, sid: str) -> bytes | None:
@@ -72,6 +81,7 @@ class SwapStore:
         if entry is None:
             return None
         self._bytes -= len(entry["data"])
+        self._export()
         return entry["data"]
 
     def sweep(self, now: float | None = None) -> list[str]:
@@ -84,8 +94,11 @@ class SwapStore:
                    if now - e["t"] > self.ttl_s]
         for sid in expired:
             self._bytes -= len(self._entries.pop(sid)["data"])
+        if expired:
+            self._export()
         return expired
 
     def clear(self) -> None:
         self._entries.clear()
         self._bytes = 0
+        self._export()

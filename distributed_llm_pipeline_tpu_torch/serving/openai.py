@@ -5,13 +5,14 @@ The counterpart of ``distributed_llm_pipeline_tpu/serving/openai.py``:
 - ``POST /completion``            llama-server: {prompt, n_predict, n_probs, ...}
 - ``POST /v1/completions``        OpenAI text completion (+ SSE streaming)
 - ``POST /v1/chat/completions``   OpenAI chat (+ SSE streaming)
-- ``GET  /v1/models``             the one loaded model
+- ``GET  /v1/models``             the registry's loaded models
 - ``POST /infill``                llama-server fill-in-middle (FIM tokens)
 - ``POST /embedding``, ``POST /v1/embeddings``: pooled embeddings
 - ``POST /slots/{id}?action=save|restore|erase``: a slot's KV as a file
   under ``--slot-save-path`` (the engine's prefix cache without slots)
 - ``POST /tokenize``, ``POST /detokenize``, ``POST /apply-template``,
   ``GET /props``, ``GET /health``, ``GET /slots``: llama-server's utilities
+- ``GET /lora-adapters``: the adapters merged into the default model at load
 
 A request decodes in the slot scheduler's shared batch when the server has
 one (``--parallel N``), constrained requests (``grammar``, ``json_schema``,
@@ -29,9 +30,11 @@ an unmeetable deadline, a stalled device, a poisoned request) gets its
 status with an integer ``Retry-After``, and a request that runs out of
 time ends with finish reason ``timeout`` (``timed_out`` on /completion).
 
-The server holds one model: ``model`` may name it or be left out, and any
-other name is a 404. Fields and routes of the reference that the port does
-not serve yet (LoRA) get a 400 that names them; none is ignored.
+Requests pick a model of the server's ``ModelRegistry`` with the
+standard ``model`` field (left out: the default model); a model that is not
+loaded is a 404. LoRA adapters are merged at load, as in the reference, so
+a request's ``lora`` field asks for nothing and is not read (the
+reference's answer).
 """
 
 from __future__ import annotations
@@ -57,20 +60,11 @@ from .common import (acquire_with_keepalive, cors, engine_events, json_response,
                      priority_error, retry_after_value, shed_response,
                      sse_response)
 
-# request fields of the reference the port does not serve yet, each with the
-# values that ask for nothing (a client may send those)
-_NOT_SERVED = {"lora": (None, [])}
-
-
 def _retry_headers(final: dict) -> dict | None:
     """``Retry-After`` for an error that came from a shed decision (its
     ``retry_after_s``), in integer seconds."""
     ra = final.get("retry_after_s")
     return {"Retry-After": retry_after_value(ra)} if ra is not None else None
-
-
-def not_served(what: str) -> str:
-    return f"{what} is not yet served by the PyTorch/CUDA port"
 
 
 def build_prompt(messages: list[dict], tokenizer) -> str:
@@ -121,16 +115,16 @@ class ModelNotFound(Exception):
 
 class CompletionAPI:
     """The completion routes, registered onto a ChatServer's app; they share
-    its engine, its decode lock and its slot scheduler (None without
-    ``--parallel``)."""
+    its model registry, its decode lock and its slot scheduler (None without
+    ``--parallel``), which serves the default model."""
 
-    def __init__(self, engine, busy: asyncio.Lock, gen: GenerationConfig,
+    def __init__(self, registry, busy: asyncio.Lock, gen: GenerationConfig,
                  model_id: str = "default", slots=None,
                  slot_save_path: str | None = None, pooling: str = "mean"):
         if pooling not in POOLING_TYPES:
             raise ValueError(f"unsupported pooling {pooling!r} "
                              f"(one of {', '.join(POOLING_TYPES)})")
-        self.engine = engine
+        self.registry = registry
         self._busy = busy
         self.gen = gen
         self.model_id = model_id
@@ -143,11 +137,10 @@ class CompletionAPI:
         mid = body.get("model")
         if mid is not None and not isinstance(mid, str):
             raise BadRequest(f"'model' must be a string, got {mid!r}")
-        if mid and mid != self.model_id:
-            # the reference's registry message, a KeyError's text
-            raise ModelNotFound(str(KeyError(
-                f"model {mid!r} is not loaded (loaded: {[self.model_id]})")))
-        return self.engine, (mid or self.model_id)
+        try:
+            return self.registry.get(mid), (mid or self.model_id)
+        except KeyError as e:
+            raise ModelNotFound(str(e)) from None
 
     def register(self, app: web.Application) -> None:
         for path in ("/completion", "/v1/completions", "/v1/chat/completions"):
@@ -166,24 +159,22 @@ class CompletionAPI:
         app.router.add_get("/health", self.health)
         app.router.add_get("/slots", self.slots_handler)
         app.router.add_post("/slots/{slot_id}", self.slot_action)
-        app.router.add_get("/lora-adapters", self._not_served)
-
-    async def _not_served(self, request: web.Request) -> web.Response:
-        path = request.match_info.route.resource.canonical
-        return json_response({"error": not_served(f"'{path}'")}, status=400)
+        app.router.add_get("/lora-adapters", self.lora_adapters)
 
     # -- shared plumbing ----------------------------------------------------
 
     def _target(self, engine, gen: GenerationConfig):
         """(target, needs_lock): the slot scheduler, without the lock, when
-        the server has one (constrained requests run on a slot too), except
-        for context-shift requests and sampled typical-p and mirostat ones
-        (per-row shifted windows, per-request entropy filtering and μ state
-        are not in the batched row sampler); else the engine under the
-        decode lock."""
+        the server has one and it serves this engine (the default model;
+        constrained requests run on a slot too), except for context-shift
+        requests and sampled typical-p and mirostat ones (per-row shifted
+        windows, per-request entropy filtering and μ state are not in the
+        batched row sampler); else the engine under the decode lock."""
         single = gen.temperature > 0.0 and (gen.typical_p < 1.0 or bool(gen.mirostat))
-        if self.slots is not None and not gen.context_shift and not single:
-            return self.slots, False
+        s = self.slots
+        if (s is not None and engine is s._src and not gen.context_shift
+                and not single):
+            return s, False
         return engine, True
 
     def _tok_str(self, engine, tid: int) -> str:
@@ -296,11 +287,6 @@ class CompletionAPI:
         another constraint, a penalty, a bias or logprobs (the reference's
         texts)."""
         g = self.gen
-        for k, neutral in _NOT_SERVED.items():
-            v = body.get(k)
-            if not any(v is n or v == n for n in neutral):
-                raise BadRequest(not_served(f"'{k}'"))
-
         def take(keys: tuple[str, ...], conv, default):
             for k in keys:
                 v = body.get(k)
@@ -702,7 +688,8 @@ class CompletionAPI:
             return json_response(
                 {"error": f"slot id out of range (0..{sched.n_slots - 1})"},
                 status=400)
-        engine = self.engine
+        sup = self.registry.get()
+        engine = getattr(sup, "engine", sup)
         loop = asyncio.get_running_loop()
         try:
             if action == "erase":
@@ -838,8 +825,18 @@ class CompletionAPI:
             return json_response({"error": f"invalid messages: {e}"}, status=400)
         return json_response({"prompt": prompt})
 
+    async def lora_adapters(self, request: web.Request) -> web.Response:
+        """llama-server's ``GET /lora-adapters``: the adapters merged into
+        the default model's weights at load, each scale as merged (the list
+        is fixed until the model reloads)."""
+        sup = self.registry.get()
+        eng = getattr(sup, "engine", sup)
+        ads = getattr(eng, "lora_adapters", []) or []
+        return json_response([{"id": i, "path": path, "scale": scale}
+                              for i, (path, scale) in enumerate(ads)])
+
     async def props(self, request: web.Request) -> web.Response:
-        g, eng = self.gen, self.engine
+        g, eng = self.gen, self.registry.get()
         return json_response({
             "default_generation_settings": {
                 "n_predict": g.max_new_tokens, "temperature": g.temperature,
@@ -858,9 +855,12 @@ class CompletionAPI:
         })
 
     async def health(self, request: web.Request) -> web.Response:
-        """llama-server's ``GET /health``: the model is loaded once the
-        server answers."""
-        return json_response({"status": "ok"})
+        """llama-server's ``GET /health``: ok while every loaded model is
+        healthy, else 503 (``/healthz`` has the per-model view)."""
+        models = self.registry.health()
+        ok = all(h["status"] == "healthy" for h in models.values())
+        return json_response({"status": "ok" if ok else "error"},
+                             status=200 if ok else 503)
 
     async def slots_handler(self, request: web.Request) -> web.Response:
         """llama-server's ``GET /slots``; without slots, the one implicit
@@ -874,8 +874,9 @@ class CompletionAPI:
 
     async def v1_models(self, request: web.Request) -> web.Response:
         return json_response({"object": "list", "data": [
-            {"id": self.model_id, "object": "model", "created": int(time.time()),
-             "owned_by": "distributed_llm_pipeline_tpu_torch"}]})
+            {"id": mid, "object": "model", "created": int(time.time()),
+             "owned_by": "distributed_llm_pipeline_tpu_torch"}
+            for mid in self.registry.ids()]})
 
     async def v1_completions(self, request: web.Request) -> web.StreamResponse:
         body = await self._read_json(request)

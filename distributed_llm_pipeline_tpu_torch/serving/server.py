@@ -21,9 +21,20 @@ With ``--mesh PPxTP`` (e.g. ``2x2``) the model is served by a
 process per rank; this process is rank 0 and starts the others. ``/chat``
 streams from rank 0, one stream or ``--parallel N`` slots.
 
+The server holds a :class:`ModelRegistry` (``serving/supervisor.py``): the
+startup model (with ``--lora`` adapters merged at load) is pinned, and
+``POST /models/load`` ``{id, path, mesh?, ctx?}`` / ``POST /models/unload``
+``{id}`` add and drop others (at most ``--max-models``, LRU-evicted) that
+requests pick by their ``model`` field; ``GET /models`` lists them with
+their health. Each model is a :class:`SupervisedEngine`: a crash
+mid-generation reloads it and retries the request once. ``GET /metrics``
+serves the shared metrics registry as Prometheus text, or JSON under
+``Accept: application/json``.
+
 Run: ``dlp-serve-torch --model m.gguf [--parallel N] [--quant MODE]
-[--kv-quant q8_0] [--mesh PPxTP] [--dtype D] [--slot-save-path DIR]
-[--pooling mean|cls|last] [--cpu] [--config FILE]`` or
+[--kv-quant q8_0] [--lora GGUF[=SCALE],...] [--max-models N] [--mesh PPxTP]
+[--dtype D] [--slot-save-path DIR] [--pooling mean|cls|last] [--cpu]
+[--config FILE]`` or
 ``python -m distributed_llm_pipeline_tpu_torch.serving.server ...`` (port
 3005 by default; settings also from a JSON/TOML ``--config`` file and
 ``DLP_*`` variables, flags winning). Without ``--cpu`` it needs a CUDA
@@ -47,13 +58,15 @@ from pathlib import Path
 
 from aiohttp import web
 
-from ..config import DTYPES, config_from_args, torch_dtype
+from ..config import DTYPES, config_from_args, lora_list, torch_dtype
 from ..models.llama import POOLING_TYPES, QUANT_MODES
+from ..parallel.mesh import MeshSpec
 from ..runtime import Engine, GenerationConfig, SlotScheduler
 from ..runtime.engine import check_token_ids
 from .common import (acquire_with_keepalive, cors, engine_events,
                      json_response, priority_error, shed_response, sse_response)
 from .openai import CompletionAPI
+from .supervisor import ModelRegistry, SupervisedEngine
 
 STATIC_DIR = Path(__file__).parent / "static"
 
@@ -67,20 +80,29 @@ _OVERRIDES = ("max_new_tokens", "temperature", "top_k", "top_p", "min_p",
 class ChatServer:
     def __init__(self, engine: Engine, gen: GenerationConfig | None = None,
                  parallel: int = 1, model_id: str = "default",
-                 slot_save_path: str | None = None, pooling: str = "mean"):
-        self.engine = engine
+                 slot_save_path: str | None = None, pooling: str = "mean",
+                 registry: ModelRegistry | None = None):
+        # without a registry the engine is the only model, supervised by a
+        # wrapper whose restart reuses it
+        self.registry = registry or ModelRegistry(model_id, engine)
+        self.engine = self.registry.get()   # the supervised default model
         self.gen = gen or GenerationConfig()
         self._busy = asyncio.Lock()
-        # --parallel N: continuous batching over N decode slots
-        self.scheduler = (SlotScheduler(engine, n_slots=parallel)
+        # --parallel N: continuous batching over N decode slots, for the
+        # default model; other models take the decode lock
+        self.scheduler = (SlotScheduler(self.engine, n_slots=parallel)
                           if parallel > 1 else None)
         self.app = web.Application()
         self.app.router.add_post("/chat", self.chat)
         self.app.router.add_options("/chat", self.preflight)
         self.app.router.add_get("/healthz", self.healthz)
+        self.app.router.add_get("/metrics", self.metrics)
+        self.app.router.add_get("/models", self.models_list)
+        self.app.router.add_post("/models/load", self.models_load)
+        self.app.router.add_post("/models/unload", self.models_unload)
         self.app.router.add_get("/", self.index)
-        self.api = CompletionAPI(engine, self._busy, self.gen, model_id=model_id,
-                                 slots=self.scheduler,
+        self.api = CompletionAPI(self.registry, self._busy, self.gen,
+                                 model_id=model_id, slots=self.scheduler,
                                  slot_save_path=slot_save_path, pooling=pooling)
         self.api.register(self.app)
         self.app.router.add_static("/", STATIC_DIR, show_index=False)
@@ -94,6 +116,8 @@ class ChatServer:
         return cors(web.Response())
 
     async def healthz(self, request: web.Request) -> web.Response:
+        models = self.registry.health()
+        ok = all(h["status"] == "healthy" for h in models.values())
         eng = self.engine
         sched = self.scheduler
         if sched is not None:
@@ -104,11 +128,84 @@ class ChatServer:
         else:
             load = {"queue_depth": 0, "slots_active": int(self._busy.locked()),
                     "slots_total": 1}
-        return json_response({"status": "ok", "model": eng.cfg.arch,
+        return json_response({"status": "ok" if ok else "degraded",
+                              "model": eng.cfg.arch,
                               "n_layers": eng.cfg.n_layers, "ctx": eng.max_seq,
                               "device": str(eng.device),
                               "kv_quant": eng.kv_quant, "kv_mode": eng.kv_mode,
-                              "busy": self._busy.locked(), **load})
+                              "busy": self._busy.locked(), **load,
+                              "models": models})
+
+    # -- the model registry -------------------------------------------------
+
+    async def models_list(self, request: web.Request) -> web.Response:
+        return json_response({"default": self.registry.default_id,
+                              "models": self.registry.health()})
+
+    async def models_load(self, request: web.Request) -> web.Response:
+        try:
+            body = await request.json()
+            model_id, path = body["id"], body["path"]
+        except (json.JSONDecodeError, KeyError, TypeError):
+            return json_response(
+                {"error": "body must be JSON {id, path, mesh?, ctx?}"}, status=400)
+        # parameters are validated before any engine work: a malformed ctx
+        # or mesh is the client's 400, not a 409 or a 500
+        try:
+            ctx = int(body.get("ctx", 2048))
+            if ctx <= 0:
+                raise ValueError(f"ctx must be positive, got {ctx}")
+            mesh = body.get("mesh")
+            if mesh is not None:
+                MeshSpec.parse(str(mesh))
+        except (ValueError, TypeError) as e:
+            return json_response({"error": f"invalid parameters: {e}"}, status=400)
+        try:
+            # building an engine blocks (GGUF load, host packing, placement):
+            # off the loop. The streams served meanwhile stall while it
+            # parses the GGUF's metadata and builds its tokenizer (pure
+            # Python, holding the interpreter lock)
+            sup = await asyncio.get_running_loop().run_in_executor(
+                None, lambda: self.registry.load(model_id, path, mesh, ctx))
+        except NotImplementedError as e:
+            # a recognized combination the engine does not serve
+            return json_response({"error": str(e)}, status=400)
+        except (ValueError, RuntimeError) as e:
+            return json_response({"error": str(e)}, status=409)
+        except Exception as e:
+            return json_response({"error": repr(e)}, status=500)
+        return json_response({"loaded": model_id, "n_layers": sup.cfg.n_layers,
+                              "ctx": sup.max_seq})
+
+    async def models_unload(self, request: web.Request) -> web.Response:
+        try:
+            body = await request.json()
+            model_id = body["id"]
+        except (json.JSONDecodeError, KeyError, TypeError):
+            return json_response({"error": "body must be JSON {id}"}, status=400)
+        try:
+            self.registry.unload(model_id)
+        except KeyError as e:
+            return json_response({"error": str(e)}, status=404)
+        except ValueError as e:
+            return json_response({"error": str(e)}, status=400)
+        except RuntimeError as e:
+            # requests still stream from it: the client retries
+            return json_response({"error": str(e)}, status=409)
+        return json_response({"unloaded": model_id})
+
+    async def metrics(self, request: web.Request) -> web.Response:
+        """The shared metrics registry, every model's traffic: Prometheus
+        text by default, JSON under ``Accept: application/json``. The
+        queue and slot gauges are refreshed at scrape time."""
+        m = self.registry.metrics
+        m.set_gauge("busy", 1.0 if self._busy.locked() else 0.0)
+        if self.scheduler is not None:
+            self.scheduler._export_queue_gauges()
+        if "application/json" in request.headers.get("Accept", ""):
+            return json_response(m.snapshot())
+        return cors(web.Response(text=m.render_prometheus(),
+                                 content_type="text/plain"))
 
     async def index(self, request: web.Request) -> web.FileResponse:
         return web.FileResponse(STATIC_DIR / "index.html")
@@ -154,17 +251,21 @@ class ChatServer:
             return json_response(
                 {"error": "'prompt' must be a string or a list of token ids"},
                 status=400)
-        if isinstance(prompt, list):
-            try:
-                check_token_ids(prompt, self.engine.cfg.vocab_size)
-            except ValueError as e:
-                return json_response({"error": f"'prompt': {e}"}, status=400)
         gen = self._gen_for(body)
         if isinstance(gen, str):
             return json_response({"error": gen}, status=400)
-        # the slot scheduler batches concurrent requests itself; the
-        # single-stream engine takes them in turn under the decode lock
-        locked = self.scheduler is None
+        try:
+            engine = self.registry.get(body.get("model"))
+        except KeyError as e:
+            return json_response({"error": str(e)}, status=404)
+        if isinstance(prompt, list):
+            try:
+                check_token_ids(prompt, engine.cfg.vocab_size)
+            except ValueError as e:
+                return json_response({"error": f"'prompt': {e}"}, status=400)
+        # the slot scheduler batches concurrent requests to the default
+        # model itself; an engine takes them in turn under the decode lock
+        target, locked = self.api._target(engine, gen)
         # the tenant a quota charges: the X-DLP-Tenant header or the body's
         # field; only the slots keep quotas (the lock path serves one stream)
         tenant = request.headers.get("X-DLP-Tenant") or body.get("tenant")
@@ -176,7 +277,6 @@ class ChatServer:
         resp = await sse_response(request)
         if locked and not await acquire_with_keepalive(self._busy, resp):
             return resp  # client gave up while queued; lock not held
-        target = self.engine if locked else self.scheduler
         abort = threading.Event()
         try:
             # aclosing: a break closes the generator (joining the engine
@@ -224,6 +324,11 @@ def build_argparser():
     ap.add_argument("--kv-quant", default=None, choices=["q8_0"],
                     help="int8 KV cache and slot pools (llama.cpp -ctk/-ctv "
                          "q8_0)")
+    ap.add_argument("--lora", default=None, metavar="GGUF[=SCALE],...",
+                    help="LoRA adapter GGUF(s) merged at load, into the "
+                         "startup model only")
+    ap.add_argument("--max-models", type=int, default=2,
+                    help="bound on concurrently loaded models (LRU eviction)")
     ap.add_argument("--mesh", default=None,
                     help="stages x chips, e.g. 2x1 (pp x tp ranks, one process "
                          "each)")
@@ -241,10 +346,11 @@ def build_argparser():
 
 def build_engine(args) -> Engine:
     """The engine the parsed arguments (or an ``AppConfig``) ask for: a
-    ShardedEngine with ``--mesh``, else the single-device Engine."""
+    ShardedEngine with ``--mesh``, else the single-device Engine, with the
+    ``--lora`` adapters merged at load. On the CUDA device unless ``--cpu``."""
     kw = dict(max_seq=args.ctx_size, device="cpu" if args.cpu else None,
               quant=args.quant, kv_quant=args.kv_quant,
-              dtype=torch_dtype(args.dtype))
+              dtype=torch_dtype(args.dtype), lora=lora_list(args.lora))
     if args.mesh:
         from ..parallel import MeshSpec, ShardedEngine
 
@@ -252,29 +358,43 @@ def build_engine(args) -> Engine:
     return Engine(args.model, **kw)
 
 
+def load_engine(cfg, path: str, mesh: str | None, ctx: int) -> Engine:
+    """The registry's loader (``POST /models/load``): the startup settings
+    with the request's model, mesh and context, and no adapters (``--lora``
+    is the startup model's alone, as in llama-server)."""
+    return build_engine(replace(cfg, model=path, mesh=mesh, ctx_size=ctx, lora=None))
+
+
 def main(argv: list[str] | None = None) -> None:
     try:
         cfg, _ = config_from_args(argv, build_argparser)
         model = cfg.require_model()
         cfg.validate()
-        engine = build_engine(cfg)
+        default = SupervisedEngine(lambda: build_engine(cfg))
     except (NotImplementedError, ValueError) as e:   # an unserved mode or model
         print(f"error: {e}", file=sys.stderr)
         raise SystemExit(2) from None
+    model_id = Path(model).stem
+    registry = ModelRegistry(
+        model_id, default,
+        loader=lambda mid, path, mesh, ctx: load_engine(cfg, path, mesh, ctx),
+        max_models=cfg.max_models)
     try:
         # the config's seed is not a server-wide default: every request with
         # the same prompt would give the same text
         gen = GenerationConfig(max_new_tokens=cfg.n_predict,
                                temperature=cfg.temperature, top_k=cfg.top_k,
                                top_p=cfg.top_p)
-        server = ChatServer(engine, gen, parallel=cfg.parallel,
-                            model_id=Path(model).stem,
+        server = ChatServer(default, gen, parallel=cfg.parallel,
+                            model_id=model_id, registry=registry,
                             slot_save_path=cfg.slot_save_path, pooling=cfg.pooling)
         print(f"chat server listening on http://{cfg.host}:{cfg.port}", flush=True)
         web.run_app(server.app, host=cfg.host, port=cfg.port, print=None)
     finally:
-        if cfg.mesh:
-            engine.close()
+        for mid in registry.ids():
+            close = getattr(registry.get(mid).engine, "close", None)
+            if close is not None:   # a mesh ends its follower ranks
+                close()
 
 
 if __name__ == "__main__":

@@ -5,7 +5,7 @@ W8A8 kernels (``ops.quant_matmul.w8a8_matmul``) of one tree of the port at
 ``chip_smoke.py``'s phase-3 cases, on one CUDA card.
 
     python scripts/dequant_time.py [--root DIR] [--label NAME] [--seed N]
-                                   [--kinds q6_k,q4_k,q5_k,q8_0,int8,q2_ks,q5_ks,q8_0:w8a8]
+                                   [--kinds q6_k,q4_k,q5_k,q8_0,int8,q2_ks,q5_ks,q8_0:w8a8,int8:w8a8]
                                    [--ttft DIR]
 
 ``--root`` is the directory whose ``distributed_llm_pipeline_tpu_torch``
@@ -41,6 +41,15 @@ GGUF (16 layers; its Q4_K projections wq, wk, wo, gate and up, as
 dense) and of the Q3_K GGUF (8 layers, as phase 9 serves it, every
 projection); their heads are dense.
 
+``int8:w8a8`` times the route the served int8 decode steps take: int8
+at M <= 4 (``INT8_W8A8_MAX_M``) runs ``w8a8_matmul``'s ``w8a8_kernel``
+(int8 has no GEMV decoder at any D). At gate_up (D 2048, F 8192), M = 1 and
+M = 4, each line is ``chip_smoke.quant_case``'s: the kernel held to its
+plain version, its cold- and warm-L2 device time, the bound (the pack, x and
+the output once over HBM, or the int8 operations over the tensor-core peak,
+whichever is longer) and ``F.linear``'s time on the dense bf16 weight the
+pack represents, with the launch counter the route moves.
+
 With ``--ttft DIR``, it also serves ``chip_smoke.py``'s phase-7 and phase-8
 models (Llama-3.2-1B geometry, Q6_K and Q4_K_M GGUFs from the same seeds,
 written to DIR once and reused) through the tree's ``Engine(quant="native")``
@@ -66,7 +75,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kinds", default="q6_k,q4_k,q5_k", help="pack kinds to time "
                     "(of q6_k, q4_k, q5_k, q8_0, int8; q2_ks, q5_ks, q3_ks, q4_k8, "
-                    "q6_k8 or <kind>:w8a8 for a W8A8 kernel)")
+                    "q6_k8 or <kind>:w8a8 for a W8A8 kernel; int8:w8a8 for int8's "
+                    "decode route at gate_up)")
     ap.add_argument("--ttft", default="", help="directory for the served models' GGUFs")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -90,6 +100,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     for spec in args.kinds.split(","):
         kind, _, route = spec.partition(":")
+        if spec == "int8:w8a8":
+            time_int8_decode(cs, qm, kq, gen, flush, card, args.label)
+            continue
         if route == "w8a8" or qm._NAMES[kind][0] is None:
             time_w8a8(cs, qm, kq, kind, gen, flush, card, args.label)
             continue
@@ -169,6 +182,20 @@ def time_w8a8(cs, qm, kq, kind: str, gen, flush, card: str, label: str) -> None:
         print(json.dumps({"label": label, f"{kind}_decode_step_w8a8_ms": step,
                           "of": f"{n} x ({terms}){' + head' if head else ''} at M = {M}, "
                                 "cold L2", "card": card}), flush=True)
+
+
+def time_int8_decode(cs, qm, kq, gen, flush, card: str, label: str) -> None:
+    """int8 at gate_up on the decode route (M = 1 and 4): the kernel, its
+    bound and ``F.linear`` on the dense weight, as phase 3 holds them."""
+    import torch
+
+    pair, D, F = next(c for c in cs.QUANT_PAIRS if c[0] == "gate_up")
+    pack = cs.random_pack(qm, kq, "int8", D, F, gen)
+    for M in (1, 4):
+        row = cs.quant_case(qm, pack, "int8", M, torch.bfloat16, gen, flush)
+        print(json.dumps({"label": label, "pair": pair, "route": qm.route("int8", M),
+                          "gemv": qm.gemv_takes("int8", D), **row, "card": card}),
+              flush=True)
 
 
 def cases(cs, kind: str) -> list[tuple[str, int, int, tuple[int, ...]]]:

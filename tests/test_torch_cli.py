@@ -189,7 +189,7 @@ def test_settings_layer_file_env_flags(model_path, monkeypatch, capsys, tmp_path
     for f in AppConfig.field_names():
         assert getattr(got, f) == getattr(ref, f), f
     with pytest.raises(ValueError, match="unknown config keys"):
-        AppConfig.load(overrides={"lora": "x.gguf"})
+        AppConfig.load(overrides={"draft": "x.gguf"})
 
 
 def test_server_main_reads_the_settings_and_serves_the_routes(model_path, monkeypatch,

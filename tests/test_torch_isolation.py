@@ -34,7 +34,8 @@ import distributed_llm_pipeline_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 NEW = {{"cli", "config", "serving.openai", "serving.chat_template", "ops.gbnf",
        "ops.json_constraint", "ops.json_schema", "runtime.constrained",
-       "runtime.faults", "runtime.swapstore", "runtime.disagg"}}
+       "runtime.faults", "runtime.swapstore", "runtime.disagg",
+       "utils.metrics", "serving.supervisor", "models.lora"}}
 missing = {{n for n in NEW if pkg.__name__ + "." + n not in names}}
 assert not missing, missing
 for name in names:
@@ -137,6 +138,13 @@ for _ in range(2):
 text = Path({tmp!r}) / "t.txt"
 text.write_text("hi " * 80)
 assert cli.main(["-m", str(path), "--cpu", "-c", "64", "--perplexity", str(text)]) == 0
+import numpy as np
+from distributed_llm_pipeline_tpu_torch.models.lora import write_lora_gguf
+a = np.full((2, 64), 0.01, np.float32)
+adapter = write_lora_gguf(Path({tmp!r}) / "a.gguf", 4.0,
+                          {{"blk.0.attn_q.weight": (a, a.T.copy())}})
+assert cli.main(["-m", str(path), "--cpu", "-n", "2", "-c", "64", "-p", "hi",
+                 "--lora", f"{{adapter}}=0.5"]) == 0
 engine = Engine(path, device="cpu")
 server = ChatServer(engine, GenerationConfig(max_new_tokens=2), parallel=2,
                     slot_save_path={tmp!r})
@@ -174,13 +182,15 @@ async def go():
                             ("/slots/0?action=erase", {{}}),
                             ("/slots/0?action=restore", {{"filename": "s.bin"}})):
             out.append((await client.post(route, json=body)).status)
+        for route in ("/metrics", "/models", "/lora-adapters"):
+            out.append((await client.get(route)).status)
         return out
     finally:
         await client.close()
 
-assert asyncio.run(go()) == [200] * 16
+assert asyncio.run(go()) == [200] * 19
 server = single
-assert asyncio.run(go())[-4:] == [200] * 4
+assert asyncio.run(go())[-7:] == [200] * 7
 leaked = [m for m in sys.modules if m.split(".")[0] in {forbidden!r}]
 assert not leaked, leaked
 print("ok")
@@ -189,11 +199,12 @@ print("ok")
 
 def test_cli_and_completion_routes_serve_with_jax_blocked(tmp_path):
     """The CLI (an interactive turn, --json, a run past the context, a
-    prompt cache saved and loaded, perplexity) and the completion routes
-    (logprobs, a bias, typical-p and mirostat, the chat template, a
-    json_schema, a grammar, a context shift, batches, embeddings, /infill,
-    slot files on the slots and on the engine) run with jax, the JAX package
-    and ml_dtypes blocked from import."""
+    prompt cache saved and loaded, perplexity, a LoRA adapter) and the
+    completion routes (logprobs, a bias, typical-p and mirostat, the chat
+    template, a json_schema, a grammar, a context shift, batches,
+    embeddings, /infill, slot files on the slots and on the engine,
+    /metrics, /models, /lora-adapters) run with jax, the JAX package and
+    ml_dtypes blocked from import."""
     (tmp_path / "sitecustomize.py").write_text(_SITE_BLOCK.format(forbidden=FORBIDDEN))
     code = _SERVE_RUN.format(root=str(ROOT), tmp=str(tmp_path), forbidden=FORBIDDEN)
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(tmp_path), str(ROOT)])}

@@ -411,8 +411,9 @@ def test_mesh_chat_streams_the_single_device_tokens(tiny_gguf, served_mesh):
 
 def test_killed_follower_ends_the_stream_with_an_error(served_mesh):
     """The first decode forward waits until a follower is killed: the stream
-    then ends with an error event, within the timeout, and the next request
-    is refused at admission."""
+    then ends with an error event (the supervisor's, after its log line
+    naming the mesh's error), within the timeout, and the next request is
+    refused at admission."""
     model = served_mesh.model
     killed = threading.Event()
     hidden, calls = model.hidden, []
@@ -452,9 +453,53 @@ def test_killed_follower_ends_the_stream_with_an_error(served_mesh):
         model.hidden = hidden
     assert killed.is_set()
     assert any(e["msg_type"] == "token" for e in first)
-    assert first[-1]["finish_reason"] == "error" and "mesh" in first[-1]["error"]
+    # the server's supervisor logs the mesh's error, restarts (the same
+    # engine) and fails the request: its tokens were already streamed
+    assert first[-1]["finish_reason"] == "error" and "mid-stream" in first[-1]["error"]
+    assert any("engine failure" in e["content"] and "mesh" in e["content"]
+               for e in first if e["msg_type"] == "log")
     assert dt < TIMEOUT_S
     assert second[-1]["finish_reason"] == "error"
     assert "the mesh is down" in second[-1]["error"]
     with pytest.raises(RuntimeError, match="the mesh is down"):
         served_mesh.generate("hello")
+
+
+def test_supervised_mesh_restart_rebuilds_the_mesh(tiny_gguf, served_mesh):
+    """``--mesh 1x2`` as the server's ``main`` supervises it: a crash before
+    the first token closes the mesh (its ranks and process group) and
+    builds a new one through ``build_engine``, and the retried request and
+    the next give the uncrashed greedy text. While that mesh lives, a
+    ``/models/load`` of a second mesh is refused (one mesh per process)
+    and the default model serves on."""
+    from distributed_llm_pipeline_tpu_torch.config import config_from_args
+    from distributed_llm_pipeline_tpu_torch.runtime import faults
+    from distributed_llm_pipeline_tpu_torch.serving import ModelRegistry, SupervisedEngine
+    from distributed_llm_pipeline_tpu_torch.serving.server import load_engine
+
+    served_mesh.close()   # one mesh per process: the module's ends first
+    args, _ = config_from_args(["--model", str(tiny_gguf), "--mesh", "1x2", "--cpu",
+                                "--ctx-size", "64"], build_argparser)
+    sup = SupervisedEngine(lambda: build_engine(args))
+    try:
+        gen = GenerationConfig(max_new_tokens=8, **GREEDY)
+        first = sup.engine
+        want = sup.generate_text("hello world", gen)
+        try:
+            with faults.armed("prefill_oom", times=1):
+                events = list(sup.generate("hello world", gen))
+        finally:
+            faults.disarm()
+        assert sup.restarts == 1 and sup.engine is not first
+        assert first.model.broken == "closed" and not first.model.followers
+        assert any("retrying request" in e.content for e in events if e.kind == "log")
+        assert "".join(e.content for e in events if e.kind == "token") == want
+        first.close()   # once only: the live mesh's process group stays up
+        reg = ModelRegistry("base", sup,
+                            loader=lambda mid, p, mesh, ctx: load_engine(args, p, mesh, ctx))
+        with pytest.raises(NotImplementedError, match="one mesh per process"):
+            reg.load("second", str(tiny_gguf), mesh="1x2", ctx=64)
+        assert reg.ids() == ["base"]
+        assert sup.generate_text("hello world", gen) == want
+    finally:
+        sup.engine.close()

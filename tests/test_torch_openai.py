@@ -11,8 +11,9 @@ logit bias that bans the greedy token gives identical text; ``/tokenize``,
 ``json_schema``) give the reference's text on one stream and on the slots,
 and meet their constraint; ``context_shift`` requests run past the context
 with the reference's text; bad bodies and refused combinations get the
-reference's 400s, and fields the port does not serve yet get a 400 that
-names them. Batches (``n`` > 1, a list of prompts), ``/embedding`` and
+reference's 400s; a request's ``lora`` field (which the reference does not
+read: adapters merge at load) and ``GET /lora-adapters`` get the
+reference's answers. Batches (``n`` > 1, a list of prompts), ``/embedding`` and
 ``/v1/embeddings`` (vectors within 1e-5), ``POST /slots/{id}`` (save, erase,
 restore) and ``/infill`` give the reference's answers, refusals included.
 """
@@ -408,27 +409,28 @@ def test_bad_bodies_get_the_reference_errors(bad_answers, name):
     assert port[name][1] == ref[name][1]
 
 
-# a field or route the port does not serve yet, and the word its 400 names.
-# priority and deadline_ms are served: a bad value of each gets the
-# reference's 400, which names the field
+# fields and routes the port once refused with a 400, each now answered as
+# the reference answers it: a bad priority or deadline_ms gets the
+# reference's 400, which names the field (UNSERVED: the route, the body and
+# the word); a request's lora field is not read, as in the reference, which
+# merges adapters at load (LORA); GET /lora-adapters lists the merged ones
 UNSERVED = {
-    "lora": ("/completion", {"prompt": "x", "lora": [{"id": 0, "scale": 1.0}]}, "lora"),
     "priority": ("/v1/completions", {"prompt": "x", "priority": "high"}, "priority"),
     "deadline_ms": ("/completion", {"prompt": "x", "deadline_ms": -5}, "deadline_ms"),
 }
-SERVED = {"priority", "deadline_ms"}
+LORA = {"lora": ("/completion", {"prompt": "x", "n_predict": N, "temperature": 0.0,
+                                 "lora": [{"id": 0, "scale": 1.0}]})}
 
 
 @pytest.fixture(scope="module")
 def unserved_answers(engines):
-    app = ChatServer(engines[1], GenerationConfig(temperature=0.0)).app
-    out = _post_all(app, {k: v[:2] for k, v in UNSERVED.items()})
-    ref = _post_all(JaxChatServer(engines[0], JaxGen(temperature=0.0)).app,
-                    {k: UNSERVED[k][:2] for k in SERVED})
+    bodies = {k: v[:2] for k, v in {**UNSERVED, **LORA}.items()}
+    out = _post_all(ChatServer(engines[1], GenerationConfig(temperature=0.0)).app, bodies)
+    ref = _post_all(JaxChatServer(engines[0], JaxGen(temperature=0.0)).app, bodies)
     out.update({f"ref_{k}": v for k, v in ref.items()})
 
-    async def lora_adapters():
-        client = TestClient(TestServer(ChatServer(engines[1]).app))
+    async def lora_adapters(app):
+        client = TestClient(TestServer(app))
         await client.start_server()
         try:
             resp = await client.get("/lora-adapters")
@@ -436,21 +438,27 @@ def unserved_answers(engines):
         finally:
             await client.close()
 
-    out["lora_adapters"] = asyncio.run(lora_adapters())
+    out["lora_adapters"] = asyncio.run(lora_adapters(ChatServer(engines[1]).app))
+    out["ref_lora_adapters"] = asyncio.run(lora_adapters(JaxChatServer(engines[0]).app))
     return out
 
 
-@pytest.mark.parametrize("name", sorted(UNSERVED) + ["lora_adapters"])
+@pytest.mark.parametrize("name", sorted({**UNSERVED, **LORA}) + ["lora_adapters"])
 def test_unserved_fields_and_routes_are_400(unserved_answers, name):
+    """Each field or route the port once refused gets the reference's
+    answer: the 400s name their field; the lora request is served."""
     status, body = unserved_answers[name]
-    word = UNSERVED[name][2] if name in UNSERVED else "/lora-adapters"
-    err = body["error"]
-    msg = err["message"] if isinstance(err, dict) else err
-    assert status == 400 and word in msg, body
-    if name in SERVED:
-        assert (status, body) == tuple(unserved_answers[f"ref_{name}"]), body
+    ref = tuple(unserved_answers[f"ref_{name}"])
+    if name in UNSERVED:
+        err = body["error"]
+        msg = err["message"] if isinstance(err, dict) else err
+        assert status == 400 and UNSERVED[name][2] in msg, body
+        assert (status, body) == ref, body
+    elif name in LORA:
+        assert status == ref[0] == 200 and body["content"] == ref[1]["content"], body
+        assert body["tokens_predicted"] == ref[1]["tokens_predicted"] == N
     else:
-        assert "not yet served" in msg, body
+        assert (status, body) == ref == (200, [])
 
 
 def test_neutral_values_of_unserved_fields_are_accepted(engines):
@@ -529,8 +537,13 @@ def test_apply_template_matches_the_reference(name):
     assert build_prompt(messages, ptok) == jax_build_prompt(messages, jtok)
 
     class Registry:
+        """What /apply-template reads of a model registry."""
+
+        def __init__(self, tok):
+            self.tok = tok
+
         def get(self, mid=None):
-            return _Stub(jtok)
+            return _Stub(self.tok)
 
     def app_of(api):
         app = web.Application()
@@ -538,9 +551,9 @@ def test_apply_template_matches_the_reference(name):
         return app
 
     body = {"messages": messages}
-    got = _post_all(app_of(CompletionAPI(_Stub(ptok), asyncio.Lock(), GenerationConfig())),
+    got = _post_all(app_of(CompletionAPI(Registry(ptok), asyncio.Lock(), GenerationConfig())),
                     {"t": ("/apply-template", body)})["t"]
-    want = _post_all(app_of(JaxAPI(Registry(), asyncio.Lock(), JaxGen())),
+    want = _post_all(app_of(JaxAPI(Registry(jtok), asyncio.Lock(), JaxGen())),
                      {"t": ("/apply-template", body)})["t"]
     assert got == want and got[0] == 200
 
