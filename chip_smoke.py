@@ -255,7 +255,25 @@ Phases; any failure raises and exits non-zero, nothing is swallowed:
    request counters equal the requests sent. One ``{"phase15": ...}`` line
    with the load, restart and unload ms and the memory readings; its
    attention launches join the kernels line's.
-16. The total wall time, the kernels line (one JSON object), the card line,
+16. Request tracing, the perf monitor and on-demand profiling, on the
+   engine of phases 4-5 after phase 14 (decode chunks of 4): the one-stream
+   decode rate with the tracer and the monitor off (``DLP_TRACE=0
+   DLP_PERF=0``) and on, interleaved, and their host µs a chunk; two
+   one-stream /chat requests (one with an ``X-DLP-Trace`` context), a
+   streamed /completion, and on ``ChatServer(parallel=4)`` a /chat beside a
+   tenant's second request over its quota of 1 (a 429). Each answer's
+   ``request_id`` must be in ``/debug/trace``, the 429's pinned, ``?id=``'s
+   prefill and decode spans inside the client's window and ``?fleet=``
+   give the context's trace; ``/debug/perf`` must read the card's peaks
+   (3350 GB/s and 989 TFLOP/s, source ``device:<name>``, on an H100 80GB
+   HBM3) with ``roofline_pct`` and ``mfu_pct`` in (0, 100] and list the
+   built kernels; ``hbm_probe_gbps`` is measured; ``POST /debug/profile``
+   (4 steps, during a request) must name flash_attention's split and
+   combine kernels among its top kernels and join a device span onto that
+   request's trace; ``/metrics`` must carry the perf monitor's series and
+   the boot catalog. One ``{"phase16": ...}`` line; its attention launches
+   join the kernels line's.
+17. The total wall time, the kernels line (one JSON object), the card line,
    and last the ok line. Each phase, and each served path of phases 7-9
    and 11, prints its seconds on a line of its own as it ends.
 """
@@ -265,6 +283,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextlib
+import gc
 import json
 import math
 import re
@@ -828,24 +847,9 @@ def check_split_f32(pa, la, kv_quantize, seed: int) -> list[dict]:
 def ptxas_report(built: dict) -> dict[str, list[dict]]:
     """Each kernel's registers, spills and static shared memory, per
     library, from the compiler's -Xptxas -v report."""
-    out = {}
-    for name, b in built.items():
-        funcs, cur = [], None
-        for line in b.ptxas.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                cur = {"function": m.group(1)}
-                funcs.append(cur)
-            elif cur is not None:
-                for key, pat in (("spill_stores", r"(\d+) bytes spill stores"),
-                                 ("spill_loads", r"(\d+) bytes spill loads"),
-                                 ("registers", r"Used (\d+) registers"),
-                                 ("smem", r"(\d+) bytes smem")):
-                    m = re.search(pat, line)
-                    if m:
-                        cur[key] = int(m.group(1))
-        out[name] = funcs
-    return out
+    from distributed_llm_pipeline_tpu_torch.ops.cuda_build import ptxas_functions
+
+    return {name: ptxas_functions(b.ptxas) for name, b in built.items()}
 
 
 # --------------------------------------------------------------------------
@@ -3518,6 +3522,10 @@ def host_merge(path: Path, adapter: Path, cfg, dtype: torch.dtype) -> dict:
 
 
 def device_bytes(device) -> int:
+    """The device bytes live objects hold. Cyclic garbage of earlier phases
+    is collected first: a restart or an unload collects it too, and would
+    otherwise be credited with freeing it."""
+    gc.collect()
     return torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
 
 
@@ -3706,6 +3714,317 @@ def serve_supervised(path: Path, path9: Path, fa, pa, cfg, card: str, seed: int,
                   seconds=round(time.monotonic() - t0, 1))
     print(json.dumps({"phase15": result, "card": card}), flush=True)
     return {"flash_attention": flash, "paged_attention": paged}
+
+
+# --------------------------------------------------------------------------
+# phase 16: request tracing, the perf monitor on the card's peaks, on-demand
+# profiling through torch.profiler, and their host cost
+
+OBS_CHUNK = 4            # phase 16's decode chunk: a request of OBS_TOKENS
+OBS_TOKENS = 24          # runs 6 chunks, so a 4-step profile window fits one
+#                          (the profiler slows the host's launches ~7x)
+OBS_PAIRS = 3            # tracer-and-monitor off / on runs, interleaved,
+OBS_PAIR_TOKENS = 24     # of this many tokens each
+OBS_PROFILE_STEPS = 4
+OBS_TOP_K = 40           # top kernels asked of /debug/profile: the dense merge
+#                          ranks below the 12th kernel of a step (PERF.md §5)
+# the /metrics series the perf monitor feeds (the reference's catalog)
+PERF_SERIES = ("step_ms", "step_ms_p50", "step_ms_p99", "mfu_pct", "hbm_bw_util_pct",
+               "roofline_pct", "decode_tok_s_window", "hbm_peak_gbps", "model_hbm_gb",
+               "xla_compiles_total", "xla_retraces_total")
+
+
+def fresh_monitor(engine):
+    """A new perf monitor over the engine's roofline inputs: the phase reads
+    a window of its own requests alone."""
+    from distributed_llm_pipeline_tpu_torch.utils.perf import PerfMonitor
+
+    old = engine.perf
+    return PerfMonitor(model_bytes=old.model_bytes, flops_per_token=old.flops_per_token,
+                       kv_bytes_per_token=old.kv_bytes_per_token, platform=old.platform,
+                       model=old.model, metrics_fn=lambda: engine.metrics,
+                       device_name=old.device_name)
+
+
+def span_window_ok(exported: dict, t0_ns: int, t1_ns: int) -> tuple[int, list]:
+    """(spans checked, spans outside [t0_ns, t1_ns]) of an exported trace's
+    prefill and decode[i] spans, on the epoch clock."""
+    base = exported["otherData"]["start_unix_ns"]
+    checked, outside = 0, []
+    for e in exported["traceEvents"]:
+        if e.get("ph") != "X" or e["name"].split("[")[0] not in ("prefill", "decode"):
+            continue
+        a = base + int(e["ts"] * 1000)
+        b = a + int(e["dur"] * 1000)
+        checked += 1
+        if a < t0_ns or b > t1_ns:
+            outside.append((e["name"], (a - t0_ns) / 1e6, (t1_ns - b) / 1e6))
+    return checked, outside
+
+
+def tracer_host_us(engine, n: int = 2000) -> float:
+    """The tracer's and the monitor's host µs a decode chunk: the calls the
+    engine makes at each chunk's readback (a decode span, a step record, a
+    detokenize span) on a scratch trace and monitor."""
+    from distributed_llm_pipeline_tpu_torch.utils.tracing import Tracer
+
+    trace = Tracer(enabled=True, json_log=False).start_request(kind="engine")
+    mon = fresh_monitor(engine)
+    t0 = time.perf_counter()
+    for i in range(n):
+        now = time.monotonic()
+        trace.add_span(f"decode[{i}]", now - 0.01, now, tokens=OBS_CHUNK)
+        mon.record_step("engine", now - 0.01, now, rows=1, tokens=OBS_CHUNK,
+                        scan_steps=OBS_CHUNK, kv_positions=512, kind="decode")
+        trace.add_span("detokenize", now, time.monotonic())
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def serve_observability(engine, fa, pa, cfg, card: str, seed: int) -> dict:
+    """Phase 16 on the phase 4-5 engine. Returns the attention launches of
+    its served paths."""
+    return asyncio.run(observability(engine, fa, pa, cfg, card, seed))
+
+
+async def observability(engine, fa, pa, cfg, card: str, seed: int) -> dict:
+    import aiohttp
+    from aiohttp import web
+
+    from distributed_llm_pipeline_tpu_torch.runtime import GenerationConfig
+    from distributed_llm_pipeline_tpu_torch.serving import ChatServer
+    from distributed_llm_pipeline_tpu_torch.utils import NULL_PERF, TRACER
+    from distributed_llm_pipeline_tpu_torch.utils.perf import hbm_probe_gbps
+
+    t_phase = time.monotonic()
+    out: dict = {"card": card, "decode_chunk": OBS_CHUNK}
+    chunk0, engine.decode_chunk = engine.decode_chunk, OBS_CHUNK
+    perf0, prefix0 = engine.perf, engine.prefix_cache_enabled
+    engine.prefix_cache_enabled = False
+    prompt = " ".join(["hello"] * 480)
+    greedy = GenerationConfig(max_new_tokens=OBS_TOKENS, temperature=0.0,
+                              stop_on_eos=False)
+    fa.launches = pa.launches = 0
+    try:
+        # the host cost: one stream with the tracer and the monitor off
+        # (DLP_TRACE=0 DLP_PERF=0) and on, interleaved, on this engine
+        monitor = fresh_monitor(engine)
+        rates: dict[str, list] = {"off": [], "on": []}
+        for _ in range(OBS_PAIRS):
+            for mode in ("off", "on"):
+                TRACER.enabled = mode == "on"
+                engine.perf = monitor if mode == "on" else NULL_PERF
+                done = list(engine.generate("hello hello", GenerationConfig(
+                    max_new_tokens=OBS_PAIR_TOKENS, temperature=0.0,
+                    stop_on_eos=False)))[-1]
+                rates[mode].append(round(done.data["tok_s"], 2))
+        TRACER.enabled = True
+        med = {k: sorted(v)[len(v) // 2] for k, v in rates.items()}
+        out["overhead"] = {"decode_tok_s_off": rates["off"], "decode_tok_s_on": rates["on"],
+                           "median_off": med["off"], "median_on": med["on"],
+                           "cost_pct": round(100.0 * (med["off"] - med["on"]) / med["off"], 2),
+                           "host_us_a_chunk": round(tracer_host_us(engine), 2)}
+        engine.perf = fresh_monitor(engine)   # /debug/perf reads the phase's own window
+
+        single = ChatServer(engine, greedy)
+        slots = ChatServer(engine, greedy, parallel=4)
+        slots.scheduler.tenant_quota = 1
+        runners = []
+        bases = []
+        for server in (single, slots):
+            runner = web.AppRunner(server.app)
+            await runner.setup()
+            sock = socket.socket()
+            sock.bind(("127.0.0.1", 0))
+            await web.SockSite(runner, sock).start()
+            runners.append(runner)
+            bases.append(f"http://127.0.0.1:{sock.getsockname()[1]}")
+        try:
+            async with aiohttp.ClientSession(
+                    timeout=aiohttp.ClientTimeout(total=300)) as s:
+                ids, windows, client_tok_s = [], {}, {}
+
+                async def chat(base, body, headers=None):
+                    """One /chat: its events, its id; its client window and
+                    its client-side decode rate are kept by id."""
+                    t0 = time.time_ns()
+                    evs, stamps = [], []
+                    async with s.post(f"{base}/chat", json=body,
+                                      headers=headers or {}) as r:
+                        if r.status != 200:
+                            fail(f"phase 16: /chat answered {r.status}")
+                        async for raw in r.content:
+                            ln = raw.decode().strip()
+                            if ln.startswith("data: "):
+                                evs.append(json.loads(ln[6:]))
+                                if evs[-1]["msg_type"] == "token":
+                                    stamps.append(time.monotonic())
+                    rid = evs[-1].get("request_id")
+                    if not rid or evs[-1].get("finish_reason") != "length":
+                        fail(f"phase 16: /chat ended {evs[-1]}")
+                    ids.append(rid)
+                    windows[rid] = (t0, time.time_ns())
+                    if len(stamps) > 1 and stamps[-1] > stamps[0]:
+                        client_tok_s[rid] = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+                    return evs, rid
+
+                # traces: two one-stream /chat, a streamed /completion
+                _, rid_a = await chat(bases[0], {"prompt": prompt},
+                                      {"X-DLP-Trace": "phase16;hop=1;attempt=0"})
+                await chat(bases[0], {"prompt": "hello hello"})
+                t0 = time.time_ns()
+                async with s.post(f"{bases[0]}/completion",
+                                  json={"prompt": "hello", "n_predict": 16,
+                                        "stream": True}) as r:
+                    chunks = [json.loads(ln[6:]) for ln in (await r.text()).splitlines()
+                              if ln.startswith("data: ")]
+                rid = chunks[-1].get("request_id")
+                if not rid or not chunks[-1].get("stop"):
+                    fail(f"phase 16: /completion's last chunk {chunks[-1]}")
+                ids.append(rid)
+                windows[rid] = (t0, time.time_ns())
+                # two requests on 4 slots, tenant t's over its quota of 1
+                first = asyncio.Event()
+
+                async def lead():
+                    t0 = time.time_ns()
+                    async with s.post(f"{bases[1]}/chat", json={"prompt": prompt},
+                                      headers={"X-DLP-Tenant": "t"}) as r:
+                        lines = []
+                        async for raw in r.content:
+                            ln = raw.decode().strip()
+                            if ln.startswith("data: "):
+                                lines.append(json.loads(ln[6:]))
+                                if lines[-1]["msg_type"] == "token":
+                                    first.set()
+                    first.set()
+                    ids.append(lines[-1]["request_id"])
+                    windows[lines[-1]["request_id"]] = (t0, time.time_ns())
+
+                lead_task = asyncio.create_task(lead())
+                await first.wait()
+                async with s.post(f"{bases[1]}/chat", json={"prompt": "hello"},
+                                  headers={"X-DLP-Tenant": "t"}) as r:
+                    shed_status, shed_body = r.status, await r.json()
+                await chat(bases[1], {"prompt": "hello hello"})
+                await lead_task
+                # the one-stream rate the window's gauge is held against
+                one_stream = [client_tok_s[i] for i in ids[:2] if i in client_tok_s]
+                if shed_status != 429 or not shed_body.get("request_id"):
+                    fail(f"phase 16: tenant t's second request {shed_status} {shed_body}")
+
+                async def get(base, route):
+                    async with s.get(f"{base}{route}") as r:
+                        if r.status != 200:
+                            fail(f"phase 16: {route} answered {r.status}")
+                        return await (r.json() if route != "/metrics" else r.text())
+
+                listed = await get(bases[0], "/debug/trace")
+                by_id = {x["request_id"]: x for x in listed["requests"]}
+                missing = [i for i in ids if i not in by_id]
+                shed = by_id.get(shed_body["request_id"])
+                if missing or not shed or not shed["pinned"] or \
+                        shed["finish_reason"] != "shed":
+                    fail(f"phase 16: /debug/trace misses {missing}, shed {shed}")
+                exported = await get(bases[0], f"/debug/trace?id={rid_a}")
+                checked, outside = span_window_ok(exported, *windows[rid_a])
+                if checked < 2 or outside:
+                    fail(f"phase 16: {checked} spans checked, outside the client's "
+                         f"window: {outside}")
+                fleet = await get(bases[0], "/debug/trace?fleet=phase16")
+                if [t["otherData"]["request_id"] for t in fleet["traces"]] != [rid_a]:
+                    fail(f"phase 16: ?fleet= gave {fleet}")
+                out["traces"] = {"requests": len(ids), "spans_in_window": checked,
+                                 "shed": {"status": shed_status, **shed},
+                                 "client_tok_s": {k: round(v, 2)
+                                                  for k, v in client_tok_s.items()}}
+
+                # peaks and gauges
+                perf = await get(bases[0], "/debug/perf")
+                roof, eng_st = perf["roofline"], perf["backends"].get("engine")
+                paged_st = perf["backends"].get("paged")
+                if eng_st is None or paged_st is None:
+                    fail(f"phase 16: /debug/perf backends {list(perf['backends'])}")
+                name = torch.cuda.get_device_name(0)
+                if "H100 80GB HBM3" in name and (
+                        roof["hbm_peak_gbps"] != 3350.0 or roof["peak_tflops"] != 989.0
+                        or roof["hbm_peak_source"] != f"device:{name}"):
+                    fail(f"phase 16: peaks {roof} on {name}")
+                for st in (eng_st, paged_st):
+                    if not (0 < st["roofline_pct"] <= 100 and 0 < st["mfu_pct"] <= 100):
+                        fail(f"phase 16: roofline / MFU out of (0, 100]: {st}")
+                out["perf"] = {
+                    "window_vs_client": round(eng_st["decode_tok_s"]
+                                              / (sum(one_stream) / len(one_stream)), 3),
+                    "roofline": roof, "kernels_static": len(perf["kernels_static"]),
+                    "compile": perf["compile"],
+                    **{b: {k: st[k] for k in ("steps", "step_ms", "decode_tok_s",
+                                              "achieved_hbm_gbps", "hbm_bw_util_pct",
+                                              "roofline_pct", "mfu_pct")}
+                       for b, st in (("engine", eng_st), ("paged", paged_st))}}
+                if not perf["kernels_static"]:
+                    fail("phase 16: /debug/perf lists no built kernel")
+                out["hbm_probe_gbps"] = round(hbm_probe_gbps(), 1)
+
+                # an on-demand profile of 4 steps during a request: the
+                # request starts once the window is armed
+                async def profile():
+                    async with s.post(f"{bases[0]}/debug/profile",
+                                      json={"steps": OBS_PROFILE_STEPS, "timeout_s": 60,
+                                            "top_k": OBS_TOP_K}) as r:
+                        return r.status, await r.json()
+
+                prof_task = asyncio.create_task(profile())
+                while engine.perf._profile is None:
+                    if prof_task.done():
+                        fail(f"phase 16: /debug/profile answered {prof_task.result()}")
+                    await asyncio.sleep(0.002)
+                _, rid_p = await chat(bases[0], {"prompt": prompt})
+                status, prof = await prof_task
+                if status != 200:
+                    fail(f"phase 16: /debug/profile answered {status} {prof}")
+                top = [k["kernel"] for k in prof.get("top_kernels", [])]
+                ranks = {k: next((i for i, n in enumerate(top) if k in n), None)
+                         for k in ("split_kernel", "combine_kernel")}
+                if prof["steps_captured"] != OBS_PROFILE_STEPS or None in ranks.values() \
+                        or rid_p not in prof["joined_request_ids"]:
+                    fail(f"phase 16: profile captured {prof['steps_captured']} steps, "
+                         f"ranks {ranks}, joined {prof['joined_request_ids']} not "
+                         f"{rid_p}: {top[:12]}")
+                joined = await get(bases[0], f"/debug/trace?id={rid_p}")
+                dev = [e for e in joined["traceEvents"]
+                       if e.get("ph") == "X" and e["name"].startswith("device:cuda")]
+                if not dev:
+                    fail("phase 16: no device span joined onto the profiled request")
+                out["profile"] = {"steps": prof["steps_captured"], "mode": prof["mode"],
+                                  "window_ms": prof["window_ms"],
+                                  "devices": prof.get("devices"),
+                                  "flash_attention_ranks": ranks,
+                                  "top_kernels": prof["top_kernels"][:12],
+                                  "device_span": dev[0]["args"]}
+
+                metrics = await get(bases[0], "/metrics")
+                families = {ln.split()[2][4:] for ln in metrics.splitlines()
+                            if ln.startswith("# TYPE")}
+                from distributed_llm_pipeline_tpu_torch.utils import metrics as m
+
+                want = set(PERF_SERIES) | set(m.BOOT_COUNTERS) | set(m.BOOT_HISTOGRAMS)
+                if want - families:
+                    fail(f"phase 16: /metrics lacks {sorted(want - families)}")
+                out["metrics_families"] = len(families)
+        finally:
+            for runner in runners:
+                await runner.cleanup()   # closes the scheduler
+    finally:
+        TRACER.enabled = True
+        engine.perf = perf0
+        engine.decode_chunk = chunk0
+        engine.prefix_cache_enabled = prefix0
+    out["launches"] = {"flash_attention": fa.launches, "paged_flash_attention": pa.launches}
+    if not fa.launches or not pa.launches:
+        fail(f"phase 16: launches {out['launches']}")
+    out["seconds"] = round(time.monotonic() - t_phase, 1)
+    print(json.dumps({"phase16": out, "card": card}), flush=True)
+    return {"flash_attention": fa.launches, "paged_attention": pa.launches}
 
 
 def load_quant_engine(Engine, gguf: Path, quant: str, card: str, unlink: bool):
@@ -4339,6 +4658,14 @@ def main() -> int:
         print(json.dumps({"phase14_launches": life_launches, "card": card}),
               flush=True)
         t_phase = phase_seconds("14", t_phase, t_start)
+
+        # 16. request tracing, the perf monitor on the card's peaks, on-demand
+        # profiling and their host cost, on the same engine
+        print(f"phase 16 at {time.monotonic() - t_start:.0f}s", flush=True)
+        served16 = serve_observability(engine, fa, pa, cfg, card, args.seed)
+        launches += served16["flash_attention"]
+        paged_launches += served16["paged_attention"]
+        t_phase = phase_seconds("16", t_phase, t_start)
         # phase 15's reference: the base model's greedy text
         base_text = "".join(e.content for e in engine.generate(
             " ".join(["hello"] * 480), GenerationConfig(max_new_tokens=32, temperature=0.0))
@@ -4442,7 +4769,7 @@ def main() -> int:
         for p in (path, path9, q6_path, q4_path, q3_path):
             p.unlink(missing_ok=True)
 
-    # 16. results
+    # 17. results
     src = "distributed_llm_pipeline_tpu_torch/csrc/"
     ref = "distributed_llm_pipeline_tpu/ops/"
     entries = [

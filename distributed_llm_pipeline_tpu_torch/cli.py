@@ -12,7 +12,9 @@ limit shifts the KV window (``--keep``), as llama-cli does, unless
 ``--no-context-shift``. ``--prompt-cache FILE`` loads the prompt's KV at
 start and saves it at exit; ``--perplexity TEXTFILE`` prints the model's
 perplexity over the file instead of generating. ``--lora GGUF[=SCALE],...``
-merges LoRA adapters into the weights at load.
+merges LoRA adapters into the weights at load. ``--profile-dir DIR`` writes a
+``torch.profiler`` Chrome trace of each generation under
+``DIR/plugins/profile/``.
 
 Settings: defaults < ``--config`` file (JSON/TOML) < ``DLP_*`` env < flags.
 Without ``--cpu`` it runs on the CUDA device, and raises when there is none.
@@ -117,6 +119,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-cache", default=None, metavar="FILE",
                     help="persist the prompt's KV cache to FILE and reuse it "
                          "on the next run (llama-cli --prompt-cache)")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="write a torch.profiler (Chrome) trace per request")
     ap.add_argument("--verbose", action="store_true")
     ap.add_argument("--log-file", default=None)
     ap.add_argument("--cpu", action="store_true",
@@ -252,6 +256,7 @@ def main(argv: list[str] | None = None) -> int:
         except (ValueError, NotImplementedError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
+        engine.profile_dir = cfg.profile_dir
         if cfg.perplexity:
             try:
                 r = engine.perplexity(Path(cfg.perplexity).read_text())

@@ -63,6 +63,7 @@ class AppConfig:
     slot_save_path: str | None = None  # dir for /slots/{id} save/restore files
     prompt_cache: str | None = None  # session file (llama-cli --prompt-cache)
     perplexity: str | None = None    # eval mode: text file to score (llama-perplexity)
+    profile_dir: str | None = None   # a torch.profiler trace per request
     log_file: str | None = None
     verbose: bool = False
 

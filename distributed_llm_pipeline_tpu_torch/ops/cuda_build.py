@@ -7,6 +7,12 @@ build directory beside the sources (``csrc/build/``, or
 flags, so an edited source rebuilds and concurrent processes never load a
 half-written file (the compiler writes a temporary name that is renamed into
 place). ``build`` starts one ``nvcc`` per source, all together.
+
+Every ``nvcc`` run and every library load is counted by source on the
+``xla_compiles_total`` series (``utils/perf.record_compile``); a build or
+load of a source this process has already loaded counts on
+``xla_retraces_total``. ``kernel_static_table`` lists the kernels of the
+libraries this process built or loaded, from ptxas's report.
 """
 
 from __future__ import annotations
@@ -14,12 +20,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
+
+from ..utils.perf import record_compile
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every kernel source of the package (csrc/<name>.cu)
@@ -30,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_built: dict[str, "Built"] = {}   # every library built or loaded, by source
 
 
 @dataclass(frozen=True)
@@ -94,8 +104,10 @@ def build(names: list[str] | tuple[str, ...]) -> dict[str, Built]:
         target.with_suffix(".log").write_text(report)
         os.replace(tmp, target)
         out[name] = Built(name, target, seconds, report)
+        record_compile(name)
     if failed:
         raise RuntimeError("\n".join(failed))
+    _built.update(out)
     return out
 
 
@@ -106,4 +118,36 @@ def load_library(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(str(build([name])[name].path))
             _loaded[name] = lib
+            record_compile(name, load=True)
         return lib
+
+
+def ptxas_functions(report: str) -> list[dict]:
+    """Each kernel's registers, spills and static shared memory from a
+    ``-Xptxas -v`` report: ``[{"function", "registers", "smem",
+    "spill_stores", "spill_loads"}]`` in the report's order."""
+    funcs, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            funcs.append(cur)
+        elif cur is not None:
+            for key, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("smem", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    cur[key] = int(m.group(1))
+    return funcs
+
+
+def kernel_static_table() -> list[dict]:
+    """The kernels of every CUDA library this process built or loaded,
+    one row each with its library: ``GET /debug/perf``'s
+    ``kernels_static``. Empty on the CPU or before a build."""
+    with _lock:
+        built = dict(_built)
+    return [{"library": name, **f} for name, b in sorted(built.items())
+            for f in ptxas_functions(b.ptxas)]

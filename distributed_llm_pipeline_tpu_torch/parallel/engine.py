@@ -41,13 +41,16 @@ import torch.distributed as dist
 from ..gguf import GGUFReader
 from ..models import ModelConfig
 from ..models.convert import load_params, native_quant_layers, select_rope_factors
-from ..models.llama import KVCache, check_quant, quantized_bytes, shift_kv
+from ..models.llama import KVCache, check_kv_mode, check_quant, quantized_bytes, shift_kv
 from ..ops import flash_attention as fa
 from ..ops import quant_matmul as qm
 from ..runtime import capabilities
 from ..runtime.engine import Engine, GenerationConfig, _bucket, resolve_device
+from ..runtime.paged import kv_token_bytes
 from ..tokenizer import tokenizer_from_metadata
 from ..utils import Metrics, log
+from ..utils.perf import (make_perf_monitor, metrics_reader, model_flops_per_token,
+                          params_nbytes)
 from .balance import stage_spans
 from .dist import TIMEOUT_S, Comm, connect, initialize, spawn_followers
 from .mesh import Mesh, MeshSpec, placement
@@ -506,7 +509,10 @@ class ShardedEngine(Engine):
     at ``model_path``; ``quant`` packs as ``Engine``'s does, with the
     byte-code K-quant packs on tp > 1 meshes. ``--kv-quant``, latent KV, MoE
     and dp > 1 are not ported to the mesh and raise. ``close()`` ends the
-    followers."""
+    followers. The boot cell resolves on the capability lattice's ``mesh``
+    backend; the perf monitor's model bytes are rank 0's shard."""
+
+    capability_backend = "mesh"
 
     def __init__(self, model_path: str | Path, *, mesh_spec: MeshSpec | None = None,
                  max_seq: int | None = None, dtype: torch.dtype = torch.bfloat16,
@@ -523,7 +529,13 @@ class ShardedEngine(Engine):
         if kv_quant is not None:
             raise NotImplementedError("--kv-quant on a mesh is not ported yet "
                                       "(ROADMAP.md §1)")
-        if kv_mode == "latent" or (kv_mode is None and capabilities.env_kv_latent()):
+        if kv_mode is not None:
+            check_kv_mode(kv_mode)
+        # the lattice serves latent KV on a mesh (the reference's TPLA); the
+        # port has not ported it and refuses the resolved cell
+        kv_mode, self.capability_resolution = capabilities.resolve_boot(
+            kv_mode=kv_mode, kv_quant=kv_quant, backend=self.capability_backend)
+        if kv_mode == "latent":
             raise NotImplementedError("latent KV (TPLA) on a mesh is not ported "
                                       "yet (ROADMAP.md §1)")
         if dist.is_initialized():
@@ -585,6 +597,15 @@ class ShardedEngine(Engine):
         self.lora_adapters = lora
         self.metrics = Metrics()
         self._register_boot_series()
+        self.profile_dir = None
+        self.perf = make_perf_monitor(
+            model_bytes=params_nbytes(loaded.model),
+            flops_per_token=model_flops_per_token(cfg),
+            kv_bytes_per_token=kv_token_bytes(cfg, None, "dense", None),
+            platform=mesh.device.type, model=cfg.arch,
+            metrics_fn=metrics_reader(self),
+            device_name=(torch.cuda.get_device_name(mesh.device)
+                         if mesh.device.type == "cuda" else None))
         self.decode_chunk = max(1, int(os.environ.get("DLP_DECODE_CHUNK", "32")))
         self._prompt_quantum = CHUNK
         self.forwards = 0
@@ -648,11 +669,11 @@ class ShardedEngine(Engine):
                              "block pool to size")
         return MeshSlotBackend(self, n_slots, max_seq)
 
-    def generate(self, prompt, gen: GenerationConfig | None = None):
+    def generate(self, prompt, gen: GenerationConfig | None = None, **kw):
         if self.model.broken is not None:
             # raised at admission, not at the stream's first event
             raise RuntimeError(f"the mesh is down: {self.model.broken}")
-        return super().generate(prompt, gen)
+        return super().generate(prompt, gen, **kw)
 
     def embed(self, text: str, *args, **kw):
         raise NotImplementedError(

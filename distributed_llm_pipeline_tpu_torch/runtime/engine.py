@@ -37,6 +37,10 @@ weights at load, before any packing, factorization or device placement, as
 the reference does. Every request is recorded in ``metrics``
 (``utils/metrics.py``) at the reference's points and under its names; a
 supervisor assigns its own registry there, so a restart keeps the history.
+Every request also gets a trace (``utils/tracing.py``), every decode chunk
+a step in the perf monitor (``utils/perf.py``), and the KV representation
+and the fused decode step resolve on the capability lattice
+(``runtime/capabilities.py``).
 
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``); with no CUDA device and no such request they raise.
@@ -44,8 +48,10 @@ Entry points run on CUDA unless the caller asks for the CPU
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import sys
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -66,7 +72,8 @@ from ..ops.sampling import (apply_penalties, bias_vector, lp_payload,
                             mirostat_init, mirostat_step, sample, sample_rows,
                             shortlist, topk_logprobs)
 from ..tokenizer import StreamDecoder, Tokenizer, tokenizer_from_metadata
-from ..utils import Event, Metrics, done, log, preregister_boot_series, token
+from ..utils import (TRACER, Event, Metrics, compile_entry, done, log,
+                     preregister_boot_series, profiler_trace, rid_args, token)
 from . import capabilities, faults
 
 # the priority classes a request names, best first: slot grants, the mixed
@@ -384,7 +391,18 @@ class Engine:
     ``lora``: ``[(adapter GGUF path, scale), ...]``, merged in order into
     the dense weights on the host before anything else touches them, so
     it composes with every ``quant`` but ``native`` (which raises
-    ``ValueError``); ``lora_adapters`` records the list."""
+    ``ValueError``); ``lora_adapters`` records the list.
+
+    The boot cell (KV representation on this backend) resolves through the
+    capability lattice (``runtime/capabilities.resolve_boot``). ``perf`` is
+    the engine's perf monitor (``utils/perf.py``; ``NULL_PERF`` under
+    ``DLP_PERF=0``), and ``profile_dir``, when set, profiles each request
+    with ``torch.profiler`` into that directory and joins the device
+    timelines onto its trace."""
+
+    # the lattice backend this engine resolves its boot cell on
+    # (runtime/capabilities.py); ShardedEngine's is "mesh"
+    capability_backend = "engine"
 
     def __init__(self, model_path: str | Path | None = None, *,
                  cfg: ModelConfig | None = None, params: Params | None = None,
@@ -397,14 +415,21 @@ class Engine:
         check_kv_quant(kv_quant)
         if kv_mode is not None:
             check_kv_mode(kv_mode)
-        elif capabilities.env_kv_latent():
-            kv_mode = "latent"
         self.device = resolve_device(device)
         if quant and self.device.type == "cuda" and dtype != torch.bfloat16:
             raise ValueError(f"quant {quant!r} on the card serves bf16 "
                              f"activations, not {dtype}")
         self._events_on_load: list[Event] = []
         self.metrics = Metrics()
+        # the boot cell on the lattice: an explicit kv_mode pins the KV
+        # representation, the DLP_KV_LATENT=1 default may degrade (counted
+        # and logged)
+        kv_mode, self.capability_resolution = capabilities.resolve_boot(
+            kv_mode=kv_mode, kv_quant=kv_quant, backend=self.capability_backend,
+            metrics=self.metrics)
+        for d in self.capability_resolution.degradations:
+            self._events_on_load.append(log(d.note))
+        self.profile_dir: str | None = None   # set: per-request profiler traces
         self.lora_adapters: list[tuple[str, float]] = []
         t0 = time.monotonic()
         # a repacked model loads on the host, packs there, then moves; so
@@ -524,6 +549,21 @@ class Engine:
         self._register_boot_series()
         dev = (torch.cuda.get_device_name(self.device)
                if self.device.type == "cuda" else "CPU")
+        # the perf monitor, built after packing and placement so its model
+        # bytes are the resident (packed) size; the metrics resolve per call
+        # because a supervisor swaps in its registry's after the build
+        from ..utils.perf import (make_perf_monitor, metrics_reader,
+                                  model_flops_per_token, params_nbytes)
+        from .paged import kv_token_bytes
+
+        self.perf = make_perf_monitor(
+            model_bytes=params_nbytes(self.model),
+            flops_per_token=model_flops_per_token(cfg),
+            kv_bytes_per_token=kv_token_bytes(cfg, kv_quant, self.kv_mode,
+                                              self.kv_latent_rank),
+            platform=self.device.type, model=cfg.arch,
+            metrics_fn=metrics_reader(self),
+            device_name=dev if self.device.type == "cuda" else None)
         self._events_on_load.append(log(
             f"device: 1x {dev} ({self.device}); all {cfg.n_layers} layers "
             f"offloaded to {self.device} ("
@@ -597,10 +637,12 @@ class Engine:
     def resolve_fused_decode(self, block_size: int, n_slots: int) -> bool:
         """Whether paged decode steps of ``n_slots`` rows run the fused
         decode-step kernel (``ops/fused_decode.py``). Opt-in by
-        ``DLP_FUSED_DECODE=1``; a latent pool degrades to unfused (reason
-        ``latent-kv``), and a config the kernel cannot serve falls back with
-        ``fused_supported``'s reason. The answer is cached per (block_size,
-        n_slots) and its reason logged once in the load events."""
+        ``DLP_FUSED_DECODE=1``; the paged slot pool's fused cell resolves on
+        the capability lattice (a latent pool degrades to unfused, reason
+        ``latent-kv``, counted there), and a config the kernel cannot serve
+        falls back with ``fused_supported``'s reason. The answer is cached
+        per (block_size, n_slots) and its reason logged once in the load
+        events."""
         key = (block_size, n_slots)
         if key in self._fused_resolved:
             return self._fused_resolved[key]
@@ -608,8 +650,13 @@ class Engine:
             self.metrics.set_gauge("fused_decode_active", 0)
             self._fused_resolved[key] = False
             return False
-        if self.kv_mode == "latent":
-            reason = "latent-kv"
+        res = capabilities.resolve(
+            {"kv_layout": "paged",
+             "kv_repr": capabilities.kv_repr_label(self.kv_quant, self.kv_mode),
+             "decode": "fused", "backend": "paged-slots", "role": "both"},
+            metrics=self.metrics)
+        if res.features["decode"] != "fused":
+            reason = res.degradations[0].reason
         else:
             from ..ops.fused_decode import fused_supported
 
@@ -618,12 +665,14 @@ class Engine:
                 self.cfg, weight_kind=wq.kind if wq is not None else None,
                 batch=n_slots, act_bytes=torch.finfo(self.dtype).bits // 8,
                 kv_int8=self.kv_quant == "q8_0")
+            if reason is not None:
+                # a per-config fallback: counted as the lattice counts its
+                # rewrites, its family held to the declared vocabulary
+                capabilities.check_reason(reason)
+                self.metrics.inc("capability_degradations_total")
+                self.metrics.inc("capability_degradations_total", labels={
+                    "axis": "decode", "reason": capabilities.reason_family(reason)})
         if reason is not None:
-            # a counted degrade, as the reference's lattice counts it
-            capabilities.check_reason(reason)
-            self.metrics.inc("capability_degradations_total")
-            self.metrics.inc("capability_degradations_total", labels={
-                "axis": "decode", "reason": capabilities.reason_family(reason)})
             self.metrics.inc("fused_decode_fallbacks_total")
             self.metrics.inc("fused_decode_fallbacks_total",
                              labels={"reason": reason})
@@ -725,34 +774,75 @@ class Engine:
         return read
 
     def generate(self, prompt: str | list[int],
-                 gen: GenerationConfig | None = None) -> Iterator[Event]:
+                 gen: GenerationConfig | None = None, *,
+                 trace_ctx: dict | None = None) -> Iterator[Event]:
         """Streaming generation: yields log / token / done events. Raises
         ``ValueError`` on a sampler combination the engine does not run.
         A JSON-mode or grammar request takes the constrained path, and
-        ``ValueError`` also meets a non-positive ``deadline_ms``."""
+        ``ValueError`` also meets a non-positive ``deadline_ms``. Each
+        request gets a trace (``utils/tracing.TRACER``) whose id rides the
+        done event; ``trace_ctx`` (a parsed ``X-DLP-Trace`` header) stamps
+        the propagated fleet context on it."""
         gen = gen or GenerationConfig()
         if gen.deadline_ms is not None and gen.deadline_ms <= 0:
             raise ValueError(f"deadline_ms must be positive, "
                              f"got {gen.deadline_ms}")
         gen = check_sampler(gen)
         if gen.json_mode or gen.grammar:
-            return self._generate_constrained(prompt, gen)
-        return self._generate(prompt, gen)
+            return self._generate_constrained(prompt, gen, trace_ctx)
+        return self._generate(prompt, gen, trace_ctx)
+
+    def _start_trace(self, trace_ctx: dict | None):
+        """A request's lifecycle trace (``NULL_TRACE`` when tracing is off),
+        with the propagated fleet context stamped on it."""
+        trace = TRACER.start_request(kind="engine", model=self.cfg.arch)
+        if trace and trace_ctx and trace_ctx.get("fleet_id"):
+            trace.set_context(trace_ctx["fleet_id"], hop=trace_ctx.get("hop", 0),
+                              attempt=trace_ctx.get("attempt", 0))
+        return trace
+
+    def _seal_trace(self, trace, n_prompt: int, n_gen: int) -> None:
+        """The finally of a stream that ended without its done event: an
+        ``abort`` (the client left) or, with an exception in flight, an
+        ``error``."""
+        if trace and not trace.done:
+            exc = sys.exc_info()[0]
+            trace.finish("abort" if exc in (None, GeneratorExit) else "error",
+                         n_prompt=n_prompt, n_gen=n_gen, model=self.cfg.arch)
+
+    def _join_profile(self, trace) -> None:
+        """With ``profile_dir``, join the request's profiler run onto its
+        trace and cap the runs kept on disk. The join decorates a complete
+        request: a malformed trace file must not fail it."""
+        if not (trace and self.profile_dir):
+            return
+        from ..utils.profile_trace import prune_profile_runs
+
+        try:
+            trace.join_profile(self.profile_dir)
+            prune_profile_runs(self.profile_dir)
+        except Exception:  # noqa: BLE001 — diagnostics only
+            pass
 
     def _shift_cache(self, cache: KVCache, keep: int, drop: int) -> None:
         """The context shift of a dense cache (``models.llama.shift_kv``)."""
         shift_kv(cache, keep, drop, cache.length - drop, self.cfg)
 
-    def _generate(self, prompt: str | list[int],
-                  gen: GenerationConfig) -> Iterator[Event]:
+    def _generate(self, prompt: str | list[int], gen: GenerationConfig,
+                  trace_ctx: dict | None = None) -> Iterator[Event]:
         yield from self._events_on_load
+        trace = self._start_trace(trace_ctx)
         # the deadline runs from generation start: this path has no queue
         deadline = (time.monotonic() + gen.deadline_ms / 1000.0
                     if gen.deadline_ms else None)
-        if faults.ACTIVE:
-            faults.check("tokenizer_error")
-        ids = check_token_ids(list(prompt), self.cfg.vocab_size) \
-            if isinstance(prompt, (list, tuple)) else self.tokenizer.encode(prompt)
+        try:
+            if faults.ACTIVE:
+                faults.check("tokenizer_error")
+            ids = check_token_ids(list(prompt), self.cfg.vocab_size) \
+                if isinstance(prompt, (list, tuple)) else self.tokenizer.encode(prompt)
+        except Exception as e:
+            trace.finish("error", error=repr(e))
+            raise
         n_prompt = len(ids)
         # what the prefix cache keeps when the stream ends, however it ends:
         # the ids fed, the tokens emitted, whether the cache is sound (False
@@ -762,6 +852,9 @@ class Engine:
         out_tokens: list[int] = []
         n_gen, cache_valid, shifted, cache = 0, False, False, None
         recorded = False   # the request's traffic is in the metrics
+        # the per-request profiler session (profile_dir), closed before the
+        # trace is sealed so its run is on disk for the join
+        prof = contextlib.ExitStack()
         try:
             if n_prompt >= self.max_prompt:
                 ids = ids[-(self.max_prompt - 1):]
@@ -782,8 +875,10 @@ class Engine:
                                             ttft_ms=float("nan"),
                                             tok_s=float("nan"))
                 recorded = True
+                trace.finish("length", n_prompt=len(ids), n_gen=0,
+                             model=self.cfg.arch)
                 yield done("generated 0 tokens (no budget)", n_prompt=len(ids),
-                           n_gen=0, finish_reason="length")
+                           n_gen=0, finish_reason="length", **rid_args(trace))
                 return
             rng = torch.Generator(device=self.device)
             rng.manual_seed(gen.seed if gen.seed is not None
@@ -805,11 +900,16 @@ class Engine:
             sd = StreamDecoder(self.tokenizer)
             eos = self.tokenizer.eos_id
 
+            prof.enter_context(profiler_trace(self.profile_dir))
             if faults.ACTIVE:
                 faults.check("prefill_oom")
             t_start = time.monotonic()
             cache, reuse_k = self._take_prefix_cache(ids)
-            tok, lp = self._sample(self.prefill(ids[reuse_k:], cache), gen, rng, st)
+            with compile_entry("engine_prefill") as sc:
+                tok, lp = self._sample(self.prefill(ids[reuse_k:], cache), gen,
+                                       rng, st)
+            if sc.retrace and trace:
+                trace.event("xla_recompile", entry=sc.name, compiles=sc.compiles)
             fed, cache_valid = list(ids), True
             first = self._to_host(tok[:, 0], *(lp or ()))()
             first_data = None
@@ -818,6 +918,9 @@ class Engine:
                                         first[3][0], gen.logprobs)
                 first = first[0]
             ttft = time.monotonic() - t_start
+            if trace:
+                trace.add_span("prefill", t_start, t_start + ttft,
+                               n_prompt=n_prompt, reused=reuse_k)
             if reuse_k:
                 self.prefix_hits += 1
                 self.prefix_tokens += reuse_k
@@ -854,19 +957,28 @@ class Engine:
                 # the budget burned in prefill: no sampled token may be
                 # emitted past it
                 self.metrics.inc("requests_timed_out_total")
+                if trace:
+                    trace.event("deadline_exceeded", phase="prefill",
+                                budget_ms=gen.deadline_ms)
                 yield log("deadline exceeded during prefill; stopping")
                 finish_reason, stopped = "timeout", True
             else:
                 ev = take(first[0], first_data)
                 if ev is not None:
                     yield ev
-            pending = None   # (read, n) of the chunk whose tokens are in flight
+            # (read, n, launch time, cache length) of the chunk in flight
+            pending = None
+            chunk_i = 0   # consumed decode chunks: the trace's decode[i] spans
+            t_rb = 0.0    # the last chunk's readback
             while True:
                 if (deadline is not None and not stopped
                         and time.monotonic() > deadline):
                     # the tokens already emitted stand; the chunk in flight
                     # is past the budget and is dropped below
                     self.metrics.inc("requests_timed_out_total")
+                    if trace:
+                        trace.event("deadline_exceeded", phase="decode",
+                                    budget_ms=gen.deadline_ms)
                     yield log("deadline exceeded; stopping")
                     finish_reason, stopped = "timeout", True
                 launched = None
@@ -883,6 +995,8 @@ class Engine:
                     self._shift_cache(cache, keep, drop)
                     cache_valid = shifted = True
                     self.context_shifts += 1
+                    if trace:
+                        trace.event("context_shift", drop=drop, keep=keep)
                     self.metrics.inc("context_shifts_total")
                     yield log(f"context shift: dropped {drop} cached positions "
                               f"(keep {keep}, {cache.length} remain of ctx "
@@ -897,12 +1011,37 @@ class Engine:
                     n = 1 << (n.bit_length() - 1) if ctx_room >= 2 else 0
                 if not stopped and n > 0:
                     cache_valid = False
-                    outs, tok = self._decode_chunk(n, tok, cache, gen, rng, st)
+                    t_launch = time.monotonic()
+                    with compile_entry("engine_decode") as sc:
+                        outs, tok = self._decode_chunk(n, tok, cache, gen, rng, st)
+                    if sc.retrace and trace:
+                        trace.event("xla_recompile", entry=sc.name,
+                                    compiles=sc.compiles)
                     cache_valid = True
-                    launched = (self._to_host(*(o[:, 0] for o in outs)), n)
+                    launched = (self._to_host(*(o[:, 0] for o in outs)), n,
+                                t_launch, cache.length)
                 if pending is not None and not stopped:
                     # read the previous chunk while the one just queued runs
                     got = pending[0]()
+                    t_detok = time.monotonic()
+                    # the chunk's step: from its launch, or from the previous
+                    # chunk's readback when it was launched before that, to
+                    # its own readback. Chunks overlap (the next is launched
+                    # before this one is read), so their steps tile the
+                    # stream's wall time instead of counting it twice
+                    t_step = max(pending[2], t_rb)
+                    t_rb = t_detok
+                    if trace:
+                        chunk_i += 1
+                        trace.add_span(f"decode[{chunk_i}]", t_step, t_detok,
+                                       tokens=pending[1])
+                    if self.perf:
+                        # the step ring (scan_steps: the forwards, one weight
+                        # stream each)
+                        self.perf.record_step(
+                            "engine", t_step, t_detok, rows=1,
+                            tokens=pending[1], scan_steps=pending[1],
+                            kv_positions=pending[3], kind="decode")
                     toks = got[0] if lp_mode else got
                     for i, t in enumerate(toks):
                         data = (lp_payload(t, got[1][i], got[2][i], got[3][i],
@@ -912,6 +1051,8 @@ class Engine:
                             yield ev
                         if stopped:
                             break
+                    if trace:
+                        trace.add_span("detokenize", t_detok, time.monotonic())
                 # once stopped, a chunk still in flight is junk past the stop
                 pending = None if stopped else launched
                 if pending is None and (stopped or not shift_on or n_gen >= budget):
@@ -932,14 +1073,24 @@ class Engine:
             self._record_finished(len(ids), n_gen, ttft * 1000, tps,
                                   finish_reason)
             recorded = True
+            prof.close()
+            if trace:
+                self._join_profile(trace)
+                trace.finish(finish_reason, n_prompt=len(ids), n_gen=n_gen,
+                             ttft_ms=round(ttft * 1000, 3),
+                             tok_s=None if tps != tps else round(tps, 2),
+                             model=self.cfg.arch)
             yield done(f"generated {n_gen} tokens | TTFT {ttft * 1000:.1f} ms | "
                        f"decode {tps:.2f} tok/s",
                        n_prompt=len(ids), n_gen=n_gen, finish_reason=finish_reason,
                        ttft_ms=ttft * 1000, tok_s=tps, tok_s_e2e=tps_e2e,
-                       stop_match=stopper.matched if stopper else None, **extra)
+                       stop_match=stopper.matched if stopper else None, **extra,
+                       **rid_args(trace))
         finally:
+            prof.close()
             if not recorded:
                 self._record_aborted(len(ids), n_gen)
+                self._seal_trace(trace, len(ids), n_gen)
             self._store_prefix(cache, fed, out_tokens, n_gen, cache_valid, shifted)
 
     def _record_finished(self, n_prompt: int, n_gen: int, ttft_ms: float,
@@ -1015,8 +1166,8 @@ class Engine:
         values and ids read back in one synchronisation."""
         return self._to_host(*shortlist(row, self._JSON_TOPK))()
 
-    def _generate_constrained(self, prompt: str | list[int],
-                              gen: GenerationConfig) -> Iterator[Event]:
+    def _generate_constrained(self, prompt: str | list[int], gen: GenerationConfig,
+                              trace_ctx: dict | None = None) -> Iterator[Event]:
         """Constrained decoding in llama.cpp's candidates-then-grammar order:
         each step the device proposes its top-K shortlist, and the host keeps
         the candidates whose text extends a valid prefix of the constraint
@@ -1027,20 +1178,26 @@ class Engine:
         event carries ``constraint_complete`` (and ``json_complete``), the
         readbacks and the misses."""
         yield from self._events_on_load
-        ids = check_token_ids(list(prompt), self.cfg.vocab_size) \
-            if isinstance(prompt, (list, tuple)) else self.tokenizer.encode(prompt)
+        trace = self._start_trace(trace_ctx)
+        try:
+            ids = check_token_ids(list(prompt), self.cfg.vocab_size) \
+                if isinstance(prompt, (list, tuple)) else self.tokenizer.encode(prompt)
+        except Exception as e:
+            trace.finish("error", error=repr(e))
+            raise
         tally = {"n_gen": 0, "recorded": False}
         try:
-            yield from self._constrained_stream(ids, gen, tally)
+            yield from self._constrained_stream(ids, gen, tally, trace)
         finally:
             if not tally["recorded"]:
                 self._record_aborted(len(ids), tally["n_gen"])
+                self._seal_trace(trace, len(ids), tally["n_gen"])
             # constrained decoding keeps no prefix: the stored one it may
             # have reused is consumed, and nothing new is stored
             self._prefix_ids, self._prefix_cache = [], None
 
     def _constrained_stream(self, ids: list[int], gen: GenerationConfig,
-                            tally: dict) -> Iterator[Event]:
+                            tally: dict, trace) -> Iterator[Event]:
         """The constrained path's prefill (the prefix cache's stored KV
         reused, as on the unconstrained path) and decode loop. ``tally``
         carries the tokens generated and whether the request was recorded
@@ -1061,8 +1218,9 @@ class Engine:
             self.metrics.record_request(n_prompt=len(ids), n_gen=0,
                                         ttft_ms=float("nan"), tok_s=float("nan"))
             tally["recorded"] = True
+            trace.finish("length", n_prompt=len(ids), n_gen=0, model=self.cfg.arch)
             yield done("generated 0 tokens (no budget)", n_prompt=len(ids),
-                       n_gen=0, finish_reason="length")
+                       n_gen=0, finish_reason="length", **rid_args(trace))
             return
         sampler = ConstrainedSampler(gen, self.tokenizer.token_bytes,
                                      self.tokenizer.eos_id)
@@ -1071,6 +1229,9 @@ class Engine:
         cache, reuse_k = self._take_prefix_cache(ids)
         row = self.prefill(ids[reuse_k:], cache)[0]
         ttft = time.monotonic() - t_start
+        if trace:
+            trace.add_span("prefill", t_start, t_start + ttft,
+                           n_prompt=n_prompt, reused=reuse_k)
         if reuse_k:
             self.prefix_hits += 1
             self.prefix_tokens += reuse_k
@@ -1090,6 +1251,9 @@ class Engine:
         while n_gen < budget:
             if deadline is not None and time.monotonic() > deadline:
                 self.metrics.inc("requests_timed_out_total")
+                if trace:
+                    trace.event("deadline_exceeded", phase="decode",
+                                budget_ms=gen.deadline_ms)
                 yield log("deadline exceeded; stopping")
                 finish_reason = "timeout"
                 break
@@ -1136,6 +1300,12 @@ class Engine:
         tps = (n_gen - 1) / dt if n_gen > 1 and dt > 0 else float("nan")
         self._record_finished(len(ids), n_gen, ttft * 1000, tps, finish_reason)
         tally["recorded"] = True
+        if trace:
+            trace.add_span("decode", t_decode, time.monotonic(), tokens=n_gen)
+            trace.finish(finish_reason, n_prompt=len(ids), n_gen=n_gen,
+                         ttft_ms=round(ttft * 1000, 3),
+                         tok_s=None if tps != tps else round(tps, 2),
+                         model=self.cfg.arch)
         yield done(f"generated {n_gen} tokens | TTFT {ttft * 1000:.1f} ms "
                    f"| decode {tps:.2f} tok/s | constraint "
                    f"{'satisfied' if sampler.complete else 'truncated'}",
@@ -1143,7 +1313,7 @@ class Engine:
                    ttft_ms=ttft * 1000, tok_s=tps,
                    json_complete=sampler.complete,
                    constraint_complete=sampler.complete,
-                   readbacks=readbacks, shortlist_misses=misses)
+                   readbacks=readbacks, shortlist_misses=misses, **rid_args(trace))
 
     # -- fill-in-middle (llama-server /infill) -----------------------------
 

@@ -76,13 +76,18 @@ traffic, outcomes, queue waits, prefill tokens, prefix hits, sheds,
 timeouts, quarantines, stalls, preemptions and swaps by result, and the
 queue, slot and pool gauges. ``counters`` is a read-only view of the
 counters this scheduler recorded (the registry is shared by every
-scheduler of an engine and every model of a server).
+scheduler of an engine and every model of a server). Every request gets a
+trace (``utils/tracing.py``: admit, queue, prefill, ``prefill_chunk[i]``,
+``decode[i]``, detokenize, the swap spans and the lifecycle events) whose
+id rides its done event, and every step is recorded in the engine's perf
+monitor (``utils/perf.py``) under ``paged`` or ``mesh``.
 
 The engine may be a ``serving.supervisor.SupervisedEngine``: the scheduler
 then reads the current engine through it, and a repeat stall restarts it
 and rebuilds the backend against the new engine. Not ported yet (the
-reference has them): the disaggregation handoff registry and roles,
-tracing, the single-device dense slot backend, and slot files on a mesh.
+reference has them): the disaggregation handoff registry and roles (and
+their trace events), the single-device dense slot backend, and slot files
+on a mesh.
 Typical-p, mirostat and the context shift stay on the single-stream
 engine, as in the reference: a request that would run one is refused here.
 
@@ -111,7 +116,8 @@ import torch
 from ..ops.sampling import (apply_penalties, bias_vector, lp_payload, sample_rows,
                             shortlist, topk_logprobs)
 from ..tokenizer import StreamDecoder
-from ..utils import Event, Metrics, done, log, token
+from ..utils import (NULL_TRACE, TRACER, Event, Metrics, compile_entry, done, log,
+                     rid_args, token)
 from . import faults
 from .engine import (MIN_PREFIX, PRIORITY_CLASSES, Engine, GenerationConfig,
                      StopMatcher, _bucket, check_constraint_combination,
@@ -202,6 +208,14 @@ class _Request:
     tenant: str = "default"
     swap: str | None = None
     swap_slot: Any = None
+    # the request's lifecycle trace (utils/tracing.py), minted at submit
+    trace: Any = NULL_TRACE
+
+
+def _rid(req: _Request) -> dict:
+    """``request_id`` kwargs for a terminal ``done`` event: the one id
+    shared by the SSE stream, the JSON finish log and /debug/trace."""
+    return rid_args(req.trace)
 
 
 def _edf_key(req: _Request) -> tuple[int, float, float]:
@@ -268,7 +282,7 @@ class _Slot:
                  "budget", "finish", "t_start", "t_decode", "ttft_ms",
                  "stopped", "stop_matched", "out_ids", "starved", "phase",
                  "pending", "prefix_k", "n_prompt", "sampler", "readbacks",
-                 "misses", "deadline", "abandoned")
+                 "misses", "deadline", "abandoned", "chunk_i")
 
     def __init__(self, idx: int, serial: int, req: _Request):
         self.idx = idx
@@ -304,6 +318,7 @@ class _Slot:
         # the watchdog already emitted this slot's terminal event; the
         # worker only reclaims its bookkeeping when the step returns
         self.abandoned = False
+        self.chunk_i = 0   # the trace's decode[i] / prefill_chunk[i] spans
 
 
 def _row_param_array(gens: list[GenerationConfig | None]) -> np.ndarray:
@@ -408,6 +423,9 @@ class SlotScheduler:
                                           block_size=kv_block,
                                           n_blocks=kv_pool_blocks)
         self.fused_decode = self._backend.fused
+        # the perf monitor's step-ring label of this scheduler's steps
+        self._backend_label = ("paged" if isinstance(self._backend, PagedSlotBackend)
+                               else "mesh")
         # the chunk width is also the mixed step's fixed lane count, and the
         # finishing sub-chunk reuses the pow2 prompt buckets
         pc = int(prefill_chunk if prefill_chunk is not None
@@ -479,6 +497,9 @@ class SlotScheduler:
         self._needs_restart = False           # repeat-stall escalation
         self._stalled = threading.Event()     # shed new work while wedged
         self._export_queue_gauges()   # gauges present from the first scrape
+        # the last step's readback (worker-owned): a step launched before it
+        # starts there in the step ring and the traces
+        self._t_rb = 0.0
         self._worker = threading.Thread(target=self._loop, daemon=True,
                                         name="slot-scheduler")
         self._worker.start()
@@ -602,11 +623,17 @@ class SlotScheduler:
         ``{reason, retry_after_s, status}`` describes the refusal (429 full
         queue, unmeetable deadline or over-quota tenant, 503 stalled
         device, 400 poisoned request), which the caller answers with a
-        ``Retry-After`` header. Counts every shed."""
+        ``Retry-After`` header. Counts every shed, and records a (pinned)
+        shed trace whose ``request_id`` rides the refusal: a refused request
+        still has a lifecycle."""
 
         def shed(reason: str, status: int, retry_after: int) -> dict:
-            return {"reason": reason, "retry_after_s": retry_after,
-                    "status": status}
+            out = {"reason": reason, "retry_after_s": retry_after,
+                   "status": status}
+            rid = TRACER.record_shed(reason, status, model=self.cfg.arch)
+            if rid:
+                out["request_id"] = rid
+            return out
 
         if self._stalled.is_set():
             self.metrics.inc("requests_shed_total")
@@ -646,7 +673,8 @@ class SlotScheduler:
                gen: GenerationConfig | None = None, *,
                emit: Callable[[Event], None],
                abort: threading.Event | None = None,
-               tenant: str | None = None) -> _Request:
+               tenant: str | None = None,
+               trace_ctx: dict | None = None) -> _Request:
         """Enqueue a request; its events flow through ``emit`` (called from
         the scheduler thread). Raises when the scheduler is closed,
         ``SchedulerStalled`` while a device step is past its stall budget,
@@ -657,7 +685,8 @@ class SlotScheduler:
         priority class and a sampler the slots do not run: typical-p or
         mirostat on a sampled request, a constraint with another
         constraint, logprobs, a penalty or a bias, a context shift, more
-        than ``LP_TOPK`` logprobs."""
+        than ``LP_TOPK`` logprobs. The request's trace is minted here;
+        ``trace_ctx`` stamps a propagated fleet context on it."""
         g = gen or GenerationConfig()
         if self._closed.is_set():
             raise RuntimeError("scheduler is closed")
@@ -665,6 +694,7 @@ class SlotScheduler:
             # the worker is blocked behind a stalled step: queueing would
             # only grow the casualty list
             self.metrics.inc("requests_shed_total")
+            TRACER.record_shed("device step stalled", 503, model=self.cfg.arch)
             raise SchedulerStalled(
                 "scheduler stalled: a device step exceeded its "
                 f"{self.stall_budget_s:.0f}s stall budget; shedding new work")
@@ -680,6 +710,8 @@ class SlotScheduler:
         fails = self._poison.get(self._fingerprint(prompt, g), 0)
         if fails >= self.poison_limit:
             self.metrics.inc("requests_poisoned_total")
+            TRACER.record_shed(f"poisoned request ({fails} slot crashes)", 400,
+                               model=self.cfg.arch)
             raise PoisonedRequest(
                 f"request refused: it crashed its slot {fails} times "
                 f"(poison_limit {self.poison_limit}); re-admission would "
@@ -699,16 +731,27 @@ class SlotScheduler:
                              f"on the parallel-slot path")
         if self.queue_full:
             self.metrics.inc("requests_shed_total")
+            TRACER.record_shed(f"request queue full ({self.max_queue})", 429,
+                               model=self.cfg.arch)
             raise QueueFull(f"request queue full ({self.max_queue})")
         if (self.tenant_quota > 0 and tenant is not None
                 and self.tenant_load(tenant) >= self.tenant_quota):
             # a preempted request is requeued by the worker without passing
             # here, so preemption never sheds its own victim
             self.metrics.inc("requests_shed_total")
+            TRACER.record_shed(f"tenant {tenant!r} over quota", 429,
+                               model=self.cfg.arch)
             raise QueueFull(f"tenant {tenant!r} over quota "
                             f"({self.tenant_quota} in-flight requests)")
         req = _Request(prompt, g, emit, abort or threading.Event(),
                        tenant=tenant or "default")
+        req.trace = TRACER.start_request(kind="slots", model=self.cfg.arch)
+        if req.trace:
+            if trace_ctx and trace_ctx.get("fleet_id"):
+                req.trace.set_context(trace_ctx["fleet_id"],
+                                      hop=trace_ctx.get("hop", 0),
+                                      attempt=trace_ctx.get("attempt", 0))
+            req.trace.event("admit", queue_depth=self._subq.qsize())
         self._subq.put(req)
         if self._closed.is_set():
             # close() may have drained the queue between the check and the
@@ -719,13 +762,15 @@ class SlotScheduler:
 
     def generate(self, prompt: str | list[int],
                  gen: GenerationConfig | None = None, *,
-                 tenant: str | None = None) -> Iterator[Event]:
+                 tenant: str | None = None,
+                 trace_ctx: dict | None = None) -> Iterator[Event]:
         """Blocking per-request event stream, safe from any thread. Closing
         the generator aborts the request at the next chunk boundary.
         ``tenant`` charges the request to a quota bucket."""
         q: queue.Queue[Event] = queue.Queue()
         abort = threading.Event()
-        self.submit(prompt, gen, emit=q.put, abort=abort, tenant=tenant)
+        self.submit(prompt, gen, emit=q.put, abort=abort, tenant=tenant,
+                    trace_ctx=trace_ctx)
         try:
             while True:
                 ev = q.get()
@@ -835,6 +880,11 @@ class SlotScheduler:
         if self._force_preempt > 0:
             self._force_preempt -= 1
         if victim is not None:
+            if victim.req.trace:
+                # who lost the slot, and why they qualified
+                victim.req.trace.event(
+                    "preempt_victim", row=victim.idx, tenant=victim.req.tenant,
+                    n_gen=victim.n_gen, priority=victim.req.gen.priority)
             self._swap_out(victim)
 
     def _swap_out(self, slot: _Slot) -> bool:
@@ -852,23 +902,30 @@ class SlotScheduler:
             # not at the safe point after all (a stopping row's last chunk,
             # a row parked at max_seq): skip; the loop may retry later
             return False
-        rc = self._backend.gather(self._bufs, r)
-        extras = {"tok": self._tok_dev[r].cpu().numpy(),
-                  "recent": self._recent_dev[r].cpu().numpy()}
-        if self._gens[r] is not None:
-            extras["rng"] = self._gens[r].get_state().numpy()
-        data = save_handoff_bytes(full_ids, rc, len(full_ids),
-                                  np.zeros((1, 1), np.float32),
-                                  kv_mode=self.kv_mode, extras=extras)
-        self._swap_seq += 1
-        sid = f"s{self._swap_seq}-{os.urandom(4).hex()}"
-        if not self._swap_store.put(sid, data):
-            # the payload alone exceeds the whole store: keep the victim
-            # resident rather than evict every sibling for it
-            self._emit(req, log(
-                f"preemption aborted (slot {r}): swapped state "
-                f"({len(data)} bytes) exceeds DLP_SWAP_STORE_MB"))
-            return False
+        # the span covers serialize + store put: the out half of the swap
+        sp = req.trace.begin_span("swap_out", row=r, n_gen=slot.n_gen)
+        try:
+            rc = self._backend.gather(self._bufs, r)
+            extras = {"tok": self._tok_dev[r].cpu().numpy(),
+                      "recent": self._recent_dev[r].cpu().numpy()}
+            if self._gens[r] is not None:
+                extras["rng"] = self._gens[r].get_state().numpy()
+            data = save_handoff_bytes(full_ids, rc, len(full_ids),
+                                      np.zeros((1, 1), np.float32),
+                                      kv_mode=self.kv_mode, extras=extras)
+            self._swap_seq += 1
+            sid = f"s{self._swap_seq}-{os.urandom(4).hex()}"
+            if not self._swap_store.put(sid, data):
+                # the payload alone exceeds the whole store: keep the victim
+                # resident rather than evict every sibling for it
+                self._emit(req, log(
+                    f"preemption aborted (slot {r}): swapped state "
+                    f"({len(data)} bytes) exceeds DLP_SWAP_STORE_MB"))
+                return False
+            if req.trace:
+                sp.args["bytes"] = len(data)
+        finally:
+            sp.end()
         req.swap = sid
         req.swap_slot = slot
         self._swapped[sid] = req
@@ -879,6 +936,8 @@ class SlotScheduler:
         self._row_ids[r] = full_ids
         self.metrics.inc("preemptions_total", labels={"class": req.gen.priority})
         self.metrics.inc("kv_swaps_total", labels={"result": "out"})
+        if req.trace:
+            req.trace.event("swap_out", row=r, bytes=len(data), n_gen=slot.n_gen)
         self._emit(req, log(
             f"preempted (slot {r}): {slot.n_gen} tokens generated; KV + "
             f"sampling state swapped out ({len(data)} bytes); resumes "
@@ -898,48 +957,59 @@ class SlotScheduler:
         sid = req.swap
         slot = req.swap_slot
         self._swapped.pop(sid, None)
-        data = self._swap_store.take(sid)
-        if data is None:
-            req.swap_slot = None
-            self._swap_error(req, slot, "expired in the swap store", "dropped")
-            return
-        loaded = load_handoff_bytes(data, self._backend.row_cache(), self.max_seq)
-        if loaded is None:
-            req.swap_slot = None
-            self._swap_error(req, slot, "no longer matches this "
-                             "pool's KV representation", "dropped")
-            return
-        rc, ids, _logits, _text = loaded
-        full_ids = list(ids)
-        extras = handoff_extras(data)
-        r = next((i for i in free if self._row_ids[i] == full_ids), None)
-        if r is None:
-            r = min(free, key=lambda i: len(self._row_ids[i]))
-            # the restore_slot order: drop the row's provenance before
-            # adopt_row releases its old blocks
-            self._row_ids[r] = []
-            self._bufs = self._backend.adopt_row(self, self._bufs, rc, r,
-                                                 len(full_ids))
-            self._backend.register_prefix(r, full_ids)
-            self._row_ids[r] = list(full_ids)
-        # a fresh serial: rows of a stale step carrying the old one are
-        # dropped by _consume's serial check
-        self._serial += 1
-        slot.serial = self._serial
-        slot.idx = r
-        self._pos[r] = len(full_ids)
-        dev = self.device
-        self._tok_dev[r] = int(extras["tok"])
-        self._recent_dev[r] = upload(extras["recent"], dev)
-        rng = None
-        if "rng" in extras:
-            rng = torch.Generator(device=dev)
-            rng.set_state(torch.from_numpy(extras["rng"]))
-        self._gens[r] = rng
-        self._arm_bias_row(r, req.gen)
+        # the span covers store take, load and adopt or re-point: the
+        # return half of the swap; the finally closes it on the typed-error
+        # early returns too
+        sp = req.trace.begin_span("swap_in", swap=sid)
+        try:
+            data = self._swap_store.take(sid)
+            if data is None:
+                req.swap_slot = None
+                self._swap_error(req, slot, "expired in the swap store", "dropped")
+                return
+            loaded = load_handoff_bytes(data, self._backend.row_cache(), self.max_seq)
+            if loaded is None:
+                req.swap_slot = None
+                self._swap_error(req, slot, "no longer matches this "
+                                 "pool's KV representation", "dropped")
+                return
+            rc, ids, _logits, _text = loaded
+            full_ids = list(ids)
+            extras = handoff_extras(data)
+            r = next((i for i in free if self._row_ids[i] == full_ids), None)
+            if r is None:
+                r = min(free, key=lambda i: len(self._row_ids[i]))
+                # the restore_slot order: drop the row's provenance before
+                # adopt_row releases its old blocks
+                self._row_ids[r] = []
+                self._bufs = self._backend.adopt_row(self, self._bufs, rc, r,
+                                                     len(full_ids))
+                self._backend.register_prefix(r, full_ids)
+                self._row_ids[r] = list(full_ids)
+            # a fresh serial: rows of a stale step carrying the old one are
+            # dropped by _consume's serial check
+            self._serial += 1
+            slot.serial = self._serial
+            slot.idx = r
+            self._pos[r] = len(full_ids)
+            dev = self.device
+            self._tok_dev[r] = int(extras["tok"])
+            self._recent_dev[r] = upload(extras["recent"], dev)
+            rng = None
+            if "rng" in extras:
+                rng = torch.Generator(device=dev)
+                rng.set_state(torch.from_numpy(extras["rng"]))
+            self._gens[r] = rng
+            self._arm_bias_row(r, req.gen)
+            if req.trace:
+                sp.args["row"] = r
+        finally:
+            sp.end()
         req.swap = None
         req.swap_slot = None
         self.metrics.inc("kv_swaps_total", labels={"result": "in"})
+        if req.trace:
+            req.trace.event("swap_in", row=r, n_gen=slot.n_gen)
         self._emit(req, log(
             f"resumed from swap (slot {r}): {len(full_ids)} tokens "
             f"resident; zero re-prefill"))
@@ -965,9 +1035,12 @@ class SlotScheduler:
             ttft_ms=slot.ttft_ms if slot is not None else float("nan"),
             tok_s=float("nan"))
         self._count_finished("error")
+        if req.trace:
+            req.trace.finish("error", n_prompt=n_prompt, n_gen=n_gen, error=msg,
+                             model=self.cfg.arch)
         self._emit(req, done(msg, n_prompt=n_prompt, n_gen=n_gen,
                              finish_reason="error", error=msg,
-                             retry_after_s=retry))
+                             retry_after_s=retry, **_rid(req)))
 
     def _sweep_swaps(self) -> None:
         """Loop-top TTL sweep: every expired entry's request gets its typed
@@ -1255,6 +1328,8 @@ class SlotScheduler:
         except PoolExhausted as e:
             # no pool room for the suffix bucket: the server is overloaded,
             # not the prompt (no poison strike)
+            if slot.req.trace:
+                slot.req.trace.event("pool_exhausted", row=r, phase="prefill")
             self.metrics.inc("requests_aborted_total")
             self._finish(slot, "error", note=f"engine error: {e!r}")
             return
@@ -1271,6 +1346,9 @@ class SlotScheduler:
         for slot in list(self._slots):
             if slot is None or not slot.starved or slot.stopped:
                 continue
+            if slot.req.trace:
+                slot.req.trace.event("pool_exhausted", row=slot.idx,
+                                     phase=slot.phase)
             if slot.phase == "prefill":
                 # nothing was sampled: a "length" finish would present an
                 # empty completion as a success
@@ -1324,6 +1402,8 @@ class SlotScheduler:
         r = slot.idx
         fails = self._record_poison(slot.req)
         self.metrics.inc("slots_quarantined_total")
+        if slot.req.trace:
+            slot.req.trace.event("quarantine", row=r, fails=fails, note=note)
         if fails >= self.poison_limit:
             note += (f" (request has now failed {fails}x: further "
                      "submissions will be refused)")
@@ -1347,6 +1427,10 @@ class SlotScheduler:
         the row keeps it as a retained prefix."""
         self.metrics.inc("requests_timed_out_total")
         waited = time.monotonic() - slot.req.submitted
+        if slot.req.trace:
+            slot.req.trace.event("deadline_exceeded",
+                                 budget_ms=slot.req.gen.deadline_ms,
+                                 elapsed_ms=round(waited * 1000, 1))
         self._emit(slot.req, log(
             f"deadline exceeded ({slot.req.gen.deadline_ms:.0f} ms budget, "
             f"{waited * 1000:.0f} ms elapsed); stopping"))
@@ -1420,11 +1504,18 @@ class SlotScheduler:
                    f"(stall {streak}; "
                    f"{'restarting engine when it returns' if streak >= 2 else 'failing affected requests'})")
             for slot in victims:
+                if slot.req.trace:
+                    slot.req.trace.event("watchdog_stall", row=slot.idx,
+                                         budget_s=self.stall_budget_s,
+                                         streak=streak)
+                    slot.req.trace.finish(
+                        "error", n_prompt=len(slot.ids), n_gen=slot.n_gen,
+                        error=f"watchdog: {msg}", model=self.cfg.arch)
                 self._emit(slot.req, log(f"watchdog: {msg}"))
                 self._emit(slot.req, done(
                     f"request failed: {msg}", n_prompt=len(slot.ids),
                     n_gen=slot.n_gen, finish_reason="error",
-                    error=f"watchdog: {msg}"))
+                    error=f"watchdog: {msg}", **_rid(slot.req)))
                 # this terminal replaces _finish's: count the traffic here
                 self._count_finished("error")
                 self.metrics.record_request(
@@ -1522,8 +1613,12 @@ class SlotScheduler:
                 continue
             if req.swap is not None:
                 self._discard_swap(req)
+            if req.trace:
+                req.trace.finish("error", n_prompt=0, n_gen=0, error=reason,
+                                 model=self.cfg.arch)
             self._emit(req, done(f"request dropped: {reason}", n_prompt=0,
-                                 n_gen=0, finish_reason="error", error=reason))
+                                 n_gen=0, finish_reason="error", error=reason,
+                                 **_rid(req)))
 
     @staticmethod
     def _emit(req: _Request, ev: Event) -> None:
@@ -1555,9 +1650,12 @@ class SlotScheduler:
             if req.abort.is_set():
                 if req.swap is not None:
                     self._discard_swap(req)
+                if req.trace:
+                    req.trace.finish("abort", n_prompt=0, n_gen=0,
+                                     model=self.cfg.arch)
                 self._emit(req, done("request aborted while queued",
                                      n_prompt=0, n_gen=0,
-                                     finish_reason="abort"))
+                                     finish_reason="abort", **_rid(req)))
                 continue
             if (req.gen.deadline_ms is not None and time.monotonic()
                     > req.submitted + req.gen.deadline_ms / 1000.0):
@@ -1565,12 +1663,18 @@ class SlotScheduler:
                 # only produce late tokens
                 self.metrics.inc("requests_timed_out_total")
                 self._count_finished("timeout")
+                if req.trace:
+                    req.trace.add_span("queue", req.submitted, time.monotonic())
+                    req.trace.event("deadline_exceeded", phase="queue",
+                                    budget_ms=req.gen.deadline_ms)
+                    req.trace.finish("timeout", n_prompt=0, n_gen=0,
+                                     model=self.cfg.arch)
                 if req.swap is not None:
                     self._discard_swap(req)
                 self._emit(req, done(
                     f"deadline exceeded while queued "
                     f"({req.gen.deadline_ms:.0f} ms budget)", n_prompt=0,
-                    n_gen=0, finish_reason="timeout"))
+                    n_gen=0, finish_reason="timeout", **_rid(req)))
                 continue
             try:
                 self._assign(free, req)
@@ -1586,8 +1690,13 @@ class SlotScheduler:
         self.metrics.inc("requests_aborted_total")
         if not isinstance(e, PoolExhausted):
             self._record_poison(req)
+        if req.trace:
+            if isinstance(e, PoolExhausted):
+                req.trace.event("pool_exhausted", phase="admission")
+            req.trace.finish("error", n_prompt=0, n_gen=0, error=repr(e),
+                             model=self.cfg.arch)
         self._emit(req, done(f"engine error: {e!r}", n_prompt=0, n_gen=0,
-                             finish_reason="error", error=repr(e)))
+                             finish_reason="error", error=repr(e), **_rid(req)))
         for i in free:
             if self._slots[i] is not None and self._slots[i].req is req:
                 self._slots[i] = None
@@ -1625,7 +1734,11 @@ class SlotScheduler:
         gen = req.gen
         self._serial += 1
         # the slot grant ends the queue phase
-        wait_ms = (time.monotonic() - req.submitted) * 1000.0
+        t_grant = time.monotonic()
+        if req.trace:
+            req.trace.add_span("queue", req.submitted, t_grant,
+                               depth=self._subq.qsize())
+        wait_ms = (t_grant - req.submitted) * 1000.0
         self.metrics.observe("queue_wait_ms", wait_ms)
         self.metrics.observe("queue_wait_ms", wait_ms,
                              labels={"class": gen.priority})
@@ -1658,9 +1771,12 @@ class SlotScheduler:
             self.metrics.record_request(n_prompt=len(ids), n_gen=0,
                                         ttft_ms=float("nan"),
                                         tok_s=float("nan"))
+            if req.trace:
+                req.trace.finish("length", n_prompt=len(ids), n_gen=0,
+                                 model=self.cfg.arch)
             self._emit(req, done("generated 0 tokens (no budget)",
                                  n_prompt=len(ids), n_gen=0,
-                                 finish_reason="length"))
+                                 finish_reason="length", **_rid(req)))
             return
         slot.t_start = time.monotonic()
         self._row_ids[r] = []  # the row is being overwritten either way
@@ -1727,7 +1843,7 @@ class SlotScheduler:
         vec = self._arm_bias_row(r, gen)
         window = np.asarray(([-1] * RECENT_W + slot.ids)[-RECENT_W:], np.int64)
         if gen.json_mode or gen.grammar:
-            self._first_constrained(slot, logits[0], window, n_prompt)
+            self._first_constrained(slot, logits[0], window, n_prompt, reuse_k)
             return
         rng = None
         if gen.temperature > 0.0:
@@ -1754,6 +1870,9 @@ class SlotScheduler:
         self._recent_dev[r] = recent[0]
         slot.ttft_ms = (time.monotonic() - slot.t_start) * 1000
         slot.t_decode = time.monotonic()
+        if req.trace:
+            req.trace.add_span("prefill", slot.t_start, slot.t_decode,
+                               n_prompt=n_prompt, reused=reuse_k, row=r)
         self._emit(req, log(f"prefill: {n_prompt} tokens in "
                             f"{slot.ttft_ms:.1f} ms (TTFT)"))
         slot.decoder = StreamDecoder(self.engine.tokenizer)
@@ -1764,7 +1883,7 @@ class SlotScheduler:
             self._finish(slot, slot.finish)
 
     def _first_constrained(self, slot: _Slot, row: torch.Tensor,
-                           window: np.ndarray, n_prompt: int) -> None:
+                           window: np.ndarray, n_prompt: int, reuse_k: int) -> None:
         """A constrained row's first token: the host's pick from the top
         ``Engine._JSON_TOPK`` of the prefill logits [V], the full row on a
         miss. The pick becomes the row's device token; the row has no
@@ -1783,6 +1902,9 @@ class SlotScheduler:
         self._gens[r] = None
         slot.ttft_ms = (time.monotonic() - slot.t_start) * 1000
         slot.t_decode = time.monotonic()
+        if req.trace:
+            req.trace.add_span("prefill", slot.t_start, slot.t_decode,
+                               n_prompt=n_prompt, reused=reuse_k, row=r)
         self._emit(req, log(f"prefill: {n_prompt} tokens in "
                             f"{slot.ttft_ms:.1f} ms (TTFT)"))
         slot.stopper = StopMatcher(tuple(req.gen.stop)) if req.gen.stop else None
@@ -1945,9 +2067,18 @@ class SlotScheduler:
             extra.update(json_complete=slot.sampler.complete,
                          constraint_complete=slot.sampler.complete,
                          readbacks=slot.readbacks, shortlist_misses=slot.misses)
+        tr = slot.req.trace
+        if tr:
+            ttft = slot.ttft_ms
+            tr.finish(finish_reason, n_prompt=len(slot.ids), n_gen=n_gen,
+                      ttft_ms=None if ttft != ttft else round(ttft, 3),
+                      tok_s=None if tps != tps else round(tps, 2),
+                      model=self.cfg.arch,
+                      error=note if finish_reason == "error" and note else None)
         self._emit(slot.req, done(msg, n_prompt=len(slot.ids), n_gen=n_gen,
                                   finish_reason=finish_reason,
-                                  ttft_ms=slot.ttft_ms, tok_s=tps, **extra))
+                                  ttft_ms=slot.ttft_ms, tok_s=tps, **extra,
+                                  **_rid(slot.req)))
 
     # -- decode -------------------------------------------------------------
 
@@ -2026,19 +2157,23 @@ class SlotScheduler:
         # the watchdog window opens at launch and closes when the chunk's
         # readback completes (_consume); a device_stall fault sleeps inside
         self._step_begin(running)
+        t_launch = time.monotonic()
         if faults.ACTIVE:
             faults.stall("device_stall")
         tok, recent = self._tok_dev, self._recent_dev
         toks, lps = [], []
         cso = None
-        for _ in range(n):
-            lg = self._backend.vstep(tok, cache)
-            self.forwards += 1
-            tok, recent, step_lp, cso = _sample_chain(lg, recent, params, penalized,
-                                                      rngs, bias, lp, cs)
-            toks.append(tok)
-            if lp:
-                lps.append(step_lp)
+        with compile_entry("slots_decode") as sc:
+            for _ in range(n):
+                lg = self._backend.vstep(tok, cache)
+                self.forwards += 1
+                tok, recent, step_lp, cso = _sample_chain(
+                    lg, recent, params, penalized, rngs, bias, lp, cs)
+                toks.append(tok)
+                if lp:
+                    lps.append(step_lp)
+        if sc.retrace:
+            self._note_retrace(sc.name, sc.compiles, running)
         self._tok_dev, self._recent_dev = tok, recent
         for r, _ in running:
             self._pos[r] += n
@@ -2046,7 +2181,18 @@ class SlotScheduler:
         if cso is not None:
             outs += [cso[0][None], cso[1][None]]
         return (self._readback(*outs), n, running, (), lp,
-                None if cso is None else cso[2])
+                None if cso is None else cso[2], t_launch)
+
+    def _note_retrace(self, entry: str, compiles: int,
+                      rows: list[tuple[int, int]]) -> None:
+        """A CUDA library already loaded was built or loaded again under a
+        launch (``utils/perf.py`` counts and logs it): stamp a typed event on
+        every affected request's trace."""
+        for r, serial in rows:
+            slot = self._slots[r]
+            if slot is not None and slot.serial == serial and slot.req.trace:
+                slot.req.trace.event("xla_recompile", entry=entry,
+                                     compiles=compiles)
 
     def _launch_mixed(self, running: list[tuple[int, int]],
                       prefilling: list[_Slot]):
@@ -2100,9 +2246,14 @@ class SlotScheduler:
         block[:, 0] = torch.where(dev[:, Tc + 1].bool(), self._tok_dev, block[:, 0])
         cache = self._backend.cache(self._bufs, dev[:, Tc + 2].to(torch.int32))
         self._step_begin(running + [(s.idx, s.serial) for s in prefilling])
+        t_launch = time.monotonic()
         if faults.ACTIVE:
             faults.stall("device_stall")
-        lg = self._backend.mstep(block, n_tok, cache)
+        with compile_entry("slots_mixed") as sc:
+            lg = self._backend.mstep(block, n_tok, cache)
+        if sc.retrace:
+            self._note_retrace(sc.name, sc.compiles,
+                               running + [(s.idx, s.serial) for s in prefilling])
         self.forwards += 1
         self._tok_dev, self._recent_dev, lps, cso = _sample_chain(
             lg, self._recent_dev, params, penalized, rngs, bias, lp, cs)
@@ -2119,14 +2270,15 @@ class SlotScheduler:
                 del s.pending[:f]
                 self.metrics.observe("prefill_chunk_tokens", f)
                 self.metrics.inc("prefill_tokens_total", f)
-            prefill_meta.append((s.idx, s.serial))
+            prefill_meta.append((s.idx, s.serial, f))
         outs = [self._tok_dev] + list(lps or ()) + list(cso[:2] if cso else ())
         return (self._readback(*(o[None] for o in outs)), 1, running,
-                tuple(prefill_meta), lp, None if cso is None else cso[2])
+                tuple(prefill_meta), lp, None if cso is None else cso[2], t_launch)
 
     def _consume(self, read: Callable, n: int, rows: list[tuple[int, int]],
                  prefill: tuple = (), lp: bool = False,
-                 cs_raw: torch.Tensor | None = None) -> None:
+                 cs_raw: torch.Tensor | None = None,
+                 t_launch: float | None = None) -> None:
         """Read back a finished chunk and route its tokens (and, to the rows
         that asked, their logprobs) to their slots; a constrained row (a
         one-step chunk, ``cs_raw`` its raw logits [B, V] on the device)
@@ -2134,6 +2286,23 @@ class SlotScheduler:
         row's own work quarantines that row; its siblings keep decoding."""
         got = read()
         self._step_end()   # the chunk's readback completed: the window closes
+        t_rb = time.monotonic()
+        if t_launch is not None:
+            # the step runs from its launch, or from the previous step's
+            # readback when it was launched before that: overlapped steps
+            # tile the worker's wall time instead of counting it twice
+            t_launch, self._t_rb = max(t_launch, self._t_rb), t_rb
+        perf = getattr(self.engine, "perf", None)
+        if perf and t_launch is not None:
+            # the step ring: the step's wall, occupancy, tokens produced and
+            # the prefill-vs-decode split of this step
+            kv_pos = int(sum(int(self._pos[r]) for r, _ in rows)
+                         + sum(int(self._pos[r]) for r, _, _ in prefill))
+            perf.record_step(
+                self._backend_label, t_launch, t_rb,
+                rows=len(rows) + len(prefill), tokens=n * len(rows),
+                scan_steps=n, prefill_tokens=sum(f for _, _, f in prefill),
+                kv_positions=kv_pos, kind="mixed" if prefill else "decode")
         toks = got[0] if lp or cs_raw is not None else got   # [n][B]
         if cs_raw is not None:
             cs_v, cs_i = got[4 if lp else 1], got[5 if lp else 2]   # [1][B][K]
@@ -2146,6 +2315,12 @@ class SlotScheduler:
                 # terminal event is out: reclaim the bookkeeping only
                 self._forget(slot)
                 continue
+            tr = slot.req.trace
+            if tr and t_launch is not None:
+                # the host's view of this row's share of the batched step
+                slot.chunk_i += 1
+                tr.add_span(f"decode[{slot.chunk_i}]", t_launch, t_rb,
+                            tokens=n, row=r)
             if slot.req.abort.is_set():
                 self._finish(slot, "abort")
                 continue
@@ -2163,6 +2338,7 @@ class SlotScheduler:
                         self._finish(slot, slot.finish)
                     continue
                 want = slot.req.gen.logprobs if lp else None
+                t_dk = time.monotonic()
                 for i in range(n):
                     t = int(toks[i][r])
                     data = None if want is None else lp_payload(
@@ -2170,11 +2346,13 @@ class SlotScheduler:
                     self._accept(slot, t, data)
                     if slot.stopped:
                         break
+                if tr:
+                    tr.add_span("detokenize", t_dk, time.monotonic())
                 if slot.stopped:
                     self._finish(slot, slot.finish)
             except Exception as e:
                 self._quarantine(slot, f"row failed mid-decode-chunk: {e!r}")
-        for r, serial in prefill:
+        for r, serial, fed_n in prefill:
             # prefill-phase rows route no tokens, but abort, the deadline
             # and fault isolation apply at every fed chunk
             slot = self._slots[r]
@@ -2183,6 +2361,13 @@ class SlotScheduler:
             if slot.abandoned:
                 self._forget(slot)
                 continue
+            tr = slot.req.trace
+            if tr and t_launch is not None and fed_n:
+                # a zero-budget step (an EDF-later row waiting its turn) adds
+                # no span
+                slot.chunk_i += 1
+                tr.add_span(f"prefill_chunk[{slot.chunk_i}]", t_launch, t_rb,
+                            tokens=fed_n, row=r)
             if slot.req.abort.is_set():
                 self._finish(slot, "abort")
                 continue

@@ -60,9 +60,14 @@ def shed_response(shed: dict) -> web.Response:
     """The HTTP form of a scheduler shed decision
     (``SlotScheduler.shed_check``): its status (429, 503 or 400) with
     ``Retry-After``, so clients back off from a saturated or recovering
-    server."""
+    server. The body carries the shed trace's ``request_id`` (the tracer
+    pins refused requests), so a client report joins
+    ``GET /debug/trace?id=``."""
+    body = {"error": shed["reason"]}
+    if shed.get("request_id"):
+        body["request_id"] = shed["request_id"]
     return json_response(
-        {"error": shed["reason"]}, status=shed["status"],
+        body, status=shed["status"],
         headers={"Retry-After": retry_after_value(shed["retry_after_s"])})
 
 
@@ -95,12 +100,15 @@ async def acquire_with_keepalive(lock: asyncio.Lock,
 
 async def engine_events(engine, prompt, gen, abort: threading.Event,
                         tenant: str | None = None,
+                        trace_ctx: dict | None = None,
                         ) -> AsyncIterator[Event | None]:
     """Yield the events of ``engine.generate`` (an Engine or a
     SlotScheduler); ``None`` marks an idle gap of
     ``KEEPALIVE_S`` (handlers turn it into a keep-alive). An engine failure becomes a
     terminal ``done`` event carrying ``data["error"]``, never an exception.
-    ``tenant`` (a SlotScheduler only) charges the request to a quota.
+    ``tenant`` (a SlotScheduler only) charges the request to a quota;
+    ``trace_ctx`` (a parsed ``X-DLP-Trace`` header) stamps the propagated
+    fleet context on the request's trace.
 
     The finally clause joins the worker thread, but an async generator's
     finally runs only when the generator is closed: callers that may break
@@ -116,6 +124,8 @@ async def engine_events(engine, prompt, gen, abort: threading.Event,
             # thread, so a scheduler stream frees its slot at the next chunk
             # boundary instead of whenever the collector runs
             kw = {"tenant": tenant} if tenant is not None else {}
+            if trace_ctx is not None:
+                kw["trace_ctx"] = trace_ctx
             with contextlib.closing(engine.generate(prompt, gen, **kw)) as events:
                 for ev in events:
                     if abort.is_set():

@@ -29,6 +29,9 @@ request the scheduler sheds (``SlotScheduler.shed_check``: a full queue or
 an unmeetable deadline, a stalled device, a poisoned request) gets its
 status with an integer ``Retry-After``, and a request that runs out of
 time ends with finish reason ``timeout`` (``timed_out`` on /completion).
+``/completion``'s chunks, final answers and shed bodies carry the
+request's trace id (``request_id``, ``GET /debug/trace?id=``), and every
+completion route stamps a propagated ``X-DLP-Trace`` context on its trace.
 
 Requests pick a model of the server's ``ModelRegistry`` with the
 standard ``model`` field (left out: the default model); a model that is not
@@ -54,6 +57,7 @@ from aiohttp import web
 from ..models.llama import POOLING_TYPES
 from ..runtime import GenerationConfig
 from ..runtime.scheduler import LP_TOPK
+from ..utils.tracing import TRACE_HEADER, parse_trace_context
 from .chat_template import ChatTemplateError, render_chat_template
 from .chat_template import _text_of as text_of
 from .common import (acquire_with_keepalive, cors, engine_events, json_response,
@@ -251,6 +255,10 @@ class CompletionAPI:
                          "timed_out": d.get("finish_reason") == "timeout",
                          "tokens_predicted": d.get("n_gen", 0),
                          "tokens_evaluated": d.get("n_prompt", 0)}
+                if d.get("request_id"):
+                    # the lifecycle-trace id (GET /debug/trace?id=), the
+                    # one in the JSON finish log and the trace ring
+                    chunk["request_id"] = d["request_id"]
                 if "error" in d:
                     chunk["error"] = d["error"]
             else:
@@ -261,11 +269,12 @@ class CompletionAPI:
 
     def _llama_final(self, engine, gen: GenerationConfig, text: str,
                      final: dict, tok_data: list[dict]) -> web.Response:
+        rid = {"request_id": final["request_id"]} if final.get("request_id") else {}
         if "error" in final:
-            return json_response({"error": final["error"]},
+            return json_response({"error": final["error"], **rid},
                                  status=final.get("status", 500),
                                  headers=_retry_headers(final))
-        extra = {}
+        extra = dict(rid)
         if gen.logprobs is not None:
             extra["completion_probabilities"] = self._llama_probs(
                 engine, tok_data, gen.logprobs)
@@ -472,18 +481,23 @@ class CompletionAPI:
         return json_response({"error": {"message": msg, "type": err_type}},
                              status=status, headers=headers)
 
-    async def _collect(self, engine, prompt, gen: GenerationConfig
+    async def _collect(self, engine, prompt, gen: GenerationConfig,
+                       trace_ctx: dict | None = None
                        ) -> tuple[str, dict, list[dict]]:
         """Run to completion: (text, the done event's data, the token
-        events' data, each stamped with its offset in the text)."""
+        events' data, each stamped with its offset in the text).
+        ``trace_ctx`` stamps a propagated fleet context on the trace."""
         target, lock = self._target(engine, gen)
         if not lock:
             shed = target.shed_check(
                 gen, prompt if isinstance(prompt, str) else None)
             if shed is not None:   # 429 / 503 / 400 with Retry-After
-                return "", {"error": shed["reason"], "finish_reason": "error",
-                            "status": shed["status"],
-                            "retry_after_s": shed["retry_after_s"]}, []
+                final = {"error": shed["reason"], "finish_reason": "error",
+                         "status": shed["status"],
+                         "retry_after_s": shed["retry_after_s"]}
+                if shed.get("request_id"):
+                    final["request_id"] = shed["request_id"]
+                return "", final, []
         abort = threading.Event()
         text: list[str] = []
         final: dict = {}
@@ -493,7 +507,8 @@ class CompletionAPI:
             if lock:
                 await stack.enter_async_context(self._busy)
             async with contextlib.aclosing(
-                    engine_events(target, prompt, gen, abort)) as events:
+                    engine_events(target, prompt, gen, abort,
+                                  trace_ctx=trace_ctx)) as events:
                 async for ev in events:
                     if ev is None:
                         continue
@@ -514,7 +529,10 @@ class CompletionAPI:
     async def _stream(self, request: web.Request, engine, prompt,
                       gen: GenerationConfig, write_event, epilogue: bytes = b""):
         """SSE with keep-alives while queued and while idle; ``write_event``
-        maps an engine event to bytes (or None to skip it)."""
+        maps an engine event to bytes (or None to skip it). The propagated
+        ``X-DLP-Trace`` context is parsed here, once for every streaming
+        dialect, and stamped on the request's trace."""
+        trace_ctx = parse_trace_context(request.headers.get(TRACE_HEADER))
         target, lock = self._target(engine, gen)
         if not lock:
             shed = target.shed_check(
@@ -528,7 +546,8 @@ class CompletionAPI:
         broke = False
         try:
             async with contextlib.aclosing(
-                    engine_events(target, prompt, gen, abort)) as events:
+                    engine_events(target, prompt, gen, abort,
+                                  trace_ctx=trace_ctx)) as events:
                 async for ev in events:
                     payload = b": keep-alive\n\n" if ev is None else write_event(ev)
                     if payload is None:
@@ -567,7 +586,9 @@ class CompletionAPI:
         if body.get("stream"):
             return await self._stream(request, engine, body["prompt"], gen,
                                       self._llama_writer(engine, gen))
-        text, final, tok_data = await self._collect(engine, body["prompt"], gen)
+        text, final, tok_data = await self._collect(
+            engine, body["prompt"], gen,
+            trace_ctx=parse_trace_context(request.headers.get(TRACE_HEADER)))
         return self._llama_final(engine, gen, text, final, tok_data)
 
     async def infill(self, request: web.Request) -> web.StreamResponse:

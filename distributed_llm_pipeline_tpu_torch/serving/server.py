@@ -29,12 +29,24 @@ requests pick by their ``model`` field; ``GET /models`` lists them with
 their health. Each model is a :class:`SupervisedEngine`: a crash
 mid-generation reloads it and retries the request once. ``GET /metrics``
 serves the shared metrics registry as Prometheus text, or JSON under
-``Accept: application/json``.
+``Accept: application/json``, with the perf monitor's gauges refreshed at
+scrape time.
+
+The observability routes: ``GET /debug/trace`` lists the request traces in
+the ring (``?id=req-…`` gives one as Chrome / Perfetto trace-event JSON,
+``?fleet=`` every trace recorded under a router's fleet id);
+``GET /debug/perf`` is the perf monitor's snapshot (the roofline on the
+card's peaks, step-time rings, build counters) with the built CUDA
+kernels' static table; ``POST /debug/profile {steps?, timeout_s?}`` runs
+``torch.profiler`` around the next N device steps and answers the top CUDA
+kernels, joining device spans onto the traces of the requests it saw.
+``--profile-dir DIR`` profiles every request instead. ``/chat`` and the
+completion routes stamp a propagated ``X-DLP-Trace`` context on the trace.
 
 Run: ``dlp-serve-torch --model m.gguf [--parallel N] [--quant MODE]
 [--kv-quant q8_0] [--lora GGUF[=SCALE],...] [--max-models N] [--mesh PPxTP]
-[--dtype D] [--slot-save-path DIR] [--pooling mean|cls|last] [--cpu]
-[--config FILE]`` or
+[--dtype D] [--slot-save-path DIR] [--pooling mean|cls|last]
+[--profile-dir DIR] [--cpu] [--config FILE]`` or
 ``python -m distributed_llm_pipeline_tpu_torch.serving.server ...`` (port
 3005 by default; settings also from a JSON/TOML ``--config`` file and
 ``DLP_*`` variables, flags winning). Without ``--cpu`` it needs a CUDA
@@ -63,6 +75,7 @@ from ..models.llama import POOLING_TYPES, QUANT_MODES
 from ..parallel.mesh import MeshSpec
 from ..runtime import Engine, GenerationConfig, SlotScheduler
 from ..runtime.engine import check_token_ids
+from ..utils import TRACE_HEADER, TRACER, parse_trace_context, serving_identity
 from .common import (acquire_with_keepalive, cors, engine_events,
                      json_response, priority_error, shed_response, sse_response)
 from .openai import CompletionAPI
@@ -97,6 +110,9 @@ class ChatServer:
         self.app.router.add_options("/chat", self.preflight)
         self.app.router.add_get("/healthz", self.healthz)
         self.app.router.add_get("/metrics", self.metrics)
+        self.app.router.add_get("/debug/trace", self.debug_trace)
+        self.app.router.add_get("/debug/perf", self.debug_perf)
+        self.app.router.add_post("/debug/profile", self.debug_profile)
         self.app.router.add_get("/models", self.models_list)
         self.app.router.add_post("/models/load", self.models_load)
         self.app.router.add_post("/models/unload", self.models_unload)
@@ -197,15 +213,114 @@ class ChatServer:
     async def metrics(self, request: web.Request) -> web.Response:
         """The shared metrics registry, every model's traffic: Prometheus
         text by default, JSON under ``Accept: application/json``. The
-        queue and slot gauges are refreshed at scrape time."""
+        queue and slot gauges and the perf monitor's rolling-window gauges
+        and build counters are refreshed at scrape time."""
         m = self.registry.metrics
         m.set_gauge("busy", 1.0 if self._busy.locked() else 0.0)
         if self.scheduler is not None:
             self.scheduler._export_queue_gauges()
+        perf = getattr(self.engine, "perf", None)
+        if perf:
+            perf.export_gauges(m)
         if "application/json" in request.headers.get("Accept", ""):
             return json_response(m.snapshot())
         return cors(web.Response(text=m.render_prometheus(),
                                  content_type="text/plain"))
+
+    async def debug_trace(self, request: web.Request) -> web.Response:
+        """``GET /debug/trace``: newest-first summaries of the trace ring;
+        ``?id=req-…``: that request's Chrome / Perfetto trace-event JSON;
+        ``?fleet=…``: every trace recorded under that fleet id, with this
+        process's clock anchor and identity, for a router's aggregator."""
+        fleet = request.query.get("fleet")
+        if fleet:
+            return json_response({**TRACER.export_fleet(fleet),
+                                  **serving_identity()})
+        rid = request.query.get("id")
+        if rid:
+            data = TRACER.export(rid)
+            if data is None:
+                return json_response(
+                    {"error": f"no trace for request id {rid!r} (evicted "
+                              f"from the ring, or tracing is disabled)"},
+                    status=404)
+            return json_response(data)
+        return json_response({"enabled": TRACER.enabled,
+                              "capacity": TRACER.capacity,
+                              "epoch_ns": TRACER.epoch_ns,
+                              "requests": TRACER.requests()})
+
+    async def debug_perf(self, request: web.Request) -> web.Response:
+        """``GET /debug/perf``: the perf monitor's snapshot (the roofline
+        model's inputs with the peaks' sources, each backend's step-time
+        ring, the build counters) and ``kernels_static``: each built CUDA library's kernels with their
+        registers, shared memory and spills (empty on the CPU or before a
+        build). The mesh's collective summary is not ported: ``comms``
+        says so."""
+        from ..ops.cuda_build import kernel_static_table
+
+        perf = getattr(self.engine, "perf", None)
+        body = perf.snapshot() if perf is not None else {"enabled": False}
+        body["kernels_static"] = kernel_static_table()
+        if hasattr(self.engine, "mesh_spec"):
+            body["comms"] = {"note": "the mesh's per-step collective summary "
+                                     "is not ported yet (ROADMAP.md §1)"}
+        return json_response(body)
+
+    async def debug_profile(self, request: web.Request) -> web.Response:
+        """``POST /debug/profile`` ``{steps?, timeout_s?, top_k?}``: run
+        ``torch.profiler`` (CPU + CUDA) around the next N recorded device
+        steps of the live process, then answer the run's summary (per-device
+        busy time, the ``top_k`` CUDA kernels by device time, 10 unless
+        asked) and join its device timelines onto the request traces that
+        ran inside the window."""
+        try:
+            body = await request.json()
+        except json.JSONDecodeError:
+            body = {}
+        if not isinstance(body, dict):
+            return json_response(
+                {"error": "body must be a JSON object {steps?, timeout_s?, top_k?}"},
+                status=400)
+        try:
+            steps = int(body.get("steps", 4))
+            timeout_s = float(body.get("timeout_s", 30.0))
+            top_k = int(body.get("top_k", 10))
+            if not (1 <= steps <= 10000 and 0.1 <= timeout_s <= 600
+                    and 1 <= top_k <= 100):
+                raise ValueError
+        except (TypeError, ValueError):
+            return json_response(
+                {"error": "'steps' must be 1..10000, 'timeout_s' 0.1..600 and "
+                          "'top_k' 1..100"}, status=400)
+        perf = getattr(self.engine, "perf", None)
+        if not perf:
+            return json_response(
+                {"error": "perf monitoring is disabled or unavailable "
+                          "(DLP_PERF=0?)"}, status=409)
+        if self.engine.profile_dir:
+            return json_response(
+                {"error": "per-request profiling is already active "
+                          "(--profile-dir); on-demand profiling needs the "
+                          "profiler idle"}, status=409)
+
+        # the profiler starts and stops on this (the loop's) thread, the one
+        # torch registered its profiler client on; only the wait for the
+        # steps runs in an executor. Its CUDA activity covers every thread's
+        # kernels; its CPU operators are this thread's alone
+        try:
+            session = perf.arm_profile(steps)
+        except (RuntimeError, ValueError) as e:
+            # already armed, or the profiler refused to start
+            return json_response({"error": str(e)}, status=409)
+        try:
+            await asyncio.get_running_loop().run_in_executor(
+                None, session.wait, timeout_s)
+        finally:
+            session.finish()   # idempotent: never leave the profiler on
+        summary = session.summarize(top_k=top_k)
+        summary["joined_request_ids"] = session.join_traces(TRACER)
+        return json_response(summary)
 
     async def index(self, request: web.Request) -> web.FileResponse:
         return web.FileResponse(STATIC_DIR / "index.html")
@@ -269,6 +384,7 @@ class ChatServer:
         # the tenant a quota charges: the X-DLP-Tenant header or the body's
         # field; only the slots keep quotas (the lock path serves one stream)
         tenant = request.headers.get("X-DLP-Tenant") or body.get("tenant")
+        trace_ctx = parse_trace_context(request.headers.get(TRACE_HEADER))
         if not locked:
             shed = self.scheduler.shed_check(
                 gen, prompt if isinstance(prompt, str) else None, tenant=tenant)
@@ -283,7 +399,8 @@ class ChatServer:
             # thread) before the decode lock is released below
             async with contextlib.aclosing(engine_events(
                     target, prompt, gen, abort,
-                    tenant=None if locked else tenant)) as events:
+                    tenant=None if locked else tenant,
+                    trace_ctx=trace_ctx)) as events:
                 async for ev in events:
                     try:
                         await resp.write(
@@ -339,6 +456,9 @@ def build_argparser():
                          "files (llama-server --slot-save-path)")
     ap.add_argument("--pooling", default="mean", choices=list(POOLING_TYPES),
                     help="embedding pooling type (llama-server --pooling)")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="write a torch.profiler (Chrome) trace per request "
+                         "and join it onto the request's trace")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA device)")
     return ap
@@ -374,6 +494,7 @@ def main(argv: list[str] | None = None) -> None:
     except (NotImplementedError, ValueError) as e:   # an unserved mode or model
         print(f"error: {e}", file=sys.stderr)
         raise SystemExit(2) from None
+    default.profile_dir = cfg.profile_dir
     model_id = Path(model).stem
     registry = ModelRegistry(
         model_id, default,

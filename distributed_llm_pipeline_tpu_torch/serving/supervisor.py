@@ -99,15 +99,34 @@ class SupervisedEngine:
         self._metrics = metrics
         # the boot schema holds for whatever Metrics /metrics reads
         preregister_boot_series(self._metrics)
+        self._profile_dir: str | None = None
         self._adopt_state()
         self.status = "healthy"
 
     def _adopt_state(self) -> None:
-        """Push the wrapper's metrics onto the current engine: on build and
-        on every rebuild."""
+        """Push the wrapper's metrics and profiling target onto the current
+        engine: on build and on every rebuild."""
         try:
             self.engine.metrics = self._metrics
         except AttributeError:  # an engine without that surface
+            pass
+        try:
+            self.engine.profile_dir = self._profile_dir
+        except AttributeError:
+            pass
+
+    @property
+    def profile_dir(self) -> str | None:
+        """``--profile-dir``: each request profiled into it (kept across
+        restarts)."""
+        return self._profile_dir
+
+    @profile_dir.setter
+    def profile_dir(self, value: str | None) -> None:
+        self._profile_dir = value
+        try:
+            self.engine.profile_dir = value
+        except AttributeError:
             pass
 
     # the engine surface -----------------------------------------------------
@@ -203,14 +222,16 @@ class SupervisedEngine:
         self.metrics.inc("engine_restarts_total")
 
     def generate(self, prompt: str, gen: GenerationConfig | None = None,
-                 ) -> Iterator[Event]:
+                 **kw) -> Iterator[Event]:
+        """``engine.generate`` with crash recovery; ``kw`` (a fleet
+        ``trace_ctx``) passes through."""
         emitted_tokens = 0
         started = False
         epoch = self._epoch   # the engine generation this request ran on
         self._checkout()
         try:
             try:
-                for ev in self.engine.generate(prompt, gen):
+                for ev in self.engine.generate(prompt, gen, **kw):
                     started = True
                     if ev.kind == "token":
                         emitted_tokens += 1
@@ -243,7 +264,7 @@ class SupervisedEngine:
                     f"engine crashed mid-stream after {emitted_tokens} tokens "
                     f"(engine restarted; retry the request)")
             yield log("engine restarted; retrying request")
-            yield from self.engine.generate(prompt, gen)
+            yield from self.engine.generate(prompt, gen, **kw)
         finally:
             self._checkin()
 

@@ -4,15 +4,17 @@ as Prometheus text or JSON at ``GET /metrics``.
 A copy of ``distributed_llm_pipeline_tpu/utils/metrics.py`` (the port
 imports nothing of the JAX package): the same series names, labels, help
 texts, bucket bounds and boot catalog, so a dashboard reads either package
-the same way. Every series takes an optional ``labels`` dict; the latency
+the same way. ``xla_compiles_total`` / ``xla_retraces_total`` keep their
+names but count CUDA library builds and loads here (``utils/perf.py``), and
+their help texts say so. Every series takes an optional ``labels`` dict; the latency
 families in ``BUCKET_BOUNDS`` also keep a cumulative-bucket Prometheus
 histogram (``<name>_hist``) beside the reservoir summary.
 
 ``BOOT_COUNTERS`` / ``BOOT_HISTOGRAMS`` are the series every engine
 registers at 0 when it is built (``preregister_boot_series``), so
 Prometheus ``rate()`` has a series before its first incident. Left out
-until their slices: the router's boot series, the pipeline-bubble
-arithmetic of the mesh, and the profiler trace.
+until their slices: the router's boot series and the pipeline-bubble
+arithmetic of the mesh. The profiler trace is ``utils/profile_trace.py``.
 """
 
 from __future__ import annotations
@@ -40,9 +42,10 @@ BOOT_COUNTERS = (
     # SLO-aware scheduling (docs/SCHEDULING.md): mixed steps decode rows
     # paid while a prefill chunk rode along
     "prefill_steps_stolen_total",
-    # perf observability (utils/perf.py, docs/OBSERVABILITY.md): XLA
-    # backend compiles (labeled series carry {entry=}) and post-warmup
-    # retraces — the runtime GL901 incident signal
+    # kernel builds (utils/perf.py): the reference's series names, which
+    # count XLA compiles there; here CUDA library builds and loads
+    # (labelled series carry {entry=<source>}) and repeats of a loaded
+    # source
     "xla_compiles_total", "xla_retraces_total",
     # fused decode-step kernel (ops/fused_decode.py): requested
     # via DLP_FUSED_DECODE=1 but resolved to the unfused fallback
@@ -139,9 +142,11 @@ HELP: dict[str, str] = {
     "decode_tok_s_hist":
         "steady-state decode rate, tok/s (cumulative buckets)",
     "xla_compiles_total":
-        "XLA backend compiles, labeled by entry (utils/perf.py)",
+        "CUDA library builds and loads by ops/cuda_build.py, labeled by "
+        "source (no XLA on the port)",
     "xla_retraces_total":
-        "post-warmup XLA retraces — the runtime GL901 incident signal",
+        "builds or loads of a CUDA library this process had already loaded "
+        "(should stay 0)",
     "step_ms": "device step launch->readback wall, ms (reservoir summary)",
     "step_ms_hist":
         "device step launch->readback wall, ms (cumulative buckets)",

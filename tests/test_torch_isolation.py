@@ -3,7 +3,8 @@ package (distributed_llm_pipeline_tpu) nor ml_dtypes (the card's machine has
 none), and neither do chip_smoke.py, the timing scripts of scripts/, the
 mesh's spawned follower processes, nor the CLI and the completion routes
 while they serve: the batch, embedding, /infill and slot-file routes, a
-prompt cache and perplexity included."""
+prompt cache, perplexity, the tracer, the perf monitor and torch.profiler
+(/debug/*, --profile-dir) included."""
 
 import ast
 import os
@@ -35,7 +36,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 NEW = {{"cli", "config", "serving.openai", "serving.chat_template", "ops.gbnf",
        "ops.json_constraint", "ops.json_schema", "runtime.constrained",
        "runtime.faults", "runtime.swapstore", "runtime.disagg",
-       "utils.metrics", "serving.supervisor", "models.lora"}}
+       "utils.metrics", "serving.supervisor", "models.lora", "utils.tracing",
+       "utils.perf", "utils.profile_trace", "runtime.capabilities"}}
 missing = {{n for n in NEW if pkg.__name__ + "." + n not in names}}
 assert not missing, missing
 for name in names:
@@ -131,6 +133,9 @@ sys.stdin = io.StringIO("hello\n")
 assert cli.main(["-m", str(path), "--cpu", "-n", "2", "-c", "64", "-i", "-p", "hi"]) == 0
 assert cli.main(["-m", str(path), "--cpu", "-n", "4", "-c", "64", "--json", "-p", "hi"]) == 0
 assert cli.main(["-m", str(path), "--cpu", "-n", "70", "-c", "64", "-p", "hi"]) == 0
+assert cli.main(["-m", str(path), "--cpu", "-n", "2", "-c", "64", "-p", "hi",
+                 "--profile-dir", str(Path({tmp!r}) / "prof")]) == 0
+assert list((Path({tmp!r}) / "prof" / "plugins" / "profile").glob("*/trace.json"))
 cache = str(Path({tmp!r}) / "prompt.bin")
 for _ in range(2):
     assert cli.main(["-m", str(path), "--cpu", "-n", "2", "-c", "64", "-p", "hi " * 20,
@@ -182,15 +187,18 @@ async def go():
                             ("/slots/0?action=erase", {{}}),
                             ("/slots/0?action=restore", {{"filename": "s.bin"}})):
             out.append((await client.post(route, json=body)).status)
-        for route in ("/metrics", "/models", "/lora-adapters"):
+        out.append((await client.post("/debug/profile", json={{"steps": 1,
+                                                               "timeout_s": 0.5}})).status)
+        for route in ("/metrics", "/models", "/lora-adapters", "/debug/trace",
+                      "/debug/perf"):
             out.append((await client.get(route)).status)
         return out
     finally:
         await client.close()
 
-assert asyncio.run(go()) == [200] * 19
+assert asyncio.run(go()) == [200] * 22
 server = single
-assert asyncio.run(go())[-7:] == [200] * 7
+assert asyncio.run(go())[-10:] == [200] * 10
 leaked = [m for m in sys.modules if m.split(".")[0] in {forbidden!r}]
 assert not leaked, leaked
 print("ok")
@@ -199,15 +207,17 @@ print("ok")
 
 def test_cli_and_completion_routes_serve_with_jax_blocked(tmp_path):
     """The CLI (an interactive turn, --json, a run past the context, a
-    prompt cache saved and loaded, perplexity, a LoRA adapter) and the
-    completion routes (logprobs, a bias, typical-p and mirostat, the chat
-    template, a json_schema, a grammar, a context shift, batches,
-    embeddings, /infill, slot files on the slots and on the engine,
-    /metrics, /models, /lora-adapters) run with jax, the JAX package and
-    ml_dtypes blocked from import."""
+    profiled run, a prompt cache saved and loaded, perplexity, a LoRA
+    adapter) and the completion routes (logprobs, a bias, typical-p and
+    mirostat, the chat template, a json_schema, a grammar, a context shift,
+    batches, embeddings, /infill, slot files on the slots and on the engine,
+    /debug/profile, /metrics, /models, /lora-adapters, /debug/trace,
+    /debug/perf) run with jax, the JAX package and ml_dtypes blocked from
+    import."""
     (tmp_path / "sitecustomize.py").write_text(_SITE_BLOCK.format(forbidden=FORBIDDEN))
     code = _SERVE_RUN.format(root=str(ROOT), tmp=str(tmp_path), forbidden=FORBIDDEN)
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(tmp_path), str(ROOT)])}
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(tmp_path), str(ROOT)]),
+           "DLP_PROFILE_DIR": str(tmp_path / "debug-profile")}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=tmp_path, timeout=300, env=env)
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]

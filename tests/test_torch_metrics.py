@@ -8,9 +8,12 @@ cap); the boot catalog, help texts and bucket bounds are the reference's.
 The same request sequence served by the port's ``ChatServer`` and the
 reference's, on one stream and on ``parallel=2`` slots, gives the same
 series on ``/metrics``, the same counter values and the same histogram
-counts; timing values are not compared. Left out, by name
-(``LEFT_OUT``), are the series that the reference's perf monitor
-(``utils/perf.py``) feeds: the next slice ports it.
+counts; timing values are not compared. The perf monitor's series
+(``utils/perf.py``: the step-time rings, the roofline, MFU and bandwidth
+gauges) are compared like the others, save two points named below: the
+kernel-build counters' labelled series (``LABELLED_APART``) and their help
+texts, which the port defines on CUDA library builds, and the slots' step
+count (``STEP_SLACK``).
 """
 
 import asyncio
@@ -35,14 +38,20 @@ from distributed_llm_pipeline_tpu_torch.utils import metrics
 
 from .fixtures import make_spm_vocab, spm_metadata
 
-# the series on the reference's /metrics that its perf monitor
-# (utils/perf.py) feeds, which the next slice ports: the step-time rings
-# (step_ms, its p50 / p99 gauges), the rolling roofline, MFU and bandwidth
-# gauges, and the XLA compile counts (labelled by entry). On these paths its
-# tracer (utils/tracing.py) and the mesh's bubble metrics feed no series.
-LEFT_OUT = {"step_ms", "step_ms_p50", "step_ms_p99", "mfu_pct", "hbm_bw_util_pct",
-            "roofline_pct", "decode_tok_s_window", "hbm_peak_gbps", "model_hbm_gb",
-            "xla_compiles_total", "xla_retraces_total"}
+# the series the port defines differently, compared by family only: the
+# kernel-build counters keep the reference's names, but the port counts CUDA
+# library builds and loads labelled {entry=<source>} where the reference
+# counts XLA compiles labelled by jit entry, so their labelled series differ
+# (the flat series are compared)
+LABELLED_APART = {"xla_compiles_total", "xla_retraces_total"}
+LEFT_OUT: set = set()
+REDEFINED_HELP = {"xla_compiles_total", "xla_retraces_total"}
+# the slots' device steps are compared within two steps over the whole
+# sequence: the reference's first request on a fresh ChatServer(parallel=2)
+# records one step fewer than its later identical ones (2 against 3 while
+# its first mixed step compiles; the port's three each time), and its
+# grammar request one step more (4 against 3, on a fresh server each)
+STEP_SLACK = 2
 
 
 def _calls(m) -> None:
@@ -99,13 +108,23 @@ def test_the_boot_schema_is_the_reference_s():
     assert metrics.BOOT_CLASS_HISTOGRAMS == ref_metrics.BOOT_CLASS_HISTOGRAMS
     assert metrics.BOOT_CLASSES == ref_metrics.BOOT_CLASSES == PRIORITY_CLASSES
     assert metrics.BUCKET_BOUNDS == ref_metrics.BUCKET_BOUNDS
-    assert metrics.HELP == {k: v for k, v in ref_metrics.HELP.items()
-                            if not k.startswith("router_")}
+    assert {k: v for k, v in metrics.HELP.items() if k not in REDEFINED_HELP} == \
+        {k: v for k, v in ref_metrics.HELP.items()
+         if not k.startswith("router_") and k not in REDEFINED_HELP}
+    assert set(REDEFINED_HELP) <= set(metrics.HELP)
+    assert all("CUDA library" in metrics.HELP[k] for k in REDEFINED_HELP)
     ref, port = ref_metrics.Metrics(), metrics.Metrics()
     ref_metrics.preregister_boot_series(ref)
     for _ in range(2):   # idempotent: the engine and the supervisor both call it
         metrics.preregister_boot_series(port)
-    assert port.render_prometheus() == ref.render_prometheus()
+
+    def same_help(text, help_table):
+        for k in REDEFINED_HELP:
+            text = text.replace(help_table[k], "<redefined>")
+        return text
+
+    assert same_help(port.render_prometheus(), metrics.HELP) == \
+        same_help(ref.render_prometheus(), ref_metrics.HELP)
 
 
 # -- /metrics after the same traffic -------------------------------------------
@@ -158,7 +177,8 @@ def _family(key: str) -> str:
 
 
 def _kept(series: dict) -> dict:
-    return {k: v for k, v in series.items() if _family(k) not in LEFT_OUT}
+    return {k: v for k, v in series.items() if _family(k) not in LEFT_OUT
+            and not (_family(k) in LABELLED_APART and "{" in k)}
 
 
 @pytest.fixture(scope="module")
@@ -182,7 +202,8 @@ def test_metrics_serve_the_reference_series_and_counts(scrapes, slots):
     assert _kept(port["counters"]) == _kept(ref["counters"])
     for kind in ("histograms", "buckets"):
         for k, v in _kept(ref[kind]).items():
-            assert port[kind][k]["count"] == v["count"], (kind, k)
+            slack = STEP_SLACK if slots > 1 and _family(k) == "step_ms" else 0
+            assert abs(port[kind][k]["count"] - v["count"]) <= slack, (kind, k)
     # the traffic is there: every request that reached an engine finished
     c = port["counters"]
     assert c["requests_total"] >= len(REQUESTS) - 1
